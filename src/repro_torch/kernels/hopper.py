@@ -1,0 +1,248 @@
+"""Build and bind the hand-written Hopper kernels in ``kernels/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build happens at first use, one ``nvcc`` per source, all started together,
+into ``<checkout>/build/repro_torch_kernels`` (``REPRO_TORCH_BUILD_DIR``
+overrides it).  A library's file name carries a hash of its source and flags,
+so an edited source is rebuilt and never loaded stale.
+
+The launch functions here check device, dtype, shape, contiguity and
+alignment, launch on PyTorch's current stream, raise on a nonzero
+``cudaGetLastError()``, and count their launches in `LAUNCHES`.  Nothing in
+this module is imported or built until a kernel is launched on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("mxint4_matmul", "w8a8_matmul", "retention_chunkwise")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launches per kernel since the last `reset_launches()`; bumped only where a
+# kernel is launched.
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+_TICKETS: dict[int, torch.Tensor] = {}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    # src/repro_torch/kernels/hopper.py -> <checkout>/build/repro_torch_kernels
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=KERNELS) -> dict[str, str]:
+    """Compile the named kernels that are not built yet, in parallel.
+
+    Returns ``{name: ptxas report}`` for the sources compiled by this call
+    (registers, shared memory and spills per kernel).  Raises with the
+    compiler's output if any build fails.
+    """
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = _lib_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    reports, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, target)
+        reports[name] = log
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _LOCK:
+        if name not in _LIBS:
+            build((name,))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _bind(name, lib)
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    if name == "mxint4_matmul":
+        fn = lib.mxint4_matmul_launch
+        fn.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+        for query in (lib.mxint4_tile_m, lib.mxint4_tile_n):
+            query.argtypes, query.restype = [], _I
+    elif name == "w8a8_matmul":
+        fn = lib.w8a8_matmul_launch
+        fn.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    else:
+        fn = lib.retention_chunkwise_launch
+        fn.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+        for query in (lib.retention_max_chunk, lib.retention_max_dk):
+            query.argtypes, query.restype = [], _I
+    fn.restype = _I
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           align: int = 4) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name}: must be contiguous and {align}-byte aligned")
+
+
+def _raise_if(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def mxint4_matmul(x, packed, exps_packed, out_scale, row_scale, bias):
+    """f32 x ``[M, K]`` times MXINT4 ``W[K, N]`` with the Eq. (4) epilogue."""
+    lib = _lib("mxint4_matmul")
+    m, k = x.shape
+    n = packed.shape[1] * 2
+    if n % 32:
+        raise ValueError(f"mxint4_matmul: N={n} must be a multiple of 32")
+    _check("x", x, torch.float32, (m, k))
+    _check("packed", packed, torch.int8, (k, n // 2))
+    _check("exps_packed", exps_packed, torch.uint8, (k, n // 32), align=1)
+    for nm, t, size in (("out_scale", out_scale, n), ("row_scale", row_scale, m),
+                        ("bias", bias, n)):
+        _check(nm, t, torch.float32, (size,))
+    tile_m, tile_n = lib.mxint4_tile_m(), lib.mxint4_tile_n()
+    tiles = -(-n // tile_n) * -(-m // tile_m)
+    # Split K over blocks until about two blocks per SM (132 on the H100)
+    # have work; each split keeps at least 64 rows of K.
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = max(1, min(k // 64, -(-2 * sms // tiles)))
+    k_per = -(-k // splits)
+    k_per += (-k_per) % 8
+    splits = -(-k // k_per)
+    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    partials = (torch.empty(splits, m, n, dtype=torch.float32, device=x.device)
+                if splits > 1 else out)
+    tickets = _tickets(x.device, tiles)
+    err = lib.mxint4_matmul_launch(
+        x.data_ptr(), packed.data_ptr(), exps_packed.data_ptr(),
+        out_scale.data_ptr(), row_scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
+        m, n, k, splits, k_per, _stream())
+    _raise_if(err, "mxint4_matmul")
+    LAUNCHES["mxint4_matmul"] += 1
+    return out
+
+
+def _tickets(device: torch.device, count: int) -> torch.Tensor:
+    """Per-device split-K ticket counters: zeroed once, and left at zero by
+    every launch (the last block of a tile resets its ticket)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    t = _TICKETS.get(idx)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
+        _TICKETS[idx] = t
+    return t
+
+
+def w8a8_matmul(x_q, w_q, out_scale, row_scale, bias):
+    """int8 ``[M, K]`` x int8 ``[K, N]`` -> f32, exact int32 accumulate."""
+    lib = _lib("w8a8_matmul")
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if k % 16 or n % 16:
+        raise ValueError(f"w8a8_matmul: K={k} and N={n} must be multiples of 16")
+    _check("x_q", x_q, torch.int8, (m, k), align=16)
+    _check("w_q", w_q, torch.int8, (k, n), align=16)
+    for nm, t, size in (("out_scale", out_scale, n), ("row_scale", row_scale, m),
+                        ("bias", bias, n)):
+        _check(nm, t, torch.float32, (size,))
+    out = torch.empty(m, n, dtype=torch.float32, device=x_q.device)
+    err = lib.w8a8_matmul_launch(
+        x_q.data_ptr(), w_q.data_ptr(), out_scale.data_ptr(),
+        row_scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k,
+        _stream())
+    _raise_if(err, "w8a8_matmul")
+    LAUNCHES["w8a8_matmul"] += 1
+    return out
+
+
+def retention_chunkwise(q, k, v, log_g, state, chunk: int):
+    """q, k f32 ``[BH, S, dk]``, v f32 ``[BH, S, dv]``, log_g f32 ``[BH]``,
+    state f32 ``[BH, dk, dv]`` or None -> (y ``[BH, S, dv]``, final state)."""
+    lib = _lib("retention_chunkwise")
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    if chunk > lib.retention_max_chunk() or dk > lib.retention_max_dk():
+        raise ValueError(f"retention_chunkwise: chunk {chunk} and dk {dk} must "
+                         f"be <= {lib.retention_max_chunk()} and "
+                         f"{lib.retention_max_dk()}")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    _check("q", q, torch.float32, (bh, s, dk))
+    _check("k", k, torch.float32, (bh, s, dk))
+    _check("v", v, torch.float32, (bh, s, dv))
+    _check("log_g", log_g, torch.float32, (bh,))
+    if state is not None:
+        _check("state", state, torch.float32, (bh, dk, dv))
+    y = torch.empty(bh, s, dv, dtype=torch.float32, device=q.device)
+    st = torch.empty(bh, dk, dv, dtype=torch.float32, device=q.device)
+    err = lib.retention_chunkwise_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_g.data_ptr(),
+        None if state is None else state.data_ptr(), y.data_ptr(),
+        st.data_ptr(), bh, s, dk, dv, chunk, _stream())
+    _raise_if(err, "retention_chunkwise")
+    LAUNCHES["retention_chunkwise"] += 1
+    return y, st

@@ -1,0 +1,95 @@
+"""Public wrappers around the Hopper kernels.
+
+Implementation selection (``impl``):
+  'kernel' — the CUDA kernel; raises for a tensor that is not on the card
+  'ref'    — the plain PyTorch version from ref.py
+  'auto'   — 'kernel' for a CUDA tensor, 'ref' for a CPU tensor
+
+There is no fallback: a kernel that fails to build or launch raises.  The
+wrappers own the shape plumbing: leading batch dims flatten into M, absent
+epilogue operands default to identities (exact: x * 1 and x + 0), and the
+retention op passes an initial state to the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.mxint4 import MXINT4Weight
+from repro_torch.kernels import ref as _ref
+
+IMPLS = ("auto", "kernel", "ref")
+
+
+def use_kernel(impl: str, t: torch.Tensor) -> bool:
+    """Resolve ``impl`` against the device of the tensor the op will run on."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    if impl == "ref":
+        return False
+    if impl == "kernel" and not t.is_cuda:
+        raise ValueError(f"impl='kernel' needs a CUDA tensor, got {t.device}")
+    return t.is_cuda
+
+
+def _vec(v, n: int, fill: float, like: torch.Tensor) -> torch.Tensor:
+    if v is None:
+        return torch.full((n,), fill, dtype=torch.float32, device=like.device)
+    v = torch.as_tensor(v, dtype=torch.float32, device=like.device)
+    return v.broadcast_to((n,)).contiguous()
+
+
+def mxint4_matmul(x, q: MXINT4Weight, out_scale=None, row_scale=None, bias=None,
+                  *, out_dtype=torch.float32, impl: str = "auto") -> torch.Tensor:
+    """Decode-path quantized matmul with the Eq. (4) fused epilogue.
+
+    ``x`` may have leading batch dims; they are flattened into M.
+    """
+    lead, k, n = x.shape[:-1], x.shape[-1], q.shape[1]
+    x2 = x.reshape(-1, k)
+    rs = None if row_scale is None else row_scale.reshape(-1)
+    if not use_kernel(impl, x2):
+        y = _ref.mxint4_matmul_ref(x2, q, out_scale, rs, bias, out_dtype)
+        return y.reshape(*lead, n)
+    from repro_torch.kernels import hopper
+    y = hopper.mxint4_matmul(
+        x2.to(torch.float32).contiguous(), q.packed.contiguous(),
+        q.exps_packed.contiguous(), _vec(out_scale, n, 1.0, x2),
+        _vec(rs, x2.shape[0], 1.0, x2), _vec(bias, n, 0.0, x2))
+    return y.to(out_dtype).reshape(*lead, n)
+
+
+def w8a8_matmul(x_q, w_q, combined_scale, row_scale=None, bias=None, *,
+                out_dtype=torch.float32, impl: str = "auto") -> torch.Tensor:
+    """Prefill MMM path: int8 x int8 -> int32, then the drain epilogue."""
+    lead, k, n = x_q.shape[:-1], x_q.shape[-1], w_q.shape[1]
+    x2 = x_q.reshape(-1, k)
+    rs = None if row_scale is None else row_scale.reshape(-1)
+    if not use_kernel(impl, x2):
+        y = _ref.w8a8_matmul_ref(x2, w_q, combined_scale, rs, bias, out_dtype)
+        return y.reshape(*lead, n)
+    from repro_torch.kernels import hopper
+    y = hopper.w8a8_matmul(
+        x2.contiguous(), w_q.contiguous(), _vec(combined_scale, n, 1.0, x2),
+        _vec(rs, x2.shape[0], 1.0, x2), _vec(bias, n, 0.0, x2))
+    return y.to(out_dtype).reshape(*lead, n)
+
+
+def retention_chunkwise(q, k, v, gamma, *, chunk: int = 128, state=None,
+                        impl: str = "auto"):
+    """q, k ``[B, H, S, dk]``, v ``[B, H, S, dv]``, gamma ``[H]``, optional
+    state ``[B, H, dk, dv]`` -> (y in v's dtype, final f32 state)."""
+    if not use_kernel(impl, q):
+        return _ref.retention_chunkwise_ref(q, k, v, gamma, chunk=chunk,
+                                            state=state)
+    from repro_torch.kernels import hopper
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    f32 = torch.float32
+    log_g = torch.log(gamma.to(f32)).repeat(b).contiguous()     # [B*H]
+    st0 = None if state is None else state.to(f32).reshape(b * h, dk, dv).contiguous()
+    y, st = hopper.retention_chunkwise(
+        q.to(f32).reshape(b * h, s, dk).contiguous(),
+        k.to(f32).reshape(b * h, s, dk).contiguous(),
+        v.to(f32).reshape(b * h, s, dv).contiguous(), log_g, st0, chunk)
+    return y.reshape(b, h, s, dv).to(v.dtype), st.reshape(b, h, dk, dv)

@@ -1,0 +1,48 @@
+"""Deployment PTQ pass — Section III applied to a whole model.
+
+`deploy_quantize` attaches the serving formats to every `Linear`:
+
+    w [, b]  ->  w8_vals, w8_scale (prefill W8A8),
+                 mx_packed, mx_exps (decode MXINT4, where N % 32 == 0) [, b]
+
+and drops the master weight (the reference keeps MLA's ``wk_b``/``wv_b``
+masters; no ported model has them).  It works in place, one linear at a
+time, so a full-width model never holds its master and deployed weights at
+once.  Per-layer modules quantize per layer, as the reference's vmap over
+its ``[L, ...]`` stacks does.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core import mxint4 as mx
+from repro_torch.models.modules import Linear
+
+
+def _mx_ok(w: torch.Tensor) -> bool:
+    """MXINT4 packing needs N % 32 == 0 (2 nibbles x group 16)."""
+    return w.shape[-1] % (2 * mx.GROUP_SIZE) == 0
+
+
+def is_master(model: nn.Module) -> bool:
+    """True while the model still carries un-deployed master weights."""
+    head = model.lm_head
+    return head.w is not None and head.w8_vals is None
+
+
+@torch.no_grad()
+def deploy_quantize(model: nn.Module) -> nn.Module:
+    """Quantize every master linear of ``model`` in place; returns it."""
+    for lin in model.modules():
+        if not isinstance(lin, Linear) or lin.w is None or lin.w8_vals is not None:
+            continue
+        w = lin.w.data
+        q8 = mx.quantize_int8_tensor(w)
+        lin.w8_vals, lin.w8_scale = q8.values, q8.scale
+        if _mx_ok(w):
+            q4 = mx.quantize_mxint4(w)
+            lin.mx_packed, lin.mx_exps = q4.packed, q4.exps_packed
+        lin.w = None
+    return model

@@ -1,0 +1,97 @@
+"""RetNet block: multi-scale retention with RoPE-rotated q/k, v and gate at
+2 * d_model, per-head GroupNorm and a swish gate.
+
+Prefill runs the chunkwise form (the Hopper kernel for a CUDA tensor); decode
+runs the O(1) recurrent step in plain PyTorch, as the reference does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core import online_rope as orp
+from repro_torch.core import retention as ret
+from repro_torch.core.hsa import HSAEngine
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import Init, Linear
+
+
+class Retention(nn.Module):
+    def __init__(self, wq: Linear, wk: Linear, wv: Linear, wg: Linear,
+                 wo: Linear):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wg, self.wo = wq, wk, wv, wg, wo
+
+    @classmethod
+    def init(cls, init: Init, cfg: ModelConfig) -> "Retention":
+        d = cfg.d_model
+        return cls(*(Linear.init(init, k, n) for k, n in
+                     ((d, d), (d, d), (d, 2 * d), (d, 2 * d), (2 * d, d))))
+
+
+def _project(p: Retention, x_star, sig_inv, engine: HSAEngine, phase: str,
+             cfg: ModelConfig):
+    b, s, d = x_star.shape
+    h = cfg.n_heads
+    dk, dv = d // h, 2 * d // h
+    q = engine.linear(p.wq, x_star, phase, row_scale=sig_inv)
+    k = engine.linear(p.wk, x_star, phase, row_scale=sig_inv)
+    v = engine.linear(p.wv, x_star, phase, row_scale=sig_inv)
+    g = engine.linear(p.wg, x_star, phase, row_scale=sig_inv)
+    q = q.reshape(b, s, h, dk) * (dk ** -0.5)
+    k = k.reshape(b, s, h, dk) * (dk ** -0.5)   # RetNet scales k too
+    return q, k, v.reshape(b, s, h, dv), g
+
+
+def _gate_out(p: Retention, y, g, engine: HSAEngine, phase: str, b: int,
+              s: int, d: int):
+    y = ret.group_norm_heads(y)
+    y = y.reshape(b, s, 2 * d)
+    y = y * F.silu(g.to(torch.float32)).to(y.dtype)
+    return engine.linear(p.wo, y, phase)
+
+
+def retention_apply(p: Retention, x_star, sig_inv, engine: HSAEngine,
+                    phase: str, cfg: ModelConfig, *, rope_sin=None,
+                    rope_cos=None) -> tuple[torch.Tensor, dict]:
+    """Full-sequence retention from a zero state -> (out, {"s": state})."""
+    b, s, d = x_star.shape
+    q, k, v, g = _project(p, x_star, sig_inv, engine, phase, cfg)
+    if rope_sin is not None:
+        sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
+        q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
+    gamma = ret.head_decays(cfg.n_heads, device=q.device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, d*]
+    chunk = min(128, s)
+    if s % chunk == 0:
+        y, state = ops.retention_chunkwise(qt, kt, vt, gamma, chunk=chunk,
+                                           impl=engine.config.kernel_impl)
+    else:
+        y = ret.retention_parallel(qt, kt, vt, gamma)
+        _, state = ret.retention_recurrent(qt, kt, vt, gamma)
+    out = _gate_out(p, y.transpose(1, 2), g, engine, phase, b, s, d)
+    return out, {"s": state}
+
+
+def retention_decode(p: Retention, x_star, sig_inv, engine: HSAEngine,
+                     cfg: ModelConfig, cache: dict, *, rope_sin=None,
+                     rope_cos=None) -> tuple[torch.Tensor, dict]:
+    """O(1)-state recurrent step — the decode workload."""
+    b, _, d = x_star.shape
+    q, k, v, g = _project(p, x_star, sig_inv, engine, "decode", cfg)
+    if rope_sin is not None:
+        q = orp.apply_rope(q, rope_sin, rope_cos)
+        k = orp.apply_rope(k, rope_sin, rope_cos)
+    gamma = ret.head_decays(cfg.n_heads, device=q.device)
+    y, state = ret.retention_recurrent_step(q[:, 0], k[:, 0], v[:, 0],
+                                            cache["s"], gamma)
+    return _gate_out(p, y, g, engine, "decode", b, 1, d), {"s": state}
+
+
+def retention_make_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    return {"s": torch.zeros(batch, h, d // h, 2 * d // h, dtype=torch.float32,
+                             device=device)}

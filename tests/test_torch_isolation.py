@@ -1,0 +1,75 @@
+"""repro_torch stands alone: no jax, no JAX package, card unless asked."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO, "src"), REPO]))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "BAD []" in out.stdout, out.stdout
+    assert int(out.stdout.split("LOADED")[1].split()[0]) >= 20
+
+
+def test_from_config_defaults_to_the_card():
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine.from_config("retnet-1.3b", EngineSpec(reduced=True))
+
+
+def test_from_config_rejects_unported_families():
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    with pytest.raises(NotImplementedError):
+        InferenceEngine.from_config("qwen3-8b", EngineSpec(reduced=True),
+                                    device="cpu")
+
+
+@pytest.mark.parametrize("op", ["mxint4", "w8a8", "retention"])
+def test_kernel_impl_on_cpu_tensor_raises(op):
+    from repro_torch.core import mxint4 as mx
+    from repro_torch.core import retention as ret
+    from repro_torch.kernels import ops
+    with pytest.raises(ValueError, match="CUDA"):
+        if op == "mxint4":
+            ops.mxint4_matmul(torch.zeros(2, 32), mx.quantize_mxint4(torch.ones(32, 32)),
+                              impl="kernel")
+        elif op == "w8a8":
+            ops.w8a8_matmul(torch.zeros(2, 16, dtype=torch.int8),
+                            torch.zeros(16, 16, dtype=torch.int8), 1.0, impl="kernel")
+        else:
+            q = torch.zeros(1, 2, 8, 4)
+            ops.retention_chunkwise(q, q, q, ret.head_decays(2), chunk=8,
+                                    impl="kernel")
+
+
+def test_auto_on_cpu_runs_the_plain_version_and_counts_no_launch():
+    from repro_torch.kernels import hopper, ops
+    hopper.reset_launches()
+    y = ops.w8a8_matmul(torch.ones(2, 16, dtype=torch.int8),
+                        torch.ones(16, 16, dtype=torch.int8), 0.5)
+    assert torch.equal(y, torch.full((2, 16), 8.0))
+    assert sum(hopper.LAUNCHES.values()) == 0
