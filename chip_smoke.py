@@ -8,18 +8,20 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every Hopper kernel from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, in parallel);
-3. each kernel at the main path's full-width shapes against its plain
+3. each kernel at the main paths' full-width shapes against its plain
    PyTorch version on the same inputs, with its tolerance; times (CUDA events,
    L2 flushed before every launch, median), the bound from the card's data
-   sheet and, where one PyTorch call computes the same product, its time;
-4. full-width retnet-1.3b (24 layers, d_model 2048, seeded random weights,
-   W8A8/MXINT4 deployment) serving 2 prompts of 512 tokens plus 32 greedy
-   tokens through ``InferenceEngine.generate``, with the launch counters
-   set to 0 just before and read just after; then the same weights on the
-   plain path (``kernel_impl="ref"``): every block in lockstep, prefill
-   logits beside the network's own sensitivity, every decode step's logits,
-   greedy-token agreement (see `compare_paths`); and reduced retnet-1.3b on
-   the card against the CPU plain path;
+   sheet and, where one PyTorch call computes the same function, its time;
+4. the two main paths at full width, each through
+   ``InferenceEngine.generate`` with the launch counters set to 0 just before
+   and read just after, 2 prompts of 512 tokens plus 32 greedy tokens:
+   retnet-1.3b (24 layers, d_model 2048) and qwen3-8b (36 layers, d_model
+   4096, vocab 151936) with its f32, int8_tok and mxint4_blk KV caches, both
+   from seeded random weights in the default W8A8/MXINT4 deployment; then the
+   same weights on the plain path (``kernel_impl="ref"``): every block in
+   lockstep, prefill logits beside the network's own sensitivity, every
+   decode step's logits (see `compare_paths`); and each model reduced, on the
+   card against the CPU plain path;
 5. one JSON line ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}``
    line.
 
@@ -39,7 +41,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.core import kvq  # noqa: E402
 from repro_torch.core import mxint4 as mx  # noqa: E402
 from repro_torch.core import retention as ret  # noqa: E402
 from repro_torch.kernels import hopper, ops, ref  # noqa: E402
@@ -61,11 +65,22 @@ SRC = {
                     "src/repro/kernels/w8a8_matmul.py:52"),
     "retention_chunkwise": ("src/repro_torch/kernels/csrc/retention_chunkwise.cu",
                             "src/repro/kernels/retention_kernel.py:70"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:142"),
+    "rmsnorm_stats": ("src/repro_torch/kernels/csrc/rmsnorm_stats.cu",
+                      "src/repro/kernels/rmsnorm_stats.py:38"),
 }
-# Full-width retnet-1.3b: per layer (K, N, linears of that shape).
-LAYER_LINEARS = ((2048, 2048, 2), (2048, 4096, 3), (4096, 2048, 2))
-N_LAYERS, VOCAB, D = 24, 32768, 2048
+# The full-width main paths: per layer (K, N, linears of that shape).
+RETNET = dict(arch="retnet-1.3b", layers=24, d=2048, vocab=32768, formats=(None,),
+              linears=((2048, 2048, 2), (2048, 4096, 3), (4096, 2048, 2)))
+QWEN3 = dict(arch="qwen3-8b", layers=36, d=4096, vocab=152064, kv=8, g=4, hd=128,
+             formats=(None, "int8_tok", "mxint4_blk"),
+             linears=((4096, 4096, 2), (4096, 1024, 2), (4096, 12288, 2),
+                      (12288, 4096, 1)))
 BATCH, PROMPT, NEW = 2, 512, 32
+CACHE_LEN = PROMPT + NEW           # KV slots of a generate: 544
+DECODE_KV_LEN = CACHE_LEN - 16     # kv_len at which flash-decode is timed
+DECODE_CHECK_LENS = (1, 257, CACHE_LEN)   # and those it is checked at
 # Kernel path vs plain path, relative to max|value| (see `compare_paths`).
 BLOCK_TOL = 2e-2         # prefill block, same input: an int8 rounding step
 DECODE_BLOCK_TOL = 1e-3  # decode block, same input: f32 summation order only
@@ -150,14 +165,21 @@ def _check(name, got, want, rtol, atol):
     return err
 
 
+def _linear_cases(path: dict, m: int, lm_head_m: int):
+    """(path, M, K, N, launches per unit) of every linear shape of a path."""
+    cases = [(path["arch"], m, k, n, c * path["layers"]) for k, n, c in path["linears"]]
+    return cases + [(path["arch"], lm_head_m, path["d"], path["vocab"], 1)]
+
+
 def kernel_phase_mxint4(peaks):
-    cases = [(k, n, c * N_LAYERS) for k, n, c in LAYER_LINEARS] + [(D, VOCAB, 1)]
-    rows, m = [], BATCH
-    for k, n, count in cases:
+    rows = []
+    for arch, m, k, n, count in (_linear_cases(RETNET, BATCH, BATCH)
+                                 + _linear_cases(QWEN3, BATCH, BATCH)):
         g = _gen(k + n)
         x = torch.randn(m, k, generator=g, device="cuda")
         w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
         q = mx.quantize_mxint4(w)
+        del w
         os_ = torch.rand(n, generator=g, device="cuda") + 0.5
         rs = torch.rand(m, generator=g, device="cuda") + 0.5
         b = torch.randn(n, generator=g, device="cuda")
@@ -168,20 +190,19 @@ def kernel_phase_mxint4(peaks):
         nbytes = 4 * m * k + k * n // 2 + k * n // 32 + 4 * (2 * n + m) + 4 * m * n
         bms, by = bound_ms(nbytes, 2 * m * k * n, peaks["f32"], peaks)
         rows.append(dict(
-            shape=[m, k, n], per_step=count, max_abs_err=err,
+            path=arch, shape=[m, k, n], per_step=count, max_abs_err=err,
             ms=time_ms(lambda: ops.mxint4_matmul(x, q, os_, rs, b, impl="kernel")),
             call_ms=call_ms(lambda: ops.mxint4_matmul(x, q, os_, rs, b, impl="kernel")),
             plain_ms=time_ms(lambda: ref.mxint4_matmul_ref(x, q, os_, rs, b)),
             library_ms=time_ms(lambda: x @ w_deq), bound_ms=bms, bound_by=by))
+        del w_deq
     return rows
 
 
 def kernel_phase_w8a8(peaks):
-    m_full = BATCH * PROMPT
-    cases = [(m_full, k, n, c * N_LAYERS) for k, n, c in LAYER_LINEARS]
-    cases.append((BATCH, D, VOCAB, 1))
     rows = []
-    for m, k, n, count in cases:
+    for arch, m, k, n, count in (_linear_cases(RETNET, BATCH * PROMPT, BATCH)
+                                 + _linear_cases(QWEN3, BATCH * PROMPT, BATCH)):
         g = _gen(m + k + n)
         xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda").to(torch.int8)
         wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda").to(torch.int8)
@@ -193,11 +214,11 @@ def kernel_phase_w8a8(peaks):
         err = _check(f"w8a8 {m}x{k}x{n}", got, want, 0.0, 0.0)   # exact
         # torch._int_mm needs M > 16: the M = 2 lm_head is timed padded to 32
         # rows (noted as library_rows).
-        xl = xq if m > 16 else torch.nn.functional.pad(xq, (0, 0, 0, 32 - m))
+        xl = xq if m > 16 else F.pad(xq, (0, 0, 0, 32 - m))
         nbytes = m * k + k * n + 4 * (2 * n + m) + 4 * m * n
         bms, by = bound_ms(nbytes, 2 * m * k * n, peaks["int8"], peaks)
         rows.append(dict(
-            shape=[m, k, n], per_prefill=count, max_abs_err=err,
+            path=arch, shape=[m, k, n], per_prefill=count, max_abs_err=err,
             ms=time_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")),
             call_ms=call_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")),
             plain_ms=time_ms(lambda: ref.w8a8_matmul_ref(xq, wq, sc, rs, b)),
@@ -207,7 +228,8 @@ def kernel_phase_w8a8(peaks):
 
 
 def kernel_phase_retention(peaks):
-    h, dk, dv, c = 8, D // 8, 2 * D // 8, 128
+    h = 8
+    dk, dv, c = RETNET["d"] // h, 2 * RETNET["d"] // h, 128
     g = _gen(7)
     q, k = (torch.randn(BATCH, h, PROMPT, dk, generator=g, device="cuda") * dk ** -0.5
             for _ in range(2))
@@ -229,7 +251,8 @@ def kernel_phase_retention(peaks):
         nbytes = 4 * bh * PROMPT * (2 * dk + 2 * dv) + 4 * bh * dk * dv + 4 * h
         bms, by = bound_ms(nbytes, flops, peaks["f32"], peaks)
         rows.append(dict(
-            shape=[BATCH, h, PROMPT, dk, dv, c], per_prefill=N_LAYERS, max_abs_err=err,
+            path=RETNET["arch"], shape=[BATCH, h, PROMPT, dk, dv, c],
+            per_prefill=RETNET["layers"], max_abs_err=err,
             ms=time_ms(lambda: ops.retention_chunkwise(q, k, v, gamma, chunk=c,
                                                        impl="kernel")),
             call_ms=call_ms(lambda: ops.retention_chunkwise(q, k, v, gamma, chunk=c,
@@ -239,93 +262,200 @@ def kernel_phase_retention(peaks):
     return rows
 
 
+def _cache_leaf(x: torch.Tensor, fmt: str):
+    """A cache leaf in one of the kernel's formats (legacy int8: q / 32)."""
+    if fmt in kvq.FORMATS:
+        return kvq.encode(x, fmt)
+    return layers.to_cache_dtype(x, torch.int8 if fmt == "int8" else torch.float32)
+
+
+def kernel_phase_flash_decode(peaks):
+    """qwen3-8b decode attention: B = 2, KV = 8, G = 4, d = 128, C = 544, in
+    every cache format.  Checked at kv_len 1, 257 and 544, timed at 528; the
+    f32 cache (the default ``cache_format=None``) is the main-path unit, and
+    `scaled_dot_product_attention` with K/V expanded to the 32 query heads
+    is its library yardstick."""
+    b, kvh, g, d, c, n = BATCH, QWEN3["kv"], QWEN3["g"], QWEN3["hd"], CACHE_LEN, DECODE_KV_LEN
+    gen = _gen(11)
+    q = torch.randn(b, kvh, g, d, generator=gen, device="cuda")
+    k32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
+    v32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
+    rows = []
+    for fmt in ("f32", "int8", "int8_tok", "mxint4_blk"):
+        k, v = _cache_leaf(k32, fmt), _cache_leaf(v32, fmt)
+        err = 0.0
+        for kv_len in DECODE_CHECK_LENS:
+            got = ops.flash_decode(q, k, v, kv_len, impl="kernel")
+            want = ref.flash_decode_ref(q, k, v, kv_len)
+            err = max(err, _check(f"flash_decode {fmt} kv_len {kv_len}", got, want,
+                                  2e-5, 2e-6))
+            if not torch.equal(got, ops.flash_decode(q, k, v, kv_len, impl="kernel")):
+                raise RuntimeError(f"flash_decode {fmt}: two launches differ")
+        row_bytes = {"f32": 4 * d, "int8": d}.get(fmt) or kvq.nbytes_per_row(fmt, d)
+        nbytes = 2 * 4 * b * kvh * g * d + 2 * n * b * kvh * row_bytes
+        bms, by = bound_ms(nbytes, 4 * b * kvh * g * n * d, peaks["f32"], peaks)
+        lib = None
+        if fmt == "f32":
+            qs = q.reshape(b, kvh * g, 1, d)
+            ks, vs = (t[:, :n].permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+                      for t in (k32, v32))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
+        path = {"f32": QWEN3["arch"], "int8": "legacy int8 (no model path)"}.get(
+            fmt, f"{QWEN3['arch']} {fmt}")
+        rows.append(dict(
+            path=path, main=fmt == "f32", fmt=fmt, shape=[b, kvh, g, d, c], kv_len=n,
+            per_step=QWEN3["layers"], max_abs_err=err,
+            ms=time_ms(lambda: ops.flash_decode(q, k, v, n, impl="kernel")),
+            call_ms=call_ms(lambda: ops.flash_decode(q, k, v, n, impl="kernel")),
+            plain_ms=time_ms(lambda: ref.flash_decode_ref(q, k, v, n)),
+            library_ms=lib, bound_ms=bms, bound_by=by))
+    return rows
+
+
+def kernel_phase_rmsnorm_stats(peaks):
+    """sigma^{-1} rows at the prefill width of qwen3-8b: [1024, 4096] in f32
+    and bf16, ragged [1000, 4096] and decode [2, 4096].  It has no model
+    path; its unit is one [1024, 4096] bf16 call.  No single PyTorch call
+    computes rsqrt(mean(y^2) + eps), so there is no library time."""
+    rows = []
+    for m, d, dt in ((1024, 4096, torch.float32), (1024, 4096, torch.bfloat16),
+                     (1000, 4096, torch.float32), (2, 4096, torch.bfloat16)):
+        y = torch.randn(m, d, generator=_gen(m + d), device="cuda").to(dt)
+        got = ops.rmsnorm_stats(y, impl="kernel")
+        want = ref.rmsnorm_stats_ref(y)
+        err = _check(f"rmsnorm_stats {m}x{d} {dt}", got, want, 1e-6, 1e-6)
+        bms, by = bound_ms(m * d * y.element_size() + 4 * m, 2 * m * d, peaks["f32"],
+                           peaks)
+        rows.append(dict(
+            path="ops.rmsnorm_stats (no model path)", main=(m, dt) == (1024, torch.bfloat16),
+            shape=[m, d], dtype=str(dt).replace("torch.", ""), per_call=1, max_abs_err=err,
+            ms=time_ms(lambda: ops.rmsnorm_stats(y, impl="kernel")),
+            call_ms=call_ms(lambda: ops.rmsnorm_stats(y, impl="kernel")),
+            plain_ms=time_ms(lambda: ref.rmsnorm_stats_ref(y)),
+            library_ms=None, bound_ms=bms, bound_by=by))
+    return rows
+
+
 def summarize(name, rows, per_key, tol):
-    """One `kernels` entry: times and bounds summed over one main-path unit
-    (a decode step for mxint4, a prefill for the others)."""
-    def total(key):
-        if any(r[key] is None for r in rows):
+    """One `kernels` entry.  Times and bounds are summed over one unit (a
+    decode step for mxint4 and flash_decode, a prefill for w8a8 and
+    retention, a call for rmsnorm_stats) of each main path the kernel is on,
+    from the rows marked main; ``per_path`` holds the same sums per path."""
+    def total(key, pick):
+        sel = [r for r in rows if pick(r)]
+        if not sel or any(r[key] is None for r in sel):
             return None
-        return sum(r[key] * r[per_key] for r in rows)
-    b = total("bound_ms")
-    by_ops = sum(r["bound_ms"] * r[per_key] for r in rows if r["bound_by"] == "operations")
+        return sum(r[key] * r[per_key] for r in sel)
+    main = lambda r: r.get("main", True)    # noqa: E731
+    b = total("bound_ms", main)
+    by_ops = sum(r["bound_ms"] * r[per_key] for r in rows
+                 if main(r) and r["bound_by"] == "operations")
+    per_path = {p: {key: total(key, lambda r, p=p: r["path"] == p)
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for p in dict.fromkeys(r["path"] for r in rows)}
     return dict(name=name, route="cuda", source=SRC[name][0], replaces=SRC[name][1],
                 launches=None, max_abs_err=max(r["max_abs_err"] for r in rows),
                 tolerance=tol, per=per_key.replace("per_", ""),
-                ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=b,
+                ms=total("ms", main), plain_ms=total("plain_ms", main), bound_ms=b,
                 bound_by="operations" if by_ops > b / 2 else "bytes",
-                library_ms=total("library_ms"), shapes=rows)
+                library_ms=total("library_ms", main), per_path=per_path, shapes=rows)
 
 
-def serve_full_width(card: str):
-    log("== full-width serving: retnet-1.3b, B=2, S=512, 32 greedy tokens")
+def expected_launches(path: dict) -> tuple[dict, dict]:
+    """Launches per prefill and per decode step on a main path."""
+    per_prefill = dict.fromkeys(hopper.KERNELS, 0)
+    per_step = dict.fromkeys(hopper.KERNELS, 0)
+    linears = sum(c for _, _, c in path["linears"]) * path["layers"] + 1
+    per_prefill["w8a8_matmul"] = per_step["mxint4_matmul"] = linears
+    if path is RETNET:
+        per_prefill["retention_chunkwise"] = path["layers"]
+    else:
+        per_step["flash_decode"] = path["layers"]
+    return per_prefill, per_step
+
+
+def serve_full_width(path: dict, card: str):
+    """One main path at full width, once per cache format: launch counts per
+    phase and per counted generate, timings, busy shares, and the kernel path
+    against the plain path on the same weights."""
+    arch = path["arch"]
+    log(f"== full-width serving: {arch}, B={BATCH}, S={PROMPT}, {NEW} greedy tokens, "
+        f"cache formats {[f or 'f32' for f in path['formats']]}")
     t0 = time.perf_counter()
-    eng = InferenceEngine.from_config("retnet-1.3b", EngineSpec(), device="cuda")
+    eng = InferenceEngine.from_config(arch, EngineSpec(), device="cuda")
     torch.cuda.synchronize()
     log(f"init + deploy: {time.perf_counter() - t0:.2f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
     cfg = eng.cfg
-    if (cfg.n_layers, cfg.d_model, cfg.padded_vocab) != (N_LAYERS, D, VOCAB):
+    if (cfg.n_layers, cfg.d_model, cfg.padded_vocab) != (path["layers"], path["d"],
+                                                         path["vocab"]):
         raise RuntimeError(f"unexpected config {cfg}")
     prompts = torch.randint(1, cfg.vocab_size, (BATCH, PROMPT), generator=_gen(1),
                             device="cuda")
-    gen = GenerationConfig(max_new_tokens=NEW)
-
-    # Per-phase launch counts, then warm up.
-    hopper.reset_launches()
-    logits, cache = eng.prefill(prompts)
-    per_prefill = dict(hopper.LAUNCHES)
-    hopper.reset_launches()
-    eng.decode_step(logits.argmax(-1)[:, None], cache)
-    per_step = dict(hopper.LAUNCHES)
-    log("launches per prefill", per_prefill, "per decode step", per_step)
-    want_p = {"w8a8_matmul": 7 * N_LAYERS + 1, "retention_chunkwise": N_LAYERS,
-              "mxint4_matmul": 0}
-    want_s = {"w8a8_matmul": 0, "retention_chunkwise": 0,
-              "mxint4_matmul": 7 * N_LAYERS + 1}
-    if per_prefill != want_p or per_step != want_s:
-        raise RuntimeError(f"launch counts {per_prefill} / {per_step}, "
-                           f"expected {want_p} / {want_s}")
-    eng.generate(prompts, gen)
-
-    # The main path, counted.
-    hopper.reset_launches()
-    res = eng.generate(prompts, gen)
-    launches = dict(hopper.LAUNCHES)
-    want = {"w8a8_matmul": 169, "retention_chunkwise": 24,
-            "mxint4_matmul": 169 * res.decode_steps}
-    log("main-path launches", launches, "decode steps", res.decode_steps)
-    if launches != want:
-        raise RuntimeError(f"main-path launches {launches}, expected {want}")
-    toks = res.tokens
-    if toks.shape != (BATCH, NEW) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise RuntimeError(f"bad tokens {toks.shape}")
-    # Three more timed runs (not counted): the host clock varies run to run.
-    runs = [res] + [eng.generate(prompts, gen) for _ in range(3)]
-    pre = sorted(r.prefill_s for r in runs)[len(runs) // 2]
-    dec = sorted(r.decode_s / r.decode_steps for r in runs)[len(runs) // 2]
-    serving = dict(card=card, runs=len(runs), prefill_ms=pre * 1e3,
-                   decode_ms_per_token=dec * 1e3,
-                   decode_tokens_per_s=BATCH / dec,
-                   prefill_tokens_per_s=BATCH * PROMPT / pre,
-                   prefill_ms_runs=[r.prefill_s * 1e3 for r in runs],
-                   decode_ms_per_token_runs=[r.decode_s * 1e3 / r.decode_steps
-                                             for r in runs])
-    serving.update(profile_shares(eng, prompts))
-    log("serving (kernel path, medians):", json.dumps(serving))
-
-    # The same weights on the plain path.
+    want_p, want_s = expected_launches(path)
     plain = InferenceEngine(cfg, eng.model, EngineSpec(kernel_impl="ref"))
-    checks = compare_paths(eng, plain, prompts)
-    res_p = plain.generate(prompts, gen)
-    checks.update(
-        greedy_token_agreement=(res_p.tokens == toks).float().mean().item(),
-        plain_prefill_ms=res_p.prefill_s * 1e3,
-        plain_decode_ms_per_token=res_p.decode_s * 1e3 / res_p.decode_steps)
-    serving.update(checks)
-    log("kernel vs plain path:", json.dumps(checks))
-    del eng, plain, cache
+    counted, results = dict.fromkeys(hopper.KERNELS, 0), {}
+    for fmt in path["formats"]:
+        tag = arch if fmt is None else f"{arch} {fmt}"
+        gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt)
+        # Per-phase launch counts, then warm up.
+        hopper.reset_launches()
+        logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN)
+        per_prefill = dict(hopper.LAUNCHES)
+        cache = eng._encode_cache(cache, gen)
+        hopper.reset_launches()
+        eng.decode_step(logits.argmax(-1)[:, None], cache)
+        per_step = dict(hopper.LAUNCHES)
+        log(tag, "launches per prefill", per_prefill, "per decode step", per_step)
+        if per_prefill != want_p or per_step != want_s:
+            raise RuntimeError(f"{tag}: launch counts {per_prefill} / {per_step}, "
+                               f"expected {want_p} / {want_s}")
+        del cache
+        eng.generate(prompts, gen)
+
+        # The main path, counted.
+        hopper.reset_launches()
+        res = eng.generate(prompts, gen)
+        launches = dict(hopper.LAUNCHES)
+        want = {k: want_p[k] + want_s[k] * res.decode_steps for k in hopper.KERNELS}
+        log(tag, "main-path launches", launches, "decode steps", res.decode_steps)
+        if launches != want:
+            raise RuntimeError(f"{tag}: main-path launches {launches}, expected {want}")
+        for k in counted:
+            counted[k] += launches[k]
+        toks = res.tokens
+        if toks.shape != (BATCH, NEW) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise RuntimeError(f"{tag}: bad tokens {toks.shape}")
+        # Three more timed runs (not counted): the host clock varies run to run.
+        runs = [res] + [eng.generate(prompts, gen) for _ in range(3)]
+        pre = sorted(r.prefill_s for r in runs)[len(runs) // 2]
+        dec = sorted(r.decode_s / r.decode_steps for r in runs)[len(runs) // 2]
+        serving = dict(card=card, runs=len(runs), launches=launches,
+                       prefill_ms=pre * 1e3, decode_ms_per_token=dec * 1e3,
+                       decode_tokens_per_s=BATCH / dec,
+                       prefill_tokens_per_s=BATCH * PROMPT / pre,
+                       prefill_ms_runs=[r.prefill_s * 1e3 for r in runs],
+                       decode_ms_per_token_runs=[r.decode_s * 1e3 / r.decode_steps
+                                                 for r in runs])
+        serving.update(profile_shares(eng, prompts, gen))
+        log(f"{tag} serving (kernel path, medians):", json.dumps(serving))
+
+        # The same weights on the plain path.
+        t1 = time.perf_counter()
+        checks = compare_paths(eng, plain, prompts, gen)
+        res_p = plain.generate(prompts, gen)
+        checks.update(
+            greedy_token_agreement=(res_p.tokens == toks).float().mean().item(),
+            plain_prefill_ms=res_p.prefill_s * 1e3,
+            plain_decode_ms_per_token=res_p.decode_s * 1e3 / res_p.decode_steps,
+            compare_s=time.perf_counter() - t1)
+        serving.update(checks)
+        log(f"{tag} kernel vs plain path:", json.dumps(checks))
+        results[tag] = serving
+    del eng, plain
     torch.cuda.empty_cache()
-    return launches, serving
+    log(f"{arch} phase: {time.perf_counter() - t0:.1f} s")
+    return counted, results
 
 
 def _device_us(prof) -> tuple[float, list]:
@@ -340,7 +470,7 @@ def _device_us(prof) -> tuple[float, list]:
 
 
 @torch.inference_mode()
-def profile_shares(eng, prompts, steps: int = 4) -> dict:
+def profile_shares(eng, prompts, gen, steps: int = 4) -> dict:
     """Device busy share of a prefill and of decode steps, with the top
     kernels by device time (torch.profiler; it inflates the host side, so
     the busy shares are lower bounds)."""
@@ -350,7 +480,8 @@ def profile_shares(eng, prompts, steps: int = 4) -> dict:
     with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = eng.prefill(prompts)
+        logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN)
+        cache = eng._encode_cache(cache, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev, top = _device_us(prof)
@@ -370,6 +501,18 @@ def profile_shares(eng, prompts, steps: int = 4) -> dict:
     return out
 
 
+def _clone(tree):
+    """A copy of a cache whose tensors a step may write in place (dense KV
+    leaves); ints and the rope state are never written and are shared."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree
+
+
 def _prefill_from(model, x, cfg, hsa):
     """`lm.forward_prefill` from embedded inputs ``x``: last-token logits."""
     sin, cos = lm._rope_tables(cfg, x.shape[1], x.device)
@@ -380,7 +523,7 @@ def _prefill_from(model, x, cfg, hsa):
 
 
 @torch.inference_mode()
-def compare_paths(eng, plain, prompts):
+def compare_paths(eng, plain, prompts, gen):
     """Kernel path vs plain path on the same weights.
 
     * Per block, in lockstep: both paths get the plain path's input to the
@@ -392,10 +535,12 @@ def compare_paths(eng, plain, prompts):
       residual stream and per-linear int8 activation rounding make that
       floor large, so no end-to-end bound can be tighter than it.
     * Decode the same way, each step starting both paths from the plain
-      path's cache and token: every block in lockstep within DECODE_BLOCK_TOL
-      (decode streams MXINT4 weights against f32 activations, with no int8
-      rounding, so only f32 summation order differs), and the logits within
-      DECODE_TOL beside the decode step's own one-bf16-step sensitivity.
+      path's cache (in ``gen.cache_format``) and token, each on its own copy
+      of the cache: every block in lockstep within DECODE_BLOCK_TOL (decode
+      streams MXINT4 weights against f32 activations, with no int8 rounding,
+      so only f32 summation order differs, and each path encodes its own new
+      K/V row), and the logits within DECODE_TOL beside the decode step's own
+      one-bf16-step sensitivity.
     """
     cfg, model = eng.cfg, eng.model
     x = lm._embed(model, prompts)
@@ -408,7 +553,8 @@ def compare_paths(eng, plain, prompts):
         x = yr.to(x.dtype)
 
     lk, _ = eng.prefill(prompts)
-    lr, cache = plain.prefill(prompts)
+    lr, cache = plain.prefill(prompts, cache_len=CACHE_LEN)
+    cache = plain._encode_cache(cache, gen)
     prefill = _rel(lk, lr, "prefill logits", PREFILL_TOL)
     x = lm._embed(model, prompts).clone()
     x[0, PROMPT // 2] = _bf16_step(x[0, PROMPT // 2])
@@ -417,13 +563,13 @@ def compare_paths(eng, plain, prompts):
     decode, dblock, dfloor = [], [], []
     tok = lr.argmax(-1)
     for i in range(NEW):
-        lk, _ = eng.decode_step(tok[:, None], cache)
-        lr, nxt = plain.decode_step(tok[:, None], cache)
+        lk, _ = eng.decode_step(tok[:, None], _clone(cache))
+        lr, nxt = plain.decode_step(tok[:, None], _clone(cache))
         decode.append(_rel(lk, lr, f"decode step {i}", DECODE_TOL))
         dblock.append(_decode_lockstep(eng, plain, tok, cache, i))
         x = lm._embed(model, tok[:, None]).clone()
         x[0] = _bf16_step(x[0])
-        dfloor.append(_rel(_decode_from(model, x, cache, cfg, plain.hsa), lr,
+        dfloor.append(_rel(_decode_from(model, x, _clone(cache), cfg, plain.hsa), lr,
                            "sensitivity", float("inf")))
         cache, tok = nxt, lr.argmax(-1)
     return dict(block_max_rel_err=max(block), block_tolerance=BLOCK_TOL,
@@ -442,21 +588,21 @@ def _bf16_step(row: torch.Tensor) -> torch.Tensor:
 
 def _decode_from(model, x, cache, cfg, hsa):
     """`lm.forward_decode` from embedded inputs ``x``: logits."""
-    st = cache["rope"]
+    st, pos = cache["rope"], cache["pos"]
     for blk, c in zip(model.blocks, cache["blocks"]):
-        x = lm._block_decode(blk, x, cfg, hsa, c, st.sin, st.cos)[0].to(x.dtype)
+        x = lm._block_decode(blk, x, cfg, hsa, c, pos, st.sin, st.cos)[0].to(x.dtype)
     return hsa.linear(model.lm_head, layers.norm_full(model.final_norm, x),
                       "decode")[:, 0]
 
 
 def _decode_lockstep(eng, plain, tok, cache, step):
     cfg, model = eng.cfg, eng.model
-    st = cache["rope"]
+    st, pos = cache["rope"], cache["pos"]
     x = lm._embed(model, tok[:, None])
     worst = 0.0
     for i, (blk, c) in enumerate(zip(model.blocks, cache["blocks"])):
-        yr = lm._block_decode(blk, x, cfg, plain.hsa, c, st.sin, st.cos)[0]
-        yk = lm._block_decode(blk, x, cfg, eng.hsa, c, st.sin, st.cos)[0]
+        yr = lm._block_decode(blk, x, cfg, plain.hsa, _clone(c), pos, st.sin, st.cos)[0]
+        yk = lm._block_decode(blk, x, cfg, eng.hsa, _clone(c), pos, st.sin, st.cos)[0]
         worst = max(worst, _rel(yk, yr, f"decode step {step} block {i}",
                                 DECODE_BLOCK_TOL))
         x = yr.to(x.dtype)
@@ -473,23 +619,28 @@ def _rel(a, b, what, tol):
     return rel
 
 
-def reduced_vs_cpu():
-    """Reduced retnet-1.3b: the kernel path on the card against the plain
-    path on the CPU, same weights (a small-input reference check)."""
+def reduced_vs_cpu(path: dict):
+    """The reduced model: the kernel path on the card against the plain path
+    on the CPU, same weights (a small-input reference check), once per cache
+    format."""
     spec = EngineSpec(reduced=True)
-    eng = InferenceEngine.from_config("retnet-1.3b", spec, device="cuda")
+    arch = path["arch"]
+    eng = InferenceEngine.from_config(arch, spec, device="cuda")
     cpu = InferenceEngine(eng.cfg, copy.deepcopy(eng.model).to("cpu"), spec)
     prompts = torch.randint(1, eng.cfg.vocab_size, (2, 16), generator=_gen(3),
                             device="cuda")
-    gen = GenerationConfig(max_new_tokens=12)
     lg, _ = eng.prefill(prompts)
     lc, _ = cpu.prefill(prompts.cpu())
-    rel = _rel(lg.cpu(), lc, "reduced prefill", LOGIT_TOL)
-    tg, tc = eng.generate(prompts, gen).tokens.cpu(), cpu.generate(prompts.cpu(), gen).tokens
-    agree = (tg == tc).float().mean().item()
-    log(f"reduced retnet-1.3b, card kernels vs CPU plain: prefill rel err {rel:.3e}, "
-        f"greedy-token agreement {agree:.4f}")
-    return dict(reduced_prefill_rel_err=rel, reduced_greedy_agreement=agree)
+    rel = _rel(lg.cpu(), lc, f"reduced {arch} prefill", LOGIT_TOL)
+    agree = {}
+    for fmt in path["formats"]:
+        gen = GenerationConfig(max_new_tokens=12, cache_format=fmt)
+        tg = eng.generate(prompts, gen).tokens.cpu()
+        tc = cpu.generate(prompts.cpu(), gen).tokens
+        agree[fmt or "f32"] = (tg == tc).float().mean().item()
+    log(f"reduced {arch}, card kernels vs CPU plain: prefill rel err {rel:.3e}, "
+        f"greedy-token agreement {agree}")
+    return {f"reduced {arch}": dict(prefill_rel_err=rel, greedy_agreement=agree)}
 
 
 def main() -> int:
@@ -497,6 +648,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels need the card",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -518,6 +670,7 @@ def main() -> int:
         log(f"built {kname}: {'; '.join(regs)}")
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     log("== kernel phases (full-width shapes; times in ms, median, cold L2)")
     entries = [
         summarize("mxint4_matmul", kernel_phase_mxint4(peaks), "per_step",
@@ -525,18 +678,29 @@ def main() -> int:
         summarize("w8a8_matmul", kernel_phase_w8a8(peaks), "per_prefill", "exact"),
         summarize("retention_chunkwise", kernel_phase_retention(peaks), "per_prefill",
                   "rtol=atol=1e-4"),
+        summarize("flash_decode", kernel_phase_flash_decode(peaks), "per_step",
+                  "rtol=2e-5, atol=2e-6"),
+        summarize("rmsnorm_stats", kernel_phase_rmsnorm_stats(peaks), "per_call",
+                  "rtol=atol=1e-6"),
     ]
     for e in entries:
         for r in e["shapes"]:
-            log(f"  {e['name']} {r['shape']}: kernel {r['ms']:.4f} (per call "
-                f"{r['call_ms']:.4f}) plain "
-                f"{r['plain_ms']:.4f} library {r['library_ms']} bound "
-                f"{r['bound_ms']:.4f} ({r['bound_by']}) err {r['max_abs_err']:.2e}")
+            log(f"  {e['name']} {r['path']} {r['shape']}: kernel {r['ms']:.4f} (per call "
+                f"{r['call_ms']:.4f}) plain {r['plain_ms']:.4f} library "
+                f"{r['library_ms']} bound {r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"err {r['max_abs_err']:.2e}")
+    log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 
-    launches, serving = serve_full_width(smi)
-    serving.update(reduced_vs_cpu())
+    serving, by_path = {}, {}
+    for path in (RETNET, QWEN3):
+        by_path[path["arch"]], results = serve_full_width(path, smi)
+        serving.update(results)
+    for path in (RETNET, QWEN3):
+        serving.update(reduced_vs_cpu(path))
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches_by_path"] = {arch: n[e["name"]] for arch, n in by_path.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

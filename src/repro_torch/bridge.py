@@ -18,7 +18,7 @@ from repro_torch.models import lm
 from repro_torch.models import mlp as M
 from repro_torch.models import retnet as R
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import FORMATS, Linear, Norm
+from repro_torch.models.modules import FORMATS, Attention, Linear, Norm
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -45,18 +45,29 @@ def _norm(d: dict, device) -> Norm:
     return Norm(to_tensor(d["g"], device))
 
 
-def _block(d: dict, device) -> lm.RetNetBlock:
-    r, f = d["ret"], d["mlp"]
-    ret = R.Retention(*(_linear(r[n], device) for n in ("wq", "wk", "wv", "wg", "wo")))
+def _block(d: dict, cfg: ModelConfig, device):
+    """One layer's subtree -> the config's block kind: a `RetNetBlock`
+    (``ret``) or a `DenseBlock` (``attn``)."""
+    f = d["mlp"]
     mlp = M.MLP(_linear(f["wi"], device), _linear(f["wo"], device),
                 _linear(f["wg"], device) if "wg" in f else None)
-    return lm.RetNetBlock(_norm(d["ln1"], device), ret, _norm(d["ln2"], device), mlp)
+    ln1, ln2 = _norm(d["ln1"], device), _norm(d["ln2"], device)
+    if lm.block_class(cfg) is lm.RetNetBlock:
+        r = d["ret"]
+        ret = R.Retention(*(_linear(r[n], device)
+                            for n in ("wq", "wk", "wv", "wg", "wo")))
+        return lm.RetNetBlock(ln1, ret, ln2, mlp)
+    a = d["attn"]
+    attn = Attention(*(_linear(a[n], device) for n in ("wq", "wk", "wv", "wo")),
+                     *(_norm(a[n], device) if n in a else None
+                       for n in ("qnorm", "knorm")))
+    return lm.DenseBlock(ln1, attn, ln2, mlp)
 
 
 def model_from_tree(cfg: ModelConfig, tree: dict, device="cpu") -> lm.LM:
     """The reference's (master or deployed) param tree -> the port's `LM`."""
     lm._check_family(cfg)
-    blocks = [_block(_layer(tree["blocks"], i), device)
+    blocks = [_block(_layer(tree["blocks"], i), cfg, device)
               for i in range(cfg.n_layers)]
     return lm.LM(to_tensor(tree["embed"], device), blocks,
                  _norm(tree["final_norm"], device),

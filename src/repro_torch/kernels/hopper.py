@@ -26,7 +26,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("mxint4_matmul", "w8a8_matmul", "retention_chunkwise")
+KERNELS = ("mxint4_matmul", "w8a8_matmul", "retention_chunkwise", "flash_decode",
+           "rmsnorm_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +40,7 @@ _LOCK = threading.Lock()
 _TICKETS: dict[int, torch.Tensor] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def reset_launches() -> None:
@@ -121,11 +123,22 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "w8a8_matmul":
         fn = lib.w8a8_matmul_launch
         fn.argtypes = [_P] * 6 + [_I] * 3 + [_P]
-    else:
+    elif name == "retention_chunkwise":
         fn = lib.retention_chunkwise_launch
         fn.argtypes = [_P] * 7 + [_I] * 5 + [_P]
         for query in (lib.retention_max_chunk, lib.retention_max_dk):
             query.argtypes, query.restype = [], _I
+    elif name == "flash_decode":
+        fn = lib.flash_decode_launch
+        fn.argtypes = [_P] * 8 + [_I] * 11 + [_F, _I, _P]
+        for query in (lib.flash_decode_tile_rows, lib.flash_decode_max_dim,
+                      lib.flash_decode_max_group):
+            query.argtypes, query.restype = [], _I
+    elif name == "rmsnorm_stats":
+        fn = lib.rmsnorm_stats_launch
+        fn.argtypes = [_P, _P, _I, _I, _I, _I, _F, _P]
+    else:
+        raise KeyError(f"no binding for kernel {name!r}")
     fn.restype = _I
 
 
@@ -246,3 +259,91 @@ def retention_chunkwise(q, k, v, log_g, state, chunk: int):
     _raise_if(err, "retention_chunkwise")
     LAUNCHES["retention_chunkwise"] += 1
     return y, st
+
+
+# Cache formats `flash_decode` takes, by name, with the kernel's code for each
+# (its template parameter) and the dtypes of the value and side arrays.
+CACHE_FORMATS = {"f32": (0, torch.float32, None),
+                 "bf16": (1, torch.bfloat16, None),
+                 "int8": (2, torch.int8, None),            # legacy: q / 32
+                 "int8_tok": (3, torch.int8, torch.float32),
+                 "mxint4_blk": (4, torch.int8, torch.int8)}
+
+
+def _cache_operand(name: str, parts: tuple, fmt: str, lead: tuple, dim: int):
+    """Check one cache operand ``(values, side or None)`` of format ``fmt``
+    with logical shape ``lead + (dim,)``; returns the two pointers."""
+    code, vdtype, sdtype = CACHE_FORMATS[fmt]
+    values, side = parts
+    if fmt == "mxint4_blk":
+        if dim % 16:
+            raise ValueError(f"{name}: mxint4_blk needs a multiple of 16, got {dim}")
+        _check(f"{name}.m", values, vdtype, lead + (dim // 2,), align=1)
+        _check(f"{name}.e", side, sdtype, lead + (dim // 16,), align=1)
+    elif fmt == "int8_tok":
+        _check(f"{name}.q", values, vdtype, lead + (dim,), align=1)
+        _check(f"{name}.s", side, sdtype, lead + (1,))
+    else:
+        _check(name, values, vdtype, lead + (dim,), align=values.element_size())
+    return code, values.data_ptr(), None if side is None else side.data_ptr()
+
+
+def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
+                 scale: float | None):
+    """Decode attention of one token over the first ``kv_len`` cache rows.
+
+    q f32 ``[B, KV, G, d]``; K and V as ``(values, side)`` pairs in the
+    ``[B, C, KV, *]`` layout of a `CACHE_FORMATS` name (side is the int8_tok
+    scales or the mxint4_blk exponents, else None); ``scale=None`` divides the
+    scores by sqrt(d), as the plain version does.  Returns f32 ``[B, KV, G, dv]``.
+    """
+    lib = _lib("flash_decode")
+    b, kv, g, d = q.shape
+    c = k_parts[0].shape[1]
+    dv = v_parts[0].shape[-1] * (2 if v_fmt == "mxint4_blk" else 1)
+    tile, max_dim = lib.flash_decode_tile_rows(), lib.flash_decode_max_dim()
+    if not (1 <= g <= lib.flash_decode_max_group() and d <= max_dim and dv <= max_dim):
+        raise ValueError(f"flash_decode: G={g}, d={d}, dv={dv} exceed the kernel's "
+                         f"limits ({lib.flash_decode_max_group()}, {max_dim})")
+    if not 1 <= kv_len <= c:
+        raise ValueError(f"flash_decode: kv_len {kv_len} outside [1, {c}]")
+    _check("q", q, torch.float32, (b, kv, g, d))
+    kc, k0, k1 = _cache_operand("k", k_parts, k_fmt, (b, c, kv), d)
+    vc, v0, v1 = _cache_operand("v", v_parts, v_fmt, (b, c, kv), dv)
+    # Split the kv_len rows into whole tiles until about two blocks per SM
+    # (132 on the H100) have work.
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    tiles = -(-kv_len // tile)
+    splits = max(1, min(tiles, -(-2 * sms // (b * kv))))
+    rows = -(-tiles // splits) * tile
+    splits = -(-kv_len // rows)
+    out = torch.empty(b, kv, g, dv, dtype=torch.float32, device=q.device)
+    partials = (torch.empty(b * kv * splits * g * (2 + dv), dtype=torch.float32,
+                            device=q.device) if splits > 1 else out)
+    tickets = _tickets(q.device, b * kv)
+    div = scale is None
+    err = lib.flash_decode_launch(
+        q.data_ptr(), k0, k1, v0, v1, out.data_ptr(), partials.data_ptr(),
+        tickets.data_ptr(), b, c, kv, g, d, dv, kv_len, kc, vc, splits, rows,
+        0.0 if div else float(scale), int(div), _stream())
+    _raise_if(err, "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def rmsnorm_stats(y, eps: float):
+    """sigma^{-1} = rsqrt(mean(y^2) + eps) per row of f32 or bf16 ``[M, D]``
+    -> f32 ``[M, 1]``."""
+    lib = _lib("rmsnorm_stats")
+    m, d = y.shape
+    if y.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rmsnorm_stats: expected float32 or bfloat16, got {y.dtype}")
+    _check("y", y, y.dtype, (m, d), align=y.element_size())
+    vec = (d * y.element_size()) % 16 == 0 and y.data_ptr() % 16 == 0
+    out = torch.empty(m, 1, dtype=torch.float32, device=y.device)
+    err = lib.rmsnorm_stats_launch(y.data_ptr(), out.data_ptr(), m, d,
+                                   int(y.dtype == torch.bfloat16), int(vec),
+                                   float(eps), _stream())
+    _raise_if(err, "rmsnorm_stats")
+    LAUNCHES["rmsnorm_stats"] += 1
+    return out

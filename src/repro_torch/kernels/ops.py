@@ -7,14 +7,18 @@ Implementation selection (``impl``):
 
 There is no fallback: a kernel that fails to build or launch raises.  The
 wrappers own the shape plumbing: leading batch dims flatten into M, absent
-epilogue operands default to identities (exact: x * 1 and x + 0), and the
-retention op passes an initial state to the kernel.
+epilogue operands default to identities (exact: x * 1 and x + 0), the
+retention op passes an initial state to the kernel, and flash-decode splits
+each cache leaf into the arrays its format keeps.
 """
 
 from __future__ import annotations
 
+import operator
+
 import torch
 
+from repro_torch.core import kvq
 from repro_torch.core.mxint4 import MXINT4Weight
 from repro_torch.kernels import ref as _ref
 
@@ -93,3 +97,53 @@ def retention_chunkwise(q, k, v, gamma, *, chunk: int = 128, state=None,
         k.to(f32).reshape(b * h, s, dk).contiguous(),
         v.to(f32).reshape(b * h, s, dv).contiguous(), log_g, st0, chunk)
     return y.reshape(b, h, s, dv).to(v.dtype), st.reshape(b, h, dk, dv)
+
+
+def _cache_parts(leaf) -> tuple[tuple, str]:
+    """A cache leaf -> ((values, side or None), the kernel's format name)."""
+    fmt = kvq.leaf_format(leaf)
+    if fmt == "int8_tok":
+        return (leaf["q"], leaf["s"]), fmt
+    if fmt == "mxint4_blk":
+        return (leaf["m"], leaf["e"]), fmt
+    name = {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.int8: "int8"}.get(leaf.dtype)
+    if name is None:
+        raise TypeError(f"flash_decode: no kernel for a {leaf.dtype} cache")
+    return (leaf, None), name
+
+
+def flash_decode(q, k, v, kv_len: int, *, scale=None, impl: str = "auto"
+                 ) -> torch.Tensor:
+    """Single-token decode attention over the first ``kv_len`` cache rows.
+
+    q ``[B, KV, G, d]``; k/v ``[B, C, KV, *]`` cache leaves (f32, bf16 or
+    legacy int8 tensors, or kvq-encoded dicts, which the kernel dequantizes
+    as it loads them).  ``kv_len`` is a host int in ``[1, C]``: the caller
+    keeps the position on the host, so the kernel takes it by value.
+    ``scale=None`` divides the scores by sqrt(d).  Returns f32
+    ``[B, KV, G, dv]``.  Only the GQA layout is ported.
+    """
+    if q.ndim != 4:
+        raise NotImplementedError("flash_decode: only the GQA layout (q [B, KV, "
+                                  "G, d]) is ported; MLA comes with deepseek-v3")
+    kv_len = operator.index(kv_len)
+    c = (next(iter(k.values())) if isinstance(k, dict) else k).shape[1]
+    if not 1 <= kv_len <= c:
+        raise ValueError(f"flash_decode: kv_len {kv_len} outside [1, {c}]")
+    if not use_kernel(impl, q):
+        return _ref.flash_decode_ref(q, k, v, kv_len, scale=scale)
+    from repro_torch.kernels import hopper
+    (kp, kf), (vp, vf) = _cache_parts(k), _cache_parts(v)
+    return hopper.flash_decode(q.to(torch.float32).contiguous(), kp, kf, vp, vf,
+                               kv_len, scale)
+
+
+def rmsnorm_stats(y, *, eps: float = 1e-6, impl: str = "auto") -> torch.Tensor:
+    """sigma^{-1} over the last axis (f32); leading dims preserved."""
+    lead = y.shape[:-1]
+    y2 = y.reshape(-1, y.shape[-1])
+    if not use_kernel(impl, y2):
+        return _ref.rmsnorm_stats_ref(y2, eps).reshape(lead)
+    from repro_torch.kernels import hopper
+    return hopper.rmsnorm_stats(y2.contiguous(), eps)[:, 0].reshape(lead)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three Hopper kernels.
+"""Plain PyTorch versions of the five Hopper kernels.
 
 Each function defines what its kernel must compute.  The CPU path of
 kernels/ops.py runs them, and chip_smoke.py holds each kernel against them on
@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import fused_rmsnorm as fr
+from repro_torch.core import kvq
 from repro_torch.core import mxint4 as mx
 from repro_torch.core import retention as ret
 
@@ -45,3 +47,43 @@ def w8a8_matmul_ref(x_q, w_q, combined_scale, row_scale=None, bias=None,
 def retention_chunkwise_ref(q, k, v, gamma, chunk=128, state=None):
     """Chunkwise retention (identical math to the kernel)."""
     return ret.retention_chunkwise(q, k, v, gamma, chunk=chunk, state=state)
+
+
+def rmsnorm_stats_ref(y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """sigma^{-1} per row of ``[M, D]`` (the fused-RMSNorm producer) -> f32 [M]."""
+    return fr.rms_sigma_inv(y, eps)
+
+
+def flash_decode_ref(q, k, v, kv_len: int, *, scale=None) -> torch.Tensor:
+    """Single-token decode attention over the first ``kv_len`` cache rows, in
+    the GQA layout: q ``[B, KV, G, d]``; k/v ``[B, C, KV, *]`` cache leaves
+    (f32/bf16/legacy-int8 tensors or kvq-encoded dicts).  ``scale=None``
+    divides the scores by sqrt(d); rows at index >= kv_len are masked to -inf
+    before the softmax, as the reference's `attend_one_step` does.
+
+    The MLA layout (``q.ndim == 3``, a second score stream) comes with the
+    MLA models.
+    """
+    if q.ndim != 4:
+        raise NotImplementedError("flash_decode: only the GQA layout (q [B, KV, "
+                                  "G, d]) is ported; MLA comes with deepseek-v3")
+    c = (next(iter(k.values())) if isinstance(k, dict) else k).shape[1]
+    valid = torch.arange(c, device=q.device) < kv_len
+    return masked_decode_attention(q, k, v, valid, scale=scale)
+
+
+def masked_decode_attention(q, k, v, valid: torch.Tensor, *, scale=None
+                            ) -> torch.Tensor:
+    """softmax(q . k / sqrt(d) masked to -inf where ``valid`` is False) @ v,
+    with ``valid`` broadcast against the scores ``[B, KV, G, C]``."""
+    kf, vf = kvq.decode(k), kvq.decode(v)
+    s = torch.einsum("bhgd,bchd->bhgc", q.to(torch.float32), kf)
+    if scale is None:
+        # A tensor divisor: on the card torch turns division by a Python
+        # scalar into a multiply by its reciprocal.
+        d = torch.full((), q.shape[-1], dtype=torch.float32, device=s.device)
+        s = s / d.sqrt()
+    else:
+        s = s * scale
+    p = torch.softmax(s.masked_fill(~valid, -torch.inf), dim=-1)
+    return torch.einsum("bhgc,bchd->bhgd", p, vf)

@@ -1,7 +1,16 @@
-"""Norms with the Eq. (4) fused emission (C3).
+"""Shared layers: fused norms, flash attention, KV-cache helpers and GQA.
 
-`norm_emit` returns ``(x*, sigma^{-1})``; sigma^{-1} rides into the consuming
-linears' epilogues as ``row_scale``.  Only RMSNorm is ported so far.
+Every matmul goes through the HSA engine, and every pre-matmul norm uses the
+Eq. (4) fused emission (C3): `norm_emit` returns ``(x*, sigma^{-1})`` and
+sigma^{-1} rides into the consuming linears' epilogues as ``row_scale``.
+Only RMSNorm is ported so far.
+
+Attention keeps the reference's GQA layout: head ``h`` belongs to kv head
+``h // G`` (``q.reshape(b, kv, h // kv, hd)``), QK-norm comes before RoPE,
+and K/V caches are ``[B, C, KV, hd]`` leaves, plain tensors or kvq-encoded
+dicts.  Decode attention is the flash-decode kernel; prefill attention is the
+reference's online-softmax forward in plain PyTorch (it is no Pallas kernel
+there either).  Sliding-window ring caches are not ported yet.
 """
 
 from __future__ import annotations
@@ -9,9 +18,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import fused_rmsnorm as fr
+from repro_torch.core import kvq
+from repro_torch.core import online_rope as orp
 from repro_torch.core.hsa import HSAEngine
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import Init, Norm
+from repro_torch.models.modules import Attention, Init, Linear, Norm
+
+# ---------------------------------------------------------------------------
+# Norms (fused emission, C3)
+# ---------------------------------------------------------------------------
 
 
 def norm_init(init: Init, dim: int, cfg: ModelConfig) -> Norm:
@@ -31,3 +48,220 @@ def norm_emit(p: Norm, x: torch.Tensor, engine: HSAEngine
 def norm_full(p: Norm, x: torch.Tensor) -> torch.Tensor:
     """Always-normalized variant (final norm before the LM head)."""
     return fr.rmsnorm(x, p.g)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (forward only: online softmax over KV chunks)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """q ``[B, Sq, KV, G, hd]``, k/v ``[B, Sk, KV, hd]`` -> ``[B, Sq, KV, G, dv]``
+    in v's dtype, never materializing more than one [q_chunk, kv_chunk]
+    score tile per head.
+
+    The reference's `_flash_fwd_impl` step for step: q pre-scaled by
+    ``1/sqrt(hd)`` in f32, both sides padded to whole chunks (padded keys
+    masked, padded queries dropped), masked scores at -inf, and the
+    finite-max guard on all-masked rows.  Queries sit at positions
+    ``0..Sq-1`` and keys at ``0..Sk-1``; windows and offsets (chunked
+    prefill, rings) are not ported yet.
+    """
+    b, sq, kv_h, g, hd = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
+    pq, pk = (-sq) % q_chunk, (-sk) % kv_chunk
+    f32 = torch.float32
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=f32, device=q.device))
+    qs = torch.nn.functional.pad(q.to(f32) * scale, (0, 0, 0, 0, 0, 0, 0, pq))
+    kf = torch.nn.functional.pad(k.to(f32), (0, 0, 0, 0, 0, pk))
+    vf = torch.nn.functional.pad(v.to(f32), (0, 0, 0, 0, 0, pk))
+    k_pos = torch.arange(sk + pk, device=q.device)
+    outs = []
+    for q0 in range(0, sq + pq, q_chunk):
+        q_blk = qs[:, q0:q0 + q_chunk]
+        q_pos = q0 + torch.arange(q_chunk, device=q.device)
+        m = torch.full((b, kv_h, g, q_chunk), -torch.inf, dtype=f32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, kv_h, g, q_chunk, dv, dtype=f32, device=q.device)
+        for k0 in range(0, sk + pk, kv_chunk):
+            kp = k_pos[k0:k0 + kv_chunk]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kf[:, k0:k0 + kv_chunk])
+            mask = (kp < sk)[None, :].expand(q_chunk, -1)
+            if causal:
+                mask = mask & (q_pos[:, None] >= kp[None, :])
+            s = s.masked_fill(~mask, -torch.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe, -torch.inf))
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vf[:, k0:k0 + kv_chunk])
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))          # [B, qc, KV, G, dv]
+    return torch.cat(outs, dim=1)[:, :sq].to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache leaves: plain tensors or kvq-encoded dicts, axis 1 = cache slot
+# ---------------------------------------------------------------------------
+
+KV8_SCALE = kvq.KV8_SCALE
+
+
+def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Plain cache dtype; int8 is the legacy static-scale format."""
+    if dtype == torch.int8:
+        return torch.round(x.to(torch.float32) * KV8_SCALE).clamp(-127, 127).to(torch.int8)
+    return x.to(dtype)
+
+
+def from_cache_dtype(c) -> torch.Tensor:
+    """Cache leaf (plain tensor or kvq-encoded dict) -> f32 tensor."""
+    return kvq.decode(c)
+
+
+def to_cache_like(x: torch.Tensor, leaf):
+    """Encode fresh K/V rows to match the resident cache leaf's format.
+
+    The reference appends rows inside its jitted decode loop, where XLA
+    compiles int8_tok's ``absmax / 127.0`` into a reciprocal multiply, so the
+    rows here take that form (see `core/kvq.py`)."""
+    if isinstance(leaf, dict):
+        return kvq.encode_like(x, leaf, reciprocal=True)
+    return to_cache_dtype(x, leaf.dtype)
+
+
+def cache_update(leaf, x: torch.Tensor, pos: int):
+    """Write the rows ``x [B, n, ...]`` into ``leaf`` at slot ``pos`` (axis 1),
+    **in place**, and return the leaf.
+
+    The reference's ``dynamic_update_slice`` returns a new buffer, which XLA
+    performs in place inside its loop; here the write goes into the
+    preallocated leaf, so a full-width step never copies the cache.  A caller
+    that needs the cache as it was (a test that replays a step) clones it
+    first.  ``pos`` is clamped so the rows fit, as the reference's is.
+    """
+    enc = to_cache_like(x, leaf)
+    n, c = x.shape[1], cache_capacity(leaf)
+    pos = max(0, min(int(pos), c - n))
+    if isinstance(leaf, dict):
+        for name, buf in leaf.items():
+            buf[:, pos:pos + n] = enc[name]
+    else:
+        leaf[:, pos:pos + n] = enc
+    return leaf
+
+
+def cache_capacity(leaf) -> int:
+    """Slot count of a cache leaf (axis 1), dict- or tensor-formed."""
+    if isinstance(leaf, dict):
+        return next(iter(leaf.values())).shape[1]
+    return leaf.shape[1]
+
+
+def make_cache_leaf(shape: tuple, dtype, device=None):
+    """One attention-cache buffer: ``dtype`` is a torch dtype or a kvq format
+    name ('int8_tok' / 'mxint4_blk'), which gives the encoded dict
+    (bit-identical to encoding a zero buffer)."""
+    if kvq.is_format(dtype):
+        return kvq.zeros(shape, dtype, device=device)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def attend_one_step(q: torch.Tensor, k_cache, v_cache,
+                    valid_mask: torch.Tensor) -> torch.Tensor:
+    """Decode attention over the cache with an explicit ``[B, C]`` validity
+    mask (the reference's oracle).  The decode path goes through
+    `ops.flash_decode`, whose plain version is the same math with a prefix
+    mask."""
+    return kref.masked_decode_attention(q, k_cache, v_cache,
+                                        valid_mask[:, None, None, :])
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+
+def gqa_init(init: Init, cfg: ModelConfig) -> Attention:
+    d, hd, h, kv = cfg.d_model, cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    bias = cfg.qkv_bias
+    qn = kn = None
+    wq = Linear.init(init, d, h * hd, bias=bias)
+    wk = Linear.init(init, d, kv * hd, bias=bias)
+    wv = Linear.init(init, d, kv * hd, bias=bias)
+    wo = Linear.init(init, h * hd, d)
+    if cfg.qk_norm:
+        qn, kn = norm_init(init, hd, cfg), norm_init(init, hd, cfg)
+    return Attention(wq, wk, wv, wo, qn, kn)
+
+
+def _qk_head_norm(p: Attention, q, k, cfg: ModelConfig):
+    if not cfg.qk_norm:
+        return q, k
+    return fr.rmsnorm(q, p.qnorm.g), fr.rmsnorm(k, p.knorm.g)
+
+
+def _project_qkv(p: Attention, x_star, sig_inv, engine: HSAEngine, phase: str,
+                 cfg: ModelConfig):
+    b, s, _ = x_star.shape
+    hd, h, kv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    q = engine.linear(p.wq, x_star, phase, row_scale=sig_inv).reshape(b, s, h, hd)
+    k = engine.linear(p.wk, x_star, phase, row_scale=sig_inv).reshape(b, s, kv, hd)
+    v = engine.linear(p.wv, x_star, phase, row_scale=sig_inv).reshape(b, s, kv, hd)
+    q, k = _qk_head_norm(p, q, k, cfg)
+    return q, k, v
+
+
+def gqa_apply(p: Attention, x_star, sig_inv, engine: HSAEngine, phase: str,
+              cfg: ModelConfig, *, rope_sin=None, rope_cos=None
+              ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence causal attention -> (out [B, S, D], (k, v) for the cache)."""
+    b, s, _ = x_star.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q, k, v = _project_qkv(p, x_star, sig_inv, engine, phase, cfg)
+    if rope_sin is not None:
+        sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
+        q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
+    out = flash_attention(q.reshape(b, s, kv, h // kv, hd), k, v)
+    out = engine.linear(p.wo, out.reshape(b, s, h * hd), phase)
+    return out, (k, v)
+
+
+def gqa_decode(p: Attention, x_star, sig_inv, engine: HSAEngine,
+               cfg: ModelConfig, cache: dict, pos: int, *, rope_sin=None,
+               rope_cos=None) -> tuple[torch.Tensor, dict]:
+    """One decode step: project, rotate (online RoPE), append the new K/V
+    row in place (`cache_update`), attend through the flash-decode kernel.
+
+    ``pos`` is the host-side absolute position of this token.  A linear
+    cache clamps at its capacity, as the reference's does."""
+    b = x_star.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q, k, v = _project_qkv(p, x_star, sig_inv, engine, "decode", cfg)
+    if rope_sin is not None:
+        q = orp.apply_rope(q, rope_sin, rope_cos)
+        k = orp.apply_rope(k, rope_sin, rope_cos)
+    q = q[:, 0].reshape(b, kv, h // kv, hd)
+    c = cache_capacity(cache["k"])
+    slot = min(pos, c - 1)
+    k_cache = cache_update(cache["k"], k, slot)
+    v_cache = cache_update(cache["v"], v, slot)
+    out = ops.flash_decode(q, k_cache, v_cache, min(pos + 1, c),
+                           impl=engine.config.kernel_impl)
+    out = engine.linear(p.wo, out.reshape(b, 1, h * hd), "decode")
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def gqa_make_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window ring caches are not ported yet")
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": make_cache_leaf(shape, dtype, device),
+            "v": make_cache_leaf(shape, dtype, device)}

@@ -1,4 +1,5 @@
-"""Decoder LM assembly — the ``retnet`` kind of the reference's `models/lm.py`.
+"""Decoder LM assembly: the ``retnet`` and ``dense`` kinds of the reference's
+`models/lm.py`.
 
 Per-layer modules in an ``nn.ModuleList`` and a Python loop take the place of
 the reference's ``lax.scan`` over stacked params; the residual stream is cast
@@ -7,9 +8,12 @@ back to the param dtype after every block, as the scan carry is there.
     forward_prefill — full prompt (MMM phase): last-token logits + warm cache
     forward_decode  — one token with the warm cache (MVM phase)
 
-The decode cache is ``{"pos": int, "rope": OnlineRopeState, "blocks":
-[{"s": f32 [B, H, dk, dv]} per layer]}``.  The position lives on the host:
-the Python decode loop knows it without reading the card.
+The decode cache is ``{"pos": int, "rope": OnlineRopeState, "blocks": [one
+per layer]}``: ``{"s": f32 [B, H, dk, dv]}`` for RetNet, ``{"k", "v"}``
+``[B, C, KV, hd]`` leaves (plain tensors or kvq-encoded dicts) for dense GQA.
+The position lives on the host: the Python decode loop knows it without
+reading the card.  Dense decode writes each new K/V row into the cache in
+place (`layers.cache_update`).
 """
 
 from __future__ import annotations
@@ -17,19 +21,32 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core import kvq
 from repro_torch.core import online_rope as orp
 from repro_torch.core.hsa import HSAEngine
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import retnet as R
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import Init, Linear, Norm
+from repro_torch.models.modules import Attention, Init, Linear, Norm
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "retnet":
+    """Raise, naming what is missing, unless the port serves ``cfg``."""
+    if cfg.family == "retnet":
+        return
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; repro_torch serves retnet")
+            f"family {cfg.family!r} is not ported yet; repro_torch serves "
+            f"retnet and dense")
+    missing = [what for what, present in (
+        (f"norm_type {cfg.norm_type!r}", cfg.norm_type != "rmsnorm"),
+        ("sliding-window attention", bool(cfg.sliding_window)),
+        (f"frontend {cfg.frontend!r}", cfg.frontend is not None),
+        ("absolute position embeddings", cfg.abs_pos_embed),
+        (f"attn_type {cfg.attn_type!r}", cfg.attn_type != "gqa")) if present]
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
 
 
 class RetNetBlock(nn.Module):
@@ -44,8 +61,28 @@ class RetNetBlock(nn.Module):
                    M.MLP.init(init, cfg.d_model, cfg.d_ff, gated=False))
 
 
+class DenseBlock(nn.Module):
+    """Pre-norm GQA attention then an MLP, gated for RMSNorm archs."""
+
+    def __init__(self, ln1: Norm, attn: Attention, ln2: Norm, mlp: M.MLP):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+    @classmethod
+    def init(cls, init: Init, cfg: ModelConfig) -> "DenseBlock":
+        ln1 = L.norm_init(init, cfg.d_model, cfg)
+        attn = L.gqa_init(init, cfg)
+        return cls(ln1, attn, L.norm_init(init, cfg.d_model, cfg),
+                   M.MLP.init(init, cfg.d_model, cfg.d_ff,
+                              gated=cfg.norm_type == "rmsnorm"))
+
+
+def block_class(cfg: ModelConfig) -> type:
+    return RetNetBlock if cfg.family == "retnet" else DenseBlock
+
+
 class LM(nn.Module):
-    def __init__(self, embed: torch.Tensor, blocks: list[RetNetBlock],
+    def __init__(self, embed: torch.Tensor, blocks: list[nn.Module],
                  final_norm: Norm, lm_head: Linear):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
@@ -59,14 +96,20 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
     _check_family(cfg)
     ini = Init.from_seed(seed, device, getattr(torch, cfg.param_dtype))
     embed = ini.normal((cfg.padded_vocab, cfg.d_model), 0.02)
-    blocks = [RetNetBlock.init(ini, cfg) for _ in range(cfg.n_layers)]
+    blocks = [block_class(cfg).init(ini, cfg) for _ in range(cfg.n_layers)]
     final_norm = L.norm_init(ini, cfg.d_model, cfg)
     lm_head = Linear.init(ini, cfg.d_model, cfg.padded_vocab, scale=0.02)
     return LM(embed, blocks, final_norm, lm_head)
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
-    return cfg.d_model // cfg.n_heads
+    """Rotary width: the MLA rope head, RetNet's d_model / n_heads, else the
+    attention head dim (the reference's rule)."""
+    if cfg.attn_type == "mla":
+        return cfg.qk_rope_head_dim
+    if cfg.family == "retnet":
+        return cfg.d_model // cfg.n_heads
+    return cfg.head_dim_
 
 
 def _rope_tables(cfg: ModelConfig, s: int, device):
@@ -80,34 +123,58 @@ def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens]
 
 
-def _block_apply(p: RetNetBlock, x, cfg, engine, phase, sin, cos):
+def _seed_attn_cache(cfg: ModelConfig, k, v, cache_len: int = 0) -> dict:
+    """Prefill K/V -> the decode cache layout: a linear cache right-padded
+    with zeros to ``cache_len`` so generation can continue."""
+    s = k.shape[1]
+    if cache_len > s:
+        pad = (0, 0, 0, 0, 0, cache_len - s)
+        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    return {"k": k, "v": v}
+
+
+def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0):
+    """Full-sequence block -> (x_out, cache seed)."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
-    y, cache = R.retention_apply(p.ret, xs, sig, engine, phase, cfg,
-                                 rope_sin=sin, rope_cos=cos)
+    if isinstance(p, RetNetBlock):
+        y, cache = R.retention_apply(p.ret, xs, sig, engine, phase, cfg,
+                                     rope_sin=sin, rope_cos=cos)
+    else:
+        y, (k, v) = L.gqa_apply(p.attn, xs, sig, engine, phase, cfg,
+                                rope_sin=sin, rope_cos=cos)
+        cache = _seed_attn_cache(cfg, k, v, cache_len)
     x = x + y
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
     return x + M.mlp_apply(p.mlp, xs2, sig2, engine, phase), cache
 
 
-def _block_decode(p: RetNetBlock, x, cfg, engine, cache, sin, cos):
+def _block_decode(p, x, cfg, engine, cache, pos: int, sin, cos):
+    """One-token block at absolute position ``pos`` -> (x_out, cache)."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
-    y, cache = R.retention_decode(p.ret, xs, sig, engine, cfg, cache,
-                                  rope_sin=sin, rope_cos=cos)
+    if isinstance(p, RetNetBlock):
+        y, cache = R.retention_decode(p.ret, xs, sig, engine, cfg, cache,
+                                      rope_sin=sin, rope_cos=cos)
+    else:
+        y, cache = L.gqa_decode(p.attn, xs, sig, engine, cfg, cache, pos,
+                                rope_sin=sin, rope_cos=cos)
     x = x + y
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
     return x + M.mlp_apply(p.mlp, xs2, sig2, engine, "decode"), cache
 
 
 def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
-                    engine: HSAEngine) -> tuple[torch.Tensor, dict]:
-    """Prompt processing (MMM phase): tokens [B, S] -> (logits [B, V], cache)."""
+                    engine: HSAEngine, cache_len: int = 0
+                    ) -> tuple[torch.Tensor, dict]:
+    """Prompt processing (MMM phase): tokens [B, S] -> (logits [B, V], cache).
+
+    ``cache_len`` > S reserves KV slots for the tokens decode will append."""
     _check_family(cfg)
     x = _embed(model, tokens)
     s = tokens.shape[1]
     sin, cos = _rope_tables(cfg, s, x.device)
     states = []
     for blk in model.blocks:
-        y, cache = _block_apply(blk, x, cfg, engine, "prefill", sin, cos)
+        y, cache = _block_apply(blk, x, cfg, engine, "prefill", sin, cos, cache_len)
         x = y.to(x.dtype)          # keep the residual stream in param dtype
         states.append(cache)
     h = L.norm_full(model.final_norm, x[:, -1:])
@@ -124,7 +191,8 @@ def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,
                    ) -> tuple[torch.Tensor, dict]:
     """One generation step (MVM phase): tokens [B, 1] -> (logits [B, V], cache)."""
     x = _embed(model, tokens)
-    new_cache = {"pos": cache["pos"] + 1}
+    pos = cache["pos"]
+    new_cache = {"pos": pos + 1}
     sin = cos = None
     if cfg.rope:
         st = cache["rope"]
@@ -133,7 +201,7 @@ def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,
         new_cache["rope"] = orp.advance(st, th)            # C4 Update mode
     states = []
     for blk, c in zip(model.blocks, cache["blocks"]):
-        y, c2 = _block_decode(blk, x, cfg, engine, c, sin, cos)
+        y, c2 = _block_decode(blk, x, cfg, engine, c, pos, sin, cos)
         x = y.to(x.dtype)
         states.append(c2)
     new_cache["blocks"] = states
@@ -142,14 +210,42 @@ def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,
     return logits, new_cache
 
 
-def make_decode_cache(cfg: ModelConfig, batch: int, *, start_pos: int = 0,
+def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
+                      dtype=torch.bfloat16, start_pos: int = 0,
                       device="cuda") -> dict:
-    """Cold cache at ``start_pos`` (zeros are the exact initial state)."""
+    """Cold cache at ``start_pos`` (zeros are the exact initial state of
+    every cache kind), with ``cache_len`` KV slots per layer for dense GQA.
+    The reference's decode-only dry-run default (pos = cache_len - 1) is not
+    ported: pass ``start_pos`` for it.
+
+    ``dtype`` is a torch dtype or a kvq format name: KV leaves then start as
+    encoded zero dicts; RetNet state stays f32."""
     _check_family(cfg)
-    caches = {"pos": start_pos,
-              "blocks": [R.retention_make_cache(cfg, batch, device)
-                         for _ in range(cfg.n_layers)]}
+    pos = start_pos
+    if cfg.family == "retnet":
+        blocks = [R.retention_make_cache(cfg, batch, device)
+                  for _ in range(cfg.n_layers)]
+    else:
+        blocks = [L.gqa_make_cache(cfg, batch, cache_len, dtype, device)
+                  for _ in range(cfg.n_layers)]
+    caches = {"pos": pos, "blocks": blocks}
     if cfg.rope:
         caches["rope"] = orp.init_state(_rope_dim(cfg), cfg.rope_base,
-                                        pos=start_pos, device=device)
+                                        pos=pos, device=device)
     return caches
+
+
+def quantize_cache(cache: dict, cfg: ModelConfig, fmt: str) -> dict:
+    """Encode the KV leaves of a warm decode cache into ``fmt``.
+
+    The bridge between prefill (always f32) and a quantized decode
+    residency: the engine calls it once, right after `forward_prefill`.
+    RetNet state, ``pos`` and the rope angles pass through; encoded leaves
+    pass through unchanged.  The reference runs this step eagerly, so
+    int8_tok scales take the division form (see `core/kvq.py`)."""
+    kvq.check_format(fmt)
+    out = dict(cache)
+    if cfg.family != "retnet":
+        out["blocks"] = [{"k": kvq.encode(b["k"], fmt), "v": kvq.encode(b["v"], fmt)}
+                         for b in cache["blocks"]]
+    return out

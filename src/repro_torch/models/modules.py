@@ -1,5 +1,6 @@
 """Parameter containers and seeded init.
 
+`Attention` groups the GQA projections and the optional QK-norm gains.
 `Linear` holds one weight ``W[K, N]`` (the reference layout, ``y = x @ W``,
 not ``nn.Linear``'s ``[N, K]``) in whichever formats it carries: the master
 ``w`` and optional bias ``b``, and after deployment ``w8_vals``/``w8_scale``
@@ -9,9 +10,9 @@ like its JAX counterpart.
 
 `Init` draws from an explicit ``torch.Generator`` with the reference's
 distributions: normal with std ``1/sqrt(K)`` for linears unless a scale is
-given (0.02 for ``embed`` and ``lm_head``), ones for norm gains.  torch and
-jax give different numbers from one seed; parity tests carry the reference's
-weights over with `repro_torch.bridge` instead.
+given (0.02 for ``embed`` and ``lm_head``), zeros for biases, ones for norm
+gains.  torch and jax give different numbers from one seed; parity tests
+carry the reference's weights over with `repro_torch.bridge` instead.
 """
 
 from __future__ import annotations
@@ -48,6 +49,9 @@ class Init:
     def ones(self, shape: tuple[int, ...]) -> torch.Tensor:
         return torch.ones(shape, device=self.device, dtype=self.dtype)
 
+    def zeros(self, shape: tuple[int, ...]) -> torch.Tensor:
+        return torch.zeros(shape, device=self.device, dtype=self.dtype)
+
 
 def _param(t: torch.Tensor | None) -> nn.Parameter | None:
     return None if t is None else nn.Parameter(t, requires_grad=False)
@@ -66,10 +70,10 @@ class Linear(nn.Module):
             self.register_buffer(name, formats.get(name))
 
     @classmethod
-    def init(cls, init: Init, k: int, n: int, scale: float | None = None
-             ) -> "Linear":
-        return cls(init.normal((k, n), scale if scale is not None
-                               else 1.0 / math.sqrt(k)))
+    def init(cls, init: Init, k: int, n: int, scale: float | None = None,
+             bias: bool = False) -> "Linear":
+        w = init.normal((k, n), scale if scale is not None else 1.0 / math.sqrt(k))
+        return cls(w, b=init.zeros((n,)) if bias else None)
 
 
 class Norm(nn.Module):
@@ -78,3 +82,14 @@ class Norm(nn.Module):
     def __init__(self, g: torch.Tensor):
         super().__init__()
         self.g = _param(g)
+
+
+class Attention(nn.Module):
+    """GQA projections ``wq, wk, wv, wo`` and, for QK-norm models (qwen3),
+    the per-head RMSNorm gains ``qnorm``/``knorm``."""
+
+    def __init__(self, wq: Linear, wk: Linear, wv: Linear, wo: Linear,
+                 qnorm: Norm | None = None, knorm: Norm | None = None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        self.qnorm, self.knorm = qnorm, knorm

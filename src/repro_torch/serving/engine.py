@@ -1,6 +1,7 @@
 """`InferenceEngine` — the one public entry point for serving a model.
 
-    lm.init -> deploy.deploy_quantize -> HSAEngine -> prefill / decode loop
+    lm.init -> deploy.deploy_quantize -> HSAEngine -> prefill
+            -> (KV cache encoded to ``gen.cache_format``) -> decode loop
 
 The reference fuses its decode loop into one jitted ``lax.while_loop``; here
 it is a plain Python loop with the same semantics: ``out[:, i]`` is sampled
@@ -13,8 +14,9 @@ clock around work that ends in ``torch.cuda.synchronize()``.
 
 Usage::
 
-    engine = InferenceEngine.from_config("retnet-1.3b", EngineSpec())
-    result = engine.generate(prompts, GenerationConfig(max_new_tokens=32))
+    engine = InferenceEngine.from_config("qwen3-8b", EngineSpec())
+    result = engine.generate(prompts, GenerationConfig(max_new_tokens=32,
+                                                       cache_format="int8_tok"))
 """
 
 from __future__ import annotations
@@ -108,10 +110,15 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        """MMM phase: prompts [B, S] -> (last-token logits [B, V], cache)."""
+    def prefill(self, tokens: torch.Tensor, *, cache_len: int | None = None
+                ) -> tuple[torch.Tensor, dict]:
+        """MMM phase: prompts [B, S] -> (last-token logits [B, V], cache).
+
+        ``cache_len`` (default S) is the KV slots a dense model's cache
+        holds: S plus the tokens decode will append."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        return lm.forward_prefill(self.model, tokens, self.cfg, self.hsa)
+        return lm.forward_prefill(self.model, tokens, self.cfg, self.hsa,
+                                  cache_len=cache_len or tokens.shape[1])
 
     @torch.inference_mode()
     def decode_step(self, tokens: torch.Tensor, cache: dict
@@ -137,7 +144,8 @@ class InferenceEngine:
 
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.prefill(prompts)
+        logits, cache = self.prefill(prompts, cache_len=prompts.shape[1] + n)
+        cache = self._encode_cache(cache, gen)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
@@ -164,3 +172,11 @@ class InferenceEngine:
         return GenerationResult(tokens=out, lengths=lengths, prefill_s=t_prefill,
                                 decode_s=time.perf_counter() - t0,
                                 decode_steps=steps)
+
+    @torch.inference_mode()
+    def _encode_cache(self, cache: dict, gen: GenerationConfig) -> dict:
+        """Apply ``gen.cache_format`` at the prefill/decode boundary: prefill
+        ran f32, the decode residency streams the encoded bytes."""
+        if gen.cache_format is None:
+            return cache
+        return lm.quantize_cache(cache, self.cfg, gen.cache_format)

@@ -1,8 +1,9 @@
 """Generation/sampling configuration and the per-step token sampler.
 
-Greedy, temperature and top-k.  Top-p, speculative decoding and quantized
-cache formats are not ported yet, so these dataclasses do not offer them:
-a caller cannot ask for them and have them silently ignored.
+Greedy, temperature and top-k, and the quantized KV-cache formats of
+`core/kvq.py`.  Top-p and speculative decoding are not ported yet, so these
+dataclasses do not offer them: a caller cannot ask for them and have them
+silently ignored.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.core import kvq
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,16 +34,24 @@ class SamplingParams:
 
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
-    """Loop-level controls for `InferenceEngine.generate`."""
+    """Loop-level controls for `InferenceEngine.generate`.
+
+    ``cache_format`` ('int8_tok' | 'mxint4_blk') keeps the decode-phase KV
+    cache in that encoding: prefill runs f32 and the cache is encoded once at
+    the prefill/decode boundary (`lm.quantize_cache`); None keeps f32.  It
+    has no effect on RetNet, whose state is not a KV cache."""
 
     max_new_tokens: int = 16
     sampling: SamplingParams = SamplingParams()
     stop_tokens: tuple[int, ...] = ()
     pad_token_id: int = 0
+    cache_format: str | None = None
 
     def __post_init__(self):
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.cache_format is not None:
+            kvq.check_format(self.cache_format)
 
 
 def _top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:

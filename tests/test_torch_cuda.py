@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import kvq
 from repro_torch.core import mxint4 as mx
 from repro_torch.core import retention as ret
 from repro_torch.kernels import hopper, ops, ref
+from repro_torch.models import layers
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +93,65 @@ def test_retention_chunkwise_kernel(b, h, s, dk, dv, chunk, warm):
     torch.testing.assert_close(s_out, s_ref, rtol=1e-4, atol=1e-4)
 
 
+def _cache_leaf(x: torch.Tensor, fmt: str):
+    if fmt in kvq.FORMATS:
+        return kvq.encode(x, fmt)
+    return layers.to_cache_dtype(x, getattr(torch, fmt))
+
+
+@pytest.mark.parametrize("fmt", ["float32", "bfloat16", "int8", "int8_tok",
+                                 "mxint4_blk"])
+@pytest.mark.parametrize("b,kv,g,d,c,kv_len", [
+    (2, 8, 4, 128, 544, 528), (2, 8, 4, 128, 544, 1), (2, 8, 4, 128, 544, 544),
+    (1, 2, 1, 64, 200, 1), (1, 2, 1, 64, 200, 200), (3, 1, 8, 128, 200, 77),
+    (2, 2, 4, 32, 200, 200), (1, 4, 8, 64, 33, 33),
+])
+def test_flash_decode_kernel(fmt, b, kv, g, d, c, kv_len):
+    """Each cache format, C not a multiple of the 32-row tile, kv_len 1 and C,
+    G in {1, 4, 8}: kernel vs plain on the same encoded bytes, at the
+    reference's decode tolerance; two launches bit-equal."""
+    rng = _gen(b * 1000 + c + kv_len + g)
+    q = _t(rng.normal(size=(b, kv, g, d)).astype(np.float32))
+    k = _cache_leaf(_t(rng.normal(size=(b, c, kv, d)).astype(np.float32)), fmt)
+    v = _cache_leaf(_t(rng.normal(size=(b, c, kv, d)).astype(np.float32)), fmt)
+    got = ops.flash_decode(q, k, v, kv_len, impl="kernel")
+    want = ref.flash_decode_ref(q, k, v, kv_len)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    again = ops.flash_decode(q, k, v, kv_len, impl="kernel")
+    assert torch.equal(got, again), "split merge must be deterministic"
+
+
+def test_flash_decode_kernel_mixed_formats_and_scale():
+    rng = _gen(5)
+    q = _t(rng.normal(size=(2, 2, 4, 64)).astype(np.float32))
+    k = kvq.encode(_t(rng.normal(size=(2, 96, 2, 64)).astype(np.float32)), "mxint4_blk")
+    v = _t(rng.normal(size=(2, 96, 2, 64)).astype(np.float32))
+    for scale in (None, 0.05):
+        got = ops.flash_decode(q, k, v, 70, scale=scale, impl="kernel")
+        want = ref.flash_decode_ref(q, k, v, 70, scale=scale)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("m,d,dtype", [
+    (1024, 4096, torch.float32), (1024, 4096, torch.bfloat16),
+    (1000, 4096, torch.float32), (2, 4096, torch.bfloat16), (7, 96, torch.float32),
+    (13, 100, torch.bfloat16), (5, 3, torch.float32),
+])
+def test_rmsnorm_stats_kernel(m, d, dtype):
+    y = _t(_gen(m + d).normal(size=(m, d)).astype(np.float32)).to(dtype)
+    got = ops.rmsnorm_stats(y, impl="kernel")
+    want = ref.rmsnorm_stats_ref(y)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_rmsnorm_stats_kernel_unaligned_rows():
+    """A view starting 4 bytes in takes the scalar-load variant."""
+    base = _t(_gen(3).normal(size=(9 * 64 + 1,)).astype(np.float32))
+    y = base[1:].view(9, 64)
+    torch.testing.assert_close(ops.rmsnorm_stats(y, impl="kernel"),
+                               ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
+
+
 def test_launch_counters_count_kernel_launches_only():
     hopper.reset_launches()
     x = torch.randn(2, 64, device="cuda")
@@ -98,6 +159,16 @@ def test_launch_counters_count_kernel_launches_only():
     ops.mxint4_matmul(x, q, impl="kernel")
     ops.mxint4_matmul(x, q, impl="ref")
     assert hopper.LAUNCHES["mxint4_matmul"] == 1
+    qd = torch.randn(1, 2, 4, 32, device="cuda")
+    kc = torch.randn(1, 40, 2, 32, device="cuda")
+    ops.flash_decode(qd, kc, kc, 40, impl="kernel")
+    ops.flash_decode(qd, kc, kc, 40)                      # auto: the kernel
+    ops.flash_decode(qd, kc, kc, 40, impl="ref")
+    ops.rmsnorm_stats(x, impl="kernel")
+    ops.rmsnorm_stats(x, impl="ref")
+    assert hopper.LAUNCHES["flash_decode"] == 2
+    assert hopper.LAUNCHES["rmsnorm_stats"] == 1
+    assert hopper.LAUNCHES["w8a8_matmul"] == hopper.LAUNCHES["retention_chunkwise"] == 0
 
 
 def test_kernel_impl_on_cpu_raises():

@@ -1,10 +1,11 @@
-"""Slice-1 gate: repro_torch's `InferenceEngine.generate` emits the same
-greedy tokens as the JAX engine for reduced retnet-1.3b.
+"""Slice gates: repro_torch's `InferenceEngine.generate` emits the same
+greedy tokens as the JAX engine, for reduced retnet-1.3b (slice 1) and for
+reduced qwen3-8b with each KV-cache format (slice 2).
 
 The JAX engine's params are carried into the port by `repro_torch.bridge`;
 prompts are ``[2, 16]`` made with numpy from a seed, 12 new tokens each (the
 quickstart shape), with ``quantize=False`` and with the default W8A8/MXINT4
-deployment.
+deployment.  Engines are built once per (arch, quantize).
 """
 
 import functools
@@ -25,12 +26,12 @@ from repro_torch.serving.sampling import GenerationConfig, SamplingParams
 
 
 @functools.lru_cache(maxsize=None)
-def _engines(quantize: bool):
-    je = (fp_engine("retnet-1.3b") if not quantize else
-          JEngine.from_config("retnet-1.3b", JSpec(reduced=True)))
+def _engines(quantize: bool, arch: str = "retnet-1.3b"):
+    je = (fp_engine(arch) if not quantize else
+          JEngine.from_config(arch, JSpec(reduced=True)))
     tree = jax.tree.map(np.asarray, jax.device_get(je.params))
     model = bridge.model_from_tree(je.cfg, tree, device="cpu")
-    te = InferenceEngine.from_config("retnet-1.3b",
+    te = InferenceEngine.from_config(arch,
                                      EngineSpec(reduced=True, quantize=quantize),
                                      model=model, device="cpu")
     return je, te
@@ -46,6 +47,23 @@ def test_greedy_tokens_identical_to_jax(quantize):
     prompts = _prompts()
     want = je.generate(jnp.asarray(prompts), JGen(max_new_tokens=12))
     got = te.generate(torch.from_numpy(prompts), GenerationConfig(max_new_tokens=12))
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    assert got.decode_steps == 12
+
+
+@pytest.mark.parametrize("cache_format", [None, "int8_tok", "mxint4_blk"],
+                         ids=["f32_cache", "int8_tok", "mxint4_blk"])
+@pytest.mark.parametrize("quantize", [False, True], ids=["fp", "default_spec"])
+def test_qwen3_greedy_tokens_identical_to_jax(quantize, cache_format):
+    """Slice-2 gate: dense GQA with QK-norm, the KV cache kept f32 or encoded
+    at the prefill/decode boundary."""
+    je, te = _engines(quantize, "qwen3-8b")
+    prompts = _prompts(4)
+    want = je.generate(jnp.asarray(prompts),
+                       JGen(max_new_tokens=12, cache_format=cache_format))
+    got = te.generate(torch.from_numpy(prompts),
+                      GenerationConfig(max_new_tokens=12, cache_format=cache_format))
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
     np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
     assert got.decode_steps == 12

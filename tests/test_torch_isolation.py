@@ -44,12 +44,14 @@ def test_from_config_defaults_to_the_card():
 def test_from_config_rejects_unported_families():
     from repro_torch.serving.engine import EngineSpec, InferenceEngine
     with pytest.raises(NotImplementedError):
-        InferenceEngine.from_config("qwen3-8b", EngineSpec(reduced=True),
+        InferenceEngine.from_config("falcon-mamba-7b", EngineSpec(reduced=True),
                                     device="cpu")
 
 
-@pytest.mark.parametrize("op", ["mxint4", "w8a8", "retention"])
+@pytest.mark.parametrize("op", ["mxint4", "w8a8", "retention", "flash_decode",
+                                "rmsnorm_stats"])
 def test_kernel_impl_on_cpu_tensor_raises(op):
+    from repro_torch.core import kvq
     from repro_torch.core import mxint4 as mx
     from repro_torch.core import retention as ret
     from repro_torch.kernels import ops
@@ -60,10 +62,15 @@ def test_kernel_impl_on_cpu_tensor_raises(op):
         elif op == "w8a8":
             ops.w8a8_matmul(torch.zeros(2, 16, dtype=torch.int8),
                             torch.zeros(16, 16, dtype=torch.int8), 1.0, impl="kernel")
-        else:
+        elif op == "retention":
             q = torch.zeros(1, 2, 8, 4)
             ops.retention_chunkwise(q, q, q, ret.head_decays(2), chunk=8,
                                     impl="kernel")
+        elif op == "flash_decode":
+            kv = kvq.zeros((1, 8, 2, 32), "int8_tok")
+            ops.flash_decode(torch.zeros(1, 2, 4, 32), kv, kv, 3, impl="kernel")
+        else:
+            ops.rmsnorm_stats(torch.ones(4, 64), impl="kernel")
 
 
 def test_auto_on_cpu_runs_the_plain_version_and_counts_no_launch():
