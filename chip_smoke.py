@@ -11,7 +11,9 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
 3. each kernel at the main paths' full-width shapes against its plain
    PyTorch version on the same inputs, with its tolerance; times (CUDA events,
    L2 flushed before every launch, median), the bound from the card's data
-   sheet and, where one PyTorch call computes the same function, its time;
+   sheet and, where one PyTorch call computes the same function, its time
+   (W8A8: ``torch._int_mm`` on the K-major weight the kernel reads, and on a
+   row-major copy), each relaunch bit-equal to the first;
 4. the two main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens:
@@ -47,7 +49,7 @@ from repro_torch.core import kvq  # noqa: E402
 from repro_torch.core import mxint4 as mx  # noqa: E402
 from repro_torch.core import retention as ret  # noqa: E402
 from repro_torch.kernels import hopper, ops, ref  # noqa: E402
-from repro_torch.models import layers, lm  # noqa: E402
+from repro_torch.models import deploy, layers, lm  # noqa: E402
 from repro_torch.serving.engine import EngineSpec, InferenceEngine  # noqa: E402
 from repro_torch.serving.sampling import GenerationConfig  # noqa: E402
 
@@ -186,15 +188,19 @@ def kernel_phase_mxint4(peaks):
         got = ops.mxint4_matmul(x, q, os_, rs, b, impl="kernel")
         want = ref.mxint4_matmul_ref(x, q, os_, rs, b)
         err = _check(f"mxint4 {k}x{n}", got, want, 1e-5, 1e-5)
+        if not torch.equal(got, ops.mxint4_matmul(x, q, os_, rs, b, impl="kernel")):
+            raise RuntimeError(f"mxint4 {k}x{n}: two launches differ")
         w_deq = mx.dequantize_mxint4(q, dtype=torch.float32)
         nbytes = 4 * m * k + k * n // 2 + k * n // 32 + 4 * (2 * n + m) + 4 * m * n
         bms, by = bound_ms(nbytes, 2 * m * k * n, peaks["f32"], peaks)
+        ms = time_ms(lambda: ops.mxint4_matmul(x, q, os_, rs, b, impl="kernel"))
         rows.append(dict(
-            path=arch, shape=[m, k, n], per_step=count, max_abs_err=err,
-            ms=time_ms(lambda: ops.mxint4_matmul(x, q, os_, rs, b, impl="kernel")),
+            path=arch, shape=[m, k, n], per_step=count, max_abs_err=err, ms=ms,
             call_ms=call_ms(lambda: ops.mxint4_matmul(x, q, os_, rs, b, impl="kernel")),
             plain_ms=time_ms(lambda: ref.mxint4_matmul_ref(x, q, os_, rs, b)),
-            library_ms=time_ms(lambda: x @ w_deq), bound_ms=bms, bound_by=by))
+            library_ms=time_ms(lambda: x @ w_deq), bound_ms=bms, bound_by=by,
+            plan=hopper.mxint4_plan(m, n, k), rate=f"{nbytes / ms / 1e6:.1f} GB/s",
+            bound_share=bms / ms))
         del w_deq
     return rows
 
@@ -205,25 +211,38 @@ def kernel_phase_w8a8(peaks):
                                  + _linear_cases(QWEN3, BATCH * PROMPT, BATCH)):
         g = _gen(m + k + n)
         xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda").to(torch.int8)
-        wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda").to(torch.int8)
+        # K-major, as deploy stores the main path's weights.
+        wq = deploy.k_major(torch.randint(-127, 128, (k, n), generator=g,
+                                          device="cuda").to(torch.int8))
         sc = torch.tensor(1e-4, device="cuda")
         rs = torch.rand(m, generator=g, device="cuda") + 0.5
         b = torch.randn(n, generator=g, device="cuda")
         got = ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")
         want = ref.w8a8_matmul_ref(xq, wq, sc, rs, b)
         err = _check(f"w8a8 {m}x{k}x{n}", got, want, 0.0, 0.0)   # exact
+        if not torch.equal(got, ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")):
+            raise RuntimeError(f"w8a8 {m}x{k}x{n}: two launches differ")
         # torch._int_mm needs M > 16: the M = 2 lm_head is timed padded to 32
-        # rows (noted as library_rows).
+        # rows (noted as library_rows).  library_ms takes the K-major weight
+        # (cuBLASLt's int8 "TN" layout, the one the kernel reads);
+        # library_rowmajor_ms the row-major copy earlier runs timed.
         xl = xq if m > 16 else F.pad(xq, (0, 0, 0, 32 - m))
         nbytes = m * k + k * n + 4 * (2 * n + m) + 4 * m * n
         bms, by = bound_ms(nbytes, 2 * m * k * n, peaks["int8"], peaks)
+        ms = time_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel"))
+        lib = time_ms(lambda: torch._int_mm(xl, wq))
+        w_row = wq.contiguous()
+        lib_row = time_ms(lambda: torch._int_mm(xl, w_row))
+        del w_row
         rows.append(dict(
-            path=arch, shape=[m, k, n], per_prefill=count, max_abs_err=err,
-            ms=time_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")),
+            path=arch, shape=[m, k, n], per_prefill=count, max_abs_err=err, ms=ms,
             call_ms=call_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")),
             plain_ms=time_ms(lambda: ref.w8a8_matmul_ref(xq, wq, sc, rs, b)),
-            library_ms=time_ms(lambda: torch._int_mm(xl, wq)),
-            library_rows=xl.shape[0], bound_ms=bms, bound_by=by))
+            library_ms=lib, library_rowmajor_ms=lib_row, library_rows=xl.shape[0],
+            bound_ms=bms, bound_by=by, plan=hopper.w8a8_plan(m, n),
+            rate=f"{2 * m * k * n / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.1f} GB/s",
+            library_rate=f"{2 * xl.shape[0] * k * n / lib / 1e9:.1f} TOP/s",
+            bound_share=bms / ms))
     return rows
 
 
@@ -350,15 +369,18 @@ def summarize(name, rows, per_key, tol):
     b = total("bound_ms", main)
     by_ops = sum(r["bound_ms"] * r[per_key] for r in rows
                  if main(r) and r["bound_by"] == "operations")
-    per_path = {p: {key: total(key, lambda r, p=p: r["path"] == p)
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
+        ("library_rowmajor_ms",) if "library_rowmajor_ms" in rows[0] else ())
+    per_path = {p: {key: total(key, lambda r, p=p: r["path"] == p) for key in keys}
                 for p in dict.fromkeys(r["path"] for r in rows)}
-    return dict(name=name, route="cuda", source=SRC[name][0], replaces=SRC[name][1],
-                launches=None, max_abs_err=max(r["max_abs_err"] for r in rows),
-                tolerance=tol, per=per_key.replace("per_", ""),
-                ms=total("ms", main), plain_ms=total("plain_ms", main), bound_ms=b,
-                bound_by="operations" if by_ops > b / 2 else "bytes",
-                library_ms=total("library_ms", main), per_path=per_path, shapes=rows)
+    entry = dict(name=name, route="cuda", source=SRC[name][0], replaces=SRC[name][1],
+                 launches=None, max_abs_err=max(r["max_abs_err"] for r in rows),
+                 tolerance=tol, per=per_key.replace("per_", ""),
+                 ms=total("ms", main), plain_ms=total("plain_ms", main), bound_ms=b,
+                 bound_by="operations" if by_ops > b / 2 else "bytes",
+                 library_ms=total("library_ms", main))
+    entry.update({key: total(key, main) for key in keys[4:]})
+    return dict(entry, per_path=per_path, shapes=rows)
 
 
 def expected_launches(path: dict) -> tuple[dict, dict]:
@@ -672,6 +694,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("== kernel phases (full-width shapes; times in ms, median, cold L2)")
+    one = torch.zeros(1, device="cuda")
+    log(f"time_ms floor (one 1-element fill per replay): {time_ms(lambda: one.fill_(1.0)):.4f}")
     entries = [
         summarize("mxint4_matmul", kernel_phase_mxint4(peaks), "per_step",
                   "rtol=atol=1e-5"),
@@ -685,10 +709,13 @@ def main() -> int:
     ]
     for e in entries:
         for r in e["shapes"]:
+            extra = "".join(f" {key} {r[key]}" for key in (
+                "library_rowmajor_ms", "rate", "library_rate", "bound_share", "plan")
+                if key in r)
             log(f"  {e['name']} {r['path']} {r['shape']}: kernel {r['ms']:.4f} (per call "
                 f"{r['call_ms']:.4f}) plain {r['plain_ms']:.4f} library "
                 f"{r['library_ms']} bound {r['bound_ms']:.4f} ({r['bound_by']}) "
-                f"err {r['max_abs_err']:.2e}")
+                f"err {r['max_abs_err']:.2e}{extra}")
     log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 
     serving, by_path = {}, {}

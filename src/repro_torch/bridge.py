@@ -7,6 +7,7 @@ and are sliced per layer.  Every leaf is copied byte for byte, so int8 and
 uint8 quantized leaves keep their exact bits.  numpy has no bfloat16 of its
 own: jax's bf16 arrays arrive as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects, so they are reinterpreted through ``uint16``.
+A deployed ``w8_vals`` is stored K-major, as `deploy.k_major` holds it.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import deploy, lm
 from repro_torch.models import mlp as M
 from repro_torch.models import retnet as R
 from repro_torch.models.config import ModelConfig
@@ -37,8 +38,10 @@ def _layer(tree, i):
 
 
 def _linear(d: dict, device) -> Linear:
-    return Linear(to_tensor(d["w"], device) if "w" in d else None,
-                  **{k: to_tensor(d[k], device) for k in FORMATS if k in d})
+    formats = {k: to_tensor(d[k], device) for k in FORMATS if k in d}
+    if "w8_vals" in formats:
+        formats["w8_vals"] = deploy.k_major(formats["w8_vals"])
+    return Linear(to_tensor(d["w"], device) if "w" in d else None, **formats)
 
 
 def _norm(d: dict, device) -> Norm:

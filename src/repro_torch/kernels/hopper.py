@@ -4,8 +4,13 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``.  The
 build happens at first use, one ``nvcc`` per source, all started together,
 into ``<checkout>/build/repro_torch_kernels`` (``REPRO_TORCH_BUILD_DIR``
-overrides it).  A library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and never loaded stale.
+overrides it).  A library's file name carries a hash of its source, of every
+header it includes from ``csrc/``, and of its compile and link flags, so an
+edited source or header is rebuilt and never loaded stale.
+
+The two GEMM kernels take their tile shape (and MXINT4 its K split) from
+planners here (`w8a8_plan`, `mxint4_plan`), plain functions of the shape
+that the CPU tests reach.
 
 The launch functions here check device, dtype, shape, contiguity and
 alignment, launch on PyTorch's current stream, raise on a nonzero
@@ -16,8 +21,10 @@ this module is imported or built until a kernel is launched on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,6 +37,10 @@ KERNELS = ("mxint4_matmul", "w8a8_matmul", "retention_chunkwise", "flash_decode"
            "rmsnorm_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Link flags per kernel: the W8A8 GEMM encodes its TMA descriptors with
+# libcuda's cuTensorMapEncodeTiled.
+LINK_FLAGS = {"w8a8_matmul": ("-lcuda",)}
 
 # Launches per kernel since the last `reset_launches()`; bumped only where a
 # kernel is launched.
@@ -66,10 +77,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str, csrc: Path | None = None) -> list[Path]:
+    """``<name>.cu`` and every header it includes from ``csrc``, transitively
+    (``#include "..."``; system headers are the toolkit's)."""
+    csrc = CSRC if csrc is None else csrc
+    todo, seen = [csrc / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (path.parent / inc).exists():
+                todo.append((path.parent / inc).resolve())
+    return seen
+
+
+def _lib_path(name: str, csrc: Path | None = None) -> Path:
+    h = hashlib.sha256()
+    for path in sources(name, csrc):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _link_flags(name: str, nvcc: str) -> list[str]:
+    flags = list(LINK_FLAGS.get(name, ()))
+    stubs = Path(nvcc).resolve().parents[1] / "lib64" / "stubs"
+    if "-lcuda" in flags and stubs.is_dir():
+        # Link against the toolkit's stub; the installed libcuda.so.1 is
+        # loaded at run time (PyTorch has loaded it already).
+        flags.insert(0, f"-L{stubs}")
+    return flags
 
 
 def build(names=KERNELS) -> dict[str, str]:
@@ -87,7 +129,9 @@ def build(names=KERNELS) -> dict[str, str]:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        nvcc = _nvcc()
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *_link_flags(name, nvcc)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
@@ -117,12 +161,10 @@ def _lib(name: str) -> ctypes.CDLL:
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "mxint4_matmul":
         fn = lib.mxint4_matmul_launch
-        fn.argtypes = [_P] * 9 + [_I] * 5 + [_P]
-        for query in (lib.mxint4_tile_m, lib.mxint4_tile_n):
-            query.argtypes, query.restype = [], _I
+        fn.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     elif name == "w8a8_matmul":
         fn = lib.w8a8_matmul_launch
-        fn.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+        fn.argtypes = [_P] * 6 + [_I] * 4 + [_P]
     elif name == "retention_chunkwise":
         fn = lib.retention_chunkwise_launch
         fn.argtypes = [_P] * 7 + [_I] * 5 + [_P]
@@ -163,6 +205,49 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+# MXINT4 decode GEMV (csrc/mxint4_matmul.cu).  A block covers 256 output
+# columns and `tm` rows of x; each thread owns `c` columns and loads 32
+# bytes of weights per batch, the next batch in flight while it computes
+# this one.  A batch of the block is MXINT4_ROWS K rows for every
+# instantiated (tm, c), and a K split is a whole number of batches.
+MXINT4_TILE_N = 256
+MXINT4_ROWS = 64
+MXINT4_TILES = {1: 32, 2: 32, 4: 16, 8: 8}      # tm -> columns per thread
+MXINT4_MIN_BLOCK_BYTES = 16 << 10                # weight bytes per block
+
+
+@functools.lru_cache(maxsize=None)
+def mxint4_plan(m: int, n: int, k: int, sms: int = 132) -> dict:
+    """Tile and K split of one MXINT4 launch.
+
+    ``tm`` is the smallest instantiated row tile that holds M (8 rows per
+    tile above that), so no FMA runs on a padding row of a decode batch.
+    K is split into runs of whole MXINT4_ROWS batches, each at least
+    MXINT4_MIN_BLOCK_BYTES of weights so a block streams enough to cover its
+    fixed cost.  Among those splits the plan minimises the rows a block
+    streams times the waves of blocks (two blocks fit on an SM), plus a
+    per-split charge for the partials' round trip; the constants come from
+    sweeping the split at the main-path shapes on an H100 (PERF.md).
+    Plans are cached: the search would otherwise cost the host tens of
+    microseconds per decode launch.  Callers must not modify the dict.
+    """
+    tm = next((t for t in MXINT4_TILES if t >= m), max(MXINT4_TILES))
+    tiles = -(-n // MXINT4_TILE_N) * -(-m // tm)
+    min_rows = MXINT4_MIN_BLOCK_BYTES // (MXINT4_TILE_N // 2)
+    best = None
+    for want in range(1, max(1, k // min_rows) + 1):
+        k_per = -(-k // want)
+        k_per += (-k_per) % MXINT4_ROWS
+        splits = -(-k // k_per)
+        waves = -(-tiles * splits // (2 * sms))
+        cost = waves * (k_per + 128) + 6 * splits
+        if best is None or (cost, splits) < best[0]:
+            best = ((cost, splits), dict(tm=tm, c=MXINT4_TILES[tm], tiles=tiles,
+                                         splits=splits, k_per=k_per,
+                                         blocks=tiles * splits))
+    return best[1]
+
+
 def mxint4_matmul(x, packed, exps_packed, out_scale, row_scale, bias):
     """f32 x ``[M, K]`` times MXINT4 ``W[K, N]`` with the Eq. (4) epilogue."""
     lib = _lib("mxint4_matmul")
@@ -171,32 +256,34 @@ def mxint4_matmul(x, packed, exps_packed, out_scale, row_scale, bias):
     if n % 32:
         raise ValueError(f"mxint4_matmul: N={n} must be a multiple of 32")
     _check("x", x, torch.float32, (m, k))
-    _check("packed", packed, torch.int8, (k, n // 2))
+    _check("packed", packed, torch.int8, (k, n // 2), align=16)
     _check("exps_packed", exps_packed, torch.uint8, (k, n // 32), align=1)
     for nm, t, size in (("out_scale", out_scale, n), ("row_scale", row_scale, m),
                         ("bias", bias, n)):
         _check(nm, t, torch.float32, (size,))
-    tile_m, tile_n = lib.mxint4_tile_m(), lib.mxint4_tile_n()
-    tiles = -(-n // tile_n) * -(-m // tile_m)
-    # Split K over blocks until about two blocks per SM (132 on the H100)
-    # have work; each split keeps at least 64 rows of K.
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = max(1, min(k // 64, -(-2 * sms // tiles)))
-    k_per = -(-k // splits)
-    k_per += (-k_per) % 8
-    splits = -(-k // k_per)
+    plan = mxint4_plan(m, n, k, _sms(x.device))
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
-    partials = (torch.empty(splits, m, n, dtype=torch.float32, device=x.device)
-                if splits > 1 else out)
-    tickets = _tickets(x.device, tiles)
+    partials = (torch.empty(plan["splits"], m, n, dtype=torch.float32, device=x.device)
+                if plan["splits"] > 1 else out)
+    tickets = _tickets(x.device, plan["tiles"])
     err = lib.mxint4_matmul_launch(
         x.data_ptr(), packed.data_ptr(), exps_packed.data_ptr(),
         out_scale.data_ptr(), row_scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
-        m, n, k, splits, k_per, _stream())
+        m, n, k, plan["tm"], plan["splits"], plan["k_per"], _stream())
     _raise_if(err, "mxint4_matmul")
     LAUNCHES["mxint4_matmul"] += 1
     return out
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _tickets(device: torch.device, count: int) -> torch.Tensor:
@@ -210,15 +297,64 @@ def _tickets(device: torch.device, count: int) -> torch.Tensor:
     return t
 
 
+# W8A8 GEMM (csrc/w8a8_matmul.cu): (BM, BN, stages) of each instantiated
+# tile, by the index the kernel takes.  BK is 128 bytes of K, one 128-byte
+# swizzled TMA row; a stage holds A [BM x BK] and W^T [BN x BK].
+W8A8_BK = 128
+W8A8_TILES = ((128, 128, 6), (128, 256, 4), (64, 256, 5), (64, 128, 8))
+W8A8_SMALL_M = 64          # M up to this runs one masked m64 row of tiles
+# Tiles in order of preference, the most efficient first: on an H100 the
+# 128 x 256 tile ran its main loop faster than 128 x 128, and one wave of
+# large tiles beat two waves of smaller ones, or a K split, at every
+# main-path shape (PERF.md).
+W8A8_ORDER = {False: (1, 0, 3), True: (2, 3)}    # keyed by M <= W8A8_SMALL_M
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_plan(m: int, n: int, sms: int = 132) -> dict:
+    """Tile of one W8A8 launch (one block per SM: a block takes about 192 KB
+    of shared memory, and runs the whole of K).
+
+    The plan takes the first tile of W8A8_ORDER that gives at least 90 % of
+    the SMs a block, with its last wave at least 75 % full; failing that,
+    the tile with the most blocks.  Plans are cached; callers must not
+    modify the dict.
+    """
+    def count(cfg):
+        bm, bn, _ = W8A8_TILES[cfg]
+        return -(-m // bm) * -(-n // bn)
+
+    order = W8A8_ORDER[m <= W8A8_SMALL_M]
+    full = [c for c in order
+            if count(c) >= 0.9 * sms and count(c) / (-(-count(c) // sms) * sms) >= 0.75]
+    cfg = full[0] if full else max(order, key=count)
+    bm, bn, stages = W8A8_TILES[cfg]
+    return dict(cfg=cfg, bm=bm, bn=bn, stages=stages, blocks=count(cfg))
+
+
+def check_w8_layout(w_q: torch.Tensor) -> None:
+    """W8A8's weight must be ``[K, N]`` held K-major (``w_q.t()`` contiguous,
+    as deploy stores it) and 16-byte aligned: TMA reads it as rows of K.
+    Raises otherwise; the kernel never relayouts W."""
+    if w_q.ndim != 2 or not w_q.t().is_contiguous():
+        raise ValueError("w8a8_matmul: w_q must be [K, N] stored K-major "
+                         "(w_q.t() contiguous, see deploy.k_major), got strides "
+                         f"{tuple(w_q.stride())}")
+    if w_q.data_ptr() % 16:
+        raise ValueError("w8a8_matmul: w_q must be 16-byte aligned")
+
+
 def w8a8_matmul(x_q, w_q, out_scale, row_scale, bias):
-    """int8 ``[M, K]`` x int8 ``[K, N]`` -> f32, exact int32 accumulate."""
+    """int8 ``[M, K]`` x int8 ``[K, N]`` (K-major) -> f32, exact int32
+    accumulate."""
     lib = _lib("w8a8_matmul")
     m, k = x_q.shape
     n = w_q.shape[1]
     if k % 16 or n % 16:
         raise ValueError(f"w8a8_matmul: K={k} and N={n} must be multiples of 16")
+    check_w8_layout(w_q)
     _check("x_q", x_q, torch.int8, (m, k), align=16)
-    _check("w_q", w_q, torch.int8, (k, n), align=16)
+    _check("w_q.t()", w_q.t(), torch.int8, (n, k), align=16)
     for nm, t, size in (("out_scale", out_scale, n), ("row_scale", row_scale, m),
                         ("bias", bias, n)):
         _check(nm, t, torch.float32, (size,))
@@ -226,7 +362,7 @@ def w8a8_matmul(x_q, w_q, out_scale, row_scale, bias):
     err = lib.w8a8_matmul_launch(
         x_q.data_ptr(), w_q.data_ptr(), out_scale.data_ptr(),
         row_scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k,
-        _stream())
+        w8a8_plan(m, n, _sms(x_q.device))["cfg"], _stream())
     _raise_if(err, "w8a8_matmul")
     LAUNCHES["w8a8_matmul"] += 1
     return out
@@ -312,7 +448,7 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
     vc, v0, v1 = _cache_operand("v", v_parts, v_fmt, (b, c, kv), dv)
     # Split the kv_len rows into whole tiles until about two blocks per SM
     # (132 on the H100) have work.
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    sms = _sms(q.device)
     tiles = -(-kv_len // tile)
     splits = max(1, min(tiles, -(-2 * sms // (b * kv))))
     rows = -(-tiles // splits) * tile

@@ -65,7 +65,12 @@ def mxint4_matmul(x, q: MXINT4Weight, out_scale=None, row_scale=None, bias=None,
 
 def w8a8_matmul(x_q, w_q, combined_scale, row_scale=None, bias=None, *,
                 out_dtype=torch.float32, impl: str = "auto") -> torch.Tensor:
-    """Prefill MMM path: int8 x int8 -> int32, then the drain epilogue."""
+    """Prefill MMM path: int8 x int8 -> int32, then the drain epilogue.
+
+    The kernel takes ``w_q`` ``[K, N]`` K-major (``w_q.t()`` contiguous, as
+    `deploy.k_major` stores it) and raises on any other layout: W is never
+    copied per call.
+    """
     lead, k, n = x_q.shape[:-1], x_q.shape[-1], w_q.shape[1]
     x2 = x_q.reshape(-1, k)
     rs = None if row_scale is None else row_scale.reshape(-1)
@@ -74,7 +79,7 @@ def w8a8_matmul(x_q, w_q, combined_scale, row_scale=None, bias=None, *,
         return y.reshape(*lead, n)
     from repro_torch.kernels import hopper
     y = hopper.w8a8_matmul(
-        x2.contiguous(), w_q.contiguous(), _vec(combined_scale, n, 1.0, x2),
+        x2.contiguous(), w_q, _vec(combined_scale, n, 1.0, x2),
         _vec(rs, x2.shape[0], 1.0, x2), _vec(bias, n, 0.0, x2))
     return y.to(out_dtype).reshape(*lead, n)
 

@@ -6,7 +6,9 @@
                  mx_packed, mx_exps (decode MXINT4, where N % 32 == 0) [, b]
 
 and drops the master weight (the reference keeps MLA's ``wk_b``/``wv_b``
-masters; no ported model has them).  It works in place, one linear at a
+masters; no ported model has them).  ``w8_vals`` keeps the reference's
+logical ``[K, N]`` shape and values but is stored K-major (`k_major`), the
+layout the int8 tensor-core GEMM reads, so no call ever transposes it.  It works in place, one linear at a
 time, so a full-width model never holds its master and deployed weights at
 once.  Per-layer modules quantize per layer, as the reference's vmap over
 its ``[L, ...]`` stacks does.
@@ -26,6 +28,12 @@ def _mx_ok(w: torch.Tensor) -> bool:
     return w.shape[-1] % (2 * mx.GROUP_SIZE) == 0
 
 
+def k_major(w8: torch.Tensor) -> torch.Tensor:
+    """``[K, N]`` int8 -> the same ``[K, N]`` values held as the transpose of a
+    contiguous ``[N, K]`` buffer (``w8.t().is_contiguous()``)."""
+    return w8.t().contiguous().t()
+
+
 def is_master(model: nn.Module) -> bool:
     """True while the model still carries un-deployed master weights."""
     head = model.lm_head
@@ -40,7 +48,7 @@ def deploy_quantize(model: nn.Module) -> nn.Module:
             continue
         w = lin.w.data
         q8 = mx.quantize_int8_tensor(w)
-        lin.w8_vals, lin.w8_scale = q8.values, q8.scale
+        lin.w8_vals, lin.w8_scale = k_major(q8.values), q8.scale
         if _mx_ok(w):
             q4 = mx.quantize_mxint4(w)
             lin.mx_packed, lin.mx_exps = q4.packed, q4.exps_packed

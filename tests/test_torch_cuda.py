@@ -7,6 +7,8 @@ package, so it runs on a machine without them:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,7 @@ from repro_torch.core import kvq
 from repro_torch.core import mxint4 as mx
 from repro_torch.core import retention as ret
 from repro_torch.kernels import hopper, ops, ref
-from repro_torch.models import layers
+from repro_torch.models import deploy, layers
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +56,42 @@ def test_mxint4_matmul_kernel(m, k, n):
     assert torch.equal(got, again), "split-K reduction must be deterministic"
 
 
+# Every linear shape (K, N) of the retnet-1.3b and qwen3-8b main paths.
+MAIN_SHAPES = [(2048, 2048), (2048, 4096), (4096, 2048), (2048, 32768),
+               (4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096),
+               (4096, 152064)]
+
+
+@functools.lru_cache(maxsize=2)
+def _mx_weight(k, n):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(k * 7 + n)
+    return mx.quantize_mxint4(torch.randn(k, n, generator=g, device="cuda") * k ** -0.5)
+
+
+@pytest.mark.parametrize("k,n", MAIN_SHAPES)
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9])
+def test_mxint4_matmul_kernel_main_shapes(k, n, m):
+    """Each row tile (1, 2, 4, 8; 9 rows take two) at every main-path shape:
+    within 1e-5 of the plain version, relaunches bit-equal."""
+    q = _mx_weight(k, n)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(m)
+    x = torch.randn(m, k, generator=g, device="cuda")
+    os_ = torch.rand(n, generator=g, device="cuda") + 0.5
+    rs = torch.rand(m, generator=g, device="cuda") + 0.5
+    b = torch.randn(n, generator=g, device="cuda")
+    got = ops.mxint4_matmul(x, q, os_, rs, b, impl="kernel")
+    torch.testing.assert_close(got, ref.mxint4_matmul_ref(x, q, os_, rs, b),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ops.mxint4_matmul(x, q, os_, rs, b, impl="kernel"))
+
+
+def _w8(rng, k, n):
+    """A random int8 weight [K, N] stored K-major, as deploy stores it."""
+    return deploy.k_major(_t(rng.integers(-127, 128, (k, n)).astype(np.int8)))
+
+
 @pytest.mark.parametrize("m,k,n", [
     (1024, 2048, 2048), (1024, 4096, 2048), (2, 2048, 32768),
     (5, 64, 96), (16, 128, 64), (1, 32, 32), (130, 48, 208),
@@ -61,7 +99,7 @@ def test_mxint4_matmul_kernel(m, k, n):
 def test_w8a8_matmul_kernel(m, k, n):
     rng = _gen(m + k + n)
     xq = _t(rng.integers(-127, 128, (m, k)).astype(np.int8))
-    wq = _t(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    wq = _w8(rng, k, n)
     rs = _t(rng.normal(size=(m,)).astype(np.float32))
     b = _t(rng.normal(size=(n,)).astype(np.float32))
     got = ops.w8a8_matmul(xq, wq, 0.01, rs, b, impl="kernel")
@@ -70,6 +108,36 @@ def test_w8a8_matmul_kernel(m, k, n):
     acc = ops.w8a8_matmul(xq, wq, 1.0, impl="kernel")
     exact = (xq.double() @ wq.double()).float()
     assert torch.equal(acc, exact)
+
+
+@pytest.mark.parametrize("m,k,n", (
+    [(1024, k, n) for k, n in MAIN_SHAPES[:-1]]
+    + [(m, 4096, 4096) for m in (1, 2, 17, 64, 65, 1000)]
+    + [(2, 4096, 152064), (17, 4096, 208), (1000, 48, 4096), (65, 48, 208)]))
+def test_w8a8_matmul_kernel_shapes(m, k, n):
+    """Every main-path shape at M = 1024, the small-M tiles and their edge
+    (64 / 65 rows), the M = 2 lm_head, N ragged against the tile (208) and K
+    shorter than one stage (48): bit-exact, relaunches bit-equal."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(m + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda").to(torch.int8)
+    wq = deploy.k_major(torch.randint(-127, 128, (k, n), generator=g,
+                                      device="cuda").to(torch.int8))
+    sc = torch.tensor(1e-4, device="cuda")
+    rs = torch.rand(m, generator=g, device="cuda") + 0.5
+    b = torch.randn(n, generator=g, device="cuda")
+    got = ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")
+    torch.testing.assert_close(got, ref.w8a8_matmul_ref(xq, wq, sc, rs, b),
+                               rtol=0, atol=0)
+    assert torch.equal(got, ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel"))
+
+
+def test_w8a8_matmul_kernel_rejects_row_major_weight():
+    xq = torch.zeros(64, 256, dtype=torch.int8, device="cuda")
+    wq = torch.zeros(256, 128, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="K-major"):
+        ops.w8a8_matmul(xq, wq, 1.0, impl="kernel")
+    assert ops.w8a8_matmul(xq, deploy.k_major(wq), 1.0, impl="kernel").shape == (64, 128)
 
 
 @pytest.mark.parametrize("b,h,s,dk,dv,chunk,warm", [
