@@ -7,13 +7,16 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every Hopper kernel from ``src/repro_torch/kernels/csrc`` (nvcc,
-   one process per source, in parallel);
+   one process per source and variant, in parallel), with each kernel's
+   registers, shared memory and spills from ``-Xptxas -v``;
 3. each kernel at the main paths' full-width shapes against its plain
    PyTorch version on the same inputs, with its tolerance; times (CUDA events,
    L2 flushed before every launch, median), the bound from the card's data
    sheet and, where one PyTorch call computes the same function, its time
    (W8A8: ``torch._int_mm`` on the K-major weight the kernel reads, and on a
-   row-major copy), each relaunch bit-equal to the first;
+   row-major copy; flash-decode: ``scaled_dot_product_attention`` with
+   ``enable_gqa`` on the f32 cache's views, and on K/V expanded to every
+   query head), each relaunch bit-equal to the first;
 4. the two main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens:
@@ -35,6 +38,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -285,22 +289,44 @@ def _cache_leaf(x: torch.Tensor, fmt: str):
     """A cache leaf in one of the kernel's formats (legacy int8: q / 32)."""
     if fmt in kvq.FORMATS:
         return kvq.encode(x, fmt)
-    return layers.to_cache_dtype(x, torch.int8 if fmt == "int8" else torch.float32)
+    return layers.to_cache_dtype(x, {"f32": torch.float32, "bf16": torch.bfloat16,
+                                     "int8": torch.int8}[fmt])
+
+
+def sdpa_backend(fn) -> str:
+    """The backend one `scaled_dot_product_attention` call took, read from
+    the CUDA kernels it ran (torch.profiler), with their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not names:
+        return "not measured"
+    text = " ".join(names).lower()
+    kind = next((k for k, marks in (("flash", ("flash",)), ("cudnn", ("cudnn",)),
+                                    ("efficient", ("fmha", "efficient", "cutlassf")))
+                 if any(m in text for m in marks)), "math")
+    return f"{kind}: " + "; ".join(n[:48] for n in names[:4])
 
 
 def kernel_phase_flash_decode(peaks):
     """qwen3-8b decode attention: B = 2, KV = 8, G = 4, d = 128, C = 544, in
     every cache format.  Checked at kv_len 1, 257 and 544, timed at 528; the
-    f32 cache (the default ``cache_format=None``) is the main-path unit, and
-    `scaled_dot_product_attention` with K/V expanded to the 32 query heads
-    is its library yardstick."""
+    f32 cache (the default ``cache_format=None``) is the main-path unit.
+    Its library yardsticks are `scaled_dot_product_attention` on the f32
+    K/V: ``library_gqa_ms`` with ``enable_gqa=True`` on the un-expanded
+    ``[B, KV, n, d]`` views, and ``library_ms`` on K/V copied and expanded
+    to the 32 query heads (4x the bytes).  No single PyTorch call reads an
+    encoded cache."""
     b, kvh, g, d, c, n = BATCH, QWEN3["kv"], QWEN3["g"], QWEN3["hd"], CACHE_LEN, DECODE_KV_LEN
     gen = _gen(11)
     q = torch.randn(b, kvh, g, d, generator=gen, device="cuda")
     k32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
     v32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
     rows = []
-    for fmt in ("f32", "int8", "int8_tok", "mxint4_blk"):
+    for fmt in ("f32", "bf16", "int8", "int8_tok", "mxint4_blk"):
         k, v = _cache_leaf(k32, fmt), _cache_leaf(v32, fmt)
         err = 0.0
         for kv_len in DECODE_CHECK_LENS:
@@ -310,25 +336,50 @@ def kernel_phase_flash_decode(peaks):
                                   2e-5, 2e-6))
             if not torch.equal(got, ops.flash_decode(q, k, v, kv_len, impl="kernel")):
                 raise RuntimeError(f"flash_decode {fmt}: two launches differ")
-        row_bytes = {"f32": 4 * d, "int8": d}.get(fmt) or kvq.nbytes_per_row(fmt, d)
+        row_bytes = {"f32": 4 * d, "bf16": 2 * d, "int8": d}.get(fmt) or kvq.nbytes_per_row(fmt, d)
         nbytes = 2 * 4 * b * kvh * g * d + 2 * n * b * kvh * row_bytes
         bms, by = bound_ms(nbytes, 4 * b * kvh * g * n * d, peaks["f32"], peaks)
-        lib = None
+        extra = {}
         if fmt == "f32":
             qs = q.reshape(b, kvh * g, 1, d)
-            ks, vs = (t[:, :n].permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
-                      for t in (k32, v32))
-            lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
-        path = {"f32": QWEN3["arch"], "int8": "legacy int8 (no model path)"}.get(
-            fmt, f"{QWEN3['arch']} {fmt}")
-        rows.append(dict(
+            kg, vg = (t[:, :n].permute(0, 2, 1, 3) for t in (k32, v32))
+            gqa = lambda: F.scaled_dot_product_attention(qs, kg, vg, enable_gqa=True)  # noqa: E731
+            lib_err = (gqa().reshape(b, kvh, g, d) - ref.flash_decode_ref(q, k, v, n)
+                       ).abs().max().item()
+            ks, vs = (t.repeat_interleave(g, dim=1).contiguous() for t in (kg, vg))
+            extra = dict(library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+                         library_gqa_ms=time_ms(gqa), library_backend=sdpa_backend(gqa),
+                         library_max_abs_err=lib_err)
+            del ks, vs
+        path = {"f32": QWEN3["arch"], "bf16": "bf16 (no model path)",
+                "int8": "legacy int8 (no model path)"}.get(fmt, f"{QWEN3['arch']} {fmt}")
+        ms = time_ms(lambda: ops.flash_decode(q, k, v, n, impl="kernel"))
+        row = dict(
             path=path, main=fmt == "f32", fmt=fmt, shape=[b, kvh, g, d, c], kv_len=n,
-            per_step=QWEN3["layers"], max_abs_err=err,
-            ms=time_ms(lambda: ops.flash_decode(q, k, v, n, impl="kernel")),
+            per_step=QWEN3["layers"], max_abs_err=err, ms=ms,
             call_ms=call_ms(lambda: ops.flash_decode(q, k, v, n, impl="kernel")),
             plain_ms=time_ms(lambda: ref.flash_decode_ref(q, k, v, n)),
-            library_ms=lib, bound_ms=bms, bound_by=by))
+            library_ms=None, library_gqa_ms=None, bound_ms=bms, bound_by=by,
+            plan={key: val for key, val in hopper.flash_decode_plan(
+                b, kvh, g, d, d, n, fmt, fmt).items() if key != "ranges"},
+            rate=f"{nbytes / ms / 1e6:.1f} GB/s", bound_share=bms / ms)
+        row.update(extra)
+        rows.append(row)
     return rows
+
+
+def ptxas_summary(report: str) -> dict:
+    """Entry functions, registers, shared memory and spills from ``nvcc
+    -Xptxas -v`` output."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", report)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)]
+    stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame", report)]
+    smem = [int(x) for x in re.findall(r"registers, (?:used \d+ barriers, )?(\d+) bytes smem",
+                                       report)]
+    return dict(entries=len(regs), registers=[min(regs, default=0), max(regs, default=0)],
+                static_smem_bytes=max(smem, default=0), stack_bytes=max(stack, default=0),
+                spill_bytes=max(spills, default=0))
 
 
 def kernel_phase_rmsnorm_stats(peaks):
@@ -369,8 +420,8 @@ def summarize(name, rows, per_key, tol):
     b = total("bound_ms", main)
     by_ops = sum(r["bound_ms"] * r[per_key] for r in rows
                  if main(r) and r["bound_by"] == "operations")
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
-        ("library_rowmajor_ms",) if "library_rowmajor_ms" in rows[0] else ())
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
+        key for key in ("library_rowmajor_ms", "library_gqa_ms") if key in rows[0])
     per_path = {p: {key: total(key, lambda r, p=p: r["path"] == p) for key in keys}
                 for p in dict.fromkeys(r["path"] for r in rows)}
     entry = dict(name=name, route="cuda", source=SRC[name][0], replaces=SRC[name][1],
@@ -688,8 +739,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = hopper.build()
     for kname, rep in reports.items():
-        regs = [ln.strip() for ln in rep.splitlines() if "registers" in ln]
-        log(f"built {kname}: {'; '.join(regs)}")
+        log(f"built {kname}: {json.dumps(ptxas_summary(rep))}")
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -710,7 +760,8 @@ def main() -> int:
     for e in entries:
         for r in e["shapes"]:
             extra = "".join(f" {key} {r[key]}" for key in (
-                "library_rowmajor_ms", "rate", "library_rate", "bound_share", "plan")
+                "library_rowmajor_ms", "library_gqa_ms", "library_backend",
+                "library_max_abs_err", "rate", "library_rate", "bound_share", "plan")
                 if key in r)
             log(f"  {e['name']} {r['path']} {r['shape']}: kernel {r['ms']:.4f} (per call "
                 f"{r['call_ms']:.4f}) plain {r['plain_ms']:.4f} library "

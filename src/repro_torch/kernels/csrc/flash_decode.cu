@@ -9,305 +9,646 @@
 //     s[g, r] = (q[b, h, g, :] . K[b, r, h, :]) / sqrt(d)   for r < kv_len
 //     out[b, h, g, :] = softmax_r(s[g, :]) @ V[b, :kv_len, h, :]
 //
-// K and V arrive in the reference's [B, C, KV, d] layout, each in one of five
-// cache formats (template parameters, K and V independent): f32, bf16, legacy
-// int8 (q / 32), int8_tok (q * s per row) and mxint4_blk (packed nibbles,
-// sign-extended in registers, times 2^(e - 2) per 16 values).  Every value is
-// dequantized exactly as `kvq.decode` does, once per row for all G heads.
+// (a given `scale` multiplies instead of dividing by sqrt(d)).  K and V
+// arrive in the reference's [B, C, KV, d] layout, each in one of five cache
+// formats (template parameters, K and V independent): f32, bf16, legacy int8
+// (q / 32), int8_tok (q * s per row) and mxint4_blk (packed nibbles times
+// 2^(e - 2) per 16 values).  Every value is dequantized exactly as
+// `kvq.decode` does, once per element for all the block's query heads.
 //
-// What bounds it on the H100: bytes.  Each cache byte feeds about 2G/elem
-// operations, so the floor is the kv_len rows of K and V (and their scales)
-// over 3.35 TB/s: about 2.6 us per layer for an f32 cache at kv_len 528,
-// B = 2, KV = 8, d = 128, and 0.67 / 0.36 us for int8_tok / mxint4_blk.  At
-// that size launch and tail effects dominate, so the design spreads the rows:
-//   * the grid is (splits, KV, B).  One (b, h) pair per block, as the Pallas
-//     grid walks it, gives only B * KV = 16 blocks for 132 SMs, so the wrapper
-//     splits the kv_len rows into ranges of whole 32-row tiles, about two
-//     blocks per SM in all.  Rows at or past kv_len are never read.
-//   * a block stages G query rows in shared memory, dequantizes a 32-row tile
-//     of K and of V into shared memory (the tail of the last tile masked:
-//     scores -inf, V rows 0), and folds the tile into an online softmax
-//     (m, l, acc[G, dv]) kept in f32, with the reference's finite-max guard.
-//   * each thread issues a batch of independent loads before it stores them
-//     to shared memory, so the rows' memory latencies overlap;
-//   * with more than one split, each block writes its partial (m, l, acc) to a
-//     workspace and the last block of its (b, h) to finish (an atomic ticket)
-//     merges the splits in split order, so two launches are bit-equal.
+// What bounds it on the H100: bytes.  Each cache byte feeds about 2G / elem
+// operations, so the floor is the kv_len rows of K and V (and their side
+// data) over 3.35 TB/s: about 2.6 us per layer for an f32 cache at kv_len
+// 528, B = 2, KV = 8, d = 128, and 0.67 / 0.36 us for int8_tok / mxint4_blk.
+// At that size a launch is a chain of latencies more than a stream of bytes,
+// so the design keeps the chain short:
+//   * the grid is (splits, KV * G-chunks, B).  A block of 4 warps owns one
+//     (b, h), 4 of its query heads, and an even share of the kv_len rows'
+//     16-row tiles, chosen by the wrapper's planner
+//     (`hopper.flash_decode_plan`) for about two blocks per SM; rows at or
+//     past kv_len are never read;
+//   * its tiles stream through a 2-4 stage ring in shared memory filled by
+//     cp.async in 16-byte chunks (the narrow side rows, an int8_tok scale or
+//     a few mxint4 exponent bytes, in chunks of their own width).  Each warp
+//     copies one array (K, V and their side data), so that their first
+//     touches, cold after the rest of a decode step, overlap; a thread's
+//     chunks are fixed for the launch, so no division runs per tile.  The
+//     ring's wait is the only block-wide barrier of the loop;
+//   * each warp owns 4 rows of every tile.  A lane holds 4 consecutive
+//     elements of each 128-wide slot of a row: it dequantizes them from one
+//     vector read of shared memory (16 bytes of f32, 4 of int8, 2 of
+//     nibbles) and forms its part of the 16 (row, head) scores against the
+//     query in registers.  A reduce-scatter of 16 shuffles completes them,
+//     one score per lane pair, so each lane scales and exponentiates one
+//     score and keeps one head's online-softmax state (m, l), with the
+//     reference's finite-max guard; the lanes then share p and the rescale
+//     factors for P.V into acc[G, dv] in registers.  The tile's code has no
+//     branch, so the shuffle chains of its rows and heads interleave;
+//   * at the end of its range the block merges its warps' states in shared
+//     memory in warp order; with more than one split, it writes the result
+//     as a partial (m, l, acc), and the last block of its (b, h) to finish
+//     (an acquire-release ticket) brings every partial into shared memory
+//     in one round of cp.async and merges them in split order.  The order
+//     of every sum is fixed, so two launches are bit-equal.
 // The kernel allocates nothing: the wrapper passes the workspace and the
 // ticket counters (zero on entry, reset to zero by the merging block).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 32;        // cache rows per tile (one per lane)
-constexpr int kThreads = 128;
-constexpr int kMaxDim = 256;     // head dims d, dv
-constexpr int kMaxGroup = 16;    // query heads per kv head
+constexpr int kTile = 16;               // cache rows per ring stage
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = kTile / kWarps;   // rows of a stage per warp
+constexpr int kGroup = 4;               // query heads per block (a G-chunk)
+constexpr int kSlot = 128;              // elements per lane slot: 4 per lane
+constexpr int kMaxDim = 256;            // head dims d, dv
+constexpr int kMaxGroup = 16;           // query heads per kv head
+constexpr int kMaxStages = 4;
+constexpr int kMaxSmem = 226 * 1024;    // dynamic shared memory per block (of 227 KB)
 
 enum Fmt { kF32 = 0, kBF16 = 1, kInt8Legacy = 2, kInt8Tok = 3, kMxint4Blk = 4 };
 
-__device__ __forceinline__ float pow2(int e) {
-  // 2^e for the cache exponents' range (e in [-11, 3]): exact, from the bits.
-  return __int_as_float((e + 127) << 23);
+// Bytes of one cache row of `dim` elements: values, and side data (the
+// int8_tok scale, the mxint4_blk exponents).
+int value_bytes(int f, int dim) {
+  return f == kF32 ? 4 * dim : f == kBF16 ? 2 * dim : f == kMxint4Blk ? dim / 2 : dim;
+}
+int side_bytes(int f, int dim) {
+  return f == kInt8Tok ? 4 : f == kMxint4Blk ? dim / 16 : 0;
+}
+int up16(int n) { return (n + 15) & ~15; }
+
+struct Params {
+  const float* q;                        // [B, KV, G, d]
+  const unsigned char *k0, *k1, *v0, *v1;  // values and side data of K and V
+  float* out;                            // [B, KV, G, dv]
+  float* part_acc;                       // [units][splits][kGroup][dv]
+  float* part_ml;                        // [units][splits][2][kGroup]
+  int* tickets;                          // [units]
+  int C, KV, G, d, dv, kv_len;
+  int tiles, splits, gchunks, stages;
+  int kb, ks, vb, vs;                    // row bytes: K values, K side, V values, V side
+  int off_v, off_ks, off_vs, stage_bytes;   // shared-memory layout of a stage
+  float scale;
+  int scale_is_div;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Element i of cache row `row` (the flat index (b * C + r) * KV + h) of one
-// operand, dequantized to f32.  `p0` holds the values, `p1` the per-row
-// scales (int8_tok) or the per-16 exponents (mxint4_blk).
-template <int F>
-__device__ __forceinline__ float load_elem(const void* p0, const void* p1, size_t row,
-                                           int dim, int i) {
-  if (F == kF32) {
-    return static_cast<const float*>(p0)[row * dim + i];
-  } else if (F == kBF16) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p0)[row * dim + i]);
-  } else if (F == kInt8Legacy) {
-    return (float)static_cast<const int8_t*>(p0)[row * dim + i] * 0.03125f;  // / 32
-  } else if (F == kInt8Tok) {
-    return (float)static_cast<const int8_t*>(p0)[row * dim + i] *
-           static_cast<const float*>(p1)[row];
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (W == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
   } else {
-    const int byte = static_cast<const int8_t*>(p0)[row * (dim / 2) + i / 2];
-    const int mant = (i & 1) ? (byte >> 4) : (((byte & 0x0F) ^ 8) - 8);
-    const int e = static_cast<const int8_t*>(p1)[row * (dim / 16) + i / 16];
-    return (float)mant * pow2(e - 2);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(W) : "memory");
   }
 }
 
-// Dequantize rows [r0, r0 + kTile) of one operand into dst[kTile][ld]; rows
-// at or past r_end read as 0.  Each thread issues kBatch independent loads
-// before its first store, so their memory latencies overlap.
-template <int F>
-__device__ void load_tile(float* dst, int ld, const void* p0, const void* p1, int b,
-                          int h, int C, int KV, int dim, int r0, int r_end) {
-  constexpr int kBatch = 8;
-  const int n = kTile * dim;
-  for (int base = threadIdx.x; base < n; base += kThreads * kBatch) {
-    float v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * kThreads, r = idx / dim, cr = r0 + r;
-      v[u] = (idx < n && cr < r_end)
-          ? load_elem<F>(p0, p1, ((size_t)b * C + cr) * KV + h, dim, idx - r * dim)
-          : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * kThreads, r = idx / dim;
-      if (idx < n) dst[r * ld + idx - r * dim] = v[u];
-    }
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int KF, int VF>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const float* __restrict__ q, const void* k0, const void* k1,
-                    const void* v0, const void* v1, float* __restrict__ out,
-                    float* __restrict__ partials, int* __restrict__ tickets, int C,
-                    int KV, int G, int d, int dv, int kv_len, int rows_per_split,
-                    float scale, int scale_is_div) {
-  extern __shared__ float smem[];
-  const int ldk = d + 1;                       // padded: conflict-free dot rows
-  float* qs = smem;                            // [G][d]
-  float* ks = qs + G * d;                      // [kTile][d + 1]
-  float* vs = ks + kTile * ldk;                // [kTile][dv]
-  float* acc = vs + kTile * dv;                // [G][dv]
-  float* sc = acc + G * dv;                    // [G][kTile] scores, then p
-  float* m = sc + G * kTile;                   // [G]
-  float* l = m + G;                            // [G]
-  float* corr = l + G;                         // [G]
-  float* wts = corr + G;                       // [n_splits][G] merge weights
-  __shared__ int is_last;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
-  const int split = blockIdx.x, n_splits = gridDim.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int bh = b * KV + h;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r_beg = split * rows_per_split;
-  const int r_end = min(kv_len, r_beg + rows_per_split);
-  const float sqrt_d = sqrtf((float)d);
+// Wait until the oldest tile of a ring of `stages` has landed (this
+// thread's copies; the barrier after it covers everyone's).
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  if (stages >= 4) cp_async_wait<2>();
+  else if (stages == 3) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
 
-  for (int i = tid; i < G * d; i += kThreads) qs[i] = q[(size_t)bh * G * d + i];
-  for (int i = tid; i < G * dv; i += kThreads) acc[i] = 0.f;
-  if (tid < G) {
-    m[tid] = -INFINITY;
-    l[tid] = 0.f;
+// Copier t's share of copying one array's tile (of `threads` copiers, 32 or
+// 64), fixed for the launch: its first chunk (row r, chunk c of the row's
+// `chunks`, at most 64) and the step to its next (`threads` chunks: dq rows
+// and dr chunks), packed in one word, so that no division runs per tile.  A
+// power-of-two chunk count (every main-path row) takes shifts.
+__device__ __forceinline__ unsigned copy_plan(int chunks, int t, int threads) {
+  int r, c, dq, dr;
+  if ((chunks & (chunks - 1)) == 0) {
+    const int sh = __ffs(chunks) - 1;
+    r = t >> sh, c = t & (chunks - 1), dq = threads >> sh, dr = threads & (chunks - 1);
+  } else {
+    r = t / chunks, c = t % chunks, dq = threads / chunks, dr = threads % chunks;
   }
+  return min(r, 255) | c << 8 | min(dq, 255) << 16 | (unsigned)dr << 24;
+}
 
-  for (int r0 = r_beg; r0 < r_end; r0 += kTile) {
-    __syncthreads();                           // previous tile fully consumed
-    load_tile<KF>(ks, ldk, k0, k1, b, h, C, KV, d, r0, r_end);
-    load_tile<VF>(vs, dv, v0, v1, b, h, C, KV, dv, r0, r_end);
-    __syncthreads();
-
-    for (int idx = tid; idx < G * kTile; idx += kThreads) {
-      const int g = idx / kTile, r = idx % kTile;
-      float s = 0.f;
-      for (int i = 0; i < d; ++i) s = fmaf(qs[g * d + i], ks[r * ldk + i], s);
-      s = scale_is_div ? s / sqrt_d : s * scale;
-      sc[idx] = (r0 + r < r_end) ? s : -INFINITY;
-    }
-    __syncthreads();
-
-    // Online softmax, one warp per query head, one lane per tile row.
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const float s = sc[g * kTile + lane];
-      float mx = s;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      const float p = expf(s - m_safe);        // masked rows: exp(-inf) = 0
-      float ps = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      sc[g * kTile + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float c = isfinite(m_prev) ? expf(m_prev - m_safe) : 0.f;
-        corr[g] = c;
-        l[g] = l[g] * c + ps;
-        m[g] = m_new;
+// Copy the first `rows` rows of one array's tile in chunks of W bytes: row r
+// lies at src + r * pitch in device memory and goes to dst + r * rb.  W = 2
+// has no cp.async form: those copies go through registers.
+template <int W>
+__device__ __forceinline__ void copy_tile(unsigned char* dst, const unsigned char* src,
+                                          int rb, int pitch, int rows, unsigned plan) {
+  const int chunks = rb / W, dq = (plan >> 16) & 0xff, dr = plan >> 24;
+  int r = plan & 0xff, c = (plan >> 8) & 0xff;
+  if (dr == 0) {           // the chunk count divides the copiers': c is fixed
+    dst += c * W;
+    src += c * W;
+#pragma unroll 4
+    for (; r < rows; r += dq) {
+      if constexpr (W == 2) {
+        *reinterpret_cast<unsigned short*>(dst + r * rb) =
+            __ldg(reinterpret_cast<const unsigned short*>(src + (size_t)r * pitch));
+      } else {
+        cp_async<W>(dst + r * rb, src + (size_t)r * pitch);
       }
     }
-    __syncthreads();
-
-    for (int idx = tid; idx < G * dv; idx += kThreads) {
-      const int g = idx / dv, j = idx % dv;
-      float a = acc[idx] * corr[g];
-      for (int r = 0; r < kTile; ++r) a = fmaf(sc[g * kTile + r], vs[r * dv + j], a);
-      acc[idx] = a;
-    }
-  }
-  __syncthreads();
-
-  if (n_splits == 1) {
-    for (int idx = tid; idx < G * dv; idx += kThreads)
-      out[(size_t)bh * G * dv + idx] = acc[idx] / fmaxf(l[idx / dv], 1e-30f);
     return;
   }
-
-  // Partials of this split: [B * KV][n_splits][G * (2 + dv)] as (m, l, acc).
-  const int per = G * (2 + dv);
-  float* mine = partials + ((size_t)bh * n_splits + split) * per;
-  for (int idx = tid; idx < G * dv; idx += kThreads) mine[2 * G + idx] = acc[idx];
-  if (tid < G) {
-    mine[tid] = m[tid];
-    mine[G + tid] = l[tid];
+  while (r < rows) {
+    unsigned char* to = dst + r * rb + c * W;
+    const unsigned char* from = src + (size_t)r * pitch + c * W;
+    if constexpr (W == 2) {
+      *reinterpret_cast<unsigned short*>(to) =
+          __ldg(reinterpret_cast<const unsigned short*>(from));
+    } else {
+      cp_async<W>(to, from);
+    }
+    r += dq;
+    c += dr;
+    if (c >= chunks) {
+      c -= chunks;
+      ++r;
+    }
   }
-  __threadfence();
+}
+
+// Side rows (an int8_tok scale, or d / 16 mxint4 exponent bytes) go in
+// chunks of the largest of 16, 8, 4, 2 bytes that divides them; the wrapper
+// checks the base's alignment to the same width.
+__device__ __forceinline__ int side_width(int rb) {
+  return rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : rb % 4 == 0 ? 4 : 2;
+}
+
+// Elements e0 .. e0 + 3 of one cache row in shared memory, dequantized to
+// f32 exactly as `kvq.decode` does.  `side` is the row's side data.
+template <int F>
+__device__ __forceinline__ void dequant4(const unsigned char* row, const unsigned char* side,
+                                         int e0, float v[4]) {
+  if constexpr (F == kF32) {
+    const float4 x = *reinterpret_cast<const float4*>(row + 4 * e0);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else if constexpr (F == kBF16) {
+    const uint2 x = *reinterpret_cast<const uint2*>(row + 2 * e0);
+    v[0] = __uint_as_float(x.x << 16);
+    v[1] = __uint_as_float(x.x & 0xffff0000u);
+    v[2] = __uint_as_float(x.y << 16);
+    v[3] = __uint_as_float(x.y & 0xffff0000u);
+  } else if constexpr (F == kInt8Legacy || F == kInt8Tok) {
+    const unsigned x = *reinterpret_cast<const unsigned*>(row + e0);
+    // legacy: q / 32 (exact as a multiply); int8_tok: q * s, one multiply.
+    const float s = F == kInt8Tok ? *reinterpret_cast<const float*>(side) : 0.03125f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = (float)((int)(x << (24 - 8 * c)) >> 24) * s;
+  } else {
+    // Two bytes hold elements e0 .. e0 + 3, low nibble first; the four share
+    // the exponent of their group of 16.  2^(e - 2) comes from the bits (e in
+    // [-9, 5]), and m * 2^(e - 2) is exact.
+    const unsigned x = *reinterpret_cast<const unsigned short*>(row + e0 / 2);
+    const int e = static_cast<signed char>(side[e0 >> 4]);
+    const float sc = __int_as_float((e - 2 + 127) << 23);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = (float)((int)(x << (28 - 4 * c)) >> 28) * sc;
+  }
+}
+
+// Add one to a ticket counter with acquire-release semantics at GPU scope;
+// returns the count before.
+__device__ __forceinline__ int ticket_acq_rel(int* counter) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;" : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+// One step of a warp's reduce-scatter of 2H scores per lane: lanes L and
+// L ^ 2H swap halves, each keeps the sum of the half its bit 2H selects, and
+// the next step halves again.  H is a template parameter so that every index
+// is a constant and the scores stay in registers.
+template <int H>
+__device__ __forceinline__ void halve_scores(float* x, int lane) {
+  const bool upper = lane & (2 * H);
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = upper ? x[k] : x[k + H];
+    const float keep = upper ? x[k + H] : x[k];
+    x[k] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * H);
+  }
+  if constexpr (H > 1) halve_scores<H / 2>(x, lane);
+}
+
+template <int KF, int VF, int NS>
+__global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int is_last;
+  constexpr int GB = kGroup;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, splits = p.splits;
+  const int h = p.gchunks == 1 ? blockIdx.y : blockIdx.y / p.gchunks;
+  const int gc = blockIdx.y - h * p.gchunks, b = blockIdx.z;
+  const int g0 = gc * GB, gn = min(GB, p.G - g0);
+  const int bh = b * p.KV + h;
+  const int unit = bh * p.gchunks + gc;
+  // This split's tiles: an even share of the kv_len rows' tiles, never
+  // empty (the first tiles % splits splits take one more).
+  const int lo = p.tiles / splits, extra = p.tiles - lo * splits;
+  const int t_beg = split * lo + min(split, extra);
+  const int n_tiles = lo + (split < extra);
+  const int r_beg = t_beg * kTile;
+  const int r_end = min(p.kv_len, r_beg + n_tiles * kTile);
+  const size_t base = (size_t)b * p.C * p.KV + h;
+
+  // This lane's elements of the block's query rows (loaded first, so their
+  // latency overlaps the copies), and its accumulators.
+  float qr[GB][NS][4], acc[GB][NS][4];
+  const float* qb = p.q + ((size_t)bh * p.G + g0) * p.d;
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const int e0 = sl * kSlot + 4 * lane;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (g < gn && e0 < p.d) x = *reinterpret_cast<const float4*>(qb + g * p.d + e0);
+      qr[g][sl][0] = x.x; qr[g][sl][1] = x.y; qr[g][sl][2] = x.z; qr[g][sl][3] = x.w;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[g][sl][c] = 0.f;
+    }
+  }
+  constexpr bool kKSide = KF == kInt8Tok || KF == kMxint4Blk;
+  constexpr bool kVSide = VF == kInt8Tok || VF == kMxint4Blk;
+  // Each warp copies one array, so that the first touches of the arrays
+  // (cold lines and address translations) overlap instead of queuing in
+  // every warp: warp 0 copies K's values, warp 1 V's, warp 2 K's side data
+  // or else K's values with warp 0, warp 3 V's side data or else V's values.
+  const int arr = (warp == 2 && kKSide) ? 2 : (warp == 3 && kVSide) ? 3 : (warp & 1);
+  const bool pair = (arr == 0 && !kKSide) || (arr == 1 && !kVSide);
+  const unsigned char* csrc = arr == 0 ? p.k0 : arr == 1 ? p.v0 : arr == 2 ? p.k1 : p.v1;
+  const int crb = arr == 0 ? p.kb : arr == 1 ? p.vb : arr == 2 ? p.ks : p.vs;
+  const int coff = arr == 0 ? 0 : arr == 1 ? p.off_v : arr == 2 ? p.off_ks : p.off_vs;
+  const int cw = arr < 2 ? 16 : side_width(crb);
+  const unsigned plan = copy_plan(crb >> (__ffs(cw) - 1), pair ? (warp >> 1) * 32 + lane : lane,
+                                  pair ? 64 : 32);
+  // Tile t goes to ring stage `stage`.
+  auto issue = [&](int t, int stage) {
+    const int r0 = r_beg + t * kTile, rows = min(kTile, r_end - r0);
+    unsigned char* dst = smem + stage * p.stage_bytes + coff;
+    const unsigned char* src = csrc + (base + (size_t)r0 * p.KV) * crb;
+    const int pitch = p.KV * crb;
+    switch (cw) {
+      case 16: copy_tile<16>(dst, src, crb, pitch, rows, plan); break;
+      case 8: copy_tile<8>(dst, src, crb, pitch, rows, plan); break;
+      case 4: copy_tile<4>(dst, src, crb, pitch, rows, plan); break;
+      default: copy_tile<2>(dst, src, crb, pitch, rows, plan);
+    }
+  };
+
+  // The first stages - 1 tiles go in flight before anything else.
+  for (int t = 0; t < p.stages - 1; ++t) {
+    if (t < n_tiles) issue(t, t);
+    cp_async_commit();
+  }
+
+  // A warp's tile yields kV = 4 rows x 4 heads scores, (row i, head g) at
+  // v = 4 i + g.  After their reduce-scatter lane L holds score v = L >> 1:
+  // row L >> 3 (lane bits 3 and 4) and head (L >> 1) & 3.  The lane keeps
+  // the online-softmax state (m, l) of that head.
+  constexpr int kV = kRows * GB;
+  static_assert(kV == 16 && kRows == 4, "the lane layout below is for 4 x 4 scores");
+  const int my_row = lane >> 3, my_head = (lane >> 1) & 3;
+  float m_own = -INFINITY, l_own = 0.f;
+
+  const float sqrt_d = sqrtf((float)p.d);
+
+  int rd = 0, wr = p.stages - 1;     // ring stages read and written next
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_ring(p.stages);
+    __syncthreads();       // tile t landed; every warp is done with tile t - 1
+    if (t + p.stages - 1 < n_tiles) issue(t + p.stages - 1, wr);
+    cp_async_commit();
+    wr = wr + 1 == p.stages ? 0 : wr + 1;
+
+    const unsigned char* st = smem + rd * p.stage_bytes;
+    rd = rd + 1 == p.stages ? 0 : rd + 1;
+    const int r0 = r_beg + t * kTile;
+    // Partial scores of this warp's rows for every head (a head past G has
+    // a zero query).  A row at or past r_end holds stale shared memory: its
+    // score is masked to -inf and its V row to 0.  The code has no branch.
+    float x[kV];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int lr = warp + kWarps * i;
+#pragma unroll
+      for (int g = 0; g < GB; ++g) x[i * GB + g] = 0.f;
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl) {
+        const int e0 = sl * kSlot + 4 * lane;
+        if (e0 < p.d) {
+          float kv[4];
+          dequant4<KF>(st + lr * p.kb, st + p.off_ks + lr * p.ks, e0, kv);
+#pragma unroll
+          for (int g = 0; g < GB; ++g)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) x[i * GB + g] = fmaf(qr[g][sl][c], kv[c], x[i * GB + g]);
+        }
+      }
+    }
+    // Reduce-scatter over the warp: the distances 16, 8, 4, 2 each halve the
+    // scores a lane carries, distance 1 sums the one left.  Every lane
+    // holding score v ends with the same bits (a + b == b + a).
+    halve_scores<kV / 2>(x, lane);
+    x[0] += __shfl_xor_sync(0xffffffffu, x[0], 1);
+    const bool valid = r0 + warp + kWarps * my_row < r_end;
+    const float xs = valid ? (p.scale_is_div ? x[0] / sqrt_d : x[0] * p.scale) : -INFINITY;
+
+    // Online softmax of this lane's head over the warp's 4 rows of the tile
+    // (lanes L ^ 8, L ^ 16, L ^ 24), with the reference's finite-max guard.
+    float mt = fmaxf(xs, __shfl_xor_sync(0xffffffffu, xs, 8));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+    const float m_new = fmaxf(m_own, mt);
+    const float m_safe = isfinite(m_new) ? m_new : 0.f;
+    const float corr = expf(isfinite(m_own) ? m_own - m_safe : -INFINITY);
+    const float pv = expf(xs - m_safe);                // masked rows: exp(-inf) = 0
+    float ps = pv + __shfl_xor_sync(0xffffffffu, pv, 8);
+    ps += __shfl_xor_sync(0xffffffffu, ps, 16);
+    l_own = l_own * corr + ps;
+    m_own = m_new;
+
+    // P.V over this lane's columns, with every score's p and every head's
+    // corr (score v's lanes are 2v, 2v + 1; head g's row-0 lane is 2g).
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const float cg = __shfl_sync(0xffffffffu, corr, 2 * g);
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[g][sl][c] *= cg;
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int lr = warp + kWarps * i;
+      const bool row_valid = r0 + lr < r_end;
+      float pr[GB];
+#pragma unroll
+      for (int g = 0; g < GB; ++g) pr[g] = __shfl_sync(0xffffffffu, pv, 2 * (i * GB + g));
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl) {
+        const int e0 = sl * kSlot + 4 * lane;
+        if (e0 < p.dv) {
+          float vv[4];
+          dequant4<VF>(st + p.off_v + lr * p.vb, st + p.off_vs + lr * p.vs, e0, vv);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) vv[c] = row_valid ? vv[c] : 0.f;
+#pragma unroll
+          for (int g = 0; g < GB; ++g)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[g][sl][c] = fmaf(pr[g], vv[c], acc[g][sl][c]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();         // the ring is free: warp states go over it
+
+  // Per-warp states: [warp][m: GB | l: GB | acc: GB x NS * 128].
+  constexpr int kDvp = NS * kSlot, kWarpState = GB * (2 + kDvp);
+  float* ws = reinterpret_cast<float*>(smem);
+  float* mine = ws + warp * kWarpState;
+  if (my_row == 0 && (lane & 1) == 0) {            // head my_head's row-0 lane
+    mine[my_head] = m_own;
+    mine[GB + my_head] = l_own;
+  }
+#pragma unroll
+  for (int g = 0; g < GB; ++g)
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const int e0 = sl * kSlot + 4 * lane;
+      if (e0 < p.dv)
+        *reinterpret_cast<float4*>(mine + 2 * GB + g * kDvp + e0) =
+            make_float4(acc[g][sl][0], acc[g][sl][1], acc[g][sl][2], acc[g][sl][3]);
+    }
   __syncthreads();
-  if (tid == 0) is_last = (atomicAdd(&tickets[bh], 1) == n_splits - 1);
+
+  // Merge the warps in warp order: 4 columns of one head per item.
+  const int dv4 = p.dv >> 2;
+  for (int i = tid; i < gn * dv4; i += kThreads) {
+    const int g = i / dv4, j = (i - g * dv4) * 4;
+    float mw[kWarps], M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      mw[w] = ws[w * kWarpState + g];
+      M = fmaxf(M, mw[w]);
+    }
+    const float m_safe = isfinite(M) ? M : 0.f;
+    float L = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* st = ws + w * kWarpState;
+      const float wt = isfinite(mw[w]) ? expf(mw[w] - m_safe) : 0.f;
+      L = fmaf(st[GB + g], wt, L);
+      const float4 x = *reinterpret_cast<const float4*>(st + 2 * GB + g * kDvp + j);
+      a.x = fmaf(x.x, wt, a.x); a.y = fmaf(x.y, wt, a.y);
+      a.z = fmaf(x.z, wt, a.z); a.w = fmaf(x.w, wt, a.w);
+    }
+    if (splits == 1) {
+      const float den = fmaxf(L, 1e-30f);
+      *reinterpret_cast<float4*>(p.out + ((size_t)bh * p.G + g0 + g) * p.dv + j) =
+          make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
+    } else {
+      const size_t slot = (size_t)unit * splits + split;
+      *reinterpret_cast<float4*>(p.part_acc + (slot * GB + g) * p.dv + j) = a;
+      if (j == 0) {
+        p.part_ml[slot * 2 * GB + g] = M;
+        p.part_ml[slot * 2 * GB + GB + g] = L;
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // The barrier orders every thread's partial before thread 0's ticket, an
+  // acquire-release atomic: its release covers them (it is cumulative), its
+  // acquire makes the other splits' partials visible to this block.
+  __syncthreads();
+  if (tid == 0) is_last = (ticket_acq_rel(&p.tickets[unit]) == splits - 1);
   __syncthreads();
   if (!is_last) return;
-  __threadfence();
 
-  // Merge in split order: weights exp(m_s - max_s m_s) once per (split,
-  // head), then the denominator and every output entry as sums over splits.
-  const float* all = partials + (size_t)bh * n_splits * per;
-  if (tid < G) {
-    float mx = -INFINITY;
-    for (int sp = 0; sp < n_splits; ++sp) mx = fmaxf(mx, __ldcg(&all[sp * per + tid]));
-    m[tid] = isfinite(mx) ? mx : 0.f;
-  }
+  // Merge the splits in split order.  Every split's partial comes into
+  // shared memory (over the warp states) in one round of 16-byte cp.async
+  // from L2.  Warp g forms head g's weights exp(m_s - max_s m_s) and
+  // denominator while the accumulators land, its lanes over the splits and
+  // shuffles across them; then each item of 4 output columns sums its splits.
+  float* pa = reinterpret_cast<float*>(smem);               // [splits][GB][dv]
+  float* mls = pa + (size_t)splits * GB * p.dv;              // [splits][2][GB]
+  float* wts = mls + splits * 2 * GB;                        // [splits][GB]
+  float* lg = wts + splits * GB;                             // [GB]
+  const float* ga = p.part_acc + (size_t)unit * splits * GB * p.dv;
+  const float* gm = p.part_ml + (size_t)unit * splits * 2 * GB;
+  for (int i = tid; i < splits * 2 * GB / 4; i += kThreads) cp_async<16>(mls + 4 * i, gm + 4 * i);
+  cp_async_commit();
+  for (int i = tid; i < splits * GB * dv4; i += kThreads) cp_async<16>(pa + 4 * i, ga + 4 * i);
+  cp_async_commit();
+  cp_async_wait<1>();      // the (m, l) pairs; the accumulators stay in flight
   __syncthreads();
-  for (int i = tid; i < n_splits * G; i += kThreads) {
-    const int sp = i / G, g = i % G;
-    const float ms = __ldcg(&all[sp * per + g]);
-    wts[i] = isfinite(ms) ? expf(ms - m[g]) : 0.f;
+  static_assert(kWarps == GB, "a warp per head");
+  if (warp < gn) {
+    float M = -INFINITY;
+    for (int sp = lane; sp < splits; sp += 32) M = fmaxf(M, mls[sp * 2 * GB + warp]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    const float m_safe = isfinite(M) ? M : 0.f;
+    float L = 0.f;
+    for (int sp = lane; sp < splits; sp += 32) {
+      const float ms = mls[sp * 2 * GB + warp];
+      const float wt = isfinite(ms) ? expf(ms - m_safe) : 0.f;
+      wts[sp * GB + warp] = wt;
+      L = fmaf(mls[sp * 2 * GB + GB + warp], wt, L);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
+    if (lane == 0) lg[warp] = fmaxf(L, 1e-30f);
   }
+  cp_async_wait<0>();
   __syncthreads();
-  if (tid < G) {
-    float den = 0.f;
-    for (int sp = 0; sp < n_splits; ++sp)
-      den += __ldcg(&all[sp * per + G + tid]) * wts[sp * G + tid];
-    l[tid] = den;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < G * dv; idx += kThreads) {
-    const int g = idx / dv;
-    float a = 0.f;
+  for (int i = tid; i < gn * dv4; i += kThreads) {
+    const int g = i / dv4, j = (i - g * dv4) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-    for (int sp = 0; sp < n_splits; ++sp)
-      a += __ldcg(&all[sp * per + 2 * G + idx]) * wts[sp * G + g];
-    out[(size_t)bh * G * dv + idx] = a / fmaxf(l[g], 1e-30f);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float wt = wts[sp * GB + g];
+      const float4 x = *reinterpret_cast<const float4*>(pa + (sp * GB + g) * p.dv + j);
+      a.x = fmaf(x.x, wt, a.x); a.y = fmaf(x.y, wt, a.y);
+      a.z = fmaf(x.z, wt, a.z); a.w = fmaf(x.w, wt, a.w);
+    }
+    const float den = lg[g];
+    *reinterpret_cast<float4*>(p.out + ((size_t)bh * p.G + g0 + g) * p.dv + j) =
+        make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
   }
-  if (tid == 0) tickets[bh] = 0;
+  if (tid == 0) p.tickets[unit] = 0;
 }
 
-size_t smem_bytes(int G, int d, int dv, int n_splits) {
-  return sizeof(float) * ((size_t)G * d + kTile * (d + 1) + kTile * dv + G * dv +
-                          G * kTile + 3 * G + (size_t)n_splits * G);
-}
-
-template <int KF, int VF>
-int launch(const float* q, const void* k0, const void* k1, const void* v0, const void* v1,
-           float* out, float* partials, int* tickets, int B, int C, int KV, int G, int d,
-           int dv, int kv_len, int n_splits, int rows_per_split, float scale,
-           int scale_is_div, cudaStream_t stream) {
-  const size_t smem = smem_bytes(G, d, dv, n_splits);
-  auto kernel = flash_decode_kernel<KF, VF>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int KF, int VF, int NS>
+int launch(const Params& p, int B, size_t smem, cudaStream_t stream) {
+  auto kernel = flash_decode_kernel<KF, VF, NS>;
+  // Raise the kernel's dynamic shared-memory limit once per device, to the
+  // most any launch of it has asked for so far (no host call per launch).
+  static int limit[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && (int)smem > limit[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    limit[dev] = (int)smem;
   }
-  dim3 grid(n_splits, KV, B);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k0, k1, v0, v1, out, partials, tickets, C,
-                                           KV, G, d, dv, kv_len, rows_per_split, scale,
-                                           scale_is_div);
+  dim3 grid(p.splits, p.KV * p.gchunks, B);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+template <int KF, int VF>
+int launch_slots(int ns, const Params& p, int B, size_t smem, cudaStream_t s) {
+  if (ns == 1) return launch<KF, VF, 1>(p, B, smem, s);
+  if (ns == 2) return launch<KF, VF, 2>(p, B, smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int KF>
-int launch_v(int vfmt, const float* q, const void* k0, const void* k1, const void* v0,
-             const void* v1, float* out, float* partials, int* tickets, int B, int C,
-             int KV, int G, int d, int dv, int kv_len, int n_splits, int rows_per_split,
-             float scale, int scale_is_div, cudaStream_t stream) {
-#define FD_ARGS q, k0, k1, v0, v1, out, partials, tickets, B, C, KV, G, d, dv, kv_len, \
-                n_splits, rows_per_split, scale, scale_is_div, stream
+int launch_v(int vfmt, int ns, const Params& p, int B, size_t smem, cudaStream_t s) {
   switch (vfmt) {
-    case kF32: return launch<KF, kF32>(FD_ARGS);
-    case kBF16: return launch<KF, kBF16>(FD_ARGS);
-    case kInt8Legacy: return launch<KF, kInt8Legacy>(FD_ARGS);
-    case kInt8Tok: return launch<KF, kInt8Tok>(FD_ARGS);
-    case kMxint4Blk: return launch<KF, kMxint4Blk>(FD_ARGS);
+    case kF32: return launch_slots<KF, kF32>(ns, p, B, smem, s);
+    case kBF16: return launch_slots<KF, kBF16>(ns, p, B, smem, s);
+    case kInt8Legacy: return launch_slots<KF, kInt8Legacy>(ns, p, B, smem, s);
+    case kInt8Tok: return launch_slots<KF, kInt8Tok>(ns, p, B, smem, s);
+    case kMxint4Blk: return launch_slots<KF, kMxint4Blk>(ns, p, B, smem, s);
   }
-#undef FD_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// `tiles` = ceil(kv_len / 16); split i streams tiles [i * lo + min(i, x),
+// ...) with lo = tiles / splits, the first x = tiles % splits splits one
+// more than lo; a block takes 4 query
+// heads (G-chunks = ceil(G / 4)); `ns` 128-wide slots per row (1 or 2)
+// picks the instantiation.  `partials` holds splits * G-chunks * B * KV *
+// 4 * (dv + 2) floats when splits > 1.
 extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1,
                                    const void* v0, const void* v1, void* out,
                                    void* partials, void* tickets, int B, int C, int KV,
                                    int G, int d, int dv, int kv_len, int kfmt, int vfmt,
-                                   int n_splits, int rows_per_split, float scale,
-                                   int scale_is_div, void* stream) {
-  if (G < 1 || G > kMaxGroup || d < 1 || d > kMaxDim || dv < 1 || dv > kMaxDim ||
-      kv_len < 1 || kv_len > C || n_splits < 1 || rows_per_split < kTile ||
-      rows_per_split % kTile || (long long)n_splits * rows_per_split < kv_len)
+                                   int tiles, int splits, int stages, int ns,
+                                   float scale, int scale_is_div, void* stream) {
+  if (kfmt < kF32 || kfmt > kMxint4Blk || vfmt < kF32 || vfmt > kMxint4Blk)
     return (int)cudaErrorInvalidValue;
-#define FD_ARGS vfmt, (const float*)q, k0, k1, v0, v1, (float*)out, (float*)partials, \
-                (int*)tickets, B, C, KV, G, d, dv, kv_len, n_splits, rows_per_split, \
-                scale, scale_is_div, (cudaStream_t)stream
+  Params p{};
+  p.kb = value_bytes(kfmt, d);
+  p.ks = side_bytes(kfmt, d);
+  p.vb = value_bytes(vfmt, dv);
+  p.vs = side_bytes(vfmt, dv);
+  const int gchunks = (G + kGroup - 1) / kGroup;
+  if (G < 1 || G > kMaxGroup || d < 4 || d > kMaxDim || dv < 4 || dv > kMaxDim ||
+      d > ns * kSlot || dv > ns * kSlot || d % 4 || dv % 4 || p.kb % 16 || p.vb % 16 ||
+      p.ks % 2 || p.vs % 2 || kv_len < 1 || kv_len > C ||
+      tiles != (kv_len + kTile - 1) / kTile || splits < 1 || splits > tiles ||
+      stages < 2 || stages > kMaxStages || ns < 1 || ns > 2)
+    return (int)cudaErrorInvalidValue;
+  p.off_v = kTile * p.kb;
+  p.off_ks = p.off_v + kTile * p.vb;
+  p.off_vs = p.off_ks + up16(kTile * p.ks);
+  p.stage_bytes = p.off_vs + up16(kTile * p.vs);
+  const int warp_states = kWarps * kGroup * (2 + ns * kSlot) * (int)sizeof(float);
+  const long long ring = (long long)stages * p.stage_bytes;
+  const long long ring_bytes = ring > warp_states ? ring : warp_states;
+  // The last block of a (b, h) brings every split's partial (dv + 2 values
+  // per head) into shared memory, with a weight per split and head.
+  const long long merge = (long long)sizeof(float) * kGroup * ((long long)splits * (dv + 3) + 1);
+  const size_t smem = (size_t)(merge > ring_bytes ? merge : ring_bytes);
+  if (ring > kMaxSmem || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  p.q = static_cast<const float*>(q);
+  p.k0 = static_cast<const unsigned char*>(k0);
+  p.k1 = static_cast<const unsigned char*>(k1);
+  p.v0 = static_cast<const unsigned char*>(v0);
+  p.v1 = static_cast<const unsigned char*>(v1);
+  p.out = static_cast<float*>(out);
+  const size_t units = (size_t)B * KV * gchunks;
+  p.part_acc = static_cast<float*>(partials);
+  p.part_ml = p.part_acc + units * splits * kGroup * dv;
+  p.tickets = static_cast<int*>(tickets);
+  p.C = C; p.KV = KV; p.G = G; p.d = d; p.dv = dv; p.kv_len = kv_len;
+  p.tiles = tiles; p.splits = splits; p.gchunks = gchunks; p.stages = stages;
+  p.scale = scale;
+  p.scale_is_div = scale_is_div;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef FD_KEY_FORMAT
+  // A library built for one K format (hopper.VARIANTS): 10 instantiations.
+  if (kfmt != FD_KEY_FORMAT) return (int)cudaErrorInvalidValue;
+  return launch_v<FD_KEY_FORMAT>(vfmt, ns, p, B, smem, s);
+#else
   switch (kfmt) {
-    case kF32: return launch_v<kF32>(FD_ARGS);
-    case kBF16: return launch_v<kBF16>(FD_ARGS);
-    case kInt8Legacy: return launch_v<kInt8Legacy>(FD_ARGS);
-    case kInt8Tok: return launch_v<kInt8Tok>(FD_ARGS);
-    case kMxint4Blk: return launch_v<kMxint4Blk>(FD_ARGS);
+    case kF32: return launch_v<kF32>(vfmt, ns, p, B, smem, s);
+    case kBF16: return launch_v<kBF16>(vfmt, ns, p, B, smem, s);
+    case kInt8Legacy: return launch_v<kInt8Legacy>(vfmt, ns, p, B, smem, s);
+    case kInt8Tok: return launch_v<kInt8Tok>(vfmt, ns, p, B, smem, s);
+    case kMxint4Blk: return launch_v<kMxint4Blk>(vfmt, ns, p, B, smem, s);
   }
-#undef FD_ARGS
   return (int)cudaErrorInvalidValue;
+#endif
 }
 
 extern "C" int flash_decode_tile_rows() { return kTile; }
 extern "C" int flash_decode_max_dim() { return kMaxDim; }
 extern "C" int flash_decode_max_group() { return kMaxGroup; }
+extern "C" int flash_decode_max_stages() { return kMaxStages; }

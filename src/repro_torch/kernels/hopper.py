@@ -9,8 +9,9 @@ header it includes from ``csrc/``, and of its compile and link flags, so an
 edited source or header is rebuilt and never loaded stale.
 
 The two GEMM kernels take their tile shape (and MXINT4 its K split) from
-planners here (`w8a8_plan`, `mxint4_plan`), plain functions of the shape
-that the CPU tests reach.
+planners here (`w8a8_plan`, `mxint4_plan`), and flash-decode its split and
+ring from `flash_decode_plan`: plain functions of the shape that the CPU
+tests reach, as is flash-decode's layout check (`check_fd_operand`).
 
 The launch functions here check device, dtype, shape, contiguity and
 alignment, launch on PyTorch's current stream, raise on a nonzero
@@ -42,11 +43,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # libcuda's cuTensorMapEncodeTiled.
 LINK_FLAGS = {"w8a8_matmul": ("-lcuda",)}
 
+# Kernels built as several libraries from one source, one per set of extra
+# flags, all compiled in parallel.  Flash-decode builds one library per K
+# cache format (`CACHE_FORMATS` code), so that its (K, V) format pairs
+# compile on several cores: an earlier version took 120 s in one nvcc on the
+# H100 machine.
+VARIANTS = {"flash_decode": tuple((f"-DFD_KEY_FORMAT={code}",) for code in range(5))}
+
 # Launches per kernel since the last `reset_launches()`; bumped only where a
 # kernel is launched.
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, int], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 _TICKETS: dict[int, torch.Tensor] = {}
 _P = ctypes.c_void_p
@@ -96,11 +104,16 @@ def sources(name: str, csrc: Path | None = None) -> list[Path]:
     return seen
 
 
-def _lib_path(name: str, csrc: Path | None = None) -> Path:
+def _variant_flags(name: str, variant: int) -> tuple:
+    return VARIANTS[name][variant] if name in VARIANTS else ()
+
+
+def _lib_path(name: str, csrc: Path | None = None, variant: int = 0) -> Path:
     h = hashlib.sha256()
     for path in sources(name, csrc):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())
+                      + _variant_flags(name, variant)).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -118,44 +131,45 @@ def build(names=KERNELS) -> dict[str, str]:
     """Compile the named kernels that are not built yet, in parallel.
 
     Returns ``{name: ptxas report}`` for the sources compiled by this call
-    (registers, shared memory and spills per kernel).  Raises with the
-    compiler's output if any build fails.
+    (registers, shared memory and spills per kernel, every variant's report
+    joined).  Raises with the compiler's output if any build fails.
     """
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs = []
     for name in names:
-        target = _lib_path(name)
-        if target.exists():
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        nvcc = _nvcc()
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
-               *_link_flags(name, nvcc)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, target)
+        for variant in range(len(VARIANTS.get(name, ((),)))):
+            target = _lib_path(name, variant=variant)
+            if target.exists():
+                continue
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            nvcc = _nvcc()
+            cmd = [nvcc, *NVCC_FLAGS, *_variant_flags(name, variant), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu"), *_link_flags(name, nvcc)]
+            procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True),
+                          tmp, target))
     reports, failed = {}, []
-    for name, (proc, tmp, target) in procs.items():
+    for name, proc, tmp, target in procs:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, target)
-        reports[name] = log
+        reports[name] = reports.get(name, "") + log
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
 
 
-def _lib(name: str) -> ctypes.CDLL:
+def _lib(name: str, variant: int = 0) -> ctypes.CDLL:
     with _LOCK:
-        if name not in _LIBS:
+        if (name, variant) not in _LIBS:
             build((name,))
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(_lib_path(name, variant=variant)))
             _bind(name, lib)
-            _LIBS[name] = lib
-        return _LIBS[name]
+            _LIBS[name, variant] = lib
+        return _LIBS[name, variant]
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
@@ -172,10 +186,16 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             query.argtypes, query.restype = [], _I
     elif name == "flash_decode":
         fn = lib.flash_decode_launch
-        fn.argtypes = [_P] * 8 + [_I] * 11 + [_F, _I, _P]
-        for query in (lib.flash_decode_tile_rows, lib.flash_decode_max_dim,
-                      lib.flash_decode_max_group):
+        fn.argtypes = [_P] * 8 + [_I] * 13 + [_F, _I, _P]
+        limits = ((lib.flash_decode_tile_rows, FD_TILE),
+                  (lib.flash_decode_max_dim, FD_MAX_DIM),
+                  (lib.flash_decode_max_group, FD_MAX_GROUP),
+                  (lib.flash_decode_max_stages, FD_MAX_STAGES))
+        for query, want in limits:
             query.argtypes, query.restype = [], _I
+            if query() != want:
+                raise RuntimeError(f"flash_decode: the library's {query.__name__} "
+                                   f"is {query()}, the planner's {want}")
     elif name == "rmsnorm_stats":
         fn = lib.rmsnorm_stats_launch
         fn.argtypes = [_P, _P, _I, _I, _I, _I, _F, _P]
@@ -405,22 +425,119 @@ CACHE_FORMATS = {"f32": (0, torch.float32, None),
                  "int8_tok": (3, torch.int8, torch.float32),
                  "mxint4_blk": (4, torch.int8, torch.int8)}
 
+# Flash-decode (csrc/flash_decode.cu).  A block of 4 warps streams FD_TILE-row
+# tiles of one (b, h) through a ring of 2-4 stages in shared memory, each
+# warp 4 rows of a tile.  A lane holds 4 elements of each 128-wide slot of a
+# row (ns slots: 1 for d, dv <= 128, else 2), and a block's registers hold
+# FD_GROUP query heads; a larger G runs in chunks of FD_GROUP, a block each.
+FD_TILE = 16
+FD_GROUP = 4
+FD_MAX_DIM = 256
+FD_MAX_GROUP = 16
+FD_MAX_STAGES = 4
+FD_BLOCKS_PER_SM = 2            # blocks the grid aims for on every SM
+FD_RING_BYTES = 96 << 10        # shared memory a block's ring may take
+FD_SMEM_BYTES = 226 << 10       # shared memory a block may take
+FD_MIN_BLOCK_BYTES = 4 << 10    # cache bytes a split streams at least
+
+
+def fd_row_bytes(fmt: str, dim: int) -> tuple[int, int]:
+    """Bytes of one cache row of ``dim`` elements in format ``fmt``: the
+    values, and the side data (int8_tok's scale, mxint4_blk's exponents)."""
+    return {"f32": (4 * dim, 0), "bf16": (2 * dim, 0), "int8": (dim, 0),
+            "int8_tok": (dim, 4), "mxint4_blk": (dim // 2, dim // 16)}[fmt]
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def flash_decode_plan(b: int, kv: int, g: int, d: int, dv: int, kv_len: int,
+                      k_fmt: str, v_fmt: str, sms: int = 132) -> dict:
+    """Grid and ring of one flash-decode launch.
+
+    The kv_len rows are cut into FD_TILE-row tiles, and each of ``splits``
+    blocks per (b, h, G-chunk) streams an even share of them (the first
+    ``tiles % splits`` splits one tile more), so every split holds whole
+    tiles, none is empty and the rows at or past kv_len are never read
+    (``ranges`` lists each split's rows, as the kernel computes them).
+    ``splits`` is the fewest that gives each of the ``sms`` SMs
+    FD_BLOCKS_PER_SM blocks (a block's 4 warps alone leave an SM's
+    schedulers idle while they wait), but no more than keeps at least two
+    tiles, and FD_MIN_BLOCK_BYTES of cache, per split, or than the merging
+    block can hold in shared memory (every split's f32 partial and weights,
+    FD_GROUP x (dv + 3) values).  The ring holds every tile of a split, up
+    to FD_MAX_STAGES stages and FD_RING_BYTES.  Plans are cached (decode
+    asks for one per layer and step); callers must not modify the dict.
+    """
+    ns = 1 if max(d, dv) <= 128 else 2
+    gchunks = -(-g // FD_GROUP)
+    (kb, ks), (vb, vs) = fd_row_bytes(k_fmt, d), fd_row_bytes(v_fmt, dv)
+    stage_bytes = FD_TILE * (kb + vb) + _up16(FD_TILE * ks) + _up16(FD_TILE * vs)
+    tiles = -(-kv_len // FD_TILE)
+    units = b * kv * gchunks
+    by_bytes = kv_len * (kb + ks + vb + vs) // FD_MIN_BLOCK_BYTES
+    by_smem = (FD_SMEM_BYTES - 16) // (4 * FD_GROUP * (dv + 3))
+    splits = max(1, min(-(-FD_BLOCKS_PER_SM * sms // units), tiles // 2, by_bytes, by_smem))
+    lo, extra = divmod(tiles, splits)
+    cuts = [(i * lo + min(i, extra)) * FD_TILE for i in range(splits + 1)]
+    ranges = tuple((cuts[i], min(cuts[i + 1], kv_len)) for i in range(splits))
+    most = -(-tiles // splits)
+    stages = max(2, min(FD_MAX_STAGES, most + 1, FD_RING_BYTES // stage_bytes))
+    return dict(tile=FD_TILE, stages=stages, stage_bytes=stage_bytes, tiles=tiles,
+                splits=splits, ranges=ranges, ns=ns, gchunks=gchunks,
+                blocks=units * splits, rows_per_split=max(e - s for s, e in ranges))
+
+
+def fd_alignment_width(row_bytes: int) -> int:
+    """Bytes per copy of a row: the largest of 16, 8, 4, 2 dividing it."""
+    return next(w for w in (16, 8, 4, 2, 1) if row_bytes % w == 0)
+
+
+def check_fd_operand(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+                     side: bool = False) -> None:
+    """Dtype, shape and layout of one flash-decode array (any device).
+
+    The kernel copies rows in whole chunks with no scalar path: a value
+    array needs 16-byte rows and a 16-byte aligned base; a side array (one
+    int8_tok scale or a few mxint4_blk exponents per row) a base aligned to
+    the width of its row's chunks, and an even number of bytes per row.
+    Raises on anything else.
+    """
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    row = shape[-1] * t.element_size()
+    width = fd_alignment_width(row) if side else 16
+    if row % width or width < 2:
+        raise ValueError(f"{name}: rows of {row} bytes are not a whole number of "
+                         f"{'2' if side else '16'}-byte chunks")
+    if t.data_ptr() % width:
+        raise ValueError(f"{name}: base must be {width}-byte aligned "
+                         f"(address {t.data_ptr():#x})")
+
 
 def _cache_operand(name: str, parts: tuple, fmt: str, lead: tuple, dim: int):
     """Check one cache operand ``(values, side or None)`` of format ``fmt``
     with logical shape ``lead + (dim,)``; returns the two pointers."""
     code, vdtype, sdtype = CACHE_FORMATS[fmt]
     values, side = parts
+    if not values.is_cuda or (side is not None and not side.is_cuda):
+        raise ValueError(f"{name}: expected CUDA tensors, got {values.device}")
     if fmt == "mxint4_blk":
         if dim % 16:
             raise ValueError(f"{name}: mxint4_blk needs a multiple of 16, got {dim}")
-        _check(f"{name}.m", values, vdtype, lead + (dim // 2,), align=1)
-        _check(f"{name}.e", side, sdtype, lead + (dim // 16,), align=1)
+        check_fd_operand(f"{name}.m", values, vdtype, lead + (dim // 2,))
+        check_fd_operand(f"{name}.e", side, sdtype, lead + (dim // 16,), side=True)
     elif fmt == "int8_tok":
-        _check(f"{name}.q", values, vdtype, lead + (dim,), align=1)
-        _check(f"{name}.s", side, sdtype, lead + (1,))
+        check_fd_operand(f"{name}.q", values, vdtype, lead + (dim,))
+        check_fd_operand(f"{name}.s", side, sdtype, lead + (1,), side=True)
     else:
-        _check(name, values, vdtype, lead + (dim,), align=values.element_size())
+        check_fd_operand(name, values, vdtype, lead + (dim,))
     return code, values.data_ptr(), None if side is None else side.data_ptr()
 
 
@@ -433,35 +550,31 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
     scales or the mxint4_blk exponents, else None); ``scale=None`` divides the
     scores by sqrt(d), as the plain version does.  Returns f32 ``[B, KV, G, dv]``.
     """
-    lib = _lib("flash_decode")
     b, kv, g, d = q.shape
     c = k_parts[0].shape[1]
     dv = v_parts[0].shape[-1] * (2 if v_fmt == "mxint4_blk" else 1)
-    tile, max_dim = lib.flash_decode_tile_rows(), lib.flash_decode_max_dim()
-    if not (1 <= g <= lib.flash_decode_max_group() and d <= max_dim and dv <= max_dim):
+    if not (1 <= g <= FD_MAX_GROUP and d <= FD_MAX_DIM and dv <= FD_MAX_DIM):
         raise ValueError(f"flash_decode: G={g}, d={d}, dv={dv} exceed the kernel's "
-                         f"limits ({lib.flash_decode_max_group()}, {max_dim})")
+                         f"limits ({FD_MAX_GROUP}, {FD_MAX_DIM})")
     if not 1 <= kv_len <= c:
         raise ValueError(f"flash_decode: kv_len {kv_len} outside [1, {c}]")
-    _check("q", q, torch.float32, (b, kv, g, d))
+    _check("q", q, torch.float32, (b, kv, g, d), align=16)
     kc, k0, k1 = _cache_operand("k", k_parts, k_fmt, (b, c, kv), d)
     vc, v0, v1 = _cache_operand("v", v_parts, v_fmt, (b, c, kv), dv)
-    # Split the kv_len rows into whole tiles until about two blocks per SM
-    # (132 on the H100) have work.
-    sms = _sms(q.device)
-    tiles = -(-kv_len // tile)
-    splits = max(1, min(tiles, -(-2 * sms // (b * kv))))
-    rows = -(-tiles // splits) * tile
-    splits = -(-kv_len // rows)
+    plan = flash_decode_plan(b, kv, g, d, dv, kv_len, k_fmt, v_fmt, _sms(q.device))
+    lib = _lib("flash_decode", variant=kc)
+    splits = plan["splits"]
     out = torch.empty(b, kv, g, dv, dtype=torch.float32, device=q.device)
-    partials = (torch.empty(b * kv * splits * g * (2 + dv), dtype=torch.float32,
+    units = b * kv * plan["gchunks"]
+    partials = (torch.empty(units * splits * FD_GROUP * (dv + 2), dtype=torch.float32,
                             device=q.device) if splits > 1 else out)
-    tickets = _tickets(q.device, b * kv)
+    tickets = _tickets(q.device, units)
     div = scale is None
     err = lib.flash_decode_launch(
         q.data_ptr(), k0, k1, v0, v1, out.data_ptr(), partials.data_ptr(),
-        tickets.data_ptr(), b, c, kv, g, d, dv, kv_len, kc, vc, splits, rows,
-        0.0 if div else float(scale), int(div), _stream())
+        tickets.data_ptr(), b, c, kv, g, d, dv, kv_len, kc, vc, plan["tiles"], splits,
+        plan["stages"], plan["ns"], 0.0 if div else float(scale), int(div),
+        _stream())
     _raise_if(err, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out

@@ -200,6 +200,79 @@ def test_flash_decode_kernel_mixed_formats_and_scale():
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
 
 
+def _flash_decode_case(seed, fmts, b, kv, g, d, c, kv_len, scale=None, dv=None):
+    """Kernel vs plain on the same encoded bytes at the reference's decode
+    tolerance, and a relaunch bit-equal to the first."""
+    rng = _gen(seed)
+    dv = d if dv is None else dv
+    q = _t(rng.normal(size=(b, kv, g, d)).astype(np.float32))
+    k = _cache_leaf(_t(rng.normal(size=(b, c, kv, d)).astype(np.float32)), fmts[0])
+    v = _cache_leaf(_t(rng.normal(size=(b, c, kv, dv)).astype(np.float32)), fmts[1])
+    got = ops.flash_decode(q, k, v, kv_len, scale=scale, impl="kernel")
+    want = ref.flash_decode_ref(q, k, v, kv_len, scale=scale)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    again = ops.flash_decode(q, k, v, kv_len, scale=scale, impl="kernel")
+    assert torch.equal(got, again), "split merge must be deterministic"
+
+
+ALL_FORMATS = ["float32", "bfloat16", "int8", "int8_tok", "mxint4_blk"]
+MAIN_FORMATS = ["float32", "int8_tok", "mxint4_blk"]
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+@pytest.mark.parametrize("kv_len", [31, 32, 33, 127, 129, 513])
+def test_flash_decode_kernel_qwen3_lengths(fmt, kv_len):
+    """qwen3-8b's decode shape (B 2, KV 8, G 4, d 128, C 544) at kv_len on
+    both sides of a 16-row tile and of a split boundary."""
+    _flash_decode_case(kv_len, (fmt, fmt), 2, 8, 4, 128, 544, kv_len)
+
+
+@pytest.mark.parametrize("scale", [None, 0.07])
+@pytest.mark.parametrize("v_fmt", MAIN_FORMATS)
+@pytest.mark.parametrize("k_fmt", MAIN_FORMATS)
+def test_flash_decode_kernel_mixed_main_formats(k_fmt, v_fmt, scale):
+    """Each main-path format on each side, with the score scale given or
+    sqrt(d)."""
+    _flash_decode_case(17, (k_fmt, v_fmt), 2, 8, 4, 128, 544, 300, scale=scale)
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+@pytest.mark.parametrize("b,kv,g,d,c,kv_len", [
+    (1, 2, 1, 256, 300, 300), (2, 2, 16, 256, 200, 177), (1, 3, 16, 128, 100, 100),
+])
+def test_flash_decode_kernel_limits(fmt, b, kv, g, d, c, kv_len):
+    """G in {1, 16} and d = dv = 256, the kernel's limits: two 128-wide slots
+    per row, and G in chunks of query heads."""
+    _flash_decode_case(g * d + kv_len, (fmt, fmt), b, kv, g, d, c, kv_len)
+
+
+def test_flash_decode_kernel_head_dims_differ():
+    _flash_decode_case(3, ("int8_tok", "float32"), 2, 2, 4, 64, 80, 80, dv=192)
+
+
+@pytest.mark.parametrize("fmt,part", [("float32", None), ("bfloat16", None),
+                                      ("int8_tok", "q"), ("mxint4_blk", "m"),
+                                      ("mxint4_blk", "e")])
+def test_flash_decode_kernel_rejects_misaligned_views(fmt, part):
+    """An operand whose base is off its chunk alignment raises: the kernel
+    has no scalar path."""
+    b, c, kv, d = 1, 40, 2, 64
+    q = torch.randn(b, kv, 4, d, device="cuda")
+    leaf = _cache_leaf(torch.randn(b, c, kv, d, device="cuda"), fmt)
+    if part is None:
+        buf = torch.empty(leaf.numel() + 8, dtype=leaf.dtype, device="cuda")
+        bad = buf[1:leaf.numel() + 1].view(leaf.shape)
+        bad.copy_(leaf)
+    else:
+        arr = leaf[part]
+        buf = torch.empty(arr.numel() + 8, dtype=arr.dtype, device="cuda")
+        shifted = buf[1:arr.numel() + 1].view(arr.shape)
+        shifted.copy_(arr)
+        bad = dict(leaf, **{part: shifted})
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_decode(q, bad, leaf, c, impl="kernel")
+
+
 @pytest.mark.parametrize("m,d,dtype", [
     (1024, 4096, torch.float32), (1024, 4096, torch.bfloat16),
     (1000, 4096, torch.float32), (2, 4096, torch.bfloat16), (7, 96, torch.float32),
