@@ -7,7 +7,7 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every Hopper kernel from ``src/repro_torch/kernels/csrc`` (nvcc,
-   one process per source and variant, in parallel), with each kernel's
+   one process per source, in parallel), with each kernel's
    registers, shared memory and spills from ``-Xptxas -v``;
 3. each kernel at the main paths' full-width shapes against its plain
    PyTorch version on the same inputs, with its tolerance; times (CUDA events,

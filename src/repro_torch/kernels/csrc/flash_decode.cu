@@ -51,7 +51,12 @@
 //     in one round of cp.async and merges them in split order.  The order
 //     of every sum is fixed, so two launches are bit-equal.
 // The kernel allocates nothing: the wrapper passes the workspace and the
-// ticket counters (zero on entry, reset to zero by the merging block).
+// ticket counters (zero on entry, reset to zero by the merging block), and
+// the ring's layout, which the planner owns; the launch only checks it.
+//
+// Built with -DFD_PHASE_CLOCK (tools/fd_phase_clock.py), thread 0 of every
+// block stamps clock64 and the global timer at each phase boundary into a
+// buffer set by flash_decode_set_stamps.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,7 +85,26 @@ int value_bytes(int f, int dim) {
 int side_bytes(int f, int dim) {
   return f == kInt8Tok ? 4 : f == kMxint4Blk ? dim / 16 : 0;
 }
-int up16(int n) { return (n + 15) & ~15; }
+
+#ifdef FD_PHASE_CLOCK
+constexpr int kPhases = 6;   // entry, first tile, loop end, block merged, ticket, split merge
+long long* g_stamps = nullptr;
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define FD_STAMP(i)                                                  \
+  do {                                                               \
+    if (tid == 0) {                                                  \
+      p.stamps[stamp0 + (i)] = clock64();                            \
+      p.stamps[stamp0 + kPhases + (i)] = global_ns();                \
+    }                                                                \
+  } while (0)
+#else
+#define FD_STAMP(i) do {} while (0)
+#endif
 
 struct Params {
   const float* q;                        // [B, KV, G, d]
@@ -95,6 +119,9 @@ struct Params {
   int off_v, off_ks, off_vs, stage_bytes;   // shared-memory layout of a stage
   float scale;
   int scale_is_div;
+#ifdef FD_PHASE_CLOCK
+  long long* stamps;                     // [blocks][2 * kPhases]
+#endif
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -268,6 +295,11 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params 
   const int r_beg = t_beg * kTile;
   const int r_end = min(p.kv_len, r_beg + n_tiles * kTile);
   const size_t base = (size_t)b * p.C * p.KV + h;
+#ifdef FD_PHASE_CLOCK
+  const size_t stamp0 =
+      ((blockIdx.z * gridDim.y + blockIdx.y) * (size_t)gridDim.x + blockIdx.x) * 2 * kPhases;
+#endif
+  FD_STAMP(0);
 
   // This lane's elements of the block's query rows (loaded first, so their
   // latency overlaps the copies), and its accumulators.
@@ -334,6 +366,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait_ring(p.stages);
     __syncthreads();       // tile t landed; every warp is done with tile t - 1
+    if (t == 0) FD_STAMP(1);
     if (t + p.stages - 1 < n_tiles) issue(t + p.stages - 1, wr);
     cp_async_commit();
     wr = wr + 1 == p.stages ? 0 : wr + 1;
@@ -419,6 +452,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params 
   }
   cp_async_wait<0>();
   __syncthreads();         // the ring is free: warp states go over it
+  FD_STAMP(2);
 
   // Per-warp states: [warp][m: GB | l: GB | acc: GB x NS * 128].
   constexpr int kDvp = NS * kSlot, kWarpState = GB * (2 + kDvp);
@@ -474,6 +508,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params 
       }
     }
   }
+  FD_STAMP(3);
   if (splits == 1) return;
 
   // The barrier orders every thread's partial before thread 0's ticket, an
@@ -482,6 +517,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params 
   __syncthreads();
   if (tid == 0) is_last = (ticket_acq_rel(&p.tickets[unit]) == splits - 1);
   __syncthreads();
+  FD_STAMP(4);
   if (!is_last) return;
 
   // Merge the splits in split order.  Every split's partial comes into
@@ -536,6 +572,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params 
         make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
   }
   if (tid == 0) p.tickets[unit] = 0;
+  FD_STAMP(5);
 }
 
 template <int KF, int VF, int NS>
@@ -583,13 +620,16 @@ int launch_v(int vfmt, int ns, const Params& p, int B, size_t smem, cudaStream_t
 // ...) with lo = tiles / splits, the first x = tiles % splits splits one
 // more than lo; a block takes 4 query
 // heads (G-chunks = ceil(G / 4)); `ns` 128-wide slots per row (1 or 2)
-// picks the instantiation.  `partials` holds splits * G-chunks * B * KV *
-// 4 * (dv + 2) floats when splits > 1.
+// picks the instantiation.  A ring stage holds 16 rows of K's values at
+// offset 0, V's at `off_v`, K's and V's side rows at `off_ks` and `off_vs`,
+// in `stage_bytes`.  `partials` holds splits * G-chunks * B * KV * 4 *
+// (dv + 2) floats when splits > 1.
 extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1,
                                    const void* v0, const void* v1, void* out,
                                    void* partials, void* tickets, int B, int C, int KV,
                                    int G, int d, int dv, int kv_len, int kfmt, int vfmt,
-                                   int tiles, int splits, int stages, int ns,
+                                   int tiles, int splits, int stages, int ns, int off_v,
+                                   int off_ks, int off_vs, int stage_bytes,
                                    float scale, int scale_is_div, void* stream) {
   if (kfmt < kF32 || kfmt > kMxint4Blk || vfmt < kF32 || vfmt > kMxint4Blk)
     return (int)cudaErrorInvalidValue;
@@ -605,10 +645,15 @@ extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1
       tiles != (kv_len + kTile - 1) / kTile || splits < 1 || splits > tiles ||
       stages < 2 || stages > kMaxStages || ns < 1 || ns > 2)
     return (int)cudaErrorInvalidValue;
-  p.off_v = kTile * p.kb;
-  p.off_ks = p.off_v + kTile * p.vb;
-  p.off_vs = p.off_ks + up16(kTile * p.ks);
-  p.stage_bytes = p.off_vs + up16(kTile * p.vs);
+  // Every array's tile fits its place in the stage, 16-byte aligned.
+  if (off_v % 16 || off_ks % 16 || off_vs % 16 || stage_bytes % 16 ||
+      off_v < kTile * p.kb || off_ks < off_v + kTile * p.vb ||
+      off_vs < off_ks + kTile * p.ks || stage_bytes < off_vs + kTile * p.vs)
+    return (int)cudaErrorInvalidValue;
+  p.off_v = off_v;
+  p.off_ks = off_ks;
+  p.off_vs = off_vs;
+  p.stage_bytes = stage_bytes;
   const int warp_states = kWarps * kGroup * (2 + ns * kSlot) * (int)sizeof(float);
   const long long ring = (long long)stages * p.stage_bytes;
   const long long ring_bytes = ring > warp_states ? ring : warp_states;
@@ -631,12 +676,10 @@ extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1
   p.tiles = tiles; p.splits = splits; p.gchunks = gchunks; p.stages = stages;
   p.scale = scale;
   p.scale_is_div = scale_is_div;
+#ifdef FD_PHASE_CLOCK
+  p.stamps = g_stamps;
+#endif
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#ifdef FD_KEY_FORMAT
-  // A library built for one K format (hopper.VARIANTS): 10 instantiations.
-  if (kfmt != FD_KEY_FORMAT) return (int)cudaErrorInvalidValue;
-  return launch_v<FD_KEY_FORMAT>(vfmt, ns, p, B, smem, s);
-#else
   switch (kfmt) {
     case kF32: return launch_v<kF32>(vfmt, ns, p, B, smem, s);
     case kBF16: return launch_v<kBF16>(vfmt, ns, p, B, smem, s);
@@ -645,8 +688,14 @@ extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1
     case kMxint4Blk: return launch_v<kMxint4Blk>(vfmt, ns, p, B, smem, s);
   }
   return (int)cudaErrorInvalidValue;
-#endif
 }
+
+#ifdef FD_PHASE_CLOCK
+// The stamp buffer of later launches: 2 * 6 int64 per block.
+extern "C" void flash_decode_set_stamps(void* stamps) {
+  g_stamps = static_cast<long long*>(stamps);
+}
+#endif
 
 extern "C" int flash_decode_tile_rows() { return kTile; }
 extern "C" int flash_decode_max_dim() { return kMaxDim; }

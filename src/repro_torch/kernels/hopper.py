@@ -43,18 +43,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # libcuda's cuTensorMapEncodeTiled.
 LINK_FLAGS = {"w8a8_matmul": ("-lcuda",)}
 
-# Kernels built as several libraries from one source, one per set of extra
-# flags, all compiled in parallel.  Flash-decode builds one library per K
-# cache format (`CACHE_FORMATS` code), so that its (K, V) format pairs
-# compile on several cores: an earlier version took 120 s in one nvcc on the
-# H100 machine.
-VARIANTS = {"flash_decode": tuple((f"-DFD_KEY_FORMAT={code}",) for code in range(5))}
+# Compile flags per kernel.  flash_decode.cu instantiates every (K, V) cache
+# format pair, 50 kernels: nvcc splits their device compilation over every
+# core (on an 8-core H100 host, 17.6-18.0 s for the five kernels' build
+# against 37.5 s without the split; tools/kernel_build_times.py).
+COMPILE_FLAGS = {"flash_decode": ("--split-compile=0",)}
 
 # Launches per kernel since the last `reset_launches()`; bumped only where a
 # kernel is launched.
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
-_LIBS: dict[tuple[str, int], ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 _TICKETS: dict[int, torch.Tensor] = {}
 _P = ctypes.c_void_p
@@ -104,16 +103,12 @@ def sources(name: str, csrc: Path | None = None) -> list[Path]:
     return seen
 
 
-def _variant_flags(name: str, variant: int) -> tuple:
-    return VARIANTS[name][variant] if name in VARIANTS else ()
-
-
-def _lib_path(name: str, csrc: Path | None = None, variant: int = 0) -> Path:
+def _lib_path(name: str, csrc: Path | None = None) -> Path:
     h = hashlib.sha256()
     for path in sources(name, csrc):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())
-                      + _variant_flags(name, variant)).encode())
+    h.update(" ".join(NVCC_FLAGS + COMPILE_FLAGS.get(name, ())
+                      + LINK_FLAGS.get(name, ())).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -127,28 +122,35 @@ def _link_flags(name: str, nvcc: str) -> list[str]:
     return flags
 
 
+def nvcc_command(name: str, out: Path, flags: tuple | None = None,
+                 csrc: Path | None = None) -> list:
+    """The nvcc command that builds ``<csrc>/<name>.cu`` into the library
+    ``out``, with ``flags`` (by default the kernel's `COMPILE_FLAGS`) after
+    the common ones."""
+    nvcc = _nvcc()
+    flags = COMPILE_FLAGS.get(name, ()) if flags is None else flags
+    return [nvcc, *NVCC_FLAGS, *flags, "-o", str(out),
+            str((CSRC if csrc is None else csrc) / f"{name}.cu"), *_link_flags(name, nvcc)]
+
+
 def build(names=KERNELS) -> dict[str, str]:
     """Compile the named kernels that are not built yet, in parallel.
 
     Returns ``{name: ptxas report}`` for the sources compiled by this call
-    (registers, shared memory and spills per kernel, every variant's report
-    joined).  Raises with the compiler's output if any build fails.
+    (registers, shared memory and spills per kernel).  Raises with the
+    compiler's output if any build fails.
     """
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
-        for variant in range(len(VARIANTS.get(name, ((),)))):
-            target = _lib_path(name, variant=variant)
-            if target.exists():
-                continue
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            nvcc = _nvcc()
-            cmd = [nvcc, *NVCC_FLAGS, *_variant_flags(name, variant), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu"), *_link_flags(name, nvcc)]
-            procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True),
-                          tmp, target))
+        target = _lib_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((name, subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True),
+                      tmp, target))
     reports, failed = {}, []
     for name, proc, tmp, target in procs:
         log = proc.communicate()[0]
@@ -156,20 +158,20 @@ def build(names=KERNELS) -> dict[str, str]:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, target)
-        reports[name] = reports.get(name, "") + log
+        reports[name] = log
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
 
 
-def _lib(name: str, variant: int = 0) -> ctypes.CDLL:
+def _lib(name: str) -> ctypes.CDLL:
     with _LOCK:
-        if (name, variant) not in _LIBS:
+        if name not in _LIBS:
             build((name,))
-            lib = ctypes.CDLL(str(_lib_path(name, variant=variant)))
+            lib = ctypes.CDLL(str(_lib_path(name)))
             _bind(name, lib)
-            _LIBS[name, variant] = lib
-        return _LIBS[name, variant]
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
@@ -186,7 +188,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             query.argtypes, query.restype = [], _I
     elif name == "flash_decode":
         fn = lib.flash_decode_launch
-        fn.argtypes = [_P] * 8 + [_I] * 13 + [_F, _I, _P]
+        fn.argtypes = [_P] * 8 + [_I] * 17 + [_F, _I, _P]
         limits = ((lib.flash_decode_tile_rows, FD_TILE),
                   (lib.flash_decode_max_dim, FD_MAX_DIM),
                   (lib.flash_decode_max_group, FD_MAX_GROUP),
@@ -427,9 +429,10 @@ CACHE_FORMATS = {"f32": (0, torch.float32, None),
 
 # Flash-decode (csrc/flash_decode.cu).  A block of 4 warps streams FD_TILE-row
 # tiles of one (b, h) through a ring of 2-4 stages in shared memory, each
-# warp 4 rows of a tile.  A lane holds 4 elements of each 128-wide slot of a
-# row (ns slots: 1 for d, dv <= 128, else 2), and a block's registers hold
-# FD_GROUP query heads; a larger G runs in chunks of FD_GROUP, a block each.
+# warp 4 rows of a tile; the planner lays out a stage, and the launch checks
+# it.  A lane holds 4 elements of each 128-wide slot of a row (ns slots: 1
+# for d, dv <= 128, else 2), and a block's registers hold FD_GROUP query
+# heads; a larger G runs in chunks of FD_GROUP, a block each.
 FD_TILE = 16
 FD_GROUP = 4
 FD_MAX_DIM = 256
@@ -468,13 +471,19 @@ def flash_decode_plan(b: int, kv: int, g: int, d: int, dv: int, kv_len: int,
     tiles, and FD_MIN_BLOCK_BYTES of cache, per split, or than the merging
     block can hold in shared memory (every split's f32 partial and weights,
     FD_GROUP x (dv + 3) values).  The ring holds every tile of a split, up
-    to FD_MAX_STAGES stages and FD_RING_BYTES.  Plans are cached (decode
-    asks for one per layer and step); callers must not modify the dict.
+    to FD_MAX_STAGES stages and FD_RING_BYTES.  A stage holds a tile of K's
+    values, V's, and K's and V's side rows, each array at a 16-byte aligned
+    offset (``layout``: V's values, K's side, V's side, and the stage's
+    bytes).  Plans are cached (decode asks for one per layer and step);
+    callers must not modify the dict.
     """
     ns = 1 if max(d, dv) <= 128 else 2
     gchunks = -(-g // FD_GROUP)
     (kb, ks), (vb, vs) = fd_row_bytes(k_fmt, d), fd_row_bytes(v_fmt, dv)
-    stage_bytes = FD_TILE * (kb + vb) + _up16(FD_TILE * ks) + _up16(FD_TILE * vs)
+    off_v = FD_TILE * kb
+    off_ks = off_v + FD_TILE * vb
+    off_vs = off_ks + _up16(FD_TILE * ks)
+    stage_bytes = off_vs + _up16(FD_TILE * vs)
     tiles = -(-kv_len // FD_TILE)
     units = b * kv * gchunks
     by_bytes = kv_len * (kb + ks + vb + vs) // FD_MIN_BLOCK_BYTES
@@ -485,7 +494,8 @@ def flash_decode_plan(b: int, kv: int, g: int, d: int, dv: int, kv_len: int,
     ranges = tuple((cuts[i], min(cuts[i + 1], kv_len)) for i in range(splits))
     most = -(-tiles // splits)
     stages = max(2, min(FD_MAX_STAGES, most + 1, FD_RING_BYTES // stage_bytes))
-    return dict(tile=FD_TILE, stages=stages, stage_bytes=stage_bytes, tiles=tiles,
+    return dict(tile=FD_TILE, stages=stages, stage_bytes=stage_bytes,
+                layout=(off_v, off_ks, off_vs, stage_bytes), tiles=tiles,
                 splits=splits, ranges=ranges, ns=ns, gchunks=gchunks,
                 blocks=units * splits, rows_per_split=max(e - s for s, e in ranges))
 
@@ -562,7 +572,7 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
     kc, k0, k1 = _cache_operand("k", k_parts, k_fmt, (b, c, kv), d)
     vc, v0, v1 = _cache_operand("v", v_parts, v_fmt, (b, c, kv), dv)
     plan = flash_decode_plan(b, kv, g, d, dv, kv_len, k_fmt, v_fmt, _sms(q.device))
-    lib = _lib("flash_decode", variant=kc)
+    lib = _lib("flash_decode")
     splits = plan["splits"]
     out = torch.empty(b, kv, g, dv, dtype=torch.float32, device=q.device)
     units = b * kv * plan["gchunks"]
@@ -573,8 +583,8 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
     err = lib.flash_decode_launch(
         q.data_ptr(), k0, k1, v0, v1, out.data_ptr(), partials.data_ptr(),
         tickets.data_ptr(), b, c, kv, g, d, dv, kv_len, kc, vc, plan["tiles"], splits,
-        plan["stages"], plan["ns"], 0.0 if div else float(scale), int(div),
-        _stream())
+        plan["stages"], plan["ns"], *plan["layout"], 0.0 if div else float(scale),
+        int(div), _stream())
     _raise_if(err, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out

@@ -146,15 +146,18 @@ def test_layout_check_rejects_a_strided_view():
         hopper.check_fd_operand("k", t, torch.float32, (1, 5, 2, 128))
 
 
-def test_one_library_per_key_format(tmp_path, monkeypatch):
-    """Flash-decode builds one library per K cache format, in parallel; the
-    wrapper loads the one of the K operand's format code."""
+def test_flash_decode_builds_one_library_split_over_cores(tmp_path, monkeypatch):
+    """Flash-decode's format pairs build as one library whose device
+    compilation nvcc splits over every core; the flag is part of the
+    library's hash, and no other kernel takes it."""
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
-    codes = sorted(hopper.CACHE_FORMATS[f][0] for f in FORMATS)
-    assert codes == list(range(len(hopper.VARIANTS["flash_decode"])))
-    paths = {hopper._lib_path("flash_decode", variant=v) for v in codes}
-    assert len(paths) == len(codes)
-    assert all(p.parent == tmp_path for p in paths)
+    monkeypatch.setattr(hopper, "_nvcc", lambda: "cuda/bin/nvcc")
+    assert "--split-compile=0" in hopper.nvcc_command("flash_decode", tmp_path / "f.so")
+    assert "--split-compile=0" not in hopper.nvcc_command("w8a8_matmul", tmp_path / "w.so")
+    path = hopper._lib_path("flash_decode")
+    assert path.parent == tmp_path
+    monkeypatch.setitem(hopper.COMPILE_FLAGS, "flash_decode", ())
+    assert hopper._lib_path("flash_decode") != path
 
 
 def test_plan_caps_splits_at_the_merge_shared_memory():
@@ -163,3 +166,20 @@ def test_plan_caps_splits_at_the_merge_shared_memory():
     plan = hopper.flash_decode_plan(1, 1, 4, 256, 256, 32768, "f32", "f32", SMS)
     assert plan["splits"] == 55
     _covers(plan, 32768)
+
+
+@pytest.mark.parametrize("k_fmt", FORMATS)
+@pytest.mark.parametrize("v_fmt", FORMATS)
+@pytest.mark.parametrize("dim", [32, 128, 256])
+def test_plan_lays_out_a_stage_the_kernel_accepts(k_fmt, v_fmt, dim):
+    """The planner owns a ring stage's layout; the launch accepts it only if
+    every array's tile fits its place at a 16-byte aligned offset."""
+    plan = hopper.flash_decode_plan(2, 8, 4, dim, dim, 528, k_fmt, v_fmt, SMS)
+    off_v, off_ks, off_vs, stage = plan["layout"]
+    (kb, ks), (vb, vs) = hopper.fd_row_bytes(k_fmt, dim), hopper.fd_row_bytes(v_fmt, dim)
+    t = plan["tile"]
+    assert all(x % 16 == 0 for x in plan["layout"])
+    assert off_v >= t * kb and off_ks >= off_v + t * vb
+    assert off_vs >= off_ks + t * ks and stage >= off_vs + t * vs
+    assert stage == plan["stage_bytes"]
+    assert plan["stages"] * stage <= hopper.FD_RING_BYTES
