@@ -16,7 +16,9 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (W8A8: ``torch._int_mm`` on the K-major weight the kernel reads, and on a
    row-major copy; flash-decode: ``scaled_dot_product_attention`` with
    ``enable_gqa`` on the f32 cache's views, and on K/V expanded to every
-   query head), each relaunch bit-equal to the first;
+   query head), each relaunch bit-equal to the first; retention on the
+   model's strided views, with a second bound for its 3xTF32 instruction
+   mix and a profiler check that one call runs only its own two launches;
 4. the two main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens:
@@ -58,11 +60,11 @@ from repro_torch.serving.engine import EngineSpec, InferenceEngine  # noqa: E402
 from repro_torch.serving.sampling import GenerationConfig  # noqa: E402
 
 # Data-sheet peaks (NVIDIA, dense): bytes/s of device memory, and operations/s
-# for int8 on the tensor cores and for f32 on the CUDA cores.
+# for int8 and TF32 on the tensor cores and for f32 on the CUDA cores.
 PEAKS = {
-    "H100 SXM": dict(bytes=3.35e12, int8=1979e12, f32=67e12),
-    "H100 PCIe": dict(bytes=2.0e12, int8=1513e12, f32=51e12),
-    "H200": dict(bytes=4.8e12, int8=1979e12, f32=67e12),
+    "H100 SXM": dict(bytes=3.35e12, int8=1979e12, tf32=495e12, f32=67e12),
+    "H100 PCIe": dict(bytes=2.0e12, int8=1513e12, tf32=378e12, f32=51e12),
+    "H200": dict(bytes=4.8e12, int8=1979e12, tf32=495e12, f32=67e12),
 }
 SRC = {
     "mxint4_matmul": ("src/repro_torch/kernels/csrc/mxint4_matmul.cu",
@@ -250,38 +252,105 @@ def kernel_phase_w8a8(peaks):
     return rows
 
 
+def _retention_launch_kernels(fn) -> list:
+    """Names of the CUDA kernels (and copies) one call of ``fn`` runs on the
+    card, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _retention_f64(q, k, v, gamma):
+    """y and the final state from a zero state in float64, by the parallel
+    form over the whole sequence: the yardstick both f32 versions are held
+    to (``f64_max_abs_err``)."""
+    qd, kd, vd = (t.double() for t in (q, k, v))
+    n = torch.arange(q.shape[2], dtype=torch.float64, device=q.device)
+    lg = torch.log(gamma.double())[:, None, None]
+    diff = n[:, None] - n[None, :]
+    d = torch.where(diff >= 0, torch.exp(diff.clamp(min=0) * lg), 0.0)
+    y = torch.einsum("bhnm,bhmv->bhnv", torch.einsum("bhnd,bhmd->bhnm", qd, kd) * d, vd)
+    w = torch.exp((n[-1] - n)[None, :] * lg[:, :, 0])                 # [H, S]
+    state = torch.einsum("bhnd,bhnv->bhdv", kd * w[None, :, :, None], vd)
+    return y, state
+
+
 def kernel_phase_retention(peaks):
+    """retnet-1.3b prefill retention: B 2, H 8, S 512, dk 256, dv 512, c 128.
+
+    The main row takes q, k and v as the model hands them over, transposes
+    of ``[B, S, H, d]`` tensors; a contiguous ``[B, H, S, d]`` row is checked
+    and timed beside it (no model path).  Each is checked from a zero and a
+    warm state, relaunched bit-equal, and profiled: one wrapper call must
+    run the kernel's two launches and no copy or elementwise kernel.  Two
+    bounds: ``bound_ms`` counts the work as f32 FMAs on the CUDA cores (the
+    bound the kernel was first held to), ``bound_3xtf32_ms`` as its own instruction
+    mix, three TF32 tensor-core products per multiply-add.  Both versions'
+    errors against a float64 evaluation are printed beside the check.  No
+    single PyTorch call computes chunkwise retention."""
     h = 8
     dk, dv, c = RETNET["d"] // h, 2 * RETNET["d"] // h, 128
     g = _gen(7)
-    q, k = (torch.randn(BATCH, h, PROMPT, dk, generator=g, device="cuda") * dk ** -0.5
-            for _ in range(2))
-    v = torch.randn(BATCH, h, PROMPT, dv, generator=g, device="cuda")
     gamma = ret.head_decays(h, device="cuda")
+    bh, n_chunks = BATCH * h, PROMPT // c
+    flops = bh * n_chunks * (2 * c * c * (dk + dv) + 4 * c * dk * dv)
+    nbytes = 4 * bh * PROMPT * (2 * dk + 2 * dv) + 4 * bh * dk * dv + 4 * h
+    bms, by = bound_ms(nbytes, flops, peaks["f32"], peaks)
+    b3, by3 = bound_ms(nbytes, 3 * flops, peaks["tf32"], peaks)
+    plan = hopper.retention_plan(bh, PROMPT, dk, dv, c)
     rows = []
-    for warm in (False, True):
-        st = (torch.randn(BATCH, h, dk, dv, generator=g, device="cuda") * 0.1
-              if warm else None)
-        y, s = ops.retention_chunkwise(q, k, v, gamma, chunk=c, state=st, impl="kernel")
-        y_r, s_r = ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c, state=st)
-        err = max(_check("retention y", y, y_r, 1e-4, 1e-4),
-                  _check("retention state", s, s_r, 1e-4, 1e-4))
-        if warm:           # off the main path: checked, not timed
-            rows[0]["warm_state_max_abs_err"] = err
-            continue
-        bh, n_chunks = BATCH * h, PROMPT // c
-        flops = bh * n_chunks * (2 * c * c * (dk + dv) + 4 * c * dk * dv)
-        nbytes = 4 * bh * PROMPT * (2 * dk + 2 * dv) + 4 * bh * dk * dv + 4 * h
-        bms, by = bound_ms(nbytes, flops, peaks["f32"], peaks)
+    for model_layout in (True, False):
+        def make(d):
+            shape = (BATCH, PROMPT, h, d) if model_layout else (BATCH, h, PROMPT, d)
+            return torch.randn(*shape, generator=g, device="cuda")
+        q, k = (make(dk) * dk ** -0.5 for _ in range(2))
+        v = make(dv)
+        if model_layout:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        layout = "model transpose(1, 2) views" if model_layout else "contiguous"
+        run = lambda st=None: ops.retention_chunkwise(  # noqa: E731
+            q, k, v, gamma, chunk=c, state=st, impl="kernel")
+        errs = []
+        for st in (None, torch.randn(BATCH, h, dk, dv, generator=g, device="cuda") * 0.1):
+            y, s = run(st)
+            y_r, s_r = ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c, state=st)
+            errs.append(max(_check(f"retention y ({layout})", y, y_r, 1e-4, 1e-4),
+                            _check(f"retention state ({layout})", s, s_r, 1e-4, 1e-4)))
+            for _ in range(2):
+                y2, s2 = run(st)
+                if not (torch.equal(y, y2) and torch.equal(s, s2)):
+                    raise RuntimeError(f"retention ({layout}): two launches differ")
+        y64, s64 = _retention_f64(q, k, v, gamma)
+        y_r, s_r = ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c)
+        y, s = run()
+        f64_err = {name: max((a.double() - y64).abs().max().item(),
+                             (b.double() - s64).abs().max().item())
+                   for name, (a, b) in (("kernel", (y, s)), ("plain", (y_r, s_r)))}
+        del y64, s64
+        launched = _retention_launch_kernels(run)
+        if not launched:
+            raise RuntimeError("retention: the profiler saw no device kernel")
+        if len(launched) != 2 or not all("retention_pass" in n for n in launched):
+            raise RuntimeError(f"retention ({layout}): one call ran {launched}, "
+                               "expected the kernel's two launches only")
+        ms = time_ms(run)
         rows.append(dict(
-            path=RETNET["arch"], shape=[BATCH, h, PROMPT, dk, dv, c],
-            per_prefill=RETNET["layers"], max_abs_err=err,
-            ms=time_ms(lambda: ops.retention_chunkwise(q, k, v, gamma, chunk=c,
-                                                       impl="kernel")),
-            call_ms=call_ms(lambda: ops.retention_chunkwise(q, k, v, gamma, chunk=c,
-                                                            impl="kernel")),
+            path=RETNET["arch"] if model_layout else "contiguous [B, H, S, d] (no model path)",
+            main=model_layout, layout=layout, shape=[BATCH, h, PROMPT, dk, dv, c],
+            per_prefill=RETNET["layers"], max_abs_err=errs[0],
+            warm_state_max_abs_err=errs[1], f64_max_abs_err=f64_err, ms=ms,
+            call_ms=call_ms(run),
             plain_ms=time_ms(lambda: ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c)),
-            library_ms=None, bound_ms=bms, bound_by=by))
+            library_ms=None, bound_ms=bms, bound_by=by, bound_3xtf32_ms=b3,
+            bound_3xtf32_by=by3, plan=plan, launch_kernels=launched,
+            rate=f"{flops / ms / 1e9:.1f} TFLOP/s (f32 work)", bound_share=bms / ms,
+            bound_share_3xtf32=b3 / ms))
+        del q, k, v
     return rows
 
 
@@ -421,7 +490,8 @@ def summarize(name, rows, per_key, tol):
     by_ops = sum(r["bound_ms"] * r[per_key] for r in rows
                  if main(r) and r["bound_by"] == "operations")
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
-        key for key in ("library_rowmajor_ms", "library_gqa_ms") if key in rows[0])
+        key for key in ("library_rowmajor_ms", "library_gqa_ms", "bound_3xtf32_ms")
+        if key in rows[0])
     per_path = {p: {key: total(key, lambda r, p=p: r["path"] == p) for key in keys}
                 for p in dict.fromkeys(r["path"] for r in rows)}
     entry = dict(name=name, route="cuda", source=SRC[name][0], replaces=SRC[name][1],
@@ -761,7 +831,10 @@ def main() -> int:
         for r in e["shapes"]:
             extra = "".join(f" {key} {r[key]}" for key in (
                 "library_rowmajor_ms", "library_gqa_ms", "library_backend",
-                "library_max_abs_err", "rate", "library_rate", "bound_share", "plan")
+                "library_max_abs_err", "rate", "library_rate", "bound_share",
+                "bound_3xtf32_ms", "bound_share_3xtf32", "warm_state_max_abs_err",
+                "f64_max_abs_err",
+                "launch_kernels", "plan")
                 if key in r)
             log(f"  {e['name']} {r['path']} {r['shape']}: kernel {r['ms']:.4f} (per call "
                 f"{r['call_ms']:.4f}) plain {r['plain_ms']:.4f} library "

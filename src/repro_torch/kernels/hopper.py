@@ -9,9 +9,10 @@ header it includes from ``csrc/``, and of its compile and link flags, so an
 edited source or header is rebuilt and never loaded stale.
 
 The two GEMM kernels take their tile shape (and MXINT4 its K split) from
-planners here (`w8a8_plan`, `mxint4_plan`), and flash-decode its split and
-ring from `flash_decode_plan`: plain functions of the shape that the CPU
-tests reach, as is flash-decode's layout check (`check_fd_operand`).
+planners here (`w8a8_plan`, `mxint4_plan`), flash-decode its split and ring
+from `flash_decode_plan`, and retention its grid and scratch from
+`retention_plan`: plain functions of the shape that the CPU tests reach, as
+are the layout checks (`check_fd_operand`, `retention_dims`).
 
 The launch functions here check device, dtype, shape, contiguity and
 alignment, launch on PyTorch's current stream, raise on a nonzero
@@ -183,9 +184,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [_P] * 6 + [_I] * 4 + [_P]
     elif name == "retention_chunkwise":
         fn = lib.retention_chunkwise_launch
-        fn.argtypes = [_P] * 7 + [_I] * 5 + [_P]
-        for query in (lib.retention_max_chunk, lib.retention_max_dk):
-            query.argtypes, query.restype = [], _I
+        fn.argtypes = [_P] * 11
+        query = lib.retention_config
+        query.argtypes, query.restype = [_I], _I
+        want = (RET_MAX_CHUNK, RET_MAX_DK, RET_BK, RET_STAGES, RET_TILE, *RET_STATE_TILE,
+                RET_SCORE_BN, RET_OUT_BN)
+        got = tuple(query(i) for i in range(len(want)))
+        if got != want:
+            raise RuntimeError(f"retention_chunkwise: the library's shape {got} is "
+                               f"not the planner's {want}")
     elif name == "flash_decode":
         fn = lib.flash_decode_launch
         fn.argtypes = [_P] * 8 + [_I] * 17 + [_F, _I, _P]
@@ -390,33 +397,132 @@ def w8a8_matmul(x_q, w_q, out_scale, row_scale, bias):
     return out
 
 
-def retention_chunkwise(q, k, v, log_g, state, chunk: int):
-    """q, k f32 ``[BH, S, dk]``, v f32 ``[BH, S, dv]``, log_g f32 ``[BH]``,
-    state f32 ``[BH, dk, dv]`` or None -> (y ``[BH, S, dv]``, final state)."""
-    lib = _lib("retention_chunkwise")
-    bh, s, dk = q.shape
-    dv = v.shape[-1]
-    if chunk > lib.retention_max_chunk() or dk > lib.retention_max_dk():
-        raise ValueError(f"retention_chunkwise: chunk {chunk} and dk {dk} must "
-                         f"be <= {lib.retention_max_chunk()} and "
-                         f"{lib.retention_max_dk()}")
-    if chunk < 1 or s % chunk:
+# Chunkwise retention (csrc/retention_chunkwise.cu).  Pass 1 runs state
+# blocks (bh, dk tile, dv tile), each walking the chunks in order, beside
+# score blocks (bh, chunk, column tile); pass 2 runs output blocks (bh, chunk,
+# dv tile).  A score or output tile holds a whole chunk (RET_TILE rows).
+# Every block is 8 warps, two to an SM, and streams RET_BK-deep k-slices
+# through a RET_STAGES-deep cp.async ring.  Of the tiles tried on an H100
+# (PERF.md), these ran fastest.
+RET_MAX_CHUNK = 128
+RET_MAX_DK = 256
+RET_BK = 32
+RET_STAGES = 3
+RET_TILE = 128
+RET_STATE_TILE = (64, 128)     # rows of dk, columns of dv
+RET_SCORE_BN = 64              # columns of P
+RET_OUT_BN = 64                # columns of y
+
+
+@functools.lru_cache(maxsize=None)
+def retention_plan(bh: int, s: int, dk: int, dv: int, chunk: int) -> dict:
+    """Grid and scratch of one retention launch.
+
+    ``ldp`` is the row stride of the decayed-score scratch (chunk rounded up
+    to whole 16-byte copies); ``p_floats`` and ``s_floats`` size the scores
+    of every (bh, chunk) and the incoming states of chunks 1..n-1.  Raises
+    on a shape the kernel does not take.  Plans are cached; callers must not
+    modify the dict.
+    """
+    if not 1 <= chunk <= RET_MAX_CHUNK or dk > RET_MAX_DK:
+        raise ValueError(f"retention_chunkwise: chunk {chunk} and dk {dk} must be "
+                         f"in [1, {RET_MAX_CHUNK}] and <= {RET_MAX_DK}")
+    if s % chunk:
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
-    _check("q", q, torch.float32, (bh, s, dk))
-    _check("k", k, torch.float32, (bh, s, dk))
-    _check("v", v, torch.float32, (bh, s, dv))
-    _check("log_g", log_g, torch.float32, (bh,))
-    if state is not None:
-        _check("state", state, torch.float32, (bh, dk, dv))
-    y = torch.empty(bh, s, dv, dtype=torch.float32, device=q.device)
-    st = torch.empty(bh, dk, dv, dtype=torch.float32, device=q.device)
+    if dk % 4 or dv % 4:
+        raise ValueError(f"retention_chunkwise: dk {dk} and dv {dv} must be multiples "
+                         "of 4 (rows of whole 16-byte copies)")
+    n = s // chunk
+    sm, sn = RET_STATE_TILE
+    state_blocks = bh * -(-dk // sm) * -(-dv // sn)
+    score_tiles = RET_TILE // RET_SCORE_BN
+    ldp = -(-chunk // 4) * 4
+    return dict(n_chunks=n, ldp=ldp, state_dk_tiles=-(-dk // sm),
+                state_dv_tiles=-(-dv // sn), score_tiles=score_tiles,
+                out_dv_tiles=-(-dv // RET_OUT_BN), state_blocks=state_blocks,
+                score_blocks=bh * n * score_tiles,
+                pass1_blocks=state_blocks + bh * n * score_tiles,
+                pass2_blocks=bh * n * -(-dv // RET_OUT_BN),
+                p_floats=bh * n * chunk * ldp, s_floats=bh * (n - 1) * dk * dv)
+
+
+def check_retention_operand(name: str, t: torch.Tensor, shape: tuple) -> tuple:
+    """Layout of a retention input q, k or v ``[B, H, S, d]`` (any device).
+
+    The kernel reads rows of d floats in 16-byte copies through the view's
+    own (B, H, S) strides, so it takes f32 with a unit last-dim stride, d a
+    multiple of 4, every stride of a dimension longer than 1 a multiple of
+    4, and a 16-byte aligned base: the model's ``transpose(1, 2)`` views
+    pass as they are.  Returns those three strides; raises on anything else
+    (nothing is copied into a layout the kernel takes).
+    """
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: last dim must have stride 1, got strides {t.stride()}")
+    if shape[-1] % 4 or any(st % 4 for st, n in zip(t.stride()[:3], shape[:3]) if n > 1):
+        raise ValueError(f"{name}: rows must be whole 16-byte copies (d and the B, H, S "
+                         f"strides multiples of 4 floats), got shape {tuple(shape)}, "
+                         f"strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: base must be 16-byte aligned (address {t.data_ptr():#x})")
+    return tuple(st if n > 1 else 0 for st, n in zip(t.stride()[:3], shape[:3]))
+
+
+def retention_dims(q, k, v, gamma, state, chunk: int) -> tuple[dict, tuple, tuple]:
+    """Check one launch's operands (any device) and return its plan, the
+    kernel's input pointers (q, k, v, gamma, state or None: the tensors'
+    own) and its int64 dims: B, H, S, dk, dv, chunk, ldp, the (B, H, S)
+    strides of q, k and v as the views have them, those of y in its
+    ``[B, S, H, dv]`` buffer, and the grid.  Raises on anything the kernel
+    does not take."""
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    plan = retention_plan(b * h, s, dk, dv, chunk)
+    strides = [check_retention_operand(nm, t, (b, h, s, d)) for nm, t, d in
+               (("q", q, dk), ("k", k, dk), ("v", v, dv))]
+    if gamma.dtype != torch.float32 or tuple(gamma.shape) != (h,) or gamma.stride(0) != 1:
+        raise ValueError(f"gamma: expected contiguous float32 [{h}], got {gamma.dtype} "
+                         f"{tuple(gamma.shape)}")
+    if state is not None and (state.dtype != torch.float32 or not state.is_contiguous()
+                              or tuple(state.shape) != (b, h, dk, dv)
+                              or state.data_ptr() % 16):
+        raise ValueError(f"state: expected contiguous 16-byte aligned float32 "
+                         f"{(b, h, dk, dv)}, got {state.dtype} {tuple(state.shape)}")
+    dims = (b, h, s, dk, dv, chunk, plan["ldp"], *strides[0], *strides[1], *strides[2],
+            s * h * dv, dv, h * dv, plan["state_dk_tiles"], plan["state_dv_tiles"],
+            plan["score_tiles"], plan["out_dv_tiles"])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), gamma.data_ptr(),
+            None if state is None else state.data_ptr())
+    return plan, ptrs, dims
+
+
+def retention_chunkwise(q, k, v, gamma, state, chunk: int):
+    """q, k f32 ``[B, H, S, dk]``, v f32 ``[B, H, S, dv]`` (strided views as
+    `check_retention_operand` takes them), gamma f32 ``[H]``, state f32
+    ``[B, H, dk, dv]`` contiguous or None -> (y ``[B, H, S, dv]``, a view of a
+    ``[B, S, H, dv]`` buffer, and the final state ``[B, H, dk, dv]``).  The
+    kernel reads the views in place: nothing is copied."""
+    for t in (q, k, v, gamma) + (() if state is None else (state,)):
+        if not t.is_cuda:
+            raise ValueError(f"retention_chunkwise: expected CUDA tensors, got {t.device}")
+    plan, ptrs, dims = retention_dims(q, k, v, gamma, state, chunk)
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    lib = _lib("retention_chunkwise")
+    y = torch.empty(b, s, h, dv, dtype=torch.float32, device=q.device)
+    st = torch.empty(b, h, dk, dv, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(plan["p_floats"] + plan["s_floats"], dtype=torch.float32,
+                          device=q.device)
     err = lib.retention_chunkwise_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_g.data_ptr(),
-        None if state is None else state.data_ptr(), y.data_ptr(),
-        st.data_ptr(), bh, s, dk, dv, chunk, _stream())
+        *ptrs, y.data_ptr(), st.data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr() + 4 * plan["p_floats"],
+        (ctypes.c_longlong * len(dims))(*dims), _stream())
     _raise_if(err, "retention_chunkwise")
     LAUNCHES["retention_chunkwise"] += 1
-    return y, st
+    return y.permute(0, 2, 1, 3), st
 
 
 # Cache formats `flash_decode` takes, by name, with the kernel's code for each

@@ -8,8 +8,8 @@ Implementation selection (``impl``):
 There is no fallback: a kernel that fails to build or launch raises.  The
 wrappers own the shape plumbing: leading batch dims flatten into M, absent
 epilogue operands default to identities (exact: x * 1 and x + 0), the
-retention op passes an initial state to the kernel, and flash-decode splits
-each cache leaf into the arrays its format keeps.
+retention op hands the kernel its strided views and an initial state, and
+flash-decode splits each cache leaf into the arrays its format keeps.
 """
 
 from __future__ import annotations
@@ -87,21 +87,23 @@ def w8a8_matmul(x_q, w_q, combined_scale, row_scale=None, bias=None, *,
 def retention_chunkwise(q, k, v, gamma, *, chunk: int = 128, state=None,
                         impl: str = "auto"):
     """q, k ``[B, H, S, dk]``, v ``[B, H, S, dv]``, gamma ``[H]``, optional
-    state ``[B, H, dk, dv]`` -> (y in v's dtype, final f32 state)."""
+    state ``[B, H, dk, dv]`` -> (y in v's dtype, final f32 state).
+
+    The kernel reads q, k and v through their own strides (the model's
+    ``transpose(1, 2)`` views as they are; `hopper.check_retention_operand`
+    raises on a layout it does not take) and returns y as a ``[B, H, S, dv]``
+    view of a ``[B, S, H, dv]`` buffer, so transposing it back is free.
+    Inputs that are not f32 are cast (the model's are f32).
+    """
     if not use_kernel(impl, q):
         return _ref.retention_chunkwise_ref(q, k, v, gamma, chunk=chunk,
                                             state=state)
     from repro_torch.kernels import hopper
-    b, h, s, dk = q.shape
-    dv = v.shape[-1]
     f32 = torch.float32
-    log_g = torch.log(gamma.to(f32)).repeat(b).contiguous()     # [B*H]
-    st0 = None if state is None else state.to(f32).reshape(b * h, dk, dv).contiguous()
     y, st = hopper.retention_chunkwise(
-        q.to(f32).reshape(b * h, s, dk).contiguous(),
-        k.to(f32).reshape(b * h, s, dk).contiguous(),
-        v.to(f32).reshape(b * h, s, dv).contiguous(), log_g, st0, chunk)
-    return y.reshape(b, h, s, dv).to(v.dtype), st.reshape(b, h, dk, dv)
+        q.to(f32), k.to(f32), v.to(f32), gamma.to(f32),
+        None if state is None else state.to(f32), chunk)
+    return y.to(v.dtype), st
 
 
 def _cache_parts(leaf) -> tuple[tuple, str]:

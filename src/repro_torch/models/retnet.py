@@ -64,7 +64,11 @@ def retention_apply(p: Retention, x_star, sig_inv, engine: HSAEngine,
         sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
         q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
     gamma = ret.head_decays(cfg.n_heads, device=q.device)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, d*]
+    # [B, H, S, d*] views of the [B, S, H, d*] projections, handed to the
+    # kernel as they are (it reads through their strides).  The kernel's y
+    # is a [B, H, S, dv] view of a [B, S, H, dv] buffer, so the transpose
+    # back is contiguous and _gate_out's reshape copies nothing.
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     chunk = min(128, s)
     if s % chunk == 0:
         y, state = ops.retention_chunkwise(qt, kt, vt, gamma, chunk=chunk,

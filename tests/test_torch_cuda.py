@@ -140,11 +140,19 @@ def test_w8a8_matmul_kernel_rejects_row_major_weight():
     assert ops.w8a8_matmul(xq, deploy.k_major(wq), 1.0, impl="kernel").shape == (64, 128)
 
 
-@pytest.mark.parametrize("b,h,s,dk,dv,chunk,warm", [
+# (B, H, S, dk, dv, chunk, warm) of every retention case: the retnet-1.3b
+# prefill shape, ragged tiles (s = chunk = 96 among them), a single chunk,
+# and four chunks of 64.
+RETENTION_CASES = [
     (2, 8, 512, 256, 512, 128, False), (2, 8, 512, 256, 512, 128, True),
     (1, 2, 32, 16, 16, 8, False), (2, 3, 64, 16, 24, 16, True),
     (2, 1, 128, 32, 64, 32, False), (1, 4, 96, 40, 72, 96, True),
-])
+    (2, 8, 128, 256, 512, 128, False), (1, 2, 128, 64, 128, 128, True),
+    (2, 4, 256, 64, 128, 64, False), (1, 3, 256, 48, 200, 64, True),
+]
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk,warm", RETENTION_CASES)
 def test_retention_chunkwise_kernel(b, h, s, dk, dv, chunk, warm):
     rng = _gen(s + dk + dv)
     q, k = (_t((rng.normal(size=(b, h, s, dk)) * 0.3 / np.sqrt(dk) ** 0.5)
@@ -159,6 +167,79 @@ def test_retention_chunkwise_kernel(b, h, s, dk, dv, chunk, warm):
                                                state=st)
     torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s_out, s_ref, rtol=1e-4, atol=1e-4)
+
+
+def _retention_inputs(b, h, s, dk, dv, warm, model_layout):
+    """Seeded q, k, v (and a warm state); with ``model_layout`` the [B, H, S, d]
+    views the model hands over: transposes of [B, S, H, d] tensors."""
+    rng = _gen(s + dk + dv)
+    shape = (lambda d: (b, s, h, d)) if model_layout else (lambda d: (b, h, s, d))
+    q, k = (_t((rng.normal(size=shape(dk)) * dk ** -0.5).astype(np.float32))
+            for _ in range(2))
+    v = _t(rng.normal(size=shape(dv)).astype(np.float32))
+    if model_layout:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    st = (_t(rng.normal(size=(b, h, dk, dv)).astype(np.float32) * 0.1)
+          if warm else None)
+    return q, k, v, st
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [(2, 8, 512, 256, 512, 128),
+                                               (2, 3, 64, 16, 24, 16)])
+def test_retention_chunkwise_kernel_model_layout(b, h, s, dk, dv, chunk, warm):
+    """The model's transpose(1, 2) views go in as they are, and y comes back
+    as a view whose transpose back is contiguous."""
+    q, k, v, st = _retention_inputs(b, h, s, dk, dv, warm, True)
+    assert not q.is_contiguous()
+    gamma = ret.head_decays(h, device="cuda")
+    y, s_out = ops.retention_chunkwise(q, k, v, gamma, chunk=chunk, state=st,
+                                       impl="kernel")
+    assert y.transpose(1, 2).is_contiguous()
+    y_ref, s_ref = ref.retention_chunkwise_ref(q.contiguous(), k.contiguous(),
+                                               v.contiguous(), gamma, chunk=chunk,
+                                               state=st)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_out, s_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("model_layout", [False, True])
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk,warm", RETENTION_CASES)
+def test_retention_chunkwise_kernel_relaunch_bit_equal(b, h, s, dk, dv, chunk, warm,
+                                                       model_layout):
+    q, k, v, st = _retention_inputs(b, h, s, dk, dv, warm, model_layout)
+    gamma = ret.head_decays(h, device="cuda")
+    first = ops.retention_chunkwise(q, k, v, gamma, chunk=chunk, state=st, impl="kernel")
+    for _ in range(2):
+        again = ops.retention_chunkwise(q, k, v, gamma, chunk=chunk, state=st,
+                                        impl="kernel")
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("how", ["last_stride", "row_stride", "base", "chunk", "dk"])
+def test_retention_chunkwise_kernel_rejects_misaligned_views(how):
+    b, h, s, dk, dv = 1, 2, 64, 16, 16
+    base = torch.randn(b * h * s * dk * 2 + 8, device="cuda")
+    q = base[:b * h * s * dk].view(b, h, s, dk)
+    chunk = 16
+    if how == "last_stride":
+        q = base[:b * h * s * dk * 2].view(b, h, s, dk, 2)[..., 0]
+    elif how == "row_stride":       # rows 18 floats apart: not 16-byte aligned
+        q = base.as_strided((b, h, s, dk), (h * s * 18, s * 18, 18, 1))
+    elif how == "base":
+        q = base[1:1 + b * h * s * dk].view(b, h, s, dk)
+    elif how == "chunk":
+        chunk = 2 * hopper.RET_MAX_CHUNK
+        q = torch.randn(b, h, 2 * chunk, dk, device="cuda")
+    else:
+        q = torch.randn(b, h, s, 2 * hopper.RET_MAX_DK, device="cuda")
+    k = q
+    v = torch.randn(*q.shape[:3], dv, device="cuda")
+    before = hopper.LAUNCHES["retention_chunkwise"]
+    with pytest.raises(ValueError):
+        ops.retention_chunkwise(q, k, v, ret.head_decays(h, device="cuda"), chunk=chunk,
+                                impl="kernel")
+    assert hopper.LAUNCHES["retention_chunkwise"] == before
 
 
 def _cache_leaf(x: torch.Tensor, fmt: str):
