@@ -17,8 +17,9 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    row-major copy; flash-decode: ``scaled_dot_product_attention`` with
    ``enable_gqa`` on the f32 cache's views, and on K/V expanded to every
    query head), each relaunch bit-equal to the first; retention on the
-   model's strided views, with a second bound for its 3xTF32 instruction
-   mix and a profiler check that one call runs only its own two launches;
+   model's strided views, bound by its 3xTF32 instruction mix (the f32
+   CUDA-core bound beside it), with a profiler check that one call runs
+   only its own two launches;
 4. the two main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens:
@@ -281,77 +282,76 @@ def _retention_f64(q, k, v, gamma):
 
 
 def kernel_phase_retention(peaks):
-    """retnet-1.3b prefill retention: B 2, H 8, S 512, dk 256, dv 512, c 128.
+    """retnet-1.3b prefill retention: B 2, H 8, S 512, dk 256, dv 512, c 128,
+    on q, k and v as the model hands them over (transposes of ``[B, S, H,
+    d]`` tensors; contiguous inputs are left to tests/test_torch_cuda.py).
 
-    The main row takes q, k and v as the model hands them over, transposes
-    of ``[B, S, H, d]`` tensors; a contiguous ``[B, H, S, d]`` row is checked
-    and timed beside it (no model path).  Each is checked from a zero and a
-    warm state, relaunched bit-equal, and profiled: one wrapper call must
-    run the kernel's two launches and no copy or elementwise kernel.  Two
-    bounds: ``bound_ms`` counts the work as f32 FMAs on the CUDA cores (the
-    bound the kernel was first held to), ``bound_3xtf32_ms`` as its own instruction
-    mix, three TF32 tensor-core products per multiply-add.  Both versions'
-    errors against a float64 evaluation are printed beside the check.  No
-    single PyTorch call computes chunkwise retention."""
+    Checked from a zero and a warm state, relaunched bit-equal, and
+    profiled: one wrapper call must run the kernel's two launches and no
+    copy or elementwise kernel.  ``flops`` is the work the function needs
+    from a zero state: Q K^T and P V over the pairs i >= j of a chunk, Q S
+    for the chunks after the first, K^T V for every chunk.  ``bound_ms``
+    prices it as the kernel's instruction mix, three TF32 tensor-core
+    products per multiply-add; ``bound_f32_ms`` as f32 FMAs on the CUDA
+    cores (the bound the kernel was first held to).  Both versions' errors
+    against a float64 evaluation are printed beside the check, and the
+    plain version's time on contiguous inputs (``plain_contiguous_ms``) beside
+    its time on the views.  No single PyTorch call computes chunkwise
+    retention."""
     h = 8
     dk, dv, c = RETNET["d"] // h, 2 * RETNET["d"] // h, 128
     g = _gen(7)
     gamma = ret.head_decays(h, device="cuda")
     bh, n_chunks = BATCH * h, PROMPT // c
-    flops = bh * n_chunks * (2 * c * c * (dk + dv) + 4 * c * dk * dv)
+    pairs = c * (c + 1) // 2
+    flops = bh * (n_chunks * (2 * pairs * (dk + dv) + 2 * c * dk * dv)
+                  + (n_chunks - 1) * 2 * c * dk * dv)
     nbytes = 4 * bh * PROMPT * (2 * dk + 2 * dv) + 4 * bh * dk * dv + 4 * h
-    bms, by = bound_ms(nbytes, flops, peaks["f32"], peaks)
-    b3, by3 = bound_ms(nbytes, 3 * flops, peaks["tf32"], peaks)
-    plan = hopper.retention_plan(bh, PROMPT, dk, dv, c)
-    rows = []
-    for model_layout in (True, False):
-        def make(d):
-            shape = (BATCH, PROMPT, h, d) if model_layout else (BATCH, h, PROMPT, d)
-            return torch.randn(*shape, generator=g, device="cuda")
-        q, k = (make(dk) * dk ** -0.5 for _ in range(2))
-        v = make(dv)
-        if model_layout:
-            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        layout = "model transpose(1, 2) views" if model_layout else "contiguous"
-        run = lambda st=None: ops.retention_chunkwise(  # noqa: E731
-            q, k, v, gamma, chunk=c, state=st, impl="kernel")
-        errs = []
-        for st in (None, torch.randn(BATCH, h, dk, dv, generator=g, device="cuda") * 0.1):
-            y, s = run(st)
-            y_r, s_r = ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c, state=st)
-            errs.append(max(_check(f"retention y ({layout})", y, y_r, 1e-4, 1e-4),
-                            _check(f"retention state ({layout})", s, s_r, 1e-4, 1e-4)))
-            for _ in range(2):
-                y2, s2 = run(st)
-                if not (torch.equal(y, y2) and torch.equal(s, s2)):
-                    raise RuntimeError(f"retention ({layout}): two launches differ")
-        y64, s64 = _retention_f64(q, k, v, gamma)
-        y_r, s_r = ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c)
-        y, s = run()
-        f64_err = {name: max((a.double() - y64).abs().max().item(),
-                             (b.double() - s64).abs().max().item())
-                   for name, (a, b) in (("kernel", (y, s)), ("plain", (y_r, s_r)))}
-        del y64, s64
-        launched = _retention_launch_kernels(run)
-        if not launched:
-            raise RuntimeError("retention: the profiler saw no device kernel")
-        if len(launched) != 2 or not all("retention_pass" in n for n in launched):
-            raise RuntimeError(f"retention ({layout}): one call ran {launched}, "
-                               "expected the kernel's two launches only")
-        ms = time_ms(run)
-        rows.append(dict(
-            path=RETNET["arch"] if model_layout else "contiguous [B, H, S, d] (no model path)",
-            main=model_layout, layout=layout, shape=[BATCH, h, PROMPT, dk, dv, c],
-            per_prefill=RETNET["layers"], max_abs_err=errs[0],
-            warm_state_max_abs_err=errs[1], f64_max_abs_err=f64_err, ms=ms,
-            call_ms=call_ms(run),
-            plain_ms=time_ms(lambda: ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c)),
-            library_ms=None, bound_ms=bms, bound_by=by, bound_3xtf32_ms=b3,
-            bound_3xtf32_by=by3, plan=plan, launch_kernels=launched,
-            rate=f"{flops / ms / 1e9:.1f} TFLOP/s (f32 work)", bound_share=bms / ms,
-            bound_share_3xtf32=b3 / ms))
-        del q, k, v
-    return rows
+    bms, by = bound_ms(nbytes, 3 * flops, peaks["tf32"], peaks)
+    bf32, by32 = bound_ms(nbytes, flops, peaks["f32"], peaks)
+    q, k = ((torch.randn(BATCH, PROMPT, h, dk, generator=g, device="cuda") * dk ** -0.5)
+            .transpose(1, 2) for _ in range(2))
+    v = torch.randn(BATCH, PROMPT, h, dv, generator=g, device="cuda").transpose(1, 2)
+    run = lambda st=None: ops.retention_chunkwise(  # noqa: E731
+        q, k, v, gamma, chunk=c, state=st, impl="kernel")
+    errs = []
+    for st in (None, torch.randn(BATCH, h, dk, dv, generator=g, device="cuda") * 0.1):
+        y, s = run(st)
+        y_r, s_r = ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c, state=st)
+        errs.append(max(_check("retention y", y, y_r, 1e-4, 1e-4),
+                        _check("retention state", s, s_r, 1e-4, 1e-4)))
+        for _ in range(2):
+            y2, s2 = run(st)
+            if not (torch.equal(y, y2) and torch.equal(s, s2)):
+                raise RuntimeError("retention: two launches differ")
+    y64, s64 = _retention_f64(q, k, v, gamma)
+    y_r, s_r = ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c)
+    y, s = run()
+    f64_err = {name: max((a.double() - y64).abs().max().item(),
+                         (b.double() - s64).abs().max().item())
+               for name, (a, b) in (("kernel", (y, s)), ("plain", (y_r, s_r)))}
+    del y64, s64
+    launched = _retention_launch_kernels(run)
+    if not launched:
+        raise RuntimeError("retention: the profiler saw no device kernel")
+    if len(launched) != 2 or not all("retention_pass" in n for n in launched):
+        raise RuntimeError(f"retention: one call ran {launched}, "
+                           "expected the kernel's two launches only")
+    ms = time_ms(run)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    row = dict(
+        path=RETNET["arch"], layout="model transpose(1, 2) views",
+        shape=[BATCH, h, PROMPT, dk, dv, c], per_prefill=RETNET["layers"],
+        max_abs_err=errs[0], warm_state_max_abs_err=errs[1], f64_max_abs_err=f64_err,
+        ms=ms, call_ms=call_ms(run),
+        plain_ms=time_ms(lambda: ref.retention_chunkwise_ref(q, k, v, gamma, chunk=c)),
+        plain_contiguous_ms=time_ms(
+            lambda: ref.retention_chunkwise_ref(qc, kc, vc, gamma, chunk=c)),
+        library_ms=None, bound_ms=bms, bound_by=by, bound_f32_ms=bf32, bound_f32_by=by32,
+        flops=flops, plan=hopper.retention_plan(bh, PROMPT, dk, dv, c),
+        launch_kernels=launched, rate=f"{flops / ms / 1e9:.1f} TFLOP/s (needed work)",
+        bound_share=bms / ms, bound_share_f32=bf32 / ms)
+    return [row]
 
 
 def _cache_leaf(x: torch.Tensor, fmt: str):
@@ -490,7 +490,8 @@ def summarize(name, rows, per_key, tol):
     by_ops = sum(r["bound_ms"] * r[per_key] for r in rows
                  if main(r) and r["bound_by"] == "operations")
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
-        key for key in ("library_rowmajor_ms", "library_gqa_ms", "bound_3xtf32_ms")
+        key for key in ("library_rowmajor_ms", "library_gqa_ms", "bound_f32_ms",
+                        "plain_contiguous_ms")
         if key in rows[0])
     per_path = {p: {key: total(key, lambda r, p=p: r["path"] == p) for key in keys}
                 for p in dict.fromkeys(r["path"] for r in rows)}
@@ -832,8 +833,8 @@ def main() -> int:
             extra = "".join(f" {key} {r[key]}" for key in (
                 "library_rowmajor_ms", "library_gqa_ms", "library_backend",
                 "library_max_abs_err", "rate", "library_rate", "bound_share",
-                "bound_3xtf32_ms", "bound_share_3xtf32", "warm_state_max_abs_err",
-                "f64_max_abs_err",
+                "bound_f32_ms", "bound_share_f32", "plain_contiguous_ms", "flops",
+                "warm_state_max_abs_err", "f64_max_abs_err",
                 "launch_kernels", "plan")
                 if key in r)
             log(f"  {e['name']} {r['path']} {r['shape']}: kernel {r['ms']:.4f} (per call "

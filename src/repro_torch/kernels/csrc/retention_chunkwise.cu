@@ -11,12 +11,15 @@
 // initial state (zero when the pointer is null).
 //
 // What bounds it on the H100: operations.  At the retnet-1.3b prefill shape
-// (B 2, H 8, S 512, dk 256, dv 512, c 128) the math is 5.9 GFLOP on 58.7 MB.
-// As f32 FMAs on the CUDA cores that is 88 us at 67 TFLOP/s; single-pass TF32
-// on the tensor cores misses the 1e-4 tolerance by 20x.  So every product
-// runs on the tensor cores as 3xTF32 (mma.sync m16n8k8; a = hi + lo with hi
-// a rounded to TF32 and lo the exact rest; a.b ~ hi.hi + hi.lo + lo.hi):
-// 3 x 5.9 GFLOP at 495 TFLOP/s, 36 us.  The tensor cores' accumulate
+// (B 2, H 8, S 512, dk 256, dv 512, c 128, zero initial state) the function
+// needs 4.57 GFLOP: Q K^T and P V over the c(c+1)/2 pairs i >= j of a chunk,
+// Q S for the chunks that have a state, K^T V for every chunk.  Its inputs
+// and outputs are 58.7 MB.  Single-pass TF32 on the tensor cores misses the
+// 1e-4 tolerance by 20x, so every product runs as 3xTF32 (mma.sync m16n8k8;
+// a = hi + lo with hi a rounded to TF32 and lo the exact rest; a.b ~ hi.hi +
+// hi.lo + lo.hi): 3 x 4.57 GFLOP at 495 TFLOP/s, 27.7 us, the kernel's bound
+// (the bytes take 17.5 us at 3.35 TB/s; the same work as f32 FMAs on the
+// CUDA cores, 68 us at 67 TFLOP/s).  The tensor cores' accumulate
 // truncates; fed the running sum it gave 9x the f32 error on an H100, so
 // each k-step's products are summed apart and added in f32 (PERF.md).  The
 // split and that add are ALU work beside every fragment load, and with
@@ -50,6 +53,14 @@
 // need no copy.  y is written through its own strides, so the wrapper can
 // hand back a [B, H, S, dv] view of a [B, S, H, dv] buffer.  No atomics:
 // every sum has one fixed order, and relaunches are bit-equal.
+// Scratch (allocated by the caller, sized by hopper.retention_plan): the
+// decayed scores, BH * S * ldp floats, and the incoming states of chunks
+// 1..N-1, BH * (N - 1) * dk * dv floats.  It grows linearly in S: at B 2,
+// H 8, dk 256, dv 512, c 128 it is 29.4 MB at S 512 and stays under the
+// 50 MB L2 up to S 768 (48.2 MB); at S 2048 it is 142.6 MB, at S 8192
+// 595.6 MB, and pass 2 reads the states back from HBM.
+// The tiles and the grid are fixed here (below); the launch works the grid
+// out from dk, dv and the chunk count.
 // Limits: chunk <= 128 (a score or output block holds a whole chunk);
 // dk <= 256; dk, dv multiples of 4.
 
@@ -469,9 +480,8 @@ cudaError_t allow_smem(K kernel, int floats) {
 
 }  // namespace
 
-// dims (int64): B, H, S, dk, dv, chunk, ldp, the element strides of q, k, v
-// and y over (B, H, S), then the plan's grid: state dk tiles, state dv tiles,
-// score column tiles, output dv tiles.
+// dims (int64): B, H, S, dk, dv, chunk, ldp (row stride of the score
+// scratch), then the element strides of q, k, v and y over (B, H, S).
 extern "C" int retention_chunkwise_launch(const void* q, const void* k, const void* v,
                                           const void* gamma, const void* state_in, void* y,
                                           void* state_out, void* p_scratch,
@@ -504,33 +514,22 @@ extern "C" int retention_chunkwise_launch(const void* q, const void* k, const vo
   p.kb = dims[10], p.kh = dims[11], p.ks = dims[12];
   p.vb = dims[13], p.vh = dims[14], p.vs = dims[15];
   p.yb = dims[16], p.yh = dims[17], p.ys = dims[18];
-  p.state_dk_tiles = (int)dims[19];
-  p.state_dv_tiles = (int)dims[20];
-  const int score_tiles = (int)dims[21];
-  p.out_dv_tiles = (int)dims[22];
+  if (p.chunk < 1 || p.chunk > kMaxChunk || seq % p.chunk || p.dk % 4 || p.dv % 4 ||
+      p.dk > kMaxDk || p.ldp % 4 || p.ldp < p.chunk)
+    return (int)cudaErrorInvalidValue;
   p.bh = batch * p.heads;
   p.n_chunks = seq / p.chunk;
-  if (p.chunk < 1 || p.chunk > kMaxChunk || seq % p.chunk || p.dk % 4 || p.dv % 4 ||
-      p.dk > kMaxDk || p.ldp % 4 || p.ldp < p.chunk ||
-      p.state_dk_tiles * StateCfg::BM < p.dk || p.state_dv_tiles * StateCfg::BN < p.dv ||
-      score_tiles * ScoreCfg::BN != kTile || p.out_dv_tiles * OutCfg::BN < p.dv)
-    return (int)cudaErrorInvalidValue;
+  p.state_dk_tiles = (p.dk + StateCfg::BM - 1) / StateCfg::BM;
+  p.state_dv_tiles = (p.dv + StateCfg::BN - 1) / StateCfg::BN;
+  p.out_dv_tiles = (p.dv + OutCfg::BN - 1) / OutCfg::BN;
   p.state_blocks = p.bh * p.state_dk_tiles * p.state_dv_tiles;
+  constexpr int kScoreTiles = kTile / ScoreCfg::BN;
   const cudaStream_t st = (cudaStream_t)stream;
-  retention_pass1<<<p.state_blocks + p.bh * p.n_chunks * score_tiles, kThreads,
+  retention_pass1<<<p.state_blocks + p.bh * p.n_chunks * kScoreTiles, kThreads,
                     kPass1Smem * sizeof(float), st>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   retention_pass2<<<p.bh * p.n_chunks * p.out_dv_tiles, kThreads,
                     OutCfg::SMEM * sizeof(float), st>>>(p);
   return (int)cudaGetLastError();
-}
-
-// The kernel's fixed shape, for the planner in kernels/hopper.py to check:
-// max chunk, max dk, k-slice depth, ring stages, rows of a score or output
-// tile, state tile rows and columns, score tile columns, output tile columns.
-extern "C" int retention_config(int what) {
-  const int shape[] = {kMaxChunk, kMaxDk, kBK, kStages, kTile, StateCfg::BM,
-                       StateCfg::BN, ScoreCfg::BN, OutCfg::BN};
-  return what >= 0 && what < (int)(sizeof(shape) / sizeof(int)) ? shape[what] : -1;
 }

@@ -10,9 +10,10 @@ edited source or header is rebuilt and never loaded stale.
 
 The two GEMM kernels take their tile shape (and MXINT4 its K split) from
 planners here (`w8a8_plan`, `mxint4_plan`), flash-decode its split and ring
-from `flash_decode_plan`, and retention its grid and scratch from
-`retention_plan`: plain functions of the shape that the CPU tests reach, as
-are the layout checks (`check_fd_operand`, `retention_dims`).
+from `flash_decode_plan`, and retention the size of its scratch from
+`retention_plan` (its tiles and grid are fixed in the kernel): plain
+functions of the shape that the CPU tests reach, as are the layout checks
+(`check_fd_operand`, `retention_dims`).
 
 The launch functions here check device, dtype, shape, contiguity and
 alignment, launch on PyTorch's current stream, raise on a nonzero
@@ -185,14 +186,6 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "retention_chunkwise":
         fn = lib.retention_chunkwise_launch
         fn.argtypes = [_P] * 11
-        query = lib.retention_config
-        query.argtypes, query.restype = [_I], _I
-        want = (RET_MAX_CHUNK, RET_MAX_DK, RET_BK, RET_STAGES, RET_TILE, *RET_STATE_TILE,
-                RET_SCORE_BN, RET_OUT_BN)
-        got = tuple(query(i) for i in range(len(want)))
-        if got != want:
-            raise RuntimeError(f"retention_chunkwise: the library's shape {got} is "
-                               f"not the planner's {want}")
     elif name == "flash_decode":
         fn = lib.flash_decode_launch
         fn.argtypes = [_P] * 8 + [_I] * 17 + [_F, _I, _P]
@@ -397,32 +390,23 @@ def w8a8_matmul(x_q, w_q, out_scale, row_scale, bias):
     return out
 
 
-# Chunkwise retention (csrc/retention_chunkwise.cu).  Pass 1 runs state
-# blocks (bh, dk tile, dv tile), each walking the chunks in order, beside
-# score blocks (bh, chunk, column tile); pass 2 runs output blocks (bh, chunk,
-# dv tile).  A score or output tile holds a whole chunk (RET_TILE rows).
-# Every block is 8 warps, two to an SM, and streams RET_BK-deep k-slices
-# through a RET_STAGES-deep cp.async ring.  Of the tiles tried on an H100
-# (PERF.md), these ran fastest.
+# Chunkwise retention (csrc/retention_chunkwise.cu).  The kernel fixes its
+# tiles and works out its own grid; the host sizes the scratch it allocates.
+# Limits: a chunk of at most RET_MAX_CHUNK positions (a score or output
+# block holds a whole chunk), dk of at most RET_MAX_DK.
 RET_MAX_CHUNK = 128
 RET_MAX_DK = 256
-RET_BK = 32
-RET_STAGES = 3
-RET_TILE = 128
-RET_STATE_TILE = (64, 128)     # rows of dk, columns of dv
-RET_SCORE_BN = 64              # columns of P
-RET_OUT_BN = 64                # columns of y
 
 
 @functools.lru_cache(maxsize=None)
 def retention_plan(bh: int, s: int, dk: int, dv: int, chunk: int) -> dict:
-    """Grid and scratch of one retention launch.
+    """Scratch of one retention launch.
 
     ``ldp`` is the row stride of the decayed-score scratch (chunk rounded up
     to whole 16-byte copies); ``p_floats`` and ``s_floats`` size the scores
-    of every (bh, chunk) and the incoming states of chunks 1..n-1.  Raises
-    on a shape the kernel does not take.  Plans are cached; callers must not
-    modify the dict.
+    of every (bh, chunk) and the incoming states of chunks 1..n-1, which
+    grow linearly in ``s``.  Raises on a shape the kernel does not take.
+    Plans are cached; callers must not modify the dict.
     """
     if not 1 <= chunk <= RET_MAX_CHUNK or dk > RET_MAX_DK:
         raise ValueError(f"retention_chunkwise: chunk {chunk} and dk {dk} must be "
@@ -433,17 +417,9 @@ def retention_plan(bh: int, s: int, dk: int, dv: int, chunk: int) -> dict:
         raise ValueError(f"retention_chunkwise: dk {dk} and dv {dv} must be multiples "
                          "of 4 (rows of whole 16-byte copies)")
     n = s // chunk
-    sm, sn = RET_STATE_TILE
-    state_blocks = bh * -(-dk // sm) * -(-dv // sn)
-    score_tiles = RET_TILE // RET_SCORE_BN
     ldp = -(-chunk // 4) * 4
-    return dict(n_chunks=n, ldp=ldp, state_dk_tiles=-(-dk // sm),
-                state_dv_tiles=-(-dv // sn), score_tiles=score_tiles,
-                out_dv_tiles=-(-dv // RET_OUT_BN), state_blocks=state_blocks,
-                score_blocks=bh * n * score_tiles,
-                pass1_blocks=state_blocks + bh * n * score_tiles,
-                pass2_blocks=bh * n * -(-dv // RET_OUT_BN),
-                p_floats=bh * n * chunk * ldp, s_floats=bh * (n - 1) * dk * dv)
+    return dict(n_chunks=n, ldp=ldp, p_floats=bh * n * chunk * ldp,
+                s_floats=bh * (n - 1) * dk * dv)
 
 
 def check_retention_operand(name: str, t: torch.Tensor, shape: tuple) -> tuple:
@@ -475,9 +451,8 @@ def retention_dims(q, k, v, gamma, state, chunk: int) -> tuple[dict, tuple, tupl
     """Check one launch's operands (any device) and return its plan, the
     kernel's input pointers (q, k, v, gamma, state or None: the tensors'
     own) and its int64 dims: B, H, S, dk, dv, chunk, ldp, the (B, H, S)
-    strides of q, k and v as the views have them, those of y in its
-    ``[B, S, H, dv]`` buffer, and the grid.  Raises on anything the kernel
-    does not take."""
+    strides of q, k and v as the views have them, and those of y in its
+    ``[B, S, H, dv]`` buffer.  Raises on anything the kernel does not take."""
     b, h, s, dk = q.shape
     dv = v.shape[-1]
     plan = retention_plan(b * h, s, dk, dv, chunk)
@@ -492,8 +467,7 @@ def retention_dims(q, k, v, gamma, state, chunk: int) -> tuple[dict, tuple, tupl
         raise ValueError(f"state: expected contiguous 16-byte aligned float32 "
                          f"{(b, h, dk, dv)}, got {state.dtype} {tuple(state.shape)}")
     dims = (b, h, s, dk, dv, chunk, plan["ldp"], *strides[0], *strides[1], *strides[2],
-            s * h * dv, dv, h * dv, plan["state_dk_tiles"], plan["state_dv_tiles"],
-            plan["score_tiles"], plan["out_dv_tiles"])
+            s * h * dv, dv, h * dv)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), gamma.data_ptr(),
             None if state is None else state.data_ptr())
     return plan, ptrs, dims

@@ -142,13 +142,16 @@ def test_w8a8_matmul_kernel_rejects_row_major_weight():
 
 # (B, H, S, dk, dv, chunk, warm) of every retention case: the retnet-1.3b
 # prefill shape, ragged tiles (s = chunk = 96 among them), a single chunk,
-# and four chunks of 64.
+# four chunks of 64, and many chunks (16 of 128 at the retnet-1.3b head
+# shape, 64 of 16), whose incoming states all pass through the scratch.
 RETENTION_CASES = [
     (2, 8, 512, 256, 512, 128, False), (2, 8, 512, 256, 512, 128, True),
     (1, 2, 32, 16, 16, 8, False), (2, 3, 64, 16, 24, 16, True),
     (2, 1, 128, 32, 64, 32, False), (1, 4, 96, 40, 72, 96, True),
     (2, 8, 128, 256, 512, 128, False), (1, 2, 128, 64, 128, 128, True),
     (2, 4, 256, 64, 128, 64, False), (1, 3, 256, 48, 200, 64, True),
+    (1, 8, 2048, 256, 512, 128, False), (1, 8, 2048, 256, 512, 128, True),
+    (1, 2, 1024, 16, 24, 16, False), (1, 2, 1024, 16, 24, 16, True),
 ]
 
 

@@ -15,11 +15,13 @@ from repro_torch.kernels import hopper
 from repro_torch.kernels import ops as Tops
 
 MAIN = (2, 8, 512, 256, 512, 128)      # B, H, S, dk, dv, chunk of retnet-1.3b prefill
-# (B, H, S, dk, dv, chunk) of every retention case of tests/test_torch_cuda.py.
+# (B, H, S, dk, dv, chunk) of every retention case of tests/test_torch_cuda.py:
+# ragged tiles, a single chunk, and many chunks (16 of 128, 64 of 16).
 CARD_SHAPES = [MAIN, (1, 2, 32, 16, 16, 8), (2, 3, 64, 16, 24, 16),
                (2, 1, 128, 32, 64, 32), (1, 4, 96, 40, 72, 96),
                (2, 8, 128, 256, 512, 128), (1, 2, 128, 64, 128, 128),
-               (2, 4, 256, 64, 128, 64), (1, 3, 256, 48, 200, 64)]
+               (2, 4, 256, 64, 128, 64), (1, 3, 256, 48, 200, 64),
+               (1, 8, 2048, 256, 512, 128), (1, 2, 1024, 16, 24, 16)]
 
 
 def _views(b, h, s, dk, dv, seed=0):
@@ -34,34 +36,22 @@ def _views(b, h, s, dk, dv, seed=0):
 def test_plan_at_the_retnet_prefill_shape():
     b, h, s, dk, dv, c = MAIN
     plan = hopper.retention_plan(b * h, s, dk, dv, c)
-    assert plan == dict(
-        n_chunks=4, ldp=128, state_dk_tiles=4, state_dv_tiles=4, score_tiles=2,
-        out_dv_tiles=8, state_blocks=256, score_blocks=128, pass1_blocks=384,
-        pass2_blocks=512, p_floats=16 * 4 * 128 * 128, s_floats=16 * 3 * 256 * 512)
-    # Both passes give every one of the H100's 132 SMs work, two blocks each
-    # at most per wave.
-    assert plan["pass1_blocks"] >= 2 * 132 and plan["pass2_blocks"] >= 2 * 132
-    # The per-chunk states and scores fit in the 50 MB L2.
+    assert plan == dict(n_chunks=4, ldp=128, p_floats=16 * 4 * 128 * 128,
+                        s_floats=16 * 3 * 256 * 512)
+    # The per-chunk states and scores fit in the 50 MB L2 at this shape...
     assert 4 * (plan["p_floats"] + plan["s_floats"]) < 50e6
+    # ...and grow linearly in S past it: 142.6 MB at S 2048.
+    long = hopper.retention_plan(b * h, 2048, dk, dv, c)
+    assert 4 * (long["p_floats"] + long["s_floats"]) == 16 * (2048 * 128 + 15 * dk * dv) * 4
 
 
 @pytest.mark.parametrize("b,h,s,dk,dv,c", CARD_SHAPES)
 def test_plan_covers_the_card_test_shapes(b, h, s, dk, dv, c):
     plan = hopper.retention_plan(b * h, s, dk, dv, c)
-    sm, sn = hopper.RET_STATE_TILE
     n = s // c
     assert plan["n_chunks"] == n
     assert plan["ldp"] % 4 == 0 and c <= plan["ldp"] < c + 4
-    # Tiles cover dk and dv with no tile wholly past them.
-    assert (plan["state_dk_tiles"] - 1) * sm < dk <= plan["state_dk_tiles"] * sm
-    assert (plan["state_dv_tiles"] - 1) * sn < dv <= plan["state_dv_tiles"] * sn
-    assert (plan["out_dv_tiles"] - 1) * hopper.RET_OUT_BN < dv <= (
-        plan["out_dv_tiles"] * hopper.RET_OUT_BN)
-    # A score tile column block and an output block hold a whole chunk.
-    assert plan["score_tiles"] * hopper.RET_SCORE_BN == hopper.RET_TILE >= c
-    assert plan["state_blocks"] == b * h * plan["state_dk_tiles"] * plan["state_dv_tiles"]
-    assert plan["pass1_blocks"] == plan["state_blocks"] + b * h * n * plan["score_tiles"]
-    assert plan["pass2_blocks"] == b * h * n * plan["out_dv_tiles"]
+    # One row of scores per position, one state per chunk after the first.
     assert plan["p_floats"] == b * h * n * c * plan["ldp"]
     assert plan["s_floats"] == b * h * (n - 1) * dk * dv
 
@@ -96,8 +86,7 @@ def test_model_views_pass_with_their_own_pointers_and_strides(b, h, s, dk, dv, c
     y_buf = torch.empty(b, s, h, dv)
     y = y_buf.permute(0, 2, 1, 3)
     assert y.stride()[:3] == dims[16:19] and y.transpose(1, 2).is_contiguous()
-    assert dims[19:] == (plan["state_dk_tiles"], plan["state_dv_tiles"],
-                         plan["score_tiles"], plan["out_dv_tiles"])
+    assert len(dims) == 19
     # Contiguous [B, H, S, d] inputs pass too, with their own strides.
     qc = q.contiguous()
     state = torch.zeros(b, h, dk, dv)
