@@ -16,16 +16,20 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (W8A8: ``torch._int_mm`` on the K-major weight the kernel reads, and on a
    row-major copy; flash-decode: ``scaled_dot_product_attention`` with
    ``enable_gqa`` on the f32 cache's views, and on K/V expanded to every
-   query head), each relaunch bit-equal to the first; retention on the
-   model's strided views, bound by its 3xTF32 instruction mix (the f32
-   CUDA-core bound beside it), with a profiler check that one call runs
-   only its own two launches;
-4. the two main paths at full width, each through
+   query head; flash-decode's MLA mode: the same call on the concatenated
+   latent and rope streams), each relaunch bit-equal to the first;
+   retention on the model's strided views, bound by its 3xTF32 instruction
+   mix (the f32 CUDA-core bound beside it), with a profiler check that one
+   call runs only its own two launches;
+4. the three main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens:
-   retnet-1.3b (24 layers, d_model 2048) and qwen3-8b (36 layers, d_model
-   4096, vocab 151936) with its f32, int8_tok and mxint4_blk KV caches, both
-   from seeded random weights in the default W8A8/MXINT4 deployment; then the
+   retnet-1.3b (24 layers, d_model 2048), qwen3-8b (36 layers, d_model
+   4096, vocab 151936) with its f32, int8_tok and mxint4_blk KV caches, and
+   ds3_dense, deepseek-v3-671b cut to its 3 leading dense layers (d_model
+   7168, 128 MLA heads, kv_lora 512, vocab 129280) with the same three
+   latent-cache formats, all from seeded random weights in the default
+   W8A8/MXINT4 deployment; then the
    same weights on the plain path (``kernel_impl="ref"``): every block in
    lockstep, prefill logits beside the network's own sensitivity, every
    decode step's logits (see `compare_paths`); and each model reduced, on the
@@ -39,6 +43,7 @@ It imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -52,6 +57,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import kvq  # noqa: E402
 from repro_torch.core import mxint4 as mx  # noqa: E402
 from repro_torch.core import retention as ret  # noqa: E402
@@ -76,16 +82,31 @@ SRC = {
                             "src/repro/kernels/retention_kernel.py:70"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:142"),
+    "flash_decode_mla": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:108"),
     "rmsnorm_stats": ("src/repro_torch/kernels/csrc/rmsnorm_stats.cu",
                       "src/repro/kernels/rmsnorm_stats.py:38"),
 }
-# The full-width main paths: per layer (K, N, linears of that shape).
+# The full-width main paths: per layer (K, N, linears of that shape) run in
+# both phases, and those run in prefill only (MLA's wk_b / wv_b, whose masters
+# decode absorbs); ``cfg`` builds the model, ``reduced`` its CPU-scale twin.
 RETNET = dict(arch="retnet-1.3b", layers=24, d=2048, vocab=32768, formats=(None,),
-              linears=((2048, 2048, 2), (2048, 4096, 3), (4096, 2048, 2)))
+              linears=((2048, 2048, 2), (2048, 4096, 3), (4096, 2048, 2)),
+              prefill_linears=())
 QWEN3 = dict(arch="qwen3-8b", layers=36, d=4096, vocab=152064, kv=8, g=4, hd=128,
              formats=(None, "int8_tok", "mxint4_blk"),
              linears=((4096, 4096, 2), (4096, 1024, 2), (4096, 12288, 2),
-                      (12288, 4096, 1)))
+                      (12288, 4096, 1)),
+             prefill_linears=())
+_DS3 = configs.get_config("deepseek-v3-671b")
+DS3 = dict(arch="ds3_dense", layers=3, d=7168, vocab=129280, heads=128, r=512, dr=64,
+           formats=(None, "int8_tok", "mxint4_blk"),
+           cfg=dataclasses.replace(_DS3, n_layers=_DS3.first_dense_layers),
+           reduced=dataclasses.replace(_DS3.reduced(), n_layers=_DS3.first_dense_layers),
+           linears=((7168, 1536, 1), (1536, 24576, 1), (7168, 576, 1), (16384, 7168, 1),
+                    (7168, 18432, 2), (18432, 7168, 1)),
+           prefill_linears=((512, 16384, 2),))
+PATHS = (RETNET, QWEN3, DS3)
 BATCH, PROMPT, NEW = 2, 512, 32
 CACHE_LEN = PROMPT + NEW           # KV slots of a generate: 544
 DECODE_KV_LEN = CACHE_LEN - 16     # kv_len at which flash-decode is timed
@@ -174,16 +195,18 @@ def _check(name, got, want, rtol, atol):
     return err
 
 
-def _linear_cases(path: dict, m: int, lm_head_m: int):
-    """(path, M, K, N, launches per unit) of every linear shape of a path."""
-    cases = [(path["arch"], m, k, n, c * path["layers"]) for k, n, c in path["linears"]]
+def _linear_cases(path: dict, m: int, lm_head_m: int, prefill: bool = False):
+    """(path, M, K, N, launches per unit) of every linear shape of a path in
+    one phase."""
+    shapes = path["linears"] + (path["prefill_linears"] if prefill else ())
+    cases = [(path["arch"], m, k, n, c * path["layers"]) for k, n, c in shapes]
     return cases + [(path["arch"], lm_head_m, path["d"], path["vocab"], 1)]
 
 
 def kernel_phase_mxint4(peaks):
     rows = []
-    for arch, m, k, n, count in (_linear_cases(RETNET, BATCH, BATCH)
-                                 + _linear_cases(QWEN3, BATCH, BATCH)):
+    for arch, m, k, n, count in (c for path in PATHS
+                                 for c in _linear_cases(path, BATCH, BATCH)):
         g = _gen(k + n)
         x = torch.randn(m, k, generator=g, device="cuda")
         w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
@@ -214,8 +237,8 @@ def kernel_phase_mxint4(peaks):
 
 def kernel_phase_w8a8(peaks):
     rows = []
-    for arch, m, k, n, count in (_linear_cases(RETNET, BATCH * PROMPT, BATCH)
-                                 + _linear_cases(QWEN3, BATCH * PROMPT, BATCH)):
+    for arch, m, k, n, count in (c for path in PATHS
+                                 for c in _linear_cases(path, BATCH * PROMPT, BATCH, True)):
         g = _gen(m + k + n)
         xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda").to(torch.int8)
         # K-major, as deploy stores the main path's weights.
@@ -437,6 +460,91 @@ def kernel_phase_flash_decode(peaks):
     return rows
 
 
+def _mla_f64(q, q2, lat, rope, n, scale):
+    """The MLA mode's output in float64 from the decoded cache."""
+    ld, rd = (kvq.decode(x)[:, :n].double() for x in (lat, rope))
+    s = (torch.einsum("bhr,bcr->bhc", q.double(), ld)
+         + torch.einsum("bhr,bcr->bhc", q2.double(), rd)) * scale
+    return torch.einsum("bhc,bcr->bhr", torch.softmax(s, dim=-1), ld)
+
+
+def kernel_phase_flash_decode_mla(peaks):
+    """deepseek-v3's absorbed decode attention (flash-decode's MLA mode): B 2,
+    H 128, latent 512, rope 64, C 544, in every cache format.  Checked at
+    kv_len 1, 257 and 544 against the plain version, timed at 528; the f32
+    cache is the main-path unit (3 launches a step).  The absorbed query is
+    drawn at std 0.5, q_nope . wk_b for a unit-variance q_nope over the nope
+    width 128 against a unit-RMS latent of 512 (scores of unit variance, as
+    the model's scale assumes); with q ~ N(0, 1) the kernel is held to a
+    float64 evaluation at the same tolerance (the plain version's own f32
+    error nears it there), and ``f64_max_abs_err`` reports both versions'.  The bound counts the f32
+    FMAs the function needs: scores over latent and rope, then P.V.  The
+    library yardstick is `scaled_dot_product_attention` with ``enable_gqa``
+    on ``[q | q2]`` against ``[latent | rope]`` with the latent as V,
+    concatenated outside the timed call; no PyTorch call reads an encoded
+    cache."""
+    b, h, r, dr = BATCH, DS3["heads"], DS3["r"], DS3["dr"]
+    c, n = CACHE_LEN, DECODE_KV_LEN
+    nope = DS3["cfg"].qk_nope_head_dim
+    scale = 1.0 / (nope + dr) ** 0.5
+    gen = _gen(13)
+    q = torch.randn(b, h, r, generator=gen, device="cuda") * (nope / r) ** 0.5
+    q_unit = torch.randn(b, h, r, generator=gen, device="cuda")
+    q2 = torch.randn(b, h, dr, generator=gen, device="cuda")
+    lat32 = torch.randn(b, c, r, generator=gen, device="cuda")
+    rope32 = torch.randn(b, c, dr, generator=gen, device="cuda")
+    rows = []
+    for fmt in ("f32", "bf16", "int8", "int8_tok", "mxint4_blk"):
+        lat, rope = _cache_leaf(lat32, fmt), _cache_leaf(rope32, fmt)
+        run = lambda qq, n_: ops.flash_decode(qq, lat, lat, n_, q2=q2, k2=rope,  # noqa: E731
+                                              scale=scale, impl="kernel")
+        plain = lambda qq, n_: ref.flash_decode_ref(qq, lat, lat, n_, q2=q2, k2=rope,  # noqa: E731
+                                                    scale=scale)
+        err = 0.0
+        for kv_len in DECODE_CHECK_LENS:
+            got = run(q, kv_len)
+            err = max(err, _check(f"flash_decode MLA {fmt} kv_len {kv_len}", got,
+                                  plain(q, kv_len), 2e-5, 2e-6))
+            if not torch.equal(got, run(q, kv_len)):
+                raise RuntimeError(f"flash_decode MLA {fmt}: two launches differ")
+        want64 = _mla_f64(q_unit, q2, lat, rope, n, scale)
+        _check(f"flash_decode MLA {fmt} at q ~ N(0, 1) vs float64", run(q_unit, n).double(),
+               want64, 2e-5, 2e-6)
+        f64_err = {name: (fn(q_unit, n).double() - want64).abs().max().item()
+                   for name, fn in (("kernel", run), ("plain", plain))}
+        row_bytes = sum(hopper.fd_row_bytes(fmt, w)[i] for w in (r, dr) for i in (0, 1))
+        nbytes = 4 * b * h * (2 * r + dr) + n * b * row_bytes
+        flops = 2 * b * h * n * (r + dr) + 2 * b * h * n * r
+        bms, by = bound_ms(nbytes, flops, peaks["f32"], peaks)
+        extra = {}
+        if fmt == "f32":
+            q_cat = torch.cat([q, q2], dim=-1)[:, :, None]                 # [B, H, 1, r + dr]
+            k_cat = torch.cat([lat32, rope32], dim=-1)[:, None, :n].contiguous()
+            v_lat = lat32[:, None, :n].contiguous()                        # [B, 1, n, r]
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q_cat, k_cat, v_lat, scale=scale, enable_gqa=True)
+            lib_err = (sdpa()[:, :, 0] - plain(q, n)).abs().max().item()
+            extra = dict(library_ms=time_ms(sdpa), library_backend=sdpa_backend(sdpa),
+                         library_max_abs_err=lib_err)
+            del q_cat, k_cat, v_lat
+        path = {"f32": DS3["arch"], "bf16": "bf16 (no model path)",
+                "int8": "legacy int8 (no model path)"}.get(fmt, f"{DS3['arch']} {fmt}")
+        ms = time_ms(lambda: run(q, n))
+        row = dict(
+            path=path, main=fmt == "f32", fmt=fmt, shape=[b, h, r, dr, c], kv_len=n,
+            per_step=DS3["layers"], max_abs_err=err, f64_max_abs_err=f64_err, ms=ms,
+            call_ms=call_ms(lambda: run(q, n)), plain_ms=time_ms(lambda: plain(q, n)),
+            library_ms=None, bound_ms=bms, bound_by=by, flops=flops,
+            plan={key: val for key, val in hopper.flash_decode_mla_plan(
+                b, h, r, dr, n, fmt, hopper._mla_resident(q.device)).items()
+                  if key != "ranges"},
+            rate=f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
+            bound_share=bms / ms)
+        row.update(extra)
+        rows.append(row)
+    return rows
+
+
 def ptxas_summary(report: str) -> dict:
     """Entry functions, registers, shared memory and spills from ``nvcc
     -Xptxas -v`` output."""
@@ -507,12 +615,16 @@ def summarize(name, rows, per_key, tol):
 
 def expected_launches(path: dict) -> tuple[dict, dict]:
     """Launches per prefill and per decode step on a main path."""
-    per_prefill = dict.fromkeys(hopper.KERNELS, 0)
-    per_step = dict.fromkeys(hopper.KERNELS, 0)
-    linears = sum(c for _, _, c in path["linears"]) * path["layers"] + 1
-    per_prefill["w8a8_matmul"] = per_step["mxint4_matmul"] = linears
+    per_prefill = dict.fromkeys(hopper.COUNTERS, 0)
+    per_step = dict.fromkeys(hopper.COUNTERS, 0)
+    both = sum(c for _, _, c in path["linears"])
+    prefill_only = sum(c for _, _, c in path["prefill_linears"])
+    per_prefill["w8a8_matmul"] = (both + prefill_only) * path["layers"] + 1
+    per_step["mxint4_matmul"] = both * path["layers"] + 1
     if path is RETNET:
         per_prefill["retention_chunkwise"] = path["layers"]
+    elif path is DS3:
+        per_step["flash_decode_mla"] = path["layers"]
     else:
         per_step["flash_decode"] = path["layers"]
     return per_prefill, per_step
@@ -526,7 +638,7 @@ def serve_full_width(path: dict, card: str):
     log(f"== full-width serving: {arch}, B={BATCH}, S={PROMPT}, {NEW} greedy tokens, "
         f"cache formats {[f or 'f32' for f in path['formats']]}")
     t0 = time.perf_counter()
-    eng = InferenceEngine.from_config(arch, EngineSpec(), device="cuda")
+    eng = InferenceEngine.from_config(path.get("cfg", arch), EngineSpec(), device="cuda")
     torch.cuda.synchronize()
     log(f"init + deploy: {time.perf_counter() - t0:.2f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
@@ -538,7 +650,7 @@ def serve_full_width(path: dict, card: str):
                             device="cuda")
     want_p, want_s = expected_launches(path)
     plain = InferenceEngine(cfg, eng.model, EngineSpec(kernel_impl="ref"))
-    counted, results = dict.fromkeys(hopper.KERNELS, 0), {}
+    counted, results = dict.fromkeys(hopper.COUNTERS, 0), {}
     for fmt in path["formats"]:
         tag = arch if fmt is None else f"{arch} {fmt}"
         gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt)
@@ -561,7 +673,7 @@ def serve_full_width(path: dict, card: str):
         hopper.reset_launches()
         res = eng.generate(prompts, gen)
         launches = dict(hopper.LAUNCHES)
-        want = {k: want_p[k] + want_s[k] * res.decode_steps for k in hopper.KERNELS}
+        want = {k: want_p[k] + want_s[k] * res.decode_steps for k in hopper.COUNTERS}
         log(tag, "main-path launches", launches, "decode steps", res.decode_steps)
         if launches != want:
             raise RuntimeError(f"{tag}: main-path launches {launches}, expected {want}")
@@ -767,9 +879,9 @@ def reduced_vs_cpu(path: dict):
     """The reduced model: the kernel path on the card against the plain path
     on the CPU, same weights (a small-input reference check), once per cache
     format."""
-    spec = EngineSpec(reduced=True)
+    spec = EngineSpec(reduced="reduced" not in path)
     arch = path["arch"]
-    eng = InferenceEngine.from_config(arch, spec, device="cuda")
+    eng = InferenceEngine.from_config(path.get("reduced", arch), spec, device="cuda")
     cpu = InferenceEngine(eng.cfg, copy.deepcopy(eng.model).to("cpu"), spec)
     prompts = torch.randint(1, eng.cfg.vocab_size, (2, 16), generator=_gen(3),
                             device="cuda")
@@ -825,6 +937,8 @@ def main() -> int:
                   "rtol=atol=1e-4"),
         summarize("flash_decode", kernel_phase_flash_decode(peaks), "per_step",
                   "rtol=2e-5, atol=2e-6"),
+        summarize("flash_decode_mla", kernel_phase_flash_decode_mla(peaks), "per_step",
+                  "rtol=2e-5, atol=2e-6"),
         summarize("rmsnorm_stats", kernel_phase_rmsnorm_stats(peaks), "per_call",
                   "rtol=atol=1e-6"),
     ]
@@ -844,10 +958,10 @@ def main() -> int:
     log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 
     serving, by_path = {}, {}
-    for path in (RETNET, QWEN3):
+    for path in PATHS:
         by_path[path["arch"]], results = serve_full_width(path, smi)
         serving.update(results)
-    for path in (RETNET, QWEN3):
+    for path in PATHS:
         serving.update(reduced_vs_cpu(path))
     for e in entries:
         e["launches_by_path"] = {arch: n[e["name"]] for arch, n in by_path.items()}

@@ -57,7 +57,13 @@
 // Built with -DFD_PHASE_CLOCK (tools/fd_phase_clock.py), thread 0 of every
 // block stamps clock64 and the global timer at each phase boundary into a
 // buffer set by flash_decode_set_stamps.
+//
+// The MLA two-stream mode (`flash_decode_mla_kernel`, below the GQA mode)
+// is the reference's `two_stream` branch: absorbed latent queries against
+// one shared latent cache that is both K and V, plus a rope score stream.
+// Its design notes are at the kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -701,3 +707,583 @@ extern "C" int flash_decode_tile_rows() { return kTile; }
 extern "C" int flash_decode_max_dim() { return kMaxDim; }
 extern "C" int flash_decode_max_group() { return kMaxGroup; }
 extern "C" int flash_decode_max_stages() { return kMaxStages; }
+
+// ---------------------------------------------------------------------------
+// MLA two-stream mode: deepseek-v3's absorbed decode attention.
+//
+// Replaces the `two_stream` branch of `flash_decode_pallas`'s kernel body
+// (src/repro/kernels/flash_decode.py, `_kernel`).  For each batch lane b and
+// query head h, over the latent cache rows r < kv_len:
+//
+//     s[h, r] = (q[b, h, :] . L[b, r, :] + q2[b, h, :] . R[b, r, :]) * scale
+//     out[b, h, :] = softmax_r(s[h, :]) @ L[b, :kv_len, :]
+//
+// q [B, H, r] is the absorbed latent query, q2 [B, H, dr] the rope query,
+// L [B, C, r] the latent cache (K and V at once) and R [B, C, dr] the shared
+// rope key, both in one cache format, dequantized as `kvq.decode` does.
+//
+// What bounds it on the H100: operations.  Every latent row serves all H
+// query heads twice (a score and a P.V term), so at the main shape (B 2, H
+// 128, r 512, dr 64, kv_len 528) the f32 work is 294 MFLOP, 4.39 us at the
+// CUDA cores' 67 TFLOP/s, against 1.06 us for the f32 cache's bytes.  The
+// design reads each row of the cache once per block of 16 heads and keeps
+// the f32 FMAs fed from registers:
+//   * the grid is (splits, head chunks of 16, B), with the splits of one
+//     (b, chunk) forming a thread-block cluster; each split streams an even
+//     share of the kv_len rows' 32-row tiles (hopper.flash_decode_mla_plan
+//     picks the splits, at most 8, for about one block per SM);
+//   * a tile's four arrays (latent values and side data, rope values and
+//     side data) are contiguous in device memory, so the whole block copies
+//     each as one flat run: cp.async in chunks of the widest of 16, 8 or 4
+//     bytes that divides a row, and narrower rows (the reduced model's 8-byte
+//     mxint4 rope rows have 1-byte exponent rows) through registers; two ring
+//     stages overlap the next tile's copy with this tile's work;
+//   * scores: warp w holds the queries of 4 heads (w % 4) for 16 rows of the
+//     tile (w / 4) in registers, 4 consecutive elements of each 128-wide
+//     slot per lane; a lane forms its part of 4 rows x 4 heads from one
+//     dequantized read of each row and a reduce-scatter completes them;
+//   * the online softmax runs one warp per 2 heads, a lane per row, with the
+//     reference's finite-max guard; P goes to shared memory by row;
+//   * P.V: warp w accumulates 8 heads (w / 4) x one 128-wide slot (w % 4) of
+//     the latent in registers, a dequantized read of each row per warp;
+//   * with more than one split, every block leaves its (m, l, acc) in shared
+//     memory and, after a cluster barrier, merges its share of the output
+//     columns from every split's shared memory (distributed shared memory) in
+//     split order.  The order of every sum is fixed, so relaunches are
+//     bit-equal.
+// It reads each latent row once for both roles: the wrapper raises when V
+// is not the same leaf as K.  Tensor cores, TMA and a dequantize-once tile
+// are left to later work (PERF.md).
+//
+// Built with -DFD_PHASE_CLOCK (tools/mla_phase_clock.py), thread 0 of every
+// block records clock64 at entry, loop end, after the cluster barrier, after
+// the merge and at exit, the cycles its loop spent waiting for tiles, in
+// scores, in the softmax and in P.V, and the global timer at entry and exit,
+// into a buffer set by flash_decode_mla_set_stamps.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kMlaTile = 32;           // cache rows per ring stage (a lane per row)
+constexpr int kMlaHeads = 16;          // query heads per block
+constexpr int kMlaWarps = 8;
+constexpr int kMlaThreads = 32 * kMlaWarps;
+constexpr int kMlaMaxSplits = 8;       // blocks of a cluster (the portable size)
+constexpr int kMlaStages = 2;
+constexpr int kMlaMaxRope = 128;       // one slot of rope elements
+constexpr int kMlaPStride = 20;        // floats per row of P in shared memory
+// Shared floats after the ring: scores [heads][tile], P [tile][kMlaPStride],
+// and corr, l, m per head.
+constexpr int kMlaFixedFloats = kMlaHeads * kMlaTile + kMlaTile * kMlaPStride + 3 * kMlaHeads;
+
+#ifdef FD_PHASE_CLOCK
+constexpr int kMlaStamps = 12;
+long long* g_mla_stamps = nullptr;
+// Cycles since the last tick, added to phase k of this thread's loop sums.
+#define MLA_TICK(k)                                                  \
+  do {                                                               \
+    const long long now_ = clock64();                                \
+    clk_sum[k] += now_ - clk_last;                                   \
+    clk_last = now_;                                                 \
+  } while (0)
+#define MLA_STAMP(i, v)                                              \
+  do {                                                               \
+    if (tid == 0) p.stamps[stamp0 + (i)] = (v);                      \
+  } while (0)
+#else
+#define MLA_TICK(k) do {} while (0)
+#define MLA_STAMP(i, v) do {} while (0)
+#endif
+
+struct MlaParams {
+  const float* q;                        // [B, H, r]
+  const float* q2;                       // [B, H, dr]
+  const unsigned char* src[4];           // latent values, latent side, rope values, rope side
+  int rb[4];                             // row bytes of each (0: the format has no side data)
+  int off[4];                            // offset of each array's tile in a ring stage
+  float* out;                            // [B, H, r]
+  int C, H, r, dr, kv_len, tiles, splits, stage_bytes, fixed_off;
+  float scale;
+#ifdef FD_PHASE_CLOCK
+  long long* stamps;                     // [blocks][kMlaStamps]
+#endif
+};
+
+// Copy n chunks of W bytes, contiguous on both sides, with every thread of
+// the block; W < 4 goes through registers (cp.async has no such size).
+template <int W>
+__device__ __forceinline__ void mla_copy(unsigned char* dst, const unsigned char* src, int n,
+                                         int tid) {
+  for (int i = tid; i < n; i += kMlaThreads) {
+    if constexpr (W >= 4) {
+      cp_async<W>(dst + i * W, src + (size_t)i * W);
+    } else if constexpr (W == 2) {
+      reinterpret_cast<unsigned short*>(dst)[i] =
+          __ldg(reinterpret_cast<const unsigned short*>(src) + i);
+    } else {
+      dst[i] = __ldg(src + i);
+    }
+  }
+}
+
+__device__ __forceinline__ void mla_copy_rows(unsigned char* dst, const unsigned char* src,
+                                              int rows, int rb, int tid) {
+  const int bytes = rows * rb;
+  if (rb % 16 == 0) mla_copy<16>(dst, src, bytes / 16, tid);
+  else if (rb % 8 == 0) mla_copy<8>(dst, src, bytes / 8, tid);
+  else if (rb % 4 == 0) mla_copy<4>(dst, src, bytes / 4, tid);
+  else if (rb % 2 == 0) mla_copy<2>(dst, src, bytes / 2, tid);
+  else mla_copy<1>(dst, src, bytes, tid);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// Every lane ends with the same bits: each step adds a pair in both orders.
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int F, int NS>
+__global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const MlaParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, splits = p.splits;
+  const int h0 = blockIdx.y * kMlaHeads, hn = min(kMlaHeads, p.H - h0);
+  const int b = blockIdx.z;
+  // This split's tiles: an even share, never empty (the first tiles % splits
+  // splits take one more).
+  const int lo = p.tiles / splits, extra = p.tiles - lo * splits;
+  const int t_beg = split * lo + min(split, extra);
+  const int n_tiles = lo + (split < extra);
+  const int r_beg = t_beg * kMlaTile;
+  const int r_end = min(p.kv_len, r_beg + n_tiles * kMlaTile);
+#ifdef FD_PHASE_CLOCK
+  const size_t stamp0 =
+      ((blockIdx.z * gridDim.y + blockIdx.y) * (size_t)gridDim.x + blockIdx.x) * kMlaStamps;
+  long long clk_last = clock64(), clk_sum[4] = {0, 0, 0, 0};
+  MLA_STAMP(0, clk_last);
+  {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    MLA_STAMP(10, t);
+  }
+#endif
+
+  float* s_sc = reinterpret_cast<float*>(smem + p.fixed_off);    // [heads][tile]
+  float* s_p = s_sc + kMlaHeads * kMlaTile;                       // [tile][kMlaPStride]
+  float* s_corr = s_p + kMlaTile * kMlaPStride;                   // [heads]
+  float* s_l = s_corr + kMlaHeads;
+  float* s_m = s_l + kMlaHeads;
+
+  auto issue = [&](int t, int stage) {
+    const int r0 = r_beg + t * kMlaTile, rows = min(kMlaTile, r_end - r0);
+    unsigned char* st = smem + stage * p.stage_bytes;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      if (p.rb[a])
+        mla_copy_rows(st + p.off[a], p.src[a] + ((size_t)b * p.C + r0) * p.rb[a], rows,
+                      p.rb[a], tid);
+  };
+  issue(0, 0);
+  cp_async_commit();
+
+  // Scores: this warp's 4 heads (hq) and 16 rows of each tile (rh).  A
+  // lane's elements of each query row: 4 of each 128-wide latent slot and 4
+  // of the rope row.  Heads past H have a zero query.
+  const int hq = warp & 3, rh = warp >> 2;
+  float qr[4][NS][4], q2r[4][4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int h = h0 + hq * 4 + g;
+    const bool on = hq * 4 + g < hn;
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      const int e0 = sl * kSlot + 4 * lane;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (on && e0 < p.r)
+        x = *reinterpret_cast<const float4*>(p.q + ((size_t)b * p.H + h) * p.r + e0);
+      qr[g][sl][0] = x.x; qr[g][sl][1] = x.y; qr[g][sl][2] = x.z; qr[g][sl][3] = x.w;
+    }
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (on && 4 * lane < p.dr)
+      x = *reinterpret_cast<const float4*>(p.q2 + ((size_t)b * p.H + h) * p.dr + 4 * lane);
+    q2r[g][0] = x.x; q2r[g][1] = x.y; q2r[g][2] = x.z; q2r[g][3] = x.w;
+  }
+  // A lane's element offsets, clamped into the row: a lane past the width
+  // reads a real element of the row against its zero query, so the loops
+  // have no branch.
+  int el[NS];
+#pragma unroll
+  for (int sl = 0; sl < NS; ++sl) el[sl] = min(sl * kSlot + 4 * lane, p.r - 4);
+  const int er = min(4 * lane, p.dr - 4);
+  // P.V: this warp's 8 heads (hv) and latent slot (sv); warps whose slot is
+  // past the latent width only rescale, and lanes past it write nothing.
+  const int hv = warp >> 2, sv = warp & 3;
+  const int ev = sv * kSlot + 4 * lane, evc = min(ev, p.r - 4);
+  const bool v_warp = sv < NS, v_on = v_warp && ev < p.r;
+  float acc[8][4];
+#pragma unroll
+  for (int g = 0; g < 8; ++g)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
+  // Softmax state of this warp's 2 heads (2 warp, 2 warp + 1), lane-uniform.
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  const int lb = p.rb[0], ls = p.rb[1], rb = p.rb[2], rs = p.rb[3];
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();       // tile t landed; every warp is done with tile t - 1
+    MLA_TICK(0);
+    if (t + 1 < n_tiles) issue(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (t & 1) * p.stage_bytes;
+    const unsigned char *lat = st + p.off[0], *lat_s = st + p.off[1];
+    const unsigned char *rope = st + p.off[2], *rope_s = st + p.off[3];
+    const int r0 = r_beg + t * kMlaTile, rows = min(kMlaTile, r_end - r0);
+
+    // Scores of 4 rows x 4 heads at a time: (row i, head g) at v = 4 i + g;
+    // after the reduce-scatter lane L holds v = L >> 1 (as in the GQA mode).
+    // The group's reads come first, then its FMAs: no branch between them.
+#pragma unroll 1
+    for (int grp = 0; grp < 4; ++grp) {
+      float kv[4][NS + 1][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int lr = rh * 16 + grp * 4 + i;
+#pragma unroll
+        for (int sl = 0; sl < NS; ++sl) dequant4<F>(lat + lr * lb, lat_s + lr * ls, el[sl], kv[i][sl]);
+        dequant4<F>(rope + lr * rb, rope_s + lr * rs, er, kv[i][NS]);
+      }
+      float x[16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float a = 0.f;
+#pragma unroll
+          for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) a = fmaf(qr[g][sl][c], kv[i][sl][c], a);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) a = fmaf(q2r[g][c], kv[i][NS][c], a);
+          x[i * 4 + g] = a;
+        }
+      halve_scores<8>(x, lane);
+      x[0] += __shfl_xor_sync(0xffffffffu, x[0], 1);
+      if ((lane & 1) == 0) {
+        const int lr = rh * 16 + grp * 4 + (lane >> 3), g = (lane >> 1) & 3;
+        // A row at or past r_end holds stale shared memory: masked.
+        s_sc[(hq * 4 + g) * kMlaTile + lr] = lr < rows ? x[0] * p.scale : -INFINITY;
+      }
+    }
+    __syncthreads();
+    MLA_TICK(1);
+
+    // Online softmax: a lane per row, a warp per 2 heads.
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int hh = 2 * warp + j;
+      const float xs = s_sc[hh * kMlaTile + lane];
+      const float m_new = fmaxf(m_run[j], warp_max(xs));
+      const float m_safe = isfinite(m_new) ? m_new : 0.f;
+      const float corr = expf(isfinite(m_run[j]) ? m_run[j] - m_safe : -INFINITY);
+      const float pv = expf(xs - m_safe);                // masked rows: exp(-inf) = 0
+      l_run[j] = l_run[j] * corr + warp_sum(pv);
+      m_run[j] = m_new;
+      s_p[lane * kMlaPStride + hh] = pv;
+      if (lane == 0) s_corr[hh] = corr;
+    }
+    __syncthreads();
+    MLA_TICK(2);
+
+    // P.V over the tile's valid rows.
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const float corr_g = s_corr[hv * 8 + g];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[g][c] *= corr_g;
+    }
+    if (v_warp) {
+#pragma unroll 2
+      for (int i = 0; i < rows; ++i) {
+        float vv[4];
+        dequant4<F>(lat + i * lb, lat_s + i * ls, evc, vv);
+        const float4 pa = *reinterpret_cast<const float4*>(s_p + i * kMlaPStride + hv * 8);
+        const float4 pb = *reinterpret_cast<const float4*>(s_p + i * kMlaPStride + hv * 8 + 4);
+        const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[g][c] = fmaf(pr[g], vv[c], acc[g][c]);
+      }
+    }
+    MLA_TICK(3);
+  }
+  cp_async_wait<0>();
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      s_m[2 * warp + j] = m_run[j];
+      s_l[2 * warp + j] = l_run[j];
+    }
+  }
+  __syncthreads();         // the ring is free; m and l are in shared memory
+#ifdef FD_PHASE_CLOCK
+  MLA_STAMP(1, clock64());
+  for (int k = 0; k < 4; ++k) MLA_STAMP(5 + k, clk_sum[k]);
+  MLA_STAMP(9, n_tiles);
+  auto stamp_end = [&](int i) {
+    MLA_STAMP(i, clock64());
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    MLA_STAMP(11, t);
+  };
+#endif
+
+  if (splits == 1) {
+    if (v_on) {
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int hh = hv * 8 + g;
+        if (hh < hn) {
+          const float den = fmaxf(s_l[hh], 1e-30f);
+          *reinterpret_cast<float4*>(p.out + ((size_t)b * p.H + h0 + hh) * p.r + ev) =
+              make_float4(acc[g][0] / den, acc[g][1] / den, acc[g][2] / den, acc[g][3] / den);
+        }
+      }
+    }
+#ifdef FD_PHASE_CLOCK
+    stamp_end(4);
+#endif
+    return;
+  }
+
+  // Every split leaves acc [heads][NS * 128] over the ring; the cluster
+  // barrier publishes it (and m, l) to the other blocks of the cluster.
+  constexpr int kW = NS * kSlot;
+  float* s_acc = reinterpret_cast<float*>(smem);
+  if (v_on) {
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+      *reinterpret_cast<float4*>(s_acc + (hv * 8 + g) * kW + ev) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+#ifdef FD_PHASE_CLOCK
+  MLA_STAMP(2, clock64());
+#endif
+
+  // Every split's (m, l) comes over in one round, a pair per thread; then
+  // each head's weight per split, exp(m_k - max m), and its denominator
+  // (all over the scores, which the loop no longer needs).
+  float* s_wt = s_sc;                                   // [splits][heads]: m, then weights
+  float* s_lk = s_sc + kMlaMaxSplits * kMlaHeads;       // [splits][heads]
+  float* s_den = s_lk + kMlaMaxSplits * kMlaHeads;      // [heads]
+  if (tid < splits * kMlaHeads) {
+    const int k = tid / kMlaHeads, g = tid - k * kMlaHeads;
+    s_wt[tid] = cluster.map_shared_rank(s_m, k)[g];
+    s_lk[tid] = cluster.map_shared_rank(s_l, k)[g];
+  }
+  __syncthreads();
+  if (tid < kMlaHeads) {
+    float M = -INFINITY;
+    for (int k = 0; k < splits; ++k) M = fmaxf(M, s_wt[k * kMlaHeads + tid]);
+    const float m_safe = isfinite(M) ? M : 0.f;
+    float L = 0.f;
+    for (int k = 0; k < splits; ++k) {
+      const float mk = s_wt[k * kMlaHeads + tid];
+      const float wt = isfinite(mk) ? expf(mk - m_safe) : 0.f;
+      s_wt[k * kMlaHeads + tid] = wt;
+      L = fmaf(s_lk[k * kMlaHeads + tid], wt, L);
+    }
+    s_den[tid] = fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  // This block's share of the chunk's output: items of 4 columns of one
+  // head, merged over the splits in split order.
+  const int per_head = p.r >> 2, items = hn * per_head;
+  const int i_beg = (int)((long long)items * split / splits);
+  const int i_end = (int)((long long)items * (split + 1) / splits);
+  for (int i = i_beg + tid; i < i_end; i += kMlaThreads) {
+    const int g = i / per_head, j = (i - g * per_head) * 4;
+    float4 x[kMlaMaxSplits];
+#pragma unroll
+    for (int k = 0; k < kMlaMaxSplits; ++k)
+      if (k < splits)
+        x[k] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(s_acc, k) + g * kW + j);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kMlaMaxSplits; ++k) {
+      if (k < splits) {
+        const float wt = s_wt[k * kMlaHeads + g];
+        a.x = fmaf(x[k].x, wt, a.x); a.y = fmaf(x[k].y, wt, a.y);
+        a.z = fmaf(x[k].z, wt, a.z); a.w = fmaf(x[k].w, wt, a.w);
+      }
+    }
+    const float den = s_den[g];
+    *reinterpret_cast<float4*>(p.out + ((size_t)b * p.H + h0 + g) * p.r + j) =
+        make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
+  }
+#ifdef FD_PHASE_CLOCK
+  MLA_STAMP(3, clock64());
+#endif
+  cluster.sync();          // no block leaves while another reads its shared memory
+#ifdef FD_PHASE_CLOCK
+  stamp_end(4);
+#endif
+}
+
+template <int F, int NS>
+int mla_launch(const MlaParams& p, int B, int chunks, size_t smem, cudaStream_t stream) {
+  auto kernel = flash_decode_mla_kernel<F, NS>;
+  static int limit[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && (int)smem > limit[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    limit[dev] = (int)smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits, chunks, B);
+  cfg.blockDim = dim3(kMlaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+int mla_launch_slots(int ns, const MlaParams& p, int B, int chunks, size_t smem,
+                     cudaStream_t s) {
+  if (ns == 1) return mla_launch<F, 1>(p, B, chunks, smem, s);
+  if (ns == 2) return mla_launch<F, 2>(p, B, chunks, smem, s);
+  if (ns == 4) return mla_launch<F, 4>(p, B, chunks, smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// MLA mode.  q f32 [B, H, r], q2 f32 [B, H, dr]; the latent cache
+// (values lat0, side data lat1) [B, C, *] and the rope cache (rope0, rope1)
+// in cache format `fmt`; out f32 [B, H, r].  `tiles` = ceil(kv_len / 32),
+// split i streams tiles [i * lo + min(i, x), ...) as in the GQA mode; `ns`
+// 128-wide latent slots (1, 2 or 4) picks the instantiation.  A ring stage
+// holds 32 rows of the latent values at offset 0, then the latent side, the
+// rope values and the rope side at `off_ls`, `off_rv`, `off_rs`, in
+// `stage_bytes`.  Nothing is allocated: the merge goes through the
+// cluster's shared memory.
+extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void* lat0,
+                                       const void* lat1, const void* rope0, const void* rope1,
+                                       void* out, int B, int C, int H, int r, int dr,
+                                       int kv_len, int fmt, int tiles, int splits, int ns,
+                                       int off_ls, int off_rv, int off_rs, int stage_bytes,
+                                       float scale, void* stream) {
+  if (fmt < kF32 || fmt > kMxint4Blk || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  MlaParams p{};
+  p.rb[0] = value_bytes(fmt, r);
+  p.rb[1] = side_bytes(fmt, r);
+  p.rb[2] = value_bytes(fmt, dr);
+  p.rb[3] = side_bytes(fmt, dr);
+  if (r < 4 || r % 4 || r > ns * kSlot || dr < 4 || dr % 4 || dr > kMlaMaxRope ||
+      (fmt == kMxint4Blk && (r % 16 || dr % 16)) || kv_len < 1 || kv_len > C ||
+      tiles != (kv_len + kMlaTile - 1) / kMlaTile || splits < 1 ||
+      splits > kMlaMaxSplits || splits > tiles || !(ns == 1 || ns == 2 || ns == 4))
+    return (int)cudaErrorInvalidValue;
+  // Every array's tile fits its place in the stage, 16-byte aligned.
+  if (off_ls % 16 || off_rv % 16 || off_rs % 16 || stage_bytes % 16 ||
+      off_ls < kMlaTile * p.rb[0] || off_rv < off_ls + kMlaTile * p.rb[1] ||
+      off_rs < off_rv + kMlaTile * p.rb[2] || stage_bytes < off_rs + kMlaTile * p.rb[3])
+    return (int)cudaErrorInvalidValue;
+  const int ring = kMlaStages * stage_bytes;
+  const int merge = (int)sizeof(float) * kMlaHeads * ns * kSlot;
+  p.fixed_off = ((ring > merge ? ring : merge) + 15) / 16 * 16;
+  const size_t smem = (size_t)p.fixed_off + sizeof(float) * kMlaFixedFloats;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  p.q = static_cast<const float*>(q);
+  p.q2 = static_cast<const float*>(q2);
+  p.src[0] = static_cast<const unsigned char*>(lat0);
+  p.src[1] = static_cast<const unsigned char*>(lat1);
+  p.src[2] = static_cast<const unsigned char*>(rope0);
+  p.src[3] = static_cast<const unsigned char*>(rope1);
+  p.off[0] = 0;
+  p.off[1] = off_ls;
+  p.off[2] = off_rv;
+  p.off[3] = off_rs;
+  p.out = static_cast<float*>(out);
+  p.C = C; p.H = H; p.r = r; p.dr = dr; p.kv_len = kv_len;
+  p.tiles = tiles; p.splits = splits; p.stage_bytes = stage_bytes;
+  p.scale = scale;
+#ifdef FD_PHASE_CLOCK
+  p.stamps = g_mla_stamps;
+#endif
+  const int chunks = (H + kMlaHeads - 1) / kMlaHeads;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fmt) {
+    case kF32: return mla_launch_slots<kF32>(ns, p, B, chunks, smem, s);
+    case kBF16: return mla_launch_slots<kBF16>(ns, p, B, chunks, smem, s);
+    case kInt8Legacy: return mla_launch_slots<kInt8Legacy>(ns, p, B, chunks, smem, s);
+    case kInt8Tok: return mla_launch_slots<kInt8Tok>(ns, p, B, chunks, smem, s);
+    case kMxint4Blk: return mla_launch_slots<kMxint4Blk>(ns, p, B, chunks, smem, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+#ifdef FD_PHASE_CLOCK
+// The stamp buffer of later MLA launches: kMlaStamps int64 per block.
+extern "C" void flash_decode_mla_set_stamps(void* stamps) {
+  g_mla_stamps = static_cast<long long*>(stamps);
+}
+#endif
+
+// How many clusters of `splits` blocks of the f32, 4-slot instantiation
+// with `smem` bytes of shared memory the card holds at once (negative: the
+// CUDA error); the planner sizes the grid so that every cluster is resident.
+// The kernel's shared-memory limit is raised to the most any launch may
+// take, never lowered under one a launch has set.
+extern "C" int flash_decode_mla_max_clusters(int splits, int smem) {
+  if (splits < 1 || splits > kMlaMaxSplits || smem > kMaxSmem)
+    return -(int)cudaErrorInvalidValue;
+  auto kernel = flash_decode_mla_kernel<kF32, 4>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, 8, 2);
+  cfg.blockDim = dim3(kMlaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+extern "C" int flash_decode_mla_tile_rows() { return kMlaTile; }
+extern "C" int flash_decode_mla_heads() { return kMlaHeads; }
+extern "C" int flash_decode_mla_max_splits() { return kMlaMaxSplits; }
+extern "C" int flash_decode_mla_smem_floats() { return kMlaFixedFloats; }

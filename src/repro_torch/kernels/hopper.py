@@ -52,8 +52,10 @@ LINK_FLAGS = {"w8a8_matmul": ("-lcuda",)}
 COMPILE_FLAGS = {"flash_decode": ("--split-compile=0",)}
 
 # Launches per kernel since the last `reset_launches()`; bumped only where a
-# kernel is launched.
-LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+# kernel is launched.  Flash-decode's MLA mode is a kernel of its own in the
+# flash_decode library and has its own count.
+COUNTERS = KERNELS + ("flash_decode_mla",)
+LAUNCHES: dict[str, int] = {name: 0 for name in COUNTERS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -64,7 +66,7 @@ _F = ctypes.c_float
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    for name in COUNTERS:
         LAUNCHES[name] = 0
 
 
@@ -193,6 +195,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                   (lib.flash_decode_max_dim, FD_MAX_DIM),
                   (lib.flash_decode_max_group, FD_MAX_GROUP),
                   (lib.flash_decode_max_stages, FD_MAX_STAGES))
+        mla = lib.flash_decode_mla_launch
+        mla.argtypes = [_P] * 7 + [_I] * 14 + [_F, _P]
+        mla.restype = _I
+        lib.flash_decode_mla_max_clusters.argtypes = [_I, _I]
+        lib.flash_decode_mla_max_clusters.restype = _I
+        limits += ((lib.flash_decode_mla_tile_rows, MLA_TILE),
+                   (lib.flash_decode_mla_heads, MLA_HEADS),
+                   (lib.flash_decode_mla_max_splits, MLA_MAX_SPLITS),
+                   (lib.flash_decode_mla_smem_floats, MLA_FIXED_FLOATS))
         for query, want in limits:
             query.argtypes, query.restype = [], _I
             if query() != want:
@@ -667,6 +678,157 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
         int(div), _stream())
     _raise_if(err, "flash_decode")
     LAUNCHES["flash_decode"] += 1
+    return out
+
+
+# Flash-decode's MLA two-stream mode (csrc/flash_decode.cu,
+# `flash_decode_mla_kernel`).  A block of 8 warps owns MLA_HEADS query heads
+# of one batch lane and an even share of the kv_len rows' MLA_TILE-row
+# tiles, streamed through a 2-stage ring; the splits of one (b, head chunk)
+# form a thread-block cluster and merge through its shared memory.
+MLA_TILE = 32
+MLA_HEADS = 16
+MLA_MAX_SPLITS = 8              # the portable cluster size
+# Clusters of 1..8 such blocks (one per SM) an H100 SXM holds at once
+# (cudaOccupancyMaxActiveClusters; tools/mla_phase_clock.py): the planner's
+# default, for the CPU; on the card `flash_decode_mla` asks the card.
+MLA_RESIDENT_H100 = (132, 66, 39, 30, 22, 17, 15, 15)
+MLA_STAGES = 2
+MLA_MAX_LATENT = 512            # 4 slots of 128
+MLA_MAX_ROPE = 128
+MLA_P_STRIDE = 20
+MLA_FIXED_FLOATS = MLA_HEADS * MLA_TILE + MLA_TILE * MLA_P_STRIDE + 3 * MLA_HEADS
+
+
+@functools.lru_cache(maxsize=None)
+def flash_decode_mla_plan(b: int, h: int, r: int, dr: int, kv_len: int, fmt: str,
+                          resident: tuple = MLA_RESIDENT_H100) -> dict:
+    """Grid, ring and shared memory of one MLA-mode launch.
+
+    The ``b * chunks`` (batch lane, head chunk) units each run as a cluster
+    of ``splits`` blocks, and each split streams an even share of the tiles
+    (``ranges``, as the kernel computes them).  ``resident[s - 1]`` is how
+    many clusters of ``s`` blocks the card holds at once; ``splits`` (at
+    most MLA_MAX_SPLITS and one per tile) minimises the waves of clusters
+    times the tiles of the longest split, the fewer splits on a tie.  On an
+    H100 deepseek-v3's 16 units take 6 splits, 96 blocks: the card holds 17
+    clusters of 6 but only 15 of 7 or 8, which would run a second wave.
+    ``ns`` is the latent's 128-wide slots, the instantiation the launch
+    picks.  A ring
+    stage holds a tile of the latent values, then the latent side data, the
+    rope values and the rope side data, each at a 16-byte aligned offset
+    (``layout``: those three offsets and the stage's bytes).  The merge
+    buffer (every head's f32 accumulator) reuses the ring; the scores, P and
+    softmax state follow at ``fixed_off``.  Raises on a shape the kernel does
+    not take.  Plans are cached; callers must not modify the dict.
+    """
+    if not (4 <= r <= MLA_MAX_LATENT and 4 <= dr <= MLA_MAX_ROPE and r % 4 == 0
+            and dr % 4 == 0):
+        raise ValueError(f"flash_decode (MLA): latent {r} and rope {dr} widths must be "
+                         f"multiples of 4 in [4, {MLA_MAX_LATENT}] and [4, {MLA_MAX_ROPE}]")
+    if fmt == "mxint4_blk" and (r % 16 or dr % 16):
+        raise ValueError(f"flash_decode (MLA): mxint4_blk needs widths in whole groups "
+                         f"of 16, got {r} and {dr}")
+    ns = next(n for n in (1, 2, 4) if r <= 128 * n)
+    chunks = -(-h // MLA_HEADS)
+    (lb, ls), (rb, rs) = fd_row_bytes(fmt, r), fd_row_bytes(fmt, dr)
+    off_ls = _up16(MLA_TILE * lb)
+    off_rv = off_ls + _up16(MLA_TILE * ls)
+    off_rs = off_rv + _up16(MLA_TILE * rb)
+    stage_bytes = off_rs + _up16(MLA_TILE * rs)
+    fixed_off = _up16(max(MLA_STAGES * stage_bytes, 4 * MLA_HEADS * 128 * ns))
+    tiles = -(-kv_len // MLA_TILE)
+    units = b * chunks
+    splits = min(range(1, min(MLA_MAX_SPLITS, tiles) + 1),
+                 key=lambda s: (-(-units // resident[s - 1]) * -(-tiles // s), s))
+    lo, extra = divmod(tiles, splits)
+    cuts = [(i * lo + min(i, extra)) * MLA_TILE for i in range(splits + 1)]
+    ranges = tuple((cuts[i], min(cuts[i + 1], kv_len)) for i in range(splits))
+    return dict(tile=MLA_TILE, tiles=tiles, splits=splits, ranges=ranges, ns=ns,
+                chunks=chunks, blocks=units * splits, stage_bytes=stage_bytes,
+                layout=(off_ls, off_rv, off_rs, stage_bytes), fixed_off=fixed_off,
+                smem_bytes=fixed_off + 4 * MLA_FIXED_FLOATS)
+
+
+def _mla_operand(name: str, parts: tuple, fmt: str, lead: tuple, dim: int):
+    """Check one MLA cache stream ``(values, side or None)`` of format ``fmt``
+    with logical shape ``lead + (dim,)``: contiguous, each array's base
+    aligned to its copy width (`fd_alignment_width` of its rows: the kernel
+    copies a tile's rows as one flat run).  Returns the two pointers (side:
+    0 if none)."""
+    _, vdtype, sdtype = CACHE_FORMATS[fmt]
+    values, side = parts
+    shapes = {"int8_tok": (dim, 1), "mxint4_blk": (dim // 2, dim // 16)}.get(fmt, (dim, None))
+    ptrs = []
+    for tag, t, dtype, width in ((".values", values, vdtype, shapes[0]),
+                                 (".side", side, sdtype, shapes[1])):
+        if width is None:
+            ptrs.append(0)
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}{tag}: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != lead + (width,):
+            raise ValueError(f"{name}{tag}: expected shape {lead + (width,)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}{tag}: must be contiguous")
+        align = fd_alignment_width(width * t.element_size())
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}{tag}: base must be {align}-byte aligned "
+                             f"(address {t.data_ptr():#x})")
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
+def _mla_resident(device: torch.device) -> tuple:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    return _mla_resident_on(idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_resident_on(index: int) -> tuple:
+    """Clusters of 1..MLA_MAX_SPLITS MLA-mode blocks card ``index`` holds at
+    once, at the largest plan's shared memory (the f32 cache at the widest
+    latent), asked once per card."""
+    lib = _lib("flash_decode")
+    widest = flash_decode_mla_plan(1, MLA_HEADS, MLA_MAX_LATENT, MLA_MAX_ROPE, 1, "f32")
+    with torch.cuda.device(index):
+        got = tuple(lib.flash_decode_mla_max_clusters(s, widest["smem_bytes"])
+                    for s in range(1, MLA_MAX_SPLITS + 1))
+    if min(got) < 1:
+        raise RuntimeError(f"flash_decode (MLA): cluster occupancy query failed: {got}")
+    return got
+
+
+def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: int, scale: float):
+    """MLA decode attention of one token over the first ``kv_len`` rows.
+
+    q f32 ``[B, H, r]`` (absorbed latent queries), q2 f32 ``[B, H, dr]``
+    (rope queries); the latent cache, which is both K and V, and the rope
+    cache as ``(values, side)`` pairs in the ``[B, C, *]`` layout of one
+    `CACHE_FORMATS` name.  ``s = (q . L + q2 . R) * scale``.  Returns f32
+    ``[B, H, r]``.
+    """
+    b, h, r = q.shape
+    dr = q2.shape[-1]
+    c = lat_parts[0].shape[1]
+    if not 1 <= kv_len <= c:
+        raise ValueError(f"flash_decode: kv_len {kv_len} outside [1, {c}]")
+    _check("q", q, torch.float32, (b, h, r), align=16)
+    _check("q2", q2, torch.float32, (b, h, dr), align=16)
+    plan = flash_decode_mla_plan(b, h, r, dr, kv_len, fmt, _mla_resident(q.device))
+    l0, l1 = _mla_operand("latent", lat_parts, fmt, (b, c), r)
+    r0, r1 = _mla_operand("rope", rope_parts, fmt, (b, c), dr)
+    lib = _lib("flash_decode")
+    out = torch.empty(b, h, r, dtype=torch.float32, device=q.device)
+    err = lib.flash_decode_mla_launch(
+        q.data_ptr(), q2.data_ptr(), l0, l1, r0, r1, out.data_ptr(), b, c, h, r, dr,
+        kv_len, CACHE_FORMATS[fmt][0], plan["tiles"], plan["splits"], plan["ns"],
+        *plan["layout"], float(scale), _stream())
+    _raise_if(err, "flash_decode (MLA)")
+    LAUNCHES["flash_decode_mla"] += 1
     return out
 
 

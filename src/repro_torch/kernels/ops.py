@@ -120,27 +120,44 @@ def _cache_parts(leaf) -> tuple[tuple, str]:
     return (leaf, None), name
 
 
-def flash_decode(q, k, v, kv_len: int, *, scale=None, impl: str = "auto"
-                 ) -> torch.Tensor:
+def flash_decode(q, k, v, kv_len: int, *, q2=None, k2=None, scale=None,
+                 impl: str = "auto") -> torch.Tensor:
     """Single-token decode attention over the first ``kv_len`` cache rows.
 
-    q ``[B, KV, G, d]``; k/v ``[B, C, KV, *]`` cache leaves (f32, bf16 or
-    legacy int8 tensors, or kvq-encoded dicts, which the kernel dequantizes
-    as it loads them).  ``kv_len`` is a host int in ``[1, C]``: the caller
-    keeps the position on the host, so the kernel takes it by value.
-    ``scale=None`` divides the scores by sqrt(d).  Returns f32
-    ``[B, KV, G, dv]``.  Only the GQA layout is ported.
+    Two layouts (see `ref.flash_decode_ref`).  GQA: q ``[B, KV, G, d]``, k/v
+    ``[B, C, KV, *]`` cache leaves; ``scale=None`` divides the scores by
+    sqrt(d); returns f32 ``[B, KV, G, dv]``.  MLA (``q.ndim == 3``): q
+    ``[B, H, r]`` against the latent cache k = v ``[B, C, r]``, plus the rope
+    stream ``q2 [B, H, dr]`` . ``k2 [B, C, dr]``; ``scale`` is required;
+    returns f32 ``[B, H, r]``.  The MLA kernel reads each latent row once as
+    both K and V, so on the card ``v`` must be the very leaf ``k`` and share
+    its format with ``k2``.
+
+    Leaves are f32, bf16 or legacy int8 tensors, or kvq-encoded dicts, which
+    the kernels dequantize as they load them.  ``kv_len`` is a host int in
+    ``[1, C]``: the caller keeps the position on the host, so the kernels
+    take it by value.
     """
-    if q.ndim != 4:
-        raise NotImplementedError("flash_decode: only the GQA layout (q [B, KV, "
-                                  "G, d]) is ported; MLA comes with deepseek-v3")
     kv_len = operator.index(kv_len)
     c = (next(iter(k.values())) if isinstance(k, dict) else k).shape[1]
     if not 1 <= kv_len <= c:
         raise ValueError(f"flash_decode: kv_len {kv_len} outside [1, {c}]")
+    if q.ndim == 3 and (q2 is None or k2 is None or scale is None):
+        raise ValueError("MLA layout (q.ndim == 3) needs q2, k2 and scale")
     if not use_kernel(impl, q):
-        return _ref.flash_decode_ref(q, k, v, kv_len, scale=scale)
+        return _ref.flash_decode_ref(q, k, v, kv_len, q2=q2, k2=k2, scale=scale)
     from repro_torch.kernels import hopper
+    if q.ndim == 3:
+        if v is not k:
+            raise ValueError("flash_decode (MLA): the kernel reads each latent row once "
+                             "as both K and V, so v must be the same leaf as k")
+        (lat, fmt), (rope, rope_fmt) = _cache_parts(k), _cache_parts(k2)
+        if rope_fmt != fmt:
+            raise ValueError(f"flash_decode (MLA): the latent ({fmt}) and rope "
+                             f"({rope_fmt}) caches must share one format")
+        return hopper.flash_decode_mla(q.to(torch.float32).contiguous(),
+                                       q2.to(torch.float32).contiguous(), lat, rope, fmt,
+                                       kv_len, float(scale))
     (kp, kf), (vp, vf) = _cache_parts(k), _cache_parts(v)
     return hopper.flash_decode(q.to(torch.float32).contiguous(), kp, kf, vp, vf,
                                kv_len, scale)

@@ -54,22 +54,36 @@ def rmsnorm_stats_ref(y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return fr.rms_sigma_inv(y, eps)
 
 
-def flash_decode_ref(q, k, v, kv_len: int, *, scale=None) -> torch.Tensor:
-    """Single-token decode attention over the first ``kv_len`` cache rows, in
-    the GQA layout: q ``[B, KV, G, d]``; k/v ``[B, C, KV, *]`` cache leaves
-    (f32/bf16/legacy-int8 tensors or kvq-encoded dicts).  ``scale=None``
-    divides the scores by sqrt(d); rows at index >= kv_len are masked to -inf
-    before the softmax, as the reference's `attend_one_step` does.
+def flash_decode_ref(q, k, v, kv_len: int, *, q2=None, k2=None, scale=None
+                     ) -> torch.Tensor:
+    """Single-token decode attention over the first ``kv_len`` cache rows.
 
-    The MLA layout (``q.ndim == 3``, a second score stream) comes with the
-    MLA models.
+    Two layouts, as the reference's `flash_decode_ref`, operation for
+    operation:
+
+    GQA (``q.ndim == 4``): q ``[B, KV, G, d]``; k/v ``[B, C, KV, *]`` cache
+        leaves (f32/bf16/legacy-int8 tensors or kvq-encoded dicts).
+        ``scale=None`` divides the scores by sqrt(d).
+    MLA (``q.ndim == 3``): q the absorbed latent queries ``[B, H, r]``, k/v
+        the latent cache ``[B, C, r]`` (the same leaf on the model path),
+        with a second score stream ``q2 [B, H, dr]`` against the shared rope
+        key ``k2 [B, C, dr]``; ``s = (q . k + q2 . k2) * scale``, and
+        ``scale`` is required.
+
+    Rows at index >= kv_len are masked to -inf before the softmax.
     """
-    if q.ndim != 4:
-        raise NotImplementedError("flash_decode: only the GQA layout (q [B, KV, "
-                                  "G, d]) is ported; MLA comes with deepseek-v3")
     c = (next(iter(k.values())) if isinstance(k, dict) else k).shape[1]
     valid = torch.arange(c, device=q.device) < kv_len
-    return masked_decode_attention(q, k, v, valid, scale=scale)
+    if q.ndim == 4:
+        return masked_decode_attention(q, k, v, valid, scale=scale)
+    if q2 is None or k2 is None or scale is None:
+        raise ValueError("MLA layout (q.ndim == 3) needs q2, k2 and scale")
+    kf, vf = kvq.decode(k), kvq.decode(v)
+    s_lat = torch.einsum("bhr,bcr->bhc", q.to(torch.float32), kf)
+    s_rope = torch.einsum("bhr,bcr->bhc", q2.to(torch.float32), kvq.decode(k2))
+    s = (s_lat + s_rope) * scale
+    p = torch.softmax(s.masked_fill(~valid, -torch.inf), dim=-1)
+    return torch.einsum("bhc,bcr->bhr", p, vf)
 
 
 def masked_decode_attention(q, k, v, valid: torch.Tensor, *, scale=None

@@ -5,22 +5,31 @@
     w [, b]  ->  w8_vals, w8_scale (prefill W8A8),
                  mx_packed, mx_exps (decode MXINT4, where N % 32 == 0) [, b]
 
-and drops the master weight (the reference keeps MLA's ``wk_b``/``wv_b``
-masters; no ported model has them).  ``w8_vals`` keeps the reference's
-logical ``[K, N]`` shape and values but is stored K-major (`k_major`), the
-layout the int8 tensor-core GEMM reads, so no call ever transposes it.  It works in place, one linear at a
-time, so a full-width model never holds its master and deployed weights at
-once.  Per-layer modules quantize per layer, as the reference's vmap over
+and drops the master weight, except where the math uses the matrix itself
+rather than an ``x @ W`` product: MLA's ``wk_b``/``wv_b``, which absorbed
+decode folds into the query and the output (`KEEP_MASTER`, the reference's
+rule).  ``w8_vals`` keeps the reference's logical ``[K, N]`` shape and
+values but is stored K-major (`k_major`), the layout the int8 tensor-core
+GEMM reads, so no call ever transposes it.  It works in place, one linear at
+a time, so a full-width model never holds its master and deployed weights
+at once.  Per-layer modules quantize per layer, as the reference's vmap over
 its ``[L, ...]`` stacks does.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 from torch import nn
 
 from repro_torch.core import mxint4 as mx
 from repro_torch.models.modules import Linear
+
+
+# Linears whose master weight survives deployment (matched on the module's
+# name): MLA's absorbed-decode einsums read the matrix itself.
+KEEP_MASTER = re.compile(r"(wk_b|wv_b)$")
 
 
 def _mx_ok(w: torch.Tensor) -> bool:
@@ -43,7 +52,7 @@ def is_master(model: nn.Module) -> bool:
 @torch.no_grad()
 def deploy_quantize(model: nn.Module) -> nn.Module:
     """Quantize every master linear of ``model`` in place; returns it."""
-    for lin in model.modules():
+    for name, lin in model.named_modules():
         if not isinstance(lin, Linear) or lin.w is None or lin.w8_vals is not None:
             continue
         w = lin.w.data
@@ -52,5 +61,6 @@ def deploy_quantize(model: nn.Module) -> nn.Module:
         if _mx_ok(w):
             q4 = mx.quantize_mxint4(w)
             lin.mx_packed, lin.mx_exps = q4.packed, q4.exps_packed
-        lin.w = None
+        if not KEEP_MASTER.search(name):
+            lin.w = None
     return model

@@ -1,4 +1,4 @@
-"""Shared layers: fused norms, flash attention, KV-cache helpers and GQA.
+"""Shared layers: fused norms, flash attention, KV-cache helpers, GQA and MLA.
 
 Every matmul goes through the HSA engine, and every pre-matmul norm uses the
 Eq. (4) fused emission (C3): `norm_emit` returns ``(x*, sigma^{-1})`` and
@@ -11,6 +11,12 @@ and K/V caches are ``[B, C, KV, hd]`` leaves, plain tensors or kvq-encoded
 dicts.  Decode attention is the flash-decode kernel; prefill attention is the
 reference's online-softmax forward in plain PyTorch (it is no Pallas kernel
 there either).  Sliding-window ring caches are not ported yet.
+
+MLA (deepseek-v3) caches the compressed ``c_kv [B, C, kv_lora_rank]`` and
+the shared rope key ``k_rope [B, C, qk_rope_head_dim]``.  Prefill expands
+them per head for flash attention; decode absorbs ``wk_b``/``wv_b`` into the
+query and the output and attends in the latent space through flash-decode's
+MLA mode.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from repro_torch.core.hsa import HSAEngine
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import Attention, Init, Linear, Norm
+from repro_torch.models.modules import MLA, Attention, Init, Linear, Norm
 
 # ---------------------------------------------------------------------------
 # Norms (fused emission, C3)
@@ -265,3 +271,112 @@ def gqa_make_cache(cfg: ModelConfig, batch: int, cache_len: int,
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
     return {"k": make_cache_leaf(shape, dtype, device),
             "v": make_cache_leaf(shape, dtype, device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(init: Init, cfg: ModelConfig) -> MLA:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    wq_a = Linear.init(init, d, qr)                    # q down-projection
+    q_norm = norm_init(init, qr, cfg)
+    wq_b = Linear.init(init, qr, h * (dn + dr))        # q up-projection
+    wkv_a = Linear.init(init, d, kvr + dr)             # c_kv + shared k_rope
+    kv_norm = norm_init(init, kvr, cfg)
+    wk_b = Linear.init(init, kvr, h * dn)              # k up (nope part)
+    wv_b = Linear.init(init, kvr, h * dv)              # v up
+    wo = Linear.init(init, h * dv, d)
+    return MLA(wq_a, q_norm, wq_b, wkv_a, kv_norm, wk_b, wv_b, wo)
+
+
+def _mla_q(p: MLA, x_star, sig_inv, engine: HSAEngine, phase: str, cfg: ModelConfig):
+    b, s, _ = x_star.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_lat = engine.linear(p.wq_a, x_star, phase, row_scale=sig_inv)
+    q_lat, q_sig = norm_emit(p.q_norm, q_lat, engine)
+    q = engine.linear(p.wq_b, q_lat, phase, row_scale=q_sig)
+    q = q.reshape(b, s, cfg.n_heads, dn + dr)
+    return q[..., :dn], q[..., dn:]                    # (q_nope, q_rope)
+
+
+def _mla_latents(p: MLA, x_star, sig_inv, engine: HSAEngine, phase: str,
+                 cfg: ModelConfig):
+    """The compressed latent (normalized) and the shared rope key, unrotated."""
+    kv_a = engine.linear(p.wkv_a, x_star, phase, row_scale=sig_inv)
+    kvr = cfg.kv_lora_rank
+    return norm_full(p.kv_norm, kv_a[..., :kvr]), kv_a[..., kvr:]
+
+
+def mla_apply(p: MLA, x_star, sig_inv, engine: HSAEngine, phase: str,
+              cfg: ModelConfig, *, rope_sin=None, rope_cos=None
+              ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill MLA: materialize per-head K/V from the latent (the MMM phase)
+    -> (out [B, S, D], (c_kv, k_rope)), the compressed tensors the cache
+    keeps."""
+    b, s, _ = x_star.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x_star, sig_inv, engine, phase, cfg)
+    c_kv, k_rope = _mla_latents(p, x_star, sig_inv, engine, phase, cfg)
+    if rope_sin is not None:
+        sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
+        q_rope = orp.apply_rope(q_rope, sin, cos)
+        k_rope = orp.apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0]
+    k_nope = engine.linear(p.wk_b, c_kv, phase).reshape(b, s, h, dn)
+    v = engine.linear(p.wv_b, c_kv, phase).reshape(b, s, h, dv)
+    # The rope part rides beside the nope part, so one flash call takes both
+    # score terms (k_rope is shared by every head).
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    out = flash_attention(q_full.reshape(b, s, h, 1, dn + dr), k_full, v)
+    out = engine.linear(p.wo, out.reshape(b, s, h * dv), phase)
+    return out, (c_kv, k_rope)
+
+
+def mla_decode(p: MLA, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
+               cache: dict, pos: int, *, rope_sin=None, rope_cos=None
+               ) -> tuple[torch.Tensor, dict]:
+    """One decode step with absorbed projections: the query takes ``wk_b``
+    and the latent output ``wv_b``, so attention runs in the compressed
+    space through flash-decode's MLA mode (the rope term is its second score
+    stream) and the cache stays compressed.  The new latent and rope rows
+    are written into the cache in place (`cache_update`)."""
+    b = x_star.shape[0]
+    h = cfg.n_heads
+    kvr, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                       cfg.qk_rope_head_dim, cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(p, x_star, sig_inv, engine, "decode", cfg)
+    q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]        # [B, H, dn], [B, H, dr]
+    c_kv_new, k_rope_new = _mla_latents(p, x_star, sig_inv, engine, "decode", cfg)
+    if rope_sin is not None:
+        q_rope = orp.apply_rope(q_rope, rope_sin, rope_cos)
+        k_rope_new = orp.apply_rope(k_rope_new, rope_sin, rope_cos)
+
+    c = cache_capacity(cache["c_kv"])
+    slot = min(pos, c - 1)
+    c_kv = cache_update(cache["c_kv"], c_kv_new, slot)
+    k_rope = cache_update(cache["k_rope"], k_rope_new, slot)
+
+    # q_abs[b, h, r] = sum_n q_nope[b, h, n] wk_b[r, h, n]: plain products,
+    # as the reference leaves them to XLA, on the f32 master.
+    f32 = torch.float32
+    wk_b = p.wk_b.w.reshape(kvr, h, dn).to(f32)
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope.to(f32), wk_b)
+    scale = 1.0 / torch.sqrt(torch.tensor(dn + dr, dtype=f32))
+    lat_out = ops.flash_decode(q_abs, c_kv, c_kv, min(pos + 1, c), q2=q_rope,
+                               k2=k_rope, scale=scale, impl=engine.config.kernel_impl)
+    wv_b = p.wv_b.w.reshape(kvr, h, dv).to(f32)
+    out_heads = torch.einsum("bhr,rhv->bhv", lat_out, wv_b)
+    out = engine.linear(p.wo, out_heads.reshape(b, 1, h * dv), "decode")
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_make_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    return {"c_kv": make_cache_leaf((batch, cache_len, cfg.kv_lora_rank), dtype, device),
+            "k_rope": make_cache_leaf((batch, cache_len, cfg.qk_rope_head_dim), dtype,
+                                      device)}

@@ -1,5 +1,5 @@
 """Decoder LM assembly: the ``retnet`` and ``dense`` kinds of the reference's
-`models/lm.py`.
+`models/lm.py`, dense with GQA or MLA attention.
 
 Per-layer modules in an ``nn.ModuleList`` and a Python loop take the place of
 the reference's ``lax.scan`` over stacked params; the residual stream is cast
@@ -8,12 +8,19 @@ back to the param dtype after every block, as the scan carry is there.
     forward_prefill — full prompt (MMM phase): last-token logits + warm cache
     forward_decode  — one token with the warm cache (MVM phase)
 
+Layers come in the reference's groups (`layer_groups`), held in one flat
+list in group order: deepseek-v3's leading dense layers (``dense_head``)
+run, and a config cut to them has no MoE layer; MoE layers are not ported.
+
 The decode cache is ``{"pos": int, "rope": OnlineRopeState, "blocks": [one
 per layer]}``: ``{"s": f32 [B, H, dk, dv]}`` for RetNet, ``{"k", "v"}``
-``[B, C, KV, hd]`` leaves (plain tensors or kvq-encoded dicts) for dense GQA.
+``[B, C, KV, hd]`` leaves for dense GQA, ``{"c_kv" [B, C, kv_lora_rank],
+"k_rope" [B, C, qk_rope_head_dim]}`` for MLA (plain tensors or kvq-encoded
+dicts).
 The position lives on the host: the Python decode loop knows it without
 reading the card.  Dense decode writes each new K/V row into the cache in
-place (`layers.cache_update`).
+place (`layers.cache_update`).  The multi-token-prediction head of
+deepseek-v3 (``cfg.mtp``) is not built: generation never reads it.
 """
 
 from __future__ import annotations
@@ -28,14 +35,30 @@ from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import retnet as R
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import Attention, Init, Linear, Norm
+from repro_torch.models.modules import MLA, Attention, Init, Linear, Norm
+
+
+def layer_groups(cfg: ModelConfig) -> list[tuple[str, int, str]]:
+    """The reference's homogeneous runs of layers, in order, as ``(name,
+    count, kind)``, for the families the port serves: a MoE model's
+    ``first_dense_layers`` form ``dense_head`` ahead of its MoE ``blocks``."""
+    if cfg.family == "moe" and cfg.first_dense_layers:
+        dense = min(cfg.first_dense_layers, cfg.n_layers)
+        return [("dense_head", dense, "dense"), ("blocks", cfg.n_layers - dense, "moe")]
+    return [("blocks", cfg.n_layers, "retnet" if cfg.family == "retnet" else "dense")]
 
 
 def _check_family(cfg: ModelConfig) -> None:
     """Raise, naming what is missing, unless the port serves ``cfg``."""
     if cfg.family == "retnet":
         return
-    if cfg.family != "dense":
+    if cfg.family == "moe":
+        if cfg.n_layers > cfg.first_dense_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet; repro_torch serves a "
+                f"MoE model cut to its {cfg.first_dense_layers} leading dense layers "
+                f"(n_layers={cfg.first_dense_layers})")
+    elif cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
             f"retnet and dense")
@@ -44,7 +67,8 @@ def _check_family(cfg: ModelConfig) -> None:
         ("sliding-window attention", bool(cfg.sliding_window)),
         (f"frontend {cfg.frontend!r}", cfg.frontend is not None),
         ("absolute position embeddings", cfg.abs_pos_embed),
-        (f"attn_type {cfg.attn_type!r}", cfg.attn_type != "gqa")) if present]
+        (f"attn_type {cfg.attn_type!r}", cfg.attn_type not in ("gqa", "mla")))
+        if present]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
 
@@ -62,23 +86,23 @@ class RetNetBlock(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm GQA attention then an MLP, gated for RMSNorm archs."""
+    """Pre-norm attention (GQA, or MLA for ``attn_type == "mla"``) then an
+    MLP, gated for RMSNorm archs."""
 
-    def __init__(self, ln1: Norm, attn: Attention, ln2: Norm, mlp: M.MLP):
+    def __init__(self, ln1: Norm, attn: Attention | MLA, ln2: Norm, mlp: M.MLP):
         super().__init__()
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
 
     @classmethod
     def init(cls, init: Init, cfg: ModelConfig) -> "DenseBlock":
         ln1 = L.norm_init(init, cfg.d_model, cfg)
-        attn = L.gqa_init(init, cfg)
+        attn = L.mla_init(init, cfg) if cfg.attn_type == "mla" else L.gqa_init(init, cfg)
         return cls(ln1, attn, L.norm_init(init, cfg.d_model, cfg),
                    M.MLP.init(init, cfg.d_model, cfg.d_ff,
                               gated=cfg.norm_type == "rmsnorm"))
 
 
-def block_class(cfg: ModelConfig) -> type:
-    return RetNetBlock if cfg.family == "retnet" else DenseBlock
+BLOCK_KINDS = {"retnet": RetNetBlock, "dense": DenseBlock}
 
 
 class LM(nn.Module):
@@ -96,7 +120,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
     _check_family(cfg)
     ini = Init.from_seed(seed, device, getattr(torch, cfg.param_dtype))
     embed = ini.normal((cfg.padded_vocab, cfg.d_model), 0.02)
-    blocks = [block_class(cfg).init(ini, cfg) for _ in range(cfg.n_layers)]
+    blocks = [BLOCK_KINDS[kind].init(ini, cfg)
+              for _, count, kind in layer_groups(cfg) for _ in range(count)]
     final_norm = L.norm_init(ini, cfg.d_model, cfg)
     lm_head = Linear.init(ini, cfg.d_model, cfg.padded_vocab, scale=0.02)
     return LM(embed, blocks, final_norm, lm_head)
@@ -123,14 +148,17 @@ def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens]
 
 
-def _seed_attn_cache(cfg: ModelConfig, k, v, cache_len: int = 0) -> dict:
-    """Prefill K/V -> the decode cache layout: a linear cache right-padded
-    with zeros to ``cache_len`` so generation can continue."""
-    s = k.shape[1]
-    if cache_len > s:
-        pad = (0, 0, 0, 0, 0, cache_len - s)
-        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
-    return {"k": k, "v": v}
+def _seed_attn_cache(leaves: dict, cache_len: int = 0) -> dict:
+    """Prefill K/V (or MLA's latents) -> the decode cache layout: each leaf
+    ``[B, S, ...]`` right-padded with zeros along the slot axis to
+    ``cache_len`` so generation can continue."""
+    out = {}
+    for name, x in leaves.items():
+        if cache_len > x.shape[1]:
+            pad = (0, 0) * (x.ndim - 2) + (0, cache_len - x.shape[1])
+            x = torch.nn.functional.pad(x, pad)
+        out[name] = x
+    return out
 
 
 def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0):
@@ -139,10 +167,14 @@ def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0):
     if isinstance(p, RetNetBlock):
         y, cache = R.retention_apply(p.ret, xs, sig, engine, phase, cfg,
                                      rope_sin=sin, rope_cos=cos)
+    elif cfg.attn_type == "mla":
+        y, (c_kv, k_rope) = L.mla_apply(p.attn, xs, sig, engine, phase, cfg,
+                                        rope_sin=sin, rope_cos=cos)
+        cache = _seed_attn_cache({"c_kv": c_kv, "k_rope": k_rope}, cache_len)
     else:
         y, (k, v) = L.gqa_apply(p.attn, xs, sig, engine, phase, cfg,
                                 rope_sin=sin, rope_cos=cos)
-        cache = _seed_attn_cache(cfg, k, v, cache_len)
+        cache = _seed_attn_cache({"k": k, "v": v}, cache_len)
     x = x + y
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
     return x + M.mlp_apply(p.mlp, xs2, sig2, engine, phase), cache
@@ -155,8 +187,9 @@ def _block_decode(p, x, cfg, engine, cache, pos: int, sin, cos):
         y, cache = R.retention_decode(p.ret, xs, sig, engine, cfg, cache,
                                       rope_sin=sin, rope_cos=cos)
     else:
-        y, cache = L.gqa_decode(p.attn, xs, sig, engine, cfg, cache, pos,
-                                rope_sin=sin, rope_cos=cos)
+        decode = L.mla_decode if cfg.attn_type == "mla" else L.gqa_decode
+        y, cache = decode(p.attn, xs, sig, engine, cfg, cache, pos,
+                          rope_sin=sin, rope_cos=cos)
     x = x + y
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
     return x + M.mlp_apply(p.mlp, xs2, sig2, engine, "decode"), cache
@@ -214,7 +247,8 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
                       dtype=torch.bfloat16, start_pos: int = 0,
                       device="cuda") -> dict:
     """Cold cache at ``start_pos`` (zeros are the exact initial state of
-    every cache kind), with ``cache_len`` KV slots per layer for dense GQA.
+    every cache kind), with ``cache_len`` KV slots per layer for dense GQA
+    and MLA.
     The reference's decode-only dry-run default (pos = cache_len - 1) is not
     ported: pass ``start_pos`` for it.
 
@@ -226,8 +260,8 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
         blocks = [R.retention_make_cache(cfg, batch, device)
                   for _ in range(cfg.n_layers)]
     else:
-        blocks = [L.gqa_make_cache(cfg, batch, cache_len, dtype, device)
-                  for _ in range(cfg.n_layers)]
+        make = L.mla_make_cache if cfg.attn_type == "mla" else L.gqa_make_cache
+        blocks = [make(cfg, batch, cache_len, dtype, device) for _ in range(cfg.n_layers)]
     caches = {"pos": pos, "blocks": blocks}
     if cfg.rope:
         caches["rope"] = orp.init_state(_rope_dim(cfg), cfg.rope_base,
@@ -236,7 +270,8 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
 
 
 def quantize_cache(cache: dict, cfg: ModelConfig, fmt: str) -> dict:
-    """Encode the KV leaves of a warm decode cache into ``fmt``.
+    """Encode the KV leaves (MLA: the latent and the rope key) of a warm
+    decode cache into ``fmt``.
 
     The bridge between prefill (always f32) and a quantized decode
     residency: the engine calls it once, right after `forward_prefill`.
@@ -246,6 +281,6 @@ def quantize_cache(cache: dict, cfg: ModelConfig, fmt: str) -> dict:
     kvq.check_format(fmt)
     out = dict(cache)
     if cfg.family != "retnet":
-        out["blocks"] = [{"k": kvq.encode(b["k"], fmt), "v": kvq.encode(b["v"], fmt)}
+        out["blocks"] = [{name: kvq.encode(leaf, fmt) for name, leaf in b.items()}
                          for b in cache["blocks"]]
     return out

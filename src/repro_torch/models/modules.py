@@ -1,7 +1,7 @@
 """Parameter containers and seeded init.
 
-`Attention` groups the GQA projections and the optional QK-norm gains.
-`Linear` holds one weight ``W[K, N]`` (the reference layout, ``y = x @ W``,
+`Attention` groups the GQA projections and the optional QK-norm gains, `MLA`
+deepseek-v3's latent-attention projections and norms.  `Linear` holds one weight ``W[K, N]`` (the reference layout, ``y = x @ W``,
 not ``nn.Linear``'s ``[N, K]``) in whichever formats it carries: the master
 ``w`` and optional bias ``b``, and after deployment ``w8_vals``/``w8_scale``
 (INT8) and ``mx_packed``/``mx_exps`` (MXINT4).  `Norm` holds a gain ``g``.
@@ -93,3 +93,18 @@ class Attention(nn.Module):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
         self.qnorm, self.knorm = qnorm, knorm
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention (deepseek-v3): the q down- and
+    up-projections ``wq_a``/``wq_b`` around ``q_norm``, the joint latent and
+    shared rope-key projection ``wkv_a`` with ``kv_norm`` on the latent, the
+    per-head key and value up-projections ``wk_b``/``wv_b`` (whose masters
+    decode absorbs) and ``wo``."""
+
+    def __init__(self, wq_a: Linear, q_norm: Norm, wq_b: Linear, wkv_a: Linear,
+                 kv_norm: Norm, wk_b: Linear, wv_b: Linear, wo: Linear):
+        super().__init__()
+        self.wq_a, self.q_norm, self.wq_b = wq_a, q_norm, wq_b
+        self.wkv_a, self.kv_norm = wkv_a, kv_norm
+        self.wk_b, self.wv_b, self.wo = wk_b, wv_b, wo

@@ -357,6 +357,123 @@ def test_flash_decode_kernel_rejects_misaligned_views(fmt, part):
         ops.flash_decode(q, bad, leaf, c, impl="kernel")
 
 
+def _mla_inputs(seed, fmt, b, h, r, dr, c, q_std=None):
+    """MLA-mode operands.  The absorbed query q_nope . wk_b of a unit-variance
+    q_nope (deepseek-v3's nope width 128) against a unit-RMS latent of width
+    r has std sqrt(128 / r) per element, so that the latent term has the
+    nope term's variance, as the model's 1 / sqrt(dn + dr) scale assumes:
+    q is drawn at that std (capped at 1) unless ``q_std`` is given."""
+    rng = _gen(seed)
+    q_std = min(1.0, (128 / r) ** 0.5) if q_std is None else q_std
+    q = _t((rng.normal(size=(b, h, r)) * q_std).astype(np.float32))
+    q2 = _t(rng.normal(size=(b, h, dr)).astype(np.float32))
+    lat = _cache_leaf(_t(rng.normal(size=(b, c, r)).astype(np.float32)), fmt)
+    rope = _cache_leaf(_t(rng.normal(size=(b, c, dr)).astype(np.float32)), fmt)
+    return q, q2, lat, rope
+
+
+def _mla_case(seed, fmt, b, h, r, dr, c, kv_len, scale=0.0722):
+    """Flash-decode's MLA mode against its plain version on the same encoded
+    bytes, the latent leaf as K and V, at the reference's decode tolerance;
+    a relaunch bit-equal to the first."""
+    q, q2, lat, rope = _mla_inputs(seed, fmt, b, h, r, dr, c)
+    got = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale, impl="kernel")
+    want = ref.flash_decode_ref(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale)
+    assert got.shape == (b, h, r) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    again = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale,
+                             impl="kernel")
+    assert torch.equal(got, again), "the cluster merge must be deterministic"
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+@pytest.mark.parametrize("kv_len", [1, 33, 257, 300, 528, 544])
+def test_flash_decode_mla_kernel_main_shape(fmt, kv_len):
+    """deepseek-v3's decode (B 2, H 128, latent 512, rope 64, C 544) at
+    kv_len 1, C, a split boundary and lengths off the 32-row tile."""
+    _mla_case(kv_len, fmt, 2, 128, 512, 64, 544, kv_len)
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+@pytest.mark.parametrize("kv_len", [1, 13, 24])
+def test_flash_decode_mla_kernel_reduced_shape(fmt, kv_len):
+    """The reduced cut (H 4, latent 32, rope 16, C 24): mxint4_blk's rope rows
+    are 8 bytes with 1-byte exponent rows, copied in narrow chunks."""
+    _mla_case(kv_len + 100, fmt, 2, 4, 32, 16, 24, kv_len, scale=0.144)
+
+
+@pytest.mark.parametrize("fmt", MAIN_FORMATS)
+@pytest.mark.parametrize("b,h,r,dr,c,kv_len", [
+    (1, 20, 256, 64, 300, 300), (3, 17, 128, 32, 100, 61), (1, 128, 512, 64, 1000, 999),
+    (2, 1, 64, 16, 64, 64), (1, 8, 384, 128, 70, 65),
+])
+def test_flash_decode_mla_kernel_other_shapes(fmt, b, h, r, dr, c, kv_len):
+    """Head counts off the 16-head chunk, 1, 2 and 4 latent slots (384 takes 4
+    with a masked slot), the widest rope, and a long cache."""
+    _mla_case(h * r + kv_len, fmt, b, h, r, dr, c, kv_len)
+
+
+@pytest.mark.parametrize("kv_len", [33, 300, 528])
+def test_flash_decode_mla_kernel_unit_queries_against_float64(kv_len):
+    """With q ~ N(0, 1) at the main shape the scores span about +-7, and the
+    plain f32 version's own error against float64 nears the 2e-6 atol; the
+    kernel, whose per-lane sums and reduction tree are shorter, is held to
+    the float64 evaluation at the same tolerance."""
+    q, q2, lat, rope = _mla_inputs(kv_len, "float32", 2, 128, 512, 64, 544, q_std=1.0)
+    scale = 0.0722
+    got = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale, impl="kernel")
+    qd, q2d, ld, rd = (t.double() for t in (q, q2, lat[:, :kv_len], rope[:, :kv_len]))
+    s = (torch.einsum("bhr,bcr->bhc", qd, ld) + torch.einsum("bhr,bcr->bhc", q2d, rd)) * scale
+    want = torch.einsum("bhc,bcr->bhr", torch.softmax(s, dim=-1), ld)
+    torch.testing.assert_close(got.double(), want, rtol=2e-5, atol=2e-6)
+
+
+def test_flash_decode_mla_kernel_needs_v_to_be_k():
+    """The kernel reads each latent row once for K and V: a distinct v leaf
+    raises (the plain version takes it, as the reference does)."""
+    q, q2, lat, rope = _mla_inputs(1, "int8_tok", 2, 16, 64, 16, 40)
+    other = {n: t.clone() for n, t in lat.items()}
+    with pytest.raises(ValueError, match="same leaf"):
+        ops.flash_decode(q, lat, other, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
+    got = ops.flash_decode(q, lat, other, 40, q2=q2, k2=rope, scale=0.1, impl="ref")
+    want = ops.flash_decode(q, lat, lat, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+
+
+def test_flash_decode_mla_kernel_rejects_mixed_formats():
+    q, q2, lat, _ = _mla_inputs(2, "int8_tok", 1, 16, 64, 16, 40)
+    rope = torch.randn(1, 40, 16, device="cuda")
+    with pytest.raises(ValueError, match="one format"):
+        ops.flash_decode(q, lat, lat, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
+
+
+@pytest.mark.parametrize("fmt,stream,part", [
+    ("float32", "lat", None), ("bfloat16", "lat", None), ("int8_tok", "lat", "q"),
+    ("mxint4_blk", "lat", "m"), ("mxint4_blk", "lat", "e"), ("float32", "rope", None),
+])
+def test_flash_decode_mla_kernel_rejects_misaligned_views(fmt, stream, part):
+    """A stream whose base is off its rows' copy width raises."""
+    q, q2, lat, rope = _mla_inputs(3, fmt, 1, 16, 512, 64, 40)
+    leaf = lat if stream == "lat" else rope
+    arr = leaf if part is None else leaf[part]
+    buf = torch.empty(arr.numel() + 8, dtype=arr.dtype, device="cuda")
+    shifted = buf[1:arr.numel() + 1].view(arr.shape)
+    shifted.copy_(arr)
+    bad = shifted if part is None else dict(leaf, **{part: shifted})
+    lat, rope = (bad, rope) if stream == "lat" else (lat, bad)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_decode(q, lat, lat, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
+
+
+@pytest.mark.parametrize("r,dr", [(516, 64), (512, 6), (512, 132), (2, 16)])
+def test_flash_decode_mla_kernel_rejects_widths_it_does_not_take(r, dr):
+    """Latent widths past 4 slots or not whole float4s, rope rows too narrow
+    or too wide, raise before any launch."""
+    q, q2, lat, rope = _mla_inputs(4, "float32", 1, 4, r, dr, 40)
+    with pytest.raises(ValueError, match="MLA"):
+        ops.flash_decode(q, lat, lat, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
+
+
 @pytest.mark.parametrize("m,d,dtype", [
     (1024, 4096, torch.float32), (1024, 4096, torch.bfloat16),
     (1000, 4096, torch.float32), (2, 4096, torch.bfloat16), (7, 96, torch.float32),
@@ -391,6 +508,11 @@ def test_launch_counters_count_kernel_launches_only():
     ops.flash_decode(qd, kc, kc, 40, impl="ref")
     ops.rmsnorm_stats(x, impl="kernel")
     ops.rmsnorm_stats(x, impl="ref")
+    assert hopper.LAUNCHES["flash_decode"] == 2
+    q, q2, lat, rope = _mla_inputs(0, "float32", 1, 4, 32, 16, 24)
+    ops.flash_decode(q, lat, lat, 20, q2=q2, k2=rope, scale=0.1, impl="kernel")
+    ops.flash_decode(q, lat, lat, 20, q2=q2, k2=rope, scale=0.1, impl="ref")
+    assert hopper.LAUNCHES["flash_decode_mla"] == 1
     assert hopper.LAUNCHES["flash_decode"] == 2
     assert hopper.LAUNCHES["rmsnorm_stats"] == 1
     assert hopper.LAUNCHES["w8a8_matmul"] == hopper.LAUNCHES["retention_chunkwise"] == 0

@@ -14,6 +14,7 @@ at 1e-4 for fp weights and `QUANT_REL` of max|reference| for deployed ones
 the same tokens.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -92,12 +93,21 @@ def test_flash_decode_plain_matches_attend_one_step_with_mixed_formats():
 
 
 def test_flash_decode_rejects_bad_lengths_and_the_mla_layout():
+    """Bad lengths raise in both layouts; the MLA layout (q.ndim == 3) needs
+    q2, k2 and scale, as the reference's rule is."""
     q, k = torch.zeros(1, 1, 2, 16), torch.zeros(1, 4, 1, 16)
+    lat, q2, k2 = k[:, :, 0], torch.zeros(1, 2, 4), torch.zeros(1, 4, 4)
     for bad in (0, 5):
         with pytest.raises(ValueError, match="kv_len"):
             Tops.flash_decode(q, k, k, bad)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        Tops.flash_decode(torch.zeros(1, 2, 16), k[:, :, 0], k[:, :, 0], 2)
+        with pytest.raises(ValueError, match="kv_len"):
+            Tops.flash_decode(torch.zeros(1, 2, 16), lat, lat, bad, q2=q2, k2=k2, scale=0.5)
+    for missing in ("q2", "k2", "scale"):
+        kw = {n: v for n, v in (("q2", q2), ("k2", k2), ("scale", 0.5)) if n != missing}
+        with pytest.raises(ValueError, match="MLA"):
+            Tops.flash_decode(torch.zeros(1, 2, 16), lat, lat, 2, **kw)
+    assert Tops.flash_decode(torch.zeros(1, 2, 16), lat, lat, 2, q2=q2, k2=k2,
+                             scale=0.5).shape == (1, 2, 16)
 
 
 @pytest.mark.parametrize("m,d", [(8, 64), (32, 512), (7, 96)])
@@ -143,14 +153,23 @@ def test_rope_dim_matches_reference(name):
 
 
 @pytest.mark.parametrize("name", ["qwen3-8b", "qwen1.5-4b", "internlm2-1.8b",
-                                  "starcoder2-15b", "hymba-1.5b", "llava-next-34b"])
+                                  "starcoder2-15b", "hymba-1.5b", "llava-next-34b",
+                                  "deepseek-v3-671b", "olmoe-1b-7b"])
 def test_dense_family_gate(name):
+    """Dense RMSNorm archs pass; deepseek-v3 passes only cut to its leading
+    dense layers (its MoE layers, like olmoe's, are not ported)."""
     cfg = Tconfigs.get_config(name).reduced()
     if name in ("qwen3-8b", "qwen1.5-4b", "internlm2-1.8b"):
         Tlm._check_family(cfg)
     else:
         with pytest.raises(NotImplementedError, match="not ported"):
             Tlm._check_family(cfg)
+    if name == "deepseek-v3-671b":
+        for full in (cfg, Tconfigs.get_config(name)):
+            with pytest.raises(NotImplementedError, match="MoE"):
+                Tlm._check_family(full)
+        for cut in (cfg, Tconfigs.get_config(name)):
+            Tlm._check_family(dataclasses.replace(cut, n_layers=cut.first_dense_layers))
 
 
 # -- reduced qwen3-8b, model level ------------------------------------------------

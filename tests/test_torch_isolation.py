@@ -48,8 +48,15 @@ def test_from_config_rejects_unported_families():
                                     device="cpu")
 
 
+def test_from_config_rejects_deepseek_v3_with_its_moe_layers():
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    with pytest.raises(NotImplementedError, match="MoE"):
+        InferenceEngine.from_config("deepseek-v3-671b", EngineSpec(reduced=True),
+                                    device="cpu")
+
+
 @pytest.mark.parametrize("op", ["mxint4", "w8a8", "retention", "flash_decode",
-                                "rmsnorm_stats"])
+                                "flash_decode_mla", "rmsnorm_stats"])
 def test_kernel_impl_on_cpu_tensor_raises(op):
     from repro_torch.core import kvq
     from repro_torch.core import mxint4 as mx
@@ -69,6 +76,10 @@ def test_kernel_impl_on_cpu_tensor_raises(op):
         elif op == "flash_decode":
             kv = kvq.zeros((1, 8, 2, 32), "int8_tok")
             ops.flash_decode(torch.zeros(1, 2, 4, 32), kv, kv, 3, impl="kernel")
+        elif op == "flash_decode_mla":
+            lat, rope = kvq.zeros((1, 8, 32), "int8_tok"), kvq.zeros((1, 8, 16), "int8_tok")
+            ops.flash_decode(torch.zeros(1, 4, 32), lat, lat, 3, q2=torch.zeros(1, 4, 16),
+                             k2=rope, scale=0.2, impl="kernel")
         else:
             ops.rmsnorm_stats(torch.ones(4, 64), impl="kernel")
 
