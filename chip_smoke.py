@@ -18,9 +18,10 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    ``enable_gqa`` on the f32 cache's views, and on K/V expanded to every
    query head; flash-decode's MLA mode: the same call on the concatenated
    latent and rope streams), each relaunch bit-equal to the first;
-   retention on the model's strided views, bound by its 3xTF32 instruction
-   mix (the f32 CUDA-core bound beside it), with a profiler check that one
-   call runs only its own two launches;
+   retention on the model's strided views and the MLA mode, each bound by
+   its split-TF32 instruction mix (the f32 CUDA-core bound beside it), with
+   a profiler check that one call runs only its own launches (retention
+   two, the MLA mode one);
 4. the three main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens:
@@ -276,7 +277,7 @@ def kernel_phase_w8a8(peaks):
     return rows
 
 
-def _retention_launch_kernels(fn) -> list:
+def _launch_kernels(fn) -> list:
     """Names of the CUDA kernels (and copies) one call of ``fn`` runs on the
     card, from torch.profiler."""
     from torch.autograd import DeviceType
@@ -354,7 +355,7 @@ def kernel_phase_retention(peaks):
                          (b.double() - s64).abs().max().item())
                for name, (a, b) in (("kernel", (y, s)), ("plain", (y_r, s_r)))}
     del y64, s64
-    launched = _retention_launch_kernels(run)
+    launched = _launch_kernels(run)
     if not launched:
         raise RuntimeError("retention: the profiler saw no device kernel")
     if len(launched) != 2 or not all("retention_pass" in n for n in launched):
@@ -477,12 +478,17 @@ def kernel_phase_flash_decode_mla(peaks):
     width 128 against a unit-RMS latent of 512 (scores of unit variance, as
     the model's scale assumes); with q ~ N(0, 1) the kernel is held to a
     float64 evaluation at the same tolerance (the plain version's own f32
-    error nears it there), and ``f64_max_abs_err`` reports both versions'.  The bound counts the f32
-    FMAs the function needs: scores over latent and rope, then P.V.  The
-    library yardstick is `scaled_dot_product_attention` with ``enable_gqa``
-    on ``[q | q2]`` against ``[latent | rope]`` with the latent as V,
-    concatenated outside the timed call; no PyTorch call reads an encoded
-    cache."""
+    error nears it there), and ``f64_max_abs_err`` reports both versions'.
+    ``flops`` counts the work the function needs: scores over latent and
+    rope, then P.V.  ``bound_ms`` prices it at the kernel's instruction mix,
+    three TF32 tensor-core products per multiply-add for the f32 cache
+    (3xTF32) and two for the other formats (2xTF32, the cache values exact
+    in TF32); ``bound_f32_ms`` as f32 FMAs on the CUDA cores (the bound an
+    FMA kernel would be held to).  A profiler check holds one call to one
+    device kernel.  The library yardstick is
+    `scaled_dot_product_attention` with ``enable_gqa`` on ``[q | q2]``
+    against ``[latent | rope]`` with the latent as V, concatenated outside
+    the timed call; no PyTorch call reads an encoded cache."""
     b, h, r, dr = BATCH, DS3["heads"], DS3["r"], DS3["dr"]
     c, n = CACHE_LEN, DECODE_KV_LEN
     nope = DS3["cfg"].qk_nope_head_dim
@@ -515,7 +521,12 @@ def kernel_phase_flash_decode_mla(peaks):
         row_bytes = sum(hopper.fd_row_bytes(fmt, w)[i] for w in (r, dr) for i in (0, 1))
         nbytes = 4 * b * h * (2 * r + dr) + n * b * row_bytes
         flops = 2 * b * h * n * (r + dr) + 2 * b * h * n * r
-        bms, by = bound_ms(nbytes, flops, peaks["f32"], peaks)
+        bms, by = bound_ms(nbytes, (3 if fmt == "f32" else 2) * flops, peaks["tf32"], peaks)
+        bf32, by32 = bound_ms(nbytes, flops, peaks["f32"], peaks)
+        launched = _launch_kernels(lambda: run(q, n))
+        if len(launched) != 1 or "flash_decode_mla" not in launched[0]:
+            raise RuntimeError(f"flash_decode MLA {fmt}: one call ran {launched}, "
+                               "expected the kernel's one launch only")
         extra = {}
         if fmt == "f32":
             q_cat = torch.cat([q, q2], dim=-1)[:, :, None]                 # [B, H, 1, r + dr]
@@ -534,12 +545,13 @@ def kernel_phase_flash_decode_mla(peaks):
             path=path, main=fmt == "f32", fmt=fmt, shape=[b, h, r, dr, c], kv_len=n,
             per_step=DS3["layers"], max_abs_err=err, f64_max_abs_err=f64_err, ms=ms,
             call_ms=call_ms(lambda: run(q, n)), plain_ms=time_ms(lambda: plain(q, n)),
-            library_ms=None, bound_ms=bms, bound_by=by, flops=flops,
+            library_ms=None, bound_ms=bms, bound_by=by, bound_f32_ms=bf32,
+            bound_f32_by=by32, flops=flops, launch_kernels=launched,
             plan={key: val for key, val in hopper.flash_decode_mla_plan(
                 b, h, r, dr, n, fmt, hopper._mla_resident(q.device)).items()
-                  if key != "ranges"},
+                  if key not in ("ranges", "smem")},
             rate=f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
-            bound_share=bms / ms)
+            bound_share=bms / ms, bound_share_f32=bf32 / ms)
         row.update(extra)
         rows.append(row)
     return rows
@@ -796,7 +808,11 @@ def compare_paths(eng, plain, prompts, gen):
       streams MXINT4 weights against f32 activations, with no int8 rounding,
       so only f32 summation order differs, and each path encodes its own new
       K/V row), and the logits within DECODE_TOL beside the decode step's own
-      one-bf16-step sensitivity.
+      one-bf16-step sensitivity.  Where the two paths' greedy tokens from the
+      same cache differ, ``decode_argmax_flips`` lists the step, the batch
+      lane and the plain path's margin between its top two logits, relative
+      to max|logit|: a flip at a margin under ``decode_logit_max_rel_err``
+      is a near tie that f32 summation order decides.
     """
     cfg, model = eng.cfg, eng.model
     x = lm._embed(model, prompts)
@@ -816,12 +832,15 @@ def compare_paths(eng, plain, prompts, gen):
     x[0, PROMPT // 2] = _bf16_step(x[0, PROMPT // 2])
     floor = _rel(_prefill_from(model, x, cfg, plain.hsa), lr, "sensitivity", float("inf"))
 
-    decode, dblock, dfloor = [], [], []
+    decode, dblock, dfloor, flips = [], [], [], []
     tok = lr.argmax(-1)
     for i in range(NEW):
         lk, _ = eng.decode_step(tok[:, None], _clone(cache))
         lr, nxt = plain.decode_step(tok[:, None], _clone(cache))
         decode.append(_rel(lk, lr, f"decode step {i}", DECODE_TOL))
+        top2 = lr.float().topk(2, dim=-1).values
+        for b in (lk.argmax(-1) != lr.argmax(-1)).nonzero()[:, 0].tolist():
+            flips.append((i, b, ((top2[b, 0] - top2[b, 1]) / lr.float().abs().max()).item()))
         dblock.append(_decode_lockstep(eng, plain, tok, cache, i))
         x = lm._embed(model, tok[:, None]).clone()
         x[0] = _bf16_step(x[0])
@@ -834,7 +853,7 @@ def compare_paths(eng, plain, prompts, gen):
                 decode_block_max_rel_err=max(dblock),
                 decode_block_tolerance=DECODE_BLOCK_TOL,
                 decode_logit_max_rel_err=max(decode), decode_tolerance=DECODE_TOL,
-                decode_sensitivity_floor_max=max(dfloor))
+                decode_sensitivity_floor_max=max(dfloor), decode_argmax_flips=flips)
 
 
 def _bf16_step(row: torch.Tensor) -> torch.Tensor:

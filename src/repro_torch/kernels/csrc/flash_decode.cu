@@ -60,8 +60,8 @@
 //
 // The MLA two-stream mode (`flash_decode_mla_kernel`, below the GQA mode)
 // is the reference's `two_stream` branch: absorbed latent queries against
-// one shared latent cache that is both K and V, plus a rope score stream.
-// Its design notes are at the kernel.
+// one shared latent cache that is both K and V, plus a rope score stream,
+// on the tensor cores.  Its design notes are at the kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -713,73 +713,126 @@ extern "C" int flash_decode_max_stages() { return kMaxStages; }
 //
 // Replaces the `two_stream` branch of `flash_decode_pallas`'s kernel body
 // (src/repro/kernels/flash_decode.py, `_kernel`).  For each batch lane b and
-// query head h, over the latent cache rows r < kv_len:
+// query head h, over the latent cache rows t < kv_len:
 //
-//     s[h, r] = (q[b, h, :] . L[b, r, :] + q2[b, h, :] . R[b, r, :]) * scale
-//     out[b, h, :] = softmax_r(s[h, :]) @ L[b, :kv_len, :]
+//     s[h, t] = (q[b, h, :] . L[b, t, :] + q2[b, h, :] . R[b, t, :]) * scale
+//     out[b, h, :] = softmax_t(s[h, :]) @ L[b, :kv_len, :]
 //
 // q [B, H, r] is the absorbed latent query, q2 [B, H, dr] the rope query,
 // L [B, C, r] the latent cache (K and V at once) and R [B, C, dr] the shared
 // rope key, both in one cache format, dequantized as `kvq.decode` does.
 //
-// What bounds it on the H100: operations.  Every latent row serves all H
-// query heads twice (a score and a P.V term), so at the main shape (B 2, H
-// 128, r 512, dr 64, kv_len 528) the f32 work is 294 MFLOP, 4.39 us at the
-// CUDA cores' 67 TFLOP/s, against 1.06 us for the f32 cache's bytes.  The
-// design reads each row of the cache once per block of 16 heads and keeps
-// the f32 FMAs fed from registers:
-//   * the grid is (splits, head chunks of 16, B), with the splits of one
-//     (b, chunk) forming a thread-block cluster; each split streams an even
-//     share of the kv_len rows' 32-row tiles (hopper.flash_decode_mla_plan
-//     picks the splits, at most 8, for about one block per SM);
-//   * a tile's four arrays (latent values and side data, rope values and
-//     side data) are contiguous in device memory, so the whole block copies
-//     each as one flat run: cp.async in chunks of the widest of 16, 8 or 4
-//     bytes that divides a row, and narrower rows (the reduced model's 8-byte
-//     mxint4 rope rows have 1-byte exponent rows) through registers; two ring
-//     stages overlap the next tile's copy with this tile's work;
-//   * scores: warp w holds the queries of 4 heads (w % 4) for 16 rows of the
-//     tile (w / 4) in registers, 4 consecutive elements of each 128-wide
-//     slot per lane; a lane forms its part of 4 rows x 4 heads from one
-//     dequantized read of each row and a reduce-scatter completes them;
-//   * the online softmax runs one warp per 2 heads, a lane per row, with the
-//     reference's finite-max guard; P goes to shared memory by row;
-//   * P.V: warp w accumulates 8 heads (w / 4) x one 128-wide slot (w % 4) of
-//     the latent in registers, a dequantized read of each row per warp;
-//   * with more than one split, every block leaves its (m, l, acc) in shared
-//     memory and, after a cluster barrier, merges its share of the output
-//     columns from every split's shared memory (distributed shared memory) in
-//     split order.  The order of every sum is fixed, so relaunches are
-//     bit-equal.
+// After absorption one batch lane is two matrix products with the query
+// heads as rows: S = [Q | Q2] [L | R]^T (M = H, N = kv_len, K = r + dr) and
+// O = softmax(S) L (M = H, N = r, K = kv_len).  Both run on the tensor cores
+// as mma.sync m16n8k8 TF32 in split precision (csrc/tf32.cuh):
+//   * f32 cache: 3xTF32, hi.hi + hi.lo + lo.hi of Q and the cache, then of
+//     P and the cache;
+//   * every other format: 2xTF32, only Q and P split, because the cache
+//     values are exact in TF32: bf16, legacy int8 (q / 32), mxint4_blk
+//     (m * 2^(e - 2)) and int8_tok's integers, whose row scale is factored
+//     out: a score column is multiplied by s_t, and s_t is folded into P's
+//     column before P.V;
+//   * each k-step's products go into a fresh fragment, added to the running
+//     sum in f32 (fed the running sum, the tensor cores' truncating
+//     accumulate cost retention 9x the f32 error; PERF.md).
+// mma.sync, not wgmma: wgmma's tf32 B operand must be K-major, and the
+// latent tile is K-major for the scores but not for P.V, which would need a
+// transposed copy of every tile.
+//
+// What bounds it on the H100: operations.  At deepseek-v3's decode shape (B
+// 2, H 128, r 512, dr 64, kv_len 528) the function is 294 MFLOP: 1.78 us as
+// 3xTF32 at 495 TFLOP/s (f32 cache), 1.19 us as 2xTF32, 4.39 us as f32 FMAs
+// on the CUDA cores; the f32 cache's bytes take 1.06 us at 3.35 TB/s.
+//
+// Design:
+//   * the grid is (splits, head groups of 16, B).  A block of 16 warps owns
+//     the 16 query heads (one m16 tile) of one group of one batch lane and an
+//     even share of the kv_len rows' 32-row tiles; the splits of one (b,
+//     group) form a thread-block cluster.  hopper.flash_decode_mla_plan
+//     picks the splits (at most 8) from the card's resident-cluster counts,
+//     so that every cluster runs in one wave;
+//   * the staging tile holds 32 rows of [latent | rope] in f32, the latent at
+//     column 0, the rope at rl = r rounded up to 32, every row w floats with
+//     w = 8 mod 32 (zero columns pad each stream to whole k-steps);
+//   * copies, two stages ahead: an f32 tile lands by 16-byte cp.async from
+//     every thread straight into one of two staging tiles.  For the other
+//     formats each of a tile's four arrays (latent values and side data,
+//     rope values and side data) is one contiguous run in device memory:
+//     the last warp issues each whose rows are whole 16-byte chunks as one
+//     1-D bulk async copy (cp.async.bulk, completing on the raw stage's
+//     mbarrier), every thread copies the narrower ones in chunks of 8, 4, 2
+//     or 1 bytes (int8_tok's 4-byte scales, the reduced cut's 8-byte
+//     mxint4_blk rope rows with 1-byte exponent rows), into one of two raw
+//     stages.  The block then dequantizes the tile once into the staging
+//     tile, 4 values per lane and a row per warp (int8_tok's row scales to a
+//     side array), which frees the raw stage;
+//   * scores: each warp holds a K-slice of the queries (at most 6 k-steps of
+//     8) in registers for the whole launch (the latent's k-steps over 16 - wr
+//     warps, the rope's over the last wr, so no warp mixes the streams and
+//     int8_tok scales each stream's sum by its own row scale) and forms the
+//     partial scores of every (head, row) over its slice.  A B fragment is
+//     one 8-byte read: k t and t + 4 sit in adjacent columns, and the
+//     queries are permuted alike.  The 16 partials are summed in warp order
+//     in shared memory;
+//   * softmax: warp h takes head h, a lane per row, online, with the
+//     reference's finite-max guard; rows at or past kv_len are -inf, and
+//     their staging rows are zero.  P (split hi / lo) and each head's
+//     correction go to shared memory;
+//   * P.V: warp w owns the latent's 32-column group w for the 16 heads,
+//     accumulators in registers.  A B fragment of four n8 fragments is one
+//     16-byte read (the output columns permuted alike, so that each lane's
+//     results are float4 runs); with w = 8 mod 32 both products read shared
+//     memory without bank conflicts;
+//   * merge: with more than one split, every block leaves (m, l, acc) in
+//     shared memory and, after a cluster barrier, merges its share of the
+//     output columns from every split's shared memory (distributed shared
+//     memory) in split order.  The order of every sum is fixed, so
+//     relaunches are bit-equal.
 // It reads each latent row once for both roles: the wrapper raises when V
-// is not the same leaf as K.  Tensor cores, TMA and a dequantize-once tile
-// are left to later work (PERF.md).
+// is not the same leaf as K.
+//
+// What holds it back (H100 80GB HBM3 at 700 W, tools/mla_phase_clock.py,
+// PERF.md): at the main shape a block's 3 tiles take 15-16 us of its 20-21
+// us span, about 1 us per tile each for the dequantize pass (encoded
+// formats), the scores and P.V, 0.6 for the softmax, and the first copy's
+// wait 2-2.5 us; the cluster barrier, merge and exit take 4.7 us more.  The
+// products run at 8-13 cycles per mma.sync per SM sub-partition, against
+// 6.1-6.8 for mma.sync m16n8k8 TF32 alone on this card (mla_phase_clock.py):
+// the tensor path is within 2x of its rate, and the rest is latency between
+// barriers.  Tried and dropped: 32-head groups (two m16 tiles per block:
+// half the blocks and register spills, slower at the main shape) and 8
+// warps with 255 registers (the same phase times).  wgmma would issue a
+// third as often, but its M is 64 rows: the 16 heads of a block fill a
+// quarter of it, and the scores taken transposed (rows as M) need 64-row
+// tiles, 150 KB of f32 staging each.
 //
 // Built with -DFD_PHASE_CLOCK (tools/mla_phase_clock.py), thread 0 of every
 // block records clock64 at entry, loop end, after the cluster barrier, after
-// the merge and at exit, the cycles its loop spent waiting for tiles, in
-// scores, in the softmax and in P.V, and the global timer at entry and exit,
-// into a buffer set by flash_decode_mla_set_stamps.
+// the merge and at exit, the cycles its loop spent waiting for copies,
+// dequantizing, in the scores (their partial sums' barrier included), in the
+// softmax and in P.V, and the global timer at entry and exit, into a buffer
+// set by flash_decode_mla_set_stamps.
 // ---------------------------------------------------------------------------
+
+#include "tf32.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kMlaTile = 32;           // cache rows per ring stage (a lane per row)
-constexpr int kMlaHeads = 16;          // query heads per block
-constexpr int kMlaWarps = 8;
+constexpr int kMlaTile = 32;                  // cache rows per tile: a lane per row
+constexpr int kMlaHeads = 16;                 // query heads per block: a warp per head
+constexpr int kMlaWarps = 16;
 constexpr int kMlaThreads = 32 * kMlaWarps;
-constexpr int kMlaMaxSplits = 8;       // blocks of a cluster (the portable size)
-constexpr int kMlaStages = 2;
-constexpr int kMlaMaxRope = 128;       // one slot of rope elements
-constexpr int kMlaPStride = 20;        // floats per row of P in shared memory
-// Shared floats after the ring: scores [heads][tile], P [tile][kMlaPStride],
-// and corr, l, m per head.
-constexpr int kMlaFixedFloats = kMlaHeads * kMlaTile + kMlaTile * kMlaPStride + 3 * kMlaHeads;
+constexpr int kMlaMaxSplits = 8;              // blocks of a cluster (the portable size)
+constexpr int kMlaMaxLatent = 32 * kMlaWarps; // a 32-column P.V group per warp
+constexpr int kMlaMaxRope = 128;
+constexpr int kMlaMaxKSteps = 6;              // k-steps of 8 in a warp's query slice
+constexpr int kMlaRedStride = kMlaTile + 8;   // floats per head of a warp's partial scores
 
 #ifdef FD_PHASE_CLOCK
-constexpr int kMlaStamps = 12;
+constexpr int kMlaStamps = 13;
 long long* g_mla_stamps = nullptr;
 // Cycles since the last tick, added to phase k of this thread's loop sums.
 #define MLA_TICK(k)                                                  \
@@ -802,14 +855,95 @@ struct MlaParams {
   const float* q2;                       // [B, H, dr]
   const unsigned char* src[4];           // latent values, latent side, rope values, rope side
   int rb[4];                             // row bytes of each (0: the format has no side data)
-  int off[4];                            // offset of each array's tile in a ring stage
+  int off[4];                            // offset of each array in a raw stage
   float* out;                            // [B, H, r]
-  int C, H, r, dr, kv_len, tiles, splits, stage_bytes, fixed_off;
+  int C, H, r, dr, kv_len, tiles, splits;
+  int w, rl, rr, wr;                     // staging row floats, latent and rope columns, rope warps
+  int stage_bytes;                       // a raw stage (every format but f32)
+  int red_off, p_off, misc_off, bar_off;   // shared-memory regions
   float scale;
 #ifdef FD_PHASE_CLOCK
   long long* stamps;                     // [blocks][kMlaStamps]
 #endif
 };
+
+// Staging columns: the latent rounded up to whole 32-column P.V groups, the
+// rope to whole k-steps, the row to 8 mod 32 floats.
+struct MlaStaging {
+  int rl, rr, w;
+};
+inline MlaStaging mla_staging(int r, int dr) {
+  const int rl = (r + 31) / 32 * 32, rr = (dr + 7) / 8 * 8;
+  return {rl, rr, rl + rr + ((8 - (rl + rr) % 32) + 32) % 32};
+}
+
+// Warps on the rope stream: the fewest k-steps in the busiest warp, the
+// fewer rope warps on a tie.
+inline int mla_rope_warps(int rl, int rr, int* ksteps) {
+  const int kl = rl / 8, kr = rr / 8;
+  int best = 1, most = 1 << 30;
+  for (int wr = 1; wr < kMlaWarps; ++wr) {
+    const int wl = kMlaWarps - wr;
+    const int k1 = (kl + wl - 1) / wl, k2 = (kr + wr - 1) / wr, k = k1 > k2 ? k1 : k2;
+    if (k < most) most = k, best = wr;
+  }
+  *ksteps = most;
+  return best;
+}
+
+// Shared-memory regions of one launch: two staging tiles (f32: the copies
+// land there) or one staging tile and two raw stages, then the warps'
+// partial scores, P, the row scales and per-head state, and an mbarrier per
+// raw stage.  Returns the total bytes.
+struct MlaLayout {
+  int red_off, p_off, misc_off, bar_off, bytes;
+};
+inline MlaLayout mla_layout(bool f32, int w, int stage_bytes) {
+  MlaLayout l;
+  const int staging = kMlaTile * w * 4;
+  l.red_off = f32 ? 2 * staging : staging + 2 * stage_bytes;
+  l.p_off = l.red_off + kMlaWarps * kMlaHeads * kMlaRedStride * 4;
+  l.misc_off = l.p_off + 2 * (kMlaTile / 8) * 32 * 4 * 4;
+  l.bar_off = l.misc_off + (2 * kMlaTile + 3 * kMlaHeads) * 4;
+  l.bytes = l.bar_off + 16;
+  return l;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Waits for the phase of the given parity to complete.  A wait that never
+// ends (a pipeline fault) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (int i = 0; !mbar_try_wait(bar, parity); ++i)
+    if (i == (1 << 24)) __trap();
+}
+
+// One 1-D bulk async copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into this block's shared memory, counted on
+// the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
 
 // Copy n chunks of W bytes, contiguous on both sides, with every thread of
 // the block; W < 4 goes through registers (cp.async has no such size).
@@ -828,33 +962,40 @@ __device__ __forceinline__ void mla_copy(unsigned char* dst, const unsigned char
   }
 }
 
-__device__ __forceinline__ void mla_copy_rows(unsigned char* dst, const unsigned char* src,
-                                              int rows, int rb, int tid) {
+// A run of rows narrower than whole 16-byte chunks, in chunks of the widest
+// of 8, 4, 2 or 1 bytes that divides a row.
+__device__ __forceinline__ void mla_copy_narrow(unsigned char* dst, const unsigned char* src,
+                                                int rows, int rb, int tid) {
   const int bytes = rows * rb;
-  if (rb % 16 == 0) mla_copy<16>(dst, src, bytes / 16, tid);
-  else if (rb % 8 == 0) mla_copy<8>(dst, src, bytes / 8, tid);
+  if (rb % 8 == 0) mla_copy<8>(dst, src, bytes / 8, tid);
   else if (rb % 4 == 0) mla_copy<4>(dst, src, bytes / 4, tid);
   else if (rb % 2 == 0) mla_copy<2>(dst, src, bytes / 2, tid);
   else mla_copy<1>(dst, src, bytes, tid);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// Elements e0 .. e0 + 3 of an encoded cache row as the staging tile holds
+// them: exact in TF32, int8_tok's integers without their row scale.
+template <int F>
+__device__ __forceinline__ float4 mla_decode4(const unsigned char* row,
+                                              const unsigned char* side, int e0) {
+  float v[4];
+  if constexpr (F == kInt8Tok) {
+    const unsigned x = *reinterpret_cast<const unsigned*>(row + e0);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+    for (int c = 0; c < 4; ++c) v[c] = (float)((int)(x << (24 - 8 * c)) >> 24);
+  } else {
+    dequant4<F>(row, side, e0, v);
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// Every lane ends with the same bits: each step adds a pair in both orders.
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int F, int NS>
+template <int F>
 __global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const MlaParams p) {
+  constexpr bool kIsF32 = F == kF32;
+  constexpr int RS = kMlaRedStride;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
   const int split = blockIdx.x, splits = p.splits;
   const int h0 = blockIdx.y * kMlaHeads, hn = min(kMlaHeads, p.H - h0);
   const int b = blockIdx.z;
@@ -868,196 +1009,360 @@ __global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const 
 #ifdef FD_PHASE_CLOCK
   const size_t stamp0 =
       ((blockIdx.z * gridDim.y + blockIdx.y) * (size_t)gridDim.x + blockIdx.x) * kMlaStamps;
-  long long clk_last = clock64(), clk_sum[4] = {0, 0, 0, 0};
+  long long clk_last = clock64(), clk_sum[5] = {0, 0, 0, 0, 0};
   MLA_STAMP(0, clk_last);
   {
     long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    MLA_STAMP(10, t);
+    MLA_STAMP(11, t);
   }
 #endif
 
-  float* s_sc = reinterpret_cast<float*>(smem + p.fixed_off);    // [heads][tile]
-  float* s_p = s_sc + kMlaHeads * kMlaTile;                       // [tile][kMlaPStride]
-  float* s_corr = s_p + kMlaTile * kMlaPStride;                   // [heads]
-  float* s_l = s_corr + kMlaHeads;
-  float* s_m = s_l + kMlaHeads;
+  const int stage_floats = kMlaTile * p.w;
+  float* stg0 = reinterpret_cast<float*>(smem);                     // [stages][tile][w]
+  unsigned char* raw = smem + stage_floats * 4;                     // [2][stage_bytes]
+  float* red = reinterpret_cast<float*>(smem + p.red_off);          // [warp][head][RS]
+  // P's A fragments, hi then lo: [k-step][lane][4], a lane's 4 words in one
+  // place (entry i of lane 4g + t: head g + 8 (i & 1), row 8 kk + t + 4 (i >> 1)).
+  uint32_t* p_hi = reinterpret_cast<uint32_t*>(smem + p.p_off);
+  uint32_t* p_lo = p_hi + kMlaTile / 8 * 32 * 4;
+  float* s_scale = reinterpret_cast<float*>(smem + p.misc_off);     // [2][tile]: int8_tok
+  float* s_corr = s_scale + 2 * kMlaTile;                           // [head]
+  float* s_m = s_corr + kMlaHeads;
+  float* s_l = s_m + kMlaHeads;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.bar_off);   // a raw stage's copies
 
+  if (!kIsF32 && tid == 0) {
+    mbar_init(smem_u32(&bars[0]), 1);
+    mbar_init(smem_u32(&bars[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  {
+    // The staging tiles' pad columns are never written: zero them once.
+    const int pl = p.rl - p.r, npad = pl + p.rr - p.dr, nst = kIsF32 ? 2 : 1;
+    for (int i = tid; i < nst * kMlaTile * npad; i += kMlaThreads) {
+      const int row = i / npad, c = i - row * npad;
+      stg0[row * p.w + (c < pl ? p.r + c : p.rl + p.dr + c - pl)] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  // Tile t goes to stage `stage` (a cp.async group per tile from every
+  // thread; for the encoded formats also the bulk copies of the last warp).
   auto issue = [&](int t, int stage) {
     const int r0 = r_beg + t * kMlaTile, rows = min(kMlaTile, r_end - r0);
-    unsigned char* st = smem + stage * p.stage_bytes;
+    const size_t row0 = (size_t)b * p.C + r0;
+    if constexpr (kIsF32) {
+      // A row per warp: its 16-byte chunks of the latent, then of the rope.
+      float* dst = stg0 + stage * stage_floats;
+      for (int row = warp; row < rows; row += kMlaWarps) {
+        const float* lv = reinterpret_cast<const float*>(p.src[0]) + (row0 + row) * p.r;
+        const float* rv = reinterpret_cast<const float*>(p.src[2]) + (row0 + row) * p.dr;
+        for (int c = 4 * lane; c < p.r; c += 128) cp_async<16>(dst + row * p.w + c, lv + c);
+        for (int c = 4 * lane; c < p.dr; c += 128)
+          cp_async<16>(dst + row * p.w + p.rl + c, rv + c);
+      }
+    } else {
+      unsigned char* st = raw + stage * p.stage_bytes;
+      if (warp == kMlaWarps - 1) {
+        const uint32_t bar = smem_u32(&bars[stage]);
+        int bytes = 0;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      if (p.rb[a])
-        mla_copy_rows(st + p.off[a], p.src[a] + ((size_t)b * p.C + r0) * p.rb[a], rows,
-                      p.rb[a], tid);
+        for (int a = 0; a < 4; ++a)
+          if (p.rb[a] && p.rb[a] % 16 == 0) bytes += rows * p.rb[a];
+        if (lane == 0) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_expect_tx(bar, bytes);
+        }
+        __syncwarp();
+        if (lane < 4 && p.rb[lane] && p.rb[lane] % 16 == 0)
+          bulk_copy(st + p.off[lane], p.src[lane] + row0 * p.rb[lane], rows * p.rb[lane], bar);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        if (p.rb[a] % 16)
+          mla_copy_narrow(st + p.off[a], p.src[a] + row0 * p.rb[a], rows, p.rb[a], tid);
+    }
+    cp_async_commit();
   };
   issue(0, 0);
-  cp_async_commit();
+  if (n_tiles > 1) issue(1, 1);
 
-  // Scores: this warp's 4 heads (hq) and 16 rows of each tile (rh).  A
-  // lane's elements of each query row: 4 of each 128-wide latent slot and 4
-  // of the rope row.  Heads past H have a zero query.
-  const int hq = warp & 3, rh = warp >> 2;
-  float qr[4][NS][4], q2r[4][4];
+  // This warp's stream and k-steps: warps 0 .. 15 - wr take the latent's,
+  // the last wr the rope's, each an even share.
+  const int wl = kMlaWarps - p.wr;
+  const bool rope_w = warp >= wl;
+  const int nw = rope_w ? p.wr : wl, wi = rope_w ? warp - wl : warp;
+  const int kst = (rope_w ? p.rr : p.rl) / 8;
+  const int klo = kst / nw, kex = kst - klo * nw;
+  const int ks0 = wi * klo + min(wi, kex), nks = klo + (wi < kex);
+  // The queries of this slice, as A fragments: logical k t and t + 4 of a
+  // k-step are the physical columns 2t and 2t + 1 (the staging tile's B
+  // fragments are permuted alike).  Heads past H and columns past the width
+  // are zero.
+  float qa[kMlaMaxKSteps][4];
+  {
+    const float* qsrc = rope_w ? p.q2 : p.q;
+    const int qw = rope_w ? p.dr : p.r;
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const int h = h0 + hq * 4 + g;
-    const bool on = hq * 4 + g < hn;
+    for (int kk = 0; kk < kMlaMaxKSteps; ++kk) {
+      const int c = (ks0 + kk) * 8 + 2 * t4;
+      float2 x[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
 #pragma unroll
-    for (int sl = 0; sl < NS; ++sl) {
-      const int e0 = sl * kSlot + 4 * lane;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (on && e0 < p.r)
-        x = *reinterpret_cast<const float4*>(p.q + ((size_t)b * p.H + h) * p.r + e0);
-      qr[g][sl][0] = x.x; qr[g][sl][1] = x.y; qr[g][sl][2] = x.z; qr[g][sl][3] = x.w;
+      for (int hf = 0; hf < 2; ++hf) {
+        const int hh = g + 8 * hf;
+        if (kk < nks && c < qw && hh < hn)
+          x[hf] = *reinterpret_cast<const float2*>(qsrc + ((size_t)b * p.H + h0 + hh) * qw + c);
+      }
+      qa[kk][0] = x[0].x; qa[kk][1] = x[1].x;
+      qa[kk][2] = x[0].y; qa[kk][3] = x[1].y;
     }
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (on && 4 * lane < p.dr)
-      x = *reinterpret_cast<const float4*>(p.q2 + ((size_t)b * p.H + h) * p.dr + 4 * lane);
-    q2r[g][0] = x.x; q2r[g][1] = x.y; q2r[g][2] = x.z; q2r[g][3] = x.w;
   }
-  // A lane's element offsets, clamped into the row: a lane past the width
-  // reads a real element of the row against its zero query, so the loops
-  // have no branch.
-  int el[NS];
+  const int col0 = (rope_w ? p.rl : 0) + ks0 * 8 + 2 * t4;   // staging column of k-step 0
+  const bool pv_w = warp < p.rl / 32;                          // this warp's P.V group exists
+  float acc[4][4];
 #pragma unroll
-  for (int sl = 0; sl < NS; ++sl) el[sl] = min(sl * kSlot + 4 * lane, p.r - 4);
-  const int er = min(4 * lane, p.dr - 4);
-  // P.V: this warp's 8 heads (hv) and latent slot (sv); warps whose slot is
-  // past the latent width only rescale, and lanes past it write nothing.
-  const int hv = warp >> 2, sv = warp & 3;
-  const int ev = sv * kSlot + 4 * lane, evc = min(ev, p.r - 4);
-  const bool v_warp = sv < NS, v_on = v_warp && ev < p.r;
-  float acc[8][4];
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-  for (int g = 0; g < 8; ++g)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
-  // Softmax state of this warp's 2 heads (2 warp, 2 warp + 1), lane-uniform.
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+  // Softmax: warp h takes head h, lane t row t; the state is lane-uniform.
+  float m_run = -INFINITY, l_run = 0.f;
 
-  const int lb = p.rb[0], ls = p.rb[1], rb = p.rb[2], rs = p.rb[3];
+  // A partial last tile: P.V skips its k-steps of 8 rows past `rows`, and
+  // the rows after `rows` in its last one are zero (P is 0 there, and stale
+  // or unset values must not make a NaN).  The scores of rows past `rows`
+  // are masked by a select, whatever the staging tile holds there.
+  auto zero_tail = [&](float* stg, int rows) {
+    const int n4 = (p.rl + p.rr) >> 2;
+    for (int row = rows + warp; row < (rows + 7) / 8 * 8; row += kMlaWarps)
+      for (int c = lane; c < n4; c += 32)
+        *reinterpret_cast<float4*>(stg + row * p.w + 4 * c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<0>();
-    __syncthreads();       // tile t landed; every warp is done with tile t - 1
-    MLA_TICK(0);
-    if (t + 1 < n_tiles) issue(t + 1, (t + 1) & 1);
-    cp_async_commit();
-    const unsigned char* st = smem + (t & 1) * p.stage_bytes;
-    const unsigned char *lat = st + p.off[0], *lat_s = st + p.off[1];
-    const unsigned char *rope = st + p.off[2], *rope_s = st + p.off[3];
+    const int stage = t & 1;
     const int r0 = r_beg + t * kMlaTile, rows = min(kMlaTile, r_end - r0);
-
-    // Scores of 4 rows x 4 heads at a time: (row i, head g) at v = 4 i + g;
-    // after the reduce-scatter lane L holds v = L >> 1 (as in the GQA mode).
-    // The group's reads come first, then its FMAs: no branch between them.
-#pragma unroll 1
-    for (int grp = 0; grp < 4; ++grp) {
-      float kv[4][NS + 1][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int lr = rh * 16 + grp * 4 + i;
-#pragma unroll
-        for (int sl = 0; sl < NS; ++sl) dequant4<F>(lat + lr * lb, lat_s + lr * ls, el[sl], kv[i][sl]);
-        dequant4<F>(rope + lr * rb, rope_s + lr * rs, er, kv[i][NS]);
+    const int nfr = (rows + 7) / 8;   // the tile's P.V k-steps of 8 rows
+    float* stg = stg0;
+    if constexpr (kIsF32) {
+      stg = stg0 + stage * stage_floats;
+      if (t + 1 < n_tiles) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      zero_tail(stg, rows);
+      __syncthreads();         // tile t landed in every thread's copies
+      MLA_TICK(0);
+    } else {
+      mbar_wait(smem_u32(&bars[stage]), (t >> 1) & 1);
+      if (t + 1 < n_tiles) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      __syncthreads();         // every thread's narrow copies of tile t landed
+      MLA_TICK(0);
+      // The tile into the staging tile, once: a row per warp, 4 values per
+      // lane (each lane's 16 bytes beside its neighbours'); int8_tok's row
+      // scales apart.
+      const unsigned char* st = raw + stage * p.stage_bytes;
+      const int cl = p.r >> 2, cr = p.dr >> 2;
+      for (int row = warp; row < rows; row += kMlaWarps) {
+        float* drow = stg + row * p.w;
+        const unsigned char *lv = st + row * p.rb[0], *ls = st + p.off[1] + row * p.rb[1];
+        const unsigned char *rv = st + p.off[2] + row * p.rb[2];
+        const unsigned char *rs = st + p.off[3] + row * p.rb[3];
+#pragma unroll 4
+        for (int c = lane; c < cl; c += 32)
+          *reinterpret_cast<float4*>(drow + 4 * c) = mla_decode4<F>(lv, ls, 4 * c);
+        for (int c = lane; c < cr; c += 32)
+          *reinterpret_cast<float4*>(drow + p.rl + 4 * c) = mla_decode4<F>(rv, rs, 4 * c);
       }
-      float x[16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          float a = 0.f;
-#pragma unroll
-          for (int sl = 0; sl < NS; ++sl)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) a = fmaf(qr[g][sl][c], kv[i][sl][c], a);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) a = fmaf(q2r[g][c], kv[i][NS][c], a);
-          x[i * 4 + g] = a;
+      zero_tail(stg, rows);
+      if constexpr (F == kInt8Tok) {
+        if (tid < 2 * kMlaTile) {
+          const int row = tid & (kMlaTile - 1), a = tid < kMlaTile ? 1 : 3;
+          s_scale[tid] = row < rows ? *reinterpret_cast<const float*>(st + p.off[a] + 4 * row)
+                                    : 0.f;
         }
-      halve_scores<8>(x, lane);
-      x[0] += __shfl_xor_sync(0xffffffffu, x[0], 1);
-      if ((lane & 1) == 0) {
-        const int lr = rh * 16 + grp * 4 + (lane >> 3), g = (lane >> 1) & 3;
-        // A row at or past r_end holds stale shared memory: masked.
-        s_sc[(hq * 4 + g) * kMlaTile + lr] = lr < rows ? x[0] * p.scale : -INFINITY;
       }
+      __syncthreads();         // the staging tile is full; the raw stage is free
+      if (t + 2 < n_tiles) issue(t + 2, stage);
+      MLA_TICK(1);
     }
-    __syncthreads();
-    MLA_TICK(1);
 
-    // Online softmax: a lane per row, a warp per 2 heads.
+    // Scores: this warp's partial sums over its K-slice for every (head,
+    // row).  Each product of a k-step is issued for every fragment before
+    // the next product, which depends on it.
+    {
+      float part[4][4];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int hh = 2 * warp + j;
-      const float xs = s_sc[hh * kMlaTile + lane];
-      const float m_new = fmaxf(m_run[j], warp_max(xs));
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      const float corr = expf(isfinite(m_run[j]) ? m_run[j] - m_safe : -INFINITY);
-      const float pv = expf(xs - m_safe);                // masked rows: exp(-inf) = 0
-      l_run[j] = l_run[j] * corr + warp_sum(pv);
-      m_run[j] = m_new;
-      s_p[lane * kMlaPStride + hh] = pv;
-      if (lane == 0) s_corr[hh] = corr;
+      for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[nf][c] = 0.f;
+      const float* brow = stg + g * p.w + col0;
+#pragma unroll
+      for (int kk = 0; kk < kMlaMaxKSteps; ++kk) {
+        if (kk < nks) {
+          uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(qa[kk][i], ah[i], al[i]);
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf) {
+            const float2 v = *reinterpret_cast<const float2*>(brow + nf * 8 * p.w + kk * 8);
+            if constexpr (kIsF32) {
+              split_tf32(v.x, bh[nf][0], bl[nf][0]);
+              split_tf32(v.y, bh[nf][1], bl[nf][1]);
+            } else {
+              bh[nf][0] = __float_as_uint(v.x);
+              bh[nf][1] = __float_as_uint(v.y);
+            }
+          }
+          float f[4][4];
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf) mma_tf32_zero(f[nf], al, bh[nf]);
+          if constexpr (kIsF32) {
+#pragma unroll
+            for (int nf = 0; nf < 4; ++nf) mma_tf32(f[nf], ah, bl[nf]);
+          }
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf) mma_tf32(f[nf], ah, bh[nf]);
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[nf][c] += f[nf][c];
+        }
+      }
+      float* mine = red + warp * kMlaHeads * RS;
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) {
+        const int o = g * RS + nf * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(mine + o) = make_float2(part[nf][0], part[nf][1]);
+        *reinterpret_cast<float2*>(mine + o + 8 * RS) = make_float2(part[nf][2], part[nf][3]);
+      }
     }
     __syncthreads();
     MLA_TICK(2);
 
-    // P.V over the tile's valid rows.
+    // Softmax of head `warp` over the tile's rows, a lane per row: the warps'
+    // partials in warp order, each stream's sum scaled by its row scale
+    // (int8_tok).
+    {
+      float lat = 0.f, rop = 0.f;
 #pragma unroll
-    for (int g = 0; g < 8; ++g) {
-      const float corr_g = s_corr[hv * 8 + g];
+      for (int w = 0; w < kMlaWarps; ++w) {
+        const float x = red[(w * kMlaHeads + warp) * RS + lane];
+        if (w < wl) lat += x;
+        else rop += x;
+      }
+      float s;
+      if constexpr (F == kInt8Tok) s = lat * s_scale[lane] + rop * s_scale[kMlaTile + lane];
+      else s = lat + rop;
+      const float xs = lane < rows ? s * p.scale : -INFINITY;
+      float mx = xs;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[g][c] *= corr_g;
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_run, mx);
+      const float m_safe = isfinite(m_new) ? m_new : 0.f;
+      const float corr = expf(isfinite(m_run) ? m_run - m_safe : -INFINITY);
+      const float pv = expf(xs - m_safe);              // masked rows: exp(-inf) = 0
+      float ps = pv;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      l_run = l_run * corr + ps;
+      m_run = m_new;
+      uint32_t ph, pl;
+      if constexpr (F == kInt8Tok) split_tf32(pv * s_scale[lane], ph, pl);
+      else split_tf32(pv, ph, pl);
+      const int o = ((lane >> 3) * 32 + 4 * (warp & 7) + (lane & 3)) * 4 + (warp >> 3) +
+                    2 * ((lane >> 2) & 1);
+      p_hi[o] = ph;
+      p_lo[o] = pl;
+      if (lane == 0) s_corr[warp] = corr;
     }
-    if (v_warp) {
-#pragma unroll 2
-      for (int i = 0; i < rows; ++i) {
-        float vv[4];
-        dequant4<F>(lat + i * lb, lat_s + i * ls, evc, vv);
-        const float4 pa = *reinterpret_cast<const float4*>(s_p + i * kMlaPStride + hv * 8);
-        const float4 pb = *reinterpret_cast<const float4*>(s_p + i * kMlaPStride + hv * 8 + 4);
-        const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+    __syncthreads();
+    MLA_TICK(3);
+
+    // P.V: rescale, then the tile's 4 k-steps of 8 rows.  Four n8 fragments
+    // of the warp's 32-column group read one float4 per B row: fragment j,
+    // logical column n, is physical column 4n + j of the group.
+    if (pv_w) {
+      const float c0 = s_corr[g], c1 = s_corr[g + 8];
 #pragma unroll
-        for (int g = 0; g < 8; ++g)
+      for (int j = 0; j < 4; ++j) {
+        acc[j][0] *= c0;
+        acc[j][1] *= c0;
+        acc[j][2] *= c1;
+        acc[j][3] *= c1;
+      }
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[g][c] = fmaf(pr[g], vv[c], acc[g][c]);
+      for (int kk = 0; kk < kMlaTile / 8; ++kk) {
+        if (kk >= nfr) break;
+        const uint4 xh = *reinterpret_cast<const uint4*>(p_hi + (kk * 32 + lane) * 4);
+        const uint4 xl = *reinterpret_cast<const uint4*>(p_lo + (kk * 32 + lane) * 4);
+        const uint32_t ah[4] = {xh.x, xh.y, xh.z, xh.w}, al[4] = {xl.x, xl.y, xl.z, xl.w};
+        const float* vb = stg + (kk * 8 + t4) * p.w + warp * 32 + 4 * g;
+        const float4 v0 = *reinterpret_cast<const float4*>(vb);
+        const float4 v1 = *reinterpret_cast<const float4*>(vb + 4 * p.w);
+        const float b0[4] = {v0.x, v0.y, v0.z, v0.w}, b1[4] = {v1.x, v1.y, v1.z, v1.w};
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (kIsF32) {
+            split_tf32(b0[j], bh[j][0], bl[j][0]);
+            split_tf32(b1[j], bh[j][1], bl[j][1]);
+          } else {
+            bh[j][0] = __float_as_uint(b0[j]);
+            bh[j][1] = __float_as_uint(b1[j]);
+          }
+        }
+        float f[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32_zero(f[j], al, bh[j]);
+        if constexpr (kIsF32) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(f[j], ah, bl[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(f[j], ah, bh[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[j][c] += f[j][c];
       }
     }
-    MLA_TICK(3);
-  }
-  cp_async_wait<0>();
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      s_m[2 * warp + j] = m_run[j];
-      s_l[2 * warp + j] = l_run[j];
+    __syncthreads();           // the staging tile, partials and P are free
+    if constexpr (kIsF32) {
+      if (t + 2 < n_tiles) issue(t + 2, stage);
     }
+    MLA_TICK(4);
   }
-  __syncthreads();         // the ring is free; m and l are in shared memory
+  if (lane == 0) {
+    s_m[warp] = m_run;
+    s_l[warp] = l_run;
+  }
+  __syncthreads();
 #ifdef FD_PHASE_CLOCK
   MLA_STAMP(1, clock64());
-  for (int k = 0; k < 4; ++k) MLA_STAMP(5 + k, clk_sum[k]);
-  MLA_STAMP(9, n_tiles);
+  for (int k = 0; k < 5; ++k) MLA_STAMP(5 + k, clk_sum[k]);
+  MLA_STAMP(10, n_tiles);
   auto stamp_end = [&](int i) {
     MLA_STAMP(i, clock64());
     long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    MLA_STAMP(11, t);
+    MLA_STAMP(12, t);
   };
 #endif
 
+  // Lane (g, t4) holds, for heads g (c0, c1) and g + 8 (c2, c3), columns
+  // 32 warp + 8 t4 + j (c0, c2) and + 4 + j (c1, c3) of fragment j: two
+  // float4 runs per head.
   if (splits == 1) {
-    if (v_on) {
 #pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const int hh = hv * 8 + g;
-        if (hh < hn) {
-          const float den = fmaxf(s_l[hh], 1e-30f);
-          *reinterpret_cast<float4*>(p.out + ((size_t)b * p.H + h0 + hh) * p.r + ev) =
-              make_float4(acc[g][0] / den, acc[g][1] / den, acc[g][2] / den, acc[g][3] / den);
-        }
+    for (int hf = 0; hf < 2; ++hf) {
+      const int hh = g + 8 * hf;
+      const float den = fmaxf(s_l[hh], 1e-30f);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = warp * 32 + 8 * t4 + 4 * half, k = 2 * hf + half;
+        if (pv_w && hh < hn && c < p.r)
+          *reinterpret_cast<float4*>(p.out + ((size_t)b * p.H + h0 + hh) * p.r + c) =
+              make_float4(acc[0][k] / den, acc[1][k] / den, acc[2][k] / den, acc[3][k] / den);
       }
     }
 #ifdef FD_PHASE_CLOCK
@@ -1066,15 +1371,15 @@ __global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const 
     return;
   }
 
-  // Every split leaves acc [heads][NS * 128] over the ring; the cluster
+  // Every split leaves acc [heads][rl] over the staging tile; the cluster
   // barrier publishes it (and m, l) to the other blocks of the cluster.
-  constexpr int kW = NS * kSlot;
-  float* s_acc = reinterpret_cast<float*>(smem);
-  if (v_on) {
+  float* s_acc = stg0;
+  if (pv_w) {
 #pragma unroll
-    for (int g = 0; g < 8; ++g)
-      *reinterpret_cast<float4*>(s_acc + (hv * 8 + g) * kW + ev) =
-          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    for (int k = 0; k < 4; ++k)
+      *reinterpret_cast<float4*>(s_acc + (g + 8 * (k >> 1)) * p.rl + warp * 32 + 8 * t4 +
+                                 4 * (k & 1)) =
+          make_float4(acc[0][k], acc[1][k], acc[2][k], acc[3][k]);
   }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
@@ -1082,16 +1387,32 @@ __global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const 
   MLA_STAMP(2, clock64());
 #endif
 
-  // Every split's (m, l) comes over in one round, a pair per thread; then
-  // each head's weight per split, exp(m_k - max m), and its denominator
-  // (all over the scores, which the loop no longer needs).
-  float* s_wt = s_sc;                                   // [splits][heads]: m, then weights
-  float* s_lk = s_sc + kMlaMaxSplits * kMlaHeads;       // [splits][heads]
+  // This block's share of the group's output: items of 4 columns of one
+  // head, merged over the splits in split order.  Every split's
+  // accumulator for a thread's first item and every split's (m, l) are read
+  // from the cluster's shared memory in one round; then each head's weight
+  // per split, exp(m_k - max m), and its denominator (over the partial
+  // scores, which the loop no longer needs).
+  const int per_head = p.r >> 2, items = hn * per_head;
+  const int i_beg = (int)((long long)items * split / splits);
+  const int i_end = (int)((long long)items * (split + 1) / splits);
+  float4 x[kMlaMaxSplits];
+  auto fetch = [&](int item) {
+    const int ih = item / per_head, ij = (item - ih * per_head) * 4;
+#pragma unroll
+    for (int k = 0; k < kMlaMaxSplits; ++k)
+      if (k < splits)
+        x[k] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(s_acc, k) +
+                                                ih * p.rl + ij);
+  };
+  if (i_beg + tid < i_end) fetch(i_beg + tid);
+  float* s_wt = red;                                    // [splits][heads]: m, then weights
+  float* s_lk = red + kMlaMaxSplits * kMlaHeads;        // [splits][heads]
   float* s_den = s_lk + kMlaMaxSplits * kMlaHeads;      // [heads]
   if (tid < splits * kMlaHeads) {
-    const int k = tid / kMlaHeads, g = tid - k * kMlaHeads;
-    s_wt[tid] = cluster.map_shared_rank(s_m, k)[g];
-    s_lk[tid] = cluster.map_shared_rank(s_l, k)[g];
+    const int k = tid / kMlaHeads, hh = tid - k * kMlaHeads;
+    s_wt[tid] = cluster.map_shared_rank(s_m, k)[hh];
+    s_lk[tid] = cluster.map_shared_rank(s_l, k)[hh];
   }
   __syncthreads();
   if (tid < kMlaHeads) {
@@ -1108,29 +1429,20 @@ __global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const 
     s_den[tid] = fmaxf(L, 1e-30f);
   }
   __syncthreads();
-  // This block's share of the chunk's output: items of 4 columns of one
-  // head, merged over the splits in split order.
-  const int per_head = p.r >> 2, items = hn * per_head;
-  const int i_beg = (int)((long long)items * split / splits);
-  const int i_end = (int)((long long)items * (split + 1) / splits);
-  for (int i = i_beg + tid; i < i_end; i += kMlaThreads) {
-    const int g = i / per_head, j = (i - g * per_head) * 4;
-    float4 x[kMlaMaxSplits];
-#pragma unroll
-    for (int k = 0; k < kMlaMaxSplits; ++k)
-      if (k < splits)
-        x[k] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(s_acc, k) + g * kW + j);
+  for (int item = i_beg + tid; item < i_end; item += kMlaThreads) {
+    if (item > i_beg + tid) fetch(item);
+    const int ih = item / per_head, ij = (item - ih * per_head) * 4;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int k = 0; k < kMlaMaxSplits; ++k) {
       if (k < splits) {
-        const float wt = s_wt[k * kMlaHeads + g];
+        const float wt = s_wt[k * kMlaHeads + ih];
         a.x = fmaf(x[k].x, wt, a.x); a.y = fmaf(x[k].y, wt, a.y);
         a.z = fmaf(x[k].z, wt, a.z); a.w = fmaf(x[k].w, wt, a.w);
       }
     }
-    const float den = s_den[g];
-    *reinterpret_cast<float4*>(p.out + ((size_t)b * p.H + h0 + g) * p.r + j) =
+    const float den = s_den[ih];
+    *reinterpret_cast<float4*>(p.out + ((size_t)b * p.H + h0 + ih) * p.r + ij) =
         make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
   }
 #ifdef FD_PHASE_CLOCK
@@ -1142,9 +1454,9 @@ __global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const 
 #endif
 }
 
-template <int F, int NS>
-int mla_launch(const MlaParams& p, int B, int chunks, size_t smem, cudaStream_t stream) {
-  auto kernel = flash_decode_mla_kernel<F, NS>;
+template <int F>
+int mla_launch(const MlaParams& p, int B, size_t smem, cudaStream_t stream) {
+  auto kernel = flash_decode_mla_kernel<F>;
   static int limit[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1156,7 +1468,7 @@ int mla_launch(const MlaParams& p, int B, int chunks, size_t smem, cudaStream_t 
     limit[dev] = (int)smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.splits, chunks, B);
+  cfg.gridDim = dim3(p.splits, (p.H + kMlaHeads - 1) / kMlaHeads, B);
   cfg.blockDim = dim3(kMlaThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1172,53 +1484,47 @@ int mla_launch(const MlaParams& p, int B, int chunks, size_t smem, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-template <int F>
-int mla_launch_slots(int ns, const MlaParams& p, int B, int chunks, size_t smem,
-                     cudaStream_t s) {
-  if (ns == 1) return mla_launch<F, 1>(p, B, chunks, smem, s);
-  if (ns == 2) return mla_launch<F, 2>(p, B, chunks, smem, s);
-  if (ns == 4) return mla_launch<F, 4>(p, B, chunks, smem, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// MLA mode.  q f32 [B, H, r], q2 f32 [B, H, dr]; the latent cache
-// (values lat0, side data lat1) [B, C, *] and the rope cache (rope0, rope1)
-// in cache format `fmt`; out f32 [B, H, r].  `tiles` = ceil(kv_len / 32),
-// split i streams tiles [i * lo + min(i, x), ...) as in the GQA mode; `ns`
-// 128-wide latent slots (1, 2 or 4) picks the instantiation.  A ring stage
+// MLA mode.  q f32 [B, H, r], q2 f32 [B, H, dr]; the latent cache (values
+// lat0, side data lat1) [B, C, *] and the rope cache (rope0, rope1) in cache
+// format `fmt`; out f32 [B, H, r].  A block takes 16 query heads; `tiles` =
+// ceil(kv_len / 32), split i streams tiles [i * lo + min(i, x), ...) as in
+// the GQA mode.  The staging tile's rows are `w` floats
+// (`flash_decode_mla_staging_row`); a raw stage (every format but f32)
 // holds 32 rows of the latent values at offset 0, then the latent side, the
 // rope values and the rope side at `off_ls`, `off_rv`, `off_rs`, in
-// `stage_bytes`.  Nothing is allocated: the merge goes through the
-// cluster's shared memory.
+// `stage_bytes`, and the launch takes `smem_bytes` of shared memory, as
+// hopper.flash_decode_mla_plan lays them out (checked here).  Nothing is
+// allocated: the merge goes through the cluster's shared memory.
 extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void* lat0,
                                        const void* lat1, const void* rope0, const void* rope1,
                                        void* out, int B, int C, int H, int r, int dr,
-                                       int kv_len, int fmt, int tiles, int splits, int ns,
+                                       int kv_len, int fmt, int tiles, int splits, int w,
                                        int off_ls, int off_rv, int off_rs, int stage_bytes,
-                                       float scale, void* stream) {
+                                       int smem_bytes, float scale, void* stream) {
   if (fmt < kF32 || fmt > kMxint4Blk || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   MlaParams p{};
   p.rb[0] = value_bytes(fmt, r);
   p.rb[1] = side_bytes(fmt, r);
   p.rb[2] = value_bytes(fmt, dr);
   p.rb[3] = side_bytes(fmt, dr);
-  if (r < 4 || r % 4 || r > ns * kSlot || dr < 4 || dr % 4 || dr > kMlaMaxRope ||
+  if (r < 4 || r % 4 || r > kMlaMaxLatent || dr < 4 || dr % 4 || dr > kMlaMaxRope ||
       (fmt == kMxint4Blk && (r % 16 || dr % 16)) || kv_len < 1 || kv_len > C ||
       tiles != (kv_len + kMlaTile - 1) / kMlaTile || splits < 1 ||
-      splits > kMlaMaxSplits || splits > tiles || !(ns == 1 || ns == 2 || ns == 4))
+      splits > kMlaMaxSplits || splits > tiles)
     return (int)cudaErrorInvalidValue;
-  // Every array's tile fits its place in the stage, 16-byte aligned.
+  const MlaStaging sg = mla_staging(r, dr);
+  int ksteps = 0;
+  p.wr = mla_rope_warps(sg.rl, sg.rr, &ksteps);
+  if (w != sg.w || ksteps > kMlaMaxKSteps) return (int)cudaErrorInvalidValue;
+  // Every array's tile fits its place in a raw stage, 16-byte aligned.
   if (off_ls % 16 || off_rv % 16 || off_rs % 16 || stage_bytes % 16 ||
       off_ls < kMlaTile * p.rb[0] || off_rv < off_ls + kMlaTile * p.rb[1] ||
       off_rs < off_rv + kMlaTile * p.rb[2] || stage_bytes < off_rs + kMlaTile * p.rb[3])
     return (int)cudaErrorInvalidValue;
-  const int ring = kMlaStages * stage_bytes;
-  const int merge = (int)sizeof(float) * kMlaHeads * ns * kSlot;
-  p.fixed_off = ((ring > merge ? ring : merge) + 15) / 16 * 16;
-  const size_t smem = (size_t)p.fixed_off + sizeof(float) * kMlaFixedFloats;
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const MlaLayout lay = mla_layout(fmt == kF32, w, stage_bytes);
+  if (lay.bytes != smem_bytes || lay.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   p.q = static_cast<const float*>(q);
   p.q2 = static_cast<const float*>(q2);
   p.src[0] = static_cast<const unsigned char*>(lat0);
@@ -1231,19 +1537,23 @@ extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void
   p.off[3] = off_rs;
   p.out = static_cast<float*>(out);
   p.C = C; p.H = H; p.r = r; p.dr = dr; p.kv_len = kv_len;
-  p.tiles = tiles; p.splits = splits; p.stage_bytes = stage_bytes;
+  p.tiles = tiles; p.splits = splits;
+  p.w = w; p.rl = sg.rl; p.rr = sg.rr;
+  p.stage_bytes = stage_bytes;
+  p.red_off = lay.red_off; p.p_off = lay.p_off; p.misc_off = lay.misc_off;
+  p.bar_off = lay.bar_off;
   p.scale = scale;
 #ifdef FD_PHASE_CLOCK
   p.stamps = g_mla_stamps;
 #endif
-  const int chunks = (H + kMlaHeads - 1) / kMlaHeads;
+  const size_t smem = (size_t)lay.bytes;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case kF32: return mla_launch_slots<kF32>(ns, p, B, chunks, smem, s);
-    case kBF16: return mla_launch_slots<kBF16>(ns, p, B, chunks, smem, s);
-    case kInt8Legacy: return mla_launch_slots<kInt8Legacy>(ns, p, B, chunks, smem, s);
-    case kInt8Tok: return mla_launch_slots<kInt8Tok>(ns, p, B, chunks, smem, s);
-    case kMxint4Blk: return mla_launch_slots<kMxint4Blk>(ns, p, B, chunks, smem, s);
+    case kF32: return mla_launch<kF32>(p, B, smem, s);
+    case kBF16: return mla_launch<kBF16>(p, B, smem, s);
+    case kInt8Legacy: return mla_launch<kInt8Legacy>(p, B, smem, s);
+    case kInt8Tok: return mla_launch<kInt8Tok>(p, B, smem, s);
+    case kMxint4Blk: return mla_launch<kMxint4Blk>(p, B, smem, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1255,15 +1565,15 @@ extern "C" void flash_decode_mla_set_stamps(void* stamps) {
 }
 #endif
 
-// How many clusters of `splits` blocks of the f32, 4-slot instantiation
-// with `smem` bytes of shared memory the card holds at once (negative: the
-// CUDA error); the planner sizes the grid so that every cluster is resident.
-// The kernel's shared-memory limit is raised to the most any launch may
-// take, never lowered under one a launch has set.
+// How many clusters of `splits` blocks of the f32 instantiation with `smem`
+// bytes of shared memory the card holds at once (negative: the CUDA error);
+// the planner sizes the grid so that every cluster is resident.  The
+// kernel's shared-memory limit is raised to the most any launch may take,
+// never lowered under one a launch has set.
 extern "C" int flash_decode_mla_max_clusters(int splits, int smem) {
   if (splits < 1 || splits > kMlaMaxSplits || smem > kMaxSmem)
     return -(int)cudaErrorInvalidValue;
-  auto kernel = flash_decode_mla_kernel<kF32, 4>;
+  auto kernel = flash_decode_mla_kernel<kF32>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return -(int)err;
@@ -1283,7 +1593,11 @@ extern "C" int flash_decode_mla_max_clusters(int splits, int smem) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
+// The planner's constants and layout, for hopper's bind-time check.
 extern "C" int flash_decode_mla_tile_rows() { return kMlaTile; }
 extern "C" int flash_decode_mla_heads() { return kMlaHeads; }
 extern "C" int flash_decode_mla_max_splits() { return kMlaMaxSplits; }
-extern "C" int flash_decode_mla_smem_floats() { return kMlaFixedFloats; }
+extern "C" int flash_decode_mla_staging_row(int r, int dr) { return mla_staging(r, dr).w; }
+extern "C" int flash_decode_mla_smem_bytes(int f32, int w, int stage_bytes) {
+  return mla_layout(f32 != 0, w, stage_bytes).bytes;
+}

@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int kMaxChunk = 128;
@@ -134,24 +136,6 @@ __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_grou
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x = hi + lo: hi is x rounded to TF32 (11 significant bits), lo the exact
-// remainder.  The tensor cores read the top 19 bits of a TF32 operand, so lo
-// carries half a TF32 ulp added and is rounded by that truncation.  Integer
-// and f32 ALU ops only (no conversion-pipe cvt).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  hi = h;
-  lo = __float_as_uint(x - __uint_as_float(h)) + 0x1000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Rows [r0, r0 + R) x columns [c0, c0 + C) of a row-major global matrix (row

@@ -406,11 +406,82 @@ def test_flash_decode_mla_kernel_reduced_shape(fmt, kv_len):
 @pytest.mark.parametrize("b,h,r,dr,c,kv_len", [
     (1, 20, 256, 64, 300, 300), (3, 17, 128, 32, 100, 61), (1, 128, 512, 64, 1000, 999),
     (2, 1, 64, 16, 64, 64), (1, 8, 384, 128, 70, 65),
+    (2, 24, 512, 64, 544, 528), (2, 33, 512, 64, 544, 300), (2, 100, 512, 64, 544, 257),
+    (4, 128, 512, 64, 544, 528), (6, 128, 512, 64, 544, 97), (4, 40, 512, 128, 200, 200),
 ])
 def test_flash_decode_mla_kernel_other_shapes(fmt, b, h, r, dr, c, kv_len):
-    """Head counts off the 16-head chunk, 1, 2 and 4 latent slots (384 takes 4
-    with a masked slot), the widest rope, and a long cache."""
+    """Head counts off the 16-head group (1, 17, 20, 24, 33, 100), latent
+    widths of 64 to 512 (384: twelve of the 16 warps' 32-column groups), the
+    widest rope, a long cache, and batches of 4 and 6 whose 32 and 48
+    clusters take 3 and 2 splits."""
     _mla_case(h * r + kv_len, fmt, b, h, r, dr, c, kv_len)
+
+
+@pytest.mark.parametrize("fmt", MAIN_FORMATS)
+@pytest.mark.parametrize("kv_len", [31, 32, 63, 64, 65, 95, 96, 97, 191, 192, 193, 512])
+def test_flash_decode_mla_kernel_tile_and_split_edges(fmt, kv_len):
+    """kv_len at and around the 32-row tile and the splits' edges at the main
+    shape (1 to 6 splits of whole tiles), a partial last tile's rows zeroed."""
+    _mla_case(kv_len + 7, fmt, 2, 128, 512, 64, 544, kv_len)
+
+
+def _mla_wide_case(q, q2, lat, rope, kv_len, scale):
+    """A case whose cache values span many decades: the kernel against a
+    float64 evaluation of the decoded cache at the decode tolerance in units
+    of the latent's largest value, and a relaunch bit-equal to the first.
+    (The outputs reach that value, so an absolute 2e-6 is below f32's
+    resolution there; the plain f32 version errs 3-4x more than the kernel
+    against float64 on these inputs.)"""
+    got = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale, impl="kernel")
+    again = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale, impl="kernel")
+    assert torch.equal(got, again), "the cluster merge must be deterministic"
+    ld, rd = (kvq.decode(x)[:, :kv_len].double() for x in (lat, rope))
+    s = (torch.einsum("bhr,bcr->bhc", q.double(), ld)
+         + torch.einsum("bhr,bcr->bhc", q2.double(), rd)) * scale
+    want = torch.einsum("bhc,bcr->bhr", torch.softmax(s, dim=-1), ld)
+    unit = ld.abs().max()
+    torch.testing.assert_close(got.double() / unit, want / unit, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("kv_len", [1, 97, 528])
+def test_flash_decode_mla_kernel_int8_tok_scales_span_six_decades(kv_len):
+    """int8_tok rows whose scales run from 1e-3 to 1e3 (latent and rope rows
+    apart): the kernel scales each stream's scores by its rows' scales and
+    folds the latent's into P.  The score scale keeps the largest scores
+    near 3."""
+    b, h, r, dr, c = 2, 128, 512, 64, 544
+    rng = _gen(kv_len + 31)
+    q, q2, _, _ = _mla_inputs(kv_len, "float32", b, h, r, dr, c)
+
+    def leaf(width):
+        mag = 10.0 ** rng.uniform(-3, 3, size=(b, c, 1)) * 127 / 3
+        return kvq.encode(_t((rng.normal(size=(b, c, width)) * mag).astype(np.float32)),
+                          "int8_tok")
+
+    lat, rope = leaf(r), leaf(dr)
+    s_all = torch.cat([lat["s"].flatten(), rope["s"].flatten()])
+    assert s_all.min() < 2e-3 and s_all.max() > 5e2
+    _mla_wide_case(q, q2, lat, rope, kv_len, 6e-6)
+
+
+@pytest.mark.parametrize("kv_len", [1, 97, 528])
+def test_flash_decode_mla_kernel_mxint4_exponents_at_their_extremes(kv_len):
+    """mxint4_blk groups whose shared exponents sit at -9 and 5, the ends of
+    their range (groups scaled 2^-12 .. 2^7 clamp there), mixed in every
+    row of the latent and the rope."""
+    b, h, r, dr, c = 2, 128, 512, 64, 544
+    rng = _gen(kv_len + 37)
+    q, q2, _, _ = _mla_inputs(kv_len, "float32", b, h, r, dr, c)
+
+    def leaf(width):
+        scale = 2.0 ** rng.choice([-12, -9, 5, 7], size=(b, c, width // 16, 1))
+        x = rng.normal(size=(b, c, width // 16, 16)) * scale
+        return kvq.encode(_t(x.reshape(b, c, width).astype(np.float32)), "mxint4_blk")
+
+    lat, rope = leaf(r), leaf(dr)
+    for e in (lat["e"], rope["e"]):
+        assert int(e.min()) == -9 and int(e.max()) == 5
+    _mla_wide_case(q, q2, lat, rope, kv_len, 0.0722 / 8)
 
 
 @pytest.mark.parametrize("kv_len", [33, 300, 528])
