@@ -33,8 +33,10 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    W8A8/MXINT4 deployment; then the
    same weights on the plain path (``kernel_impl="ref"``): every block in
    lockstep, prefill logits beside the network's own sensitivity, every
-   decode step's logits (see `compare_paths`); and each model reduced, on the
-   card against the CPU plain path;
+   decode step's logits (see `compare_paths`), and, free-running, where the
+   two paths' greedy tokens and appended cache rows first part (recorded,
+   see `free_running`); and each model reduced, on the card against the CPU
+   plain path;
 5. one JSON line ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}``
    line.
 
@@ -711,9 +713,11 @@ def serve_full_width(path: dict, card: str):
         # The same weights on the plain path.
         t1 = time.perf_counter()
         checks = compare_paths(eng, plain, prompts, gen)
-        res_p = plain.generate(prompts, gen)
+        res_k, res_p, drift = free_running(eng, plain, prompts, gen)
         checks.update(
             greedy_token_agreement=(res_p.tokens == toks).float().mean().item(),
+            free_running=dict(drift, kernel_tokens_as_counted=bool(
+                (res_k.tokens == toks).all())),
             plain_prefill_ms=res_p.prefill_s * 1e3,
             plain_decode_ms_per_token=res_p.decode_s * 1e3 / res_p.decode_steps,
             compare_s=time.perf_counter() - t1)
@@ -854,6 +858,104 @@ def compare_paths(eng, plain, prompts, gen):
                 decode_block_tolerance=DECODE_BLOCK_TOL,
                 decode_logit_max_rel_err=max(decode), decode_tolerance=DECODE_TOL,
                 decode_sensitivity_floor_max=max(dfloor), decode_argmax_flips=flips)
+
+
+def _appends(engine, prompts, gen):
+    """``engine.generate`` with every one-row cache write recorded: per decode
+    step, each written leaf's row before encoding (f32) and as stored."""
+    real, rows = layers.cache_update, []
+
+    def spy(leaf, x, pos):
+        out = real(leaf, x, pos)
+        if x.shape[1] == 1:
+            slot = min(int(pos), layers.cache_capacity(out) - 1)
+            stored = ({k: v[:, slot].clone() for k, v in out.items()}
+                      if isinstance(out, dict) else out[:, slot].clone())
+            rows.append((x[:, 0].float().clone(), stored))
+        return out
+
+    layers.cache_update = spy
+    try:
+        res = engine.generate(prompts, gen)
+    finally:
+        layers.cache_update = real
+    per = len(rows) // res.decode_steps
+    return res, [rows[i * per:(i + 1) * per] for i in range(res.decode_steps)]
+
+
+def _quant_step(x: torch.Tensor, stored) -> torch.Tensor:
+    """The rounding step each element of row ``x`` had when it was stored."""
+    if isinstance(stored, dict) and "e" in stored:          # mxint4_blk
+        return torch.exp2(stored["e"].float() - mx.MANT_SHIFT).repeat_interleave(
+            mx.GROUP_SIZE, dim=-1)
+    if isinstance(stored, dict):                            # int8_tok
+        return stored["s"].expand_as(x)
+    bits = {torch.bfloat16: 8, torch.float16: 11}.get(stored.dtype, 24)
+    return torch.exp2(torch.frexp(x)[1].float() - bits)
+
+
+def _row_parting(xk, sk, xr, sr) -> dict | None:
+    """Where one appended row's stored bytes differ between the two paths:
+    the elements whose stored value differs and the side entries (mxint4_blk
+    exponents, int8_tok scales) that differ; for up to four such elements,
+    both paths' values before encoding, their gap, and each one's distance
+    from the nearest rounding boundary, in its own rounding steps (0: on
+    the boundary, 0.5: on a code).  ``col`` indexes the row flattened per
+    batch lane (a GQA row is ``[KV heads, head dim]``)."""
+    vk, vr = kvq.decode(sk), kvq.decode(sr)
+    side = {k: int((sk[k] != sr[k]).sum()) for k in ("e", "s")
+            if isinstance(sk, dict) and k in sk}
+    diff = vk != vr
+    if not bool(diff.any()) and not any(side.values()):
+        return None
+    stk, str_ = _quant_step(xk, sk), _quant_step(xr, sr)
+    vk, vr, xk, xr, stk, str_, diff = (t.reshape(t.shape[0], -1)
+                                       for t in (vk, vr, xk, xr, stk, str_, diff))
+    to_edge = lambda x, st: ((x / st) - torch.floor(x / st) - 0.5).abs()  # noqa: E731
+    out = dict(values_differing=int(diff.sum()), side_differing=side,
+               pre_encode_max_rel_gap=((xk - xr).abs().max() / xr.abs().max()).item(),
+               elements=[])
+    for b, j in diff.nonzero()[:4].tolist():
+        out["elements"].append(dict(
+            lane=b, col=j, kernel=xk[b, j].item(), plain=xr[b, j].item(),
+            gap_in_steps=((xk[b, j] - xr[b, j]).abs() / str_[b, j]).item(),
+            kernel_to_boundary=to_edge(xk[b, j], stk[b, j]).item(),
+            plain_to_boundary=to_edge(xr[b, j], str_[b, j]).item(),
+            stored=(vk[b, j].item(), vr[b, j].item())))
+    return out
+
+
+@torch.inference_mode()
+def free_running(eng, plain, prompts, gen):
+    """Both paths generating on their own, as a user's generate runs: each
+    decode step appends the rows its own path computed to its own cache.
+    Returns both paths' results (the times are of these recorded runs) and
+    where the two part: the first token column that differs (token i + 1
+    comes from decode step i, which appends the rows of token i), and the
+    first decode step whose appended rows differ in their stored bytes, with
+    each differing write there (``write``: the order of the step's cache
+    writes, two per layer, K or latent then V or rope) as `_row_parting`
+    gives it, and how many steps before the first token flip had such rows.
+    Rows that part from the same tokens, from nearby values either side of
+    a rounding boundary, before any token flips, are the caches drifting
+    apart through their encoding; a flip with no parted row before it would
+    point at the attention itself."""
+    res_k, rows_k = _appends(eng, prompts, gen)
+    res_p, rows_p = _appends(plain, prompts, gen)
+    tk, tp = res_k.tokens, res_p.tokens
+    cols = (tk != tp).any(dim=0).nonzero()[:, 0].tolist()
+    flip = cols[0] if cols else None
+    first, steps = None, 0
+    for i, (rk, rp) in enumerate(zip(rows_k, rows_p)):
+        if flip is not None and i >= flip:
+            break
+        parted = [dict(write=w, **d) for w, ((xk, sk), (xr, sr)) in enumerate(zip(rk, rp))
+                  if (d := _row_parting(xk, sk, xr, sr)) is not None]
+        if parted:
+            steps += 1
+            first = first or dict(step=i, writes=parted)
+    return res_k, res_p, dict(first_token_flip=flip, first_parted_rows=first,
+                              steps_with_parted_rows_before_flip=steps)
 
 
 def _bf16_step(row: torch.Tensor) -> torch.Tensor:

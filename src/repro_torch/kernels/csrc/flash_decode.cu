@@ -1490,19 +1490,18 @@ int mla_launch(const MlaParams& p, int B, size_t smem, cudaStream_t stream) {
 // lat0, side data lat1) [B, C, *] and the rope cache (rope0, rope1) in cache
 // format `fmt`; out f32 [B, H, r].  A block takes 16 query heads; `tiles` =
 // ceil(kv_len / 32), split i streams tiles [i * lo + min(i, x), ...) as in
-// the GQA mode.  The staging tile's rows are `w` floats
-// (`flash_decode_mla_staging_row`); a raw stage (every format but f32)
-// holds 32 rows of the latent values at offset 0, then the latent side, the
-// rope values and the rope side at `off_ls`, `off_rv`, `off_rs`, in
-// `stage_bytes`, and the launch takes `smem_bytes` of shared memory, as
-// hopper.flash_decode_mla_plan lays them out (checked here).  Nothing is
+// the GQA mode.  A raw stage (every format but f32) holds 32 rows of the
+// latent values at offset 0, then the latent side, the rope values and the
+// rope side at `off_ls`, `off_rv`, `off_rs`, in `stage_bytes`, as
+// hopper.flash_decode_mla_plan lays them out (checked here); the staging
+// rows and the rest of shared memory are laid out here.  Nothing is
 // allocated: the merge goes through the cluster's shared memory.
 extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void* lat0,
                                        const void* lat1, const void* rope0, const void* rope1,
                                        void* out, int B, int C, int H, int r, int dr,
-                                       int kv_len, int fmt, int tiles, int splits, int w,
+                                       int kv_len, int fmt, int tiles, int splits,
                                        int off_ls, int off_rv, int off_rs, int stage_bytes,
-                                       int smem_bytes, float scale, void* stream) {
+                                       float scale, void* stream) {
   if (fmt < kF32 || fmt > kMxint4Blk || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   MlaParams p{};
   p.rb[0] = value_bytes(fmt, r);
@@ -1517,14 +1516,14 @@ extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void
   const MlaStaging sg = mla_staging(r, dr);
   int ksteps = 0;
   p.wr = mla_rope_warps(sg.rl, sg.rr, &ksteps);
-  if (w != sg.w || ksteps > kMlaMaxKSteps) return (int)cudaErrorInvalidValue;
+  if (ksteps > kMlaMaxKSteps) return (int)cudaErrorInvalidValue;
   // Every array's tile fits its place in a raw stage, 16-byte aligned.
   if (off_ls % 16 || off_rv % 16 || off_rs % 16 || stage_bytes % 16 ||
       off_ls < kMlaTile * p.rb[0] || off_rv < off_ls + kMlaTile * p.rb[1] ||
       off_rs < off_rv + kMlaTile * p.rb[2] || stage_bytes < off_rs + kMlaTile * p.rb[3])
     return (int)cudaErrorInvalidValue;
-  const MlaLayout lay = mla_layout(fmt == kF32, w, stage_bytes);
-  if (lay.bytes != smem_bytes || lay.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const MlaLayout lay = mla_layout(fmt == kF32, sg.w, stage_bytes);
+  if (lay.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   p.q = static_cast<const float*>(q);
   p.q2 = static_cast<const float*>(q2);
   p.src[0] = static_cast<const unsigned char*>(lat0);
@@ -1538,7 +1537,7 @@ extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void
   p.out = static_cast<float*>(out);
   p.C = C; p.H = H; p.r = r; p.dr = dr; p.kv_len = kv_len;
   p.tiles = tiles; p.splits = splits;
-  p.w = w; p.rl = sg.rl; p.rr = sg.rr;
+  p.w = sg.w; p.rl = sg.rl; p.rr = sg.rr;
   p.stage_bytes = stage_bytes;
   p.red_off = lay.red_off; p.p_off = lay.p_off; p.misc_off = lay.misc_off;
   p.bar_off = lay.bar_off;
@@ -1593,11 +1592,7 @@ extern "C" int flash_decode_mla_max_clusters(int splits, int smem) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// The planner's constants and layout, for hopper's bind-time check.
+// The planner's constants, for hopper's bind-time check.
 extern "C" int flash_decode_mla_tile_rows() { return kMlaTile; }
 extern "C" int flash_decode_mla_heads() { return kMlaHeads; }
 extern "C" int flash_decode_mla_max_splits() { return kMlaMaxSplits; }
-extern "C" int flash_decode_mla_staging_row(int r, int dr) { return mla_staging(r, dr).w; }
-extern "C" int flash_decode_mla_smem_bytes(int f32, int w, int stage_bytes) {
-  return mla_layout(f32 != 0, w, stage_bytes).bytes;
-}

@@ -196,12 +196,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                   (lib.flash_decode_max_group, FD_MAX_GROUP),
                   (lib.flash_decode_max_stages, FD_MAX_STAGES))
         mla = lib.flash_decode_mla_launch
-        mla.argtypes = [_P] * 7 + [_I] * 15 + [_F, _P]
+        mla.argtypes = [_P] * 7 + [_I] * 13 + [_F, _P]
         mla.restype = _I
-        for fn_, n in ((lib.flash_decode_mla_max_clusters, 2),
-                       (lib.flash_decode_mla_staging_row, 2),
-                       (lib.flash_decode_mla_smem_bytes, 3)):
-            fn_.argtypes, fn_.restype = [_I] * n, _I
+        clusters = lib.flash_decode_mla_max_clusters
+        clusters.argtypes, clusters.restype = [_I, _I], _I
         limits += ((lib.flash_decode_mla_tile_rows, MLA_TILE),
                    (lib.flash_decode_mla_heads, MLA_HEADS),
                    (lib.flash_decode_mla_max_splits, MLA_MAX_SPLITS))
@@ -210,16 +208,6 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             if query() != want:
                 raise RuntimeError(f"flash_decode: the library's {query.__name__} "
                                    f"is {query()}, the planner's {want}")
-        # The planner's staging rows and shared memory are the kernel's.
-        for fmt, r, dr in (("f32", 512, 64), ("mxint4_blk", 32, 16), ("int8_tok", 512, 128)):
-            plan = flash_decode_mla_plan(1, 1, r, dr, 1, fmt)
-            want = (plan["w"], plan["smem_bytes"])
-            got = (lib.flash_decode_mla_staging_row(r, dr),
-                   lib.flash_decode_mla_smem_bytes(int(fmt == "f32"), plan["w"],
-                                                   plan["stage_bytes"]))
-            if got != want:
-                raise RuntimeError(f"flash_decode (MLA): the library lays out (row, "
-                                   f"bytes) {got}, the planner {want}")
     elif name == "rmsnorm_stats":
         fn = lib.rmsnorm_stats_launch
         fn.argtypes = [_P, _P, _I, _I, _I, _I, _F, _P]
@@ -693,62 +681,28 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
 
 
 # Flash-decode's MLA two-stream mode (csrc/flash_decode.cu,
-# `flash_decode_mla_kernel`).  A block of MLA_WARPS warps owns MLA_HEADS
-# query heads of one batch lane and an even share of the kv_len rows'
-# MLA_TILE-row tiles; its products run on the tensor cores (split TF32) out
-# of a staging tile of [latent | rope] rows in shared memory, and the
-# splits of one (b, head group) form a thread-block cluster that merges
-# through its shared memory.
+# `flash_decode_mla_kernel`).  A block owns MLA_HEADS query heads of one
+# batch lane and an even share of the kv_len rows' MLA_TILE-row tiles; its
+# products run on the tensor cores (split TF32) out of a staging tile of
+# [latent | rope] rows in shared memory, and the splits of one (b, head
+# group) form a thread-block cluster that merges through its shared memory.
+# The launch lays out the staging rows and shared memory itself; the plan
+# holds the grid and the raw stage that the copies fill.
 MLA_TILE = 32
-MLA_HEADS = 16                  # one m16 tile of query heads: a warp per head
-MLA_WARPS = 16
+MLA_HEADS = 16                  # one m16 tile of query heads
 MLA_MAX_SPLITS = 8              # the portable cluster size
 # Clusters of 1..8 such blocks (one per SM) an H100 SXM holds at once
 # (cudaOccupancyMaxActiveClusters; tools/mla_phase_clock.py): the planner's
 # default, for the CPU; on the card `flash_decode_mla` asks the card.
 MLA_RESIDENT_H100 = (132, 66, 39, 30, 22, 17, 15, 15)
-MLA_MAX_LATENT = 32 * MLA_WARPS  # a 32-column P.V group per warp
+MLA_MAX_LATENT = 512            # a 32-column P.V group per warp of 16
 MLA_MAX_ROPE = 128
-MLA_MAX_KSTEPS = 6              # k-steps of 8 in a warp's query slice (registers)
-MLA_RED_STRIDE = MLA_TILE + 8   # floats per head of a warp's partial scores
-
-
-def mla_staging(r: int, dr: int) -> tuple[int, int, int]:
-    """Columns of the MLA staging tile: the latent rounded up to whole
-    32-column P.V groups (``rl``), the rope to whole k-steps of 8 (``rr``),
-    and the row's floats ``w`` (at least rl + rr, 8 mod 32, which keeps both
-    products' fragment reads free of bank conflicts)."""
-    rl, rr = -(-r // 32) * 32, -(-dr // 8) * 8
-    return rl, rr, rl + rr + (8 - (rl + rr)) % 32
-
-
-def mla_rope_warps(rl: int, rr: int) -> tuple[int, int]:
-    """Warps that take the rope stream's k-steps (the rest take the
-    latent's), and the k-steps of the busiest warp: the fewest, then the
-    fewer rope warps."""
-    kl, kr = rl // 8, rr // 8
-    return min(((wr, max(-(-kl // (MLA_WARPS - wr)), -(-kr // wr)))
-                for wr in range(1, MLA_WARPS)), key=lambda x: (x[1], x[0]))
-
-
-def mla_smem_layout(fmt: str, w: int, stage_bytes: int) -> dict:
-    """Byte offsets of one launch's shared-memory regions, as the kernel
-    lays them out: two staging tiles for an f32 cache (the copies land
-    there), else one staging tile and two raw stages (``raw``); then the
-    warps' partial scores, P (hi and lo), the row scales and per-head state,
-    and an mbarrier per raw stage."""
-    staging = MLA_TILE * w * 4
-    red = 2 * staging if fmt == "f32" else staging + 2 * stage_bytes
-    p_off = red + MLA_WARPS * MLA_HEADS * MLA_RED_STRIDE * 4
-    misc = p_off + 2 * MLA_TILE * MLA_HEADS * 4         # P's fragments, hi and lo
-    bar = misc + (2 * MLA_TILE + 3 * MLA_HEADS) * 4
-    return dict(raw=staging, red=red, p=p_off, misc=misc, bar=bar, bytes=bar + 16)
 
 
 @functools.lru_cache(maxsize=None)
 def flash_decode_mla_plan(b: int, h: int, r: int, dr: int, kv_len: int, fmt: str,
                           resident: tuple = MLA_RESIDENT_H100) -> dict:
-    """Grid, staging rows and shared memory of one MLA-mode launch.
+    """Grid and raw stage of one MLA-mode launch.
 
     The ``b * groups`` (batch lane, group of MLA_HEADS heads) units each run
     as a cluster of ``splits`` blocks, and each split streams an even share
@@ -760,14 +714,13 @@ def flash_decode_mla_plan(b: int, h: int, r: int, dr: int, kv_len: int, fmt: str
     blocks: the card holds 17 clusters of 6 but only 15 of 7 or 8, which
     would run a second wave.
 
-    The staging tile's rows are ``w`` floats (`mla_staging`).  A raw stage
-    (every format but f32, which lands in the staging tiles) holds a tile as
-    it is copied: the latent values, then the latent side data, the rope
-    values and the rope side data, each at a 16-byte aligned offset
-    (``layout``: those three offsets and the stage's bytes).  ``smem`` holds
-    the regions' offsets (`mla_smem_layout`), ``smem_bytes`` their total.
-    Raises on a shape the kernel does not take.  Plans are cached; callers
-    must not modify the dict.
+    A raw stage (every format but f32, which lands in the kernel's f32
+    staging tiles) holds a tile as it is copied: the latent values, then the
+    latent side data, the rope values and the rope side data, each at a
+    16-byte aligned offset (``layout``: those three offsets and the stage's
+    bytes).  Raises on a shape the kernel does not take; the launch checks
+    its shared memory itself.  Plans are cached; callers must not modify
+    the dict.
     """
     if not (4 <= r <= MLA_MAX_LATENT and 4 <= dr <= MLA_MAX_ROPE and r % 4 == 0
             and dr % 4 == 0):
@@ -776,7 +729,6 @@ def flash_decode_mla_plan(b: int, h: int, r: int, dr: int, kv_len: int, fmt: str
     if fmt == "mxint4_blk" and (r % 16 or dr % 16):
         raise ValueError(f"flash_decode (MLA): mxint4_blk needs widths in whole groups "
                          f"of 16, got {r} and {dr}")
-    rl, rr, w = mla_staging(r, dr)
     (lb, ls), (rb, rs) = fd_row_bytes(fmt, r), fd_row_bytes(fmt, dr)
     off_ls = _up16(MLA_TILE * lb)
     off_rv = off_ls + _up16(MLA_TILE * ls)
@@ -790,12 +742,8 @@ def flash_decode_mla_plan(b: int, h: int, r: int, dr: int, kv_len: int, fmt: str
     lo, extra = divmod(tiles, splits)
     cuts = [(i * lo + min(i, extra)) * MLA_TILE for i in range(splits + 1)]
     ranges = tuple((cuts[i], min(cuts[i + 1], kv_len)) for i in range(splits))
-    smem = mla_smem_layout(fmt, w, stage_bytes)
     return dict(tile=MLA_TILE, tiles=tiles, splits=splits, ranges=ranges, groups=groups,
-                blocks=units * splits, w=w, rl=rl, rr=rr,
-                rope_warps=mla_rope_warps(rl, rr)[0], stage_bytes=stage_bytes,
-                layout=(off_ls, off_rv, off_rs, stage_bytes), smem=smem,
-                smem_bytes=smem["bytes"])
+                blocks=units * splits, layout=(off_ls, off_rv, off_rs, stage_bytes))
 
 
 def _mla_operand(name: str, parts: tuple, fmt: str, lead: tuple, dim: int):
@@ -872,8 +820,8 @@ def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: int, scale:
     out = torch.empty(b, h, r, dtype=torch.float32, device=q.device)
     err = lib.flash_decode_mla_launch(
         q.data_ptr(), q2.data_ptr(), l0, l1, r0, r1, out.data_ptr(), b, c, h, r, dr,
-        kv_len, CACHE_FORMATS[fmt][0], plan["tiles"], plan["splits"], plan["w"],
-        *plan["layout"], plan["smem_bytes"], float(scale), _stream())
+        kv_len, CACHE_FORMATS[fmt][0], plan["tiles"], plan["splits"], *plan["layout"],
+        float(scale), _stream())
     _raise_if(err, "flash_decode (MLA)")
     LAUNCHES["flash_decode_mla"] += 1
     return out

@@ -417,6 +417,13 @@ def test_flash_decode_mla_kernel_other_shapes(fmt, b, h, r, dr, c, kv_len):
     _mla_case(h * r + kv_len, fmt, b, h, r, dr, c, kv_len)
 
 
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+def test_flash_decode_mla_kernel_takes_the_widest_rows(fmt):
+    """Latent 512 with the widest rope in every format: the launch lays out
+    its own shared memory and takes these rows within the card's."""
+    _mla_case(17, fmt, 1, 16, 512, 128, 100, 100)
+
+
 @pytest.mark.parametrize("fmt", MAIN_FORMATS)
 @pytest.mark.parametrize("kv_len", [31, 32, 63, 64, 65, 95, 96, 97, 191, 192, 193, 512])
 def test_flash_decode_mla_kernel_tile_and_split_edges(fmt, kv_len):

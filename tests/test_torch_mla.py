@@ -115,7 +115,6 @@ def test_mla_flash_decode_plain_takes_a_distinct_v_as_the_reference_does():
 
 MAIN = (2, 128, 512, 64)             # B, H, latent, rope of deepseek-v3's decode
 REDUCED = (2, TCFG.n_heads, TCFG.kv_lora_rank, TCFG.qk_rope_head_dim)
-SMEM_LIMIT = 232448                  # a block's shared memory on an H100 (227 KB)
 ALL_FORMATS = ["f32", "bf16", "int8", "int8_tok", "mxint4_blk"]
 
 
@@ -129,22 +128,18 @@ def _covers(plan, kv_len):
 
 
 def _fits(plan, fmt, r, dr):
-    """Shared memory within the card's, every region and raw-stage array
-    16-byte aligned and in order, the merge's accumulator rows (16 heads of
-    the latent) within the first staging tile."""
-    smem = plan["smem"]
-    assert plan["smem_bytes"] == smem["bytes"] <= SMEM_LIMIT
-    order = [smem[k] for k in ("raw", "red", "p", "misc", "bar", "bytes")]
-    assert all(o % 16 == 0 for o in order) and order == sorted(order)
-    assert smem["raw"] == 4 * hopper.MLA_TILE * plan["w"] >= 4 * hopper.MLA_HEADS * plan["rl"]
+    """Every array of a raw stage 16-byte aligned, in order, and holding a
+    tile of its rows with no slack past the next 16 bytes.  (The staging
+    tile and the rest of shared memory are the launch's: the card tests
+    take every format at the widest rows.)"""
     off_ls, off_rv, off_rs, stage = plan["layout"]
     lb, ls = hopper.fd_row_bytes(fmt, r)
     rb, rs = hopper.fd_row_bytes(fmt, dr)
-    assert off_ls >= 32 * lb and off_rv >= off_ls + 32 * ls
-    assert off_rs >= off_rv + 32 * rb and stage >= off_rs + 32 * rs
+    t = hopper.MLA_TILE
+    assert off_ls >= t * lb and off_rv >= off_ls + t * ls
+    assert off_rs >= off_rv + t * rb and stage >= off_rs + t * rs
     assert all(o % 16 == 0 for o in plan["layout"])
-    # f32 lands in two staging tiles; the others copy into two raw stages.
-    assert smem["red"] == smem["raw"] + (smem["raw"] if fmt == "f32" else 2 * stage)
+    assert stage - (off_rs + t * rs) < 16 and off_ls - t * lb < 16
 
 
 @pytest.mark.parametrize("fmt", ALL_FORMATS)
@@ -159,7 +154,6 @@ def test_mla_plan_at_the_main_shape(fmt, kv_len):
     assert plan["blocks"] == b * 8 * plan["splits"]
     assert b * 8 <= hopper.MLA_RESIDENT_H100[plan["splits"] - 1]
     assert plan["splits"] == {1: 1, 2: 2, 9: 5, 17: 6}[plan["tiles"]]
-    assert (plan["rl"], plan["rr"], plan["w"], plan["rope_warps"]) == (512, 64, 584, 2)
     _fits(plan, fmt, r, dr)
 
 
@@ -171,8 +165,6 @@ def test_mla_plan_at_the_reduced_shape(fmt, kv_len):
     _covers(plan, kv_len)
     assert plan["groups"] == 1
     assert plan["splits"] == min(8, plan["tiles"])          # 2 units: a tile per split
-    # Latent 32 and rope 16 columns, each stream's k-steps over its own warps.
-    assert (plan["rl"], plan["rr"], plan["w"], plan["rope_warps"]) == (32, 16, 72, 2)
     _fits(plan, fmt, r, dr)
 
 
@@ -198,27 +190,16 @@ def test_mla_head_groups_cover_the_heads(b, h):
     assert plan["blocks"] == b * groups * plan["splits"]
 
 
-@pytest.mark.parametrize("dr", [64, 128])
-@pytest.mark.parametrize("fmt", ALL_FORMATS)
-def test_mla_shared_memory_fits_at_the_widest_rows(fmt, dr):
-    """r 512 with deepseek-v3's rope and the widest, in every format, within a
-    block's 227 KB."""
-    plan = hopper.flash_decode_mla_plan(1, 16, 512, dr, 1000, fmt)
-    _fits(plan, fmt, 512, dr)
-
-
-@pytest.mark.parametrize("r,dr,rl,rr,w,rope_warps,ksteps", [
-    (512, 64, 512, 64, 584, 2, 5), (512, 128, 512, 128, 648, 3, 6),
-    (32, 16, 32, 16, 72, 2, 1), (384, 128, 384, 128, 520, 4, 4),
-    (100, 20, 128, 24, 168, 2, 2), (4, 4, 32, 8, 40, 1, 1)])
-def test_mla_staging_rows_pad_to_whole_k_steps(r, dr, rl, rr, w, rope_warps, ksteps):
-    """The latent pads to 32-column P.V groups, the rope to k-steps of 8, the
-    row to 8 mod 32 floats (conflict-free 8- and 16-byte fragment reads);
-    the busiest warp's query slice fits the kernel's 6 k-steps."""
-    assert hopper.mla_staging(r, dr) == (rl, rr, w)
-    assert w % 32 == 8 and w >= rl + rr
-    assert hopper.mla_rope_warps(rl, rr) == (rope_warps, ksteps)
-    assert ksteps <= hopper.MLA_MAX_KSTEPS
+@pytest.mark.parametrize("fmt,r,dr", [
+    (fmt, r, dr) for fmt in ALL_FORMATS
+    for r, dr in ((512, 64), (512, 128), (32, 16), (384, 128), (100, 20), (4, 4))
+    if fmt != "mxint4_blk" or not (r % 16 or dr % 16)])
+def test_mla_raw_stage_holds_a_tile_of_each_array(fmt, r, dr):
+    """From r 512 with the widest rope down to one float4 of each (mxint4_blk
+    in whole groups of 16), every format's raw stage holds its four arrays,
+    16-byte aligned."""
+    plan = hopper.flash_decode_mla_plan(1, 16, r, dr, 1000, fmt)
+    _fits(plan, fmt, r, dr)
 
 
 def test_mla_copy_widths_take_the_reduced_rope_rows():

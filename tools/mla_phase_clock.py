@@ -2,15 +2,15 @@
 """Where a launch of flash-decode's MLA mode spends its time, on one NVIDIA
 card; one tree per process, so that two trees can be timed in turns.
 
-    python3 tools/mla_phase_clock.py [--tree DIR] [--label NAME] [--reps 15]
-        [--kv-lens 1,32,64,256,528] [--no-phases]
+    python3 tools/mla_phase_clock.py [--tree DIR] [--reps 15]
+        [--kv-lens 1,32,64,256,528] [--no-phases | --serving]
 
 ``--tree`` is the checkout whose ``repro_torch`` is measured (by default
 this one); it builds into that tree's own build directory.  For example,
 the parent commit unpacked under ``build/`` against this tree, in turns:
 
     for t in build/parent . . build/parent; do
-        python3 tools/mla_phase_clock.py --tree $t --label $t --no-phases; done
+        python3 tools/mla_phase_clock.py --tree $t --no-phases; done
 
 At deepseek-v3's decode shape (B 2, H 128, latent 512, rope 64, C 544) in
 the f32, int8_tok and mxint4_blk cache formats, the L2 flushed before every
@@ -33,18 +33,30 @@ card's name and power limit: the replayed device time and, with phases, the
 launch's span (global timer, first entry to last exit) and the median
 block's phases at the SM clock the two timers give; then, with phases, one
 line with how many clusters of 1 to 8 blocks the card holds at once at the
-f32 and mxint4_blk plans' shared memory (``cudaOccupancyMaxActiveClusters``),
-and one with the ceiling the kernel's products run against: the throughput
+most shared memory a launch may take (``cudaOccupancyMaxActiveClusters``, as
+the planner asks it), and one with the ceiling the kernel's products run against: the throughput
 of mma.sync m16n8k8 TF32 alone (csrc/tf32.cuh's product), one block per SM
 of 4, 8 or 16 warps each issuing 8 independent accumulating products per
 step for 4096 steps, in TFLOP/s and in cycles per product per SM
 sub-partition (block 0's clock64 around its loop).
+
+``--serving`` measures the mode end to end instead, with this checkout's
+``chip_smoke.py`` loaded after the tree's ``repro_torch`` (so two trees are
+measured alike): ds3_dense, deepseek-v3 cut to its 3 leading dense layers,
+on ``chip_smoke.py``'s weights and prompts (B 2, 512-token prompts, 32
+greedy tokens), one line per cache format with ``prefill_ms`` and
+``decode_ms_per_token`` (medians of 5 ``InferenceEngine.generate`` calls
+after a warm-up, every run's values beside them) and, against the plain
+path on the same weights, ``greedy_token_agreement`` and
+``chip_smoke.free_running``'s record of where the two paths' free-running
+tokens and appended cache rows first part.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import statistics
@@ -176,18 +188,46 @@ def phases(st) -> tuple[dict, float, float]:
     return out, (ns1.max() - ns0.min()).item(), ghz
 
 
+def serving(torch, base: dict) -> None:
+    """ds3_dense serving lines (``--serving``)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    eng = cs.InferenceEngine.from_config(cs.DS3["cfg"], cs.EngineSpec(), device="cuda")
+    plain = cs.InferenceEngine(eng.cfg, eng.model, cs.EngineSpec(kernel_impl="ref"))
+    prompts = torch.randint(1, eng.cfg.vocab_size, (cs.BATCH, cs.PROMPT),
+                            generator=cs._gen(1), device="cuda")
+    for fmt in cs.DS3["formats"]:
+        gen = cs.GenerationConfig(max_new_tokens=cs.NEW, cache_format=fmt)
+        eng.generate(prompts, gen)
+        timed = [eng.generate(prompts, gen) for _ in range(5)]
+        pre = [r.prefill_s * 1e3 for r in timed]
+        dec = [r.decode_s * 1e3 / r.decode_steps for r in timed]
+        res_k, res_p, drift = cs.free_running(eng, plain, prompts, gen)
+        toks = timed[0].tokens
+        drift["kernel_tokens_as_timed"] = bool((res_k.tokens == toks).all())
+        print(json.dumps(dict(
+            base, format=fmt or "f32", prefill_ms=statistics.median(pre),
+            decode_ms_per_token=statistics.median(dec), prefill_ms_runs=pre,
+            decode_ms_per_token_runs=dec,
+            greedy_token_agreement=(res_p.tokens == toks).float().mean().item(),
+            free_running=drift)), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=str(ROOT))
-    ap.add_argument("--label", default="")
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--kv-lens", default="1,32,64,256,528")
-    ap.add_argument("--no-phases", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--no-phases", action="store_true")
+    mode.add_argument("--serving", action="store_true")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     this = tree == ROOT
-    if not this and not args.no_phases:
-        print("mla_phase_clock: phases need this tree (pass --no-phases)", file=sys.stderr)
+    if not this and not (args.no_phases or args.serving):
+        print("mla_phase_clock: phases need this tree (pass --no-phases or --serving)",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(tree / "src"))
     import torch
@@ -201,6 +241,10 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
+    base = dict(tree=os.path.relpath(tree, ROOT), card=card)
+    if args.serving:
+        serving(torch, base)
+        return 0
     lens = [int(x) for x in args.kv_lens.split(",")]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
@@ -221,7 +265,6 @@ def main() -> int:
         p = hopper.flash_decode_mla_plan(B, H, R, DR, n, fmt, hopper._mla_resident(q.device))
         return dict(splits=p["splits"], blocks=p["blocks"])
 
-    base = dict(label=args.label, tree=os.path.relpath(tree, ROOT), card=card)
     device = {(fmt, n): device_us(torch, lambda: run(fmt, n), flush, args.reps)
               for fmt in caches for n in lens}
     if args.no_phases:
@@ -252,11 +295,8 @@ def main() -> int:
                 base, format=fmt, kv_len=n, device_us=device[(fmt, n)],
                 span_us=statistics.median(spans) / 1e3, sm_clock_ghz=rate / 1e3,
                 median_block_us=block, **plan(fmt, n))), flush=True)
-    smem = {fmt: hopper.flash_decode_mla_plan(B, H, R, DR, 528, fmt)["smem_bytes"]
-            for fmt in ("f32", "mxint4_blk")}
-    print(json.dumps(dict(base, max_active_clusters={
-        fmt: {n: lib.flash_decode_mla_max_clusters(n, size) for n in range(1, 9)}
-        for fmt, size in smem.items()}, smem_bytes=smem)), flush=True)
+    print(json.dumps(dict(base, max_active_clusters=hopper._mla_resident(q.device),
+                          smem_bytes=hopper.FD_SMEM_BYTES)), flush=True)
     print(json.dumps(dict(base, mma_tf32_rate=mma_rate(torch, hopper))), flush=True)
     return 0
 
