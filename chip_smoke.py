@@ -61,6 +61,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import fused_rmsnorm as fr  # noqa: E402
 from repro_torch.core import kvq  # noqa: E402
 from repro_torch.core import mxint4 as mx  # noqa: E402
 from repro_torch.core import retention as ret  # noqa: E402
@@ -121,6 +122,27 @@ PREFILL_TOL = 0.5        # end to end; the plain path's own one-bf16-step
                          # sensitivity measured 0.26 on an H100 (PERF.md)
 DECODE_TOL = 0.1         # one decode step end to end from the same cache
 LOGIT_TOL = 2e-2         # reduced model, card kernels vs CPU plain path
+# rmsnorm_stats where the served models take sigma^-1: (M, D, dtype, site),
+# the dtype being the one the site passes (ln1/ln2 see the bf16 residual
+# stream, q_norm and the per-head norms an f32 linear output), the other
+# dtype beside it, the decode pair, a 16k-token prompt and a ragged M.
+RMS_SHAPES = (
+    (1024, 4096, torch.bfloat16, "qwen3-8b ln1/ln2, prefill B 2 x S 512"),
+    (1024, 4096, torch.float32, "qwen3-8b ln1/ln2 in f32"),
+    (1024, 2048, torch.bfloat16, "retnet-1.3b ln1/ln2, prefill"),
+    (1024, 2048, torch.float32, "retnet-1.3b ln1/ln2 in f32"),
+    (1024, 7168, torch.bfloat16, "ds3_dense ln1/ln2, prefill"),
+    (1024, 7168, torch.float32, "ds3_dense ln1/ln2 in f32"),
+    (1024, 1536, torch.float32, "ds3_dense q_norm on q_lat, prefill"),
+    (1024, 1536, torch.bfloat16, "ds3_dense q_norm in bf16"),
+    (32768, 128, torch.float32, "qwen3-8b per-head q norm, prefill"),
+    (32768, 128, torch.bfloat16, "qwen3-8b per-head q norm in bf16"),
+    (2, 4096, torch.bfloat16, "qwen3-8b ln1/ln2, decode"),
+    (16384, 4096, torch.bfloat16, "a 16k-token prompt (2.7x the L2)"),
+    (1000, 4096, torch.float32, "ragged M"),
+)
+RMS_MAIN = (1024, 4096, torch.bfloat16)
+RMS_AMORTISED = 8        # calls on distinct inputs per graph in `amortised_ms`
 
 
 def log(*args) -> None:
@@ -178,6 +200,14 @@ def call_ms(fn, iters: int = 50) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def amortised_ms(fn, inputs, iters: int = 15) -> float:
+    """Median device time per call of ``fn(x)`` over the distinct ``inputs``,
+    captured back to back in one CUDA graph and replayed with a cold L2 as
+    in `time_ms`, divided by their count: the replay's fixed cost (the floor
+    of `time_ms`) is spread over every call."""
+    return time_ms(lambda: [fn(x) for x in inputs], iters) / len(inputs)
 
 
 def bound_ms(nbytes: float, ops_: float, op_rate: float, peaks: dict):
@@ -573,28 +603,83 @@ def ptxas_summary(report: str) -> dict:
                 spill_bytes=max(spills, default=0))
 
 
+def _rms_f64(y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return torch.rsqrt(y.double().square().mean(dim=-1) + eps)
+
+
 def kernel_phase_rmsnorm_stats(peaks):
-    """sigma^{-1} rows at the prefill width of qwen3-8b: [1024, 4096] in f32
-    and bf16, ragged [1000, 4096] and decode [2, 4096].  It has no model
-    path; its unit is one [1024, 4096] bf16 call.  No single PyTorch call
-    computes rsqrt(mean(y^2) + eps), so there is no library time."""
+    """sigma^{-1} rows at `RMS_SHAPES`.  It has no model path (the reference
+    routes no site through its kernel); its unit is one [1024, 4096] bf16
+    call.  Each shape is checked against the plain version and float64, a
+    relaunch must be bit-equal, and a profiler check holds one call to one
+    device kernel.  ``ms`` is one call per replay (`time_ms`, whose floor
+    is printed), ``amortised_ms`` RMS_AMORTISED calls on distinct inputs per
+    replay.  No PyTorch call computes rsqrt(mean(y^2) + eps), so
+    ``library_ms`` is None; ``nearest_library_ms`` times
+    ``torch.linalg.vector_norm(y, dim=-1, dtype=torch.float32)``, one
+    library reduction over the same bytes, as a yardstick of the read."""
     rows = []
-    for m, d, dt in ((1024, 4096, torch.float32), (1024, 4096, torch.bfloat16),
-                     (1000, 4096, torch.float32), (2, 4096, torch.bfloat16)):
-        y = torch.randn(m, d, generator=_gen(m + d), device="cuda").to(dt)
-        got = ops.rmsnorm_stats(y, impl="kernel")
-        want = ref.rmsnorm_stats_ref(y)
-        err = _check(f"rmsnorm_stats {m}x{d} {dt}", got, want, 1e-6, 1e-6)
-        bms, by = bound_ms(m * d * y.element_size() + 4 * m, 2 * m * d, peaks["f32"],
-                           peaks)
+    for m, d, dt, site in RMS_SHAPES:
+        ys = [torch.randn(m, d, generator=_gen(m + d + i), device="cuda").to(dt)
+              for i in range(RMS_AMORTISED)]
+        y = ys[0]
+        run = lambda yy=y: ops.rmsnorm_stats(yy, impl="kernel")  # noqa: E731
+        tag = f"rmsnorm_stats {m}x{d} {dt}"
+        got = run()
+        err = _check(tag, got, ref.rmsnorm_stats_ref(y), 1e-6, 1e-6)
+        want64 = _rms_f64(y)
+        _check(f"{tag} vs float64", got.double(), want64, 1e-6, 1e-6)
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"{tag}: two launches differ")
+        launched = _launch_kernels(run)
+        if len(launched) != 1 or "rms_" not in launched[0]:
+            raise RuntimeError(f"{tag}: one call ran {launched}, expected one kernel")
+        elem = y.element_size()
+        plan = hopper.rmsnorm_stats_plan(m, d, elem, hopper._sms(y.device), hopper.rms_width(
+            y.data_ptr(), y.stride(0) * elem, elem))
+        bms, by = bound_ms(m * d * elem + 4 * m, 2 * m * d, peaks["f32"], peaks)
+        lib = lambda yy=y: torch.linalg.vector_norm(yy, dim=-1, dtype=torch.float32)  # noqa: E731
+        ms = time_ms(run)
+        am = amortised_ms(run, ys)
         rows.append(dict(
-            path="ops.rmsnorm_stats (no model path)", main=(m, dt) == (1024, torch.bfloat16),
+            path="ops.rmsnorm_stats (no model path)", main=(m, d, dt) == RMS_MAIN, site=site,
             shape=[m, d], dtype=str(dt).replace("torch.", ""), per_call=1, max_abs_err=err,
-            ms=time_ms(lambda: ops.rmsnorm_stats(y, impl="kernel")),
-            call_ms=call_ms(lambda: ops.rmsnorm_stats(y, impl="kernel")),
-            plain_ms=time_ms(lambda: ref.rmsnorm_stats_ref(y)),
-            library_ms=None, bound_ms=bms, bound_by=by))
+            f64_max_abs_err={"kernel": (got.double() - want64).abs().max().item(),
+                             "plain": (ref.rmsnorm_stats_ref(y).double() - want64)
+                             .abs().max().item()},
+            ms=ms, amortised_ms=am, call_ms=call_ms(run),
+            plain_ms=time_ms(lambda: ref.rmsnorm_stats_ref(y)), library_ms=None,
+            nearest_library_ms=time_ms(lib), nearest_library_amortised_ms=amortised_ms(lib, ys),
+            bound_ms=bms, bound_by=by, bound_share=bms / ms, amortised_bound_share=bms / am,
+            launch_kernels=launched,
+            plan={k: plan[k] for k in ("route", "width", "loads", "rounds", "tpr", "rows",
+                                       "blocks", "waves")}))
+        del ys, y, want64
     return rows
+
+
+def sigma_chain_price() -> list:
+    """What the port's sigma^{-1} sites pay today: `fr.rms_sigma_inv` (a
+    chain of PyTorch kernels) beside `ops.rmsnorm_stats`, on the bf16 rows
+    `layers.norm_emit` passes in decode and in prefill: device kernels per
+    call, their device time per call (torch.profiler over 20 calls back to
+    back, warm L2), ``ms`` (`time_ms`, cold L2) and ``call_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    out = []
+    for m in (2, 1024):
+        y = torch.randn(m, 4096, generator=_gen(m), device="cuda").to(torch.bfloat16)
+        for what, fn in (("ops.rmsnorm_stats", lambda: ops.rmsnorm_stats(y, impl="kernel")),
+                         ("fr.rms_sigma_inv", lambda: fr.rms_sigma_inv(y))):
+            names = _launch_kernels(fn)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+            dev, _ = _device_us(prof)
+            out.append(dict(what=what, shape=[m, 4096], dtype="bfloat16",
+                            kernels_per_call=len(names), kernels=[n[:60] for n in names],
+                            device_us_per_call=dev / 20, ms=time_ms(fn), call_ms=call_ms(fn)))
+    return out
 
 
 def summarize(name, rows, per_key, tol):
@@ -613,7 +698,7 @@ def summarize(name, rows, per_key, tol):
                  if main(r) and r["bound_by"] == "operations")
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
         key for key in ("library_rowmajor_ms", "library_gqa_ms", "bound_f32_ms",
-                        "plain_contiguous_ms")
+                        "plain_contiguous_ms", "amortised_ms", "nearest_library_ms")
         if key in rows[0])
     per_path = {p: {key: total(key, lambda r, p=p: r["path"] == p) for key in keys}
                 for p in dict.fromkeys(r["path"] for r in rows)}
@@ -1069,13 +1154,17 @@ def main() -> int:
                 "library_rowmajor_ms", "library_gqa_ms", "library_backend",
                 "library_max_abs_err", "rate", "library_rate", "bound_share",
                 "bound_f32_ms", "bound_share_f32", "plain_contiguous_ms", "flops",
-                "warm_state_max_abs_err", "f64_max_abs_err",
-                "launch_kernels", "plan")
+                "warm_state_max_abs_err", "f64_max_abs_err", "amortised_ms",
+                "amortised_bound_share", "nearest_library_ms", "nearest_library_amortised_ms",
+                "site", "launch_kernels", "plan")
                 if key in r)
             log(f"  {e['name']} {r['path']} {r['shape']}: kernel {r['ms']:.4f} (per call "
                 f"{r['call_ms']:.4f}) plain {r['plain_ms']:.4f} library "
                 f"{r['library_ms']} bound {r['bound_ms']:.4f} ({r['bound_by']}) "
                 f"err {r['max_abs_err']:.2e}{extra}")
+    entries[-1]["sigma_chain"] = sigma_chain_price()
+    for r in entries[-1]["sigma_chain"]:
+        log(f"  sigma^-1 price: {json.dumps(r)}")
     log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 
     serving, by_path = {}, {}

@@ -1,20 +1,39 @@
 // Row-wise sigma^{-1} for Hopper (sm_90a): the fused-RMSNorm producer.
 //
 // Replaces the Pallas TPU kernel `rmsnorm_stats_pallas`
-// (src/repro/kernels/rmsnorm_stats.py).  For y[M, D] in f32 or bf16:
+// (src/repro/kernels/rmsnorm_stats.py).  For y[M, D] in f32 or bf16, rows
+// `stride` bytes apart (the inner stride is 1):
 //
 //     out[m] = rsqrt(sum_i y[m, i]^2 / D + eps)          (f32 [M, 1])
 //
-// What bounds it on the H100: bytes.  Two operations per element read, no
-// matrix product, so the floor is M * D * elem over 3.35 TB/s (about 2.5 us
-// at [1024, 4096] bf16).  The design: one warp per row, eight rows per block;
-// each lane reads 16 bytes at a time (4 f32 or 8 bf16), neighbouring lanes on
-// neighbouring addresses, keeps one f32 sum of squares per vector slot, and
-// the warp adds them in a fixed shuffle order, so the result does not depend
-// on the launch.  The load loop is unrolled so that several 16-byte loads per
-// lane are in flight at once.  Rows past M are masked (the Pallas version
-// pads M to 8).  Rows whose byte width or base address is not a multiple of
-// 16 take a scalar-load variant of the same loop.
+// What bounds it on the H100: bytes.  Two operations per element read and
+// no matrix product, so the floor is M * D * elem over 3.35 TB/s (2.5 us at
+// [1024, 4096] bf16).  Reaching it takes about 3.35 TB/s x 0.8 us of
+// latency, some 2.7 MB, in flight across the card at once: a kernel that
+// walks each row in a chain of dependent rounds pays the latency once per
+// round.  So a block puts every byte of its rows in flight before it adds
+// any of them, by one of two routes (`hopper.rmsnorm_stats_plan` picks the
+// route, the row split and the grid from the shape and the card):
+//
+// - ldg: `tpr` threads own a row; each issues all `kN` (a compile-time 1, 2
+//   or 4) streaming loads of `kW` bytes of a round before it squares any,
+//   neighbouring threads on neighbouring addresses.  A row takes `rounds`
+//   rounds (one at every shape the models normalise).  Rows of width or
+//   base not a multiple of 16 bytes take a narrower kW; elements past the
+//   last whole load (`tail`) are read one by one.
+// - bulk: one thread issues 1-D bulk copies (cp.async.bulk) of the block's
+//   rows into shared memory in `stages` column stages, each completing on
+//   its own mbarrier, and the threads reduce each stage as it lands.  Rows
+//   must be whole 16-byte chunks on 16-byte aligned bases.
+//
+// The row's threads then add their f32 partial sums in a fixed order (a
+// shuffle butterfly inside a warp, then the warps' sums in warp order), so
+// two launches on the same input are bit-equal.  Rows past M are masked.
+//
+// Built with -DRMS_PHASE_CLOCK (tools/rmsnorm_turns.py --phases), thread 0
+// of every block records clock64 and the global timer at entry (0), when
+// its first bytes have landed (1), when its last bytes are added (2) and
+// after the write (3), into the buffer set by rmsnorm_stats_set_stamps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -22,75 +41,332 @@
 
 namespace {
 
-constexpr int kWarps = 8;        // rows per block
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxStages = 4;
+constexpr int kBulkRowsOffset = 128;   // bulk route: the mbarriers, then the rows
+constexpr int kWarpSums = kMaxThreads / 32 * 4;   // `finish`'s static shared memory
+constexpr int kMaxSmem = 232448 - kWarpSums;  // dynamic: 227 KB, a block's most, less that
 
-__device__ __forceinline__ float sq(float v) { return v * v; }
+struct Params {
+  const unsigned char* y;
+  float* out;
+  long long stride;   // bytes between rows
+  int M, D;
+  int tpr;            // threads per row: a power of two up to 32, or a multiple of 32
+  int rows;           // rows per block
+  int chunks;         // whole loads per row
+  int rounds;         // ldg: rounds of kN loads per thread
+  int tail;           // elements after the last whole load
+  int stages;         // bulk: column stages
+  float eps;
+  long long* stamps;
+};
 
-template <bool kBF16, bool kVec>
-__global__ void __launch_bounds__(kWarps * 32)
-rmsnorm_stats_kernel(const void* __restrict__ y, float* __restrict__ out, int M, int D,
-                     float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= M) return;
-  constexpr int kPer = kBF16 ? 8 : 4;            // elements per 16-byte load
-  float acc[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
+#ifdef RMS_PHASE_CLOCK
+constexpr int kPhases = 4;   // entry, first bytes landed, last bytes added, written
+long long* g_stamps = nullptr;
 
-  if (kVec) {
-    const uint4* src = reinterpret_cast<const uint4*>(
-        static_cast<const char*>(y) + (size_t)row * D * (kBF16 ? 2 : 4));
-#pragma unroll 4
-    for (int c = lane; c < D / kPer; c += 32) {
-      const uint4 w = src[c];
-      if (kBF16) {
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(h[j]);
-          acc[2 * j] += sq(f.x);
-          acc[2 * j + 1] += sq(f.y);
-        }
-      } else {
-        acc[0] += sq(__uint_as_float(w.x));
-        acc[1] += sq(__uint_as_float(w.y));
-        acc[2] += sq(__uint_as_float(w.z));
-        acc[3] += sq(__uint_as_float(w.w));
-      }
-    }
-  } else {
-    for (int i = lane; i < D; i += 32) {
-      const float v = kBF16
-          ? __bfloat162float(static_cast<const __nv_bfloat16*>(y)[(size_t)row * D + i])
-          : static_cast<const float*>(y)[(size_t)row * D + i];
-      acc[(i / 32) % kPer] += sq(v);
-    }
-  }
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define RMS_STAMP(i)                                                        \
+  do {                                                                      \
+    if (threadIdx.x == 0) {                                                 \
+      p.stamps[blockIdx.x * 2 * kPhases + (i)] = clock64();                 \
+      p.stamps[blockIdx.x * 2 * kPhases + kPhases + (i)] = global_ns();     \
+    }                                                                       \
+  } while (0)
+#else
+#define RMS_STAMP(i) \
+  do {               \
+  } while (0)
+#endif
 
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) s += acc[j];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) out[row] = rsqrtf(s / (float)D + eps);
+template <int kW> struct VecOf;
+template <> struct VecOf<16> { using type = uint4; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<4> { using type = unsigned int; };
+template <> struct VecOf<2> { using type = unsigned short; };
+
+// The 32-bit words of a load, in address order.
+template <int kW>
+__device__ __forceinline__ unsigned int word(const typename VecOf<kW>::type& v, int i) {
+  if constexpr (kW == 16) return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  else if constexpr (kW == 8) return i == 0 ? v.x : v.y;
+  else return v;
 }
 
-template <bool kBF16, bool kVec>
-int launch(const void* y, float* out, int M, int D, float eps, cudaStream_t stream) {
-  const int blocks = (M + kWarps - 1) / kWarps;
-  rmsnorm_stats_kernel<kBF16, kVec><<<blocks, kWarps * 32, 0, stream>>>(y, out, M, D, eps);
+template <int n>
+__device__ __forceinline__ float tree(const float* x) {
+  if constexpr (n == 1) return x[0];
+  else return tree<n / 2>(x) + tree<n / 2>(x + n / 2);
+}
+
+// Sum of the squares of the elements of one load, in a fixed tree.
+template <bool kBF16, int kW>
+__device__ __forceinline__ float sumsq(const typename VecOf<kW>::type& v) {
+  if constexpr (kW == 2) {
+    const float f = __uint_as_float((unsigned int)v << 16);
+    return f * f;
+  } else {
+    constexpr int kWords = kW / 4, kVals = kBF16 ? 2 * kWords : kWords;
+    float sq[kVals];
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      const unsigned int w = word<kW>(v, i);
+      if constexpr (kBF16) {
+        const float lo = __uint_as_float(w << 16), hi = __uint_as_float(w & 0xffff0000u);
+        sq[2 * i] = lo * lo;
+        sq[2 * i + 1] = hi * hi;
+      } else {
+        const float f = __uint_as_float(w);
+        sq[i] = f * f;
+      }
+    }
+    return tree<kVals>(sq);
+  }
+}
+
+template <bool kBF16>
+__device__ __forceinline__ float element(const unsigned char* row, int i) {
+  if constexpr (kBF16)
+    return __bfloat162float(__ldcs(reinterpret_cast<const __nv_bfloat16*>(row) + i));
+  else
+    return __ldcs(reinterpret_cast<const float*>(row) + i);
+}
+
+// Adds the tail elements (past the row's last whole load) to this thread's sum.
+template <bool kBF16>
+__device__ __forceinline__ float add_tail(const Params& p, const unsigned char* row, int first,
+                                          int t, float acc) {
+  for (int e = t; e < p.tail; e += p.tpr) {
+    const float f = element<kBF16>(row, first + e);
+    acc += f * f;
+  }
+  return acc;
+}
+
+// Adds the partial sums of a row's threads in a fixed order and writes the
+// row's sigma^{-1}.  Every thread of the block calls it.
+__device__ __forceinline__ void finish(const Params& p, float acc, int t, int r, int row,
+                                       bool live) {
+  __shared__ float part[kWarpSums / 4];
+  const int span = p.tpr < 32 ? p.tpr : 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < span) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (p.tpr > 32) {
+    const int warps = p.tpr >> 5;
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (t != 0) return;
+    acc = 0.f;
+    for (int w = 0; w < warps; ++w) acc += part[r * warps + w];
+  }
+  if (t == 0 && live) p.out[row] = rsqrtf(acc / (float)p.D + p.eps);
+}
+
+template <bool kBF16, int kW, int kN>
+__global__ void __launch_bounds__(kMaxThreads, 2048 / kMaxThreads)
+rms_ldg_kernel(const Params p) {
+  using Vec = typename VecOf<kW>::type;
+  RMS_STAMP(0);
+  const int t = threadIdx.x % p.tpr, r = threadIdx.x / p.tpr;
+  const int row = blockIdx.x * p.rows + r;
+  const bool live = row < p.M;
+  const unsigned char* src = p.y + (live ? (size_t)row * p.stride : 0);
+  const Vec* vsrc = reinterpret_cast<const Vec*>(src);
+  float acc = 0.f;
+  for (int k = 0; k < p.rounds; ++k) {
+    Vec v[kN];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const int c = (k * kN + j) * p.tpr + t;
+      v[j] = (live && c < p.chunks) ? __ldcs(vsrc + c) : Vec{};
+    }
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      acc += sumsq<kBF16, kW>(v[j]);
+#ifdef RMS_PHASE_CLOCK
+      if (k == 0 && j == 0) RMS_STAMP(1);
+#endif
+    }
+  }
+  if (live) acc = add_tail<kBF16>(p, src, p.chunks * (kW / (kBF16 ? 2 : 4)), t, acc);
+  RMS_STAMP(2);
+  finish(p, acc, t, r, row, live);
+  RMS_STAMP(3);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Waits for the first phase of `bar`.  A wait that never ends (a copy
+// fault) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar) {
+  for (int i = 0; !mbar_try_wait(bar, 0); ++i)
+    if (i == (1 << 24)) __trap();
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Stage s of a row's chunks: [s * chunks / stages, (s + 1) * chunks / stages).
+__device__ __forceinline__ int stage_start(const Params& p, int s) {
+  return (int)((long long)s * p.chunks / p.stages);
+}
+
+template <bool kBF16>
+__global__ void __launch_bounds__(kMaxThreads, 1) rms_bulk_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  RMS_STAMP(0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* rows = smem + kBulkRowsOffset;
+  const int row_bytes = p.chunks * 16;
+  const int row0 = blockIdx.x * p.rows;
+  const int live_rows = min(p.rows, p.M - row0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) mbar_init(smem_u32(&bars[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < p.stages; ++s) {
+      const int c0 = stage_start(p, s), bytes = (stage_start(p, s + 1) - c0) * 16;
+      const uint32_t bar = smem_u32(&bars[s]);
+      mbar_expect_tx(bar, bytes * live_rows);
+      for (int i = 0; i < live_rows; ++i)
+        bulk_copy(rows + (size_t)i * row_bytes + c0 * 16,
+                  p.y + (size_t)(row0 + i) * p.stride + c0 * 16, bytes, bar);
+    }
+  }
+  __syncthreads();
+  const int t = threadIdx.x % p.tpr, r = threadIdx.x / p.tpr;
+  const bool live = r < live_rows;
+  const uint4* mine = reinterpret_cast<const uint4*>(rows + (size_t)r * row_bytes);
+  float acc = 0.f;
+  for (int s = 0; s < p.stages; ++s) {
+    mbar_wait(smem_u32(&bars[s]));
+    if (s == 0) RMS_STAMP(1);
+    if (!live) continue;
+    for (int c = stage_start(p, s) + t; c < stage_start(p, s + 1); c += p.tpr)
+      acc += sumsq<kBF16, 16>(mine[c]);
+  }
+  RMS_STAMP(2);
+  finish(p, acc, t, r, row0 + r, live);
+  RMS_STAMP(3);
+}
+
+template <bool kBF16, int kW>
+int launch_ldg(const Params& p, int loads, int blocks, int threads, cudaStream_t s) {
+  switch (loads) {
+    case 1: rms_ldg_kernel<kBF16, kW, 1><<<blocks, threads, 0, s>>>(p); break;
+    case 2: rms_ldg_kernel<kBF16, kW, 2><<<blocks, threads, 0, s>>>(p); break;
+    case 4: rms_ldg_kernel<kBF16, kW, 4><<<blocks, threads, 0, s>>>(p); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
+}
+
+template <bool kBF16>
+int launch_bulk(const Params& p, int blocks, int threads, cudaStream_t s) {
+  const long long smem = kBulkRowsOffset + (long long)p.rows * p.chunks * 16;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;   // once per process: the attribute is the function's
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rms_bulk_kernel<kBF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  rms_bulk_kernel<kBF16><<<blocks, threads, (size_t)smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+bool valid_tpr(int tpr) {
+  return tpr >= 1 && tpr <= kMaxThreads && (tpr <= 32 ? (tpr & (tpr - 1)) == 0 : tpr % 32 == 0);
 }
 
 }  // namespace
 
-extern "C" int rmsnorm_stats_launch(const void* y, void* out, int M, int D, int is_bf16,
-                                    int vec, float eps, void* stream) {
-  if (M < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  float* o = static_cast<float*>(out);
+#ifdef RMS_PHASE_CLOCK
+extern "C" void rmsnorm_stats_set_stamps(void* stamps) {
+  g_stamps = static_cast<long long*>(stamps);
+}
+#endif
+
+// y: M rows of D elements (bf16 if is_bf16, else f32), `stride` bytes apart,
+// read `width` bytes at a time (16, 8, 4 or, for bf16, 2; the base and the
+// stride are multiples of it).  The plan (`hopper.rmsnorm_stats_plan`):
+// `tpr` threads per row, `rows` rows per block, and either `loads` loads per
+// thread per round (stages = 0, the ldg route) or `stages` column stages of
+// bulk copies (the bulk route, width 16 and whole chunks only).
+extern "C" int rmsnorm_stats_launch(const void* y, void* out, int M, int D, long long stride,
+                                    int is_bf16, int width, int tpr, int rows, int loads,
+                                    int stages, float eps, void* stream) {
+  const int elem = is_bf16 ? 2 : 4;
+  if (M < 1 || D < 1 || stride < 0 || !valid_tpr(tpr) || rows < 1 ||
+      (long long)tpr * rows > kMaxThreads || width < elem || width > 16 ||
+      (width & (width - 1)) || stages < 0 || stages > kMaxStages)
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.y = static_cast<const unsigned char*>(y);
+  p.out = static_cast<float*>(out);
+  p.stride = stride;
+  p.M = M;
+  p.D = D;
+  p.tpr = tpr;
+  p.rows = rows;
+  p.chunks = (int)((long long)D * elem / width);
+  p.tail = D - p.chunks * (width / elem);
+  p.stages = stages;
+  p.eps = eps;
+#ifdef RMS_PHASE_CLOCK
+  p.stamps = g_stamps;
+#endif
+  const int blocks = (M + rows - 1) / rows, threads = tpr * rows;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return vec ? launch<true, true>(y, o, M, D, eps, s) : launch<true, false>(y, o, M, D, eps, s);
-  return vec ? launch<false, true>(y, o, M, D, eps, s) : launch<false, false>(y, o, M, D, eps, s);
+  if (stages > 0) {
+    if (width != 16 || p.tail != 0 || stages > p.chunks) return (int)cudaErrorInvalidValue;
+    return is_bf16 ? launch_bulk<true>(p, blocks, threads, s)
+                   : launch_bulk<false>(p, blocks, threads, s);
+  }
+  if (loads < 1) return (int)cudaErrorInvalidValue;
+  p.rounds = (p.chunks + tpr * loads - 1) / (tpr * loads);
+  if (is_bf16) {
+    switch (width) {
+      case 16: return launch_ldg<true, 16>(p, loads, blocks, threads, s);
+      case 8: return launch_ldg<true, 8>(p, loads, blocks, threads, s);
+      case 4: return launch_ldg<true, 4>(p, loads, blocks, threads, s);
+      default: return launch_ldg<true, 2>(p, loads, blocks, threads, s);
+    }
+  }
+  switch (width) {
+    case 16: return launch_ldg<false, 16>(p, loads, blocks, threads, s);
+    case 8: return launch_ldg<false, 8>(p, loads, blocks, threads, s);
+    default: return launch_ldg<false, 4>(p, loads, blocks, threads, s);
+  }
 }

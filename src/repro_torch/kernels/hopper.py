@@ -210,7 +210,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                                    f"is {query()}, the planner's {want}")
     elif name == "rmsnorm_stats":
         fn = lib.rmsnorm_stats_launch
-        fn.argtypes = [_P, _P, _I, _I, _I, _I, _F, _P]
+        fn.argtypes = [_P, _P, _I, _I, ctypes.c_longlong] + [_I] * 6 + [_F, _P]
     else:
         raise KeyError(f"no binding for kernel {name!r}")
     fn.restype = _I
@@ -827,19 +827,135 @@ def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: int, scale:
     return out
 
 
-def rmsnorm_stats(y, eps: float):
+# rmsnorm_stats (csrc/rmsnorm_stats.cu).  A row is read in `chunks` loads
+# of `width` bytes by `tpr` threads, each of which issues its `loads` loads
+# of a round before it adds any (the ldg route), or copied into shared
+# memory in `stages` column stages of bulk copies (the bulk route).
+RMS_BLOCK_THREADS = 256         # threads a block aims at
+RMS_MAX_THREADS = 1024
+RMS_LOADS = (1, 2, 4)           # the kernel's instantiations
+RMS_DEFAULT_LOADS = 4           # 64 bytes in flight per thread at width 16
+RMS_MAX_STAGES = 4
+RMS_BULK_ROWS_OFFSET = 128      # bulk route: the mbarriers, then the rows
+RMS_SMEM_BYTES = 232448 - 128   # a block's most (227 KB) less the warps' sums
+RMS_SM_SMEM_BYTES = 233472      # an SM's (228 KB), 1 KB of it reserved per block
+RMS_THREADS_PER_SM = 2048       # the kernel caps registers so that this many fit
+
+
+def rms_width(addr: int, stride_bytes: int, elem_bytes: int) -> int:
+    """Bytes per load: the largest of 16, 8, 4, 2 that holds whole elements
+    and divides both the base address and the row stride."""
+    return next(w for w in (16, 8, 4, 2) if w == elem_bytes
+                or (w > elem_bytes and addr % w == 0 and stride_bytes % w == 0))
+
+
+def _rms_tpr(chunks: int, loads: int) -> int:
+    """Threads per row for ``loads`` loads each: a power of two up to 32
+    (a row's lanes add by shuffles), else a multiple of 32 up to
+    RMS_MAX_THREADS (more rounds beyond)."""
+    tpr = max(1, -(-chunks // loads))
+    tpr = 1 << (tpr - 1).bit_length() if tpr <= 32 else 32 * -(-tpr // 32)
+    return min(tpr, RMS_MAX_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132, width: int = 16,
+                       threads_per_sm: int = RMS_THREADS_PER_SM, loads: int | None = None,
+                       route: str = "ldg", stages: int = 2) -> dict:
+    """Route, row split and grid of one rmsnorm_stats launch on ``[m, d]``
+    rows of ``elem_bytes`` elements read ``width`` bytes at a time.
+
+    ldg: each of a row's ``tpr`` threads issues ``loads`` loads of a round
+    before it adds any (RMS_DEFAULT_LOADS unless given), and ``tpr`` is as
+    many as cover the row in one round; ``rows`` rows share a block of
+    about RMS_BLOCK_THREADS.  Few rows (fewer blocks than ``sms``) take
+    fewer rows per block, down to one, and then, if the card still has
+    fewer than RMS_BLOCK_THREADS threads per SM to issue loads, fewer loads
+    per thread over more of them (a decode pair of rows spreads each row
+    over 512 threads).  bulk: the same split, each block's rows copied into
+    shared memory in ``stages`` column stages (width 16, whole chunks only).
+    ``resident`` is the blocks an SM holds (by threads and, for bulk, shared
+    memory) and ``waves`` the grid over ``sms * resident``.  Raises on a
+    shape or route the kernel does not take.  Plans are cached; callers must
+    not modify the dict.
+    """
+    if m < 1 or d < 1 or elem_bytes not in (2, 4) or width not in (2, 4, 8, 16) \
+            or width < elem_bytes:
+        raise ValueError(f"rmsnorm_stats: no plan for [{m}, {d}] x {elem_bytes} bytes "
+                         f"at width {width}")
+    per = width // elem_bytes
+    chunks = d // per
+    tail = d - chunks * per
+    n = RMS_DEFAULT_LOADS if loads is None else loads
+    if n not in RMS_LOADS:
+        raise ValueError(f"rmsnorm_stats: loads {n} not one of {RMS_LOADS}")
+    n = min(n, 1 << (max(chunks, 1) - 1).bit_length())
+    tpr = _rms_tpr(chunks, n)
+    rows = max(1, RMS_BLOCK_THREADS // tpr)
+    while rows > 1 and -(-m // rows) < sms:
+        rows //= 2
+    while (loads is None and n > 1 and m * tpr < sms * RMS_BLOCK_THREADS
+           and tpr < _rms_tpr(chunks, n // 2) <= RMS_MAX_THREADS // rows):
+        n //= 2
+        tpr = _rms_tpr(chunks, n)
+    row_bytes = chunks * width
+    if route == "bulk":
+        if width != 16 or tail or not 1 <= stages <= min(RMS_MAX_STAGES, chunks):
+            raise ValueError(f"rmsnorm_stats: the bulk route needs whole 16-byte chunks "
+                             f"and 1 to {RMS_MAX_STAGES} stages, got [{m}, {d}] x "
+                             f"{elem_bytes} at width {width}, {stages} stages")
+        rows = min(rows, (RMS_SMEM_BYTES - RMS_BULK_ROWS_OFFSET) // row_bytes)
+        if rows < 1:
+            raise ValueError(f"rmsnorm_stats: a row of {row_bytes} bytes does not fit "
+                             "in shared memory")
+        smem = RMS_BULK_ROWS_OFFSET + rows * row_bytes
+        n, rounds = 0, 0
+    elif route == "ldg":
+        smem, stages = 0, 0
+        rounds = -(-chunks // (tpr * n))
+    else:
+        raise ValueError(f"rmsnorm_stats: unknown route {route!r}")
+    threads = tpr * rows
+    blocks = -(-m // rows)
+    resident = min(32, threads_per_sm // threads,
+                   RMS_SM_SMEM_BYTES // (smem + 1024) if smem else 32)
+    return dict(route=route, width=width, chunks=chunks, tail=tail, loads=n, rounds=rounds,
+                stages=stages, tpr=tpr, rows=rows, threads=threads, blocks=blocks,
+                smem=smem, resident=resident, waves=-(-blocks // (sms * resident)))
+
+
+def rmsnorm_stats(y, eps: float, plan: dict | None = None):
     """sigma^{-1} = rsqrt(mean(y^2) + eps) per row of f32 or bf16 ``[M, D]``
-    -> f32 ``[M, 1]``."""
-    lib = _lib("rmsnorm_stats")
-    m, d = y.shape
+    -> f32 ``[M, 1]``.
+
+    The rows may lie any stride apart (a view is read in place); the
+    elements of a row must be adjacent.  ``plan`` replaces the planner's
+    (`rmsnorm_stats_plan` of this shape; tools/rmsnorm_turns.py sweeps it).
+    """
     if y.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"rmsnorm_stats: expected float32 or bfloat16, got {y.dtype}")
-    _check("y", y, y.dtype, (m, d), align=y.element_size())
-    vec = (d * y.element_size()) % 16 == 0 and y.data_ptr() % 16 == 0
+    if not y.is_cuda:
+        raise ValueError(f"rmsnorm_stats: expected a CUDA tensor, got {y.device}")
+    if y.dim() != 2 or min(y.shape) < 1:
+        raise ValueError(f"rmsnorm_stats: expected non-empty [M, D], got {tuple(y.shape)}")
+    m, d = y.shape
+    if d > 1 and y.stride(1) != 1:
+        raise ValueError(f"rmsnorm_stats: a row's elements must be adjacent, got strides "
+                         f"{tuple(y.stride())}")
+    elem = y.element_size()
+    stride = (y.stride(0) if m > 1 else d) * elem
+    width = rms_width(y.data_ptr(), stride, elem)
+    if plan is None:
+        plan = rmsnorm_stats_plan(m, d, elem, _sms(y.device), width)
+    elif plan["width"] > width:
+        raise ValueError(f"rmsnorm_stats: plan reads {plan['width']} bytes at a time, "
+                         f"the rows allow {width}")
+    lib = _lib("rmsnorm_stats")
     out = torch.empty(m, 1, dtype=torch.float32, device=y.device)
-    err = lib.rmsnorm_stats_launch(y.data_ptr(), out.data_ptr(), m, d,
-                                   int(y.dtype == torch.bfloat16), int(vec),
-                                   float(eps), _stream())
+    err = lib.rmsnorm_stats_launch(y.data_ptr(), out.data_ptr(), m, d, stride,
+                                   int(y.dtype == torch.bfloat16), plan["width"], plan["tpr"],
+                                   plan["rows"], plan["loads"], plan["stages"], float(eps),
+                                   _stream())
     _raise_if(err, "rmsnorm_stats")
     LAUNCHES["rmsnorm_stats"] += 1
     return out

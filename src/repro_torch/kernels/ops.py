@@ -164,10 +164,19 @@ def flash_decode(q, k, v, kv_len: int, *, q2=None, k2=None, scale=None,
 
 
 def rmsnorm_stats(y, *, eps: float = 1e-6, impl: str = "auto") -> torch.Tensor:
-    """sigma^{-1} over the last axis (f32); leading dims preserved."""
+    """sigma^{-1} over the last axis (f32); leading dims preserved.
+
+    The kernel reads a view whose rows lie one stride apart in place (no
+    copy); a layout whose leading dims do not flatten to one stride, or
+    whose rows' elements are not adjacent, raises.
+    """
     lead = y.shape[:-1]
-    y2 = y.reshape(-1, y.shape[-1])
-    if not use_kernel(impl, y2):
-        return _ref.rmsnorm_stats_ref(y2, eps).reshape(lead)
+    if not use_kernel(impl, y):
+        return _ref.rmsnorm_stats_ref(y.reshape(-1, y.shape[-1]), eps).reshape(lead)
     from repro_torch.kernels import hopper
-    return hopper.rmsnorm_stats(y2.contiguous(), eps)[:, 0].reshape(lead)
+    try:
+        y2 = y.view(-1, y.shape[-1])
+    except RuntimeError as e:
+        raise ValueError(f"rmsnorm_stats: the kernel reads rows one stride apart; strides "
+                         f"{tuple(y.stride())} do not flatten to that") from e
+    return hopper.rmsnorm_stats(y2, eps)[:, 0].reshape(lead)

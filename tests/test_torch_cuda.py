@@ -552,24 +552,161 @@ def test_flash_decode_mla_kernel_rejects_widths_it_does_not_take(r, dr):
         ops.flash_decode(q, lat, lat, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
 
 
-@pytest.mark.parametrize("m,d,dtype", [
+# The shapes the served models normalise (PERF.md), the old checks' small
+# ones, and edge widths: D = 1, 3, 4095 and M = 1.
+RMS_SHAPES = [
     (1024, 4096, torch.float32), (1024, 4096, torch.bfloat16),
-    (1000, 4096, torch.float32), (2, 4096, torch.bfloat16), (7, 96, torch.float32),
-    (13, 100, torch.bfloat16), (5, 3, torch.float32),
-])
+    (1024, 2048, torch.float32), (1024, 2048, torch.bfloat16),
+    (1024, 7168, torch.float32), (1024, 7168, torch.bfloat16),
+    (1024, 1536, torch.float32), (1024, 1536, torch.bfloat16),
+    (32768, 128, torch.float32), (32768, 128, torch.bfloat16),
+    (16384, 4096, torch.bfloat16), (1000, 4096, torch.float32), (2, 4096, torch.bfloat16),
+    (7, 96, torch.float32), (13, 100, torch.bfloat16), (5, 3, torch.float32),
+    (1, 4096, torch.bfloat16), (3, 1, torch.float32), (9, 4095, torch.bfloat16),
+    (9, 4095, torch.float32),
+]
+
+
+def _rms_input(m, d, dtype, seed=None):
+    return _t(_gen(m + d if seed is None else seed).normal(size=(m, d)).astype(np.float32)
+              ).to(dtype)
+
+
+@pytest.mark.parametrize("m,d,dtype", RMS_SHAPES)
 def test_rmsnorm_stats_kernel(m, d, dtype):
-    y = _t(_gen(m + d).normal(size=(m, d)).astype(np.float32)).to(dtype)
+    y = _rms_input(m, d, dtype)
     got = ops.rmsnorm_stats(y, impl="kernel")
     want = ref.rmsnorm_stats_ref(y)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("m,d,dtype", RMS_SHAPES)
+def test_rmsnorm_stats_kernel_against_float64(m, d, dtype):
+    """At unit scale the f32 sums stay within the plain version's tolerance
+    of a float64 evaluation of the same (bf16 or f32) inputs."""
+    y = _rms_input(m, d, dtype)
+    want = torch.rsqrt(y.double().square().mean(dim=-1) + 1e-6)
+    torch.testing.assert_close(ops.rmsnorm_stats(y, impl="kernel").double(), want,
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,d,dtype", RMS_SHAPES)
+def test_rmsnorm_stats_kernel_relaunch_bit_equal(m, d, dtype):
+    y = _rms_input(m, d, dtype)
+    assert torch.equal(ops.rmsnorm_stats(y, impl="kernel"), ops.rmsnorm_stats(y, impl="kernel"))
+
+
+@pytest.mark.parametrize("loads", hopper.RMS_LOADS)
+@pytest.mark.parametrize("m,d,dtype", [
+    (1024, 4096, torch.bfloat16), (1024, 7168, torch.float32), (32768, 128, torch.bfloat16),
+    (2, 4096, torch.bfloat16), (9, 4095, torch.bfloat16), (33, 100, torch.float32),
+])
+def test_rmsnorm_stats_kernel_every_load_count(m, d, dtype, loads):
+    """Every instantiated count of loads per thread, forced on the planner."""
+    y = _rms_input(m, d, dtype)
+    w = hopper.rms_width(y.data_ptr(), y.stride(0) * y.element_size(), y.element_size())
+    plan = hopper.rmsnorm_stats_plan(m, d, y.element_size(), hopper._sms(y.device), w,
+                                     loads=loads)
+    torch.testing.assert_close(hopper.rmsnorm_stats(y, 1e-6, plan)[:, 0],
+                               ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("stages", range(1, hopper.RMS_MAX_STAGES + 1))
+@pytest.mark.parametrize("m,d,dtype", [
+    (1024, 4096, torch.bfloat16), (1000, 4096, torch.float32), (1024, 7168, torch.float32),
+    (32768, 128, torch.bfloat16), (2, 4096, torch.bfloat16), (7, 96, torch.float32),
+])
+def test_rmsnorm_stats_kernel_bulk_route(m, d, dtype, stages):
+    """The bulk-copy route at every stage count."""
+    y = _rms_input(m, d, dtype)
+    plan = hopper.rmsnorm_stats_plan(m, d, y.element_size(), hopper._sms(y.device),
+                                     route="bulk", stages=stages)
+    got = hopper.rmsnorm_stats(y, 1e-6, plan)[:, 0]
+    torch.testing.assert_close(got, ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, hopper.rmsnorm_stats(y, 1e-6, plan)[:, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale", [1e30, 1e15, 1e-15, 1e-30])
+def test_rmsnorm_stats_kernel_extreme_rows(scale, dtype):
+    """Rows near 1e+-30 (their squares overflow to inf or underflow to 0
+    in f32, as in the plain version), near 1e+-15 (squares near 1e+-30,
+    still normal), and an all-zero row, whose sigma^{-1} is rsqrt(eps)."""
+    y = _rms_input(6, 4096, torch.float32, seed=5) * scale
+    y[3] = 0.0
+    y = y.to(dtype)
+    got = ops.rmsnorm_stats(y, impl="kernel")
+    torch.testing.assert_close(got, ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
+    assert got[3].item() == pytest.approx(1e3, rel=1e-6)
+    if 1e-20 < scale < 1e20:
+        want = torch.rsqrt(y.double().square().mean(dim=-1) + 1e-6)
+        torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=0.0)
+
+
 def test_rmsnorm_stats_kernel_unaligned_rows():
-    """A view starting 4 bytes in takes the scalar-load variant."""
+    """A view starting 4 bytes in takes the narrower loads."""
     base = _t(_gen(3).normal(size=(9 * 64 + 1,)).astype(np.float32))
     y = base[1:].view(9, 64)
     torch.testing.assert_close(ops.rmsnorm_stats(y, impl="kernel"),
                                ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,offset,stride,d", [
+    (torch.bfloat16, 1, 4096, 4096), (torch.bfloat16, 2, 4100, 4096),
+    (torch.bfloat16, 4, 4104, 4100), (torch.bfloat16, 0, 4097, 4097),
+    (torch.float32, 1, 4096, 4096), (torch.float32, 2, 4098, 4095),
+    (torch.float32, 0, 132, 100), (torch.float32, 4, 136, 99),
+])
+def test_rmsnorm_stats_kernel_strided_views(dtype, offset, stride, d):
+    """Views at 2-, 4-, 8- and 16-byte alignment, rows padded past D, D
+    not a whole number of loads: each read in place, one kernel per call."""
+    m = 37
+    buf = _rms_input(1, offset + m * stride, dtype)[0]
+    y = buf[offset:offset + m * stride].view(m, stride)[:, :d]
+    assert y.stride() == (stride, 1)
+    torch.testing.assert_close(ops.rmsnorm_stats(y, impl="kernel"),
+                               ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
+    assert _kernels_of(lambda: ops.rmsnorm_stats(y, impl="kernel")) == 1
+
+
+def test_rmsnorm_stats_kernel_reads_a_strided_view_in_place():
+    """The q-half of a [M, 2D] projection: one kernel per call, no copy."""
+    x = _rms_input(1024, 8192, torch.bfloat16)
+    y = x[:, :4096]
+    launched = _kernel_names(lambda: ops.rmsnorm_stats(y, impl="kernel"))
+    assert len(launched) == 1 and "rms_ldg_kernel" in launched[0], launched
+    torch.testing.assert_close(ops.rmsnorm_stats(y, impl="kernel"),
+                               ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
+
+
+def test_rmsnorm_stats_kernel_rejects_other_layouts():
+    """Rows whose elements are not adjacent, or leading dims that do not
+    flatten to one stride, raise instead of being copied."""
+    x = _rms_input(64, 128, torch.float32)
+    with pytest.raises(ValueError, match="adjacent"):
+        hopper.rmsnorm_stats(x.t(), 1e-6)
+    with pytest.raises(ValueError, match="stride"):
+        ops.rmsnorm_stats(x.t(), impl="kernel")
+    z = _rms_input(8, 4 * 128, torch.float32).view(8, 4, 128).transpose(0, 1)
+    with pytest.raises(ValueError, match="stride"):
+        ops.rmsnorm_stats(z, impl="kernel")
+    with pytest.raises(TypeError):
+        ops.rmsnorm_stats(x.half(), impl="kernel")
+
+
+def _kernel_names(fn) -> list:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _kernels_of(fn) -> int:
+    return len(_kernel_names(fn))
 
 
 def test_launch_counters_count_kernel_launches_only():
