@@ -160,13 +160,15 @@ def card_peaks(name: str) -> dict:
 _FLUSH: list = []
 
 
-def time_ms(fn, iters: int = 15) -> float:
+def time_ms(fn, iters: int = 15, flush: str = "write") -> float:
     """Median device time of ``fn`` with a cold L2.
 
     ``fn`` is captured once in a CUDA graph and replayed between CUDA
     events, so the events time the card's work and not the Python wrapper
     around it (the wrapper's host cost is `call_ms`).  A 256 MB write before
-    each replay evicts the 50 MB L2.
+    each replay evicts the 50 MB L2, leaving it full of dirty lines that the
+    timed work's reads then write back; ``flush="read"`` evicts it by reading
+    the 256 MB instead, leaving clean lines.
     """
     if not _FLUSH:
         _FLUSH.append(torch.empty(64 << 20, dtype=torch.float32, device="cuda"))
@@ -178,7 +180,10 @@ def time_ms(fn, iters: int = 15) -> float:
     graph.replay()
     pairs = []
     for _ in range(iters):
-        _FLUSH[0].zero_()
+        if flush == "read":
+            _FLUSH[0].sum()
+        else:
+            _FLUSH[0].zero_()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         graph.replay()
@@ -202,12 +207,12 @@ def call_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def amortised_ms(fn, inputs, iters: int = 15) -> float:
+def amortised_ms(fn, inputs, iters: int = 15, flush: str = "write") -> float:
     """Median device time per call of ``fn(x)`` over the distinct ``inputs``,
     captured back to back in one CUDA graph and replayed with a cold L2 as
     in `time_ms`, divided by their count: the replay's fixed cost (the floor
     of `time_ms`) is spread over every call."""
-    return time_ms(lambda: [fn(x) for x in inputs], iters) / len(inputs)
+    return time_ms(lambda: [fn(x) for x in inputs], iters, flush) / len(inputs)
 
 
 def bound_ms(nbytes: float, ops_: float, op_rate: float, peaks: dict):
@@ -614,7 +619,9 @@ def kernel_phase_rmsnorm_stats(peaks):
     relaunch must be bit-equal, and a profiler check holds one call to one
     device kernel.  ``ms`` is one call per replay (`time_ms`, whose floor
     is printed), ``amortised_ms`` RMS_AMORTISED calls on distinct inputs per
-    replay.  No PyTorch call computes rsqrt(mean(y^2) + eps), so
+    replay, and ``amortised_clean_ms`` the same after a flush that reads
+    (`time_ms`'s ``flush="read"``: no dirty lines to write back during the
+    calls).  No PyTorch call computes rsqrt(mean(y^2) + eps), so
     ``library_ms`` is None; ``nearest_library_ms`` times
     ``torch.linalg.vector_norm(y, dim=-1, dtype=torch.float32)``, one
     library reduction over the same bytes, as a yardstick of the read."""
@@ -632,7 +639,7 @@ def kernel_phase_rmsnorm_stats(peaks):
         if not torch.equal(got, run()):
             raise RuntimeError(f"{tag}: two launches differ")
         launched = _launch_kernels(run)
-        if len(launched) != 1 or "rms_" not in launched[0]:
+        if len(launched) != 1 or "rmsnorm_stats_kernel" not in launched[0]:
             raise RuntimeError(f"{tag}: one call ran {launched}, expected one kernel")
         elem = y.element_size()
         plan = hopper.rmsnorm_stats_plan(m, d, elem, hopper._sms(y.device), hopper.rms_width(
@@ -641,19 +648,22 @@ def kernel_phase_rmsnorm_stats(peaks):
         lib = lambda yy=y: torch.linalg.vector_norm(yy, dim=-1, dtype=torch.float32)  # noqa: E731
         ms = time_ms(run)
         am = amortised_ms(run, ys)
+        am_clean = amortised_ms(run, ys, flush="read")
         rows.append(dict(
             path="ops.rmsnorm_stats (no model path)", main=(m, d, dt) == RMS_MAIN, site=site,
             shape=[m, d], dtype=str(dt).replace("torch.", ""), per_call=1, max_abs_err=err,
             f64_max_abs_err={"kernel": (got.double() - want64).abs().max().item(),
                              "plain": (ref.rmsnorm_stats_ref(y).double() - want64)
                              .abs().max().item()},
-            ms=ms, amortised_ms=am, call_ms=call_ms(run),
+            ms=ms, amortised_ms=am, amortised_clean_ms=am_clean, call_ms=call_ms(run),
             plain_ms=time_ms(lambda: ref.rmsnorm_stats_ref(y)), library_ms=None,
             nearest_library_ms=time_ms(lib), nearest_library_amortised_ms=amortised_ms(lib, ys),
+            nearest_library_amortised_clean_ms=amortised_ms(lib, ys, flush="read"),
             bound_ms=bms, bound_by=by, bound_share=bms / ms, amortised_bound_share=bms / am,
+            amortised_clean_bound_share=bms / am_clean,
             launch_kernels=launched,
-            plan={k: plan[k] for k in ("route", "width", "loads", "rounds", "tpr", "rows",
-                                       "blocks", "waves")}))
+            plan={k: plan[k] for k in ("width", "loads", "rounds", "tpr", "rows", "blocks",
+                                       "waves")}))
         del ys, y, want64
     return rows
 
@@ -1135,6 +1145,9 @@ def main() -> int:
     log("== kernel phases (full-width shapes; times in ms, median, cold L2)")
     one = torch.zeros(1, device="cuda")
     log(f"time_ms floor (one 1-element fill per replay): {time_ms(lambda: one.fill_(1.0)):.4f}")
+    ones = [torch.zeros(1, device="cuda") for _ in range(RMS_AMORTISED)]
+    log(f"amortised_ms floor ({RMS_AMORTISED} 1-element fills per replay): "
+        f"{amortised_ms(lambda t: t.fill_(1.0), ones):.4f}")
     entries = [
         summarize("mxint4_matmul", kernel_phase_mxint4(peaks), "per_step",
                   "rtol=atol=1e-5"),
@@ -1155,7 +1168,9 @@ def main() -> int:
                 "library_max_abs_err", "rate", "library_rate", "bound_share",
                 "bound_f32_ms", "bound_share_f32", "plain_contiguous_ms", "flops",
                 "warm_state_max_abs_err", "f64_max_abs_err", "amortised_ms",
-                "amortised_bound_share", "nearest_library_ms", "nearest_library_amortised_ms",
+                "amortised_bound_share", "amortised_clean_ms", "amortised_clean_bound_share",
+                "nearest_library_ms", "nearest_library_amortised_ms",
+                "nearest_library_amortised_clean_ms",
                 "site", "launch_kernels", "plan")
                 if key in r)
             log(f"  {e['name']} {r['path']} {r['shape']}: kernel {r['ms']:.4f} (per call "

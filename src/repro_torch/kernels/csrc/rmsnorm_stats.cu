@@ -12,19 +12,18 @@
 // latency, some 2.7 MB, in flight across the card at once: a kernel that
 // walks each row in a chain of dependent rounds pays the latency once per
 // round.  So a block puts every byte of its rows in flight before it adds
-// any of them, by one of two routes (`hopper.rmsnorm_stats_plan` picks the
-// route, the row split and the grid from the shape and the card):
-//
-// - ldg: `tpr` threads own a row; each issues all `kN` (a compile-time 1, 2
-//   or 4) streaming loads of `kW` bytes of a round before it squares any,
-//   neighbouring threads on neighbouring addresses.  A row takes `rounds`
-//   rounds (one at every shape the models normalise).  Rows of width or
-//   base not a multiple of 16 bytes take a narrower kW; elements past the
-//   last whole load (`tail`) are read one by one.
-// - bulk: one thread issues 1-D bulk copies (cp.async.bulk) of the block's
-//   rows into shared memory in `stages` column stages, each completing on
-//   its own mbarrier, and the threads reduce each stage as it lands.  Rows
-//   must be whole 16-byte chunks on 16-byte aligned bases.
+// any of them: `tpr` threads own a row, and each issues all `kN` (a
+// compile-time 1, 2 or 4; 2 by default) streaming loads of `kW` bytes of a
+// round before it squares any, neighbouring threads on neighbouring
+// addresses.  A row takes
+// `rounds` rounds (one at every shape the models normalise).
+// `hopper.rmsnorm_stats_plan` picks the row split and the grid from the
+// shape and the card: a wide row spreads over the warps of its block, many
+// narrow rows share a warp, a few rows take a block each.  Rows whose width
+// or base is not a multiple of 16 bytes take a narrower kW; elements past
+// the last whole load (`tail`) are read one by one.  (Bulk copies of the
+// rows into shared memory, in 1 to 4 column stages on mbarriers, measured
+// 10-40 % slower at every shape: PERF.md.)
 //
 // The row's threads then add their f32 partial sums in a fixed order (a
 // shuffle butterfly inside a warp, then the warps' sums in warp order), so
@@ -39,13 +38,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The load: streaming (evict-first).  tools/rmsnorm_turns.py --sweep builds
+// the kernel with -DRMS_LOAD=__ldg and -DRMS_LOAD=__ldcg beside it.
+#ifndef RMS_LOAD
+#define RMS_LOAD __ldcs
+#endif
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxStages = 4;
-constexpr int kBulkRowsOffset = 128;   // bulk route: the mbarriers, then the rows
-constexpr int kWarpSums = kMaxThreads / 32 * 4;   // `finish`'s static shared memory
-constexpr int kMaxSmem = 232448 - kWarpSums;  // dynamic: 227 KB, a block's most, less that
 
 struct Params {
   const unsigned char* y;
@@ -55,9 +56,8 @@ struct Params {
   int tpr;            // threads per row: a power of two up to 32, or a multiple of 32
   int rows;           // rows per block
   int chunks;         // whole loads per row
-  int rounds;         // ldg: rounds of kN loads per thread
+  int rounds;         // rounds of kN loads per thread
   int tail;           // elements after the last whole load
-  int stages;         // bulk: column stages
   float eps;
   long long* stamps;
 };
@@ -132,9 +132,9 @@ __device__ __forceinline__ float sumsq(const typename VecOf<kW>::type& v) {
 template <bool kBF16>
 __device__ __forceinline__ float element(const unsigned char* row, int i) {
   if constexpr (kBF16)
-    return __bfloat162float(__ldcs(reinterpret_cast<const __nv_bfloat16*>(row) + i));
+    return __bfloat162float(RMS_LOAD(reinterpret_cast<const __nv_bfloat16*>(row) + i));
   else
-    return __ldcs(reinterpret_cast<const float*>(row) + i);
+    return RMS_LOAD(reinterpret_cast<const float*>(row) + i);
 }
 
 // Adds the tail elements (past the row's last whole load) to this thread's sum.
@@ -152,7 +152,7 @@ __device__ __forceinline__ float add_tail(const Params& p, const unsigned char* 
 // row's sigma^{-1}.  Every thread of the block calls it.
 __device__ __forceinline__ void finish(const Params& p, float acc, int t, int r, int row,
                                        bool live) {
-  __shared__ float part[kWarpSums / 4];
+  __shared__ float part[kMaxThreads / 32];
   const int span = p.tpr < 32 ? p.tpr : 32;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -170,7 +170,7 @@ __device__ __forceinline__ void finish(const Params& p, float acc, int t, int r,
 
 template <bool kBF16, int kW, int kN>
 __global__ void __launch_bounds__(kMaxThreads, 2048 / kMaxThreads)
-rms_ldg_kernel(const Params p) {
+rmsnorm_stats_kernel(const Params p) {
   using Vec = typename VecOf<kW>::type;
   RMS_STAMP(0);
   const int t = threadIdx.x % p.tpr, r = threadIdx.x / p.tpr;
@@ -184,7 +184,7 @@ rms_ldg_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
       const int c = (k * kN + j) * p.tpr + t;
-      v[j] = (live && c < p.chunks) ? __ldcs(vsrc + c) : Vec{};
+      v[j] = (live && c < p.chunks) ? RMS_LOAD(vsrc + c) : Vec{};
     }
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
@@ -200,109 +200,14 @@ rms_ldg_kernel(const Params p) {
   RMS_STAMP(3);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P1;\n"
-      "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Waits for the first phase of `bar`.  A wait that never ends (a copy
-// fault) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar) {
-  for (int i = 0; !mbar_try_wait(bar, 0); ++i)
-    if (i == (1 << 24)) __trap();
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// Stage s of a row's chunks: [s * chunks / stages, (s + 1) * chunks / stages).
-__device__ __forceinline__ int stage_start(const Params& p, int s) {
-  return (int)((long long)s * p.chunks / p.stages);
-}
-
-template <bool kBF16>
-__global__ void __launch_bounds__(kMaxThreads, 1) rms_bulk_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  RMS_STAMP(0);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  unsigned char* rows = smem + kBulkRowsOffset;
-  const int row_bytes = p.chunks * 16;
-  const int row0 = blockIdx.x * p.rows;
-  const int live_rows = min(p.rows, p.M - row0);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < p.stages; ++s) mbar_init(smem_u32(&bars[s]), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < p.stages; ++s) {
-      const int c0 = stage_start(p, s), bytes = (stage_start(p, s + 1) - c0) * 16;
-      const uint32_t bar = smem_u32(&bars[s]);
-      mbar_expect_tx(bar, bytes * live_rows);
-      for (int i = 0; i < live_rows; ++i)
-        bulk_copy(rows + (size_t)i * row_bytes + c0 * 16,
-                  p.y + (size_t)(row0 + i) * p.stride + c0 * 16, bytes, bar);
-    }
-  }
-  __syncthreads();
-  const int t = threadIdx.x % p.tpr, r = threadIdx.x / p.tpr;
-  const bool live = r < live_rows;
-  const uint4* mine = reinterpret_cast<const uint4*>(rows + (size_t)r * row_bytes);
-  float acc = 0.f;
-  for (int s = 0; s < p.stages; ++s) {
-    mbar_wait(smem_u32(&bars[s]));
-    if (s == 0) RMS_STAMP(1);
-    if (!live) continue;
-    for (int c = stage_start(p, s) + t; c < stage_start(p, s + 1); c += p.tpr)
-      acc += sumsq<kBF16, 16>(mine[c]);
-  }
-  RMS_STAMP(2);
-  finish(p, acc, t, r, row0 + r, live);
-  RMS_STAMP(3);
-}
-
 template <bool kBF16, int kW>
-int launch_ldg(const Params& p, int loads, int blocks, int threads, cudaStream_t s) {
+int launch(const Params& p, int loads, int blocks, int threads, cudaStream_t s) {
   switch (loads) {
-    case 1: rms_ldg_kernel<kBF16, kW, 1><<<blocks, threads, 0, s>>>(p); break;
-    case 2: rms_ldg_kernel<kBF16, kW, 2><<<blocks, threads, 0, s>>>(p); break;
-    case 4: rms_ldg_kernel<kBF16, kW, 4><<<blocks, threads, 0, s>>>(p); break;
+    case 1: rmsnorm_stats_kernel<kBF16, kW, 1><<<blocks, threads, 0, s>>>(p); break;
+    case 2: rmsnorm_stats_kernel<kBF16, kW, 2><<<blocks, threads, 0, s>>>(p); break;
+    case 4: rmsnorm_stats_kernel<kBF16, kW, 4><<<blocks, threads, 0, s>>>(p); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-template <bool kBF16>
-int launch_bulk(const Params& p, int blocks, int threads, cudaStream_t s) {
-  const long long smem = kBulkRowsOffset + (long long)p.rows * p.chunks * 16;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  static bool opted_in = false;   // once per process: the attribute is the function's
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rms_bulk_kernel<kBF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = true;
-  }
-  rms_bulk_kernel<kBF16><<<blocks, threads, (size_t)smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -321,16 +226,15 @@ extern "C" void rmsnorm_stats_set_stamps(void* stamps) {
 // y: M rows of D elements (bf16 if is_bf16, else f32), `stride` bytes apart,
 // read `width` bytes at a time (16, 8, 4 or, for bf16, 2; the base and the
 // stride are multiples of it).  The plan (`hopper.rmsnorm_stats_plan`):
-// `tpr` threads per row, `rows` rows per block, and either `loads` loads per
-// thread per round (stages = 0, the ldg route) or `stages` column stages of
-// bulk copies (the bulk route, width 16 and whole chunks only).
+// `tpr` threads per row, `rows` rows per block, `loads` loads per thread per
+// round.
 extern "C" int rmsnorm_stats_launch(const void* y, void* out, int M, int D, long long stride,
                                     int is_bf16, int width, int tpr, int rows, int loads,
-                                    int stages, float eps, void* stream) {
+                                    float eps, void* stream) {
   const int elem = is_bf16 ? 2 : 4;
   if (M < 1 || D < 1 || stride < 0 || !valid_tpr(tpr) || rows < 1 ||
       (long long)tpr * rows > kMaxThreads || width < elem || width > 16 ||
-      (width & (width - 1)) || stages < 0 || stages > kMaxStages)
+      (width & (width - 1)) || loads < 1)
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.y = static_cast<const unsigned char*>(y);
@@ -342,31 +246,24 @@ extern "C" int rmsnorm_stats_launch(const void* y, void* out, int M, int D, long
   p.rows = rows;
   p.chunks = (int)((long long)D * elem / width);
   p.tail = D - p.chunks * (width / elem);
-  p.stages = stages;
   p.eps = eps;
 #ifdef RMS_PHASE_CLOCK
   p.stamps = g_stamps;
 #endif
+  p.rounds = (p.chunks + tpr * loads - 1) / (tpr * loads);
   const int blocks = (M + rows - 1) / rows, threads = tpr * rows;
   cudaStream_t s = (cudaStream_t)stream;
-  if (stages > 0) {
-    if (width != 16 || p.tail != 0 || stages > p.chunks) return (int)cudaErrorInvalidValue;
-    return is_bf16 ? launch_bulk<true>(p, blocks, threads, s)
-                   : launch_bulk<false>(p, blocks, threads, s);
-  }
-  if (loads < 1) return (int)cudaErrorInvalidValue;
-  p.rounds = (p.chunks + tpr * loads - 1) / (tpr * loads);
   if (is_bf16) {
     switch (width) {
-      case 16: return launch_ldg<true, 16>(p, loads, blocks, threads, s);
-      case 8: return launch_ldg<true, 8>(p, loads, blocks, threads, s);
-      case 4: return launch_ldg<true, 4>(p, loads, blocks, threads, s);
-      default: return launch_ldg<true, 2>(p, loads, blocks, threads, s);
+      case 16: return launch<true, 16>(p, loads, blocks, threads, s);
+      case 8: return launch<true, 8>(p, loads, blocks, threads, s);
+      case 4: return launch<true, 4>(p, loads, blocks, threads, s);
+      default: return launch<true, 2>(p, loads, blocks, threads, s);
     }
   }
   switch (width) {
-    case 16: return launch_ldg<false, 16>(p, loads, blocks, threads, s);
-    case 8: return launch_ldg<false, 8>(p, loads, blocks, threads, s);
-    default: return launch_ldg<false, 4>(p, loads, blocks, threads, s);
+    case 16: return launch<false, 16>(p, loads, blocks, threads, s);
+    case 8: return launch<false, 8>(p, loads, blocks, threads, s);
+    default: return launch<false, 4>(p, loads, blocks, threads, s);
   }
 }

@@ -210,7 +210,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                                    f"is {query()}, the planner's {want}")
     elif name == "rmsnorm_stats":
         fn = lib.rmsnorm_stats_launch
-        fn.argtypes = [_P, _P, _I, _I, ctypes.c_longlong] + [_I] * 6 + [_F, _P]
+        fn.argtypes = [_P, _P, _I, _I, ctypes.c_longlong] + [_I] * 5 + [_F, _P]
     else:
         raise KeyError(f"no binding for kernel {name!r}")
     fn.restype = _I
@@ -829,16 +829,12 @@ def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: int, scale:
 
 # rmsnorm_stats (csrc/rmsnorm_stats.cu).  A row is read in `chunks` loads
 # of `width` bytes by `tpr` threads, each of which issues its `loads` loads
-# of a round before it adds any (the ldg route), or copied into shared
-# memory in `stages` column stages of bulk copies (the bulk route).
+# of a round before it adds any.
 RMS_BLOCK_THREADS = 256         # threads a block aims at
 RMS_MAX_THREADS = 1024
 RMS_LOADS = (1, 2, 4)           # the kernel's instantiations
-RMS_DEFAULT_LOADS = 4           # 64 bytes in flight per thread at width 16
-RMS_MAX_STAGES = 4
-RMS_BULK_ROWS_OFFSET = 128      # bulk route: the mbarriers, then the rows
-RMS_SMEM_BYTES = 232448 - 128   # a block's most (227 KB) less the warps' sums
-RMS_SM_SMEM_BYTES = 233472      # an SM's (228 KB), 1 KB of it reserved per block
+RMS_DEFAULT_LOADS = 2           # 32 bytes in flight per thread at width 16: 1-4 %
+                                # faster than 4 at most shapes (PERF.md)
 RMS_THREADS_PER_SM = 2048       # the kernel caps registers so that this many fit
 
 
@@ -860,24 +856,24 @@ def _rms_tpr(chunks: int, loads: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132, width: int = 16,
-                       threads_per_sm: int = RMS_THREADS_PER_SM, loads: int | None = None,
-                       route: str = "ldg", stages: int = 2) -> dict:
-    """Route, row split and grid of one rmsnorm_stats launch on ``[m, d]``
-    rows of ``elem_bytes`` elements read ``width`` bytes at a time.
+                       threads_per_sm: int = RMS_THREADS_PER_SM,
+                       loads: int | None = None,
+                       block_threads: int = RMS_BLOCK_THREADS) -> dict:
+    """Row split and grid of one rmsnorm_stats launch on ``[m, d]`` rows of
+    ``elem_bytes`` elements read ``width`` bytes at a time.
 
-    ldg: each of a row's ``tpr`` threads issues ``loads`` loads of a round
+    Each of a row's ``tpr`` threads issues its ``loads`` loads of a round
     before it adds any (RMS_DEFAULT_LOADS unless given), and ``tpr`` is as
-    many as cover the row in one round; ``rows`` rows share a block of
-    about RMS_BLOCK_THREADS.  Few rows (fewer blocks than ``sms``) take
-    fewer rows per block, down to one, and then, if the card still has
-    fewer than RMS_BLOCK_THREADS threads per SM to issue loads, fewer loads
-    per thread over more of them (a decode pair of rows spreads each row
-    over 512 threads).  bulk: the same split, each block's rows copied into
-    shared memory in ``stages`` column stages (width 16, whole chunks only).
-    ``resident`` is the blocks an SM holds (by threads and, for bulk, shared
-    memory) and ``waves`` the grid over ``sms * resident``.  Raises on a
-    shape or route the kernel does not take.  Plans are cached; callers must
-    not modify the dict.
+    many as cover the row in one round (``rounds`` more only past
+    RMS_MAX_THREADS); ``rows`` rows share a block of about
+    ``block_threads``.  Few rows (fewer blocks than ``sms``) take fewer
+    rows per block, down to one, and then, while the card has fewer than
+    ``block_threads`` threads per SM to issue loads, fewer loads per thread
+    over more threads (a decode pair of rows spreads each row over 512).
+    ``resident`` is the blocks an SM holds (``threads_per_sm``, the kernel
+    capping its registers so that every thread fits) and ``waves`` the grid
+    over ``sms * resident``.  Raises on a shape the kernel does not take.
+    Plans are cached; callers must not modify the dict.
     """
     if m < 1 or d < 1 or elem_bytes not in (2, 4) or width not in (2, 4, 8, 16) \
             or width < elem_bytes:
@@ -885,43 +881,24 @@ def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132, width: i
                          f"at width {width}")
     per = width // elem_bytes
     chunks = d // per
-    tail = d - chunks * per
     n = RMS_DEFAULT_LOADS if loads is None else loads
     if n not in RMS_LOADS:
         raise ValueError(f"rmsnorm_stats: loads {n} not one of {RMS_LOADS}")
     n = min(n, 1 << (max(chunks, 1) - 1).bit_length())
     tpr = _rms_tpr(chunks, n)
-    rows = max(1, RMS_BLOCK_THREADS // tpr)
+    rows = max(1, block_threads // tpr)
     while rows > 1 and -(-m // rows) < sms:
         rows //= 2
-    while (loads is None and n > 1 and m * tpr < sms * RMS_BLOCK_THREADS
+    while (loads is None and n > 1 and m * tpr < sms * block_threads
            and tpr < _rms_tpr(chunks, n // 2) <= RMS_MAX_THREADS // rows):
         n //= 2
         tpr = _rms_tpr(chunks, n)
-    row_bytes = chunks * width
-    if route == "bulk":
-        if width != 16 or tail or not 1 <= stages <= min(RMS_MAX_STAGES, chunks):
-            raise ValueError(f"rmsnorm_stats: the bulk route needs whole 16-byte chunks "
-                             f"and 1 to {RMS_MAX_STAGES} stages, got [{m}, {d}] x "
-                             f"{elem_bytes} at width {width}, {stages} stages")
-        rows = min(rows, (RMS_SMEM_BYTES - RMS_BULK_ROWS_OFFSET) // row_bytes)
-        if rows < 1:
-            raise ValueError(f"rmsnorm_stats: a row of {row_bytes} bytes does not fit "
-                             "in shared memory")
-        smem = RMS_BULK_ROWS_OFFSET + rows * row_bytes
-        n, rounds = 0, 0
-    elif route == "ldg":
-        smem, stages = 0, 0
-        rounds = -(-chunks // (tpr * n))
-    else:
-        raise ValueError(f"rmsnorm_stats: unknown route {route!r}")
     threads = tpr * rows
     blocks = -(-m // rows)
-    resident = min(32, threads_per_sm // threads,
-                   RMS_SM_SMEM_BYTES // (smem + 1024) if smem else 32)
-    return dict(route=route, width=width, chunks=chunks, tail=tail, loads=n, rounds=rounds,
-                stages=stages, tpr=tpr, rows=rows, threads=threads, blocks=blocks,
-                smem=smem, resident=resident, waves=-(-blocks // (sms * resident)))
+    resident = min(32, threads_per_sm // threads)
+    return dict(width=width, chunks=chunks, tail=d - chunks * per, loads=n,
+                rounds=-(-chunks // (tpr * n)), tpr=tpr, rows=rows, threads=threads,
+                blocks=blocks, resident=resident, waves=-(-blocks // (sms * resident)))
 
 
 def rmsnorm_stats(y, eps: float, plan: dict | None = None):
@@ -954,8 +931,7 @@ def rmsnorm_stats(y, eps: float, plan: dict | None = None):
     out = torch.empty(m, 1, dtype=torch.float32, device=y.device)
     err = lib.rmsnorm_stats_launch(y.data_ptr(), out.data_ptr(), m, d, stride,
                                    int(y.dtype == torch.bfloat16), plan["width"], plan["tpr"],
-                                   plan["rows"], plan["loads"], plan["stages"], float(eps),
-                                   _stream())
+                                   plan["rows"], plan["loads"], float(eps), _stream())
     _raise_if(err, "rmsnorm_stats")
     LAUNCHES["rmsnorm_stats"] += 1
     return out

@@ -611,21 +611,6 @@ def test_rmsnorm_stats_kernel_every_load_count(m, d, dtype, loads):
                                ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("stages", range(1, hopper.RMS_MAX_STAGES + 1))
-@pytest.mark.parametrize("m,d,dtype", [
-    (1024, 4096, torch.bfloat16), (1000, 4096, torch.float32), (1024, 7168, torch.float32),
-    (32768, 128, torch.bfloat16), (2, 4096, torch.bfloat16), (7, 96, torch.float32),
-])
-def test_rmsnorm_stats_kernel_bulk_route(m, d, dtype, stages):
-    """The bulk-copy route at every stage count."""
-    y = _rms_input(m, d, dtype)
-    plan = hopper.rmsnorm_stats_plan(m, d, y.element_size(), hopper._sms(y.device),
-                                     route="bulk", stages=stages)
-    got = hopper.rmsnorm_stats(y, 1e-6, plan)[:, 0]
-    torch.testing.assert_close(got, ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
-    assert torch.equal(got, hopper.rmsnorm_stats(y, 1e-6, plan)[:, 0])
-
-
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("scale", [1e30, 1e15, 1e-15, 1e-30])
 def test_rmsnorm_stats_kernel_extreme_rows(scale, dtype):
@@ -674,7 +659,7 @@ def test_rmsnorm_stats_kernel_reads_a_strided_view_in_place():
     x = _rms_input(1024, 8192, torch.bfloat16)
     y = x[:, :4096]
     launched = _kernel_names(lambda: ops.rmsnorm_stats(y, impl="kernel"))
-    assert len(launched) == 1 and "rms_ldg_kernel" in launched[0], launched
+    assert len(launched) == 1 and "rmsnorm_stats_kernel" in launched[0], launched
     torch.testing.assert_close(ops.rmsnorm_stats(y, impl="kernel"),
                                ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
 

@@ -1,11 +1,12 @@
 """The rmsnorm_stats planner (`hopper.rmsnorm_stats_plan`), on the CPU.
 
 The plan is a pure function of the shape, the load width and the card's
-SM count, so its grid, row split and stage count (``rounds`` of loads on
-the ldg route, ``stages`` of bulk copies on the bulk route) are checked
-here without a card: every row is covered by exactly one thread group,
-every chunk and tail element of a row by exactly one thread, the block's
-threads and shared memory stay within the kernel's limits.
+SM count, so its grid, row split and stage count (``rounds``: the rounds
+of loads a thread issues all at once) are checked here without a card:
+every row is covered by exactly one thread group, every chunk and tail
+element of a row by exactly one thread, and a block's threads stay within
+the kernel's limit.  (The kernel's only shared memory is its 128 bytes of
+warp sums, whatever the plan.)
 """
 
 import numpy as np
@@ -22,7 +23,7 @@ SMS = [114, 132]
 
 
 def _chunk_owners(plan: dict) -> np.ndarray:
-    """How many times the ldg route's threads read each chunk of a row, as
+    """How many times the kernel's threads read each chunk of a row, as
     the kernel indexes it: chunk (k * loads + j) * tpr + t."""
     k, j, t = np.meshgrid(np.arange(plan["rounds"]), np.arange(plan["loads"]),
                           np.arange(plan["tpr"]), indexing="ij")
@@ -30,16 +31,7 @@ def _chunk_owners(plan: dict) -> np.ndarray:
     return np.bincount(c[c < plan["chunks"]], minlength=plan["chunks"])
 
 
-def _stage_owners(plan: dict) -> np.ndarray:
-    """How many times the bulk route's stages copy each chunk of a row:
-    stage s is [s * chunks // stages, (s + 1) * chunks // stages)."""
-    cuts = [s * plan["chunks"] // plan["stages"] for s in range(plan["stages"] + 1)]
-    assert all(b > a for a, b in zip(cuts, cuts[1:])), "an empty stage"
-    return np.bincount(np.concatenate([np.arange(a, b) for a, b in zip(cuts, cuts[1:])]),
-                       minlength=plan["chunks"])
-
-
-def _check(plan: dict, m: int, d: int, elem: int) -> None:
+def _check(plan: dict, m: int, d: int, elem: int, sms: int = 132) -> None:
     per = plan["width"] // elem
     assert plan["chunks"] * per + plan["tail"] == d and 0 <= plan["tail"] < per
     tpr = plan["tpr"]
@@ -49,35 +41,21 @@ def _check(plan: dict, m: int, d: int, elem: int) -> None:
     # Rows: block b owns [b * rows, (b + 1) * rows); every row once, no block empty.
     assert plan["blocks"] == -(-m // plan["rows"])
     assert (plan["blocks"] - 1) * plan["rows"] < m <= plan["blocks"] * plan["rows"]
-    if plan["route"] == "ldg":
-        assert plan["loads"] in hopper.RMS_LOADS and plan["stages"] == 0
-        assert (_chunk_owners(plan) == 1).all()
-        owners = np.bincount(np.concatenate([np.arange(t, plan["tail"], tpr)
-                                             for t in range(tpr)] + [np.zeros(0, int)]),
-                             minlength=plan["tail"])
-        assert (owners == 1).all()
-    else:
-        assert plan["width"] == 16 and plan["tail"] == 0
-        assert 1 <= plan["stages"] <= hopper.RMS_MAX_STAGES
-        assert (_stage_owners(plan) == 1).all()
-        assert plan["smem"] == hopper.RMS_BULK_ROWS_OFFSET + plan["rows"] * plan["chunks"] * 16
-    assert plan["smem"] <= hopper.RMS_SMEM_BYTES == 227 * 1024 - 128
-    assert plan["resident"] >= 1 and plan["waves"] >= 1
+    assert plan["loads"] in hopper.RMS_LOADS
+    assert (_chunk_owners(plan) == 1).all()
+    owners = np.bincount(np.concatenate([np.arange(t, plan["tail"], tpr)
+                                         for t in range(tpr)] + [np.zeros(0, int)]),
+                         minlength=plan["tail"])
+    assert (owners == 1).all()
+    assert plan["resident"] == min(32, hopper.RMS_THREADS_PER_SM // plan["threads"])
+    assert plan["waves"] == -(-plan["blocks"] // (sms * plan["resident"]))
 
 
 @pytest.mark.parametrize("sms", SMS)
 @pytest.mark.parametrize("elem", [2, 4])
 @pytest.mark.parametrize("m,d", TIMED)
 def test_plan_covers_the_timed_shapes(m, d, elem, sms):
-    _check(hopper.rmsnorm_stats_plan(m, d, elem, sms), m, d, elem)
-
-
-@pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("stages", [1, 2, 3, 4])
-@pytest.mark.parametrize("elem", [2, 4])
-@pytest.mark.parametrize("m,d", TIMED)
-def test_bulk_plan_covers_the_timed_shapes(m, d, elem, stages, sms):
-    _check(hopper.rmsnorm_stats_plan(m, d, elem, sms, route="bulk", stages=stages), m, d, elem)
+    _check(hopper.rmsnorm_stats_plan(m, d, elem, sms), m, d, elem, sms)
 
 
 @pytest.mark.parametrize("width", [16, 8, 4, 2])
@@ -106,8 +84,9 @@ def test_forced_load_counts_cover_every_row(d, elem, loads):
 
 
 def test_long_rows_take_more_rounds():
+    """100000 f32 values are 25000 loads: 13 rounds of 1024 threads x 2."""
     plan = hopper.rmsnorm_stats_plan(4, 100000, 4, 132)
-    assert plan["tpr"] == hopper.RMS_MAX_THREADS and plan["rounds"] == 7
+    assert plan["tpr"] == hopper.RMS_MAX_THREADS and plan["rounds"] == 13
 
 
 @pytest.mark.parametrize("elem", [2, 4])
@@ -119,13 +98,21 @@ def test_prefill_rows_take_one_round(m, d, elem):
 
 
 def test_main_shape_plan():
-    """[1024, 4096] bf16 on 132 SMs: 128 threads per row, 4 loads of 16 bytes
-    each, two rows per block of 256, 512 blocks in one wave."""
+    """[1024, 4096] bf16 on 132 SMs: 256 threads per row, 2 loads of 16 bytes
+    each, a row per block, 1024 blocks in one wave (8 per SM)."""
     plan = hopper.rmsnorm_stats_plan(1024, 4096, 2, 132)
-    assert {k: plan[k] for k in ("route", "width", "loads", "rounds", "tpr", "rows",
-                                 "threads", "blocks", "waves")} == dict(
-        route="ldg", width=16, loads=4, rounds=1, tpr=128, rows=2, threads=256,
-        blocks=512, waves=1)
+    assert {k: plan[k] for k in ("width", "loads", "rounds", "tpr", "rows", "threads",
+                                 "blocks", "resident", "waves")} == dict(
+        width=16, loads=2, rounds=1, tpr=256, rows=1, threads=256, blocks=1024, resident=8,
+        waves=1)
+
+
+@pytest.mark.parametrize("block_threads", [128, 256, 512])
+def test_block_threads_set_rows_per_block(block_threads):
+    """Rows share a block of about ``block_threads`` (the sweep's knob)."""
+    plan = hopper.rmsnorm_stats_plan(4096, 2048, 2, 132, block_threads=block_threads)
+    assert plan["tpr"] == 128 and plan["rows"] == block_threads // 128
+    _check(plan, 4096, 2048, 2)
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -157,19 +144,6 @@ def test_few_rows_take_one_row_per_block():
 ])
 def test_load_width_follows_base_and_stride(addr, stride, elem, want):
     assert hopper.rms_width(addr, stride, elem) == want
-
-
-def test_bulk_route_rejects_what_it_cannot_copy():
-    with pytest.raises(ValueError, match="bulk"):
-        hopper.rmsnorm_stats_plan(8, 4095, 2, 132, route="bulk")
-    with pytest.raises(ValueError, match="bulk"):
-        hopper.rmsnorm_stats_plan(8, 4096, 2, 132, width=8, route="bulk")
-    with pytest.raises(ValueError, match="bulk"):
-        hopper.rmsnorm_stats_plan(8, 16, 2, 132, route="bulk", stages=4)
-    with pytest.raises(ValueError, match="shared memory"):
-        hopper.rmsnorm_stats_plan(8, 1 << 17, 2, 132, route="bulk", stages=4)
-    with pytest.raises(ValueError, match="route"):
-        hopper.rmsnorm_stats_plan(8, 4096, 2, 132, route="tma")
 
 
 def test_plan_rejects_what_the_kernel_does_not_take():

@@ -16,27 +16,34 @@ unpacked under ``build/`` against this tree, in turns:
 At every shape of ``chip_smoke.RMS_SHAPES``, on ``ops.rmsnorm_stats(y,
 impl="kernel")``: ``ms`` (`chip_smoke.time_ms`: one call per CUDA graph
 replay, cold L2, median), ``amortised_ms`` (`chip_smoke.amortised_ms`: 8
-calls on 8 distinct inputs per replay, over 8) and ``call_ms``
-(`chip_smoke.call_ms`), in microseconds, one JSON line per tree.
+calls on 8 distinct inputs per replay, over 8), ``amortised_clean_ms`` (the
+same after a flush that reads, leaving no dirty lines to write back) and
+``call_ms`` (`chip_smoke.call_ms`), in microseconds, one JSON line per tree,
+with the floors of `chip_smoke.time_ms` (one 1-element fill per replay) and
+of `chip_smoke.amortised_ms` (8 such fills per replay, over 8).
 
 ``--sweep`` (this tree only) times, at each shape, the planner's choice
-beside every forced count of loads per thread on the ldg route and the
-bulk-copy route at 1, 2 and 4 stages (``ms`` and ``amortised_ms``).
+beside every forced count of loads per thread, blocks of 128 and 512
+threads, and the kernel built with ``__ldg`` and ``__ldcg`` loads in place
+of ``__ldcs`` (``-DRMS_LOAD``): ``amortised_ms`` and ``amortised_clean_ms``,
+each variant timed in 3 rounds of turns with the others, medians.
 
 ``--phases`` (this tree only) builds ``csrc/rmsnorm_stats.cu`` with
 ``-DRMS_PHASE_CLOCK``: thread 0 of every block stamps ``clock64`` and the
 global timer at entry, when its first bytes have landed (its first load
-added), when its last are added, and after the write.  One line per shape
-(and the bulk route at the main shape): the launch's span (first entry to
-last exit, global timer), the spread of block entries, and the median
-block's "first bytes landed", "loads" and "reduce and write" at the SM
-clock the two timers give; medians over ``--reps`` launches, cold L2.
+added), when its last are added, and after the write.  One line per shape:
+the launch's span (first entry to last exit, global timer), the spread of
+block entries, and the median block's "first bytes landed", "loads" and
+"reduce and write" at the SM clock the two timers give; medians over
+``--reps`` launches, after the flush that writes and after the one that
+reads.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import importlib.util
 import json
 import os
@@ -65,30 +72,40 @@ def label(m, d, dt) -> str:
     return f"{m}x{d} {str(dt).replace('torch.', '')}"
 
 
-def build_clocked(hopper):
-    """The phase-stamping library, bound where `hopper.rmsnorm_stats` looks."""
-    out = hopper.build_dir() / "phase_clock"
+def build_variant(hopper, name: str, flag: str):
+    """``csrc/rmsnorm_stats.cu`` built with ``flag`` into its own library,
+    bound as `hopper.rmsnorm_stats` binds its own."""
+    out = hopper.build_dir() / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    target = out / "rmsnorm_stats.so"
-    proc = subprocess.run(hopper.nvcc_command("rmsnorm_stats", target, ("-DRMS_PHASE_CLOCK",)),
+    target = out / f"rmsnorm_stats_{name}.so"
+    proc = subprocess.run(hopper.nvcc_command("rmsnorm_stats", target, (flag,)),
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
-        raise RuntimeError(f"phase-clock build failed:\n{proc.stdout}")
+        raise RuntimeError(f"{flag} build failed:\n{proc.stdout}")
     lib = ctypes.CDLL(str(target))
     hopper._bind("rmsnorm_stats", lib)
+    return lib
+
+
+def build_clocked(hopper):
+    """The phase-stamping library, put where `hopper.rmsnorm_stats` looks."""
+    lib = build_variant(hopper, "phase_clock", "-DRMS_PHASE_CLOCK")
     lib.rmsnorm_stats_set_stamps.argtypes = [ctypes.c_void_p]
     lib.rmsnorm_stats_set_stamps.restype = None
     hopper._LIBS["rmsnorm_stats"] = lib
     return lib
 
 
-def phases(torch, hopper, lib, y, plan, flush, reps):
+def phases(torch, hopper, lib, y, plan, flush, how, reps):
     stamps = torch.zeros(plan["blocks"], 2 * PHASES, dtype=torch.int64, device="cuda")
     lib.rmsnorm_stats_set_stamps(stamps.data_ptr())
     per, spans, spreads, ghz = [], [], [], []
     for _ in range(reps):
         stamps.zero_()
-        flush.zero_()
+        if how == "read":
+            flush.sum()
+        else:
+            flush.zero_()
         hopper.rmsnorm_stats(y, 1e-6, plan)
         torch.cuda.synchronize()
         st = stamps.cpu()
@@ -97,7 +114,8 @@ def phases(torch, hopper, lib, y, plan, flush, reps):
                     for i in range(PHASES - 1)])
         spans.append((ns[:, 3].max() - ns[:, 0].min()).item() / 1e3)
         spreads.append((ns[:, 0].max() - ns[:, 0].min()).item() / 1e3)
-        ghz.append((clk[:, 3] - clk[:, 0]).sum().item() / max(1, (ns[:, 3] - ns[:, 0]).sum().item()))
+        ghz.append((clk[:, 3] - clk[:, 0]).sum().item()
+                   / max(1, (ns[:, 3] - ns[:, 0]).sum().item()))
     rate = statistics.median(ghz) * 1e3                    # cycles per microsecond
     block = {name: statistics.median(p[i] for p in per) / rate
              for i, name in enumerate(("first_bytes_landed", "loads", "reduce_and_write"))}
@@ -135,36 +153,41 @@ def main() -> int:
     if args.phases:
         flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
         lib = build_clocked(hopper)
-        cases = [(m, d, dt, None) for m, d, dt, _ in cs.RMS_SHAPES]
-        cases.append(cs.RMS_MAIN + (dict(route="bulk", stages=2),))
-        for m, d, dt, force in cases:
+        for m, d, dt, _ in cs.RMS_SHAPES:
             y = inputs(torch, cs, m, d, dt)[0]
-            elem = y.element_size()
-            plan = hopper.rmsnorm_stats_plan(m, d, elem, hopper._sms(y.device), **(force or {}))
-            print(json.dumps(dict(base, shape=label(m, d, dt), route=plan["route"],
-                                  plan=plan, **phases(torch, hopper, lib, y, plan, flush,
-                                                      args.reps))), flush=True)
+            plan = hopper.rmsnorm_stats_plan(m, d, y.element_size(), hopper._sms(y.device))
+            for how in ("write", "read"):
+                print(json.dumps(dict(base, shape=label(m, d, dt), flush=how, plan=plan,
+                                      **phases(torch, hopper, lib, y, plan, flush, how,
+                                               args.reps))), flush=True)
         return 0
 
     if args.sweep:
+        own = hopper._lib("rmsnorm_stats")
+        libs = {"__ldcs": own, **{h: build_variant(hopper, h, f"-DRMS_LOAD={h}")
+                                  for h in ("__ldg", "__ldcg")}}
         for m, d, dt, _ in cs.RMS_SHAPES:
             ys = inputs(torch, cs, m, d, dt)
             elem = ys[0].element_size()
             sms = hopper._sms(ys[0].device)
-            variants = {"planner": hopper.rmsnorm_stats_plan(m, d, elem, sms)}
-            for n in hopper.RMS_LOADS:
-                variants[f"ldg loads {n}"] = hopper.rmsnorm_stats_plan(m, d, elem, sms, loads=n)
-            for st in (1, 2, 4):
-                variants[f"bulk stages {st}"] = hopper.rmsnorm_stats_plan(
-                    m, d, elem, sms, route="bulk", stages=st)
-            row = {}
-            for name, plan in variants.items():
-                fn = lambda yy, plan=plan: hopper.rmsnorm_stats(yy, 1e-6, plan)  # noqa: E731
-                row[name] = dict(
-                    ms=us(cs.time_ms(lambda: fn(ys[0]), args.reps)),
-                    amortised_ms=us(cs.amortised_ms(fn, ys, args.reps)),
-                    plan={k: plan[k] for k in ("loads", "stages", "tpr", "rows", "blocks",
-                                               "resident", "waves")})
+            plan = functools.partial(hopper.rmsnorm_stats_plan, m, d, elem, sms)
+            variants = {"planner": ("__ldcs", plan())}
+            variants.update({f"loads {n}": ("__ldcs", plan(loads=n)) for n in hopper.RMS_LOADS})
+            variants.update({f"block {t}": ("__ldcs", plan(block_threads=t)) for t in (128, 512)})
+            variants.update({h: (h, plan()) for h in ("__ldg", "__ldcg")})
+            times = {name: {"amortised_ms": [], "amortised_clean_ms": []} for name in variants}
+            for _ in range(3):
+                for name, (lib, p) in variants.items():
+                    hopper._LIBS["rmsnorm_stats"] = libs[lib]
+                    fn = lambda yy, p=p: hopper.rmsnorm_stats(yy, 1e-6, p)  # noqa: E731
+                    times[name]["amortised_ms"].append(us(cs.amortised_ms(fn, ys, args.reps)))
+                    times[name]["amortised_clean_ms"].append(
+                        us(cs.amortised_ms(fn, ys, args.reps, "read")))
+            hopper._LIBS["rmsnorm_stats"] = own
+            row = {name: dict({k: statistics.median(v) for k, v in t.items()},
+                              plan={k: variants[name][1][k] for k in (
+                                  "loads", "tpr", "rows", "blocks", "resident", "waves")})
+                   for name, t in times.items()}
             print(json.dumps(dict(base, shape=label(m, d, dt), us=row)), flush=True)
             del ys
         return 0
@@ -173,13 +196,17 @@ def main() -> int:
     for m, d, dt, _ in cs.RMS_SHAPES:
         ys = inputs(torch, cs, m, d, dt)
         fn = lambda yy: ops.rmsnorm_stats(yy, impl="kernel")  # noqa: E731
-        rows[label(m, d, dt)] = dict(ms=us(cs.time_ms(lambda: fn(ys[0]), args.reps)),
-                                     amortised_ms=us(cs.amortised_ms(fn, ys, args.reps)),
-                                     call_ms=us(cs.call_ms(lambda: fn(ys[0]))))
+        rows[label(m, d, dt)] = dict(
+            ms=us(cs.time_ms(lambda: fn(ys[0]), args.reps)),
+            amortised_ms=us(cs.amortised_ms(fn, ys, args.reps)),
+            amortised_clean_ms=us(cs.amortised_ms(fn, ys, args.reps, "read")),
+            call_ms=us(cs.call_ms(lambda: fn(ys[0]))))
         del ys
-    one = torch.zeros(1, device="cuda")
-    print(json.dumps(dict(base, unit="us", floor_ms=us(cs.time_ms(lambda: one.fill_(1.0))),
-                          shapes=rows)), flush=True)
+    ones = [torch.zeros(1, device="cuda") for _ in range(cs.RMS_AMORTISED)]
+    print(json.dumps(dict(
+        base, unit="us", floor_ms=us(cs.time_ms(lambda: ones[0].fill_(1.0))),
+        amortised_floor_ms=us(cs.amortised_ms(lambda t: t.fill_(1.0), ones)), shapes=rows)),
+        flush=True)
     return 0
 
 
