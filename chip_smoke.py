@@ -21,7 +21,13 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    retention on the model's strided views and the MLA mode, each bound by
    its split-TF32 instruction mix (the f32 CUDA-core bound beside it), with
    a profiler check that one call runs only its own launches (retention
-   two, the MLA mode one);
+   two, the MLA mode and rmsnorm_stats one); rmsnorm_stats at the sigma^-1
+   shapes the served models normalise (`RMS_SHAPES`), also against float64,
+   timed one call per replay and 8 calls on 8 inputs per replay
+   (`amortised_ms`, also after a flush that reads), beside
+   ``torch.linalg.vector_norm`` as the nearest library reduction, and the
+   price of the port's sigma^-1 chain of PyTorch kernels
+   (`sigma_chain_price`);
 4. the three main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens:

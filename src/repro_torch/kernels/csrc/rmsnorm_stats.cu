@@ -168,6 +168,8 @@ __device__ __forceinline__ void finish(const Params& p, float acc, int t, int r,
   if (t == 0 && live) p.out[row] = rsqrtf(acc / (float)p.D + p.eps);
 }
 
+// (1024, 2): at most 32 registers a thread, so that an SM holds 2048 threads
+// whatever the plan's block size (hopper.RMS_THREADS_PER_SM).
 template <bool kBF16, int kW, int kN>
 __global__ void __launch_bounds__(kMaxThreads, 2048 / kMaxThreads)
 rmsnorm_stats_kernel(const Params p) {

@@ -11,9 +11,10 @@ edited source or header is rebuilt and never loaded stale.
 The two GEMM kernels take their tile shape (and MXINT4 its K split) from
 planners here (`w8a8_plan`, `mxint4_plan`), flash-decode its split and ring
 from `flash_decode_plan`, and retention the size of its scratch from
-`retention_plan` (its tiles and grid are fixed in the kernel): plain
+`retention_plan` (its tiles and grid are fixed in the kernel), and
+rmsnorm_stats its row split and grid from `rmsnorm_stats_plan`: plain
 functions of the shape that the CPU tests reach, as are the layout checks
-(`check_fd_operand`, `retention_dims`).
+(`check_fd_operand`, `retention_dims`, `rms_width`).
 
 The launch functions here check device, dtype, shape, contiguity and
 alignment, launch on PyTorch's current stream, raise on a nonzero
@@ -856,7 +857,6 @@ def _rms_tpr(chunks: int, loads: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132, width: int = 16,
-                       threads_per_sm: int = RMS_THREADS_PER_SM,
                        loads: int | None = None,
                        block_threads: int = RMS_BLOCK_THREADS) -> dict:
     """Row split and grid of one rmsnorm_stats launch on ``[m, d]`` rows of
@@ -870,10 +870,11 @@ def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132, width: i
     rows per block, down to one, and then, while the card has fewer than
     ``block_threads`` threads per SM to issue loads, fewer loads per thread
     over more threads (a decode pair of rows spreads each row over 512).
-    ``resident`` is the blocks an SM holds (``threads_per_sm``, the kernel
-    capping its registers so that every thread fits) and ``waves`` the grid
-    over ``sms * resident``.  Raises on a shape the kernel does not take.
-    Plans are cached; callers must not modify the dict.
+    ``resident`` is the blocks an SM holds (RMS_THREADS_PER_SM threads:
+    the kernel caps its registers so that all fit) and ``waves`` the grid
+    over ``sms * resident``.  ``loads`` and ``block_threads`` are for the
+    sweep (tools/rmsnorm_turns.py).  Raises on a shape the kernel does not
+    take.  Plans are cached; callers must not modify the dict.
     """
     if m < 1 or d < 1 or elem_bytes not in (2, 4) or width not in (2, 4, 8, 16) \
             or width < elem_bytes:
@@ -895,7 +896,7 @@ def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132, width: i
         tpr = _rms_tpr(chunks, n)
     threads = tpr * rows
     blocks = -(-m // rows)
-    resident = min(32, threads_per_sm // threads)
+    resident = min(32, RMS_THREADS_PER_SM // threads)
     return dict(width=width, chunks=chunks, tail=d - chunks * per, loads=n,
                 rounds=-(-chunks // (tpr * n)), tpr=tpr, rows=rows, threads=threads,
                 blocks=blocks, resident=resident, waves=-(-blocks // (sms * resident)))
