@@ -24,7 +24,7 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    two, the MLA mode and rmsnorm_stats one); rmsnorm_stats at the sigma^-1
    shapes the served models normalise (`RMS_SHAPES`), also against float64,
    timed one call per replay and 8 calls on 8 inputs per replay
-   (`amortised_ms`, also after a flush that reads), beside
+   (`amortised_ms`), beside
    ``torch.linalg.vector_norm`` as the nearest library reduction, and the
    price of the port's sigma^-1 chain of PyTorch kernels
    (`sigma_chain_price`);
@@ -166,15 +166,13 @@ def card_peaks(name: str) -> dict:
 _FLUSH: list = []
 
 
-def time_ms(fn, iters: int = 15, flush: str = "write") -> float:
+def time_ms(fn, iters: int = 15) -> float:
     """Median device time of ``fn`` with a cold L2.
 
     ``fn`` is captured once in a CUDA graph and replayed between CUDA
     events, so the events time the card's work and not the Python wrapper
     around it (the wrapper's host cost is `call_ms`).  A 256 MB write before
-    each replay evicts the 50 MB L2, leaving it full of dirty lines that the
-    timed work's reads then write back; ``flush="read"`` evicts it by reading
-    the 256 MB instead, leaving clean lines.
+    each replay evicts the 50 MB L2.
     """
     if not _FLUSH:
         _FLUSH.append(torch.empty(64 << 20, dtype=torch.float32, device="cuda"))
@@ -186,10 +184,7 @@ def time_ms(fn, iters: int = 15, flush: str = "write") -> float:
     graph.replay()
     pairs = []
     for _ in range(iters):
-        if flush == "read":
-            _FLUSH[0].sum()
-        else:
-            _FLUSH[0].zero_()
+        _FLUSH[0].zero_()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         graph.replay()
@@ -213,12 +208,12 @@ def call_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def amortised_ms(fn, inputs, iters: int = 15, flush: str = "write") -> float:
+def amortised_ms(fn, inputs, iters: int = 15) -> float:
     """Median device time per call of ``fn(x)`` over the distinct ``inputs``,
     captured back to back in one CUDA graph and replayed with a cold L2 as
     in `time_ms`, divided by their count: the replay's fixed cost (the floor
     of `time_ms`) is spread over every call."""
-    return time_ms(lambda: [fn(x) for x in inputs], iters, flush) / len(inputs)
+    return time_ms(lambda: [fn(x) for x in inputs], iters) / len(inputs)
 
 
 def bound_ms(nbytes: float, ops_: float, op_rate: float, peaks: dict):
@@ -624,10 +619,8 @@ def kernel_phase_rmsnorm_stats(peaks):
     call.  Each shape is checked against the plain version and float64, a
     relaunch must be bit-equal, and a profiler check holds one call to one
     device kernel.  ``ms`` is one call per replay (`time_ms`, whose floor
-    is printed), ``amortised_ms`` RMS_AMORTISED calls on distinct inputs per
-    replay, and ``amortised_clean_ms`` the same after a flush that reads
-    (`time_ms`'s ``flush="read"``: no dirty lines to write back during the
-    calls).  No PyTorch call computes rsqrt(mean(y^2) + eps), so
+    is printed) and ``amortised_ms`` RMS_AMORTISED calls on distinct inputs
+    per replay.  No PyTorch call computes rsqrt(mean(y^2) + eps), so
     ``library_ms`` is None; ``nearest_library_ms`` times
     ``torch.linalg.vector_norm(y, dim=-1, dtype=torch.float32)``, one
     library reduction over the same bytes, as a yardstick of the read."""
@@ -654,19 +647,16 @@ def kernel_phase_rmsnorm_stats(peaks):
         lib = lambda yy=y: torch.linalg.vector_norm(yy, dim=-1, dtype=torch.float32)  # noqa: E731
         ms = time_ms(run)
         am = amortised_ms(run, ys)
-        am_clean = amortised_ms(run, ys, flush="read")
         rows.append(dict(
             path="ops.rmsnorm_stats (no model path)", main=(m, d, dt) == RMS_MAIN, site=site,
             shape=[m, d], dtype=str(dt).replace("torch.", ""), per_call=1, max_abs_err=err,
             f64_max_abs_err={"kernel": (got.double() - want64).abs().max().item(),
                              "plain": (ref.rmsnorm_stats_ref(y).double() - want64)
                              .abs().max().item()},
-            ms=ms, amortised_ms=am, amortised_clean_ms=am_clean, call_ms=call_ms(run),
+            ms=ms, amortised_ms=am, call_ms=call_ms(run),
             plain_ms=time_ms(lambda: ref.rmsnorm_stats_ref(y)), library_ms=None,
-            nearest_library_ms=time_ms(lib), nearest_library_amortised_ms=amortised_ms(lib, ys),
-            nearest_library_amortised_clean_ms=amortised_ms(lib, ys, flush="read"),
+            nearest_library_ms=time_ms(lib),
             bound_ms=bms, bound_by=by, bound_share=bms / ms, amortised_bound_share=bms / am,
-            amortised_clean_bound_share=bms / am_clean,
             launch_kernels=launched,
             plan={k: plan[k] for k in ("width", "loads", "rounds", "tpr", "rows", "blocks",
                                        "waves")}))
@@ -1174,17 +1164,16 @@ def main() -> int:
                 "library_max_abs_err", "rate", "library_rate", "bound_share",
                 "bound_f32_ms", "bound_share_f32", "plain_contiguous_ms", "flops",
                 "warm_state_max_abs_err", "f64_max_abs_err", "amortised_ms",
-                "amortised_bound_share", "amortised_clean_ms", "amortised_clean_bound_share",
-                "nearest_library_ms", "nearest_library_amortised_ms",
-                "nearest_library_amortised_clean_ms",
+                "amortised_bound_share", "nearest_library_ms",
                 "site", "launch_kernels", "plan")
                 if key in r)
             log(f"  {e['name']} {r['path']} {r['shape']}: kernel {r['ms']:.4f} (per call "
                 f"{r['call_ms']:.4f}) plain {r['plain_ms']:.4f} library "
                 f"{r['library_ms']} bound {r['bound_ms']:.4f} ({r['bound_by']}) "
                 f"err {r['max_abs_err']:.2e}{extra}")
-    entries[-1]["sigma_chain"] = sigma_chain_price()
-    for r in entries[-1]["sigma_chain"]:
+    rms = next(e for e in entries if e["name"] == "rmsnorm_stats")
+    rms["sigma_chain"] = sigma_chain_price()
+    for r in rms["sigma_chain"]:
         log(f"  sigma^-1 price: {json.dumps(r)}")
     log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 

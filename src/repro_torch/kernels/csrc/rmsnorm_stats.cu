@@ -13,17 +13,19 @@
 // walks each row in a chain of dependent rounds pays the latency once per
 // round.  So a block puts every byte of its rows in flight before it adds
 // any of them: `tpr` threads own a row, and each issues all `kN` (a
-// compile-time 1, 2 or 4; 2 by default) streaming loads of `kW` bytes of a
-// round before it squares any, neighbouring threads on neighbouring
-// addresses.  A row takes
-// `rounds` rounds (one at every shape the models normalise).
-// `hopper.rmsnorm_stats_plan` picks the row split and the grid from the
-// shape and the card: a wide row spreads over the warps of its block, many
-// narrow rows share a warp, a few rows take a block each.  Rows whose width
-// or base is not a multiple of 16 bytes take a narrower kW; elements past
-// the last whole load (`tail`) are read one by one.  (Bulk copies of the
-// rows into shared memory, in 1 to 4 column stages on mbarriers, measured
-// 10-40 % slower at every shape: PERF.md.)
+// compile-time 1 or 2) streaming loads (`__ldcs`) of `kW` bytes of a round
+// before it squares any, neighbouring threads on neighbouring addresses:
+// thread t's load j of round k reads chunk (k * kN + j) * tpr + t.  A row
+// takes `rounds` rounds (one at every shape the models normalise).
+// `hopper.rmsnorm_stats_plan` owns the whole split: the load width, the
+// row's `chunks` whole loads and `tail` elements past them (read one by
+// one), `tpr`, `rounds`, the rows per block and the grid; the launch checks
+// that the plan covers every row and element once and lays nothing out on
+// its own.  A wide row spreads over the warps of its block, many narrow
+// rows share a warp, a few rows take a block each.  Rows whose width or
+// base is not a multiple of 16 bytes take a narrower kW.  (Bulk copies of
+// the rows into shared memory, in 1 to 4 column stages on mbarriers,
+// measured 10-40 % slower at every shape: PERF.md.)
 //
 // The row's threads then add their f32 partial sums in a fixed order (a
 // shuffle butterfly inside a warp, then the warps' sums in warp order), so
@@ -38,12 +40,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The load: streaming (evict-first).  tools/rmsnorm_turns.py --sweep builds
-// the kernel with -DRMS_LOAD=__ldg and -DRMS_LOAD=__ldcg beside it.
-#ifndef RMS_LOAD
-#define RMS_LOAD __ldcs
-#endif
-
 namespace {
 
 constexpr int kMaxThreads = 1024;
@@ -56,8 +52,8 @@ struct Params {
   int tpr;            // threads per row: a power of two up to 32, or a multiple of 32
   int rows;           // rows per block
   int chunks;         // whole loads per row
-  int rounds;         // rounds of kN loads per thread
   int tail;           // elements after the last whole load
+  int rounds;         // rounds of kN loads per thread
   float eps;
   long long* stamps;
 };
@@ -132,9 +128,9 @@ __device__ __forceinline__ float sumsq(const typename VecOf<kW>::type& v) {
 template <bool kBF16>
 __device__ __forceinline__ float element(const unsigned char* row, int i) {
   if constexpr (kBF16)
-    return __bfloat162float(RMS_LOAD(reinterpret_cast<const __nv_bfloat16*>(row) + i));
+    return __bfloat162float(__ldcs(reinterpret_cast<const __nv_bfloat16*>(row) + i));
   else
-    return RMS_LOAD(reinterpret_cast<const float*>(row) + i);
+    return __ldcs(reinterpret_cast<const float*>(row) + i);
 }
 
 // Adds the tail elements (past the row's last whole load) to this thread's sum.
@@ -186,7 +182,7 @@ rmsnorm_stats_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
       const int c = (k * kN + j) * p.tpr + t;
-      v[j] = (live && c < p.chunks) ? RMS_LOAD(vsrc + c) : Vec{};
+      v[j] = (live && c < p.chunks) ? __ldcs(vsrc + c) : Vec{};
     }
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
@@ -207,7 +203,6 @@ int launch(const Params& p, int loads, int blocks, int threads, cudaStream_t s) 
   switch (loads) {
     case 1: rmsnorm_stats_kernel<kBF16, kW, 1><<<blocks, threads, 0, s>>>(p); break;
     case 2: rmsnorm_stats_kernel<kBF16, kW, 2><<<blocks, threads, 0, s>>>(p); break;
-    case 4: rmsnorm_stats_kernel<kBF16, kW, 4><<<blocks, threads, 0, s>>>(p); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -227,16 +222,22 @@ extern "C" void rmsnorm_stats_set_stamps(void* stamps) {
 
 // y: M rows of D elements (bf16 if is_bf16, else f32), `stride` bytes apart,
 // read `width` bytes at a time (16, 8, 4 or, for bf16, 2; the base and the
-// stride are multiples of it).  The plan (`hopper.rmsnorm_stats_plan`):
-// `tpr` threads per row, `rows` rows per block, `loads` loads per thread per
-// round.
+// stride are multiples of it).  The plan (`hopper.rmsnorm_stats_plan`), which
+// this function checks and does not amend: a row is `chunks` loads and
+// `tail` elements, read by `tpr` threads in `rounds` rounds of `loads` loads
+// each; `rows` rows per block, `blocks` blocks.
 extern "C" int rmsnorm_stats_launch(const void* y, void* out, int M, int D, long long stride,
-                                    int is_bf16, int width, int tpr, int rows, int loads,
-                                    float eps, void* stream) {
+                                    int is_bf16, int width, int chunks, int tail, int rounds,
+                                    int tpr, int loads, int rows, int blocks, float eps,
+                                    void* stream) {
   const int elem = is_bf16 ? 2 : 4;
+  const long long per_round = (long long)tpr * loads;
   if (M < 1 || D < 1 || stride < 0 || !valid_tpr(tpr) || rows < 1 ||
       (long long)tpr * rows > kMaxThreads || width < elem || width > 16 ||
-      (width & (width - 1)) || loads < 1)
+      (width & (width - 1)) || (loads != 1 && loads != 2) || chunks < 0 || tail < 0 ||
+      tail >= width / elem || (long long)chunks * (width / elem) + tail != D || rounds < 0 ||
+      rounds * per_round < chunks || (rounds > 0 && (rounds - 1) * per_round >= chunks) ||
+      (long long)blocks * rows < M || (long long)(blocks - 1) * rows >= M)
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.y = static_cast<const unsigned char*>(y);
@@ -246,14 +247,14 @@ extern "C" int rmsnorm_stats_launch(const void* y, void* out, int M, int D, long
   p.D = D;
   p.tpr = tpr;
   p.rows = rows;
-  p.chunks = (int)((long long)D * elem / width);
-  p.tail = D - p.chunks * (width / elem);
+  p.chunks = chunks;
+  p.tail = tail;
+  p.rounds = rounds;
   p.eps = eps;
 #ifdef RMS_PHASE_CLOCK
   p.stamps = g_stamps;
 #endif
-  p.rounds = (p.chunks + tpr * loads - 1) / (tpr * loads);
-  const int blocks = (M + rows - 1) / rows, threads = tpr * rows;
+  const int threads = tpr * rows;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     switch (width) {

@@ -211,7 +211,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                                    f"is {query()}, the planner's {want}")
     elif name == "rmsnorm_stats":
         fn = lib.rmsnorm_stats_launch
-        fn.argtypes = [_P, _P, _I, _I, ctypes.c_longlong] + [_I] * 5 + [_F, _P]
+        fn.argtypes = [_P, _P, _I, _I, ctypes.c_longlong] + [_I] * 9 + [_F, _P]
     else:
         raise KeyError(f"no binding for kernel {name!r}")
     fn.restype = _I
@@ -831,11 +831,10 @@ def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: int, scale:
 # rmsnorm_stats (csrc/rmsnorm_stats.cu).  A row is read in `chunks` loads
 # of `width` bytes by `tpr` threads, each of which issues its `loads` loads
 # of a round before it adds any.
-RMS_BLOCK_THREADS = 256         # threads a block aims at
+RMS_BLOCK_THREADS = 256         # threads a block aims at: 128 and 512 within 1 % (PERF.md)
 RMS_MAX_THREADS = 1024
-RMS_LOADS = (1, 2, 4)           # the kernel's instantiations
-RMS_DEFAULT_LOADS = 2           # 32 bytes in flight per thread at width 16: 1-4 %
-                                # faster than 4 at most shapes (PERF.md)
+RMS_MAX_LOADS = 2               # loads per thread (the kernel builds 1 and 2): 32
+                                # bytes in flight at width 16, level with 4 (PERF.md)
 RMS_THREADS_PER_SM = 2048       # the kernel caps registers so that this many fit
 
 
@@ -856,25 +855,26 @@ def _rms_tpr(chunks: int, loads: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132, width: int = 16,
-                       loads: int | None = None,
-                       block_threads: int = RMS_BLOCK_THREADS) -> dict:
+def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132,
+                       width: int = 16) -> dict:
     """Row split and grid of one rmsnorm_stats launch on ``[m, d]`` rows of
-    ``elem_bytes`` elements read ``width`` bytes at a time.
+    ``elem_bytes`` elements read ``width`` bytes at a time; the launch takes
+    it as it is and checks it.
 
-    Each of a row's ``tpr`` threads issues its ``loads`` loads of a round
-    before it adds any (RMS_DEFAULT_LOADS unless given), and ``tpr`` is as
-    many as cover the row in one round (``rounds`` more only past
-    RMS_MAX_THREADS); ``rows`` rows share a block of about
-    ``block_threads``.  Few rows (fewer blocks than ``sms``) take fewer
+    A row is ``chunks`` whole loads and ``tail`` elements past them.  Each
+    of a row's ``tpr`` threads issues its ``loads`` loads of a round
+    (RMS_MAX_LOADS, or 1 for a row of one load) before it adds any, and
+    ``tpr`` is as many as cover the row in one round (``rounds`` more only
+    past RMS_MAX_THREADS); ``rows`` rows share a block of about
+    RMS_BLOCK_THREADS.  Few rows (fewer blocks than ``sms``) take fewer
     rows per block, down to one, and then, while the card has fewer than
-    ``block_threads`` threads per SM to issue loads, fewer loads per thread
-    over more threads (a decode pair of rows spreads each row over 512).
-    ``resident`` is the blocks an SM holds (RMS_THREADS_PER_SM threads:
-    the kernel caps its registers so that all fit) and ``waves`` the grid
-    over ``sms * resident``.  ``loads`` and ``block_threads`` are for the
-    sweep (tools/rmsnorm_turns.py).  Raises on a shape the kernel does not
-    take.  Plans are cached; callers must not modify the dict.
+    RMS_BLOCK_THREADS threads per SM to issue loads, one load per thread
+    over twice the threads (a decode pair of rows spreads each row over
+    512).  ``resident`` is the blocks an SM holds (RMS_THREADS_PER_SM
+    threads: the kernel caps its registers so that all fit) and ``waves``
+    the grid of ``blocks`` over ``sms * resident``.  Raises on a shape the
+    kernel does not take.  Plans are cached; callers must not modify the
+    dict.
     """
     if m < 1 or d < 1 or elem_bytes not in (2, 4) or width not in (2, 4, 8, 16) \
             or width < elem_bytes:
@@ -882,17 +882,14 @@ def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132, width: i
                          f"at width {width}")
     per = width // elem_bytes
     chunks = d // per
-    n = RMS_DEFAULT_LOADS if loads is None else loads
-    if n not in RMS_LOADS:
-        raise ValueError(f"rmsnorm_stats: loads {n} not one of {RMS_LOADS}")
-    n = min(n, 1 << (max(chunks, 1) - 1).bit_length())
+    n = 1 if chunks <= 1 else RMS_MAX_LOADS
     tpr = _rms_tpr(chunks, n)
-    rows = max(1, block_threads // tpr)
+    rows = max(1, RMS_BLOCK_THREADS // tpr)
     while rows > 1 and -(-m // rows) < sms:
         rows //= 2
-    while (loads is None and n > 1 and m * tpr < sms * block_threads
-           and tpr < _rms_tpr(chunks, n // 2) <= RMS_MAX_THREADS // rows):
-        n //= 2
+    if (n > 1 and m * tpr < sms * RMS_BLOCK_THREADS
+            and tpr < _rms_tpr(chunks, 1) <= RMS_MAX_THREADS // rows):
+        n = 1
         tpr = _rms_tpr(chunks, n)
     threads = tpr * rows
     blocks = -(-m // rows)
@@ -902,13 +899,13 @@ def rmsnorm_stats_plan(m: int, d: int, elem_bytes: int, sms: int = 132, width: i
                 blocks=blocks, resident=resident, waves=-(-blocks // (sms * resident)))
 
 
-def rmsnorm_stats(y, eps: float, plan: dict | None = None):
+def rmsnorm_stats(y, eps: float):
     """sigma^{-1} = rsqrt(mean(y^2) + eps) per row of f32 or bf16 ``[M, D]``
     -> f32 ``[M, 1]``.
 
     The rows may lie any stride apart (a view is read in place); the
-    elements of a row must be adjacent.  ``plan`` replaces the planner's
-    (`rmsnorm_stats_plan` of this shape; tools/rmsnorm_turns.py sweeps it).
+    elements of a row must be adjacent.  The launch follows
+    `rmsnorm_stats_plan` of this shape, alignment and card.
     """
     if y.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"rmsnorm_stats: expected float32 or bfloat16, got {y.dtype}")
@@ -922,17 +919,13 @@ def rmsnorm_stats(y, eps: float, plan: dict | None = None):
                          f"{tuple(y.stride())}")
     elem = y.element_size()
     stride = (y.stride(0) if m > 1 else d) * elem
-    width = rms_width(y.data_ptr(), stride, elem)
-    if plan is None:
-        plan = rmsnorm_stats_plan(m, d, elem, _sms(y.device), width)
-    elif plan["width"] > width:
-        raise ValueError(f"rmsnorm_stats: plan reads {plan['width']} bytes at a time, "
-                         f"the rows allow {width}")
+    plan = rmsnorm_stats_plan(m, d, elem, _sms(y.device), rms_width(y.data_ptr(), stride, elem))
     lib = _lib("rmsnorm_stats")
     out = torch.empty(m, 1, dtype=torch.float32, device=y.device)
-    err = lib.rmsnorm_stats_launch(y.data_ptr(), out.data_ptr(), m, d, stride,
-                                   int(y.dtype == torch.bfloat16), plan["width"], plan["tpr"],
-                                   plan["rows"], plan["loads"], float(eps), _stream())
+    err = lib.rmsnorm_stats_launch(
+        y.data_ptr(), out.data_ptr(), m, d, stride, int(y.dtype == torch.bfloat16),
+        *(plan[k] for k in ("width", "chunks", "tail", "rounds", "tpr", "loads", "rows",
+                            "blocks")), float(eps), _stream())
     _raise_if(err, "rmsnorm_stats")
     LAUNCHES["rmsnorm_stats"] += 1
     return out

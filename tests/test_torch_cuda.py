@@ -596,18 +596,20 @@ def test_rmsnorm_stats_kernel_relaunch_bit_equal(m, d, dtype):
     assert torch.equal(ops.rmsnorm_stats(y, impl="kernel"), ops.rmsnorm_stats(y, impl="kernel"))
 
 
-@pytest.mark.parametrize("loads", hopper.RMS_LOADS)
-@pytest.mark.parametrize("m,d,dtype", [
-    (1024, 4096, torch.bfloat16), (1024, 7168, torch.float32), (32768, 128, torch.bfloat16),
-    (2, 4096, torch.bfloat16), (9, 4095, torch.bfloat16), (33, 100, torch.float32),
+@pytest.mark.parametrize("m,d,dtype,loads", [
+    (1024, 4096, torch.bfloat16, 2), (1024, 7168, torch.float32, 2),
+    (32768, 128, torch.bfloat16, 2), (9, 4095, torch.bfloat16, 2), (2, 4096, torch.bfloat16, 1),
+    (1, 4096, torch.bfloat16, 1), (33, 100, torch.float32, 1),
 ])
 def test_rmsnorm_stats_kernel_every_load_count(m, d, dtype, loads):
-    """Every instantiated count of loads per thread, forced on the planner."""
+    """Both counts of loads per thread the kernel builds, each where the
+    planner picks it: two for many rows, or for rows of 2-byte loads past
+    one round of 1024 threads ([9, 4095] bf16), one for few rows."""
     y = _rms_input(m, d, dtype)
     w = hopper.rms_width(y.data_ptr(), y.stride(0) * y.element_size(), y.element_size())
-    plan = hopper.rmsnorm_stats_plan(m, d, y.element_size(), hopper._sms(y.device), w,
-                                     loads=loads)
-    torch.testing.assert_close(hopper.rmsnorm_stats(y, 1e-6, plan)[:, 0],
+    assert hopper.rmsnorm_stats_plan(m, d, y.element_size(), hopper._sms(y.device),
+                                     w)["loads"] == loads
+    torch.testing.assert_close(ops.rmsnorm_stats(y, impl="kernel"),
                                ref.rmsnorm_stats_ref(y), rtol=1e-6, atol=1e-6)
 
 

@@ -2,7 +2,7 @@
 """rmsnorm_stats on one NVIDIA card at ``chip_smoke.py``'s sigma^-1 shapes;
 one tree per process, so that two trees can be timed in turns.
 
-    python3 tools/rmsnorm_turns.py [--src DIR] [--reps 15] [--sweep | --phases]
+    python3 tools/rmsnorm_turns.py [--src DIR] [--reps 15] [--phases]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is measured (by
 default this checkout's); it builds into that tree's own build directory.
@@ -16,17 +16,10 @@ unpacked under ``build/`` against this tree, in turns:
 At every shape of ``chip_smoke.RMS_SHAPES``, on ``ops.rmsnorm_stats(y,
 impl="kernel")``: ``ms`` (`chip_smoke.time_ms`: one call per CUDA graph
 replay, cold L2, median), ``amortised_ms`` (`chip_smoke.amortised_ms`: 8
-calls on 8 distinct inputs per replay, over 8), ``amortised_clean_ms`` (the
-same after a flush that reads, leaving no dirty lines to write back) and
-``call_ms`` (`chip_smoke.call_ms`), in microseconds, one JSON line per tree,
-with the floors of `chip_smoke.time_ms` (one 1-element fill per replay) and
-of `chip_smoke.amortised_ms` (8 such fills per replay, over 8).
-
-``--sweep`` (this tree only) times, at each shape, the planner's choice
-beside every forced count of loads per thread, blocks of 128 and 512
-threads, and the kernel built with ``__ldg`` and ``__ldcg`` loads in place
-of ``__ldcs`` (``-DRMS_LOAD``): ``amortised_ms`` and ``amortised_clean_ms``,
-each variant timed in 3 rounds of turns with the others, medians.
+calls on 8 distinct inputs per replay, over 8) and ``call_ms``
+(`chip_smoke.call_ms`), in microseconds, one JSON line per tree, with the
+floors of `chip_smoke.time_ms` (one 1-element fill per replay) and of
+`chip_smoke.amortised_ms` (8 such fills per replay, over 8).
 
 ``--phases`` (this tree only) builds ``csrc/rmsnorm_stats.cu`` with
 ``-DRMS_PHASE_CLOCK``: thread 0 of every block stamps ``clock64`` and the
@@ -35,15 +28,14 @@ added), when its last are added, and after the write.  One line per shape:
 the launch's span (first entry to last exit, global timer), the spread of
 block entries, and the median block's "first bytes landed", "loads" and
 "reduce and write" at the SM clock the two timers give; medians over
-``--reps`` launches, after the flush that writes and after the one that
-reads.
+``--reps`` launches, each after `chip_smoke.time_ms`'s flush (a 256 MB
+write).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import functools
 import importlib.util
 import json
 import os
@@ -72,41 +64,32 @@ def label(m, d, dt) -> str:
     return f"{m}x{d} {str(dt).replace('torch.', '')}"
 
 
-def build_variant(hopper, name: str, flag: str):
-    """``csrc/rmsnorm_stats.cu`` built with ``flag`` into its own library,
-    bound as `hopper.rmsnorm_stats` binds its own."""
+def build_clocked(hopper):
+    """``csrc/rmsnorm_stats.cu`` built with ``-DRMS_PHASE_CLOCK`` into its
+    own library, bound and put where `hopper.rmsnorm_stats` looks."""
     out = hopper.build_dir() / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    target = out / f"rmsnorm_stats_{name}.so"
-    proc = subprocess.run(hopper.nvcc_command("rmsnorm_stats", target, (flag,)),
+    target = out / "rmsnorm_stats_phase_clock.so"
+    proc = subprocess.run(hopper.nvcc_command("rmsnorm_stats", target, ("-DRMS_PHASE_CLOCK",)),
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
-        raise RuntimeError(f"{flag} build failed:\n{proc.stdout}")
+        raise RuntimeError(f"-DRMS_PHASE_CLOCK build failed:\n{proc.stdout}")
     lib = ctypes.CDLL(str(target))
     hopper._bind("rmsnorm_stats", lib)
-    return lib
-
-
-def build_clocked(hopper):
-    """The phase-stamping library, put where `hopper.rmsnorm_stats` looks."""
-    lib = build_variant(hopper, "phase_clock", "-DRMS_PHASE_CLOCK")
     lib.rmsnorm_stats_set_stamps.argtypes = [ctypes.c_void_p]
     lib.rmsnorm_stats_set_stamps.restype = None
     hopper._LIBS["rmsnorm_stats"] = lib
     return lib
 
 
-def phases(torch, hopper, lib, y, plan, flush, how, reps):
+def phases(torch, hopper, lib, y, plan, flush, reps):
     stamps = torch.zeros(plan["blocks"], 2 * PHASES, dtype=torch.int64, device="cuda")
     lib.rmsnorm_stats_set_stamps(stamps.data_ptr())
     per, spans, spreads, ghz = [], [], [], []
     for _ in range(reps):
         stamps.zero_()
-        if how == "read":
-            flush.sum()
-        else:
-            flush.zero_()
-        hopper.rmsnorm_stats(y, 1e-6, plan)
+        flush.zero_()
+        hopper.rmsnorm_stats(y, 1e-6)
         torch.cuda.synchronize()
         st = stamps.cpu()
         clk, ns = st[:, :PHASES], st[:, PHASES:]
@@ -127,13 +110,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--reps", type=int, default=15)
-    mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--sweep", action="store_true")
-    mode.add_argument("--phases", action="store_true")
+    ap.add_argument("--phases", action="store_true")
     args = ap.parse_args()
     src = Path(args.src).resolve()
-    if (args.sweep or args.phases) and src != ROOT / "src":
-        print("rmsnorm_turns: --sweep and --phases need this tree", file=sys.stderr)
+    if args.phases and src != ROOT / "src":
+        print("rmsnorm_turns: --phases needs this tree", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
     import torch
@@ -156,40 +137,9 @@ def main() -> int:
         for m, d, dt, _ in cs.RMS_SHAPES:
             y = inputs(torch, cs, m, d, dt)[0]
             plan = hopper.rmsnorm_stats_plan(m, d, y.element_size(), hopper._sms(y.device))
-            for how in ("write", "read"):
-                print(json.dumps(dict(base, shape=label(m, d, dt), flush=how, plan=plan,
-                                      **phases(torch, hopper, lib, y, plan, flush, how,
-                                               args.reps))), flush=True)
-        return 0
-
-    if args.sweep:
-        own = hopper._lib("rmsnorm_stats")
-        libs = {"__ldcs": own, **{h: build_variant(hopper, h, f"-DRMS_LOAD={h}")
-                                  for h in ("__ldg", "__ldcg")}}
-        for m, d, dt, _ in cs.RMS_SHAPES:
-            ys = inputs(torch, cs, m, d, dt)
-            elem = ys[0].element_size()
-            sms = hopper._sms(ys[0].device)
-            plan = functools.partial(hopper.rmsnorm_stats_plan, m, d, elem, sms)
-            variants = {"planner": ("__ldcs", plan())}
-            variants.update({f"loads {n}": ("__ldcs", plan(loads=n)) for n in hopper.RMS_LOADS})
-            variants.update({f"block {t}": ("__ldcs", plan(block_threads=t)) for t in (128, 512)})
-            variants.update({h: (h, plan()) for h in ("__ldg", "__ldcg")})
-            times = {name: {"amortised_ms": [], "amortised_clean_ms": []} for name in variants}
-            for _ in range(3):
-                for name, (lib, p) in variants.items():
-                    hopper._LIBS["rmsnorm_stats"] = libs[lib]
-                    fn = lambda yy, p=p: hopper.rmsnorm_stats(yy, 1e-6, p)  # noqa: E731
-                    times[name]["amortised_ms"].append(us(cs.amortised_ms(fn, ys, args.reps)))
-                    times[name]["amortised_clean_ms"].append(
-                        us(cs.amortised_ms(fn, ys, args.reps, "read")))
-            hopper._LIBS["rmsnorm_stats"] = own
-            row = {name: dict({k: statistics.median(v) for k, v in t.items()},
-                              plan={k: variants[name][1][k] for k in (
-                                  "loads", "tpr", "rows", "blocks", "resident", "waves")})
-                   for name, t in times.items()}
-            print(json.dumps(dict(base, shape=label(m, d, dt), us=row)), flush=True)
-            del ys
+            print(json.dumps(dict(base, shape=label(m, d, dt), plan=plan,
+                                  **phases(torch, hopper, lib, y, plan, flush, args.reps))),
+                  flush=True)
         return 0
 
     rows = {}
@@ -199,7 +149,6 @@ def main() -> int:
         rows[label(m, d, dt)] = dict(
             ms=us(cs.time_ms(lambda: fn(ys[0]), args.reps)),
             amortised_ms=us(cs.amortised_ms(fn, ys, args.reps)),
-            amortised_clean_ms=us(cs.amortised_ms(fn, ys, args.reps, "read")),
             call_ms=us(cs.call_ms(lambda: fn(ys[0]))))
         del ys
     ones = [torch.zeros(1, device="cuda") for _ in range(cs.RMS_AMORTISED)]
