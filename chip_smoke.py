@@ -30,7 +30,11 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (`sigma_chain_price`);
 4. the three main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
-   and read just after, 2 prompts of 512 tokens plus 32 greedy tokens:
+   and read just after, 2 prompts of 512 tokens plus 32 greedy tokens (each
+   decode step a replay of one captured CUDA graph, its launches counted per
+   replay; the capture's seconds logged), and the eager loop
+   (``decode_step`` in a Python loop) in turns with it, whose tokens,
+   lengths and final cache must match the graph's bit for bit:
    retnet-1.3b (24 layers, d_model 2048), qwen3-8b (36 layers, d_model
    4096, vocab 151936) with its f32, int8_tok and mxint4_blk KV caches, and
    ds3_dense, deepseek-v3-671b cut to its 3 leading dense layers (d_model
@@ -41,8 +45,9 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    lockstep, prefill logits beside the network's own sensitivity, every
    decode step's logits (see `compare_paths`), and, free-running, where the
    two paths' greedy tokens and appended cache rows first part (recorded,
-   see `free_running`); and each model reduced, on the card against the CPU
-   plain path;
+   see `free_running`); one top-k generate through the graph, in support
+   and repeated with its seed; and each model reduced, on the card against
+   the CPU plain path;
 5. one JSON line ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}``
    line.
 
@@ -73,8 +78,9 @@ from repro_torch.core import mxint4 as mx  # noqa: E402
 from repro_torch.core import retention as ret  # noqa: E402
 from repro_torch.kernels import hopper, ops, ref  # noqa: E402
 from repro_torch.models import deploy, layers, lm  # noqa: E402
-from repro_torch.serving.engine import EngineSpec, InferenceEngine  # noqa: E402
-from repro_torch.serving.sampling import GenerationConfig  # noqa: E402
+from repro_torch.serving.engine import (EngineSpec, GenerationResult,  # noqa: E402
+                                        InferenceEngine)
+from repro_torch.serving.sampling import GenerationConfig, SamplingParams, sample  # noqa: E402
 
 # Data-sheet peaks (NVIDIA, dense): bytes/s of device memory, and operations/s
 # for int8 and TF32 on the tensor cores and for f32 on the CUDA cores.
@@ -120,7 +126,9 @@ PATHS = (RETNET, QWEN3, DS3)
 BATCH, PROMPT, NEW = 2, 512, 32
 CACHE_LEN = PROMPT + NEW           # KV slots of a generate: 544
 DECODE_KV_LEN = CACHE_LEN - 16     # kv_len at which flash-decode is timed
-DECODE_CHECK_LENS = (1, 257, CACHE_LEN)   # and those it is checked at
+# and those it is checked at (a device scalar, as the main path passes it;
+# at 1 to 17 most splits of the capacity's plan stream nothing)
+DECODE_CHECK_LENS = (1, 16, 17, 257, CACHE_LEN - 1, CACHE_LEN)
 # Kernel path vs plain path, relative to max|value| (see `compare_paths`).
 BLOCK_TOL = 2e-2         # prefill block, same input: an int8 rounding step
 DECODE_BLOCK_TOL = 1e-3  # decode block, same input: f32 summation order only
@@ -214,6 +222,11 @@ def amortised_ms(fn, inputs, iters: int = 15) -> float:
     in `time_ms`, divided by their count: the replay's fixed cost (the floor
     of `time_ms`) is spread over every call."""
     return time_ms(lambda: [fn(x) for x in inputs], iters) / len(inputs)
+
+
+def device_len(n: int) -> torch.Tensor:
+    """kv_len as the main path passes it: an int32 scalar on the card."""
+    return torch.tensor(n, dtype=torch.int32, device="cuda")
 
 
 def bound_ms(nbytes: float, ops_: float, op_rate: float, peaks: dict):
@@ -444,7 +457,8 @@ def sdpa_backend(fn) -> str:
 
 def kernel_phase_flash_decode(peaks):
     """qwen3-8b decode attention: B = 2, KV = 8, G = 4, d = 128, C = 544, in
-    every cache format.  Checked at kv_len 1, 257 and 544, timed at 528; the
+    every cache format, kv_len an int32 scalar on the card.  Checked at
+    `DECODE_CHECK_LENS`, timed at 528; the
     f32 cache (the default ``cache_format=None``) is the main-path unit.
     Its library yardsticks are `scaled_dot_product_attention` on the f32
     K/V: ``library_gqa_ms`` with ``enable_gqa=True`` on the un-expanded
@@ -460,13 +474,14 @@ def kernel_phase_flash_decode(peaks):
     for fmt in ("f32", "bf16", "int8", "int8_tok", "mxint4_blk"):
         k, v = _cache_leaf(k32, fmt), _cache_leaf(v32, fmt)
         err = 0.0
-        for kv_len in DECODE_CHECK_LENS:
+        for kv_len in map(device_len, DECODE_CHECK_LENS):
             got = ops.flash_decode(q, k, v, kv_len, impl="kernel")
             want = ref.flash_decode_ref(q, k, v, kv_len)
-            err = max(err, _check(f"flash_decode {fmt} kv_len {kv_len}", got, want,
+            err = max(err, _check(f"flash_decode {fmt} kv_len {int(kv_len)}", got, want,
                                   2e-5, 2e-6))
             if not torch.equal(got, ops.flash_decode(q, k, v, kv_len, impl="kernel")):
                 raise RuntimeError(f"flash_decode {fmt}: two launches differ")
+        nd = device_len(n)
         row_bytes = {"f32": 4 * d, "bf16": 2 * d, "int8": d}.get(fmt) or kvq.nbytes_per_row(fmt, d)
         nbytes = 2 * 4 * b * kvh * g * d + 2 * n * b * kvh * row_bytes
         bms, by = bound_ms(nbytes, 4 * b * kvh * g * n * d, peaks["f32"], peaks)
@@ -475,7 +490,7 @@ def kernel_phase_flash_decode(peaks):
             qs = q.reshape(b, kvh * g, 1, d)
             kg, vg = (t[:, :n].permute(0, 2, 1, 3) for t in (k32, v32))
             gqa = lambda: F.scaled_dot_product_attention(qs, kg, vg, enable_gqa=True)  # noqa: E731
-            lib_err = (gqa().reshape(b, kvh, g, d) - ref.flash_decode_ref(q, k, v, n)
+            lib_err = (gqa().reshape(b, kvh, g, d) - ref.flash_decode_ref(q, k, v, nd)
                        ).abs().max().item()
             ks, vs = (t.repeat_interleave(g, dim=1).contiguous() for t in (kg, vg))
             extra = dict(library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
@@ -484,15 +499,15 @@ def kernel_phase_flash_decode(peaks):
             del ks, vs
         path = {"f32": QWEN3["arch"], "bf16": "bf16 (no model path)",
                 "int8": "legacy int8 (no model path)"}.get(fmt, f"{QWEN3['arch']} {fmt}")
-        ms = time_ms(lambda: ops.flash_decode(q, k, v, n, impl="kernel"))
+        ms = time_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel"))
         row = dict(
             path=path, main=fmt == "f32", fmt=fmt, shape=[b, kvh, g, d, c], kv_len=n,
             per_step=QWEN3["layers"], max_abs_err=err, ms=ms,
-            call_ms=call_ms(lambda: ops.flash_decode(q, k, v, n, impl="kernel")),
-            plain_ms=time_ms(lambda: ref.flash_decode_ref(q, k, v, n)),
+            call_ms=call_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel")),
+            plain_ms=time_ms(lambda: ref.flash_decode_ref(q, k, v, nd)),
             library_ms=None, library_gqa_ms=None, bound_ms=bms, bound_by=by,
             plan={key: val for key, val in hopper.flash_decode_plan(
-                b, kvh, g, d, d, n, fmt, fmt).items() if key != "ranges"},
+                b, kvh, g, d, d, c, fmt, fmt).items() if key != "ranges"},
             rate=f"{nbytes / ms / 1e6:.1f} GB/s", bound_share=bms / ms)
         row.update(extra)
         rows.append(row)
@@ -509,8 +524,9 @@ def _mla_f64(q, q2, lat, rope, n, scale):
 
 def kernel_phase_flash_decode_mla(peaks):
     """deepseek-v3's absorbed decode attention (flash-decode's MLA mode): B 2,
-    H 128, latent 512, rope 64, C 544, in every cache format.  Checked at
-    kv_len 1, 257 and 544 against the plain version, timed at 528; the f32
+    H 128, latent 512, rope 64, C 544, in every cache format, kv_len an int32
+    scalar on the card.  Checked at `DECODE_CHECK_LENS` against the plain
+    version, timed at 528; the f32
     cache is the main-path unit (3 launches a step).  The absorbed query is
     drawn at std 0.5, q_nope . wk_b for a unit-variance q_nope over the nope
     width 128 against a unit-RMS latent of 512 (scores of unit variance, as
@@ -545,23 +561,24 @@ def kernel_phase_flash_decode_mla(peaks):
         plain = lambda qq, n_: ref.flash_decode_ref(qq, lat, lat, n_, q2=q2, k2=rope,  # noqa: E731
                                                     scale=scale)
         err = 0.0
-        for kv_len in DECODE_CHECK_LENS:
+        for kv_len in map(device_len, DECODE_CHECK_LENS):
             got = run(q, kv_len)
-            err = max(err, _check(f"flash_decode MLA {fmt} kv_len {kv_len}", got,
+            err = max(err, _check(f"flash_decode MLA {fmt} kv_len {int(kv_len)}", got,
                                   plain(q, kv_len), 2e-5, 2e-6))
             if not torch.equal(got, run(q, kv_len)):
                 raise RuntimeError(f"flash_decode MLA {fmt}: two launches differ")
+        nd = device_len(n)
         want64 = _mla_f64(q_unit, q2, lat, rope, n, scale)
-        _check(f"flash_decode MLA {fmt} at q ~ N(0, 1) vs float64", run(q_unit, n).double(),
+        _check(f"flash_decode MLA {fmt} at q ~ N(0, 1) vs float64", run(q_unit, nd).double(),
                want64, 2e-5, 2e-6)
-        f64_err = {name: (fn(q_unit, n).double() - want64).abs().max().item()
+        f64_err = {name: (fn(q_unit, nd).double() - want64).abs().max().item()
                    for name, fn in (("kernel", run), ("plain", plain))}
         row_bytes = sum(hopper.fd_row_bytes(fmt, w)[i] for w in (r, dr) for i in (0, 1))
         nbytes = 4 * b * h * (2 * r + dr) + n * b * row_bytes
         flops = 2 * b * h * n * (r + dr) + 2 * b * h * n * r
         bms, by = bound_ms(nbytes, (3 if fmt == "f32" else 2) * flops, peaks["tf32"], peaks)
         bf32, by32 = bound_ms(nbytes, flops, peaks["f32"], peaks)
-        launched = _launch_kernels(lambda: run(q, n))
+        launched = _launch_kernels(lambda: run(q, nd))
         if len(launched) != 1 or "flash_decode_mla" not in launched[0]:
             raise RuntimeError(f"flash_decode MLA {fmt}: one call ran {launched}, "
                                "expected the kernel's one launch only")
@@ -572,21 +589,21 @@ def kernel_phase_flash_decode_mla(peaks):
             v_lat = lat32[:, None, :n].contiguous()                        # [B, 1, n, r]
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q_cat, k_cat, v_lat, scale=scale, enable_gqa=True)
-            lib_err = (sdpa()[:, :, 0] - plain(q, n)).abs().max().item()
+            lib_err = (sdpa()[:, :, 0] - plain(q, nd)).abs().max().item()
             extra = dict(library_ms=time_ms(sdpa), library_backend=sdpa_backend(sdpa),
                          library_max_abs_err=lib_err)
             del q_cat, k_cat, v_lat
         path = {"f32": DS3["arch"], "bf16": "bf16 (no model path)",
                 "int8": "legacy int8 (no model path)"}.get(fmt, f"{DS3['arch']} {fmt}")
-        ms = time_ms(lambda: run(q, n))
+        ms = time_ms(lambda: run(q, nd))
         row = dict(
             path=path, main=fmt == "f32", fmt=fmt, shape=[b, h, r, dr, c], kv_len=n,
             per_step=DS3["layers"], max_abs_err=err, f64_max_abs_err=f64_err, ms=ms,
-            call_ms=call_ms(lambda: run(q, n)), plain_ms=time_ms(lambda: plain(q, n)),
+            call_ms=call_ms(lambda: run(q, nd)), plain_ms=time_ms(lambda: plain(q, nd)),
             library_ms=None, bound_ms=bms, bound_by=by, bound_f32_ms=bf32,
             bound_f32_by=by32, flops=flops, launch_kernels=launched,
             plan={key: val for key, val in hopper.flash_decode_mla_plan(
-                b, h, r, dr, n, fmt, hopper._mla_resident(q.device)).items()
+                b, h, r, dr, c, fmt, hopper._mla_resident(q.device)).items()
                   if key not in ("ranges", "smem")},
             rate=f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
             bound_share=bms / ms, bound_share_f32=bf32 / ms)
@@ -737,7 +754,9 @@ def expected_launches(path: dict) -> tuple[dict, dict]:
 
 def serve_full_width(path: dict, card: str):
     """One main path at full width, once per cache format: launch counts per
-    phase and per counted generate, timings, busy shares, and the kernel path
+    phase and per counted generate (its decode steps replays of the captured
+    step), the graph against the eager loop in turns (timings, and tokens,
+    lengths and final cache bit for bit), busy shares, and the kernel path
     against the plain path on the same weights."""
     arch = path["arch"]
     log(f"== full-width serving: {arch}, B={BATCH}, S={PROMPT}, {NEW} greedy tokens, "
@@ -759,7 +778,7 @@ def serve_full_width(path: dict, card: str):
     for fmt in path["formats"]:
         tag = arch if fmt is None else f"{arch} {fmt}"
         gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt)
-        # Per-phase launch counts, then warm up.
+        # Per-phase launch counts, eagerly, then the capture.
         hopper.reset_launches()
         logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN)
         per_prefill = dict(hopper.LAUNCHES)
@@ -772,34 +791,58 @@ def serve_full_width(path: dict, card: str):
             raise RuntimeError(f"{tag}: launch counts {per_prefill} / {per_step}, "
                                f"expected {want_p} / {want_s}")
         del cache
-        eng.generate(prompts, gen)
+        first = eng.generate(prompts, gen)
+        graph = eng._graphs[(tuple(prompts.shape), gen)]
+        log(f"{tag} step captured in {first.capture_s:.3f} s; a replay launches "
+            f"{graph.launches}")
+        if graph.launches != per_step:
+            raise RuntimeError(f"{tag}: the captured step launches {graph.launches}, "
+                               f"an eager step {per_step}")
 
         # The main path, counted.
         hopper.reset_launches()
         res = eng.generate(prompts, gen)
         launches = dict(hopper.LAUNCHES)
         want = {k: want_p[k] + want_s[k] * res.decode_steps for k in hopper.COUNTERS}
-        log(tag, "main-path launches", launches, "decode steps", res.decode_steps)
-        if launches != want:
-            raise RuntimeError(f"{tag}: main-path launches {launches}, expected {want}")
+        log(tag, "main-path launches", launches, "decode steps (replays)", res.decode_steps)
+        if launches != want or res.capture_s:
+            raise RuntimeError(f"{tag}: main-path launches {launches}, expected {want} "
+                               f"(capture {res.capture_s} s)")
         for k in counted:
             counted[k] += launches[k]
         toks = res.tokens
         if toks.shape != (BATCH, NEW) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
             raise RuntimeError(f"{tag}: bad tokens {toks.shape}")
-        # Three more timed runs (not counted): the host clock varies run to run.
-        runs = [res] + [eng.generate(prompts, gen) for _ in range(3)]
-        pre = sorted(r.prefill_s for r in runs)[len(runs) // 2]
-        dec = sorted(r.decode_s / r.decode_steps for r in runs)[len(runs) // 2]
-        serving = dict(card=card, runs=len(runs), launches=launches,
-                       prefill_ms=pre * 1e3, decode_ms_per_token=dec * 1e3,
-                       decode_tokens_per_s=BATCH / dec,
-                       prefill_tokens_per_s=BATCH * PROMPT / pre,
-                       prefill_ms_runs=[r.prefill_s * 1e3 for r in runs],
-                       decode_ms_per_token_runs=[r.decode_s * 1e3 / r.decode_steps
-                                                 for r in runs])
+        if not torch.equal(toks, first.tokens):
+            raise RuntimeError(f"{tag}: a second generate's tokens differ from the first's")
+
+        # The graph and the eager loop in turns (eager, graph, graph, eager);
+        # each pair must agree bit for bit.
+        graph_runs, eager_runs = [res], []
+        for kind in ("eager", "graph", "graph", "eager"):
+            if kind == "graph":
+                graph_runs.append(eng.generate(prompts, gen))
+                continue
+            got, cache = eager_generate(eng, prompts, gen)
+            eager_runs.append(got)
+            _same_as_graph(tag, graph_runs[-1], graph.state.cache, got, cache)
+            del cache
+        serving = dict(card=card, runs=len(graph_runs), launches=launches,
+                       capture_s=first.capture_s, replay_launches=graph.launches)
+        for name, runs in (("", graph_runs), ("eager_", eager_runs)):
+            pre = sorted(r.prefill_s for r in runs)[len(runs) // 2]
+            dec = sorted(r.decode_s / r.decode_steps for r in runs)[len(runs) // 2]
+            serving.update({f"{name}prefill_ms": pre * 1e3,
+                            f"{name}decode_ms_per_token": dec * 1e3,
+                            f"{name}decode_tokens_per_s": BATCH / dec,
+                            f"{name}prefill_ms_runs": [r.prefill_s * 1e3 for r in runs],
+                            f"{name}decode_ms_per_token_runs": [
+                                r.decode_s * 1e3 / r.decode_steps for r in runs]})
+        serving["prefill_tokens_per_s"] = BATCH * PROMPT / (serving["prefill_ms"] / 1e3)
+        serving["graph_and_eager_bit_identical"] = True
         serving.update(profile_shares(eng, prompts, gen))
-        log(f"{tag} serving (kernel path, medians):", json.dumps(serving))
+        log(f"{tag} serving (kernel path, medians; graph and eager in turns):",
+            json.dumps(serving))
 
         # The same weights on the plain path.
         t1 = time.perf_counter()
@@ -815,10 +858,96 @@ def serve_full_width(path: dict, card: str):
         serving.update(checks)
         log(f"{tag} kernel vs plain path:", json.dumps(checks))
         results[tag] = serving
+    if path is RETNET:
+        results[f"{arch} top-k"] = sampled_through_graph(eng, prompts)
     del eng, plain
     torch.cuda.empty_cache()
     log(f"{arch} phase: {time.perf_counter() - t0:.1f} s")
     return counted, results
+
+
+@torch.inference_mode()
+def eager_generate(eng, prompts, gen):
+    """`generate` as the eager loop: prefill, then `decode_step` in a Python
+    loop in the reference's body order (greedy, no stop tokens), timed as
+    `generate` times itself.  Returns a GenerationResult and the final
+    cache."""
+    if not gen.sampling.greedy or gen.stop_tokens:
+        raise ValueError("eager_generate: greedy decoding without stop tokens only")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens)
+    cache = eng._encode_cache(cache, gen)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b, n = prompts.shape[0], gen.max_new_tokens
+    out = torch.full((b, n), gen.pad_token_id, dtype=torch.long, device="cuda")
+    lengths = torch.zeros(b, dtype=torch.int32, device="cuda")
+    tok = sample(logits, gen.sampling)
+    for i in range(n):
+        out[:, i] = tok
+        lengths += 1
+        logits, cache = eng.decode_step(tok[:, None], cache)
+        tok = sample(logits, gen.sampling)
+    torch.cuda.synchronize()
+    return GenerationResult(tokens=out, lengths=lengths, prefill_s=t_prefill,
+                            decode_s=time.perf_counter() - t0, decode_steps=n), cache
+
+
+def _tree_items(tree, prefix=""):
+    """(path, tensor) of every tensor of a cache tree."""
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_items(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tree_items(v, f"{prefix}/{i}")
+    else:
+        for f in dataclasses.fields(tree):
+            yield from _tree_items(getattr(tree, f.name), f"{prefix}/{f.name}")
+
+
+def _same_as_graph(tag, res_g, cache_g, res_e, cache_e) -> None:
+    """The graph's and the eager loop's tokens, lengths and final cache, bit
+    for bit (every tensor of the cache: position, rope angles, rows)."""
+    if not (torch.equal(res_g.tokens, res_e.tokens)
+            and torch.equal(res_g.lengths, res_e.lengths)):
+        raise RuntimeError(f"{tag}: graph and eager loop emit different tokens")
+    a, b = dict(_tree_items(cache_g)), dict(_tree_items(cache_e))
+    if a.keys() != b.keys():
+        raise RuntimeError(f"{tag}: graph and eager caches differ in structure")
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ:
+        raise RuntimeError(f"{tag}: graph and eager final caches differ at {differ[:4]}")
+
+
+@torch.inference_mode()
+def sampled_through_graph(eng, prompts) -> dict:
+    """Top-k sampling through the captured step: every token among the k
+    largest logits of its step (checked on the first, from prefill, and by
+    replaying the eager loop's logits on the graph's tokens), the same
+    tokens again from the same seed, other tokens from another seed."""
+    gen = GenerationConfig(max_new_tokens=NEW, sampling=SamplingParams(temperature=1.0,
+                                                                        top_k=4))
+    runs = [eng.generate(prompts, gen, generator=_gen(21)) for _ in range(2)]
+    other = eng.generate(prompts, gen, generator=_gen(22))
+    toks = runs[0].tokens
+    logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN)
+    outside = 0
+    for i in range(NEW):
+        allowed = torch.topk(logits, 4, dim=-1).indices
+        outside += int((allowed != toks[:, i:i + 1]).all(dim=-1).sum())
+        logits, cache = eng.decode_step(toks[:, i:i + 1], cache)
+    out = dict(capture_s=runs[0].capture_s, repeats=bool(torch.equal(toks, runs[1].tokens)),
+               other_seed_differs=not torch.equal(toks, other.tokens),
+               tokens_outside_top_k=outside, decode_ms_per_token=runs[1].decode_s * 1e3 / NEW)
+    log("top-k through the graph:", json.dumps(out))
+    if not out["repeats"] or not out["other_seed_differs"] or outside:
+        raise RuntimeError(f"top-k sampling through the graph: {out}")
+    return out
 
 
 def _device_us(prof) -> tuple[float, list]:
@@ -834,9 +963,9 @@ def _device_us(prof) -> tuple[float, list]:
 
 @torch.inference_mode()
 def profile_shares(eng, prompts, gen, steps: int = 4) -> dict:
-    """Device busy share of a prefill and of decode steps, with the top
-    kernels by device time (torch.profiler; it inflates the host side, so
-    the busy shares are lower bounds)."""
+    """Device busy share of a prefill, of eager decode steps and of replays
+    of the captured step, with the top kernels by device time (torch.profiler;
+    it inflates the host side, so the busy shares are lower bounds)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
@@ -849,24 +978,32 @@ def profile_shares(eng, prompts, gen, steps: int = 4) -> dict:
         wall = time.perf_counter() - t0
     dev, top = _device_us(prof)
     out.update(prefill_device_busy=dev / 1e6 / wall, prefill_top_ms=top)
-    with profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            logits, cache = eng.decode_step(logits.argmax(-1)[:, None], cache)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev, top = _device_us(prof)
-    out.update(decode_device_busy=dev / 1e6 / wall,
-               decode_top_ms_per_step=[(n, t / steps, c // steps) for n, t, c in top])
-    if not dev:
-        out = dict(profile="not measured: the profiler saw no device time")
+    tok = logits.argmax(-1)
+    graph = eng._graphs[(tuple(prompts.shape), gen)]
+    graph.state.reset(tok, cache, gen)
+    for name, step in (("eager_", lambda: eng.decode_step(tok[:, None], cache)),
+                       ("", graph.graph.replay)):
+        with profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev, top = _device_us(prof)
+        if not dev:
+            out[f"{name}decode_profile"] = "not measured: the profiler saw no device time"
+            continue
+        out.update({f"{name}decode_device_busy": dev / 1e6 / wall,
+                    f"{name}decode_device_ms_per_step": dev / 1e3 / steps,
+                    f"{name}decode_top_ms_per_step": [(n, t / steps, c // steps)
+                                                      for n, t, c in top]})
     return out
 
 
 def _clone(tree):
     """A copy of a cache whose tensors a step may write in place (dense KV
-    leaves); ints and the rope state are never written and are shared."""
+    leaves); the rope state is never written in place and is shared."""
     if isinstance(tree, torch.Tensor):
         return tree.clone()
     if isinstance(tree, dict):
@@ -952,8 +1089,9 @@ def compare_paths(eng, plain, prompts, gen):
 
 
 def _appends(engine, prompts, gen):
-    """``engine.generate`` with every one-row cache write recorded: per decode
-    step, each written leaf's row before encoding (f32) and as stored."""
+    """The eager loop (`eager_generate`) with every one-row cache write
+    recorded: per decode step, each written leaf's row before encoding (f32)
+    and as stored."""
     real, rows = layers.cache_update, []
 
     def spy(leaf, x, pos):
@@ -967,7 +1105,7 @@ def _appends(engine, prompts, gen):
 
     layers.cache_update = spy
     try:
-        res = engine.generate(prompts, gen)
+        res, _ = eager_generate(engine, prompts, gen)
     finally:
         layers.cache_update = real
     per = len(rows) // res.decode_steps
@@ -1018,7 +1156,8 @@ def _row_parting(xk, sk, xr, sr) -> dict | None:
 
 @torch.inference_mode()
 def free_running(eng, plain, prompts, gen):
-    """Both paths generating on their own, as a user's generate runs: each
+    """Both paths generating on their own through the eager loop (whose
+    tokens and cache the graph's match bit for bit, `_same_as_graph`): each
     decode step appends the rows its own path computed to its own cache.
     Returns both paths' results (the times are of these recorded runs) and
     where the two part: the first token column that differs (token i + 1

@@ -5,6 +5,10 @@ angle memory and advances it with the angle-addition identities (Eq. 6)
 instead of gathering a table row per token.  f32 repeated rotation drifts,
 so `advance` resyncs exactly every `RESYNC_PERIOD` tokens.  Rotation uses the
 interleaved-pair convention (x[0::2], x[1::2]).
+
+The position is an int32 tensor on the device, as the reference's is a
+traced scalar: a decode step never reads it on the host, so the step can be
+captured once and replayed.
 """
 
 from __future__ import annotations
@@ -44,14 +48,15 @@ class OnlineRopeState:
 
     sin: torch.Tensor   # f32 [d/2]
     cos: torch.Tensor   # f32 [d/2]
-    pos: int
+    pos: torch.Tensor   # i32 scalar on the device
 
 
 def init_state(head_dim: int, base: float = 10000.0, pos: int = 0,
                device=None) -> OnlineRopeState:
     thetas = rope_thetas(head_dim, base, device)
-    sin, cos = rope_table(torch.tensor(pos, device=device), thetas)
-    return OnlineRopeState(sin=sin, cos=cos, pos=int(pos))
+    p = torch.tensor(pos, dtype=torch.int32, device=device)
+    sin, cos = rope_table(p, thetas)
+    return OnlineRopeState(sin=sin, cos=cos, pos=p)
 
 
 def update(state: OnlineRopeState, thetas: torch.Tensor) -> OnlineRopeState:
@@ -65,10 +70,10 @@ def update(state: OnlineRopeState, thetas: torch.Tensor) -> OnlineRopeState:
 def advance(state: OnlineRopeState, thetas: torch.Tensor,
             resync_period: int = RESYNC_PERIOD) -> OnlineRopeState:
     """`update`, with an exact resync whenever the new position is a
-    multiple of ``resync_period`` (the position is a host integer here, so
-    the branch costs no device work)."""
+    multiple of ``resync_period``: both are computed and selected on the
+    device, as the reference's ``jnp.where`` does."""
     nxt = update(state, thetas)
-    if nxt.pos % resync_period == 0:
-        sin, cos = rope_table(torch.tensor(nxt.pos, device=thetas.device), thetas)
-        return OnlineRopeState(sin=sin, cos=cos, pos=nxt.pos)
-    return nxt
+    need = nxt.pos % resync_period == 0
+    exact_sin, exact_cos = rope_table(nxt.pos, thetas)
+    return OnlineRopeState(sin=torch.where(need, exact_sin, nxt.sin),
+                           cos=torch.where(need, exact_cos, nxt.cos), pos=nxt.pos)

@@ -22,11 +22,16 @@
 // 528, B = 2, KV = 8, d = 128, and 0.67 / 0.36 us for int8_tok / mxint4_blk.
 // At that size a launch is a chain of latencies more than a stream of bytes,
 // so the design keeps the chain short:
-//   * the grid is (splits, KV * G-chunks, B).  A block of 4 warps owns one
-//     (b, h), 4 of its query heads, and an even share of the kv_len rows'
-//     16-row tiles, chosen by the wrapper's planner
-//     (`hopper.flash_decode_plan`) for about two blocks per SM; rows at or
-//     past kv_len are never read;
+//   * the grid is (splits, KV * G-chunks, B), fixed by the capacity C as the
+//     reference's grid is.  A block of 4 warps owns one (b, h), 4 of its
+//     query heads, and an even share of the C rows' 16-row tiles, chosen by
+//     the wrapper's planner (`hopper.flash_decode_plan`) for about two
+//     blocks per SM.  kv_len is read from device memory, once per block, so
+//     one launch (or one captured graph) serves every position: a block
+//     streams the tiles of its share below kv_len, and rows at or past
+//     kv_len are never read.  A block whose share starts at or past kv_len
+//     streams nothing and still writes its (empty) partial and takes its
+//     ticket, so that the merge always fires;
 //   * its tiles stream through a 2-4 stage ring in shared memory filled by
 //     cp.async in 16-byte chunks (the narrow side rows, an int8_tok scale or
 //     a few mxint4 exponent bytes, in chunks of their own width).  Each warp
@@ -119,7 +124,8 @@ struct Params {
   float* part_acc;                       // [units][splits][kGroup][dv]
   float* part_ml;                        // [units][splits][2][kGroup]
   int* tickets;                          // [units]
-  int C, KV, G, d, dv, kv_len;
+  const int* kv_len;                     // device scalar: the rows to attend over
+  int C, KV, G, d, dv;
   int tiles, splits, gchunks, stages;
   int kb, ks, vb, vs;                    // row bytes: K values, K side, V values, V side
   int off_v, off_ks, off_vs, stage_bytes;   // shared-memory layout of a stage
@@ -293,13 +299,15 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params 
   const int g0 = gc * GB, gn = min(GB, p.G - g0);
   const int bh = b * p.KV + h;
   const int unit = bh * p.gchunks + gc;
-  // This split's tiles: an even share of the kv_len rows' tiles, never
-  // empty (the first tiles % splits splits take one more).
+  // This split's tiles: an even share of the C rows' tiles (the first
+  // tiles % splits splits take one more), streamed up to kv_len; a share
+  // that starts at or past kv_len streams none.
   const int lo = p.tiles / splits, extra = p.tiles - lo * splits;
   const int t_beg = split * lo + min(split, extra);
-  const int n_tiles = lo + (split < extra);
   const int r_beg = t_beg * kTile;
-  const int r_end = min(p.kv_len, r_beg + n_tiles * kTile);
+  const int kv_len = min(max(*p.kv_len, 0), p.C);
+  const int r_end = min(kv_len, r_beg + (lo + (split < extra)) * kTile);
+  const int n_tiles = r_end > r_beg ? (r_end - r_beg + kTile - 1) / kTile : 0;
   const size_t base = (size_t)b * p.C * p.KV + h;
 #ifdef FD_PHASE_CLOCK
   const size_t stamp0 =
@@ -479,7 +487,9 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params 
     }
   __syncthreads();
 
-  // Merge the warps in warp order: 4 columns of one head per item.
+  // Merge the warps in warp order: 4 columns of one head per item.  A block
+  // that streamed no row has m = -inf and l = 0 in every warp: its weights
+  // are 0 (never exp(-inf - -inf)), and it writes an empty partial.
   const int dv4 = p.dv >> 2;
   for (int i = tid; i < gn * dv4; i += kThreads) {
     const int g = i / dv4, j = (i - g * dv4) * 4;
@@ -586,12 +596,14 @@ int launch(const Params& p, int B, size_t smem, cudaStream_t stream) {
   auto kernel = flash_decode_kernel<KF, VF, NS>;
   // Raise the kernel's dynamic shared-memory limit once per device, to the
   // most any launch of it has asked for so far (no host call per launch).
+  // The default limit is 48 KB less the kernel's static shared memory (its
+  // `is_last` flag), so a launch of exactly 48 KB needs it raised too.
   static int limit[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && (int)smem > limit[dev]) {
+  if ((int)smem > limit[dev]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     limit[dev] = (int)smem;
@@ -622,9 +634,10 @@ int launch_v(int vfmt, int ns, const Params& p, int B, size_t smem, cudaStream_t
 
 }  // namespace
 
-// `tiles` = ceil(kv_len / 16); split i streams tiles [i * lo + min(i, x),
-// ...) with lo = tiles / splits, the first x = tiles % splits splits one
-// more than lo; a block takes 4 query
+// `tiles` = ceil(C / 16); split i owns tiles [i * lo + min(i, x), ...) with
+// lo = tiles / splits, the first x = tiles % splits splits one more than
+// lo, and streams those below *kv_len (an int32 in device memory, read by
+// every block and clamped to [0, C]); a block takes 4 query
 // heads (G-chunks = ceil(G / 4)); `ns` 128-wide slots per row (1 or 2)
 // picks the instantiation.  A ring stage holds 16 rows of K's values at
 // offset 0, V's at `off_v`, K's and V's side rows at `off_ks` and `off_vs`,
@@ -632,10 +645,10 @@ int launch_v(int vfmt, int ns, const Params& p, int B, size_t smem, cudaStream_t
 // (dv + 2) floats when splits > 1.
 extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1,
                                    const void* v0, const void* v1, void* out,
-                                   void* partials, void* tickets, int B, int C, int KV,
-                                   int G, int d, int dv, int kv_len, int kfmt, int vfmt,
-                                   int tiles, int splits, int stages, int ns, int off_v,
-                                   int off_ks, int off_vs, int stage_bytes,
+                                   void* partials, void* tickets, const void* kv_len,
+                                   int B, int C, int KV, int G, int d, int dv, int kfmt,
+                                   int vfmt, int tiles, int splits, int stages, int ns,
+                                   int off_v, int off_ks, int off_vs, int stage_bytes,
                                    float scale, int scale_is_div, void* stream) {
   if (kfmt < kF32 || kfmt > kMxint4Blk || vfmt < kF32 || vfmt > kMxint4Blk)
     return (int)cudaErrorInvalidValue;
@@ -647,8 +660,8 @@ extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1
   const int gchunks = (G + kGroup - 1) / kGroup;
   if (G < 1 || G > kMaxGroup || d < 4 || d > kMaxDim || dv < 4 || dv > kMaxDim ||
       d > ns * kSlot || dv > ns * kSlot || d % 4 || dv % 4 || p.kb % 16 || p.vb % 16 ||
-      p.ks % 2 || p.vs % 2 || kv_len < 1 || kv_len > C ||
-      tiles != (kv_len + kTile - 1) / kTile || splits < 1 || splits > tiles ||
+      p.ks % 2 || p.vs % 2 || C < 1 || kv_len == nullptr ||
+      tiles != (C + kTile - 1) / kTile || splits < 1 || splits > tiles ||
       stages < 2 || stages > kMaxStages || ns < 1 || ns > 2)
     return (int)cudaErrorInvalidValue;
   // Every array's tile fits its place in the stage, 16-byte aligned.
@@ -678,7 +691,8 @@ extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1
   p.part_acc = static_cast<float*>(partials);
   p.part_ml = p.part_acc + units * splits * kGroup * dv;
   p.tickets = static_cast<int*>(tickets);
-  p.C = C; p.KV = KV; p.G = G; p.d = d; p.dv = dv; p.kv_len = kv_len;
+  p.kv_len = static_cast<const int*>(kv_len);
+  p.C = C; p.KV = KV; p.G = G; p.d = d; p.dv = dv;
   p.tiles = tiles; p.splits = splits; p.gchunks = gchunks; p.stages = stages;
   p.scale = scale;
   p.scale_is_div = scale_is_div;
@@ -746,12 +760,17 @@ extern "C" int flash_decode_max_stages() { return kMaxStages; }
 // on the CUDA cores; the f32 cache's bytes take 1.06 us at 3.35 TB/s.
 //
 // Design:
-//   * the grid is (splits, head groups of 16, B).  A block of 16 warps owns
-//     the 16 query heads (one m16 tile) of one group of one batch lane and an
-//     even share of the kv_len rows' 32-row tiles; the splits of one (b,
-//     group) form a thread-block cluster.  hopper.flash_decode_mla_plan
-//     picks the splits (at most 8) from the card's resident-cluster counts,
-//     so that every cluster runs in one wave;
+//   * the grid is (splits, head groups of 16, B), fixed by the capacity C.
+//     A block of 16 warps owns the 16 query heads (one m16 tile) of one
+//     group of one batch lane and an even share of the C rows' 32-row
+//     tiles, of which it streams those below kv_len (read from device
+//     memory once per block); the splits of one (b, group) form a
+//     thread-block cluster.  hopper.flash_decode_mla_plan picks the splits
+//     (at most 8) from the card's resident-cluster counts, so that every
+//     cluster runs in one wave.  A block whose share starts at or past
+//     kv_len issues no copy (no bulk copy's byte count is ever expected for
+//     a tile past kv_len) and still publishes an empty (m, l, acc) and
+//     joins its cluster's barriers and merge;
 //   * the staging tile holds 32 rows of [latent | rope] in f32, the latent at
 //     column 0, the rope at rl = r rounded up to 32, every row w floats with
 //     w = 8 mod 32 (zero columns pad each stream to whole k-steps);
@@ -857,7 +876,8 @@ struct MlaParams {
   int rb[4];                             // row bytes of each (0: the format has no side data)
   int off[4];                            // offset of each array in a raw stage
   float* out;                            // [B, H, r]
-  int C, H, r, dr, kv_len, tiles, splits;
+  const int* kv_len;                     // device scalar: the rows to attend over
+  int C, H, r, dr, tiles, splits;
   int w, rl, rr, wr;                     // staging row floats, latent and rope columns, rope warps
   int stage_bytes;                       // a raw stage (every format but f32)
   int red_off, p_off, misc_off, bar_off;   // shared-memory regions
@@ -999,13 +1019,16 @@ __global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const 
   const int split = blockIdx.x, splits = p.splits;
   const int h0 = blockIdx.y * kMlaHeads, hn = min(kMlaHeads, p.H - h0);
   const int b = blockIdx.z;
-  // This split's tiles: an even share, never empty (the first tiles % splits
-  // splits take one more).
+  // This split's tiles: an even share of the C rows' tiles (the first
+  // tiles % splits splits take one more), streamed up to kv_len; a share
+  // that starts at or past kv_len streams none, and the block still takes
+  // part in the cluster's merge below.
   const int lo = p.tiles / splits, extra = p.tiles - lo * splits;
   const int t_beg = split * lo + min(split, extra);
-  const int n_tiles = lo + (split < extra);
   const int r_beg = t_beg * kMlaTile;
-  const int r_end = min(p.kv_len, r_beg + n_tiles * kMlaTile);
+  const int kv_len = min(max(*p.kv_len, 0), p.C);
+  const int r_end = min(kv_len, r_beg + (lo + (split < extra)) * kMlaTile);
+  const int n_tiles = r_end > r_beg ? (r_end - r_beg + kMlaTile - 1) / kMlaTile : 0;
 #ifdef FD_PHASE_CLOCK
   const size_t stamp0 =
       ((blockIdx.z * gridDim.y + blockIdx.y) * (size_t)gridDim.x + blockIdx.x) * kMlaStamps;
@@ -1085,7 +1108,7 @@ __global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const 
     }
     cp_async_commit();
   };
-  issue(0, 0);
+  if (n_tiles > 0) issue(0, 0);
   if (n_tiles > 1) issue(1, 1);
 
   // This warp's stream and k-steps: warps 0 .. 15 - wr take the latent's,
@@ -1462,7 +1485,7 @@ int mla_launch(const MlaParams& p, int B, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && (int)smem > limit[dev]) {
+  if ((int)smem > limit[dev]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     limit[dev] = (int)smem;
@@ -1489,17 +1512,17 @@ int mla_launch(const MlaParams& p, int B, size_t smem, cudaStream_t stream) {
 // MLA mode.  q f32 [B, H, r], q2 f32 [B, H, dr]; the latent cache (values
 // lat0, side data lat1) [B, C, *] and the rope cache (rope0, rope1) in cache
 // format `fmt`; out f32 [B, H, r].  A block takes 16 query heads; `tiles` =
-// ceil(kv_len / 32), split i streams tiles [i * lo + min(i, x), ...) as in
-// the GQA mode.  A raw stage (every format but f32) holds 32 rows of the
-// latent values at offset 0, then the latent side, the rope values and the
-// rope side at `off_ls`, `off_rv`, `off_rs`, in `stage_bytes`, as
-// hopper.flash_decode_mla_plan lays them out (checked here); the staging
-// rows and the rest of shared memory are laid out here.  Nothing is
-// allocated: the merge goes through the cluster's shared memory.
+// ceil(C / 32), split i owns tiles [i * lo + min(i, x), ...) and streams
+// those below *kv_len, as in the GQA mode.  A raw stage (every format but
+// f32) holds 32 rows of the latent values at offset 0, then the latent
+// side, the rope values and the rope side at `off_ls`, `off_rv`, `off_rs`,
+// in `stage_bytes`, as hopper.flash_decode_mla_plan lays them out (checked
+// here); the staging rows and the rest of shared memory are laid out here.
+// Nothing is allocated: the merge goes through the cluster's shared memory.
 extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void* lat0,
                                        const void* lat1, const void* rope0, const void* rope1,
-                                       void* out, int B, int C, int H, int r, int dr,
-                                       int kv_len, int fmt, int tiles, int splits,
+                                       void* out, const void* kv_len, int B, int C, int H,
+                                       int r, int dr, int fmt, int tiles, int splits,
                                        int off_ls, int off_rv, int off_rs, int stage_bytes,
                                        float scale, void* stream) {
   if (fmt < kF32 || fmt > kMxint4Blk || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
@@ -1509,8 +1532,8 @@ extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void
   p.rb[2] = value_bytes(fmt, dr);
   p.rb[3] = side_bytes(fmt, dr);
   if (r < 4 || r % 4 || r > kMlaMaxLatent || dr < 4 || dr % 4 || dr > kMlaMaxRope ||
-      (fmt == kMxint4Blk && (r % 16 || dr % 16)) || kv_len < 1 || kv_len > C ||
-      tiles != (kv_len + kMlaTile - 1) / kMlaTile || splits < 1 ||
+      (fmt == kMxint4Blk && (r % 16 || dr % 16)) || C < 1 || kv_len == nullptr ||
+      tiles != (C + kMlaTile - 1) / kMlaTile || splits < 1 ||
       splits > kMlaMaxSplits || splits > tiles)
     return (int)cudaErrorInvalidValue;
   const MlaStaging sg = mla_staging(r, dr);
@@ -1535,7 +1558,8 @@ extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void
   p.off[2] = off_rv;
   p.off[3] = off_rs;
   p.out = static_cast<float*>(out);
-  p.C = C; p.H = H; p.r = r; p.dr = dr; p.kv_len = kv_len;
+  p.kv_len = static_cast<const int*>(kv_len);
+  p.C = C; p.H = H; p.r = r; p.dr = dr;
   p.tiles = tiles; p.splits = splits;
   p.w = sg.w; p.rl = sg.rl; p.rr = sg.rr;
   p.stage_bytes = stage_bytes;

@@ -24,6 +24,7 @@ this module is imported or built until a kernel is launched on a CUDA tensor.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -69,6 +70,32 @@ _F = ctypes.c_float
 def reset_launches() -> None:
     for name in COUNTERS:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Count the launches a CUDA graph capture records.
+
+    The wrappers count each launch as they make it, but under capture the
+    launch is only recorded: nothing runs.  Inside this context those counts
+    go into the yielded dict instead of `LAUNCHES`, and `count_replay` adds
+    them to `LAUNCHES` each time the graph is replayed, when they do run.
+    """
+    before = dict(LAUNCHES)
+    recorded: dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for name in COUNTERS:
+            recorded[name] = LAUNCHES[name] - before[name]
+            LAUNCHES[name] = before[name]
+
+
+def count_replay(recorded: dict) -> None:
+    """Count the launches of one replay of a graph captured under
+    `captured_launches`."""
+    for name, n in recorded.items():
+        LAUNCHES[name] += n
 
 
 def build_dir() -> Path:
@@ -191,13 +218,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [_P] * 11
     elif name == "flash_decode":
         fn = lib.flash_decode_launch
-        fn.argtypes = [_P] * 8 + [_I] * 17 + [_F, _I, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 16 + [_F, _I, _P]
         limits = ((lib.flash_decode_tile_rows, FD_TILE),
                   (lib.flash_decode_max_dim, FD_MAX_DIM),
                   (lib.flash_decode_max_group, FD_MAX_GROUP),
                   (lib.flash_decode_max_stages, FD_MAX_STAGES))
         mla = lib.flash_decode_mla_launch
-        mla.argtypes = [_P] * 7 + [_I] * 13 + [_F, _P]
+        mla.argtypes = [_P] * 8 + [_I] * 12 + [_F, _P]
         mla.restype = _I
         clusters = lib.flash_decode_mla_max_clusters
         clusters.argtypes, clusters.restype = [_I, _I], _I
@@ -298,7 +325,7 @@ def mxint4_matmul(x, packed, exps_packed, out_scale, row_scale, bias):
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     partials = (torch.empty(plan["splits"], m, n, dtype=torch.float32, device=x.device)
                 if plan["splits"] > 1 else out)
-    tickets = _tickets(x.device, plan["tiles"])
+    tickets = ticket_counters(x.device, plan["tiles"])
     err = lib.mxint4_matmul_launch(
         x.data_ptr(), packed.data_ptr(), exps_packed.data_ptr(),
         out_scale.data_ptr(), row_scale.data_ptr(), bias.data_ptr(),
@@ -319,9 +346,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _tickets(device: torch.device, count: int) -> torch.Tensor:
+def ticket_counters(device: torch.device, count: int = 0) -> torch.Tensor:
     """Per-device split-K ticket counters: zeroed once, and left at zero by
-    every launch (the last block of a tile resets its ticket)."""
+    every launch (the last block of a tile resets its ticket).  They are
+    reallocated only to grow: a captured graph that launched on the old
+    buffer keeps a reference to it."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     t = _TICKETS.get(idx)
     if t is None or t.numel() < count:
@@ -521,7 +550,10 @@ CACHE_FORMATS = {"f32": (0, torch.float32, None),
 # Flash-decode (csrc/flash_decode.cu).  A block of 4 warps streams FD_TILE-row
 # tiles of one (b, h) through a ring of 2-4 stages in shared memory, each
 # warp 4 rows of a tile; the planner lays out a stage, and the launch checks
-# it.  A lane holds 4 elements of each 128-wide slot of a row (ns slots: 1
+# it.  The grid is fixed by the capacity C and the kernel reads kv_len from
+# device memory, so one launch (or one captured graph) serves every
+# position; a split whose rows all lie at or past kv_len streams nothing.
+# A lane holds 4 elements of each 128-wide slot of a row (ns slots: 1
 # for d, dv <= 128, else 2), and a block's registers hold FD_GROUP query
 # heads; a larger G runs in chunks of FD_GROUP, a block each.
 FD_TILE = 16
@@ -547,15 +579,18 @@ def _up16(n: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def flash_decode_plan(b: int, kv: int, g: int, d: int, dv: int, kv_len: int,
+def flash_decode_plan(b: int, kv: int, g: int, d: int, dv: int, c: int,
                       k_fmt: str, v_fmt: str, sms: int = 132) -> dict:
-    """Grid and ring of one flash-decode launch.
+    """Grid and ring of one flash-decode launch on a cache of capacity ``c``.
 
-    The kv_len rows are cut into FD_TILE-row tiles, and each of ``splits``
-    blocks per (b, h, G-chunk) streams an even share of them (the first
+    The plan depends on the capacity, not on kv_len, as the reference's grid
+    does: the C rows are cut into FD_TILE-row tiles, and each of ``splits``
+    blocks per (b, h, G-chunk) owns an even share of them (the first
     ``tiles % splits`` splits one tile more), so every split holds whole
-    tiles, none is empty and the rows at or past kv_len are never read
-    (``ranges`` lists each split's rows, as the kernel computes them).
+    tiles (``ranges`` lists each split's rows, as the kernel computes them).
+    At a given kv_len the kernel streams only the rows of a range below it:
+    a split that starts at or past kv_len streams nothing and merges as an
+    empty partial, and no row at or past kv_len is read (`fd_split_rows`).
     ``splits`` is the fewest that gives each of the ``sms`` SMs
     FD_BLOCKS_PER_SM blocks (a block's 4 warps alone leave an SM's
     schedulers idle while they wait), but no more than keeps at least two
@@ -575,20 +610,39 @@ def flash_decode_plan(b: int, kv: int, g: int, d: int, dv: int, kv_len: int,
     off_ks = off_v + FD_TILE * vb
     off_vs = off_ks + _up16(FD_TILE * ks)
     stage_bytes = off_vs + _up16(FD_TILE * vs)
-    tiles = -(-kv_len // FD_TILE)
+    tiles = -(-c // FD_TILE)
     units = b * kv * gchunks
-    by_bytes = kv_len * (kb + ks + vb + vs) // FD_MIN_BLOCK_BYTES
+    by_bytes = c * (kb + ks + vb + vs) // FD_MIN_BLOCK_BYTES
     by_smem = (FD_SMEM_BYTES - 16) // (4 * FD_GROUP * (dv + 3))
     splits = max(1, min(-(-FD_BLOCKS_PER_SM * sms // units), tiles // 2, by_bytes, by_smem))
     lo, extra = divmod(tiles, splits)
     cuts = [(i * lo + min(i, extra)) * FD_TILE for i in range(splits + 1)]
-    ranges = tuple((cuts[i], min(cuts[i + 1], kv_len)) for i in range(splits))
+    ranges = tuple((cuts[i], min(cuts[i + 1], c)) for i in range(splits))
     most = -(-tiles // splits)
     stages = max(2, min(FD_MAX_STAGES, most + 1, FD_RING_BYTES // stage_bytes))
     return dict(tile=FD_TILE, stages=stages, stage_bytes=stage_bytes,
                 layout=(off_v, off_ks, off_vs, stage_bytes), tiles=tiles,
                 splits=splits, ranges=ranges, ns=ns, gchunks=gchunks,
                 blocks=units * splits, rows_per_split=max(e - s for s, e in ranges))
+
+
+def fd_split_rows(ranges: tuple, kv_len: int) -> tuple:
+    """The rows each split of a plan's ``ranges`` streams at ``kv_len``, as
+    the kernel computes them: its range cut at kv_len, empty (``(s, s)``)
+    for a split that starts at or past it."""
+    return tuple((s, max(s, min(e, kv_len))) for s, e in ranges)
+
+
+def check_kv_len(kv_len: torch.Tensor, device: torch.device) -> None:
+    """kv_len as flash-decode takes it (any device): an int32 scalar tensor
+    on ``device``, as the Pallas kernel's operand is.  The kernels read it
+    from device memory, so its value is never read on the host (it lies in
+    ``[1, C]`` on the model path by construction)."""
+    if not isinstance(kv_len, torch.Tensor) or kv_len.dtype != torch.int32:
+        raise TypeError("flash_decode: kv_len must be an int32 tensor")
+    if kv_len.dim() != 0 or kv_len.device != device:
+        raise ValueError(f"flash_decode: kv_len must be a scalar on {device}, got shape "
+                         f"{tuple(kv_len.shape)} on {kv_len.device}")
 
 
 def fd_alignment_width(row_bytes: int) -> int:
@@ -642,14 +696,16 @@ def _cache_operand(name: str, parts: tuple, fmt: str, lead: tuple, dim: int):
     return code, values.data_ptr(), None if side is None else side.data_ptr()
 
 
-def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
+def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: torch.Tensor,
                  scale: float | None):
     """Decode attention of one token over the first ``kv_len`` cache rows.
 
     q f32 ``[B, KV, G, d]``; K and V as ``(values, side)`` pairs in the
     ``[B, C, KV, *]`` layout of a `CACHE_FORMATS` name (side is the int8_tok
-    scales or the mxint4_blk exponents, else None); ``scale=None`` divides the
-    scores by sqrt(d), as the plain version does.  Returns f32 ``[B, KV, G, dv]``.
+    scales or the mxint4_blk exponents, else None); ``kv_len`` an int32
+    scalar on the card, which the kernel reads (clamped to [0, C]);
+    ``scale=None`` divides the scores by sqrt(d), as the plain version does.
+    Returns f32 ``[B, KV, G, dv]``.
     """
     b, kv, g, d = q.shape
     c = k_parts[0].shape[1]
@@ -657,23 +713,22 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
     if not (1 <= g <= FD_MAX_GROUP and d <= FD_MAX_DIM and dv <= FD_MAX_DIM):
         raise ValueError(f"flash_decode: G={g}, d={d}, dv={dv} exceed the kernel's "
                          f"limits ({FD_MAX_GROUP}, {FD_MAX_DIM})")
-    if not 1 <= kv_len <= c:
-        raise ValueError(f"flash_decode: kv_len {kv_len} outside [1, {c}]")
     _check("q", q, torch.float32, (b, kv, g, d), align=16)
+    check_kv_len(kv_len, q.device)
     kc, k0, k1 = _cache_operand("k", k_parts, k_fmt, (b, c, kv), d)
     vc, v0, v1 = _cache_operand("v", v_parts, v_fmt, (b, c, kv), dv)
-    plan = flash_decode_plan(b, kv, g, d, dv, kv_len, k_fmt, v_fmt, _sms(q.device))
+    plan = flash_decode_plan(b, kv, g, d, dv, c, k_fmt, v_fmt, _sms(q.device))
     lib = _lib("flash_decode")
     splits = plan["splits"]
     out = torch.empty(b, kv, g, dv, dtype=torch.float32, device=q.device)
     units = b * kv * plan["gchunks"]
     partials = (torch.empty(units * splits * FD_GROUP * (dv + 2), dtype=torch.float32,
                             device=q.device) if splits > 1 else out)
-    tickets = _tickets(q.device, units)
+    tickets = ticket_counters(q.device, units)
     div = scale is None
     err = lib.flash_decode_launch(
         q.data_ptr(), k0, k1, v0, v1, out.data_ptr(), partials.data_ptr(),
-        tickets.data_ptr(), b, c, kv, g, d, dv, kv_len, kc, vc, plan["tiles"], splits,
+        tickets.data_ptr(), kv_len.data_ptr(), b, c, kv, g, d, dv, kc, vc, plan["tiles"], splits,
         plan["stages"], plan["ns"], *plan["layout"], 0.0 if div else float(scale),
         int(div), _stream())
     _raise_if(err, "flash_decode")
@@ -683,7 +738,8 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: int,
 
 # Flash-decode's MLA two-stream mode (csrc/flash_decode.cu,
 # `flash_decode_mla_kernel`).  A block owns MLA_HEADS query heads of one
-# batch lane and an even share of the kv_len rows' MLA_TILE-row tiles; its
+# batch lane and an even share of the C rows' MLA_TILE-row tiles (those
+# below kv_len, which it reads from device memory, are streamed); its
 # products run on the tensor cores (split TF32) out of a staging tile of
 # [latent | rope] rows in shared memory, and the splits of one (b, head
 # group) form a thread-block cluster that merges through its shared memory.
@@ -701,13 +757,16 @@ MLA_MAX_ROPE = 128
 
 
 @functools.lru_cache(maxsize=None)
-def flash_decode_mla_plan(b: int, h: int, r: int, dr: int, kv_len: int, fmt: str,
+def flash_decode_mla_plan(b: int, h: int, r: int, dr: int, c: int, fmt: str,
                           resident: tuple = MLA_RESIDENT_H100) -> dict:
-    """Grid and raw stage of one MLA-mode launch.
+    """Grid and raw stage of one MLA-mode launch on a cache of capacity ``c``.
 
     The ``b * groups`` (batch lane, group of MLA_HEADS heads) units each run
-    as a cluster of ``splits`` blocks, and each split streams an even share
-    of the tiles (``ranges``, as the kernel computes them).
+    as a cluster of ``splits`` blocks, and each split owns an even share of
+    the capacity's tiles (``ranges``, as the kernel computes them); at a
+    given kv_len a split streams its range's rows below it (`fd_split_rows`)
+    and one that starts at or past it streams nothing but still joins its
+    cluster's merge.
     ``resident[s - 1]`` is how many clusters of ``s`` blocks the card holds
     at once; ``splits`` (at most MLA_MAX_SPLITS and one per tile) minimises
     the waves of clusters times the tiles of the longest split, the fewer
@@ -735,14 +794,14 @@ def flash_decode_mla_plan(b: int, h: int, r: int, dr: int, kv_len: int, fmt: str
     off_rv = off_ls + _up16(MLA_TILE * ls)
     off_rs = off_rv + _up16(MLA_TILE * rb)
     stage_bytes = off_rs + _up16(MLA_TILE * rs)
-    tiles = -(-kv_len // MLA_TILE)
+    tiles = -(-c // MLA_TILE)
     groups = -(-h // MLA_HEADS)
     units = b * groups
     splits = min(range(1, min(MLA_MAX_SPLITS, tiles) + 1),
                  key=lambda s: (-(-units // resident[s - 1]) * -(-tiles // s), s))
     lo, extra = divmod(tiles, splits)
     cuts = [(i * lo + min(i, extra)) * MLA_TILE for i in range(splits + 1)]
-    ranges = tuple((cuts[i], min(cuts[i + 1], kv_len)) for i in range(splits))
+    ranges = tuple((cuts[i], min(cuts[i + 1], c)) for i in range(splits))
     return dict(tile=MLA_TILE, tiles=tiles, splits=splits, ranges=ranges, groups=groups,
                 blocks=units * splits, layout=(off_ls, off_rv, off_rs, stage_bytes))
 
@@ -798,30 +857,31 @@ def _mla_resident_on(index: int) -> tuple:
     return got
 
 
-def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: int, scale: float):
+def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: torch.Tensor,
+                     scale: float):
     """MLA decode attention of one token over the first ``kv_len`` rows.
 
     q f32 ``[B, H, r]`` (absorbed latent queries), q2 f32 ``[B, H, dr]``
     (rope queries); the latent cache, which is both K and V, and the rope
     cache as ``(values, side)`` pairs in the ``[B, C, *]`` layout of one
-    `CACHE_FORMATS` name.  ``s = (q . L + q2 . R) * scale``.  Returns f32
-    ``[B, H, r]``.
+    `CACHE_FORMATS` name; ``kv_len`` an int32 scalar on the card, which the
+    kernel reads (clamped to [0, C]).  ``s = (q . L + q2 . R) * scale``.
+    Returns f32 ``[B, H, r]``.
     """
     b, h, r = q.shape
     dr = q2.shape[-1]
     c = lat_parts[0].shape[1]
-    if not 1 <= kv_len <= c:
-        raise ValueError(f"flash_decode: kv_len {kv_len} outside [1, {c}]")
     _check("q", q, torch.float32, (b, h, r), align=16)
     _check("q2", q2, torch.float32, (b, h, dr), align=16)
-    plan = flash_decode_mla_plan(b, h, r, dr, kv_len, fmt, _mla_resident(q.device))
+    check_kv_len(kv_len, q.device)
+    plan = flash_decode_mla_plan(b, h, r, dr, c, fmt, _mla_resident(q.device))
     l0, l1 = _mla_operand("latent", lat_parts, fmt, (b, c), r)
     r0, r1 = _mla_operand("rope", rope_parts, fmt, (b, c), dr)
     lib = _lib("flash_decode")
     out = torch.empty(b, h, r, dtype=torch.float32, device=q.device)
     err = lib.flash_decode_mla_launch(
-        q.data_ptr(), q2.data_ptr(), l0, l1, r0, r1, out.data_ptr(), b, c, h, r, dr,
-        kv_len, CACHE_FORMATS[fmt][0], plan["tiles"], plan["splits"], *plan["layout"],
+        q.data_ptr(), q2.data_ptr(), l0, l1, r0, r1, out.data_ptr(), kv_len.data_ptr(),
+        b, c, h, r, dr, CACHE_FORMATS[fmt][0], plan["tiles"], plan["splits"], *plan["layout"],
         float(scale), _stream())
     _raise_if(err, "flash_decode (MLA)")
     LAUNCHES["flash_decode_mla"] += 1

@@ -14,8 +14,6 @@ flash-decode splits each cache leaf into the arrays its format keeps.
 
 from __future__ import annotations
 
-import operator
-
 import torch
 
 from repro_torch.core import kvq
@@ -120,7 +118,7 @@ def _cache_parts(leaf) -> tuple[tuple, str]:
     return (leaf, None), name
 
 
-def flash_decode(q, k, v, kv_len: int, *, q2=None, k2=None, scale=None,
+def flash_decode(q, k, v, kv_len: torch.Tensor, *, q2=None, k2=None, scale=None,
                  impl: str = "auto") -> torch.Tensor:
     """Single-token decode attention over the first ``kv_len`` cache rows.
 
@@ -134,19 +132,17 @@ def flash_decode(q, k, v, kv_len: int, *, q2=None, k2=None, scale=None,
     its format with ``k2``.
 
     Leaves are f32, bf16 or legacy int8 tensors, or kvq-encoded dicts, which
-    the kernels dequantize as they load them.  ``kv_len`` is a host int in
-    ``[1, C]``: the caller keeps the position on the host, so the kernels
-    take it by value.
+    the kernels dequantize as they load them.  ``kv_len`` is an int32 scalar
+    tensor on the device, in ``[1, C]``, as the Pallas kernel's operand is:
+    the kernels read it from device memory and their grid is fixed by the
+    capacity C, so one captured launch serves every position.
     """
-    kv_len = operator.index(kv_len)
-    c = (next(iter(k.values())) if isinstance(k, dict) else k).shape[1]
-    if not 1 <= kv_len <= c:
-        raise ValueError(f"flash_decode: kv_len {kv_len} outside [1, {c}]")
+    from repro_torch.kernels import hopper
+    hopper.check_kv_len(kv_len, q.device)
     if q.ndim == 3 and (q2 is None or k2 is None or scale is None):
         raise ValueError("MLA layout (q.ndim == 3) needs q2, k2 and scale")
     if not use_kernel(impl, q):
         return _ref.flash_decode_ref(q, k, v, kv_len, q2=q2, k2=k2, scale=scale)
-    from repro_torch.kernels import hopper
     if q.ndim == 3:
         if v is not k:
             raise ValueError("flash_decode (MLA): the kernel reads each latent row once "

@@ -54,9 +54,10 @@ def rmsnorm_stats_ref(y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return fr.rms_sigma_inv(y, eps)
 
 
-def flash_decode_ref(q, k, v, kv_len: int, *, q2=None, k2=None, scale=None
+def flash_decode_ref(q, k, v, kv_len: torch.Tensor, *, q2=None, k2=None, scale=None
                      ) -> torch.Tensor:
-    """Single-token decode attention over the first ``kv_len`` cache rows.
+    """Single-token decode attention over the first ``kv_len`` cache rows
+    (``kv_len`` an int32 scalar tensor, as the Pallas kernel's operand is).
 
     Two layouts, as the reference's `flash_decode_ref`, operation for
     operation:

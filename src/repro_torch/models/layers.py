@@ -21,6 +21,8 @@ MLA mode.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import fused_rmsnorm as fr
@@ -142,25 +144,36 @@ def to_cache_like(x: torch.Tensor, leaf):
     return to_cache_dtype(x, leaf.dtype)
 
 
-def cache_update(leaf, x: torch.Tensor, pos: int):
+def cache_update(leaf, x: torch.Tensor, pos: torch.Tensor):
     """Write the rows ``x [B, n, ...]`` into ``leaf`` at slot ``pos`` (axis 1),
     **in place**, and return the leaf.
 
-    The reference's ``dynamic_update_slice`` returns a new buffer, which XLA
-    performs in place inside its loop; here the write goes into the
-    preallocated leaf, so a full-width step never copies the cache.  A caller
-    that needs the cache as it was (a test that replays a step) clones it
-    first.  ``pos`` is clamped so the rows fit, as the reference's is.
+    ``pos`` is an int32 scalar tensor on the leaf's device: the write is an
+    indexed copy, so a captured decode step replays it at whatever slot the
+    device holds.  The reference's ``dynamic_update_slice`` returns a new
+    buffer, which XLA performs in place inside its loop; here the write goes
+    into the preallocated leaf, so a full-width step never copies the cache.
+    A caller that needs the cache as it was (a test that replays a step)
+    clones it first.  The slot is clamped on the device so the rows fit, as
+    the reference's is.
     """
     enc = to_cache_like(x, leaf)
     n, c = x.shape[1], cache_capacity(leaf)
-    pos = max(0, min(int(pos), c - n))
+    idx = pos.clamp(0, c - n).to(torch.int64) + torch.arange(n, device=pos.device)
     if isinstance(leaf, dict):
         for name, buf in leaf.items():
-            buf[:, pos:pos + n] = enc[name]
+            buf.index_copy_(1, idx, enc[name])
     else:
-        leaf[:, pos:pos + n] = enc
+        leaf.index_copy_(1, idx, enc)
     return leaf
+
+
+def decode_slots(pos: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slot a linear cache of capacity ``c`` writes at position ``pos``
+    and the rows attention reads, ``(min(pos, c - 1), min(pos + 1, c))``:
+    int32 scalars computed on the device, as the reference computes them
+    in its loop."""
+    return pos.clamp(max=c - 1), (pos + 1).clamp(max=c)
 
 
 def cache_capacity(leaf) -> int:
@@ -240,13 +253,14 @@ def gqa_apply(p: Attention, x_star, sig_inv, engine: HSAEngine, phase: str,
 
 
 def gqa_decode(p: Attention, x_star, sig_inv, engine: HSAEngine,
-               cfg: ModelConfig, cache: dict, pos: int, *, rope_sin=None,
+               cfg: ModelConfig, cache: dict, pos: torch.Tensor, *, rope_sin=None,
                rope_cos=None) -> tuple[torch.Tensor, dict]:
     """One decode step: project, rotate (online RoPE), append the new K/V
     row in place (`cache_update`), attend through the flash-decode kernel.
 
-    ``pos`` is the host-side absolute position of this token.  A linear
-    cache clamps at its capacity, as the reference's does."""
+    ``pos`` is the absolute position of this token, an int32 scalar on the
+    device.  A linear cache clamps at its capacity, as the reference's
+    does."""
     b = x_star.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q, k, v = _project_qkv(p, x_star, sig_inv, engine, "decode", cfg)
@@ -254,12 +268,10 @@ def gqa_decode(p: Attention, x_star, sig_inv, engine: HSAEngine,
         q = orp.apply_rope(q, rope_sin, rope_cos)
         k = orp.apply_rope(k, rope_sin, rope_cos)
     q = q[:, 0].reshape(b, kv, h // kv, hd)
-    c = cache_capacity(cache["k"])
-    slot = min(pos, c - 1)
+    slot, kv_len = decode_slots(pos, cache_capacity(cache["k"]))
     k_cache = cache_update(cache["k"], k, slot)
     v_cache = cache_update(cache["v"], v, slot)
-    out = ops.flash_decode(q, k_cache, v_cache, min(pos + 1, c),
-                           impl=engine.config.kernel_impl)
+    out = ops.flash_decode(q, k_cache, v_cache, kv_len, impl=engine.config.kernel_impl)
     out = engine.linear(p.wo, out.reshape(b, 1, h * hd), "decode")
     return out, {"k": k_cache, "v": v_cache}
 
@@ -337,8 +349,15 @@ def mla_apply(p: MLA, x_star, sig_inv, engine: HSAEngine, phase: str,
     return out, (c_kv, k_rope)
 
 
+@functools.lru_cache(maxsize=None)
+def _mla_scale(width: int) -> float:
+    """The decode score scale ``1 / sqrt(width)``, in f32 arithmetic as the
+    reference computes it, once per width."""
+    return float(1.0 / torch.sqrt(torch.tensor(width, dtype=torch.float32)))
+
+
 def mla_decode(p: MLA, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
-               cache: dict, pos: int, *, rope_sin=None, rope_cos=None
+               cache: dict, pos: torch.Tensor, *, rope_sin=None, rope_cos=None
                ) -> tuple[torch.Tensor, dict]:
     """One decode step with absorbed projections: the query takes ``wk_b``
     and the latent output ``wv_b``, so attention runs in the compressed
@@ -356,8 +375,7 @@ def mla_decode(p: MLA, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
         q_rope = orp.apply_rope(q_rope, rope_sin, rope_cos)
         k_rope_new = orp.apply_rope(k_rope_new, rope_sin, rope_cos)
 
-    c = cache_capacity(cache["c_kv"])
-    slot = min(pos, c - 1)
+    slot, kv_len = decode_slots(pos, cache_capacity(cache["c_kv"]))
     c_kv = cache_update(cache["c_kv"], c_kv_new, slot)
     k_rope = cache_update(cache["k_rope"], k_rope_new, slot)
 
@@ -366,9 +384,8 @@ def mla_decode(p: MLA, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
     f32 = torch.float32
     wk_b = p.wk_b.w.reshape(kvr, h, dn).to(f32)
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope.to(f32), wk_b)
-    scale = 1.0 / torch.sqrt(torch.tensor(dn + dr, dtype=f32))
-    lat_out = ops.flash_decode(q_abs, c_kv, c_kv, min(pos + 1, c), q2=q_rope,
-                               k2=k_rope, scale=scale, impl=engine.config.kernel_impl)
+    lat_out = ops.flash_decode(q_abs, c_kv, c_kv, kv_len, q2=q_rope, k2=k_rope,
+                               scale=_mla_scale(dn + dr), impl=engine.config.kernel_impl)
     wv_b = p.wv_b.w.reshape(kvr, h, dv).to(f32)
     out_heads = torch.einsum("bhr,rhv->bhv", lat_out, wv_b)
     out = engine.linear(p.wo, out_heads.reshape(b, 1, h * dv), "decode")

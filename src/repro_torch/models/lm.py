@@ -12,18 +12,22 @@ Layers come in the reference's groups (`layer_groups`), held in one flat
 list in group order: deepseek-v3's leading dense layers (``dense_head``)
 run, and a config cut to them has no MoE layer; MoE layers are not ported.
 
-The decode cache is ``{"pos": int, "rope": OnlineRopeState, "blocks": [one
-per layer]}``: ``{"s": f32 [B, H, dk, dv]}`` for RetNet, ``{"k", "v"}``
+The decode cache is ``{"pos": i32 scalar, "rope": OnlineRopeState, "blocks":
+[one per layer]}``: ``{"s": f32 [B, H, dk, dv]}`` for RetNet, ``{"k", "v"}``
 ``[B, C, KV, hd]`` leaves for dense GQA, ``{"c_kv" [B, C, kv_lora_rank],
 "k_rope" [B, C, qk_rope_head_dim]}`` for MLA (plain tensors or kvq-encoded
 dicts).
-The position lives on the host: the Python decode loop knows it without
-reading the card.  Dense decode writes each new K/V row into the cache in
-place (`layers.cache_update`).  The multi-token-prediction head of
+The position lives on the device, as the reference's traced scalar does: no
+host integer that changes from step to step reaches a kernel, a shape or a
+branch of `forward_decode`, so one captured step replays at every position
+(`serving/engine.py`).  Dense decode writes each new K/V row into the cache
+in place (`layers.cache_update`).  The multi-token-prediction head of
 deepseek-v3 (``cfg.mtp``) is not built: generation never reads it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -137,6 +141,14 @@ def _rope_dim(cfg: ModelConfig) -> int:
     return cfg.head_dim_
 
 
+@functools.lru_cache(maxsize=None)
+def _thetas(dim: int, base: float, device: torch.device) -> torch.Tensor:
+    """The rotary frequencies of one width, base and device, computed once
+    (building them copies ``base`` to the device, which a captured decode
+    step must not do).  Callers must not modify the tensor."""
+    return orp.rope_thetas(dim, base, device)
+
+
 def _rope_tables(cfg: ModelConfig, s: int, device):
     if not cfg.rope:
         return None, None
@@ -180,7 +192,7 @@ def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0):
     return x + M.mlp_apply(p.mlp, xs2, sig2, engine, phase), cache
 
 
-def _block_decode(p, x, cfg, engine, cache, pos: int, sin, cos):
+def _block_decode(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
     """One-token block at absolute position ``pos`` -> (x_out, cache)."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
     if isinstance(p, RetNetBlock):
@@ -212,7 +224,7 @@ def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
         states.append(cache)
     h = L.norm_full(model.final_norm, x[:, -1:])
     logits = engine.linear(model.lm_head, h, "prefill")[:, 0]
-    caches = {"pos": s, "blocks": states}
+    caches = {"pos": torch.tensor(s, dtype=torch.int32, device=x.device), "blocks": states}
     if cfg.rope:
         caches["rope"] = orp.init_state(_rope_dim(cfg), cfg.rope_base, pos=s,
                                         device=x.device)
@@ -230,7 +242,7 @@ def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,
     if cfg.rope:
         st = cache["rope"]
         sin, cos = st.sin, st.cos                          # C4 Embed mode
-        th = orp.rope_thetas(_rope_dim(cfg), cfg.rope_base, x.device)
+        th = _thetas(_rope_dim(cfg), cfg.rope_base, x.device)
         new_cache["rope"] = orp.advance(st, th)            # C4 Update mode
     states = []
     for blk, c in zip(model.blocks, cache["blocks"]):
@@ -255,7 +267,7 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
     ``dtype`` is a torch dtype or a kvq format name: KV leaves then start as
     encoded zero dicts; RetNet state stays f32."""
     _check_family(cfg)
-    pos = start_pos
+    pos = torch.tensor(start_pos, dtype=torch.int32, device=device)
     if cfg.family == "retnet":
         blocks = [R.retention_make_cache(cfg, batch, device)
                   for _ in range(cfg.n_layers)]
@@ -265,7 +277,7 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
     caches = {"pos": pos, "blocks": blocks}
     if cfg.rope:
         caches["rope"] = orp.init_state(_rope_dim(cfg), cfg.rope_base,
-                                        pos=pos, device=device)
+                                        pos=start_pos, device=device)
     return caches
 
 

@@ -7,6 +7,8 @@ runs the O(1) recurrent step in plain PyTorch, as the reference does.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -80,6 +82,13 @@ def retention_apply(p: Retention, x_star, sig_inv, engine: HSAEngine,
     return out, {"s": state}
 
 
+@functools.lru_cache(maxsize=None)
+def _decays(n_heads: int, device: torch.device) -> torch.Tensor:
+    """The per-head decays decode reads, computed once per head count and
+    device.  Callers must not modify the tensor."""
+    return ret.head_decays(n_heads, device=device)
+
+
 def retention_decode(p: Retention, x_star, sig_inv, engine: HSAEngine,
                      cfg: ModelConfig, cache: dict, *, rope_sin=None,
                      rope_cos=None) -> tuple[torch.Tensor, dict]:
@@ -89,9 +98,8 @@ def retention_decode(p: Retention, x_star, sig_inv, engine: HSAEngine,
     if rope_sin is not None:
         q = orp.apply_rope(q, rope_sin, rope_cos)
         k = orp.apply_rope(k, rope_sin, rope_cos)
-    gamma = ret.head_decays(cfg.n_heads, device=q.device)
-    y, state = ret.retention_recurrent_step(q[:, 0], k[:, 0], v[:, 0],
-                                            cache["s"], gamma)
+    y, state = ret.retention_recurrent_step(q[:, 0], k[:, 0], v[:, 0], cache["s"],
+                                            _decays(cfg.n_heads, q.device))
     return _gate_out(p, y, g, engine, "decode", b, 1, d), {"s": state}
 
 

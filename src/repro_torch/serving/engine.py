@@ -3,14 +3,26 @@
     lm.init -> deploy.deploy_quantize -> HSAEngine -> prefill
             -> (KV cache encoded to ``gen.cache_format``) -> decode loop
 
-The reference fuses its decode loop into one jitted ``lax.while_loop``; here
-it is a plain Python loop with the same semantics: ``out[:, i]`` is sampled
-before decode step ``i`` (the first token from the prefill logits), slots
-after a sequence's stop token hold ``pad_token_id``, and ``lengths`` counts
-emitted tokens including the stop token.  Tokens stay on the device; the
-loop reads the card only to end early when every sequence has stopped, and
-only when stop tokens were given.  Prefill and decode are timed on the host
-clock around work that ends in ``torch.cuda.synchronize()``.
+The reference fuses its decode loop into one jitted ``lax.while_loop``.
+Here one body of that loop is `InferenceEngine._step`, in the reference's
+order: ``out[:, i]`` takes the token sampled before decode step ``i`` (the
+first from the prefill logits), slots after a sequence's stop token hold
+``pad_token_id``, ``lengths`` counts emitted tokens including the stop
+token, then `lm.forward_decode` and the next sample.  The step reads and
+writes only device state (the position and ``i`` included) in place, so:
+
+* on the card, `generate` captures the step once as a CUDA graph on static
+  decode buffers, one set per batch, prompt length and `GenerationConfig`
+  (prefill's cache is copied into them at the prefill/decode boundary),
+  and replays it ``max_new_tokens`` times; a repeated key does not capture
+  again.  A capture that fails raises: there is no eager fallback;
+* on the CPU, `generate` runs the same step eagerly, so the CPU parity
+  tests run the very code that is captured.
+
+The loop reads the device only to end early when every sequence has
+stopped, and only when stop tokens were given.  Prefill and decode are
+timed on the host clock around work that ends in
+``torch.cuda.synchronize()``.
 
 Usage::
 
@@ -65,8 +77,85 @@ class GenerationResult:
     tokens: torch.Tensor     # int64 [B, max_new_tokens]; pad after stop token
     lengths: torch.Tensor    # int32 [B] — emitted tokens incl. the stop token
     prefill_s: float         # wall-clock MMM phase
-    decode_s: float          # wall-clock MVM phase
+    decode_s: float          # wall-clock MVM phase (a capture included)
     decode_steps: int = 0    # forward_decode calls the loop made
+    capture_s: float = 0.0   # wall-clock warm-up and capture of the step graph
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """The decode loop's carry, as the reference's ``while_loop`` state, all
+    on the device; `InferenceEngine._step` updates it in place."""
+
+    i: torch.Tensor          # i64 scalar: the column of ``out`` written next
+    tok: torch.Tensor        # i64 [B]: the token emitted and fed next
+    cache: dict              # the decode cache (`lm.forward_decode`)
+    done: torch.Tensor       # bool [B]: the sequence has emitted a stop token
+    out: torch.Tensor        # i64 [B, max_new_tokens]
+    lengths: torch.Tensor    # i32 [B]
+
+    @classmethod
+    def start(cls, tok: torch.Tensor, cache: dict, gen: GenerationConfig
+              ) -> "DecodeState":
+        """The loop's initial state around ``cache``, which the steps then
+        update in place."""
+        b, dev = tok.shape[0], tok.device
+        return cls(i=torch.zeros((), dtype=torch.long, device=dev), tok=tok.clone(),
+                   cache=cache, done=torch.zeros(b, dtype=torch.bool, device=dev),
+                   out=torch.full((b, gen.max_new_tokens), gen.pad_token_id,
+                                  dtype=torch.long, device=dev),
+                   lengths=torch.zeros(b, dtype=torch.int32, device=dev))
+
+    def reset(self, tok: torch.Tensor, cache: dict, gen: GenerationConfig) -> None:
+        """Load the initial state of another run into these buffers."""
+        self.i.zero_()
+        self.tok.copy_(tok)
+        _write_back(self.cache, cache)
+        self.done.zero_()
+        self.out.fill_(gen.pad_token_id)
+        self.lengths.zero_()
+
+
+def _clone(tree):
+    """A copy of a cache tree with every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return dataclasses.replace(tree, **{f.name: _clone(getattr(tree, f.name))
+                                        for f in dataclasses.fields(tree)})
+
+
+def _write_back(dst, src) -> None:
+    """Copy the tensors of the cache tree ``src`` into the same places of
+    ``dst`` (a leaf that a step updated in place is the same tensor in both,
+    and is skipped)."""
+    if isinstance(dst, torch.Tensor):
+        if dst is not src:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _write_back(dst[k], src[k])
+    elif isinstance(dst, list):
+        for a, b in zip(dst, src):
+            _write_back(a, b)
+    else:
+        for f in dataclasses.fields(dst):
+            _write_back(getattr(dst, f.name), getattr(src, f.name))
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """One key's static decode buffers and the graph of one step on them."""
+
+    state: DecodeState
+    stop: torch.Tensor | None
+    generator: torch.Generator | None   # registered with the graph
+    graph: "torch.cuda.CUDAGraph"
+    launches: dict                      # kernel launches one replay runs
+    tickets: torch.Tensor               # the split-K counters the graph uses
 
 
 class InferenceEngine:
@@ -79,6 +168,7 @@ class InferenceEngine:
         self.spec = spec
         self.hsa = hsa or HSAEngine(spec.hsa_config())
         self.device = model.embed.device
+        self._graphs: dict[tuple, _StepGraph] = {}    # captured steps by key
 
     @classmethod
     def from_config(cls, cfg: ModelConfig | str, spec: EngineSpec = EngineSpec(),
@@ -123,7 +213,8 @@ class InferenceEngine:
     @torch.inference_mode()
     def decode_step(self, tokens: torch.Tensor, cache: dict
                     ) -> tuple[torch.Tensor, dict]:
-        """One MVM step: tokens [B, 1] + warm cache -> (logits [B, V], cache)."""
+        """One MVM step, eagerly: tokens [B, 1] + warm cache -> (logits [B, V],
+        cache)."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         return lm.forward_decode(self.model, tokens, cache, self.cfg, self.hsa)
 
@@ -133,45 +224,116 @@ class InferenceEngine:
                  generator: torch.Generator | None = None) -> GenerationResult:
         """Prefill + decode loop.  prompts [B, S] -> GenerationResult.
 
-        ``generator`` seeds stochastic sampling (a fixed seed when absent);
-        greedy decoding draws nothing.
+        ``generator`` seeds stochastic sampling (a fixed seed when absent)
+        and is advanced as the eager loop would advance it; greedy decoding
+        draws nothing.  On the card the decode steps are replays of one
+        captured step (see the module docstring).
         """
         prompts = torch.as_tensor(prompts, device=self.device).long()
         if generator is None and not gen.sampling.greedy:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
-        b, n = prompts.shape[0], gen.max_new_tokens
 
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.prefill(prompts, cache_len=prompts.shape[1] + n)
+        logits, cache = self.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens)
         cache = self._encode_cache(cache, gen)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        stop = (torch.tensor(gen.stop_tokens, device=self.device)
-                if gen.stop_tokens else None)
-        out = torch.full((b, n), gen.pad_token_id, dtype=torch.long,
-                         device=self.device)
-        done = torch.zeros(b, dtype=torch.bool, device=self.device)
-        lengths = torch.zeros(b, dtype=torch.int32, device=self.device)
         tok = sample(logits, gen.sampling, generator)
-        steps = 0
-        for i in range(n):
-            out[:, i] = torch.where(done, gen.pad_token_id, tok)
-            lengths += (~done).to(torch.int32)
-            if stop is not None:
-                done = done | (tok[:, None] == stop[None, :]).any(dim=-1)
-            logits, cache = self.decode_step(tok[:, None], cache)
-            steps += 1
-            tok = sample(logits, gen.sampling, generator)
-            if stop is not None and bool(done.all()):
-                break
+        if self.device.type == "cuda":
+            st, steps, t_capture = self._replay(tok, cache, gen, generator, prompts.shape)
+        else:
+            st, t_capture = DecodeState.start(tok, cache, gen), 0.0
+            stop = (torch.tensor(gen.stop_tokens, device=self.device)
+                    if gen.stop_tokens else None)
+            steps = self._loop(st, gen, lambda: self._step(st, gen, stop, generator))
+        out, lengths = st.out.clone(), st.lengths.clone()
         self._sync()
         return GenerationResult(tokens=out, lengths=lengths, prefill_s=t_prefill,
-                                decode_s=time.perf_counter() - t0,
-                                decode_steps=steps)
+                                decode_s=time.perf_counter() - t0, decode_steps=steps,
+                                capture_s=t_capture)
+
+    @staticmethod
+    def _loop(st: DecodeState, gen: GenerationConfig, step) -> int:
+        """Run ``step`` up to ``max_new_tokens`` times, ending early once
+        every sequence has stopped (read only when stop tokens were given):
+        the reference's ``cond``.  Returns the steps run."""
+        for n in range(1, gen.max_new_tokens + 1):
+            step()
+            if gen.stop_tokens and bool(st.done.all()):
+                return n
+        return gen.max_new_tokens
+
+    def _step(self, st: DecodeState, gen: GenerationConfig, stop: torch.Tensor | None,
+              generator: torch.Generator | None) -> None:
+        """One body of the reference's decode loop, on ``st`` in place."""
+        st.out.index_copy_(1, st.i.view(1),
+                           torch.where(st.done, gen.pad_token_id, st.tok)[:, None])
+        st.lengths += (~st.done).to(torch.int32)
+        if stop is not None:
+            st.done |= (st.tok[:, None] == stop[None, :]).any(dim=-1)
+        logits, cache = lm.forward_decode(self.model, st.tok[:, None], st.cache,
+                                          self.cfg, self.hsa)
+        st.tok.copy_(sample(logits, gen.sampling, generator))
+        _write_back(st.cache, cache)
+        st.i += 1
+
+    def _replay(self, tok: torch.Tensor, cache: dict, gen: GenerationConfig,
+                generator: torch.Generator | None, shape: torch.Size
+                ) -> tuple[DecodeState, int, float]:
+        """The decode loop on the card: this key's captured step (captured
+        now if the key is new), replayed from the prefill state.  Launch
+        counts are those the replays run."""
+        from repro_torch.kernels import hopper
+        key = (tuple(shape), gen)
+        sg = self._graphs.get(key)
+        t_capture = 0.0
+        if sg is None:
+            t0 = time.perf_counter()
+            sg = self._capture(tok, cache, gen)
+            self._graphs[key] = sg
+            t_capture = time.perf_counter() - t0
+        sg.state.reset(tok, cache, gen)
+        if sg.generator is not None:
+            sg.generator.set_state(generator.get_state())
+
+        def step():
+            sg.graph.replay()
+            hopper.count_replay(sg.launches)
+
+        steps = self._loop(sg.state, gen, step)
+        if sg.generator is not None:
+            generator.set_state(sg.generator.get_state())
+        return sg.state, steps, t_capture
+
+    def _capture(self, tok: torch.Tensor, cache: dict, gen: GenerationConfig) -> _StepGraph:
+        """Static buffers for one key and the graph of one `_step` on them,
+        after one eager warm-up step on a side stream (which builds the
+        kernels, their plans, the split-K tickets and the library handles
+        the step needs, none of which may be created inside a capture)."""
+        from repro_torch.kernels import hopper
+        st = DecodeState.start(tok, _clone(cache), gen)
+        stop = (torch.tensor(gen.stop_tokens, device=self.device)
+                if gen.stop_tokens else None)
+        g = None
+        if not gen.sampling.greedy:
+            g = torch.Generator(device=self.device)
+            g.manual_seed(0)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step(st, gen, stop, g)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        if g is not None:
+            graph.register_generator_state(g)
+        with hopper.captured_launches() as launches, torch.cuda.graph(graph):
+            self._step(st, gen, stop, g)
+        return _StepGraph(state=st, stop=stop, generator=g, graph=graph, launches=launches,
+                          tickets=hopper.ticket_counters(self.device))
 
     @torch.inference_mode()
     def _encode_cache(self, cache: dict, gen: GenerationConfig) -> dict:

@@ -37,6 +37,11 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a)).cuda()
 
 
+def _kv(n: int) -> torch.Tensor:
+    """kv_len as the kernels read it: an int32 scalar on the card."""
+    return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+
 @pytest.mark.parametrize("m,k,n", [
     (2, 2048, 2048), (2, 2048, 4096), (2, 4096, 2048), (2, 2048, 32768),
     (1, 64, 96), (5, 64, 96), (16, 128, 256), (3, 32, 32), (2, 128, 192),
@@ -266,10 +271,11 @@ def test_flash_decode_kernel(fmt, b, kv, g, d, c, kv_len):
     q = _t(rng.normal(size=(b, kv, g, d)).astype(np.float32))
     k = _cache_leaf(_t(rng.normal(size=(b, c, kv, d)).astype(np.float32)), fmt)
     v = _cache_leaf(_t(rng.normal(size=(b, c, kv, d)).astype(np.float32)), fmt)
-    got = ops.flash_decode(q, k, v, kv_len, impl="kernel")
-    want = ref.flash_decode_ref(q, k, v, kv_len)
+    n = _kv(kv_len)
+    got = ops.flash_decode(q, k, v, n, impl="kernel")
+    want = ref.flash_decode_ref(q, k, v, n)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
-    again = ops.flash_decode(q, k, v, kv_len, impl="kernel")
+    again = ops.flash_decode(q, k, v, n, impl="kernel")
     assert torch.equal(got, again), "split merge must be deterministic"
 
 
@@ -279,8 +285,8 @@ def test_flash_decode_kernel_mixed_formats_and_scale():
     k = kvq.encode(_t(rng.normal(size=(2, 96, 2, 64)).astype(np.float32)), "mxint4_blk")
     v = _t(rng.normal(size=(2, 96, 2, 64)).astype(np.float32))
     for scale in (None, 0.05):
-        got = ops.flash_decode(q, k, v, 70, scale=scale, impl="kernel")
-        want = ref.flash_decode_ref(q, k, v, 70, scale=scale)
+        got = ops.flash_decode(q, k, v, _kv(70), scale=scale, impl="kernel")
+        want = ref.flash_decode_ref(q, k, v, _kv(70), scale=scale)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
 
 
@@ -292,10 +298,11 @@ def _flash_decode_case(seed, fmts, b, kv, g, d, c, kv_len, scale=None, dv=None):
     q = _t(rng.normal(size=(b, kv, g, d)).astype(np.float32))
     k = _cache_leaf(_t(rng.normal(size=(b, c, kv, d)).astype(np.float32)), fmts[0])
     v = _cache_leaf(_t(rng.normal(size=(b, c, kv, dv)).astype(np.float32)), fmts[1])
-    got = ops.flash_decode(q, k, v, kv_len, scale=scale, impl="kernel")
-    want = ref.flash_decode_ref(q, k, v, kv_len, scale=scale)
+    n = _kv(kv_len)
+    got = ops.flash_decode(q, k, v, n, scale=scale, impl="kernel")
+    want = ref.flash_decode_ref(q, k, v, n, scale=scale)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
-    again = ops.flash_decode(q, k, v, kv_len, scale=scale, impl="kernel")
+    again = ops.flash_decode(q, k, v, n, scale=scale, impl="kernel")
     assert torch.equal(got, again), "split merge must be deterministic"
 
 
@@ -354,7 +361,7 @@ def test_flash_decode_kernel_rejects_misaligned_views(fmt, part):
         shifted.copy_(arr)
         bad = dict(leaf, **{part: shifted})
     with pytest.raises(ValueError, match="aligned"):
-        ops.flash_decode(q, bad, leaf, c, impl="kernel")
+        ops.flash_decode(q, bad, leaf, _kv(c), impl="kernel")
 
 
 def _mla_inputs(seed, fmt, b, h, r, dr, c, q_std=None):
@@ -377,12 +384,12 @@ def _mla_case(seed, fmt, b, h, r, dr, c, kv_len, scale=0.0722):
     bytes, the latent leaf as K and V, at the reference's decode tolerance;
     a relaunch bit-equal to the first."""
     q, q2, lat, rope = _mla_inputs(seed, fmt, b, h, r, dr, c)
-    got = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale, impl="kernel")
-    want = ref.flash_decode_ref(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale)
+    n = _kv(kv_len)
+    got = ops.flash_decode(q, lat, lat, n, q2=q2, k2=rope, scale=scale, impl="kernel")
+    want = ref.flash_decode_ref(q, lat, lat, n, q2=q2, k2=rope, scale=scale)
     assert got.shape == (b, h, r) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
-    again = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale,
-                             impl="kernel")
+    again = ops.flash_decode(q, lat, lat, n, q2=q2, k2=rope, scale=scale, impl="kernel")
     assert torch.equal(got, again), "the cluster merge must be deterministic"
 
 
@@ -439,8 +446,10 @@ def _mla_wide_case(q, q2, lat, rope, kv_len, scale):
     (The outputs reach that value, so an absolute 2e-6 is below f32's
     resolution there; the plain f32 version errs 3-4x more than the kernel
     against float64 on these inputs.)"""
-    got = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale, impl="kernel")
-    again = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale, impl="kernel")
+    got = ops.flash_decode(q, lat, lat, _kv(kv_len), q2=q2, k2=rope, scale=scale,
+                           impl="kernel")
+    again = ops.flash_decode(q, lat, lat, _kv(kv_len), q2=q2, k2=rope, scale=scale,
+                             impl="kernel")
     assert torch.equal(got, again), "the cluster merge must be deterministic"
     ld, rd = (kvq.decode(x)[:, :kv_len].double() for x in (lat, rope))
     s = (torch.einsum("bhr,bcr->bhc", q.double(), ld)
@@ -499,7 +508,8 @@ def test_flash_decode_mla_kernel_unit_queries_against_float64(kv_len):
     the float64 evaluation at the same tolerance."""
     q, q2, lat, rope = _mla_inputs(kv_len, "float32", 2, 128, 512, 64, 544, q_std=1.0)
     scale = 0.0722
-    got = ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=scale, impl="kernel")
+    got = ops.flash_decode(q, lat, lat, _kv(kv_len), q2=q2, k2=rope, scale=scale,
+                           impl="kernel")
     qd, q2d, ld, rd = (t.double() for t in (q, q2, lat[:, :kv_len], rope[:, :kv_len]))
     s = (torch.einsum("bhr,bcr->bhc", qd, ld) + torch.einsum("bhr,bcr->bhc", q2d, rd)) * scale
     want = torch.einsum("bhc,bcr->bhr", torch.softmax(s, dim=-1), ld)
@@ -512,9 +522,9 @@ def test_flash_decode_mla_kernel_needs_v_to_be_k():
     q, q2, lat, rope = _mla_inputs(1, "int8_tok", 2, 16, 64, 16, 40)
     other = {n: t.clone() for n, t in lat.items()}
     with pytest.raises(ValueError, match="same leaf"):
-        ops.flash_decode(q, lat, other, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
-    got = ops.flash_decode(q, lat, other, 40, q2=q2, k2=rope, scale=0.1, impl="ref")
-    want = ops.flash_decode(q, lat, lat, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
+        ops.flash_decode(q, lat, other, _kv(40), q2=q2, k2=rope, scale=0.1, impl="kernel")
+    got = ops.flash_decode(q, lat, other, _kv(40), q2=q2, k2=rope, scale=0.1, impl="ref")
+    want = ops.flash_decode(q, lat, lat, _kv(40), q2=q2, k2=rope, scale=0.1, impl="kernel")
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
 
 
@@ -522,7 +532,7 @@ def test_flash_decode_mla_kernel_rejects_mixed_formats():
     q, q2, lat, _ = _mla_inputs(2, "int8_tok", 1, 16, 64, 16, 40)
     rope = torch.randn(1, 40, 16, device="cuda")
     with pytest.raises(ValueError, match="one format"):
-        ops.flash_decode(q, lat, lat, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
+        ops.flash_decode(q, lat, lat, _kv(40), q2=q2, k2=rope, scale=0.1, impl="kernel")
 
 
 @pytest.mark.parametrize("fmt,stream,part", [
@@ -540,7 +550,7 @@ def test_flash_decode_mla_kernel_rejects_misaligned_views(fmt, stream, part):
     bad = shifted if part is None else dict(leaf, **{part: shifted})
     lat, rope = (bad, rope) if stream == "lat" else (lat, bad)
     with pytest.raises(ValueError, match="aligned"):
-        ops.flash_decode(q, lat, lat, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
+        ops.flash_decode(q, lat, lat, _kv(40), q2=q2, k2=rope, scale=0.1, impl="kernel")
 
 
 @pytest.mark.parametrize("r,dr", [(516, 64), (512, 6), (512, 132), (2, 16)])
@@ -549,7 +559,7 @@ def test_flash_decode_mla_kernel_rejects_widths_it_does_not_take(r, dr):
     or too wide, raise before any launch."""
     q, q2, lat, rope = _mla_inputs(4, "float32", 1, 4, r, dr, 40)
     with pytest.raises(ValueError, match="MLA"):
-        ops.flash_decode(q, lat, lat, 40, q2=q2, k2=rope, scale=0.1, impl="kernel")
+        ops.flash_decode(q, lat, lat, _kv(40), q2=q2, k2=rope, scale=0.1, impl="kernel")
 
 
 # The shapes the served models normalise (PERF.md), the old checks' small
@@ -705,15 +715,15 @@ def test_launch_counters_count_kernel_launches_only():
     assert hopper.LAUNCHES["mxint4_matmul"] == 1
     qd = torch.randn(1, 2, 4, 32, device="cuda")
     kc = torch.randn(1, 40, 2, 32, device="cuda")
-    ops.flash_decode(qd, kc, kc, 40, impl="kernel")
-    ops.flash_decode(qd, kc, kc, 40)                      # auto: the kernel
-    ops.flash_decode(qd, kc, kc, 40, impl="ref")
+    ops.flash_decode(qd, kc, kc, _kv(40), impl="kernel")
+    ops.flash_decode(qd, kc, kc, _kv(40))                 # auto: the kernel
+    ops.flash_decode(qd, kc, kc, _kv(40), impl="ref")
     ops.rmsnorm_stats(x, impl="kernel")
     ops.rmsnorm_stats(x, impl="ref")
     assert hopper.LAUNCHES["flash_decode"] == 2
     q, q2, lat, rope = _mla_inputs(0, "float32", 1, 4, 32, 16, 24)
-    ops.flash_decode(q, lat, lat, 20, q2=q2, k2=rope, scale=0.1, impl="kernel")
-    ops.flash_decode(q, lat, lat, 20, q2=q2, k2=rope, scale=0.1, impl="ref")
+    ops.flash_decode(q, lat, lat, _kv(20), q2=q2, k2=rope, scale=0.1, impl="kernel")
+    ops.flash_decode(q, lat, lat, _kv(20), q2=q2, k2=rope, scale=0.1, impl="ref")
     assert hopper.LAUNCHES["flash_decode_mla"] == 1
     assert hopper.LAUNCHES["flash_decode"] == 2
     assert hopper.LAUNCHES["rmsnorm_stats"] == 1
@@ -725,3 +735,173 @@ def test_kernel_impl_on_cpu_raises():
         ops.w8a8_matmul(torch.zeros(2, 16, dtype=torch.int8),
                         torch.zeros(16, 16, dtype=torch.int8), 1.0,
                         impl="kernel")
+
+
+# -- kv_len in device memory: one launch, and one captured graph, per capacity --------
+
+DEVICE_LENS = [1, 15, 16, 17, 543, 544]           # C 544: tile edges, C - 1, C
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+@pytest.mark.parametrize("kv_len", DEVICE_LENS)
+def test_flash_decode_kernel_device_kv_len(fmt, kv_len):
+    """qwen3-8b's decode shape at C 544, whose plan (17 splits of 32 rows) no
+    longer depends on kv_len: at kv_len 1 .. 17 every split but the first
+    streams nothing and merges as an empty partial."""
+    _flash_decode_case(kv_len + 3, (fmt, fmt), 2, 8, 4, 128, 544, kv_len)
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+@pytest.mark.parametrize("kv_len", DEVICE_LENS)
+def test_flash_decode_mla_kernel_device_kv_len(fmt, kv_len):
+    """deepseek-v3's decode at C 544 (6 splits a cluster): at kv_len <= 96
+    the later splits stream nothing but still join the cluster's merge."""
+    _mla_case(kv_len + 5, fmt, 2, 128, 512, 64, 544, kv_len)
+
+
+def hopper_fmt(fmt: str) -> str:
+    """A torch dtype name as `hopper.CACHE_FORMATS` names the format."""
+    return {"float32": "f32", "bfloat16": "bf16"}.get(fmt, fmt)
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+def test_flash_decode_kernel_one_row_of_a_long_cache_is_that_row(fmt):
+    """kv_len 1 of 544 rows: the softmax of one score is 1, so the output is
+    the first V row, decoded, exactly; 16 of the 17 splits were empty."""
+    rng = _gen(41)
+    q = _t(rng.normal(size=(2, 8, 4, 128)).astype(np.float32))
+    k, v = (_cache_leaf(_t(rng.normal(size=(2, 544, 8, 128)).astype(np.float32)), fmt)
+            for _ in range(2))
+    plan = hopper.flash_decode_plan(2, 8, 4, 128, 128, 544, hopper_fmt(fmt), hopper_fmt(fmt))
+    assert plan["splits"] == 17
+    got = ops.flash_decode(q, k, v, _kv(1), impl="kernel")
+    want = kvq.decode(v)[:, 0][:, :, None].expand(2, 8, 4, 128)
+    assert torch.equal(got, want)
+
+
+def _replayed_against_eager(run, lens):
+    """One graph of ``run(kv_len)`` captured at the first length, replayed
+    while kv_len is advanced in device memory, against a launch at each
+    length: bit-equal."""
+    kv_len = _kv(lens[0])
+    run(kv_len)                                         # build and plan first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with hopper.captured_launches() as recorded, torch.cuda.graph(graph):
+        out = run(kv_len)
+    assert sum(recorded.values()) == 1
+    for n in lens:
+        kv_len.fill_(n)
+        graph.replay()
+        eager = run(_kv(n))
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), f"kv_len {n}: replay differs from a launch"
+
+
+@pytest.mark.parametrize("fmt", MAIN_FORMATS)
+def test_flash_decode_kernel_graph_replays_at_every_kv_len(fmt):
+    rng = _gen(43)
+    q = _t(rng.normal(size=(2, 8, 4, 128)).astype(np.float32))
+    k, v = (_cache_leaf(_t(rng.normal(size=(2, 544, 8, 128)).astype(np.float32)), fmt)
+            for _ in range(2))
+    _replayed_against_eager(lambda n: ops.flash_decode(q, k, v, n, impl="kernel"),
+                            [513, 1, 16, 17, 300, 543, 544])
+
+
+@pytest.mark.parametrize("fmt", MAIN_FORMATS)
+def test_flash_decode_mla_kernel_graph_replays_at_every_kv_len(fmt):
+    q, q2, lat, rope = _mla_inputs(47, fmt, 2, 128, 512, 64, 544)
+    _replayed_against_eager(
+        lambda n: ops.flash_decode(q, lat, lat, n, q2=q2, k2=rope, scale=0.0722,
+                                   impl="kernel"),
+        [513, 1, 32, 33, 97, 543, 544])
+
+
+# -- the engine's captured decode step --------------------------------------------
+
+
+def _eager_generate(eng, prompts, gen):
+    """The decode loop as `decode_step` in a Python loop (no graph): tokens,
+    lengths and the final cache."""
+    from repro_torch.serving.sampling import sample
+    logits, cache = eng.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens)
+    cache = eng._encode_cache(cache, gen)
+    b, n = prompts.shape[0], gen.max_new_tokens
+    out = torch.full((b, n), gen.pad_token_id, dtype=torch.long, device="cuda")
+    lengths = torch.zeros(b, dtype=torch.int32, device="cuda")
+    tok = sample(logits, gen.sampling)
+    for i in range(n):
+        out[:, i] = tok
+        lengths += 1
+        logits, cache = eng.decode_step(tok[:, None], cache)
+        tok = sample(logits, gen.sampling)
+    return out, lengths, cache
+
+
+def _tree_equal(a, b) -> bool:
+    import dataclasses
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return all(_tree_equal(x, y) for x, y in zip(a, b))
+    return all(_tree_equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+@pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
+                                      ("qwen3-8b", "int8_tok"), ("qwen3-8b", "mxint4_blk"),
+                                      ("ds3_dense", None), ("ds3_dense", "mxint4_blk")])
+def test_generate_replays_match_the_eager_loop(arch, fmt):
+    """Reduced models on the card: `generate` (one captured step, replayed)
+    gives the eager loop's tokens, lengths and final cache bit for bit, a
+    second generate does not capture again, and the launch counts are the
+    replays'."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig
+    if arch == "ds3_dense":
+        cfg = configs.get_config("deepseek-v3-671b").reduced()
+        cfg = dataclasses.replace(cfg, n_layers=cfg.first_dense_layers)
+    else:
+        cfg = configs.get_config(arch).reduced()
+    eng = InferenceEngine.from_config(cfg, EngineSpec(), device="cuda")
+    prompts = torch.randint(1, cfg.vocab_size, (2, 16), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(5))
+    gen = GenerationConfig(max_new_tokens=10, cache_format=fmt)
+    first = eng.generate(prompts, gen)
+    assert first.capture_s > 0
+    hopper.reset_launches()
+    res = eng.generate(prompts, gen)
+    assert res.capture_s == 0.0 and res.decode_steps == 10
+    replayed = dict(hopper.LAUNCHES)
+    out, lengths, cache = _eager_generate(eng, prompts, gen)
+    assert torch.equal(res.tokens, out) and torch.equal(res.tokens, first.tokens)
+    assert torch.equal(res.lengths, lengths)
+    (sg,) = eng._graphs.values()
+    assert _tree_equal(sg.state.cache, cache)
+    for name in ("mxint4_matmul", "flash_decode", "flash_decode_mla"):
+        assert replayed[name] == 10 * sg.launches[name]      # decode launches only
+    assert sg.launches["mxint4_matmul"] > 0
+
+
+def test_sampled_generate_replays_draw_fresh_numbers_and_repeat_with_the_seed():
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig, SamplingParams
+    eng = InferenceEngine.from_config("qwen3-8b", EngineSpec(reduced=True), device="cuda")
+    prompts = torch.randint(1, 512, (2, 16), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(6))
+    gen = GenerationConfig(max_new_tokens=12, sampling=SamplingParams(temperature=1.0,
+                                                                       top_k=8))
+    logits, _ = eng.prefill(prompts)
+    runs = [eng.generate(prompts, gen, generator=torch.Generator(device="cuda").manual_seed(9))
+            for _ in range(2)]
+    assert torch.equal(runs[0].tokens, runs[1].tokens)
+    assert runs[1].capture_s == 0.0
+    other = eng.generate(prompts, gen, generator=torch.Generator(device="cuda").manual_seed(10))
+    assert not torch.equal(other.tokens, runs[0].tokens)
+    allowed = torch.topk(logits, 8, dim=-1).indices
+    assert all(int(t) in allowed[i].tolist() for i, t in enumerate(runs[0].tokens[:, 0]))

@@ -71,7 +71,7 @@ def test_flash_decode_plain_matches_pallas(fmt, kv_len):
     kj, kt = _encode_both(rng.normal(size=(b, c, kv, d)).astype(np.float32), fmt)
     vj, vt = _encode_both(rng.normal(size=(b, c, kv, d)).astype(np.float32), fmt)
     want = flash_decode_pallas(qj, kj, vj, jnp.int32(kv_len), interpret=True)
-    got = Tops.flash_decode(qt, kt, vt, kv_len, impl="ref")
+    got = Tops.flash_decode(qt, kt, vt, torch.tensor(kv_len, dtype=torch.int32), impl="ref")
     assert got.dtype == torch.float32 and got.shape == (b, kv, g, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **DECODE_TOL)
 
@@ -85,7 +85,8 @@ def test_flash_decode_plain_matches_attend_one_step_with_mixed_formats():
     vj, vt = _encode_both(rng.normal(size=(1, 9, 2, 32)).astype(np.float32), "int8_tok")
     valid = jnp.arange(9)[None, :] < 6
     want = JL.attend_one_step(jnp.asarray(q), kj, vj, valid)
-    got = Tops.flash_decode(torch.from_numpy(q), kt, vt, 6, impl="ref")
+    got = Tops.flash_decode(torch.from_numpy(q), kt, vt, torch.tensor(6, dtype=torch.int32),
+                           impl="ref")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **DECODE_TOL)
     also = TL.attend_one_step(torch.from_numpy(q), kt, vt,
                               torch.from_numpy(np.array(valid)))
@@ -93,20 +94,23 @@ def test_flash_decode_plain_matches_attend_one_step_with_mixed_formats():
 
 
 def test_flash_decode_rejects_bad_lengths_and_the_mla_layout():
-    """Bad lengths raise in both layouts; the MLA layout (q.ndim == 3) needs
+    """Bad lengths raise in both layouts: kv_len is an int32 scalar tensor on
+    the query's device, as the Pallas kernel's operand is (a host int, an
+    int64 tensor or a [1] tensor is not); the MLA layout (q.ndim == 3) needs
     q2, k2 and scale, as the reference's rule is."""
     q, k = torch.zeros(1, 1, 2, 16), torch.zeros(1, 4, 1, 16)
     lat, q2, k2 = k[:, :, 0], torch.zeros(1, 2, 4), torch.zeros(1, 4, 4)
-    for bad in (0, 5):
-        with pytest.raises(ValueError, match="kv_len"):
+    two = torch.tensor(2, dtype=torch.int32)
+    for bad in (2, torch.tensor(2), torch.tensor([2], dtype=torch.int32)):
+        with pytest.raises((TypeError, ValueError), match="kv_len"):
             Tops.flash_decode(q, k, k, bad)
-        with pytest.raises(ValueError, match="kv_len"):
+        with pytest.raises((TypeError, ValueError), match="kv_len"):
             Tops.flash_decode(torch.zeros(1, 2, 16), lat, lat, bad, q2=q2, k2=k2, scale=0.5)
     for missing in ("q2", "k2", "scale"):
         kw = {n: v for n, v in (("q2", q2), ("k2", k2), ("scale", 0.5)) if n != missing}
         with pytest.raises(ValueError, match="MLA"):
-            Tops.flash_decode(torch.zeros(1, 2, 16), lat, lat, 2, **kw)
-    assert Tops.flash_decode(torch.zeros(1, 2, 16), lat, lat, 2, q2=q2, k2=k2,
+            Tops.flash_decode(torch.zeros(1, 2, 16), lat, lat, two, **kw)
+    assert Tops.flash_decode(torch.zeros(1, 2, 16), lat, lat, two, q2=q2, k2=k2,
                              scale=0.5).shape == (1, 2, 16)
 
 

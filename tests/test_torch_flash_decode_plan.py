@@ -17,65 +17,98 @@ CARD_SHAPES = [(2, 8, 4, 128, 544), (1, 2, 1, 64, 200), (3, 1, 8, 128, 200),
                (2, 2, 16, 256, 200), (1, 3, 16, 128, 100)]
 
 
-def _covers(plan, kv_len):
+def _covers(plan, c, kv_lens=()):
+    """The plan's ranges cut the capacity ``c`` into whole tiles, every split
+    holding some; at each kv_len the rows the splits stream
+    (`hopper.fd_split_rows`, as the kernel computes them) are [0, kv_len),
+    each once, in split order, and the empty splits are the trailing ones."""
     ranges, tile = plan["ranges"], plan["tile"]
     assert len(ranges) == plan["splits"] >= 1
-    assert ranges[0][0] == 0 and ranges[-1][1] == kv_len
+    assert ranges[0][0] == 0 and ranges[-1][1] == c
     for (s, e), (s2, _) in zip(ranges, ranges[1:]):
         assert e == s2                              # no gap, no overlap
     for s, e in ranges:
-        assert s < e                                # no split is empty
+        assert s < e                                # no split owns no tile
         assert s % tile == 0                        # whole tiles ...
-        assert e % tile == 0 or e == kv_len         # ... cut only at kv_len
-    assert plan["tiles"] == -(-kv_len // tile)
+        assert e % tile == 0 or e == c              # ... cut only at C
+    assert plan["tiles"] == -(-c // tile)
     assert plan["rows_per_split"] == max(e - s for s, e in ranges)
+    for kv_len in kv_lens:
+        rows = hopper.fd_split_rows(ranges, kv_len)
+        assert [r for s, e in rows for r in range(s, e)] == list(range(kv_len))
+        empty = [s == e for s, e in rows]
+        assert not empty[0] and empty == sorted(empty)
+
+
+def _lens(c):
+    return sorted({1, 15, 16, 17, 31, 32, 33, c // 2, c - 1, c} & set(range(1, c + 1)))
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("kv_len", [1, 31, 32, 33, 257, 528, 544])
 def test_plan_covers_kv_len_with_whole_tiles(fmt, kv_len):
+    """The qwen3-8b plan at chip_smoke's capacity (C 544): at every kv_len
+    the non-empty splits stream [0, kv_len) once, in whole tiles but the
+    last."""
     b, kv, g, d, dv = QWEN3
-    _covers(hopper.flash_decode_plan(b, kv, g, d, dv, kv_len, fmt, fmt, SMS), kv_len)
+    plan = hopper.flash_decode_plan(b, kv, g, d, dv, 544, fmt, fmt, SMS)
+    _covers(plan, 544, [kv_len])
+    for s, e in hopper.fd_split_rows(plan["ranges"], kv_len):
+        assert s % plan["tile"] == 0 and (e % plan["tile"] == 0 or e == kv_len)
 
 
 @pytest.mark.parametrize("b,kv,g,d,c", CARD_SHAPES)
 def test_plan_covers_the_card_test_shapes(b, kv, g, d, c):
-    for kv_len in sorted({1, 31, 32, 33, c // 2, c - 1, c}):
-        for fmt in FORMATS:
-            plan = hopper.flash_decode_plan(b, kv, g, d, d, kv_len, fmt, fmt, SMS)
-            _covers(plan, kv_len)
-            assert 4 * plan["gchunks"] >= g > 4 * (plan["gchunks"] - 1)
-            assert plan["ns"] * 128 >= d
-            assert plan["blocks"] == b * kv * plan["gchunks"] * plan["splits"]
-            # The merging block holds every split's partial in shared memory.
-            assert 4 * 4 * (plan["splits"] * (d + 3) + 1) <= hopper.FD_SMEM_BYTES
+    for fmt in FORMATS:
+        plan = hopper.flash_decode_plan(b, kv, g, d, d, c, fmt, fmt, SMS)
+        _covers(plan, c, _lens(c))
+        assert 4 * plan["gchunks"] >= g > 4 * (plan["gchunks"] - 1)
+        assert plan["ns"] * 128 >= d
+        assert plan["blocks"] == b * kv * plan["gchunks"] * plan["splits"]
+        # The merging block holds every split's partial in shared memory.
+        assert 4 * 4 * (plan["splits"] * (d + 3) + 1) <= hopper.FD_SMEM_BYTES
 
 
 @pytest.mark.parametrize("fmt", MAIN_FORMATS)
 @pytest.mark.parametrize("kv_len", [513, 528, 544])
 def test_plan_fills_the_card_and_streams_at_the_qwen3_shape(fmt, kv_len):
-    """Every SM gets a block, and every block streams more than one ring
-    stage of rows, so its next tiles' loads overlap its compute."""
+    """At chip_smoke's kv_len (513 to 544 of C 544) every SM gets a block,
+    every split streams rows, and every split but the last more than one
+    ring stage of them, so its next tiles' loads overlap its compute."""
     b, kv, g, d, dv = QWEN3
-    plan = hopper.flash_decode_plan(b, kv, g, d, dv, kv_len, fmt, fmt, SMS)
+    plan = hopper.flash_decode_plan(b, kv, g, d, dv, 544, fmt, fmt, SMS)
     assert plan["blocks"] >= SMS
     assert (plan["ns"], plan["gchunks"]) == (1, 1)
-    assert min(e - s for s, e in plan["ranges"]) > plan["tile"]
+    rows = [e - s for s, e in hopper.fd_split_rows(plan["ranges"], kv_len)]
+    assert min(rows) > 0 and min(rows[:-1]) > plan["tile"]
     assert 2 <= plan["stages"] <= hopper.FD_MAX_STAGES
     assert plan["stages"] * plan["stage_bytes"] <= hopper.FD_RING_BYTES
 
 
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_plan_at_kv_len_one_leaves_every_split_but_the_first_empty(fmt):
+    """One row of a 544-row cache: the first split streams it, the other
+    16 stream nothing and merge as empty partials (the card tests hold the
+    kernel's merge of them to the plain version)."""
+    b, kv, g, d, dv = QWEN3
+    plan = hopper.flash_decode_plan(b, kv, g, d, dv, 544, fmt, fmt, SMS)
+    rows = hopper.fd_split_rows(plan["ranges"], 1)
+    assert plan["splits"] == 17 and rows[0] == (0, 1)
+    assert all(s == e for s, e in rows[1:])
+
+
 def test_plan_is_cached():
-    args = (2, 8, 4, 128, 128, 528, "mxint4_blk", "mxint4_blk", SMS)
+    args = (2, 8, 4, 128, 128, 544, "mxint4_blk", "mxint4_blk", SMS)
     assert hopper.flash_decode_plan(*args) is hopper.flash_decode_plan(*args)
     assert hopper.flash_decode_plan.cache_info().hits >= 1
 
 
 def test_plan_keeps_two_tiles_and_a_byte_floor_per_split():
-    # 40 rows are 3 tiles: one split, though 16 blocks leave SMs idle.
+    # A capacity of 40 rows is 3 tiles: one split, though 16 blocks leave
+    # SMs idle.
     assert hopper.flash_decode_plan(2, 8, 4, 128, 128, 40, "f32", "f32", SMS)["splits"] == 1
-    # 200 rows of a mxint4_blk cache at d = 32 are 7.2 KB: one split of at
-    # least 4 KB, though 13 tiles would allow 6.
+    # A 200-row mxint4_blk cache at d = 32 is 7.2 KB: one split of at least
+    # 4 KB, though 13 tiles would allow 6.
     plan = hopper.flash_decode_plan(2, 2, 4, 32, 32, 200, "mxint4_blk", "mxint4_blk", SMS)
     assert plan["splits"] == 1
     # Enough rows: two blocks per SM.
@@ -165,7 +198,7 @@ def test_plan_caps_splits_at_the_merge_shared_memory():
     # holds 55 partials of dv = 256 with their weights.
     plan = hopper.flash_decode_plan(1, 1, 4, 256, 256, 32768, "f32", "f32", SMS)
     assert plan["splits"] == 55
-    _covers(plan, 32768)
+    _covers(plan, 32768, [1, 600, 32767, 32768])
 
 
 @pytest.mark.parametrize("k_fmt", FORMATS)

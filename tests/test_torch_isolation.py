@@ -75,11 +75,12 @@ def test_kernel_impl_on_cpu_tensor_raises(op):
                                     impl="kernel")
         elif op == "flash_decode":
             kv = kvq.zeros((1, 8, 2, 32), "int8_tok")
-            ops.flash_decode(torch.zeros(1, 2, 4, 32), kv, kv, 3, impl="kernel")
+            ops.flash_decode(torch.zeros(1, 2, 4, 32), kv, kv, torch.tensor(3, dtype=torch.int32),
+                             impl="kernel")
         elif op == "flash_decode_mla":
             lat, rope = kvq.zeros((1, 8, 32), "int8_tok"), kvq.zeros((1, 8, 16), "int8_tok")
-            ops.flash_decode(torch.zeros(1, 4, 32), lat, lat, 3, q2=torch.zeros(1, 4, 16),
-                             k2=rope, scale=0.2, impl="kernel")
+            ops.flash_decode(torch.zeros(1, 4, 32), lat, lat, torch.tensor(3, dtype=torch.int32),
+                             q2=torch.zeros(1, 4, 16), k2=rope, scale=0.2, impl="kernel")
         else:
             ops.rmsnorm_stats(torch.ones(4, 64), impl="kernel")
 

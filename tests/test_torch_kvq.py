@@ -120,7 +120,7 @@ def test_decode_append_site_is_jitted(fmt):
     for pos in range(rows.shape[1]):
         row = rows[:, pos:pos + 1]
         jleaf = upd(jleaf, jnp.asarray(row), jnp.int32(pos))
-        out = TL.cache_update(tleaf, torch.from_numpy(row), pos)
+        out = TL.cache_update(tleaf, torch.from_numpy(row), torch.tensor(pos, dtype=torch.int32))
         assert out is tleaf             # written in place
     _assert_same_leaf(tleaf, jleaf)
 
@@ -136,7 +136,7 @@ def test_plain_cache_leaves_match_jax(dtype):
     np.testing.assert_array_equal(TL.from_cache_dtype(got).numpy(),
                                   np.asarray(JL.from_cache_dtype(want)))
     leaf = TL.make_cache_leaf((2, 8, 2, 64), td)
-    TL.cache_update(leaf, torch.from_numpy(x[:, :1]), 3)
+    TL.cache_update(leaf, torch.from_numpy(x[:, :1]), torch.tensor(3, dtype=torch.int32))
     jleaf = JL.cache_update(JL.make_cache_leaf((2, 8, 2, 64), jd),
                             jnp.asarray(x[:, :1]), 3)
     np.testing.assert_array_equal(leaf.numpy(), np.asarray(jleaf))

@@ -91,8 +91,8 @@ def test_mla_flash_decode_plain_matches_pallas(fmt, kv_len):
     scale = float(1.0 / np.sqrt(np.float32(TCFG.qk_nope_head_dim + dr)))
     want = Jops.flash_decode(qj, latj, latj, jnp.int32(kv_len), q2=q2j, k2=ropej,
                              scale=scale, impl="pallas", interpret=True)
-    got = Tops.flash_decode(qt, latt, latt, kv_len, q2=q2t, k2=ropet, scale=scale,
-                            impl="ref")
+    got = Tops.flash_decode(qt, latt, latt, torch.tensor(kv_len, dtype=torch.int32), q2=q2t,
+                            k2=ropet, scale=scale, impl="ref")
     assert got.dtype == torch.float32 and got.shape == (b, h, r)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **DECODE_TOL)
 
@@ -106,8 +106,8 @@ def test_mla_flash_decode_plain_takes_a_distinct_v_as_the_reference_does():
     q2, k2 = (rng.normal(size=s).astype(np.float32) for s in ((1, 3, 4), (1, 9, 4)))
     want = Jops.flash_decode(*(jnp.asarray(a) for a in (q, k, v)), jnp.int32(7),
                              q2=jnp.asarray(q2), k2=jnp.asarray(k2), scale=0.3, impl="ref")
-    got = Tops.flash_decode(*(torch.from_numpy(a) for a in (q, k, v)), 7,
-                            q2=torch.from_numpy(q2), k2=torch.from_numpy(k2), scale=0.3)
+    got = Tops.flash_decode(*(torch.from_numpy(a) for a in (q, k, v)),
+                            torch.tensor(7, dtype=torch.int32), q2=torch.from_numpy(q2), k2=torch.from_numpy(k2), scale=0.3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **DECODE_TOL)
 
 
@@ -118,13 +118,22 @@ REDUCED = (2, TCFG.n_heads, TCFG.kv_lora_rank, TCFG.qk_rope_head_dim)
 ALL_FORMATS = ["f32", "bf16", "int8", "int8_tok", "mxint4_blk"]
 
 
-def _covers(plan, kv_len):
+def _covers(plan, c):
+    """The ranges cut the capacity ``c`` into whole tiles, every split
+    holding some; at every kv_len tested the rows the splits stream
+    (`hopper.fd_split_rows`) are [0, kv_len), each once, in split order,
+    and the empty splits (which still join the cluster's merge) trail."""
     ranges, tile = plan["ranges"], plan["tile"]
     assert len(ranges) == plan["splits"] >= 1
-    assert ranges[0][0] == 0 and ranges[-1][1] == kv_len
+    assert ranges[0][0] == 0 and ranges[-1][1] == c
     for (s, e), (s2, _) in zip(ranges, ranges[1:]):
         assert e == s2 and s < e and s % tile == 0
-    assert plan["tiles"] == -(-kv_len // tile)
+    assert plan["tiles"] == -(-c // tile)
+    for kv_len in sorted({1, 31, 32, 33, c // 2, c - 1, c} & set(range(1, c + 1))):
+        rows = hopper.fd_split_rows(ranges, kv_len)
+        assert [r for s, e in rows for r in range(s, e)] == list(range(kv_len))
+        empty = [s == e for s, e in rows]
+        assert not empty[0] and empty == sorted(empty)
 
 
 def _fits(plan, fmt, r, dr):
@@ -143,11 +152,11 @@ def _fits(plan, fmt, r, dr):
 
 
 @pytest.mark.parametrize("fmt", ALL_FORMATS)
-@pytest.mark.parametrize("kv_len", [1, 31, 33, 257, 528, 544])
-def test_mla_plan_at_the_main_shape(fmt, kv_len):
+@pytest.mark.parametrize("c", [1, 31, 33, 257, 528, 544])
+def test_mla_plan_at_the_main_shape(fmt, c):
     b, h, r, dr = MAIN
-    plan = hopper.flash_decode_mla_plan(b, h, r, dr, kv_len, fmt)
-    _covers(plan, kv_len)
+    plan = hopper.flash_decode_mla_plan(b, h, r, dr, c, fmt)
+    _covers(plan, c)
     # One cluster per (b, group of 16 heads), all 16 resident at once on an
     # H100.
     assert plan["groups"] == 8
@@ -158,11 +167,11 @@ def test_mla_plan_at_the_main_shape(fmt, kv_len):
 
 
 @pytest.mark.parametrize("fmt", ["f32", "int8_tok", "mxint4_blk"])
-@pytest.mark.parametrize("kv_len", [1, 16, 24, 33, 200])
-def test_mla_plan_at_the_reduced_shape(fmt, kv_len):
+@pytest.mark.parametrize("c", [1, 16, 24, 33, 200])
+def test_mla_plan_at_the_reduced_shape(fmt, c):
     b, h, r, dr = REDUCED
-    plan = hopper.flash_decode_mla_plan(b, h, r, dr, kv_len, fmt)
-    _covers(plan, kv_len)
+    plan = hopper.flash_decode_mla_plan(b, h, r, dr, c, fmt)
+    _covers(plan, c)
     assert plan["groups"] == 1
     assert plan["splits"] == min(8, plan["tiles"])          # 2 units: a tile per split
     _fits(plan, fmt, r, dr)
@@ -332,7 +341,8 @@ def test_mla_apply_and_decode_match_reference(quantize):
     yj, yt = _pair(rng.normal(size=(2, 1, TCFG.d_model)).astype(np.float32))
     gj, gt = _pair((rng.random((2, 1)) + 0.5).astype(np.float32))
     dj, new_j = decode_j(p_j, yj, gj, cache_j, jnp.int32(S), sin_j[S], cos_j[S])
-    dt, new_t = TL.mla_decode(p_t, yt, gt, te.hsa, TCFG, cache_t, S,
+    dt, new_t = TL.mla_decode(p_t, yt, gt, te.hsa, TCFG, cache_t,
+                              torch.tensor(S, dtype=torch.int32),
                               rope_sin=sin_t[S], rope_cos=cos_t[S])
     _close(dt.numpy(), dj, quantize, "mla_decode out")
     for name in ("c_kv", "k_rope"):

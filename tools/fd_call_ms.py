@@ -10,6 +10,9 @@ card, one process each, for example:
 
     for t in a b b a a b; do python3 tools/fd_call_ms.py --src $t/src --label $t; done
 
+Both trees must take kv_len as an int32 tensor on the card (the interface
+since the fused decode loop).
+
 ``call_ms`` is the wall time per call of ``ops.flash_decode(..., impl="kernel")``
 issued back to back at qwen3-8b's decode shape (B 2, KV 8, G 4, d 128,
 C 544, kv_len 528) in the f32, int8_tok and mxint4_blk cache formats, warm
@@ -67,11 +70,12 @@ def main() -> int:
     k32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
     v32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
     y = torch.randn(2, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    kv_len = torch.tensor(n, dtype=torch.int32, device="cuda")
     row = dict(label=args.label, src=os.path.relpath(os.path.abspath(args.src), ROOT))
     for fmt in ("f32", "int8_tok", "mxint4_blk"):
         k, v = (k32, v32) if fmt == "f32" else (kvq.encode(k32, fmt), kvq.encode(v32, fmt))
         row[f"flash_decode_{fmt}"] = call_us(
-            lambda: ops.flash_decode(q, k, v, n, impl="kernel"))
+            lambda: ops.flash_decode(q, k, v, kv_len, impl="kernel"))
     row["rmsnorm_stats"] = call_us(lambda: ops.rmsnorm_stats(y, impl="kernel"))
     print(json.dumps(row), flush=True)
     return 0

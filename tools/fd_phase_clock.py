@@ -100,16 +100,17 @@ def main() -> int:
     k32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
     v32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    kv_len = torch.tensor(n, dtype=torch.int32, device="cuda")
     for fmt in fmts:
         k, v = (k32, v32) if fmt == "f32" else (kvq.encode(k32, fmt), kvq.encode(v32, fmt))
-        plan = hopper.flash_decode_plan(b, kvh, g, d, d, n, fmt, fmt, hopper._sms(q.device))
+        plan = hopper.flash_decode_plan(b, kvh, g, d, d, c, fmt, fmt, hopper._sms(q.device))
         stamps = torch.zeros(plan["blocks"], 2 * PHASES, dtype=torch.int64, device="cuda")
         lib.flash_decode_set_stamps(stamps.data_ptr())
         last, other, span, ghz = [], [], [], []
         for _ in range(args.reps):
             stamps.zero_()
             flush.zero_()
-            ops.flash_decode(q, k, v, n, impl="kernel")
+            ops.flash_decode(q, k, v, kv_len, impl="kernel")
             torch.cuda.synchronize()
             got = read(stamps.cpu(), plan["splits"])
             for acc, val in zip((last, other, span, ghz), got):

@@ -12,6 +12,9 @@ the parent commit unpacked under ``build/`` against this tree, in turns:
     for t in build/parent . . build/parent; do
         python3 tools/mla_phase_clock.py --tree $t --no-phases; done
 
+The tree must take kv_len as an int32 tensor on the card and plan by the
+capacity (the interface since the fused decode loop).
+
 At deepseek-v3's decode shape (B 2, H 128, latent 512, rope 64, C 544) in
 the f32, int8_tok and mxint4_blk cache formats, the L2 flushed before every
 launch as ``chip_smoke.py`` does:
@@ -259,10 +262,12 @@ def main() -> int:
 
     def run(fmt, n):
         lat, rope = caches[fmt]
-        return ops.flash_decode(q, lat, lat, n, q2=q2, k2=rope, scale=SCALE, impl="kernel")
+        kv_len = torch.tensor(n, dtype=torch.int32, device="cuda")
+        return ops.flash_decode(q, lat, lat, kv_len, q2=q2, k2=rope, scale=SCALE,
+                                impl="kernel")
 
     def plan(fmt, n):
-        p = hopper.flash_decode_mla_plan(B, H, R, DR, n, fmt, hopper._mla_resident(q.device))
+        p = hopper.flash_decode_mla_plan(B, H, R, DR, C, fmt, hopper._mla_resident(q.device))
         return dict(splits=p["splits"], blocks=p["blocks"])
 
     device = {(fmt, n): device_us(torch, lambda: run(fmt, n), flush, args.reps)
