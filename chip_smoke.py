@@ -45,10 +45,23 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    lockstep, prefill logits beside the network's own sensitivity, every
    decode step's logits (see `compare_paths`), and, free-running, where the
    two paths' greedy tokens and appended cache rows first part (recorded,
-   see `free_running`); one top-k generate through the graph, in support
-   and repeated with its seed; and each model reduced, on the card against
-   the CPU plain path;
-5. one JSON line ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}``
+   see `free_running`); one top-k and one top-p generate through the graph
+   (retnet-1.3b), each token in its step's top k or nucleus, repeated with
+   its seed;
+5. after phase 4 on each path, the admission paths (`serve_admission`), once
+   per cache format of the chunked admission: 2 prompts of 500 tokens in
+   chunks of 32 (15 x 32 + 16 + 4: retention from a warm state at chunks
+   32, 16 and 4; W8A8 at M = 64, 32 and 8, and MLA's per-chunk
+   re-expansion of the whole latent) against the plain path block by
+   block in lockstep; the counted run (chunked prefill, then
+   ``resume_generate`` of 32 greedy tokens through the graph, launches
+   exact) and the eager loop from the same cache, bit for bit; chunked and
+   bucketed (500 -> 512) against monolithic prefill, recorded; the three
+   prefills timed in turns;
+6. each model reduced, on the card against the CPU plain path, and the
+   serve CLI (``python -m repro_torch.launch.serve``) at full width on
+   retnet-1.3b, greedy and with top-p, as subprocesses;
+7. one JSON line ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}``
    line.
 
 It imports neither jax nor the JAX package.
@@ -78,9 +91,11 @@ from repro_torch.core import mxint4 as mx  # noqa: E402
 from repro_torch.core import retention as ret  # noqa: E402
 from repro_torch.kernels import hopper, ops, ref  # noqa: E402
 from repro_torch.models import deploy, layers, lm  # noqa: E402
+from repro_torch.serving import engine as serving_engine  # noqa: E402
 from repro_torch.serving.engine import (EngineSpec, GenerationResult,  # noqa: E402
-                                        InferenceEngine)
-from repro_torch.serving.sampling import GenerationConfig, SamplingParams, sample  # noqa: E402
+                                        InferenceEngine, chunk_schedule)
+from repro_torch.serving.sampling import (GenerationConfig, SamplingParams,  # noqa: E402
+                                          _top_p_mask, sample)
 
 # Data-sheet peaks (NVIDIA, dense): bytes/s of device memory, and operations/s
 # for int8 and TF32 on the tensor cores and for f32 on the CUDA cores.
@@ -155,6 +170,12 @@ RMS_SHAPES = (
     (16384, 4096, torch.bfloat16, "a 16k-token prompt (2.7x the L2)"),
     (1000, 4096, torch.float32, "ragged M"),
 )
+# The admission phase: 2 prompts of 500 tokens admitted in chunks of 32 (15 x
+# 32 + 16 + 4, so retention runs from a warm state at chunks 32, 16 and 4),
+# bucketed to 512, and 32 greedy tokens resumed from the chunked cache.
+ADMIT_PROMPT, ADMIT_CHUNK = 500, 32
+ADMIT_CACHE = ADMIT_PROMPT + NEW   # KV slots of a chunked admission: 532
+TOP_P = 0.9
 RMS_MAIN = (1024, 4096, torch.bfloat16)
 RMS_AMORTISED = 8        # calls on distinct inputs per graph in `amortised_ms`
 
@@ -790,9 +811,10 @@ def serve_full_width(path: dict, card: str):
         if per_prefill != want_p or per_step != want_s:
             raise RuntimeError(f"{tag}: launch counts {per_prefill} / {per_step}, "
                                f"expected {want_p} / {want_s}")
+        key = eng.graph_key(cache, gen)
         del cache
         first = eng.generate(prompts, gen)
-        graph = eng._graphs[(tuple(prompts.shape), gen)]
+        graph = eng._graphs[key]
         log(f"{tag} step captured in {first.capture_s:.3f} s; a replay launches "
             f"{graph.launches}")
         if graph.launches != per_step:
@@ -860,10 +882,13 @@ def serve_full_width(path: dict, card: str):
         results[tag] = serving
     if path is RETNET:
         results[f"{arch} top-k"] = sampled_through_graph(eng, prompts)
+        results[f"{arch} top-p"] = top_p_through_graph(eng, prompts)
+    log(f"{arch} phase: {time.perf_counter() - t0:.1f} s")
+    admitted, admission = serve_admission(path, eng, plain, card)
+    results.update(admission)
     del eng, plain
     torch.cuda.empty_cache()
-    log(f"{arch} phase: {time.perf_counter() - t0:.1f} s")
-    return counted, results
+    return counted, admitted, results
 
 
 @torch.inference_mode()
@@ -880,18 +905,30 @@ def eager_generate(eng, prompts, gen):
     cache = eng._encode_cache(cache, gen)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
+    res, cache = eager_loop(eng, sample(logits, gen.sampling), cache, gen)
+    res.prefill_s = t_prefill
+    return res, cache
+
+
+@torch.inference_mode()
+def eager_loop(eng, tok, cache, gen):
+    """The decode loop as `decode_step` in a Python loop from the first
+    emitted token ``tok`` and ``cache`` (which dense decode writes in
+    place), in the reference's body order (greedy, no stop tokens).
+    Returns a GenerationResult (decode timed, no prefill) and the final
+    cache."""
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    b, n = prompts.shape[0], gen.max_new_tokens
+    b, n = tok.shape[0], gen.max_new_tokens
     out = torch.full((b, n), gen.pad_token_id, dtype=torch.long, device="cuda")
     lengths = torch.zeros(b, dtype=torch.int32, device="cuda")
-    tok = sample(logits, gen.sampling)
     for i in range(n):
         out[:, i] = tok
         lengths += 1
         logits, cache = eng.decode_step(tok[:, None], cache)
         tok = sample(logits, gen.sampling)
     torch.cuda.synchronize()
-    return GenerationResult(tokens=out, lengths=lengths, prefill_s=t_prefill,
+    return GenerationResult(tokens=out, lengths=lengths, prefill_s=0.0,
                             decode_s=time.perf_counter() - t0, decode_steps=n), cache
 
 
@@ -950,6 +987,246 @@ def sampled_through_graph(eng, prompts) -> dict:
     return out
 
 
+@torch.inference_mode()
+def top_p_through_graph(eng, prompts) -> dict:
+    """Top-p sampling through the captured step (temperature 1, p TOP_P):
+    every token inside its step's nucleus, recomputed with the plain
+    `_top_p_mask` from that step's logits (the first from prefill, the rest
+    by replaying the eager loop on the graph's tokens), and the same tokens
+    again from the same seed."""
+    gen = GenerationConfig(max_new_tokens=NEW, sampling=SamplingParams(temperature=1.0,
+                                                                        top_p=TOP_P))
+    runs = [eng.generate(prompts, gen, generator=_gen(41)) for _ in range(2)]
+    other = eng.generate(prompts, gen, generator=_gen(42))
+    toks = runs[0].tokens
+    logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN)
+    outside, sizes = 0, []
+    for i in range(NEW):
+        kept = torch.isfinite(_top_p_mask(logits.float(), TOP_P))
+        outside += int((~kept.gather(1, toks[:, i:i + 1])).sum())
+        sizes.append(kept.sum(dim=-1).tolist())
+        logits, cache = eng.decode_step(toks[:, i:i + 1], cache)
+    out = dict(p=TOP_P, capture_s=runs[0].capture_s,
+               repeats=bool(torch.equal(toks, runs[1].tokens)),
+               other_seed_differs=not torch.equal(toks, other.tokens),
+               tokens_outside_nucleus=outside,
+               nucleus_sizes_min_max=[min(min(z) for z in sizes), max(max(z) for z in sizes)],
+               decode_ms_per_token=runs[1].decode_s * 1e3 / NEW)
+    log("top-p through the graph:", json.dumps(out))
+    if not out["repeats"] or outside:
+        raise RuntimeError(f"top-p sampling through the graph: {out}")
+    return out
+
+
+def _bytes_differing(a, b) -> tuple[int, int]:
+    """(differing, total) bytes of two cache trees, element by element."""
+    diff = total = 0
+    ib = dict(_tree_items(b))
+    for k, t in _tree_items(a):
+        diff += int((t != ib[k]).sum()) * t.element_size()
+        total += t.numel() * t.element_size()
+    return diff, total
+
+
+def _cache_rel(tag, ck, cr, tol) -> float:
+    """Largest relative difference of the (decoded) leaves of two layer
+    caches, each within ``tol`` of its max|value| (equal where that is 0)."""
+    worst = 0.0
+    for name in cr:
+        a, b = kvq.decode(ck[name]), kvq.decode(cr[name])
+        if not bool(b.abs().max() > 0):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{tag} {name}: kernel vs plain differ on a zero leaf")
+            continue
+        worst = max(worst, _rel(a, b, f"{tag} {name}", tol))
+    return worst
+
+
+@torch.inference_mode()
+def chunk_lockstep(eng, plain, prompts, fmt) -> dict:
+    """The chunked admission, kernel path against plain path on the same
+    weights, in lockstep: each chunk starts both paths from the plain path's
+    cache (in ``fmt``), each block gets the plain path's input, and the
+    block outputs, every tensor of each layer's new cache (decoded) and the
+    chunk's logits (the lm_head on the plain path's final activations) must
+    agree within BLOCK_TOL of max|value|.  Encoded bytes that differ are
+    counted and reported."""
+    cfg, model = eng.cfg, eng.model
+    cache = lm.make_decode_cache(cfg, prompts.shape[0], ADMIT_CACHE,
+                                 dtype=fmt or torch.float32, device="cuda")
+    worst = dict(block=0.0, cache=0.0, logits=0.0)
+    diff_bytes = total_bytes = 0
+    off = 0
+    for j, c in enumerate(chunk_schedule(prompts.shape[1], ADMIT_CHUNK)):
+        x = lm._embed(model, prompts[:, off:off + c])
+        pos = cache["pos"]
+        sin, cos = lm._rope_tables(cfg, c, x.device, start=pos)
+        blocks = []
+        for i, (blk, cl) in enumerate(zip(model.blocks, cache["blocks"])):
+            yk, ck = lm._block_chunk(blk, x, cfg, eng.hsa, _clone(cl), pos, sin, cos)
+            yr, cr = lm._block_chunk(blk, x, cfg, plain.hsa, _clone(cl), pos, sin, cos)
+            tag = f"chunk {j} (c {c}) block {i}"
+            worst["block"] = max(worst["block"], _rel(yk, yr, tag, BLOCK_TOL))
+            worst["cache"] = max(worst["cache"], _cache_rel(tag, ck, cr, BLOCK_TOL))
+            if fmt is not None:
+                d, t = _bytes_differing(ck, cr)
+                diff_bytes, total_bytes = diff_bytes + d, total_bytes + t
+            x = yr.to(x.dtype)
+            blocks.append(cr)
+        h = layers.norm_full(model.final_norm, x[:, -1:])
+        lk = eng.hsa.linear(model.lm_head, h, "prefill")[:, 0]
+        lr = plain.hsa.linear(model.lm_head, h, "prefill")[:, 0]
+        worst["logits"] = max(worst["logits"], _rel(lk, lr, f"chunk {j} logits", BLOCK_TOL))
+        cache = {"pos": pos + c, "blocks": blocks}
+        if cfg.rope:
+            cache["rope"] = lm._rope_state(cfg, cache["pos"])
+        off += c
+    return dict(lockstep_block_max_rel_err=worst["block"],
+                lockstep_cache_max_rel_err=worst["cache"],
+                lockstep_logit_max_rel_err=worst["logits"], lockstep_tolerance=BLOCK_TOL,
+                lockstep_encoded_bytes_differing=[diff_bytes, total_bytes])
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _parting(a: torch.Tensor, b: torch.Tensor):
+    """The first token column at which two greedy runs part (None: never)."""
+    cols = (a != b).any(dim=0).nonzero()[:, 0].tolist()
+    return cols[0] if cols else None
+
+
+@torch.inference_mode()
+def serve_admission(path: dict, eng, plain, card: str):
+    """The admission paths at full width, once per cache format of the
+    chunked admission: 2 prompts of ADMIT_PROMPT tokens in chunks of
+    ADMIT_CHUNK.  Fatal: the chunked prefill against the plain path in
+    lockstep (`chunk_lockstep`); the launch counts of the counted run
+    (chunked prefill, then `resume_generate` of NEW greedy tokens through
+    the graph: W8A8 chunks x (linears + lm_head), retention chunks x
+    layers, one eager warm-up step and the replays); the graph against the
+    eager loop from the same cache, bit for bit.  Recorded: the chunked and
+    the bucketed (to 512) prefill against monolithic prefill on the same
+    deployed weights (the last logits' largest relative difference, where
+    the greedy tokens resumed from each cache part from monolithic's),
+    and the three prefills' host ms in turns (chunked, bucketed,
+    monolithic, monolithic, bucketed, chunked)."""
+    arch = path["arch"]
+    t0 = time.perf_counter()
+    cfg = eng.cfg
+    prompts = torch.randint(1, cfg.vocab_size, (BATCH, ADMIT_PROMPT), generator=_gen(31),
+                            device="cuda")
+    sched = chunk_schedule(ADMIT_PROMPT, ADMIT_CHUNK)
+    log(f"== admission: {arch}, B={BATCH}, S={ADMIT_PROMPT} in chunks {sched}, then "
+        f"{NEW} greedy tokens resumed through the graph")
+    want_p, want_s = expected_launches(path)
+    want_chunked = {k: v * len(sched) for k, v in want_p.items()}
+    counted, results = dict.fromkeys(hopper.COUNTERS, 0), {}
+    for fmt in path["formats"]:
+        tag = f"{arch} admission" + ("" if fmt is None else f" {fmt}")
+        gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt)
+        out = dict(card=card, schedule=sched)
+        out.update(chunk_lockstep(eng, plain, prompts, fmt))
+
+        # The counted run: chunked prefill, then decode resumed through the graph.
+        hopper.reset_launches()
+        (lg_c, cache_c), t_c0 = _timed(lambda: eng.prefill_chunked(
+            prompts, cache_len=ADMIT_CACHE, chunk_size=ADMIT_CHUNK,
+            cache_dtype=fmt or torch.float32))
+        per_chunked = dict(hopper.LAUNCHES)
+        pending = lg_c.argmax(-1)
+        eager_cache = serving_engine._clone(cache_c)
+        key = eng.graph_key(cache_c, gen)
+        fresh = key not in eng._graphs
+        res = eng.resume_generate(pending, cache_c, gen)
+        launches = dict(hopper.LAUNCHES)
+        steps = res.decode_steps + (1 if fresh else 0)     # the capture's warm-up step
+        want = {k: want_chunked[k] + want_s[k] * steps for k in hopper.COUNTERS}
+        log(tag, "launches per chunked prefill", per_chunked, "with the resumed decode",
+            launches, "replays", res.decode_steps, "captured", fresh)
+        if per_chunked != want_chunked or launches != want:
+            raise RuntimeError(f"{tag}: launches {per_chunked} / {launches}, expected "
+                               f"{want_chunked} / {want}")
+        for k in counted:
+            counted[k] += launches[k]
+        got, cache_e = eager_loop(eng, pending, eager_cache, gen)
+        _same_as_graph(tag, res, eng._graphs[key].state.cache, got, cache_e)
+        del eager_cache, cache_e
+        out.update(graph_and_eager_bit_identical=True, launches=launches,
+                   capture_s=res.capture_s,
+                   resumed_decode_ms_per_token=(res.decode_s - res.capture_s) * 1e3
+                   / res.decode_steps,
+                   eager_decode_ms_per_token=got.decode_s * 1e3 / got.decode_steps)
+
+        # Bucketed and monolithic prefill on the same weights, timed in turns.
+        def mono():
+            lg, cache = eng.prefill(prompts, cache_len=ADMIT_CACHE)
+            return lg, eng._encode_cache(cache, gen)
+
+        def bucketed():
+            lg, cache = eng.prefill(prompts, cache_len=ADMIT_CACHE, bucket=True)
+            return lg, eng._encode_cache(cache, gen)
+
+        def chunked():
+            return eng.prefill_chunked(prompts, cache_len=ADMIT_CACHE, chunk_size=ADMIT_CHUNK,
+                                       cache_dtype=fmt or torch.float32)
+
+        times = dict(chunked=[t_c0], bucketed=[], monolithic=[])
+        runs = {}
+        for name, fn in (("bucketed", bucketed), ("monolithic", mono), ("monolithic", mono),
+                         ("bucketed", bucketed), ("chunked", chunked)):
+            runs[name], ms = _timed(fn)
+            times[name].append(ms)
+        out["prefill_ms_in_turns"] = times
+        lg_m, cache_m = runs["monolithic"]
+        lg_b, cache_b = runs["bucketed"]
+        if not torch.equal(runs["chunked"][0], lg_c):
+            raise RuntimeError(f"{tag}: two chunked prefills of one prompt differ")
+        res_m = eng.resume_generate(lg_m.argmax(-1), cache_m, gen)
+        res_b = eng.resume_generate(lg_b.argmax(-1), cache_b, gen)
+        rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
+        out.update(chunked_vs_monolithic_logit_rel=rel(lg_c, lg_m),
+                   bucketed_vs_monolithic_logit_rel=rel(lg_b, lg_m),
+                   chunked_vs_monolithic_first_parting=_parting(res.tokens, res_m.tokens),
+                   bucketed_vs_monolithic_first_parting=_parting(res_b.tokens, res_m.tokens),
+                   bucketed_capture_s=res_b.capture_s)
+        for r in (res_m, res_b):
+            if r.tokens.shape != (BATCH, NEW) or not bool(((r.tokens >= 0) & (
+                    r.tokens < cfg.vocab_size)).all()):
+                raise RuntimeError(f"{tag}: bad tokens {r.tokens.shape}")
+        log(f"{tag}:", json.dumps(out))
+        results[tag] = out
+        del cache_c, cache_m, cache_b, runs
+    log(f"{arch} admission phase: {time.perf_counter() - t0:.1f} s")
+    return counted, results
+
+
+def serve_cli() -> dict:
+    """`python -m repro_torch.launch.serve` at full width on the card, greedy and
+    then with top-p: each must exit 0 and print its ``[serve]`` lines."""
+    out = {}
+    for name, extra in (("greedy", []), ("top_p", ["--temperature", "1", "--top-p",
+                                                    str(TOP_P)])):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "retnet-1.3b",
+               "--scenario", "SILO", "--scale", "0.1", "--batch", "2", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
+        for ln in lines:
+            log(f"  cli {name}: {ln}")
+        if proc.returncode != 0 or len(lines) != 5:
+            raise RuntimeError(f"serve CLI ({name}) exited {proc.returncode} with "
+                               f"{len(lines)} [serve] lines: {proc.stderr[-2000:]}")
+        out[name] = dict(seconds=time.perf_counter() - t0, lines=lines)
+    return out
+
+
 def _device_us(prof) -> tuple[float, list]:
     """Kernel time in us (device-side events only: the CPU ops that launched
     them carry the same time again) and the top kernels in ms."""
@@ -979,7 +1256,7 @@ def profile_shares(eng, prompts, gen, steps: int = 4) -> dict:
     dev, top = _device_us(prof)
     out.update(prefill_device_busy=dev / 1e6 / wall, prefill_top_ms=top)
     tok = logits.argmax(-1)
-    graph = eng._graphs[(tuple(prompts.shape), gen)]
+    graph = eng._graphs[eng.graph_key(cache, gen)]
     graph.state.reset(tok, cache, gen)
     for name, step in (("eager_", lambda: eng.decode_step(tok[:, None], cache)),
                        ("", graph.graph.replay)):
@@ -1316,15 +1593,20 @@ def main() -> int:
         log(f"  sigma^-1 price: {json.dumps(r)}")
     log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 
-    serving, by_path = {}, {}
+    serving, by_path, admitted = {}, {}, {}
     for path in PATHS:
-        by_path[path["arch"]], results = serve_full_width(path, smi)
+        by_path[path["arch"]], admitted[path["arch"]], results = serve_full_width(path, smi)
         serving.update(results)
     for path in PATHS:
         serving.update(reduced_vs_cpu(path))
+    t0 = time.perf_counter()
+    serving["serve CLI"] = serve_cli()
+    log(f"serve CLI: {time.perf_counter() - t0:.1f} s")
     for e in entries:
         e["launches_by_path"] = {arch: n[e["name"]] for arch, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
+        e["admission_launches_by_path"] = {arch: n[e["name"]]
+                                           for arch, n in admitted.items()}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": entries}))

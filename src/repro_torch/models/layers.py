@@ -8,13 +8,17 @@ Only RMSNorm is ported so far.
 Attention keeps the reference's GQA layout: head ``h`` belongs to kv head
 ``h // G`` (``q.reshape(b, kv, h // kv, hd)``), QK-norm comes before RoPE,
 and K/V caches are ``[B, C, KV, hd]`` leaves, plain tensors or kvq-encoded
-dicts.  Decode attention is the flash-decode kernel; prefill attention is the
-reference's online-softmax forward in plain PyTorch (it is no Pallas kernel
-there either).  Sliding-window ring caches are not ported yet.
+dicts.  Decode attention is the flash-decode kernel; prefill attention
+(monolithic and chunked) is the reference's online-softmax forward in plain
+PyTorch (it is no Pallas kernel there either).  Chunked prefill
+(`gqa_chunk`, `mla_chunk`) appends a chunk's rows into a warm cache at the
+device position and attends over the resident prefix.  Sliding-window ring
+caches are not ported yet.
 
 MLA (deepseek-v3) caches the compressed ``c_kv [B, C, kv_lora_rank]`` and
 the shared rope key ``k_rope [B, C, qk_rope_head_dim]``.  Prefill expands
-them per head for flash attention; decode absorbs ``wk_b``/``wv_b`` into the
+them per head for flash attention (a chunk re-expands the whole resident
+latent); decode absorbs ``wk_b``/``wv_b`` into the
 query and the output and attends in the latent space through flash-decode's
 MLA mode.
 """
@@ -64,7 +68,9 @@ def norm_full(p: Norm, x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_chunk: int = 512,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int | torch.Tensor = 0, k_offset: int | torch.Tensor = 0,
+                    kv_len: int | torch.Tensor | None = None, q_chunk: int = 512,
                     kv_chunk: int = 1024) -> torch.Tensor:
     """q ``[B, Sq, KV, G, hd]``, k/v ``[B, Sk, KV, hd]`` -> ``[B, Sq, KV, G, dv]``
     in v's dtype, never materializing more than one [q_chunk, kv_chunk]
@@ -73,10 +79,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The reference's `_flash_fwd_impl` step for step: q pre-scaled by
     ``1/sqrt(hd)`` in f32, both sides padded to whole chunks (padded keys
     masked, padded queries dropped), masked scores at -inf, and the
-    finite-max guard on all-masked rows.  Queries sit at positions
-    ``0..Sq-1`` and keys at ``0..Sk-1``; windows and offsets (chunked
-    prefill, rings) are not ported yet.
+    finite-max guard on all-masked rows.  Queries sit at absolute positions
+    ``q_offset + i`` and keys at ``k_offset + j``; keys outside ``[0, kv_len)``
+    are masked (``kv_len`` defaults to ``Sk + k_offset``).  The offsets and
+    ``kv_len`` are ints or int32 scalars on the device (chunked prefill passes
+    the cache's position), so the mask is computed on the device and nothing
+    is read back.  Sliding windows are not ported yet: a nonzero ``window``
+    raises.
     """
+    if not (isinstance(window, int) and window == 0):
+        raise NotImplementedError("flash_attention: sliding windows are not ported yet")
     b, sq, kv_h, g, hd = q.shape
     sk, dv = k.shape[1], v.shape[-1]
     q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
@@ -86,18 +98,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qs = torch.nn.functional.pad(q.to(f32) * scale, (0, 0, 0, 0, 0, 0, 0, pq))
     kf = torch.nn.functional.pad(k.to(f32), (0, 0, 0, 0, 0, pk))
     vf = torch.nn.functional.pad(v.to(f32), (0, 0, 0, 0, 0, pk))
-    k_pos = torch.arange(sk + pk, device=q.device)
+    if kv_len is None:
+        kv_len = sk + k_offset
+    k_pos = k_offset + torch.arange(sk + pk, device=q.device)
+    k_valid = (k_pos >= 0) & (k_pos < kv_len)
     outs = []
     for q0 in range(0, sq + pq, q_chunk):
         q_blk = qs[:, q0:q0 + q_chunk]
-        q_pos = q0 + torch.arange(q_chunk, device=q.device)
+        q_pos = q_offset + q0 + torch.arange(q_chunk, device=q.device)
         m = torch.full((b, kv_h, g, q_chunk), -torch.inf, dtype=f32, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros(b, kv_h, g, q_chunk, dv, dtype=f32, device=q.device)
         for k0 in range(0, sk + pk, kv_chunk):
             kp = k_pos[k0:k0 + kv_chunk]
             s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kf[:, k0:k0 + kv_chunk])
-            mask = (kp < sk)[None, :].expand(q_chunk, -1)
+            mask = k_valid[k0:k0 + kv_chunk][None, :].expand(q_chunk, -1)
             if causal:
                 mask = mask & (q_pos[:, None] >= kp[None, :])
             s = s.masked_fill(~mask, -torch.inf)
@@ -136,9 +151,10 @@ def from_cache_dtype(c) -> torch.Tensor:
 def to_cache_like(x: torch.Tensor, leaf):
     """Encode fresh K/V rows to match the resident cache leaf's format.
 
-    The reference appends rows inside its jitted decode loop, where XLA
-    compiles int8_tok's ``absmax / 127.0`` into a reciprocal multiply, so the
-    rows here take that form (see `core/kvq.py`)."""
+    The reference appends rows inside jitted code only (its decode loop and
+    its chunked-prefill step), where XLA compiles int8_tok's ``absmax /
+    127.0`` into a reciprocal multiply, so the rows here take that form (see
+    `core/kvq.py`)."""
     if isinstance(leaf, dict):
         return kvq.encode_like(x, leaf, reciprocal=True)
     return to_cache_dtype(x, leaf.dtype)
@@ -276,6 +292,36 @@ def gqa_decode(p: Attention, x_star, sig_inv, engine: HSAEngine,
     return out, {"k": k_cache, "v": v_cache}
 
 
+def gqa_chunk(p: Attention, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
+              cache: dict, pos: torch.Tensor, *, rope_sin=None,
+              rope_cos=None) -> tuple[torch.Tensor, dict]:
+    """Chunked prefill (MMM phase over a warm cache): append the chunk's C
+    K/V rows at ``pos`` in place (`cache_update`) and attend to the whole
+    resident prefix.
+
+    ``pos`` is the absolute position of the chunk's first token, an int32
+    scalar on the device: the rows' slots, the causal offsets and the valid
+    length ``pos + C`` are all computed there.  ``rope_sin``/``rope_cos`` are
+    ``[C, hd/2]`` at the chunk's absolute positions.  Sliding-window rings
+    are not ported yet (A9) and raise.
+    """
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window ring caches are not ported yet")
+    b, c, _ = x_star.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q, k, v = _project_qkv(p, x_star, sig_inv, engine, "prefill", cfg)
+    if rope_sin is not None:
+        sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
+        q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
+    k_cache = cache_update(cache["k"], k, pos)
+    v_cache = cache_update(cache["v"], v, pos)
+    out = flash_attention(q.reshape(b, c, kv, h // kv, hd), from_cache_dtype(k_cache),
+                          from_cache_dtype(v_cache), causal=True, q_offset=pos,
+                          kv_len=pos + c)
+    out = engine.linear(p.wo, out.reshape(b, c, h * hd), "prefill")
+    return out, {"k": k_cache, "v": v_cache}
+
+
 def gqa_make_cache(cfg: ModelConfig, batch: int, cache_len: int,
                    dtype=torch.bfloat16, device=None) -> dict:
     if cfg.sliding_window:
@@ -389,6 +435,39 @@ def mla_decode(p: MLA, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
     wv_b = p.wv_b.w.reshape(kvr, h, dv).to(f32)
     out_heads = torch.einsum("bhr,rhv->bhv", lat_out, wv_b)
     out = engine.linear(p.wo, out_heads.reshape(b, 1, h * dv), "decode")
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_chunk(p: MLA, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
+              cache: dict, pos: torch.Tensor, *, rope_sin=None, rope_cos=None
+              ) -> tuple[torch.Tensor, dict]:
+    """Chunked prefill for MLA: append the chunk's compressed latent and rope
+    rows at ``pos`` in place, then re-expand the *whole* resident latent
+    through ``wk_b``/``wv_b`` (M = B x capacity rows per linear) for the flash
+    call, as the reference does; the cache itself stays compressed.
+    ``pos`` is an int32 scalar on the device, as in `gqa_chunk`."""
+    b, c, _ = x_star.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x_star, sig_inv, engine, "prefill", cfg)
+    c_kv_new, k_rope_new = _mla_latents(p, x_star, sig_inv, engine, "prefill", cfg)
+    if rope_sin is not None:
+        sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
+        q_rope = orp.apply_rope(q_rope, sin, cos)
+        k_rope_new = orp.apply_rope(k_rope_new[:, :, None, :], sin, cos)[:, :, 0]
+    c_kv = cache_update(cache["c_kv"], c_kv_new, pos)
+    k_rope = cache_update(cache["k_rope"], k_rope_new, pos)
+
+    cap = cache_capacity(c_kv)
+    c_kv_f = from_cache_dtype(c_kv)
+    k_nope = engine.linear(p.wk_b, c_kv_f, "prefill").reshape(b, cap, h, dn)
+    v = engine.linear(p.wv_b, c_kv_f, "prefill").reshape(b, cap, h, dv)
+    k_rope_f = from_cache_dtype(k_rope)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_f[:, :, None, :].expand(b, cap, h, dr)], dim=-1)
+    out = flash_attention(q_full.reshape(b, c, h, 1, dn + dr), k_full, v, causal=True,
+                          q_offset=pos, kv_len=pos + c)
+    out = engine.linear(p.wo, out.reshape(b, c, h * dv), "prefill")
     return out, {"c_kv": c_kv, "k_rope": k_rope}
 
 

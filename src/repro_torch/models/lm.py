@@ -5,8 +5,10 @@ Per-layer modules in an ``nn.ModuleList`` and a Python loop take the place of
 the reference's ``lax.scan`` over stacked params; the residual stream is cast
 back to the param dtype after every block, as the scan carry is there.
 
-    forward_prefill — full prompt (MMM phase): last-token logits + warm cache
-    forward_decode  — one token with the warm cache (MVM phase)
+    forward_prefill       — full prompt (MMM phase), exact or bucketed:
+                            last-token logits + warm cache
+    forward_prefill_chunk — one chunk of a prompt over a warm cache (MMM)
+    forward_decode        — one token with the warm cache (MVM phase)
 
 Layers come in the reference's groups (`layer_groups`), held in one flat
 list in group order: deepseek-v3's leading dense layers (``dense_head``)
@@ -149,11 +151,22 @@ def _thetas(dim: int, base: float, device: torch.device) -> torch.Tensor:
     return orp.rope_thetas(dim, base, device)
 
 
-def _rope_tables(cfg: ModelConfig, s: int, device):
+def _rope_tables(cfg: ModelConfig, s: int, device, start=0):
+    """(sin, cos) ``[s, d/2]`` at positions ``start .. start + s - 1``;
+    ``start`` may be an int32 scalar on the device (a chunk's position)."""
     if not cfg.rope:
         return None, None
-    th = orp.rope_thetas(_rope_dim(cfg), cfg.rope_base, device)
-    return orp.rope_table(torch.arange(s, device=device), th)
+    th = _thetas(_rope_dim(cfg), cfg.rope_base, device)
+    return orp.rope_table(start + torch.arange(s, device=device), th)
+
+
+def _rope_state(cfg: ModelConfig, pos: torch.Tensor) -> orp.OnlineRopeState:
+    """The online RoPE unit's angle memory at ``pos``, an int32 scalar on the
+    device (`orp.init_state` at a position that is not a host int).  It
+    keeps its own copy of ``pos``: a decode step updates a cache's
+    position and its rope state in place, one after the other."""
+    sin, cos = orp.rope_table(pos, _thetas(_rope_dim(cfg), cfg.rope_base, pos.device))
+    return orp.OnlineRopeState(sin=sin, cos=cos, pos=pos.clone())
 
 
 def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
@@ -173,12 +186,18 @@ def _seed_attn_cache(leaves: dict, cache_len: int = 0) -> dict:
     return out
 
 
-def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0):
-    """Full-sequence block -> (x_out, cache seed)."""
+def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0,
+                 valid_len=None):
+    """Full-sequence block -> (x_out, cache seed).
+
+    ``valid_len`` (bucketed prefill) marks the tokens from it on as padding:
+    causality keeps them out of every real token's output, and RetNet's
+    state masks them; a linear KV cache keeps its padded tail, which decode
+    masks and then overwrites."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
     if isinstance(p, RetNetBlock):
         y, cache = R.retention_apply(p.ret, xs, sig, engine, phase, cfg,
-                                     rope_sin=sin, rope_cos=cos)
+                                     rope_sin=sin, rope_cos=cos, valid_len=valid_len)
     elif cfg.attn_type == "mla":
         y, (c_kv, k_rope) = L.mla_apply(p.attn, xs, sig, engine, phase, cfg,
                                         rope_sin=sin, rope_cos=cos)
@@ -208,27 +227,95 @@ def _block_decode(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
 
 
 def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
-                    engine: HSAEngine, cache_len: int = 0
+                    engine: HSAEngine, cache_len: int = 0,
+                    valid_len: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, dict]:
     """Prompt processing (MMM phase): tokens [B, S] -> (logits [B, V], cache).
 
-    ``cache_len`` > S reserves KV slots for the tokens decode will append."""
+    ``cache_len`` > S reserves KV slots for the tokens decode will append.
+
+    Bucketed mode: ``valid_len`` (an int32 scalar on the device) marks
+    ``tokens`` as a prompt of that length right-padded to S.  The logits are
+    taken at the last real token, and the cache's ``pos`` and RoPE state
+    start there (see `_block_apply` for the cache seeds)."""
     _check_family(cfg)
     x = _embed(model, tokens)
     s = tokens.shape[1]
     sin, cos = _rope_tables(cfg, s, x.device)
     states = []
     for blk in model.blocks:
-        y, cache = _block_apply(blk, x, cfg, engine, "prefill", sin, cos, cache_len)
+        y, cache = _block_apply(blk, x, cfg, engine, "prefill", sin, cos, cache_len,
+                                valid_len=valid_len)
         x = y.to(x.dtype)          # keep the residual stream in param dtype
         states.append(cache)
+    if valid_len is None:
+        last = x[:, -1:]
+        pos = torch.tensor(s, dtype=torch.int32, device=x.device)
+    else:
+        last = x.index_select(1, (valid_len - 1).to(torch.int64).view(1))
+        pos = valid_len.to(torch.int32).clone()
+    h = L.norm_full(model.final_norm, last)
+    logits = engine.linear(model.lm_head, h, "prefill")[:, 0]
+    caches = {"pos": pos, "blocks": states}
+    if cfg.rope:
+        caches["rope"] = (orp.init_state(_rope_dim(cfg), cfg.rope_base, pos=s,
+                                         device=x.device)
+                          if valid_len is None else _rope_state(cfg, pos))
+    return logits, caches
+
+
+def _block_chunk(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
+    """One chunked-prefill block: [B, C] tokens continuing a warm cache at
+    absolute position ``pos`` -> (x_out, cache).  The MMM-shaped sibling of
+    `_block_decode`: the same cache in, cache out, C tokens at once through
+    the prefill dataflow."""
+    xs, sig = L.norm_emit(p.ln1, x, engine)
+    if isinstance(p, RetNetBlock):
+        y, cache = R.retention_apply(p.ret, xs, sig, engine, "prefill", cfg,
+                                     rope_sin=sin, rope_cos=cos, cache=cache)
+    else:
+        chunk = L.mla_chunk if cfg.attn_type == "mla" else L.gqa_chunk
+        y, cache = chunk(p.attn, xs, sig, engine, cfg, cache, pos,
+                         rope_sin=sin, rope_cos=cos)
+    x = x + y
+    xs2, sig2 = L.norm_emit(p.ln2, x, engine)
+    return x + M.mlp_apply(p.mlp, xs2, sig2, engine, "prefill"), cache
+
+
+def _chunk_stack(model: LM, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
+                 engine: HSAEngine) -> tuple[torch.Tensor, dict]:
+    """Run [B, C] tokens against a warm cache -> (pre-final-norm activations
+    [B, C, D], advanced cache).  Positions, RoPE tables and the new
+    position come from the device scalar ``cache["pos"]``."""
+    _check_family(cfg)
+    x = _embed(model, tokens)
+    c = x.shape[1]
+    pos0 = cache["pos"]
+    sin, cos = _rope_tables(cfg, c, x.device, start=pos0)
+    new_cache = {"pos": pos0 + c}
+    if cfg.rope:
+        new_cache["rope"] = _rope_state(cfg, new_cache["pos"])
+    states = []
+    for blk, cl in zip(model.blocks, cache["blocks"]):
+        y, c2 = _block_chunk(blk, x, cfg, engine, cl, pos0, sin, cos)
+        x = y.to(x.dtype)
+        states.append(c2)
+    new_cache["blocks"] = states
+    return x, new_cache
+
+
+def forward_prefill_chunk(model: LM, tokens: torch.Tensor, cache: dict,
+                          cfg: ModelConfig, engine: HSAEngine
+                          ) -> tuple[torch.Tensor, dict]:
+    """Chunked prefill (MMM phase over a warm cache): tokens [B, C] continue
+    ``cache`` at absolute positions ``cache["pos"] .. + C - 1`` -> (last-token
+    logits [B, V], advanced cache).  Chunks are exact, never padded, so the
+    RetNet state needs no correction.  Dense K/V rows are written into the
+    cache's leaves in place."""
+    x, new_cache = _chunk_stack(model, tokens, cache, cfg, engine)
     h = L.norm_full(model.final_norm, x[:, -1:])
     logits = engine.linear(model.lm_head, h, "prefill")[:, 0]
-    caches = {"pos": torch.tensor(s, dtype=torch.int32, device=x.device), "blocks": states}
-    if cfg.rope:
-        caches["rope"] = orp.init_state(_rope_dim(cfg), cfg.rope_base, pos=s,
-                                        device=x.device)
-    return logits, caches
+    return logits, new_cache
 
 
 def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,

@@ -1,8 +1,10 @@
 """RetNet block: multi-scale retention with RoPE-rotated q/k, v and gate at
 2 * d_model, per-head GroupNorm and a swish gate.
 
-Prefill runs the chunkwise form (the Hopper kernel for a CUDA tensor); decode
-runs the O(1) recurrent step in plain PyTorch, as the reference does.
+Prefill runs the chunkwise form (the Hopper kernel for a CUDA tensor), from a
+zero state (monolithic and bucketed prefill) or a warm one (each chunk of a
+chunked prefill); decode runs the O(1) recurrent step in plain PyTorch, as
+the reference does.
 """
 
 from __future__ import annotations
@@ -58,26 +60,49 @@ def _gate_out(p: Retention, y, g, engine: HSAEngine, phase: str, b: int,
 
 def retention_apply(p: Retention, x_star, sig_inv, engine: HSAEngine,
                     phase: str, cfg: ModelConfig, *, rope_sin=None,
-                    rope_cos=None) -> tuple[torch.Tensor, dict]:
-    """Full-sequence retention from a zero state -> (out, {"s": state})."""
+                    rope_cos=None, cache: dict | None = None,
+                    valid_len: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """Full-sequence (chunkwise) retention -> (out, {"s": final state}).
+
+    ``cache`` (chunked prefill) carries the state across chunks: the
+    outputs and the new state include the decayed contribution of
+    everything before this chunk (the kernel's ``state=``).  ``valid_len``
+    (bucketed prefill; an int32 scalar on the device) masks the padded tail
+    out of the state: its k/v rows are zeroed and the final state is
+    rescaled by ``gamma^(valid_len - s)``, computed as the reference does,
+    ``exp((valid_len - s) * log gamma)`` in f32, to undo the decay the
+    padded steps applied.  The branches are the reference's, in its order:
+    the kernel whenever the sequence is whole chunks of ``min(128, s)``,
+    else the parallel form from a zero state or the plain chunkwise form at
+    one chunk of ``s`` from a warm one.
+    """
     b, s, d = x_star.shape
     q, k, v, g = _project(p, x_star, sig_inv, engine, phase, cfg)
     if rope_sin is not None:
         sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
         q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
     gamma = ret.head_decays(cfg.n_heads, device=q.device)
+    if valid_len is not None:
+        keep = (torch.arange(s, device=q.device) < valid_len)[None, :, None, None]
+        k, v = k * keep, v * keep
     # [B, H, S, d*] views of the [B, S, H, d*] projections, handed to the
     # kernel as they are (it reads through their strides).  The kernel's y
     # is a [B, H, S, dv] view of a [B, S, H, dv] buffer, so the transpose
     # back is contiguous and _gate_out's reshape copies nothing.
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    state0 = None if cache is None else cache["s"]
     chunk = min(128, s)
     if s % chunk == 0:
-        y, state = ops.retention_chunkwise(qt, kt, vt, gamma, chunk=chunk,
+        y, state = ops.retention_chunkwise(qt, kt, vt, gamma, chunk=chunk, state=state0,
                                            impl=engine.config.kernel_impl)
-    else:
+    elif state0 is None:
         y = ret.retention_parallel(qt, kt, vt, gamma)
         _, state = ret.retention_recurrent(qt, kt, vt, gamma)
+    else:
+        y, state = ret.retention_chunkwise(qt, kt, vt, gamma, chunk=s, state=state0)
+    if valid_len is not None:
+        undo = torch.exp((valid_len - s).to(torch.float32) * torch.log(gamma))
+        state = state * undo[None, :, None, None]
     out = _gate_out(p, y.transpose(1, 2), g, engine, phase, b, s, d)
     return out, {"s": state}
 

@@ -12,12 +12,24 @@ token, then `lm.forward_decode` and the next sample.  The step reads and
 writes only device state (the position and ``i`` included) in place, so:
 
 * on the card, `generate` captures the step once as a CUDA graph on static
-  decode buffers, one set per batch, prompt length and `GenerationConfig`
-  (prefill's cache is copied into them at the prefill/decode boundary),
+  decode buffers, one set per cache layout and `GenerationConfig`
+  (the cache is copied into them at the prefill/decode boundary),
   and replays it ``max_new_tokens`` times; a repeated key does not capture
   again.  A capture that fails raises: there is no eager fallback;
 * on the CPU, `generate` runs the same step eagerly, so the CPU parity
   tests run the very code that is captured.
+
+The graph is keyed on the decode cache's layout (every tensor's shape and
+dtype: batch, capacity and format) and the `GenerationConfig`, not on the
+prompt, so `generate` and `resume_generate` (decode resumed from a warm
+cache, with no prefill) share a graph whenever their caches match.
+
+Admission paths besides monolithic prefill, as the reference has them:
+``prefill(bucket=True)`` pads a prompt to the power-of-two ladder
+(`bucket_length`) and passes its real length as a device scalar;
+`ChunkedPrefill` (`begin_chunked_prefill`, `prefill_chunked`) runs a prompt
+as exact ladder-sized chunks (`chunk_schedule`) into a warm cache, optionally
+adopting a prefix that is already warm (``start_offset``).
 
 The loop reads the device only to end early when every sequence has
 stopped, and only when stop tokens were given.  Prefill and decode are
@@ -37,12 +49,57 @@ import dataclasses
 import time
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import configs
 from repro_torch.core.hsa import HSAConfig, HSAEngine
 from repro_torch.models import deploy, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.sampling import GenerationConfig, sample
+
+# Prompt-length bucket ladder: prompts pad (bucketed) or decompose (chunked)
+# to powers of two >= this floor.
+MIN_BUCKET = 8
+
+
+class CacheCapacityError(ValueError):
+    """A request needs more KV slots than its cache provides.
+
+    Raised at admission (`ChunkedPrefill`) instead of letting the linear
+    cache's decode path clamp its write slot and overwrite its own last row
+    on every later step."""
+
+
+def bucket_length(s: int) -> int:
+    """Smallest ladder bucket (power of two >= MIN_BUCKET) holding s tokens."""
+    if s < 1:
+        raise ValueError(f"prompt length must be >= 1, got {s}")
+    b = MIN_BUCKET
+    while b < s:
+        b *= 2
+    return b
+
+
+def chunk_schedule(s: int, chunk_size: int) -> list[int]:
+    """Decompose a prompt of length s into exact ladder-sized chunks: full
+    ``chunk_size`` chunks, then the remainder as its descending powers of
+    two (its binary decomposition).  Nothing is padded, so the RetNet state
+    continues exactly; MIN_BUCKET is not applied here, as in the
+    reference."""
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    sched = [chunk_size] * (s // chunk_size)
+    rem = s % chunk_size
+    p = 1
+    while p <= rem:
+        p *= 2
+    p //= 2
+    while rem:
+        if p <= rem:
+            sched.append(p)
+            rem -= p
+        p //= 2
+    return sched
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +133,7 @@ class GenerationResult:
 
     tokens: torch.Tensor     # int64 [B, max_new_tokens]; pad after stop token
     lengths: torch.Tensor    # int32 [B] — emitted tokens incl. the stop token
-    prefill_s: float         # wall-clock MMM phase
+    prefill_s: float         # wall-clock MMM phase (0 for a resumed decode)
     decode_s: float          # wall-clock MVM phase (a capture included)
     decode_steps: int = 0    # forward_decode calls the loop made
     capture_s: float = 0.0   # wall-clock warm-up and capture of the step graph
@@ -146,6 +203,19 @@ def _write_back(dst, src) -> None:
             _write_back(getattr(dst, f.name), getattr(src, f.name))
 
 
+def _layout(tree) -> tuple:
+    """Every tensor's shape and dtype in a cache tree (dict entries by name,
+    whatever order built them): the key under which decode steps over such
+    caches share one graph."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, dict):
+        return tuple((k, _layout(tree[k])) for k in sorted(tree))
+    if isinstance(tree, list):
+        return tuple(_layout(v) for v in tree)
+    return tuple(_layout(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+
+
 @dataclasses.dataclass
 class _StepGraph:
     """One key's static decode buffers and the graph of one step on them."""
@@ -156,6 +226,76 @@ class _StepGraph:
     graph: "torch.cuda.CUDAGraph"
     launches: dict                      # kernel launches one replay runs
     tickets: torch.Tensor               # the split-K counters the graph uses
+
+
+class ChunkedPrefill:
+    """One in-flight chunked prompt admission (MMM phase, cache-resident).
+
+    Built by `InferenceEngine.begin_chunked_prefill`; each `advance` runs one
+    chunk of `schedule` through `lm.forward_prefill_chunk`.  After the last,
+    ``logits`` holds the last-token logits and ``cache`` the warm decode
+    cache (equal, up to f32 summation order, to a monolithic `prefill` of
+    the prompt on fp weights; on deployed weights the int8 activation scale
+    of each chunk is its own).
+
+    Prefix adoption: with ``start_offset=p`` and an ``initial_cache`` warm
+    over positions [0, p), only ``tokens[:, p:]`` is scheduled.  The chunk
+    reads its start from the cache's device ``pos``.  ``initial_cache`` is
+    consumed (dense rows are written into it in place): hand in a private
+    copy.  A fresh cache is built on the engine's device in ``cache_dtype``
+    (f32, as the reference's default, or a kvq format name: rows are then
+    encoded as they are appended).
+    """
+
+    def __init__(self, engine: "InferenceEngine", tokens: torch.Tensor, cache_len: int,
+                 chunk_size: int, cache_dtype=torch.float32, *, initial_cache=None,
+                 start_offset: int = 0):
+        tokens = torch.as_tensor(tokens, device=engine.device).long()
+        if tokens.ndim != 2:
+            raise ValueError(f"tokens must be [B, S], got {tuple(tokens.shape)}")
+        s = tokens.shape[1]
+        if s < 1:
+            raise ValueError("prompt must have at least one token")
+        if s > cache_len:
+            raise CacheCapacityError(f"prompt ({s}) exceeds cache_len ({cache_len})")
+        if not 0 <= start_offset < s:
+            raise ValueError(f"start_offset ({start_offset}) must be in "
+                             f"[0, prompt length {s})")
+        if start_offset and initial_cache is None:
+            raise ValueError("start_offset > 0 requires an initial_cache "
+                             "warm over the adopted prefix")
+        self.engine = engine
+        self.tokens = tokens
+        self.schedule = chunk_schedule(s - start_offset, chunk_size)
+        if initial_cache is None:
+            initial_cache = lm.make_decode_cache(engine.cfg, tokens.shape[0], cache_len,
+                                                 dtype=cache_dtype, device=engine.device)
+        self.cache = initial_cache
+        self.start_offset = start_offset
+        self.logits: torch.Tensor | None = None
+        self._off = start_offset
+        self._next = 0
+
+    @property
+    def done(self) -> bool:
+        return self._next >= len(self.schedule)
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self.schedule)
+
+    @torch.inference_mode()
+    def advance(self) -> torch.Tensor | None:
+        """Run one chunk; returns the final logits once all chunks ran."""
+        if self.done:
+            return self.logits
+        c = self.schedule[self._next]
+        eng = self.engine
+        self.logits, self.cache = lm.forward_prefill_chunk(
+            eng.model, self.tokens[:, self._off:self._off + c], self.cache, eng.cfg, eng.hsa)
+        self._off += c
+        self._next += 1
+        return self.logits if self.done else None
 
 
 class InferenceEngine:
@@ -200,15 +340,50 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, *, cache_len: int | None = None
-                ) -> tuple[torch.Tensor, dict]:
+    def prefill(self, tokens: torch.Tensor, *, cache_len: int | None = None,
+                bucket: bool = False) -> tuple[torch.Tensor, dict]:
         """MMM phase: prompts [B, S] -> (last-token logits [B, V], cache).
 
         ``cache_len`` (default S) is the KV slots a dense model's cache
-        holds: S plus the tokens decode will append."""
+        holds: S plus the tokens decode will append.
+
+        ``bucket=True`` pads the prompt with zeros up to `bucket_length` and
+        passes the real length as an int32 device scalar: the logits and the
+        cache's position are the real prompt end's.  ``cache_len`` is rounded
+        up onto the same ladder, and is at least the bucket, as the
+        reference's is."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
+        s = tokens.shape[1]
+        if not bucket:
+            return lm.forward_prefill(self.model, tokens, self.cfg, self.hsa,
+                                      cache_len=cache_len or s)
+        b = bucket_length(s)
+        if b > s:
+            tokens = F.pad(tokens, (0, b - s))
+        valid_len = torch.tensor(s, dtype=torch.int32, device=self.device)
         return lm.forward_prefill(self.model, tokens, self.cfg, self.hsa,
-                                  cache_len=cache_len or tokens.shape[1])
+                                  cache_len=bucket_length(max(cache_len or s, b)),
+                                  valid_len=valid_len)
+
+    def begin_chunked_prefill(self, tokens: torch.Tensor, *, cache_len: int,
+                              chunk_size: int = 32, cache_dtype=torch.float32,
+                              initial_cache=None, start_offset: int = 0
+                              ) -> ChunkedPrefill:
+        """Start a chunk-granular admission; the caller paces `advance()`.
+        ``initial_cache``/``start_offset`` adopt an already-warm prefix (see
+        `ChunkedPrefill`)."""
+        return ChunkedPrefill(self, tokens, cache_len, chunk_size, cache_dtype,
+                              initial_cache=initial_cache, start_offset=start_offset)
+
+    def prefill_chunked(self, tokens: torch.Tensor, *, cache_len: int,
+                        chunk_size: int = 32, cache_dtype=torch.float32
+                        ) -> tuple[torch.Tensor, dict]:
+        """Drive a chunked prefill to completion: (last logits [B, V], cache)."""
+        cp = self.begin_chunked_prefill(tokens, cache_len=cache_len, chunk_size=chunk_size,
+                                        cache_dtype=cache_dtype)
+        while not cp.done:
+            cp.advance()
+        return cp.logits, cp.cache
 
     @torch.inference_mode()
     def decode_step(self, tokens: torch.Tensor, cache: dict
@@ -243,8 +418,39 @@ class InferenceEngine:
 
         t0 = time.perf_counter()
         tok = sample(logits, gen.sampling, generator)
+        return self._decode_from(tok, cache, gen, generator, t0, t_prefill)
+
+    @torch.inference_mode()
+    def resume_generate(self, pending: torch.Tensor, cache: dict,
+                        gen: GenerationConfig = GenerationConfig(), *,
+                        generator: torch.Generator | None = None) -> GenerationResult:
+        """Resume the decode loop from a pending token and a warm decode
+        cache (a chunked prefill's, or one fetched back from elsewhere): no
+        prefill runs, and the cache is used as it is (its format is kept;
+        ``gen.cache_format`` is not applied).
+
+        ``pending`` is int ``[B]`` (or a scalar for a batch-1 cache): the
+        token sampled before the interruption, which becomes the first
+        emitted token.  On the card the steps are replays of the graph keyed
+        on this cache's layout (shared with `generate` when the caches
+        match); on the CPU the same `_step` runs eagerly and updates
+        ``cache`` in place."""
+        pending = torch.as_tensor(pending, device=self.device).long()
+        if pending.ndim == 0:
+            pending = pending[None]
+        if generator is None and not gen.sampling.greedy:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        self._sync()
+        return self._decode_from(pending, cache, gen, generator, time.perf_counter(), 0.0)
+
+    def _decode_from(self, tok: torch.Tensor, cache: dict, gen: GenerationConfig,
+                     generator: torch.Generator | None, t0: float, t_prefill: float
+                     ) -> GenerationResult:
+        """The decode loop from the first emitted token ``tok`` and ``cache``:
+        replays on the card, the eager step on the CPU."""
         if self.device.type == "cuda":
-            st, steps, t_capture = self._replay(tok, cache, gen, generator, prompts.shape)
+            st, steps, t_capture = self._replay(tok, cache, gen, generator)
         else:
             st, t_capture = DecodeState.start(tok, cache, gen), 0.0
             stop = (torch.tensor(gen.stop_tokens, device=self.device)
@@ -281,14 +487,20 @@ class InferenceEngine:
         _write_back(st.cache, cache)
         st.i += 1
 
+    @staticmethod
+    def graph_key(cache: dict, gen: GenerationConfig) -> tuple:
+        """The key of the captured step that decodes from ``cache`` under
+        ``gen``: the cache's layout (batch, capacity and format) and
+        ``gen``."""
+        return (_layout(cache), gen)
+
     def _replay(self, tok: torch.Tensor, cache: dict, gen: GenerationConfig,
-                generator: torch.Generator | None, shape: torch.Size
-                ) -> tuple[DecodeState, int, float]:
+                generator: torch.Generator | None) -> tuple[DecodeState, int, float]:
         """The decode loop on the card: this key's captured step (captured
-        now if the key is new), replayed from the prefill state.  Launch
+        now if the key is new), replayed from the given state.  Launch
         counts are those the replays run."""
         from repro_torch.kernels import hopper
-        key = (tuple(shape), gen)
+        key = self.graph_key(cache, gen)
         sg = self._graphs.get(key)
         t_capture = 0.0
         if sg is None:

@@ -118,7 +118,10 @@ def test_w8a8_matmul_kernel(m, k, n):
 @pytest.mark.parametrize("m,k,n", (
     [(1024, k, n) for k, n in MAIN_SHAPES[:-1]]
     + [(m, 4096, 4096) for m in (1, 2, 17, 64, 65, 1000)]
-    + [(2, 4096, 152064), (17, 4096, 208), (1000, 48, 4096), (65, 48, 208)]))
+    + [(2, 4096, 152064), (17, 4096, 208), (1000, 48, 4096), (65, 48, 208)]
+    # chunked admission: chunk linears at M = B x c, and MLA's per-chunk
+    # re-expansion of the whole latent (M = B x capacity, K = kv_lora_rank)
+    + [(64, 4096, 12288), (8, 2048, 4096), (1064, 512, 16384)]))
 def test_w8a8_matmul_kernel_shapes(m, k, n):
     """Every main-path shape at M = 1024, the small-M tiles and their edge
     (64 / 65 rows), the M = 2 lm_head, N ragged against the tile (208) and K
@@ -157,6 +160,11 @@ RETENTION_CASES = [
     (2, 4, 256, 64, 128, 64, False), (1, 3, 256, 48, 200, 64, True),
     (1, 8, 2048, 256, 512, 128, False), (1, 8, 2048, 256, 512, 128, True),
     (1, 2, 1024, 16, 24, 16, False), (1, 2, 1024, 16, 24, 16, True),
+    # chunked admission at the retnet-1.3b head shape: one chunk of each
+    # size of the ladder below 128, from a warm state
+    (2, 8, 32, 256, 512, 32, True), (2, 8, 16, 256, 512, 16, True),
+    (2, 8, 4, 256, 512, 4, True), (2, 8, 2, 256, 512, 2, True),
+    (2, 8, 1, 256, 512, 1, True),
 ]
 
 
@@ -905,3 +913,70 @@ def test_sampled_generate_replays_draw_fresh_numbers_and_repeat_with_the_seed():
     assert not torch.equal(other.tokens, runs[0].tokens)
     allowed = torch.topk(logits, 8, dim=-1).indices
     assert all(int(t) in allowed[i].tolist() for i, t in enumerate(runs[0].tokens[:, 0]))
+
+
+def _reduced(arch):
+    import dataclasses
+
+    from repro_torch import configs
+    if arch == "ds3_dense":
+        cfg = configs.get_config("deepseek-v3-671b").reduced()
+        return dataclasses.replace(cfg, n_layers=cfg.first_dense_layers)
+    return configs.get_config(arch).reduced()
+
+
+@pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
+                                      ("qwen3-8b", "int8_tok"), ("qwen3-8b", "mxint4_blk"),
+                                      ("ds3_dense", None), ("ds3_dense", "int8_tok")])
+def test_resume_after_chunked_prefill_replays_match_the_eager_loop(arch, fmt):
+    """Reduced models on the card: a chunked admission (23 = 4 x 5 + 2 + 1,
+    into a cache in ``fmt``), then `resume_generate` through the graph keyed
+    on the cache's layout, against `decode_step` in a Python loop from the
+    same cache: tokens and final cache bit for bit; a monolithic prefill's
+    cache of the same layout replays the same graph."""
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig
+    eng = InferenceEngine.from_config(_reduced(arch), EngineSpec(), device="cuda")
+    prompts = torch.randint(1, 512, (2, 23), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(7))
+    gen = GenerationConfig(max_new_tokens=8, cache_format=fmt)
+    hopper.reset_launches()
+    logits, cache = eng.prefill_chunked(prompts, cache_len=31, chunk_size=4,
+                                        cache_dtype=fmt or torch.float32)
+    assert hopper.LAUNCHES["w8a8_matmul"] > 0
+    if arch == "retnet-1.3b":
+        assert hopper.LAUNCHES["retention_chunkwise"] == 7 * eng.cfg.n_layers
+    eager_cache = E._clone(cache)
+    res = eng.resume_generate(logits.argmax(-1), cache, gen)
+    assert res.capture_s > 0 and res.decode_steps == 8 and res.prefill_s == 0.0
+    tok = logits.argmax(-1)
+    out = []
+    for _ in range(8):
+        out.append(tok)
+        lg, eager_cache = eng.decode_step(tok[:, None], eager_cache)
+        tok = lg.argmax(-1)
+    assert torch.equal(res.tokens, torch.stack(out, dim=1))
+    sg = eng._graphs[eng.graph_key(cache, gen)]
+    assert _tree_equal(sg.state.cache, eager_cache)
+    lm_, mono = eng.prefill(prompts, cache_len=31)
+    again = eng.resume_generate(lm_.argmax(-1), eng._encode_cache(mono, gen), gen)
+    assert again.capture_s == 0.0 and len(eng._graphs) == 1
+
+
+def test_top_p_generate_through_the_graph_stays_in_the_nucleus():
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig, SamplingParams, _top_p_mask
+    eng = InferenceEngine.from_config("retnet-1.3b", EngineSpec(reduced=True), device="cuda")
+    prompts = torch.randint(1, 512, (2, 16), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(8))
+    gen = GenerationConfig(max_new_tokens=10, sampling=SamplingParams(temperature=1.0,
+                                                                       top_p=0.5))
+    runs = [eng.generate(prompts, gen, generator=torch.Generator(device="cuda").manual_seed(3))
+            for _ in range(2)]
+    assert torch.equal(runs[0].tokens, runs[1].tokens) and runs[1].capture_s == 0.0
+    logits, cache = eng.prefill(prompts, cache_len=26)
+    for i in range(10):
+        kept = torch.isfinite(_top_p_mask(logits.float(), 0.5))
+        assert bool(kept.gather(1, runs[0].tokens[:, i:i + 1]).all())
+        logits, cache = eng.decode_step(runs[0].tokens[:, i:i + 1], cache)

@@ -20,17 +20,35 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
 print("BAD", bad)
+print("NEW", all(m in sys.modules for m in NEW_MODULES))
 """
+
+# Modules of the admission and serve-CLI slice, which the probe must reach.
+NEW_MODULES = ("repro_torch.launch.serve", "repro_torch.core.edge_model",
+               "repro_torch.serving.engine", "repro_torch.serving.sampling")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), REPO]))
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
+    probe = f"NEW_MODULES = {NEW_MODULES!r}\n" + _PROBE
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "BAD []" in out.stdout, out.stdout
-    assert int(out.stdout.split("LOADED")[1].split()[0]) >= 20
+    assert int(out.stdout.split("LOADED")[1].split()[0]) >= 22
+    assert "NEW True" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "retnet-1.3b"],
+    ["--arch", "retnet-1.3b", "--temperature", "1", "--top-p", "0.9"]])
+def test_serve_cli_defaults_to_the_card(argv):
+    from repro_torch.launch import serve
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(argv)
 
 
 def test_from_config_defaults_to_the_card():
