@@ -55,7 +55,9 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    re-expansion of the whole latent) against the plain path block by
    block in lockstep; the counted run (chunked prefill, then
    ``resume_generate`` of 32 greedy tokens through the graph, launches
-   exact) and the eager loop from the same cache, bit for bit; chunked and
+   exact) and the eager loop from the same cache, bit for bit, and the
+   same resume in two halves of 16; monolithic (500 = 3 x 128 + 116) and
+   bucketed prefill's launches exact; chunked and
    bucketed (500 -> 512) against monolithic prefill, recorded; the three
    prefills timed in turns;
 6. each model reduced, on the card against the CPU plain path, and the
@@ -93,7 +95,7 @@ from repro_torch.kernels import hopper, ops, ref  # noqa: E402
 from repro_torch.models import deploy, layers, lm  # noqa: E402
 from repro_torch.serving import engine as serving_engine  # noqa: E402
 from repro_torch.serving.engine import (EngineSpec, GenerationResult,  # noqa: E402
-                                        InferenceEngine, chunk_schedule)
+                                        InferenceEngine, bucket_length, chunk_schedule)
 from repro_torch.serving.sampling import (GenerationConfig, SamplingParams,  # noqa: E402
                                           _top_p_mask, sample)
 
@@ -756,8 +758,14 @@ def summarize(name, rows, per_key, tol):
     return dict(entry, per_path=per_path, shapes=rows)
 
 
-def expected_launches(path: dict) -> tuple[dict, dict]:
-    """Launches per prefill and per decode step on a main path."""
+def retention_launches(s: int) -> int:
+    """Retention launches per layer of an ``s``-token prefill: the whole
+    128-row chunks in one launch, the tail in another."""
+    return int(s >= 128) + int(s % 128 > 0)
+
+
+def expected_launches(path: dict, s: int = PROMPT) -> tuple[dict, dict]:
+    """Launches per ``s``-token prefill and per decode step on a main path."""
     per_prefill = dict.fromkeys(hopper.COUNTERS, 0)
     per_step = dict.fromkeys(hopper.COUNTERS, 0)
     both = sum(c for _, _, c in path["linears"])
@@ -765,7 +773,7 @@ def expected_launches(path: dict) -> tuple[dict, dict]:
     per_prefill["w8a8_matmul"] = (both + prefill_only) * path["layers"] + 1
     per_step["mxint4_matmul"] = both * path["layers"] + 1
     if path is RETNET:
-        per_prefill["retention_chunkwise"] = path["layers"]
+        per_prefill["retention_chunkwise"] = path["layers"] * retention_launches(s)
     elif path is DS3:
         per_step["flash_decode_mla"] = path["layers"]
     else:
@@ -1110,7 +1118,10 @@ def serve_admission(path: dict, eng, plain, card: str):
     (chunked prefill, then `resume_generate` of NEW greedy tokens through
     the graph: W8A8 chunks x (linears + lm_head), retention chunks x
     layers, one eager warm-up step and the replays); the graph against the
-    eager loop from the same cache, bit for bit.  Recorded: the chunked and
+    eager loop from the same cache, bit for bit, the final cache read from
+    the caller's; for the first format, the resume in two halves against
+    the one resume (`resume_in_halves`); the launches of one monolithic and
+    one bucketed prefill (`one_prefill_launches`).  Recorded: the chunked and
     the bucketed (to 512) prefill against monolithic prefill on the same
     deployed weights (the last logits' largest relative difference, where
     the greedy tokens resumed from each cache part from monolithic's),
@@ -1124,7 +1135,7 @@ def serve_admission(path: dict, eng, plain, card: str):
     sched = chunk_schedule(ADMIT_PROMPT, ADMIT_CHUNK)
     log(f"== admission: {arch}, B={BATCH}, S={ADMIT_PROMPT} in chunks {sched}, then "
         f"{NEW} greedy tokens resumed through the graph")
-    want_p, want_s = expected_launches(path)
+    want_p, want_s = expected_launches(path, ADMIT_CHUNK)
     want_chunked = {k: v * len(sched) for k, v in want_p.items()}
     counted, results = dict.fromkeys(hopper.COUNTERS, 0), {}
     for fmt in path["formats"]:
@@ -1141,6 +1152,7 @@ def serve_admission(path: dict, eng, plain, card: str):
         per_chunked = dict(hopper.LAUNCHES)
         pending = lg_c.argmax(-1)
         eager_cache = serving_engine._clone(cache_c)
+        cache_c0 = serving_engine._clone(cache_c)
         key = eng.graph_key(cache_c, gen)
         fresh = key not in eng._graphs
         res = eng.resume_generate(pending, cache_c, gen)
@@ -1155,8 +1167,12 @@ def serve_admission(path: dict, eng, plain, card: str):
         for k in counted:
             counted[k] += launches[k]
         got, cache_e = eager_loop(eng, pending, eager_cache, gen)
-        _same_as_graph(tag, res, eng._graphs[key].state.cache, got, cache_e)
+        _same_as_graph(tag, res, cache_c, got, cache_e)
         del eager_cache, cache_e
+        if fmt == path["formats"][0]:
+            out["resumed_in_two_halves_bit_identical"] = resume_in_halves(
+                tag, eng, pending, cache_c0, res, cache_c, gen)
+        del cache_c0
         out.update(graph_and_eager_bit_identical=True, launches=launches,
                    capture_s=res.capture_s,
                    resumed_decode_ms_per_token=(res.decode_s - res.capture_s) * 1e3
@@ -1183,6 +1199,7 @@ def serve_admission(path: dict, eng, plain, card: str):
             runs[name], ms = _timed(fn)
             times[name].append(ms)
         out["prefill_ms_in_turns"] = times
+        out["prefill_launches"] = one_prefill_launches(tag, path, eng, prompts, gen)
         lg_m, cache_m = runs["monolithic"]
         lg_b, cache_b = runs["bucketed"]
         if not torch.equal(runs["chunked"][0], lg_c):
@@ -1204,6 +1221,39 @@ def serve_admission(path: dict, eng, plain, card: str):
         del cache_c, cache_m, cache_b, runs
     log(f"{arch} admission phase: {time.perf_counter() - t0:.1f} s")
     return counted, results
+
+
+def one_prefill_launches(tag, path, eng, prompts, gen) -> dict:
+    """Launches of one monolithic and one bucketed prefill of the admission
+    prompts, each exact: retention runs every length through the kernel
+    (500 = 3 x 128 + 116: two launches per layer; the 512 bucket one)."""
+    out = {}
+    for name, bucket in (("monolithic", False), ("bucketed", True)):
+        hopper.reset_launches()
+        eng.prefill(prompts, cache_len=ADMIT_CACHE, bucket=bucket)
+        got = dict(hopper.LAUNCHES)
+        want = expected_launches(path, bucket_length(ADMIT_PROMPT) if bucket
+                                 else ADMIT_PROMPT)[0]
+        if got != want:
+            raise RuntimeError(f"{tag}: a {name} prefill launches {got}, expected {want}")
+        out[name] = got
+    return out
+
+
+def resume_in_halves(tag, eng, pending, cache0, whole, whole_cache, gen) -> bool:
+    """`resume_generate` of NEW // 2 tokens, then of NEW // 2 more from the
+    cache it left and its ``next_token``, against one resume of NEW tokens
+    from the same cache: tokens and final cache bit for bit."""
+    half = dataclasses.replace(gen, max_new_tokens=NEW // 2)
+    first = eng.resume_generate(pending, cache0, half)
+    second = eng.resume_generate(first.next_token, cache0, half)
+    halves = GenerationResult(tokens=torch.cat([first.tokens, second.tokens], dim=1),
+                              lengths=first.lengths + second.lengths, prefill_s=0.0,
+                              decode_s=0.0, decode_steps=NEW)
+    _same_as_graph(f"{tag} resumed in halves", whole, whole_cache, halves, cache0)
+    if not torch.equal(second.next_token, whole.next_token):
+        raise RuntimeError(f"{tag}: resumed in halves, the next token differs")
+    return True
 
 
 def serve_cli() -> dict:

@@ -16,7 +16,10 @@ Prompts come from a seeded ``torch.Generator``.  The reference's other
 modes (the continuous-batching scheduler and what rides on it, the open-loop
 front end, speculative decode, a device mesh, tracing and metrics) are not
 ported yet: their flags are accepted by the parser, and each exits nonzero
-naming the ROADMAP item that ports it.
+naming the ROADMAP item that ports it.  The settings only those modes read
+(``--slots``, ``--chunk-size``, ``--draft-k``, ``--rate``, ``--arrival``,
+``--ttft-slo``, ``--virtual-clock``) come with them; until then the parser
+rejects them.
 """
 
 from __future__ import annotations
@@ -62,19 +65,13 @@ def parser() -> argparse.ArgumentParser:
                     help="disable the Eq.(4) fused RMSNorm (ablation)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain PyTorch path")
-    # The reference's other modes, and the settings only they read.
+    # The reference's other modes, each refused in `main` (the settings only
+    # they read come with them).
     ap.add_argument("--requests", type=int, default=0)
-    ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--chunk-size", type=int, default=32)
     ap.add_argument("--speculative", action="store_true")
-    ap.add_argument("--draft-k", type=int, default=4)
     ap.add_argument("--host-spill", action="store_true")
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--frontend", action="store_true")
-    ap.add_argument("--rate", type=float, default=4.0)
-    ap.add_argument("--arrival", choices=["poisson", "bursty"], default="poisson")
-    ap.add_argument("--ttft-slo", type=float, default=2.0)
-    ap.add_argument("--virtual-clock", action="store_true")
     ap.add_argument("--oversubscribe", type=float, default=0.0)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--trace", metavar="FILE", default=None)

@@ -68,8 +68,7 @@ def norm_full(p: Norm, x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    q_offset: int | torch.Tensor = 0, k_offset: int | torch.Tensor = 0,
+                    causal: bool = True, q_offset: int | torch.Tensor = 0,
                     kv_len: int | torch.Tensor | None = None, q_chunk: int = 512,
                     kv_chunk: int = 1024) -> torch.Tensor:
     """q ``[B, Sq, KV, G, hd]``, k/v ``[B, Sk, KV, hd]`` -> ``[B, Sq, KV, G, dv]``
@@ -80,15 +79,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``1/sqrt(hd)`` in f32, both sides padded to whole chunks (padded keys
     masked, padded queries dropped), masked scores at -inf, and the
     finite-max guard on all-masked rows.  Queries sit at absolute positions
-    ``q_offset + i`` and keys at ``k_offset + j``; keys outside ``[0, kv_len)``
-    are masked (``kv_len`` defaults to ``Sk + k_offset``).  The offsets and
-    ``kv_len`` are ints or int32 scalars on the device (chunked prefill passes
-    the cache's position), so the mask is computed on the device and nothing
-    is read back.  Sliding windows are not ported yet: a nonzero ``window``
-    raises.
+    ``q_offset + i`` and keys at ``j``; keys at or past ``kv_len`` are masked
+    (``kv_len`` defaults to ``Sk``).  ``q_offset`` and ``kv_len`` are ints or
+    int32 scalars on the device (chunked prefill passes the cache's
+    position), so the mask is computed on the device and nothing is read
+    back.  The reference's sliding ``window`` and ``k_offset`` (its ring
+    caches) come with the hybrid families.
     """
-    if not (isinstance(window, int) and window == 0):
-        raise NotImplementedError("flash_attention: sliding windows are not ported yet")
     b, sq, kv_h, g, hd = q.shape
     sk, dv = k.shape[1], v.shape[-1]
     q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
@@ -98,10 +95,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qs = torch.nn.functional.pad(q.to(f32) * scale, (0, 0, 0, 0, 0, 0, 0, pq))
     kf = torch.nn.functional.pad(k.to(f32), (0, 0, 0, 0, 0, pk))
     vf = torch.nn.functional.pad(v.to(f32), (0, 0, 0, 0, 0, pk))
-    if kv_len is None:
-        kv_len = sk + k_offset
-    k_pos = k_offset + torch.arange(sk + pk, device=q.device)
-    k_valid = (k_pos >= 0) & (k_pos < kv_len)
+    k_pos = torch.arange(sk + pk, device=q.device)
+    k_valid = k_pos < (sk if kv_len is None else kv_len)
     outs = []
     for q0 in range(0, sq + pq, q_chunk):
         q_blk = qs[:, q0:q0 + q_chunk]

@@ -71,10 +71,12 @@ def retention_apply(p: Retention, x_star, sig_inv, engine: HSAEngine,
     out of the state: its k/v rows are zeroed and the final state is
     rescaled by ``gamma^(valid_len - s)``, computed as the reference does,
     ``exp((valid_len - s) * log gamma)`` in f32, to undo the decay the
-    padded steps applied.  The branches are the reference's, in its order:
-    the kernel whenever the sequence is whole chunks of ``min(128, s)``,
-    else the parallel form from a zero state or the plain chunkwise form at
-    one chunk of ``s`` from a warm one.
+    padded steps applied.  Every length runs the chunkwise kernel: the whole
+    128-row chunks in one launch, then the tail (``s % 128`` rows, or all of
+    a shorter ``s``) as one chunk from the state the first launch carried.
+    The reference takes its parallel or plain chunkwise form where ``s`` is
+    not whole chunks of ``min(128, s)``; the two agree up to f32 summation
+    order.
     """
     b, s, d = x_star.shape
     q, k, v, g = _project(p, x_star, sig_inv, engine, phase, cfg)
@@ -88,22 +90,24 @@ def retention_apply(p: Retention, x_star, sig_inv, engine: HSAEngine,
     # [B, H, S, d*] views of the [B, S, H, d*] projections, handed to the
     # kernel as they are (it reads through their strides).  The kernel's y
     # is a [B, H, S, dv] view of a [B, S, H, dv] buffer, so the transpose
-    # back is contiguous and _gate_out's reshape copies nothing.
+    # back is contiguous (two launches' parts are joined along S into one
+    # such buffer) and _gate_out's reshape copies nothing.
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    state0 = None if cache is None else cache["s"]
-    chunk = min(128, s)
-    if s % chunk == 0:
-        y, state = ops.retention_chunkwise(qt, kt, vt, gamma, chunk=chunk, state=state0,
-                                           impl=engine.config.kernel_impl)
-    elif state0 is None:
-        y = ret.retention_parallel(qt, kt, vt, gamma)
-        _, state = ret.retention_recurrent(qt, kt, vt, gamma)
-    else:
-        y, state = ret.retention_chunkwise(qt, kt, vt, gamma, chunk=s, state=state0)
+    state = None if cache is None else cache["s"]
+    whole = s - s % 128
+    ys = []
+    for lo, hi, chunk in ((0, whole, 128), (whole, s, s - whole)):
+        if hi > lo:
+            part = slice(lo, hi)
+            y, state = ops.retention_chunkwise(
+                qt[:, :, part], kt[:, :, part], vt[:, :, part], gamma, chunk=chunk,
+                state=state, impl=engine.config.kernel_impl)
+            ys.append(y.transpose(1, 2))
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     if valid_len is not None:
         undo = torch.exp((valid_len - s).to(torch.float32) * torch.log(gamma))
         state = state * undo[None, :, None, None]
-    out = _gate_out(p, y.transpose(1, 2), g, engine, phase, b, s, d)
+    out = _gate_out(p, y, g, engine, phase, b, s, d)
     return out, {"s": state}
 
 

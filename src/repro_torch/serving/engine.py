@@ -137,6 +137,8 @@ class GenerationResult:
     decode_s: float          # wall-clock MVM phase (a capture included)
     decode_steps: int = 0    # forward_decode calls the loop made
     capture_s: float = 0.0   # wall-clock warm-up and capture of the step graph
+    next_token: torch.Tensor | None = None  # int64 [B]: sampled after the last
+    #   step; the ``pending`` token that resumes the loop from its final cache
 
 
 @dataclasses.dataclass
@@ -433,8 +435,10 @@ class InferenceEngine:
         token sampled before the interruption, which becomes the first
         emitted token.  On the card the steps are replays of the graph keyed
         on this cache's layout (shared with `generate` when the caches
-        match); on the CPU the same `_step` runs eagerly and updates
-        ``cache`` in place."""
+        match), and the final cache is copied back into ``cache``; on the
+        CPU the same `_step` runs eagerly on ``cache``.  Either way ``cache``
+        leaves warm over every token fed, and the result's ``next_token``
+        is the pending token of a further resume from it."""
         pending = torch.as_tensor(pending, device=self.device).long()
         if pending.ndim == 0:
             pending = pending[None]
@@ -442,25 +446,30 @@ class InferenceEngine:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
         self._sync()
-        return self._decode_from(pending, cache, gen, generator, time.perf_counter(), 0.0)
+        return self._decode_from(pending, cache, gen, generator, time.perf_counter(), 0.0,
+                                 keep_cache=True)
 
     def _decode_from(self, tok: torch.Tensor, cache: dict, gen: GenerationConfig,
-                     generator: torch.Generator | None, t0: float, t_prefill: float
-                     ) -> GenerationResult:
+                     generator: torch.Generator | None, t0: float, t_prefill: float,
+                     *, keep_cache: bool = False) -> GenerationResult:
         """The decode loop from the first emitted token ``tok`` and ``cache``:
-        replays on the card, the eager step on the CPU."""
+        replays on the card, the eager step on the CPU.  ``keep_cache``
+        copies the replays' final cache back into ``cache`` (the eager loop
+        works on ``cache`` itself)."""
         if self.device.type == "cuda":
             st, steps, t_capture = self._replay(tok, cache, gen, generator)
+            if keep_cache:
+                _write_back(cache, st.cache)
         else:
             st, t_capture = DecodeState.start(tok, cache, gen), 0.0
             stop = (torch.tensor(gen.stop_tokens, device=self.device)
                     if gen.stop_tokens else None)
             steps = self._loop(st, gen, lambda: self._step(st, gen, stop, generator))
-        out, lengths = st.out.clone(), st.lengths.clone()
+        out, lengths, nxt = st.out.clone(), st.lengths.clone(), st.tok.clone()
         self._sync()
         return GenerationResult(tokens=out, lengths=lengths, prefill_s=t_prefill,
                                 decode_s=time.perf_counter() - t0, decode_steps=steps,
-                                capture_s=t_capture)
+                                capture_s=t_capture, next_token=nxt)
 
     @staticmethod
     def _loop(st: DecodeState, gen: GenerationConfig, step) -> int:

@@ -135,50 +135,47 @@ def test_ladders_reject_what_the_reference_rejects():
 
 # -- flash attention with offsets ------------------------------------------------------
 
-# (sq, sk, q_offset, k_offset, kv_len, causal, q_chunk, kv_chunk, as device scalars)
+# (sq, sk, q_offset, kv_len, causal, q_chunk, kv_chunk, as device scalars)
 FLASH_CASES = {
-    "chunk_at_7": (5, 20, 7, 0, 12, True, 512, 1024, False),
-    "device_offsets": (4, 16, 3, 0, 7, True, 2, 8, True),
-    "k_offset": (6, 10, 12, 5, None, True, 4, 4, False),
-    "negative_k_offset": (6, 10, 2, -3, None, True, 512, 1024, True),
-    "bidirectional_kv_len": (5, 13, 0, 0, 9, False, 4, 8, False),
-    "padded_chunks": (7, 13, 6, 0, 13, True, 4, 8, True),
+    "chunk_at_7": (5, 20, 7, 12, True, 512, 1024, False),
+    "device_offsets": (4, 16, 3, 7, True, 2, 8, True),
+    "default_kv_len": (6, 10, 4, None, True, 4, 4, False),
+    "one_row_at_device_end": (1, 12, 11, 12, True, 512, 1024, True),
+    "bidirectional_kv_len": (5, 13, 0, 9, False, 4, 8, False),
+    "padded_chunks": (7, 13, 6, 13, True, 4, 8, True),
+    "chunk_at_0_device": (4, 9, 0, 4, True, 2, 4, True),
 }
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_attention_offsets_match_reference(case):
-    sq, sk, qo, ko, kv_len, causal, qc, kc, dev = FLASH_CASES[case]
+    sq, sk, qo, kv_len, causal, qc, kc, dev = FLASH_CASES[case]
     rng = np.random.default_rng(len(case))
     qj, qt = _pair(rng.normal(size=(2, sq, 2, 3, 16)).astype(np.float32))
     kj, kt = _pair(rng.normal(size=(2, sk, 2, 16)).astype(np.float32))
     vj, vt = _pair(rng.normal(size=(2, sk, 2, 16)).astype(np.float32))
     want = jax.jit(lambda q, k, v: JL.flash_attention(
-        q, k, v, causal=causal, q_offset=jnp.int32(qo), k_offset=jnp.int32(ko),
+        q, k, v, causal=causal, q_offset=jnp.int32(qo),
         kv_len=None if kv_len is None else jnp.int32(kv_len), q_chunk=qc,
         kv_chunk=kc))(qj, kj, vj)
 
     def arg(x):
         return torch.tensor(x, dtype=torch.int32) if dev and x is not None else x
 
-    got = TL.flash_attention(qt, kt, vt, causal=causal, q_offset=arg(qo), k_offset=arg(ko),
+    got = TL.flash_attention(qt, kt, vt, causal=causal, q_offset=arg(qo),
                              kv_len=arg(kv_len), q_chunk=qc, kv_chunk=kc)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
 
 
-def test_flash_attention_window_raises_until_ported():
-    q = torch.zeros(1, 2, 1, 1, 8)
-    with pytest.raises(NotImplementedError, match="window"):
-        TL.flash_attention(q, q[:, :, :, 0], q[:, :, :, 0], window=4)
-
-
 # -- retention from a warm state and over a padded tail ------------------------------
 
-# (s, warm state, valid_len): warm chunks at the ladder's sizes, s = 130 takes
-# the plain chunkwise branch (no whole 128-chunks), and bucketed tails.
+# (s, warm state, valid_len): warm chunks at the ladder's sizes, lengths that
+# are not whole 128-chunks (the port runs 128 + 2 and 3 x 128 + 116 where the
+# reference takes its plain chunkwise or parallel form), and bucketed tails.
 RET_CASES = {"warm_16": (16, True, None), "warm_1": (1, True, None),
-             "warm_130": (130, True, None), "bucket_11_of_16": (16, False, 11),
-             "bucket_130_of_136": (136, False, 130)}
+             "warm_130": (130, True, None), "cold_130": (130, False, None),
+             "warm_500": (500, True, None), "cold_500": (500, False, None),
+             "bucket_11_of_16": (16, False, 11), "bucket_130_of_136": (136, False, 130)}
 
 
 @pytest.mark.parametrize("case", list(RET_CASES))
@@ -432,6 +429,27 @@ def test_start_offset_adopts_a_warm_prefix(arch):
     flat = [t for t in (cache_full, cp.cache)]
     assert TE._layout(flat[0]) == TE._layout(flat[1])
     for (a, b) in zip(_leaves(cache_full), _leaves(cp.cache)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=ARCH_IDS)
+def test_resume_in_two_halves_equals_one_resume(arch):
+    """`resume_generate` leaves the caller's cache warm over every token fed
+    and returns the next pending token: 3 + 3 steps from a chunked
+    admission's cache equal one resume of 6, tokens and final cache bit for
+    bit."""
+    _, te, _ = _engines(arch, False)
+    prompts = torch.from_numpy(_prompts(1))
+    lg, cache = te.prefill_chunked(prompts, cache_len=CACHE_LEN, chunk_size=CHUNK)
+    halves = TE._clone(cache)
+    whole = te.resume_generate(lg.argmax(-1), cache, GenerationConfig(max_new_tokens=NEW))
+    half = GenerationConfig(max_new_tokens=NEW // 2)
+    first = te.resume_generate(lg.argmax(-1), halves, half)
+    second = te.resume_generate(first.next_token, halves, half)
+    assert torch.equal(torch.cat([first.tokens, second.tokens], dim=1), whole.tokens)
+    assert torch.equal(second.next_token, whole.next_token)
+    assert int(halves["pos"]) == S + NEW
+    for a, b in zip(_leaves(cache), _leaves(halves)):
         assert torch.equal(a, b)
 
 

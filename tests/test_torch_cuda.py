@@ -932,8 +932,9 @@ def test_resume_after_chunked_prefill_replays_match_the_eager_loop(arch, fmt):
     """Reduced models on the card: a chunked admission (23 = 4 x 5 + 2 + 1,
     into a cache in ``fmt``), then `resume_generate` through the graph keyed
     on the cache's layout, against `decode_step` in a Python loop from the
-    same cache: tokens and final cache bit for bit; a monolithic prefill's
-    cache of the same layout replays the same graph."""
+    same cache: tokens, the next pending token and the final cache (read
+    from the caller's) bit for bit; a monolithic prefill's cache of the same
+    layout replays the same graph."""
     from repro_torch.serving import engine as E
     from repro_torch.serving.engine import EngineSpec, InferenceEngine
     from repro_torch.serving.sampling import GenerationConfig
@@ -957,8 +958,8 @@ def test_resume_after_chunked_prefill_replays_match_the_eager_loop(arch, fmt):
         lg, eager_cache = eng.decode_step(tok[:, None], eager_cache)
         tok = lg.argmax(-1)
     assert torch.equal(res.tokens, torch.stack(out, dim=1))
-    sg = eng._graphs[eng.graph_key(cache, gen)]
-    assert _tree_equal(sg.state.cache, eager_cache)
+    assert torch.equal(res.next_token, tok)
+    assert _tree_equal(cache, eager_cache)
     lm_, mono = eng.prefill(prompts, cache_len=31)
     again = eng.resume_generate(lm_.argmax(-1), eng._encode_cache(mono, gen), gen)
     assert again.capture_s == 0.0 and len(eng._graphs) == 1
@@ -980,3 +981,56 @@ def test_top_p_generate_through_the_graph_stays_in_the_nucleus():
         kept = torch.isfinite(_top_p_mask(logits.float(), 0.5))
         assert bool(kept.gather(1, runs[0].tokens[:, i:i + 1]).all())
         logits, cache = eng.decode_step(runs[0].tokens[:, i:i + 1], cache)
+
+
+@pytest.mark.parametrize("arch", ["retnet-1.3b", "qwen3-8b", "ds3_dense"])
+def test_resume_twice_on_the_card_equals_one_resume(arch):
+    """`resume_generate` of 4 tokens, then of 4 more from the cache it left
+    and its ``next_token``, against one resume of 8 from the same cache:
+    tokens and final caches bit for bit (each resume's graph copies its
+    final cache back into the caller's)."""
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig
+    eng = InferenceEngine.from_config(_reduced(arch), EngineSpec(), device="cuda")
+    prompts = torch.randint(1, 512, (2, 23), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(9))
+    logits, cache = eng.prefill_chunked(prompts, cache_len=31, chunk_size=4)
+    halves = E._clone(cache)
+    whole = eng.resume_generate(logits.argmax(-1), cache, GenerationConfig(max_new_tokens=8))
+    half = GenerationConfig(max_new_tokens=4)
+    first = eng.resume_generate(logits.argmax(-1), halves, half)
+    second = eng.resume_generate(first.next_token, halves, half)
+    assert torch.equal(torch.cat([first.tokens, second.tokens], dim=1), whole.tokens)
+    assert torch.equal(second.next_token, whole.next_token)
+    assert int(halves["pos"]) == 31
+    assert _tree_equal(halves, cache)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("s", [130, 500])
+def test_retention_apply_runs_every_length_through_the_kernel(s, warm):
+    """Reduced retnet-1.3b's retention at lengths that are not whole
+    128-chunks, from a zero or a warm state: two launches (the whole chunks,
+    then the tail from the carried state), against the plain path on the
+    same weights and inputs."""
+    from repro_torch.models import retnet as R
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    eng = InferenceEngine.from_config(_reduced("retnet-1.3b"), EngineSpec(), device="cuda")
+    plain = InferenceEngine(eng.cfg, eng.model, EngineSpec(kernel_impl="ref"))
+    cfg, p = eng.cfg, eng.model.blocks[0].ret
+    rng = _gen(s + warm)
+    d, h = cfg.d_model, cfg.n_heads
+    x = _t(rng.normal(size=(2, s, d)).astype(np.float32))
+    sig = _t((rng.random((2, s)) + 0.5).astype(np.float32))
+    cache = ({"s": _t((rng.normal(size=(2, h, d // h, 2 * d // h)) * 0.1)
+                      .astype(np.float32))} if warm else None)
+    hopper.reset_launches()
+    out, st = R.retention_apply(p, x, sig, eng.hsa, "prefill", cfg, cache=cache)
+    assert hopper.LAUNCHES["retention_chunkwise"] == 2
+    out_r, st_r = R.retention_apply(p, x, sig, plain.hsa, "prefill", cfg, cache=cache)
+    # The state at f32 summation order; the output also passes W8A8's
+    # dynamic int8 rounding of y on its way through wo (one step, 2e-2).
+    for got, want, tol in ((st["s"], st_r["s"], 1e-4), (out, out_r, 2e-2)):
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err < tol, err

@@ -136,6 +136,19 @@ def test_unported_flag_exits_nonzero_naming_its_roadmap_item(flag, dest, item, w
     assert flag in err and f"ROADMAP {item}" in err and what in err
 
 
+@pytest.mark.parametrize("argv", [["--slots", "4"], ["--chunk-size", "64"],
+                                  ["--draft-k", "4"], ["--rate", "4"],
+                                  ["--arrival", "poisson"], ["--ttft-slo", "2"],
+                                  ["--virtual-clock"]], ids=lambda a: a[0])
+def test_settings_of_unported_modes_are_rejected(argv, capsys):
+    """The settings only the scheduler and speculative modes read are not
+    parsed until those modes are ported: each is an error, not ignored."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "retnet-1.3b", "--reduced", "--device", "cpu", *argv])
+    assert exc.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
 def test_generation_config_carries_top_p_into_the_loop():
     gen = GenerationConfig(max_new_tokens=2, sampling=SamplingParams(temperature=1.0,
                                                                      top_p=0.5))
