@@ -18,6 +18,10 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    ``enable_gqa`` on the f32 cache's views, and on K/V expanded to every
    query head; flash-decode's MLA mode: the same call on the concatenated
    latent and rope streams), each relaunch bit-equal to the first;
+   flash-decode (both modes, every format) also with a per-lane kv_len
+   (`LANE_KV_LENS`: [1, 528], [528, 300]) against the plain version, timed
+   at the second (``per_lane_ms``), and an all-equal one bit-equal to the
+   scalar;
    retention on the model's strided views and the MLA mode, each bound by
    its split-TF32 instruction mix (the f32 CUDA-core bound beside it), with
    a profiler check that one call runs only its own launches (retention
@@ -60,11 +64,29 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    bucketed prefill's launches exact; chunked and
    bucketed (500 -> 512) against monolithic prefill, recorded; the three
    prefills timed in turns;
-6. each model reduced, on the card against the CPU plain path, and the
+6. after phase 5 on each path, the scheduler (`serve_scheduler`): a
+   `RequestScheduler` drain of 6 mixed-length requests through two slot
+   classes of 2 lanes (C 48 and 80, chunks of 16; on the dense paths the
+   lanes' per-lane kv_len goes through flash-decode), each class step's
+   launches per replay exact (169 MXINT4 on retnet), one replay against the
+   eager class step mid-drain (tokens and every store tensor bit for bit),
+   the drain's decode launches exactly its replays'; on retnet-1.3b then
+   the `goodput_under_load` leg of the reference's serving bench through
+   the port's `ServingFrontend` (`goodput_leg`: 8 requests, prompts 6-24,
+   8 new tokens, 2 lanes, chunks of 8; closed-loop calibration, Poisson
+   arrivals at 0.5, 1.5 and 4.0 x its rate, the front end against a
+   direct run() token for token) and an oversubscribed host-spill run
+   (`host_spill_run`: a spill/fetch round trip bit for bit, a preempted
+   request token-identical to an unpreempted drain); goodput, TTFT and
+   inter-token p50/p99 (also while a chunk ran), decode-stall steps,
+   capture seconds, spill/fetch bytes and ms;
+7. each model reduced, on the card against the CPU plain path, and the
    serve CLI (``python -m repro_torch.launch.serve``) at full width on
-   retnet-1.3b, greedy and with top-p, as subprocesses;
-7. one JSON line ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}``
-   line.
+   retnet-1.3b as subprocesses: greedy and top-p generate, the scheduler,
+   the front end on virtual time, and the oversubscribed host-spill
+   scheduler with its trace and metrics;
+8. one JSON line ``{"kernels": [...]}`` (``scheduler_launches_by_path``
+   beside ``launches``) and, last, the ``{"ok": true, ...}`` line.
 
 It imports neither jax nor the JAX package.
 """
@@ -172,6 +194,9 @@ RMS_SHAPES = (
     (16384, 4096, torch.bfloat16, "a 16k-token prompt (2.7x the L2)"),
     (1000, 4096, torch.float32, "ragged M"),
 )
+# Per-lane kv_len (a scheduler's slot class, its two lanes at different
+# positions): flash-decode is checked at each pair and timed at the second.
+LANE_KV_LENS = ((1, 528), (528, 300))
 # The admission phase: 2 prompts of 500 tokens admitted in chunks of 32 (15 x
 # 32 + 16 + 4, so retention runs from a warm state at chunks 32, 16 and 4),
 # bucketed to 512, and 32 greedy tokens resumed from the chunked cache.
@@ -247,9 +272,28 @@ def amortised_ms(fn, inputs, iters: int = 15) -> float:
     return time_ms(lambda: [fn(x) for x in inputs], iters) / len(inputs)
 
 
-def device_len(n: int) -> torch.Tensor:
-    """kv_len as the main path passes it: an int32 scalar on the card."""
+def device_len(n) -> torch.Tensor:
+    """kv_len as the main path passes it: an int32 scalar on the card (a
+    ``[B]`` tensor for a tuple, one length per lane, as a slot class's step
+    passes it)."""
     return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+
+def per_lane_checks(name, run, plain, n: int) -> tuple[float, float]:
+    """``run(kv_len)`` at each pair of `LANE_KV_LENS` against ``plain`` under
+    flash-decode's tolerance, and at a ``[B]`` kv_len of all ``n`` bit-equal
+    to the scalar ``n``.  Returns the largest error and the kernel's time at
+    the second pair."""
+    err = 0.0
+    for lens in LANE_KV_LENS:
+        nl = device_len(lens)
+        err = max(err, _check(f"{name} per-lane kv_len {lens}", run(nl), plain(nl),
+                              2e-5, 2e-6))
+    if not torch.equal(run(device_len((n,) * BATCH)), run(device_len(n))):
+        raise RuntimeError(f"{name}: a per-lane kv_len of equal lengths differs from "
+                           "the scalar")
+    lanes = device_len(LANE_KV_LENS[1])
+    return err, time_ms(lambda: run(lanes))
 
 
 def bound_ms(nbytes: float, ops_: float, op_rate: float, peaks: dict):
@@ -505,6 +549,9 @@ def kernel_phase_flash_decode(peaks):
             if not torch.equal(got, ops.flash_decode(q, k, v, kv_len, impl="kernel")):
                 raise RuntimeError(f"flash_decode {fmt}: two launches differ")
         nd = device_len(n)
+        lane_err, lane_ms = per_lane_checks(
+            f"flash_decode {fmt}", lambda n_: ops.flash_decode(q, k, v, n_, impl="kernel"),
+            lambda n_: ref.flash_decode_ref(q, k, v, n_), n)
         row_bytes = {"f32": 4 * d, "bf16": 2 * d, "int8": d}.get(fmt) or kvq.nbytes_per_row(fmt, d)
         nbytes = 2 * 4 * b * kvh * g * d + 2 * n * b * kvh * row_bytes
         bms, by = bound_ms(nbytes, 4 * b * kvh * g * n * d, peaks["f32"], peaks)
@@ -525,7 +572,9 @@ def kernel_phase_flash_decode(peaks):
         ms = time_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel"))
         row = dict(
             path=path, main=fmt == "f32", fmt=fmt, shape=[b, kvh, g, d, c], kv_len=n,
-            per_step=QWEN3["layers"], max_abs_err=err, ms=ms,
+            per_step=QWEN3["layers"], max_abs_err=max(err, lane_err), ms=ms,
+            per_lane_ms=lane_ms, per_lane_kv_len=list(LANE_KV_LENS[1]),
+            per_lane_max_abs_err=lane_err,
             call_ms=call_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel")),
             plain_ms=time_ms(lambda: ref.flash_decode_ref(q, k, v, nd)),
             library_ms=None, library_gqa_ms=None, bound_ms=bms, bound_by=by,
@@ -591,6 +640,8 @@ def kernel_phase_flash_decode_mla(peaks):
             if not torch.equal(got, run(q, kv_len)):
                 raise RuntimeError(f"flash_decode MLA {fmt}: two launches differ")
         nd = device_len(n)
+        lane_err, lane_ms = per_lane_checks(f"flash_decode MLA {fmt}",
+                                            lambda n_: run(q, n_), lambda n_: plain(q, n_), n)
         want64 = _mla_f64(q_unit, q2, lat, rope, n, scale)
         _check(f"flash_decode MLA {fmt} at q ~ N(0, 1) vs float64", run(q_unit, nd).double(),
                want64, 2e-5, 2e-6)
@@ -621,7 +672,9 @@ def kernel_phase_flash_decode_mla(peaks):
         ms = time_ms(lambda: run(q, nd))
         row = dict(
             path=path, main=fmt == "f32", fmt=fmt, shape=[b, h, r, dr, c], kv_len=n,
-            per_step=DS3["layers"], max_abs_err=err, f64_max_abs_err=f64_err, ms=ms,
+            per_step=DS3["layers"], max_abs_err=max(err, lane_err),
+            f64_max_abs_err=f64_err, ms=ms, per_lane_ms=lane_ms,
+            per_lane_kv_len=list(LANE_KV_LENS[1]), per_lane_max_abs_err=lane_err,
             call_ms=call_ms(lambda: run(q, nd)), plain_ms=time_ms(lambda: plain(q, nd)),
             library_ms=None, bound_ms=bms, bound_by=by, bound_f32_ms=bf32,
             bound_f32_by=by32, flops=flops, launch_kernels=launched,
@@ -744,7 +797,8 @@ def summarize(name, rows, per_key, tol):
                  if main(r) and r["bound_by"] == "operations")
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
         key for key in ("library_rowmajor_ms", "library_gqa_ms", "bound_f32_ms",
-                        "plain_contiguous_ms", "amortised_ms", "nearest_library_ms")
+                        "plain_contiguous_ms", "amortised_ms", "nearest_library_ms",
+                        "per_lane_ms")
         if key in rows[0])
     per_path = {p: {key: total(key, lambda r, p=p: r["path"] == p) for key in keys}
                 for p in dict.fromkeys(r["path"] for r in rows)}
@@ -894,9 +948,11 @@ def serve_full_width(path: dict, card: str):
     log(f"{arch} phase: {time.perf_counter() - t0:.1f} s")
     admitted, admission = serve_admission(path, eng, plain, card)
     results.update(admission)
+    scheduled, scheduling = serve_scheduler(path, eng, card)
+    results.update(scheduling)
     del eng, plain
     torch.cuda.empty_cache()
-    return counted, admitted, results
+    return counted, admitted, scheduled, results
 
 
 @torch.inference_mode()
@@ -940,28 +996,14 @@ def eager_loop(eng, tok, cache, gen):
                             decode_s=time.perf_counter() - t0, decode_steps=n), cache
 
 
-def _tree_items(tree, prefix=""):
-    """(path, tensor) of every tensor of a cache tree."""
-    if isinstance(tree, torch.Tensor):
-        yield prefix, tree
-    elif isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _tree_items(v, f"{prefix}/{k}")
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            yield from _tree_items(v, f"{prefix}/{i}")
-    else:
-        for f in dataclasses.fields(tree):
-            yield from _tree_items(getattr(tree, f.name), f"{prefix}/{f.name}")
-
-
 def _same_as_graph(tag, res_g, cache_g, res_e, cache_e) -> None:
     """The graph's and the eager loop's tokens, lengths and final cache, bit
     for bit (every tensor of the cache: position, rope angles, rows)."""
     if not (torch.equal(res_g.tokens, res_e.tokens)
             and torch.equal(res_g.lengths, res_e.lengths)):
         raise RuntimeError(f"{tag}: graph and eager loop emit different tokens")
-    a, b = dict(_tree_items(cache_g)), dict(_tree_items(cache_e))
+    a = dict(serving_engine.tree_items(cache_g))
+    b = dict(serving_engine.tree_items(cache_e))
     if a.keys() != b.keys():
         raise RuntimeError(f"{tag}: graph and eager caches differ in structure")
     differ = [k for k in a if not torch.equal(a[k], b[k])]
@@ -1029,8 +1071,8 @@ def top_p_through_graph(eng, prompts) -> dict:
 def _bytes_differing(a, b) -> tuple[int, int]:
     """(differing, total) bytes of two cache trees, element by element."""
     diff = total = 0
-    ib = dict(_tree_items(b))
-    for k, t in _tree_items(a):
+    ib = dict(serving_engine.tree_items(b))
+    for k, t in serving_engine.tree_items(a):
         diff += int((t != ib[k]).sum()) * t.element_size()
         total += t.numel() * t.element_size()
     return diff, total
@@ -1223,6 +1265,308 @@ def serve_admission(path: dict, eng, plain, card: str):
     return counted, results
 
 
+# The scheduler phase.  retnet-1.3b serves the `goodput_under_load` leg of
+# the reference's serving bench (benchmarks/bench_serving.py: 8 requests,
+# prompts 6-24, 8 new tokens, 2 lanes, chunks of 8; a closed-loop
+# calibration, then Poisson arrivals at 0.5, 1.5 and 4.0 x the calibrated
+# rate through the front end; the front end against a direct run()); qwen3-8b
+# and ds3_dense each drain mixed lengths through two classes of 2 lanes.
+GOODPUT = dict(requests=8, prompt_min=6, prompt_max=24, new=8, lanes=2, chunk=8,
+               rate_mults=(0.5, 1.5, 4.0))
+DRAIN_LENS, DRAIN_CLASSES, DRAIN_CHUNK = (6, 40, 17, 70, 25, 9), ((2, 48), (2, 80)), 16
+DECODE_KERNELS = ("mxint4_matmul", "flash_decode", "flash_decode_mla")
+
+
+def _summary(obs, name: str) -> dict:
+    h = obs.metrics.histogram(name)
+    return {k: v for k, v in h.summary().items() if k in ("count", "p50", "p99", "mean")}
+
+
+def scheduler_report(sched, wall_s: float) -> dict:
+    """The scheduler's serving numbers from its metrics registry."""
+    c = sched.obs.metrics.snapshot()["counters"]
+    return dict(wall_s=wall_s, steps=c["sched.steps"], emitted=c["sched.emitted"],
+                prefill_chunks=c["sched.prefill_chunks"],
+                decode_stall_steps=c["sched.decode_stall_steps"],
+                tokens_per_s=c["sched.emitted"] / wall_s, capture_s=sched.capture_s,
+                ttft_s=_summary(sched.obs, "sched.ttft_s"),
+                inter_token_s=_summary(sched.obs, "sched.inter_token_s"),
+                inter_token_admitting_s=_summary(sched.obs, "sched.inter_token_admitting_s"),
+                prefill_chunk_interval_s=_summary(sched.obs,
+                                                  "sched.prefill_chunk_interval_s"))
+
+
+def check_class_steps(tag, sched, want_step: dict) -> None:
+    """Each class step launches exactly one decode step's kernels per replay."""
+    for clen, step in sched.pool.steps.items():
+        got = {k: step.launches.get(k, 0) for k in hopper.COUNTERS}
+        if step.graph is None or got != want_step:
+            raise RuntimeError(f"{tag}: class {clen}'s captured step launches {got}, "
+                               f"expected {want_step}")
+
+
+@torch.inference_mode()
+def class_step_identity(tag, step) -> dict:
+    """One replay of a class step against its eager body from the same state:
+    tokens and every store tensor bit for bit.  The state is put back after,
+    so the scheduler goes on as if neither had run."""
+    before, tok0 = serving_engine._clone(step.store), step.tok.clone()
+    pos = step.store["pos"].tolist()
+    step.graph.replay()
+    got, got_tok = serving_engine._clone(step.store), step.tok.clone()
+    serving_engine._write_back(step.store, before)
+    step.tok.copy_(tok0)
+    step.body()
+    a, b = dict(serving_engine.tree_items(got)), dict(serving_engine.tree_items(step.store))
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ or not torch.equal(got_tok, step.tok):
+        raise RuntimeError(f"{tag}: class-step replay and eager body differ at "
+                           f"{differ[:4] or 'the tokens'}")
+    serving_engine._write_back(step.store, before)
+    step.tok.copy_(tok0)
+    torch.cuda.synchronize()
+    return dict(lane_positions=pos, replay_and_eager_bit_identical=True)
+
+
+def _requests(vocab: int, lens, seed: int) -> list:
+    g = _gen(seed)
+    return [torch.randint(1, vocab, (n,), generator=g, device="cuda").tolist() for n in lens]
+
+
+def scheduler_drain(path: dict, eng, card: str, classes, lens, chunk: int, seed: int,
+                    new: int = GOODPUT["new"]) -> tuple[dict, dict]:
+    """A drain of ``lens``-long requests through ``classes``: the class steps'
+    launches per replay exact; mid-drain, once two lanes of a class sit at
+    different positions, one replay against the eager body
+    (`class_step_identity`); the drain's decode-kernel launches exactly its
+    replays' (prefill runs W8A8 and retention only); every request's tokens
+    in the vocabulary.  Returns the drain's launches and its report."""
+    from repro_torch.serving import Request, RequestScheduler
+    tag = f"{path['arch']} scheduler drain"
+    cfg = eng.cfg
+    gen = GenerationConfig(max_new_tokens=new)
+    sched = RequestScheduler(eng, classes=list(classes), gen=gen, chunk_size=chunk, seed=0)
+    check_class_steps(tag, sched, expected_launches(path)[1])
+    for uid, p in enumerate(_requests(cfg.vocab_size, lens, seed)):
+        sched.submit(Request(uid=uid, prompt=p))
+    identity = None
+    hopper.reset_launches()
+    t0 = time.perf_counter()
+    while sched.pending:
+        sched.step()
+        if identity is None:
+            busy = [st for clen, st in sched.pool.steps.items()
+                    if sum(1 for sl in sched._active if sched.pool.locate(sl)[0] == clen) == 2]
+            if busy:
+                launched = dict(hopper.LAUNCHES)
+                identity = class_step_identity(tag, busy[0])
+                hopper.LAUNCHES.update(launched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hopper.LAUNCHES)
+    res = {f.uid: f for f in sched._finished}
+    bad = [u for u, f in res.items() if len(f.tokens) != new
+           or not all(0 <= t < cfg.vocab_size for t in f.tokens)]
+    if len(res) != len(lens) or bad or identity is None:
+        raise RuntimeError(f"{tag}: {len(res)} of {len(lens)} finished, bad {bad}, "
+                           f"identity checked {identity is not None}")
+    for k in DECODE_KERNELS:
+        want = sum(st.replays * st.launches.get(k, 0) for st in sched.pool.steps.values())
+        if launches[k] != want:
+            raise RuntimeError(f"{tag}: {k} launched {launches[k]} times, the replays "
+                               f"{want}")
+    out = dict(card=card, classes=[list(c) for c in classes], prompt_lens=list(lens),
+               chunk=chunk, launches=launches,
+               replays={clen: st.replays for clen, st in sched.pool.steps.items()},
+               replay_launches=sched.pool.steps[classes[0][1]].launches,
+               class_step=identity, **scheduler_report(sched, wall))
+    log(f"{tag}:", json.dumps(out))
+    return launches, out
+
+
+@torch.inference_mode()
+def host_spill_run(path: dict, eng, card: str) -> dict:
+    """An oversubscribed pool (one class of 2 lanes, host spill on): two
+    residents decode; a spill and fetch of one of them round-trips its lane
+    bit for bit; then a priority-1 arrival preempts a resident into the
+    host tier, which resumes once a lane frees.  Every request's tokens
+    must equal those of the same requests drained without preemption."""
+    from repro_torch.serving import Request, RequestScheduler
+    tag = f"{path['arch']} host spill"
+    clen = GOODPUT["prompt_max"] + NEW
+    reqs = _requests(eng.cfg.vocab_size, (10, 20, 14), 53)
+    gen = GenerationConfig(max_new_tokens=NEW)
+
+    def make():
+        return RequestScheduler(eng, classes=[(2, clen)], gen=gen, chunk_size=GOODPUT["chunk"],
+                                host_spill=True, seed=0)
+
+    sched = make()
+    for uid in (0, 1):
+        sched.submit(Request(uid=uid, prompt=reqs[uid]))
+    while sched.stats["emitted"] < 4:
+        sched.step()
+    slot = next(iter(sched._active))
+    before = {k: v.clone()
+              for k, v in serving_engine.tree_items(sched.pool.lane_cache(slot))}
+    sched.pool.spill(slot)
+    sched.pool.fetch(slot)
+    after = dict(serving_engine.tree_items(sched.pool.lane_cache(slot)))
+    if any(not torch.equal(before[k], after[k]) for k in before):
+        raise RuntimeError(f"{tag}: a spill and fetch changed the lane's cache")
+    sched.submit(Request(uid=2, prompt=reqs[2]), priority=1)
+    got = {f.uid: f.tokens for f in sched.run().values()}
+    plain = make()
+    for uid, p in enumerate(reqs):
+        plain.submit(Request(uid=uid, prompt=p))
+    want = {f.uid: f.tokens for f in plain.run().values()}
+    m = sched.obs.metrics
+    out = dict(card=card, preempted=sched.stats["preempted"], resumed=sched.stats["resumed"],
+               spills=sched.pool.spill_stats["spills"],
+               bytes_to_host=sched.pool.spill_stats["bytes_to_host"],
+               bytes_to_device=sched.pool.spill_stats["bytes_to_device"],
+               lane_bytes=eng.cache_nbytes(clen),
+               spill_ms=[x * 1e3 for x in m.histogram("pool.spill_s").samples],
+               fetch_ms=[x * 1e3 for x in m.histogram("pool.fetch_s").samples],
+               spill_fetch_bit_exact=True, token_identical_to_unpreempted=got == want)
+    log(f"{tag}:", json.dumps(out))
+    if got != want or sched.stats["preempted"] < 1 or sched.stats["resumed"] < 1:
+        raise RuntimeError(f"{tag}: {out}; tokens {got} vs {want}")
+    return out
+
+
+def goodput_leg(path: dict, eng, card: str) -> dict:
+    """The reference's `goodput_under_load` leg on the port, at full width
+    (see GOODPUT): calibration, the three Poisson rates through the front
+    end (each on a fresh scheduler, warmed by a closed drain and reset), and
+    the front end against a direct run() on the same requests, token for
+    token."""
+    import asyncio
+
+    from repro_torch.obs import Observability
+    from repro_torch.serving import (FrontendConfig, LengthMix, MonotonicClock,
+                                     PoissonArrivals, Request, RequestScheduler,
+                                     ServingFrontend, Workload, run_open_loop)
+    g = GOODPUT
+    gen = GenerationConfig(max_new_tokens=g["new"])
+    mix = LengthMix(prompt_min=g["prompt_min"], prompt_max=g["prompt_max"],
+                    new_min=g["new"], new_max=g["new"])
+    clen = g["prompt_max"] + g["new"]
+    vocab = eng.cfg.vocab_size
+    warm_wl = Workload(arrivals=PoissonArrivals(1.0), lengths=mix, n_requests=g["requests"],
+                       vocab_size=vocab, seed=29)
+
+    def make_sched(obs, clock):
+        return RequestScheduler(eng, classes=[(g["lanes"], clen)], gen=gen,
+                                chunk_size=g["chunk"], seed=0, obs=obs, clock=clock.now)
+
+    def closed_drain(sched, uid_base):
+        for i, r in enumerate(warm_wl.requests()):
+            sched.submit(Request(uid=uid_base + i, prompt=list(r.prompt),
+                                 max_new_tokens=r.max_new_tokens))
+        return sched.run()
+
+    obs, clock = Observability(), MonotonicClock()
+    sched = make_sched(obs, clock)
+    check_class_steps(f"{path['arch']} goodput", sched, expected_launches(path)[1])
+    closed_drain(sched, 5000)
+    obs.metrics.reset()
+    t0 = time.perf_counter()
+    closed_drain(sched, 6000)
+    torch.cuda.synchronize()
+    calib_wall = max(time.perf_counter() - t0, 1e-6)
+    base_rate = g["requests"] / calib_wall
+    calib = scheduler_report(sched, calib_wall)
+    slo_s = max(2.0 * calib["ttft_s"].get("p50", 0.05), 0.02)
+    cfg = FrontendConfig(ttft_slo_s=slo_s, slo_window_s=max(4 * calib_wall, 1.0),
+                         min_slo_samples=4, guaranteed_admit=g["lanes"])
+    del sched
+    rates = []
+    for mult in g["rate_mults"]:
+        leg_obs, leg_clock = Observability(), MonotonicClock()
+        leg = make_sched(leg_obs, leg_clock)
+        closed_drain(leg, 7000)
+        leg_obs.metrics.reset()
+        frontend = ServingFrontend(leg, config=cfg, clock=leg_clock)
+        workload = Workload(arrivals=PoissonArrivals(base_rate * mult), lengths=mix,
+                            n_requests=g["requests"], vocab_size=vocab, seed=13)
+
+        async def drive(frontend=frontend, workload=workload):
+            async with frontend:
+                return await run_open_loop(frontend, workload)
+
+        report = leg_clock.run(drive())
+        if report.goodput_rps <= 0 or report.sheds_unexplained:
+            raise RuntimeError(f"goodput leg at {mult}x: {report.to_dict()}")
+        rates.append(dict(rate_mult=mult, **report.to_dict(),
+                          scheduler=scheduler_report(leg, report.elapsed_s)))
+        log(f"goodput at {mult} x {base_rate:.3f} req/s:", json.dumps(rates[-1]))
+        del leg, frontend
+
+    fe_sched = make_sched(Observability(), MonotonicClock())
+    fe_clock = MonotonicClock(fe_sched._now)
+    frontend = ServingFrontend(fe_sched, config=FrontendConfig(ttft_slo_s=slo_s,
+                                                               shed_action="off"),
+                               clock=fe_clock)
+    id_requests = Workload(arrivals=PoissonArrivals(base_rate), lengths=mix,
+                           n_requests=g["requests"], vocab_size=vocab, seed=17).requests()
+
+    async def drive_identity() -> dict:
+        tokens: dict = {}
+
+        async def consume(stream):
+            tokens[stream.uid] = [tok async for tok in stream]
+
+        async with frontend:
+            tasks, t0 = [], fe_clock.now()
+            for r in id_requests:
+                await fe_clock.sleep(t0 + r.at_s - fe_clock.now())
+                stream = frontend.submit(r.prompt, uid=r.uid, max_new_tokens=r.max_new_tokens)
+                tasks.append(asyncio.ensure_future(consume(stream)))
+            await asyncio.gather(*tasks)
+        return tokens
+
+    fe_tokens = fe_clock.run(drive_identity())
+    direct = make_sched(Observability(), MonotonicClock())
+    for r in id_requests:
+        direct.submit(Request(uid=r.uid, prompt=list(r.prompt),
+                              max_new_tokens=r.max_new_tokens))
+    want = {u: f.tokens for u, f in direct.run().items()}
+    identical = fe_tokens == want
+    out = dict(arch=path["arch"], card=card, n_requests=g["requests"],
+               device_lanes=g["lanes"], arrival="poisson", calibrated_service_rps=base_rate,
+               ttft_slo_s=slo_s, calibration=calib, rates=rates,
+               token_identical_vs_run=identical)
+    log("goodput_under_load (rates above):",
+        json.dumps({k: v for k, v in out.items() if k != "rates"}))
+    if not identical:
+        raise RuntimeError(f"goodput leg: the front end's tokens {fe_tokens} differ from "
+                           f"a direct run()'s {want}")
+    return out
+
+
+def serve_scheduler(path: dict, eng, card: str) -> tuple[dict, dict]:
+    """The scheduler phase of one main path at full width (see GOODPUT):
+    retnet-1.3b serves the goodput leg and the host-spill run, each path
+    one drain of mixed lengths through two classes (its per-lane kv_len
+    through flash-decode on the dense paths).  Returns the drain's
+    launches and the results."""
+    t0 = time.perf_counter()
+    arch = path["arch"]
+    log(f"== scheduler: {arch}, classes {DRAIN_CLASSES}, prompts {DRAIN_LENS}, "
+        f"chunks of {DRAIN_CHUNK}" + (", then the goodput leg and the host spill"
+                                      if path is RETNET else ""))
+    launches, drain = scheduler_drain(path, eng, card, DRAIN_CLASSES, DRAIN_LENS,
+                                      DRAIN_CHUNK, seed=47)
+    results = {f"{arch} scheduler drain": drain}
+    if path is RETNET:
+        results["goodput_under_load"] = goodput_leg(path, eng, card)
+        results[f"{arch} host spill"] = host_spill_run(path, eng, card)
+    log(f"{arch} scheduler phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches, results
+
+
 def one_prefill_launches(tag, path, eng, prompts, gen) -> dict:
     """Launches of one monolithic and one bucketed prefill of the admission
     prompts, each exact: retention runs every length through the kernel
@@ -1257,23 +1601,45 @@ def resume_in_halves(tag, eng, pending, cache0, whole, whole_cache, gen) -> bool
 
 
 def serve_cli() -> dict:
-    """`python -m repro_torch.launch.serve` at full width on the card, greedy and
-    then with top-p: each must exit 0 and print its ``[serve]`` lines."""
+    """`python -m repro_torch.launch.serve` at full width on the card, one
+    subprocess per mode: greedy and top-p generate, the scheduler, the front
+    end on virtual time (its smoke contract: nonzero goodput, no unexplained
+    shed), and the oversubscribed host-spill scheduler writing its trace and
+    metrics.  Each must exit 0 and print its ``[serve]`` lines, the last
+    the mode's own."""
+    import tempfile
     out = {}
-    for name, extra in (("greedy", []), ("top_p", ["--temperature", "1", "--top-p",
-                                                    str(TOP_P)])):
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "retnet-1.3b",
-               "--scenario", "SILO", "--scale", "0.1", "--batch", "2", *extra]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
-                              env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
-        for ln in lines:
-            log(f"  cli {name}: {ln}")
-        if proc.returncode != 0 or len(lines) != 5:
-            raise RuntimeError(f"serve CLI ({name}) exited {proc.returncode} with "
-                               f"{len(lines)} [serve] lines: {proc.stderr[-2000:]}")
-        out[name] = dict(seconds=time.perf_counter() - t0, lines=lines)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, metrics = os.path.join(tmp, "trace.json"), os.path.join(tmp, "metrics.json")
+        modes = (("greedy", [], "[serve] sample output tokens"),
+                 ("top_p", ["--temperature", "1", "--top-p", str(TOP_P)],
+                  "[serve] sample output tokens"),
+                 ("scheduler", ["--requests", "6", "--slots", "4", "--chunk-size", "8"],
+                  "[serve] tokens/s"),
+                 ("frontend", ["--frontend", "--virtual-clock", "--requests", "8", "--slots",
+                               "2", "--chunk-size", "8"], "[serve] frontend smoke OK"),
+                 ("host_spill", ["--requests", "6", "--host-spill", "--oversubscribe", "2",
+                                 "--chunk-size", "8", "--trace", trace, "--metrics", metrics],
+                  "[serve] metrics snapshot"))
+        for name, extra, last in modes:
+            cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "retnet-1.3b",
+                   "--scenario", "SILO", "--scale", "0.1", "--batch", "2", *extra]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                                  env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
+            for ln in lines:
+                log(f"  cli {name}: {ln}")
+            if proc.returncode != 0 or not lines or not lines[-1].startswith(last):
+                raise RuntimeError(f"serve CLI ({name}) exited {proc.returncode} with "
+                                   f"{len(lines)} [serve] lines: {proc.stderr[-2000:]}")
+            out[name] = dict(seconds=time.perf_counter() - t0, lines=lines)
+        snap = json.load(open(metrics))["counters"]
+        events = json.load(open(trace))["traceEvents"]
+        if snap["sched.preempted"] < 1 or snap["sched.resumed"] != snap["sched.preempted"] \
+                or not any(e["name"] == "preempt" for e in events):
+            raise RuntimeError(f"serve CLI (host_spill): no preemption recorded: {snap}")
+        out["host_spill"].update(metrics_counters=snap, trace_events=len(events))
     return out
 
 
@@ -1629,7 +1995,8 @@ def main() -> int:
                 "library_rowmajor_ms", "library_gqa_ms", "library_backend",
                 "library_max_abs_err", "rate", "library_rate", "bound_share",
                 "bound_f32_ms", "bound_share_f32", "plain_contiguous_ms", "flops",
-                "warm_state_max_abs_err", "f64_max_abs_err", "amortised_ms",
+                "warm_state_max_abs_err", "f64_max_abs_err", "amortised_ms", "per_lane_ms",
+                "per_lane_kv_len", "per_lane_max_abs_err",
                 "amortised_bound_share", "nearest_library_ms",
                 "site", "launch_kernels", "plan")
                 if key in r)
@@ -1643,9 +2010,10 @@ def main() -> int:
         log(f"  sigma^-1 price: {json.dumps(r)}")
     log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 
-    serving, by_path, admitted = {}, {}, {}
+    serving, by_path, admitted, scheduled = {}, {}, {}, {}
     for path in PATHS:
-        by_path[path["arch"]], admitted[path["arch"]], results = serve_full_width(path, smi)
+        (by_path[path["arch"]], admitted[path["arch"]], scheduled[path["arch"]],
+         results) = serve_full_width(path, smi)
         serving.update(results)
     for path in PATHS:
         serving.update(reduced_vs_cpu(path))
@@ -1657,6 +2025,8 @@ def main() -> int:
         e["launches"] = sum(e["launches_by_path"].values())
         e["admission_launches_by_path"] = {arch: n[e["name"]]
                                            for arch, n in admitted.items()}
+        e["scheduler_launches_by_path"] = {arch: n[e["name"]]
+                                           for arch, n in scheduled.items()}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": entries}))

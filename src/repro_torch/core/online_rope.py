@@ -8,7 +8,11 @@ interleaved-pair convention (x[0::2], x[1::2]).
 
 The position is an int32 tensor on the device, as the reference's is a
 traced scalar: a decode step never reads it on the host, so the step can be
-captured once and replayed.
+captured once and replayed.  It is a scalar for a batch that shares one
+position, or a ``[B]`` vector with one position per lane (a scheduler's
+slot class, the reference's vmapped per-slot scalar): ``sin``/``cos`` are
+then ``[B, d/2]`` and each lane resyncs at its own multiples of
+`RESYNC_PERIOD`.
 """
 
 from __future__ import annotations
@@ -46,9 +50,9 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 class OnlineRopeState:
     """The angle memory for the current absolute position ``pos``."""
 
-    sin: torch.Tensor   # f32 [d/2]
-    cos: torch.Tensor   # f32 [d/2]
-    pos: torch.Tensor   # i32 scalar on the device
+    sin: torch.Tensor   # f32 [d/2], or [B, d/2] per lane
+    cos: torch.Tensor   # f32 [d/2], or [B, d/2] per lane
+    pos: torch.Tensor   # i32 scalar, or [B] per lane, on the device
 
 
 def init_state(head_dim: int, base: float = 10000.0, pos: int = 0,
@@ -71,9 +75,19 @@ def advance(state: OnlineRopeState, thetas: torch.Tensor,
             resync_period: int = RESYNC_PERIOD) -> OnlineRopeState:
     """`update`, with an exact resync whenever the new position is a
     multiple of ``resync_period``: both are computed and selected on the
-    device, as the reference's ``jnp.where`` does."""
+    device, as the reference's ``jnp.where`` does (per lane for a ``[B]``
+    position)."""
     nxt = update(state, thetas)
-    need = nxt.pos % resync_period == 0
+    need = (nxt.pos % resync_period == 0)[..., None]
     exact_sin, exact_cos = rope_table(nxt.pos, thetas)
     return OnlineRopeState(sin=torch.where(need, exact_sin, nxt.sin),
                            cos=torch.where(need, exact_cos, nxt.cos), pos=nxt.pos)
+
+
+def lane_angles(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``sin``/``cos`` shaped to broadcast against an ``ndim``-d tensor whose
+    leading axis is the batch: a shared ``[d/2]`` row as it is, per-lane
+    ``[B, d/2]`` rows as ``[B, 1, ..., 1, d/2]``."""
+    if t.ndim == 1:
+        return t
+    return t.reshape(t.shape[0], *([1] * (ndim - 2)), t.shape[-1])

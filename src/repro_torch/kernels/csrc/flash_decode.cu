@@ -29,7 +29,10 @@
 //     blocks per SM.  kv_len is read from device memory, once per block, so
 //     one launch (or one captured graph) serves every position: a block
 //     streams the tiles of its share below kv_len, and rows at or past
-//     kv_len are never read.  A block whose share starts at or past kv_len
+//     kv_len are never read.  kv_len is one length for the batch or one per
+//     lane (block (., ., b) reads lane b's: a scheduler's slot class, whose
+//     lanes sit at different positions, as the reference's kernel runs
+//     under vmap); nothing else depends on it.  A block whose share starts at or past kv_len
 //     streams nothing and still writes its (empty) partial and takes its
 //     ticket, so that the merge always fires;
 //   * its tiles stream through a 2-4 stage ring in shared memory filled by
@@ -124,7 +127,8 @@ struct Params {
   float* part_acc;                       // [units][splits][kGroup][dv]
   float* part_ml;                        // [units][splits][2][kGroup]
   int* tickets;                          // [units]
-  const int* kv_len;                     // device scalar: the rows to attend over
+  const int* kv_len;                     // device: the rows to attend over, per lane
+  int kv_stride;                         // lane b reads kv_len[b * kv_stride] (0: a scalar)
   int C, KV, G, d, dv;
   int tiles, splits, gchunks, stages;
   int kb, ks, vb, vs;                    // row bytes: K values, K side, V values, V side
@@ -305,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(const Params 
   const int lo = p.tiles / splits, extra = p.tiles - lo * splits;
   const int t_beg = split * lo + min(split, extra);
   const int r_beg = t_beg * kTile;
-  const int kv_len = min(max(*p.kv_len, 0), p.C);
+  const int kv_len = min(max(p.kv_len[(size_t)b * p.kv_stride], 0), p.C);
   const int r_end = min(kv_len, r_beg + (lo + (split < extra)) * kTile);
   const int n_tiles = r_end > r_beg ? (r_end - r_beg + kTile - 1) / kTile : 0;
   const size_t base = (size_t)b * p.C * p.KV + h;
@@ -636,8 +640,9 @@ int launch_v(int vfmt, int ns, const Params& p, int B, size_t smem, cudaStream_t
 
 // `tiles` = ceil(C / 16); split i owns tiles [i * lo + min(i, x), ...) with
 // lo = tiles / splits, the first x = tiles % splits splits one more than
-// lo, and streams those below *kv_len (an int32 in device memory, read by
-// every block and clamped to [0, C]); a block takes 4 query
+// lo, and streams those below its lane's kv_len (an int32 in device memory:
+// lane b's at kv_len[b * kv_stride], kv_stride 0 for one length shared by
+// the batch; read by every block and clamped to [0, C]); a block takes 4 query
 // heads (G-chunks = ceil(G / 4)); `ns` 128-wide slots per row (1 or 2)
 // picks the instantiation.  A ring stage holds 16 rows of K's values at
 // offset 0, V's at `off_v`, K's and V's side rows at `off_ks` and `off_vs`,
@@ -646,7 +651,7 @@ int launch_v(int vfmt, int ns, const Params& p, int B, size_t smem, cudaStream_t
 extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1,
                                    const void* v0, const void* v1, void* out,
                                    void* partials, void* tickets, const void* kv_len,
-                                   int B, int C, int KV, int G, int d, int dv, int kfmt,
+                                   int kv_stride, int B, int C, int KV, int G, int d, int dv, int kfmt,
                                    int vfmt, int tiles, int splits, int stages, int ns,
                                    int off_v, int off_ks, int off_vs, int stage_bytes,
                                    float scale, int scale_is_div, void* stream) {
@@ -660,7 +665,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1
   const int gchunks = (G + kGroup - 1) / kGroup;
   if (G < 1 || G > kMaxGroup || d < 4 || d > kMaxDim || dv < 4 || dv > kMaxDim ||
       d > ns * kSlot || dv > ns * kSlot || d % 4 || dv % 4 || p.kb % 16 || p.vb % 16 ||
-      p.ks % 2 || p.vs % 2 || C < 1 || kv_len == nullptr ||
+      p.ks % 2 || p.vs % 2 || C < 1 || kv_len == nullptr || kv_stride < 0 ||
       tiles != (C + kTile - 1) / kTile || splits < 1 || splits > tiles ||
       stages < 2 || stages > kMaxStages || ns < 1 || ns > 2)
     return (int)cudaErrorInvalidValue;
@@ -692,6 +697,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k0, const void* k1
   p.part_ml = p.part_acc + units * splits * kGroup * dv;
   p.tickets = static_cast<int*>(tickets);
   p.kv_len = static_cast<const int*>(kv_len);
+  p.kv_stride = kv_stride;
   p.C = C; p.KV = KV; p.G = G; p.d = d; p.dv = dv;
   p.tiles = tiles; p.splits = splits; p.gchunks = gchunks; p.stages = stages;
   p.scale = scale;
@@ -876,7 +882,8 @@ struct MlaParams {
   int rb[4];                             // row bytes of each (0: the format has no side data)
   int off[4];                            // offset of each array in a raw stage
   float* out;                            // [B, H, r]
-  const int* kv_len;                     // device scalar: the rows to attend over
+  const int* kv_len;                     // device: the rows to attend over, per lane
+  int kv_stride;                         // lane b reads kv_len[b * kv_stride] (0: a scalar)
   int C, H, r, dr, tiles, splits;
   int w, rl, rr, wr;                     // staging row floats, latent and rope columns, rope warps
   int stage_bytes;                       // a raw stage (every format but f32)
@@ -1026,7 +1033,7 @@ __global__ void __launch_bounds__(kMlaThreads, 1) flash_decode_mla_kernel(const 
   const int lo = p.tiles / splits, extra = p.tiles - lo * splits;
   const int t_beg = split * lo + min(split, extra);
   const int r_beg = t_beg * kMlaTile;
-  const int kv_len = min(max(*p.kv_len, 0), p.C);
+  const int kv_len = min(max(p.kv_len[(size_t)b * p.kv_stride], 0), p.C);
   const int r_end = min(kv_len, r_beg + (lo + (split < extra)) * kMlaTile);
   const int n_tiles = r_end > r_beg ? (r_end - r_beg + kMlaTile - 1) / kMlaTile : 0;
 #ifdef FD_PHASE_CLOCK
@@ -1513,7 +1520,7 @@ int mla_launch(const MlaParams& p, int B, size_t smem, cudaStream_t stream) {
 // lat0, side data lat1) [B, C, *] and the rope cache (rope0, rope1) in cache
 // format `fmt`; out f32 [B, H, r].  A block takes 16 query heads; `tiles` =
 // ceil(C / 32), split i owns tiles [i * lo + min(i, x), ...) and streams
-// those below *kv_len, as in the GQA mode.  A raw stage (every format but
+// those below its lane's kv_len, as in the GQA mode.  A raw stage (every format but
 // f32) holds 32 rows of the latent values at offset 0, then the latent
 // side, the rope values and the rope side at `off_ls`, `off_rv`, `off_rs`,
 // in `stage_bytes`, as hopper.flash_decode_mla_plan lays them out (checked
@@ -1521,7 +1528,8 @@ int mla_launch(const MlaParams& p, int B, size_t smem, cudaStream_t stream) {
 // Nothing is allocated: the merge goes through the cluster's shared memory.
 extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void* lat0,
                                        const void* lat1, const void* rope0, const void* rope1,
-                                       void* out, const void* kv_len, int B, int C, int H,
+                                       void* out, const void* kv_len, int kv_stride, int B,
+                                       int C, int H,
                                        int r, int dr, int fmt, int tiles, int splits,
                                        int off_ls, int off_rv, int off_rs, int stage_bytes,
                                        float scale, void* stream) {
@@ -1533,6 +1541,7 @@ extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void
   p.rb[3] = side_bytes(fmt, dr);
   if (r < 4 || r % 4 || r > kMlaMaxLatent || dr < 4 || dr % 4 || dr > kMlaMaxRope ||
       (fmt == kMxint4Blk && (r % 16 || dr % 16)) || C < 1 || kv_len == nullptr ||
+      kv_stride < 0 ||
       tiles != (C + kMlaTile - 1) / kMlaTile || splits < 1 ||
       splits > kMlaMaxSplits || splits > tiles)
     return (int)cudaErrorInvalidValue;
@@ -1559,6 +1568,7 @@ extern "C" int flash_decode_mla_launch(const void* q, const void* q2, const void
   p.off[3] = off_rs;
   p.out = static_cast<float*>(out);
   p.kv_len = static_cast<const int*>(kv_len);
+  p.kv_stride = kv_stride;
   p.C = C; p.H = H; p.r = r; p.dr = dr;
   p.tiles = tiles; p.splits = splits;
   p.w = sg.w; p.rl = sg.rl; p.rr = sg.rr;

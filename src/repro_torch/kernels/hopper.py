@@ -218,13 +218,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [_P] * 11
     elif name == "flash_decode":
         fn = lib.flash_decode_launch
-        fn.argtypes = [_P] * 9 + [_I] * 16 + [_F, _I, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 17 + [_F, _I, _P]
         limits = ((lib.flash_decode_tile_rows, FD_TILE),
                   (lib.flash_decode_max_dim, FD_MAX_DIM),
                   (lib.flash_decode_max_group, FD_MAX_GROUP),
                   (lib.flash_decode_max_stages, FD_MAX_STAGES))
         mla = lib.flash_decode_mla_launch
-        mla.argtypes = [_P] * 8 + [_I] * 12 + [_F, _P]
+        mla.argtypes = [_P] * 8 + [_I] * 13 + [_F, _P]
         mla.restype = _I
         clusters = lib.flash_decode_mla_max_clusters
         clusters.argtypes, clusters.restype = [_I, _I], _I
@@ -633,16 +633,19 @@ def fd_split_rows(ranges: tuple, kv_len: int) -> tuple:
     return tuple((s, max(s, min(e, kv_len))) for s, e in ranges)
 
 
-def check_kv_len(kv_len: torch.Tensor, device: torch.device) -> None:
-    """kv_len as flash-decode takes it (any device): an int32 scalar tensor
-    on ``device``, as the Pallas kernel's operand is.  The kernels read it
-    from device memory, so its value is never read on the host (it lies in
-    ``[1, C]`` on the model path by construction)."""
+def check_kv_len(kv_len: torch.Tensor, device: torch.device, batch: int) -> int:
+    """kv_len as flash-decode takes it (any device): an int32 tensor on
+    ``device``, a scalar shared by the batch, as the Pallas kernel's operand
+    is, or ``[batch]`` with one length per lane.  The kernels read it from
+    device memory, so its value is never read on the host (it lies in
+    ``[1, C]`` on the model path by construction).  Returns the stride the
+    kernel steps through it by, per batch lane: 0 for a scalar."""
     if not isinstance(kv_len, torch.Tensor) or kv_len.dtype != torch.int32:
         raise TypeError("flash_decode: kv_len must be an int32 tensor")
-    if kv_len.dim() != 0 or kv_len.device != device:
-        raise ValueError(f"flash_decode: kv_len must be a scalar on {device}, got shape "
-                         f"{tuple(kv_len.shape)} on {kv_len.device}")
+    if tuple(kv_len.shape) not in ((), (batch,)) or kv_len.device != device:
+        raise ValueError(f"flash_decode: kv_len must be a scalar or [{batch}] on {device}, "
+                         f"got shape {tuple(kv_len.shape)} on {kv_len.device}")
+    return kv_len.stride(0) if kv_len.ndim else 0
 
 
 def fd_alignment_width(row_bytes: int) -> int:
@@ -703,7 +706,8 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: torch.Tens
     q f32 ``[B, KV, G, d]``; K and V as ``(values, side)`` pairs in the
     ``[B, C, KV, *]`` layout of a `CACHE_FORMATS` name (side is the int8_tok
     scales or the mxint4_blk exponents, else None); ``kv_len`` an int32
-    scalar on the card, which the kernel reads (clamped to [0, C]);
+    scalar or ``[B]`` on the card, which the kernel reads (block (b, .)
+    reads lane b's, clamped to [0, C]);
     ``scale=None`` divides the scores by sqrt(d), as the plain version does.
     Returns f32 ``[B, KV, G, dv]``.
     """
@@ -714,7 +718,7 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: torch.Tens
         raise ValueError(f"flash_decode: G={g}, d={d}, dv={dv} exceed the kernel's "
                          f"limits ({FD_MAX_GROUP}, {FD_MAX_DIM})")
     _check("q", q, torch.float32, (b, kv, g, d), align=16)
-    check_kv_len(kv_len, q.device)
+    kv_stride = check_kv_len(kv_len, q.device, b)
     kc, k0, k1 = _cache_operand("k", k_parts, k_fmt, (b, c, kv), d)
     vc, v0, v1 = _cache_operand("v", v_parts, v_fmt, (b, c, kv), dv)
     plan = flash_decode_plan(b, kv, g, d, dv, c, k_fmt, v_fmt, _sms(q.device))
@@ -728,7 +732,8 @@ def flash_decode(q, k_parts, k_fmt: str, v_parts, v_fmt: str, kv_len: torch.Tens
     div = scale is None
     err = lib.flash_decode_launch(
         q.data_ptr(), k0, k1, v0, v1, out.data_ptr(), partials.data_ptr(),
-        tickets.data_ptr(), kv_len.data_ptr(), b, c, kv, g, d, dv, kc, vc, plan["tiles"], splits,
+        tickets.data_ptr(), kv_len.data_ptr(), kv_stride, b, c, kv, g, d, dv, kc, vc,
+        plan["tiles"], splits,
         plan["stages"], plan["ns"], *plan["layout"], 0.0 if div else float(scale),
         int(div), _stream())
     _raise_if(err, "flash_decode")
@@ -864,8 +869,8 @@ def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: torch.Tenso
     q f32 ``[B, H, r]`` (absorbed latent queries), q2 f32 ``[B, H, dr]``
     (rope queries); the latent cache, which is both K and V, and the rope
     cache as ``(values, side)`` pairs in the ``[B, C, *]`` layout of one
-    `CACHE_FORMATS` name; ``kv_len`` an int32 scalar on the card, which the
-    kernel reads (clamped to [0, C]).  ``s = (q . L + q2 . R) * scale``.
+    `CACHE_FORMATS` name; ``kv_len`` an int32 scalar or ``[B]`` on the card,
+    which the kernel reads (lane b's for lane b, clamped to [0, C]).  ``s = (q . L + q2 . R) * scale``.
     Returns f32 ``[B, H, r]``.
     """
     b, h, r = q.shape
@@ -873,7 +878,7 @@ def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: torch.Tenso
     c = lat_parts[0].shape[1]
     _check("q", q, torch.float32, (b, h, r), align=16)
     _check("q2", q2, torch.float32, (b, h, dr), align=16)
-    check_kv_len(kv_len, q.device)
+    kv_stride = check_kv_len(kv_len, q.device, b)
     plan = flash_decode_mla_plan(b, h, r, dr, c, fmt, _mla_resident(q.device))
     l0, l1 = _mla_operand("latent", lat_parts, fmt, (b, c), r)
     r0, r1 = _mla_operand("rope", rope_parts, fmt, (b, c), dr)
@@ -881,7 +886,7 @@ def flash_decode_mla(q, q2, lat_parts, rope_parts, fmt: str, kv_len: torch.Tenso
     out = torch.empty(b, h, r, dtype=torch.float32, device=q.device)
     err = lib.flash_decode_mla_launch(
         q.data_ptr(), q2.data_ptr(), l0, l1, r0, r1, out.data_ptr(), kv_len.data_ptr(),
-        b, c, h, r, dr, CACHE_FORMATS[fmt][0], plan["tiles"], plan["splits"], *plan["layout"],
+        kv_stride, b, c, h, r, dr, CACHE_FORMATS[fmt][0], plan["tiles"], plan["splits"], *plan["layout"],
         float(scale), _stream())
     _raise_if(err, "flash_decode (MLA)")
     LAUNCHES["flash_decode_mla"] += 1

@@ -133,12 +133,14 @@ def flash_decode(q, k, v, kv_len: torch.Tensor, *, q2=None, k2=None, scale=None,
 
     Leaves are f32, bf16 or legacy int8 tensors, or kvq-encoded dicts, which
     the kernels dequantize as they load them.  ``kv_len`` is an int32 scalar
-    tensor on the device, in ``[1, C]``, as the Pallas kernel's operand is:
-    the kernels read it from device memory and their grid is fixed by the
-    capacity C, so one captured launch serves every position.
+    tensor on the device, in ``[1, C]``, as the Pallas kernel's operand is,
+    or an int32 ``[B]`` tensor with each lane's own length (a slot class
+    whose lanes sit at different positions): the kernels read it from
+    device memory and their grid is fixed by the capacity C, so one
+    captured launch serves every position.
     """
     from repro_torch.kernels import hopper
-    hopper.check_kv_len(kv_len, q.device)
+    hopper.check_kv_len(kv_len, q.device, q.shape[0])
     if q.ndim == 3 and (q2 is None or k2 is None or scale is None):
         raise ValueError("MLA layout (q.ndim == 3) needs q2, k2 and scale")
     if not use_kernel(impl, q):

@@ -57,7 +57,9 @@ def rmsnorm_stats_ref(y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def flash_decode_ref(q, k, v, kv_len: torch.Tensor, *, q2=None, k2=None, scale=None
                      ) -> torch.Tensor:
     """Single-token decode attention over the first ``kv_len`` cache rows
-    (``kv_len`` an int32 scalar tensor, as the Pallas kernel's operand is).
+    (``kv_len`` an int32 scalar tensor, as the Pallas kernel's operand is,
+    or an int32 ``[B]`` tensor with each batch lane's own length, as the
+    reference's kernel computes under ``vmap`` over a slot class).
 
     Two layouts, as the reference's `flash_decode_ref`, operation for
     operation:
@@ -74,7 +76,11 @@ def flash_decode_ref(q, k, v, kv_len: torch.Tensor, *, q2=None, k2=None, scale=N
     Rows at index >= kv_len are masked to -inf before the softmax.
     """
     c = (next(iter(k.values())) if isinstance(k, dict) else k).shape[1]
-    valid = torch.arange(c, device=q.device) < kv_len
+    if kv_len.ndim:
+        valid = torch.arange(c, device=q.device) < kv_len[:, None]     # [B, C]
+        valid = valid[:, None, None, :] if q.ndim == 4 else valid[:, None, :]
+    else:
+        valid = torch.arange(c, device=q.device) < kv_len
     if q.ndim == 4:
         return masked_decode_attention(q, k, v, valid, scale=scale)
     if q2 is None or k2 is None or scale is None:

@@ -159,31 +159,36 @@ def cache_update(leaf, x: torch.Tensor, pos: torch.Tensor):
     """Write the rows ``x [B, n, ...]`` into ``leaf`` at slot ``pos`` (axis 1),
     **in place**, and return the leaf.
 
-    ``pos`` is an int32 scalar tensor on the leaf's device: the write is an
-    indexed copy, so a captured decode step replays it at whatever slot the
+    ``pos`` is an int32 tensor on the leaf's device: a scalar (every row at
+    that slot) or a ``[B]`` vector (row b at ``pos[b]``, one indexed scatter:
+    a slot class whose lanes sit at different positions).  The write is an
+    indexed copy, so a captured decode step replays it at whatever slots the
     device holds.  The reference's ``dynamic_update_slice`` returns a new
     buffer, which XLA performs in place inside its loop; here the write goes
     into the preallocated leaf, so a full-width step never copies the cache.
     A caller that needs the cache as it was (a test that replays a step)
-    clones it first.  The slot is clamped on the device so the rows fit, as
+    clones it first.  Each slot is clamped on the device so the rows fit, as
     the reference's is.
     """
     enc = to_cache_like(x, leaf)
     n, c = x.shape[1], cache_capacity(leaf)
-    idx = pos.clamp(0, c - n).to(torch.int64) + torch.arange(n, device=pos.device)
-    if isinstance(leaf, dict):
-        for name, buf in leaf.items():
-            buf.index_copy_(1, idx, enc[name])
-    else:
-        leaf.index_copy_(1, idx, enc)
+    idx = pos.clamp(0, c - n).to(torch.int64)[..., None] + torch.arange(n, device=pos.device)
+    parts = leaf.items() if isinstance(leaf, dict) else ((None, leaf),)
+    for name, buf in parts:
+        rows = enc if name is None else enc[name]
+        if pos.ndim == 0:
+            buf.index_copy_(1, idx, rows)
+        else:
+            lanes = torch.arange(buf.shape[0], device=pos.device)[:, None]
+            buf.index_put_((lanes, idx), rows)
     return leaf
 
 
 def decode_slots(pos: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The slot a linear cache of capacity ``c`` writes at position ``pos``
     and the rows attention reads, ``(min(pos, c - 1), min(pos + 1, c))``:
-    int32 scalars computed on the device, as the reference computes them
-    in its loop."""
+    int32 tensors computed on the device, as the reference computes them
+    in its loop; per lane for a ``[B]`` position."""
     return pos.clamp(max=c - 1), (pos + 1).clamp(max=c)
 
 
@@ -270,14 +275,17 @@ def gqa_decode(p: Attention, x_star, sig_inv, engine: HSAEngine,
     row in place (`cache_update`), attend through the flash-decode kernel.
 
     ``pos`` is the absolute position of this token, an int32 scalar on the
-    device.  A linear cache clamps at its capacity, as the reference's
+    device, or a ``[B]`` vector of per-lane positions (then ``rope_sin`` /
+    ``rope_cos`` are ``[B, hd/2]`` and flash-decode reads a per-lane
+    ``kv_len``).  A linear cache clamps at its capacity, as the reference's
     does."""
     b = x_star.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q, k, v = _project_qkv(p, x_star, sig_inv, engine, "decode", cfg)
     if rope_sin is not None:
-        q = orp.apply_rope(q, rope_sin, rope_cos)
-        k = orp.apply_rope(k, rope_sin, rope_cos)
+        sin, cos = orp.lane_angles(rope_sin, q.ndim), orp.lane_angles(rope_cos, q.ndim)
+        q = orp.apply_rope(q, sin, cos)
+        k = orp.apply_rope(k, sin, cos)
     q = q[:, 0].reshape(b, kv, h // kv, hd)
     slot, kv_len = decode_slots(pos, cache_capacity(cache["k"]))
     k_cache = cache_update(cache["k"], k, slot)
@@ -404,7 +412,8 @@ def mla_decode(p: MLA, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
     and the latent output ``wv_b``, so attention runs in the compressed
     space through flash-decode's MLA mode (the rope term is its second score
     stream) and the cache stays compressed.  The new latent and rope rows
-    are written into the cache in place (`cache_update`)."""
+    are written into the cache in place (`cache_update`).  ``pos`` is a
+    scalar or per-lane ``[B]``, as in `gqa_decode`."""
     b = x_star.shape[0]
     h = cfg.n_heads
     kvr, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
@@ -413,8 +422,9 @@ def mla_decode(p: MLA, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
     q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]        # [B, H, dn], [B, H, dr]
     c_kv_new, k_rope_new = _mla_latents(p, x_star, sig_inv, engine, "decode", cfg)
     if rope_sin is not None:
-        q_rope = orp.apply_rope(q_rope, rope_sin, rope_cos)
-        k_rope_new = orp.apply_rope(k_rope_new, rope_sin, rope_cos)
+        sin, cos = orp.lane_angles(rope_sin, 3), orp.lane_angles(rope_cos, 3)
+        q_rope = orp.apply_rope(q_rope, sin, cos)
+        k_rope_new = orp.apply_rope(k_rope_new, sin, cos)
 
     slot, kv_len = decode_slots(pos, cache_capacity(cache["c_kv"]))
     c_kv = cache_update(cache["c_kv"], c_kv_new, slot)

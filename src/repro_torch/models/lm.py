@@ -22,7 +22,11 @@ dicts).
 The position lives on the device, as the reference's traced scalar does: no
 host integer that changes from step to step reaches a kernel, a shape or a
 branch of `forward_decode`, so one captured step replays at every position
-(`serving/engine.py`).  Dense decode writes each new K/V row into the cache
+(`serving/engine.py`).  ``pos`` is an int32 scalar shared by the batch, or
+an int32 ``[B]`` vector with one position per lane (``make_decode_cache(...,
+per_lane=True)``: a scheduler's slot class, the port's counterpart of the
+reference's per-slot scalar under ``vmap``); the rope angles, the slots
+written and flash-decode's ``kv_len`` then follow each lane's own.  Dense decode writes each new K/V row into the cache
 in place (`layers.cache_update`).  The multi-token-prediction head of
 deepseek-v3 (``cfg.mtp``) is not built: generation never reads it.
 """
@@ -321,7 +325,10 @@ def forward_prefill_chunk(model: LM, tokens: torch.Tensor, cache: dict,
 def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,
                    cfg: ModelConfig, engine: HSAEngine
                    ) -> tuple[torch.Tensor, dict]:
-    """One generation step (MVM phase): tokens [B, 1] -> (logits [B, V], cache)."""
+    """One generation step (MVM phase): tokens [B, 1] -> (logits [B, V], cache).
+
+    ``cache["pos"]`` is a shared scalar or per-lane ``[B]`` (see the module
+    docstring); every lane advances by one."""
     x = _embed(model, tokens)
     pos = cache["pos"]
     new_cache = {"pos": pos + 1}
@@ -344,7 +351,7 @@ def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,
 
 def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
                       dtype=torch.bfloat16, start_pos: int = 0,
-                      device="cuda") -> dict:
+                      device="cuda", per_lane: bool = False) -> dict:
     """Cold cache at ``start_pos`` (zeros are the exact initial state of
     every cache kind), with ``cache_len`` KV slots per layer for dense GQA
     and MLA.
@@ -352,9 +359,13 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
     ported: pass ``start_pos`` for it.
 
     ``dtype`` is a torch dtype or a kvq format name: KV leaves then start as
-    encoded zero dicts; RetNet state stays f32."""
+    encoded zero dicts; RetNet state stays f32.  ``per_lane`` gives every
+    lane its own position (``pos`` int32 ``[batch]``, rope angles
+    ``[batch, d/2]``), as a scheduler's slot class holds them."""
     _check_family(cfg)
     pos = torch.tensor(start_pos, dtype=torch.int32, device=device)
+    if per_lane:
+        pos = pos.repeat(batch)
     if cfg.family == "retnet":
         blocks = [R.retention_make_cache(cfg, batch, device)
                   for _ in range(cfg.n_layers)]
@@ -363,8 +374,9 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
         blocks = [make(cfg, batch, cache_len, dtype, device) for _ in range(cfg.n_layers)]
     caches = {"pos": pos, "blocks": blocks}
     if cfg.rope:
-        caches["rope"] = orp.init_state(_rope_dim(cfg), cfg.rope_base,
-                                        pos=start_pos, device=device)
+        caches["rope"] = (_rope_state(cfg, pos) if per_lane else
+                          orp.init_state(_rope_dim(cfg), cfg.rope_base, pos=start_pos,
+                                         device=device))
     return caches
 
 

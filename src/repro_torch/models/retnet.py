@@ -121,12 +121,15 @@ def _decays(n_heads: int, device: torch.device) -> torch.Tensor:
 def retention_decode(p: Retention, x_star, sig_inv, engine: HSAEngine,
                      cfg: ModelConfig, cache: dict, *, rope_sin=None,
                      rope_cos=None) -> tuple[torch.Tensor, dict]:
-    """O(1)-state recurrent step — the decode workload."""
+    """O(1)-state recurrent step — the decode workload.  ``rope_sin`` /
+    ``rope_cos`` are the shared ``[d/2]`` angles or per-lane ``[B, d/2]``
+    ones."""
     b, _, d = x_star.shape
     q, k, v, g = _project(p, x_star, sig_inv, engine, "decode", cfg)
     if rope_sin is not None:
-        q = orp.apply_rope(q, rope_sin, rope_cos)
-        k = orp.apply_rope(k, rope_sin, rope_cos)
+        sin, cos = orp.lane_angles(rope_sin, q.ndim), orp.lane_angles(rope_cos, q.ndim)
+        q = orp.apply_rope(q, sin, cos)
+        k = orp.apply_rope(k, sin, cos)
     y, state = ret.retention_recurrent_step(q[:, 0], k[:, 0], v[:, 0], cache["s"],
                                             _decays(cfg.n_heads, q.device))
     return _gate_out(p, y, g, engine, "decode", b, 1, d), {"s": state}

@@ -31,6 +31,11 @@ Admission paths besides monolithic prefill, as the reference has them:
 as exact ladder-sized chunks (`chunk_schedule`) into a warm cache, optionally
 adopting a prefix that is already warm (``start_offset``).
 
+A `RequestScheduler` decodes each slot class of its pool with a
+`ClassStep`: the same step body over the class's stacked store (a decode
+cache whose lanes each hold their own position), captured once per class on
+the card and replayed, run eagerly on the CPU.
+
 The loop reads the device only to end early when every sequence has
 stopped, and only when stop tokens were given.  Prefill and decode are
 timed on the host clock around work that ends in
@@ -55,6 +60,7 @@ from repro_torch import configs
 from repro_torch.core.hsa import HSAConfig, HSAEngine
 from repro_torch.models import deploy, lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import Observability
 from repro_torch.serving.sampling import GenerationConfig, sample
 
 # Prompt-length bucket ladder: prompts pad (bucketed) or decompose (chunked)
@@ -175,47 +181,59 @@ class DecodeState:
         self.lengths.zero_()
 
 
+def tree_map(fn, tree):
+    """A cache tree of the same structure with ``fn`` applied to every
+    tensor (dicts, lists and dataclasses such as `OnlineRopeState`)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return dataclasses.replace(tree, **{f.name: tree_map(fn, getattr(tree, f.name))
+                                        for f in dataclasses.fields(tree)})
+
+
 def _clone(tree):
     """A copy of a cache tree with every tensor cloned."""
+    return tree_map(torch.Tensor.clone, tree)
+
+
+def tree_items(tree, prefix: str = ""):
+    """(path, tensor) of every tensor of a cache tree, in a fixed order
+    (dict entries by name)."""
     if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_clone(v) for v in tree]
-    return dataclasses.replace(tree, **{f.name: _clone(getattr(tree, f.name))
-                                        for f in dataclasses.fields(tree)})
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}/{i}")
+    else:
+        for f in dataclasses.fields(tree):
+            yield from tree_items(getattr(tree, f.name), f"{prefix}/{f.name}")
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor of a cache tree: the currency of the host-spill
+    tier's transfer accounting (the reference's ``pytree_nbytes``)."""
+    return sum(t.numel() * t.element_size() for _, t in tree_items(tree))
 
 
 def _write_back(dst, src) -> None:
     """Copy the tensors of the cache tree ``src`` into the same places of
     ``dst`` (a leaf that a step updated in place is the same tensor in both,
     and is skipped)."""
-    if isinstance(dst, torch.Tensor):
-        if dst is not src:
-            dst.copy_(src)
-    elif isinstance(dst, dict):
-        for k in dst:
-            _write_back(dst[k], src[k])
-    elif isinstance(dst, list):
-        for a, b in zip(dst, src):
-            _write_back(a, b)
-    else:
-        for f in dataclasses.fields(dst):
-            _write_back(getattr(dst, f.name), getattr(src, f.name))
+    for (_, d), (_, s) in zip(tree_items(dst), tree_items(src)):
+        if d is not s:
+            d.copy_(s)
 
 
 def _layout(tree) -> tuple:
-    """Every tensor's shape and dtype in a cache tree (dict entries by name,
-    whatever order built them): the key under which decode steps over such
-    caches share one graph."""
-    if isinstance(tree, torch.Tensor):
-        return (tuple(tree.shape), tree.dtype)
-    if isinstance(tree, dict):
-        return tuple((k, _layout(tree[k])) for k in sorted(tree))
-    if isinstance(tree, list):
-        return tuple(_layout(v) for v in tree)
-    return tuple(_layout(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    """Every tensor's path, shape and dtype in a cache tree: the key under
+    which decode steps over such caches share one graph."""
+    return tuple((path, tuple(t.shape), t.dtype) for path, t in tree_items(tree))
 
 
 @dataclasses.dataclass
@@ -293,29 +311,121 @@ class ChunkedPrefill:
             return self.logits
         c = self.schedule[self._next]
         eng = self.engine
-        self.logits, self.cache = lm.forward_prefill_chunk(
-            eng.model, self.tokens[:, self._off:self._off + c], self.cache, eng.cfg, eng.hsa)
+        with eng.obs.annotation("engine.prefill_chunk"):
+            self.logits, self.cache = lm.forward_prefill_chunk(
+                eng.model, self.tokens[:, self._off:self._off + c], self.cache, eng.cfg,
+                eng.hsa)
+        eng.obs.metrics.counter("engine.prefill_chunks").inc()
+        eng.obs.metrics.histogram("engine.prefill_chunk_tokens").record(c)
         self._off += c
         self._next += 1
         return self.logits if self.done else None
 
 
+class ClassStep:
+    """The decode step of one slot class: `lm.forward_decode` over the
+    class's stacked ``store`` (a decode cache of ``N`` lanes, each at its own
+    position: ``lm.make_decode_cache(..., per_lane=True)``) with each lane's
+    token in ``tok``, then each lane's next token sampled into ``tok``; the
+    tokens fed are left in ``fed``.  Free lanes compute garbage that is
+    never read (their positions clamp, so nothing overruns), as in the
+    reference's vmapped pool step.
+
+    ``store``, ``tok`` and ``fed`` are the step's static buffers, updated in
+    place: a scheduler writes a lane's cache and token into them, and reads
+    and spills from them, without copying the store.  On the card the step
+    is captured once, here, on the cold store (after one eager warm-up step
+    on a side stream), and the store is put back to its cold state after;
+    `run` replays it.  On the CPU `run` runs the same body eagerly.
+
+    Stochastic sampling draws lane l from ``generators[l]`` alone (registered
+    with the graph), so a request's tokens depend on its own generator's
+    state and not on its lane or its co-tenants; greedy draws nothing."""
+
+    def __init__(self, engine: "InferenceEngine", store: dict, gen: GenerationConfig):
+        self.engine, self.store, self.gen = engine, store, gen
+        n, dev = store["pos"].shape[0], engine.device
+        self.tok = torch.zeros(n, dtype=torch.long, device=dev)
+        self.fed = torch.zeros(n, dtype=torch.long, device=dev)
+        self.generators = (None if gen.sampling.greedy else
+                           [torch.Generator(device=dev) for _ in range(n)])
+        self.graph = self.tickets = None
+        self.launches: dict = {}              # kernel launches one replay runs
+        self.capture_s = 0.0
+        self.replays = 0                      # steps run (replays on the card)
+        if dev.type == "cuda":
+            self._capture()
+
+    @torch.inference_mode()
+    def body(self) -> None:
+        """One step on the static buffers, in place."""
+        eng, sampling = self.engine, self.gen.sampling
+        self.fed.copy_(self.tok)
+        logits, cache = lm.forward_decode(eng.model, self.tok[:, None], self.store, eng.cfg,
+                                          eng.hsa)
+        _write_back(self.store, cache)
+        if self.generators is None:
+            self.tok.copy_(sample(logits, sampling))
+        else:
+            for lane, g in enumerate(self.generators):
+                self.tok[lane:lane + 1].copy_(sample(logits[lane:lane + 1], sampling, g))
+
+    def run(self) -> None:
+        """One step: a replay on the card, the eager body on the CPU."""
+        self.replays += 1
+        if self.graph is None:
+            self.body()
+            return
+        from repro_torch.kernels import hopper
+        self.graph.replay()
+        hopper.count_replay(self.launches)
+
+    @torch.inference_mode()
+    def _capture(self) -> None:
+        from repro_torch.kernels import hopper
+        t0 = time.perf_counter()
+        cold = _clone(self.store)
+        dev = self.engine.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators or ():
+            graph.register_generator_state(g)
+        with hopper.captured_launches() as launches, torch.cuda.graph(graph):
+            self.body()
+        _write_back(self.store, cold)
+        self.tok.zero_()
+        self.fed.zero_()
+        self.graph, self.launches = graph, launches
+        self.tickets = hopper.ticket_counters(dev)
+        self.engine._sync()
+        self.capture_s = time.perf_counter() - t0
+
+
 class InferenceEngine:
-    """Deployed model + HSA engine + prefill / decode loop."""
+    """Deployed model + HSA engine + prefill / decode loop.
+
+    ``obs`` (an `Observability` bundle) receives the engine's metrics
+    (``engine.prefill_chunks``, ``engine.prefill_chunk_tokens``) and wraps
+    its dispatch sites in profiler ranges when profiling is on."""
 
     def __init__(self, cfg: ModelConfig, model: lm.LM, spec: EngineSpec,
-                 hsa: HSAEngine | None = None):
+                 hsa: HSAEngine | None = None, *, obs: Observability | None = None):
         self.cfg = cfg
         self.model = model
         self.spec = spec
         self.hsa = hsa or HSAEngine(spec.hsa_config())
         self.device = model.embed.device
+        self.obs = obs if obs is not None else Observability()
         self._graphs: dict[tuple, _StepGraph] = {}    # captured steps by key
 
     @classmethod
     def from_config(cls, cfg: ModelConfig | str, spec: EngineSpec = EngineSpec(),
-                    *, model: lm.LM | None = None, device="cuda"
-                    ) -> "InferenceEngine":
+                    *, model: lm.LM | None = None, device="cuda",
+                    obs: Observability | None = None) -> "InferenceEngine":
         """Build the serving stack: init (or adopt) a model, PTQ-deploy it in
         place when ``spec.quantize`` and it still has master weights, and
         wire the HSA engine.
@@ -335,7 +445,7 @@ class InferenceEngine:
             model = lm.init(cfg, seed=spec.seed, device=device)
         if spec.quantize and deploy.is_master(model):
             deploy.deploy_quantize(model)
-        return cls(cfg, model, spec)
+        return cls(cfg, model, spec, obs=obs)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -555,6 +665,13 @@ class InferenceEngine:
             self._step(st, gen, stop, g)
         return _StepGraph(state=st, stop=stop, generator=g, graph=graph, launches=launches,
                           tickets=hopper.ticket_counters(self.device))
+
+    def cache_nbytes(self, cache_len: int, *, batch: int = 1, dtype=torch.float32) -> int:
+        """Bytes of one decode cache at ``cache_len`` — what a `CachePool`
+        lane holds on the device and what one host spill moves.  Computed on
+        the meta device: no cache is materialized."""
+        return tree_nbytes(lm.make_decode_cache(self.cfg, batch, cache_len, dtype=dtype,
+                                                device="meta"))
 
     @torch.inference_mode()
     def _encode_cache(self, cache: dict, gen: GenerationConfig) -> dict:

@@ -825,6 +825,115 @@ def test_flash_decode_mla_kernel_graph_replays_at_every_kv_len(fmt):
         [513, 1, 32, 33, 97, 543, 544])
 
 
+# -- per-lane kv_len: a slot class whose lanes sit at different positions ------------
+
+LANE_LENS = [(1, 528), (528, 300), (544, 17), (33, 32)]
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+@pytest.mark.parametrize("lens", LANE_LENS, ids=str)
+def test_flash_decode_kernel_per_lane_kv_len(fmt, lens):
+    """qwen3-8b's decode shape with one kv_len per lane against the plain
+    version; an all-equal vector bit-identical to the scalar."""
+    rng = _gen(sum(lens))
+    q = _t(rng.normal(size=(2, 8, 4, 128)).astype(np.float32))
+    k, v = (_cache_leaf(_t(rng.normal(size=(2, 544, 8, 128)).astype(np.float32)), fmt)
+            for _ in range(2))
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = ops.flash_decode(q, k, v, n, impl="kernel")
+    torch.testing.assert_close(got, ref.flash_decode_ref(q, k, v, n), rtol=2e-5, atol=2e-6)
+    for i, length in enumerate(lens):
+        lane = ops.flash_decode(q, k, v, _kv(length), impl="kernel")[i]
+        torch.testing.assert_close(got[i], lane, rtol=2e-5, atol=2e-6)
+    same = torch.tensor([lens[0]] * 2, dtype=torch.int32, device="cuda")
+    assert torch.equal(ops.flash_decode(q, k, v, same, impl="kernel"),
+                       ops.flash_decode(q, k, v, _kv(lens[0]), impl="kernel"))
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+@pytest.mark.parametrize("lens", LANE_LENS, ids=str)
+def test_flash_decode_mla_kernel_per_lane_kv_len(fmt, lens):
+    q, q2, lat, rope = _mla_inputs(sum(lens) + 1, fmt, 2, 128, 512, 64, 544)
+    run = lambda n: ops.flash_decode(q, lat, lat, n, q2=q2, k2=rope, scale=0.0722,  # noqa: E731
+                                     impl="kernel")
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = run(n)
+    want = ref.flash_decode_ref(q, lat, lat, n, q2=q2, k2=rope, scale=0.0722)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    same = torch.tensor([lens[1]] * 2, dtype=torch.int32, device="cuda")
+    assert torch.equal(run(same), run(_kv(lens[1])))
+
+
+@pytest.mark.parametrize("mla", [False, True], ids=["gqa", "mla"])
+def test_flash_decode_graph_replays_at_every_per_lane_kv_len(mla):
+    """One graph captured on a [2] kv_len, replayed while both lanes' lengths
+    move apart in device memory, against a launch at each pair."""
+    if mla:
+        q, q2, lat, rope = _mla_inputs(51, "float32", 2, 128, 512, 64, 544)
+        run = lambda n: ops.flash_decode(q, lat, lat, n, q2=q2, k2=rope,  # noqa: E731
+                                         scale=0.0722, impl="kernel")
+    else:
+        rng = _gen(53)
+        q = _t(rng.normal(size=(2, 8, 4, 128)).astype(np.float32))
+        k, v = (_t(rng.normal(size=(2, 544, 8, 128)).astype(np.float32)) for _ in range(2))
+        run = lambda n: ops.flash_decode(q, k, v, n, impl="kernel")  # noqa: E731
+    kv_len = torch.tensor([5, 300], dtype=torch.int32, device="cuda")
+    run(kv_len)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with hopper.captured_launches() as recorded, torch.cuda.graph(graph):
+        out = run(kv_len)
+    assert sum(recorded.values()) == 1
+    for pair in ((1, 544), (528, 300), (17, 16), (544, 544)):
+        kv_len.copy_(torch.tensor(pair, dtype=torch.int32))
+        graph.replay()
+        eager = run(torch.tensor(pair, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), f"kv_len {pair}: replay differs from a launch"
+
+
+@pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
+                                      ("qwen3-8b", "int8_tok"), ("qwen3-8b", "mxint4_blk"),
+                                      ("ds3_dense", None), ("ds3_dense", "mxint4_blk")])
+def test_class_step_replays_match_its_eager_body(arch, fmt):
+    """Reduced models on the card: a scheduler's class step (captured at pool
+    build) replayed with its two lanes at different positions gives its
+    eager body's tokens and store bit for bit, with the launches its capture
+    recorded; then the scheduler drains."""
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import Request, RequestScheduler
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig
+    eng = InferenceEngine.from_config(_reduced(arch), EngineSpec(), device="cuda")
+    sched = RequestScheduler(eng, classes=[(2, 40)],
+                             gen=GenerationConfig(max_new_tokens=6, cache_format=fmt),
+                             chunk_size=8)
+    step = sched.pool.steps[40]
+    assert step.graph is not None and step.capture_s > 0
+    assert int(step.store["pos"].abs().sum()) == 0            # put back cold
+    for uid, s in enumerate((7, 19)):
+        sched.submit(Request(uid=uid, prompt=list(range(1 + uid, 1 + uid + s))))
+    while sched.stats["admitted"] < 2:
+        sched.step()
+    pos = step.store["pos"].tolist()
+    assert pos[0] != pos[1]
+    with torch.inference_mode():                  # the store is an inference tensor tree
+        cold, tok0 = E._clone(step.store), step.tok.clone()
+        hopper.reset_launches()
+        step.run()
+        replayed = dict(hopper.LAUNCHES)
+        got, got_tok, got_fed = E._clone(step.store), step.tok.clone(), step.fed.clone()
+        E._write_back(step.store, cold)
+        step.tok.copy_(tok0)
+        step.body()
+    assert _tree_equal(step.store, got) and torch.equal(step.tok, got_tok)
+    assert torch.equal(step.fed, got_fed) and torch.equal(got_fed, tok0)
+    assert replayed == {k: step.launches.get(k, 0) for k in replayed}
+    assert replayed["mxint4_matmul"] > 0
+    res = sched.run()
+    assert sorted(res) == [0, 1] and all(len(r.tokens) == 6 for r in res.values())
+
+
 # -- the engine's captured decode step --------------------------------------------
 
 

@@ -94,14 +94,15 @@ def test_flash_decode_plain_matches_attend_one_step_with_mixed_formats():
 
 
 def test_flash_decode_rejects_bad_lengths_and_the_mla_layout():
-    """Bad lengths raise in both layouts: kv_len is an int32 scalar tensor on
-    the query's device, as the Pallas kernel's operand is (a host int, an
-    int64 tensor or a [1] tensor is not); the MLA layout (q.ndim == 3) needs
-    q2, k2 and scale, as the reference's rule is."""
+    """Bad lengths raise in both layouts: kv_len is an int32 tensor on the
+    query's device, a scalar as the Pallas kernel's operand is or one length
+    per batch lane (a host int, an int64 tensor, or a vector whose length is
+    not the batch's, is not); the MLA layout (q.ndim == 3) needs q2, k2 and
+    scale, as the reference's rule is."""
     q, k = torch.zeros(1, 1, 2, 16), torch.zeros(1, 4, 1, 16)
     lat, q2, k2 = k[:, :, 0], torch.zeros(1, 2, 4), torch.zeros(1, 4, 4)
     two = torch.tensor(2, dtype=torch.int32)
-    for bad in (2, torch.tensor(2), torch.tensor([2], dtype=torch.int32)):
+    for bad in (2, torch.tensor(2), torch.tensor([2, 2], dtype=torch.int32)):
         with pytest.raises((TypeError, ValueError), match="kv_len"):
             Tops.flash_decode(q, k, k, bad)
         with pytest.raises((TypeError, ValueError), match="kv_len"):

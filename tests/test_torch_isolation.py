@@ -23,9 +23,14 @@ print("BAD", bad)
 print("NEW", all(m in sys.modules for m in NEW_MODULES))
 """
 
-# Modules of the admission and serve-CLI slice, which the probe must reach.
+# Modules of the admission, serve-CLI and serving-stack slices, which the
+# probe must reach.
 NEW_MODULES = ("repro_torch.launch.serve", "repro_torch.core.edge_model",
-               "repro_torch.serving.engine", "repro_torch.serving.sampling")
+               "repro_torch.serving.engine", "repro_torch.serving.sampling",
+               "repro_torch.serving.scheduler", "repro_torch.serving.frontend",
+               "repro_torch.serving.loadgen", "repro_torch.serving.clock",
+               "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+               "repro_torch.obs.profiler")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
@@ -36,7 +41,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "BAD []" in out.stdout, out.stdout
-    assert int(out.stdout.split("LOADED")[1].split()[0]) >= 22
+    assert int(out.stdout.split("LOADED")[1].split()[0]) >= 30
     assert "NEW True" in out.stdout, out.stdout
 
 

@@ -1,7 +1,10 @@
 """The port's serve demo path: top-p sampling against `repro.serving.sampling`,
 the nucleus-mass property on the port, and `repro_torch.launch.serve` on the
-CPU (its unported modes exit nonzero, naming the ROADMAP item that ports
-them)."""
+CPU: the single-generate path, the scheduler, host-spill, front-end, trace
+and metrics modes, and the modes not ported yet, which exit nonzero naming
+the ROADMAP item that ports them."""
+
+import json
 
 import os
 import subprocess
@@ -118,8 +121,7 @@ def test_serve_cli_runs_on_the_cpu(extra):
     assert len(toks) == 15 and all(0 <= t < 512 for t in toks)
 
 
-_VALUES = {"--requests": "4", "--oversubscribe": "2.0", "--mesh": "2,2",
-           "--trace": "t.json", "--metrics": "m.json"}
+_VALUES = {"--mesh": "2,2"}
 
 
 @pytest.mark.parametrize("flag,dest,item,what", serve.UNPORTED,
@@ -136,13 +138,10 @@ def test_unported_flag_exits_nonzero_naming_its_roadmap_item(flag, dest, item, w
     assert flag in err and f"ROADMAP {item}" in err and what in err
 
 
-@pytest.mark.parametrize("argv", [["--slots", "4"], ["--chunk-size", "64"],
-                                  ["--draft-k", "4"], ["--rate", "4"],
-                                  ["--arrival", "poisson"], ["--ttft-slo", "2"],
-                                  ["--virtual-clock"]], ids=lambda a: a[0])
+@pytest.mark.parametrize("argv", [["--draft-k", "4"]], ids=lambda a: a[0])
 def test_settings_of_unported_modes_are_rejected(argv, capsys):
-    """The settings only the scheduler and speculative modes read are not
-    parsed until those modes are ported: each is an error, not ignored."""
+    """The settings only the speculative mode reads are not parsed until it
+    is ported: each is an error, not ignored."""
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "retnet-1.3b", "--reduced", "--device", "cpu", *argv])
     assert exc.value.code == 2
@@ -153,3 +152,49 @@ def test_generation_config_carries_top_p_into_the_loop():
     gen = GenerationConfig(max_new_tokens=2, sampling=SamplingParams(temperature=1.0,
                                                                      top_p=0.5))
     assert gen.sampling.top_p == 0.5 and not gen.sampling.greedy
+
+
+_CLI = ["--arch", "retnet-1.3b", "--reduced", "--device", "cpu", "--scale", "0.04"]
+
+
+def _serve_lines(argv, capsys) -> list[str]:
+    serve.main(_CLI + argv)
+    return [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[serve]")]
+
+
+def test_scheduler_mode_serves_every_request(capsys):
+    lines = _serve_lines(["--requests", "4", "--slots", "2", "--chunk-size", "2"], capsys)
+    assert lines[0].startswith("[serve] scheduler: 4 requests") and "classes [(2, 32)]" in lines[0]
+    assert "cycles" in lines[1] and "prefill chunks" in lines[1]
+    assert "tokens/s" in lines[-1]
+
+
+def test_host_spill_mode_preempts_and_resumes_with_trace_and_metrics(tmp_path, capsys):
+    trace, metrics = tmp_path / "t.json", tmp_path / "m.json"
+    lines = _serve_lines(["--requests", "4", "--host-spill", "--oversubscribe", "2",
+                          "--trace", str(trace), "--metrics", str(metrics)], capsys)
+    assert "host-spill preemption on" in lines[0] and "classes [(2, 32)]" in lines[0]
+    tier = next(ln for ln in lines if "host tier" in ln)
+    n = int(tier.split("host tier: ")[1].split()[0])
+    assert n >= 1 and f"{n} resumed" in tier
+    snap = json.loads(metrics.read_text())
+    assert snap["counters"]["sched.preempted"] == n == snap["counters"]["pool.spills"]
+    assert snap["counters"]["pool.bytes_to_host"] == snap["counters"]["pool.bytes_to_device"]
+    assert snap["counters"]["engine.prefill_chunks"] == snap["counters"]["sched.prefill_chunks"]
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert {"preempt", "resume", "prefill_chunk", "first_token"} <= {e["name"] for e in events}
+
+
+@pytest.mark.parametrize("arrival", ["poisson"])
+def test_frontend_mode_holds_the_smoke_contract_on_virtual_time(arrival, capsys):
+    lines = _serve_lines(["--frontend", "--virtual-clock", "--arrival", arrival,
+                          "--requests", "4", "--rate", "8", "--ttft-slo", "1.5", "--slots",
+                          "2"], capsys)
+    assert "virtual clock" in lines[0] and arrival in lines[0]
+    assert lines[-1].startswith("[serve] frontend smoke OK") and "0 unexplained" in lines[-1]
+
+
+def test_oversubscribe_must_exceed_one(capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(_CLI + ["--requests", "4", "--oversubscribe", "1.0"])
+    assert exc.value.code == 2 and "--oversubscribe" in capsys.readouterr().err
