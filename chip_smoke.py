@@ -80,13 +80,30 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    request token-identical to an unpreempted drain); goodput, TTFT and
    inter-token p50/p99 (also while a chunk ran), decode-stall steps,
    capture seconds, spill/fetch bytes and ms;
-7. each model reduced, on the card against the CPU plain path, and the
-   serve CLI (``python -m repro_torch.launch.serve``) at full width on
-   retnet-1.3b as subprocesses: greedy and top-p generate, the scheduler,
+7. after phase 6 on each path, the shared-prefix cache (`serve_prefix`):
+   in every cache format, a 32-token base prompt alone and then 3
+   extensions of 8, drained cold and then warm through one class of 2 lanes
+   (chunks of 16; `prefix_cell`): warm tokens equal cold ones, 3 adoptions
+   of the base (page rows, or retnet's snapshot, copied into a private
+   cache), every page's bytes after the drain equal to its bytes at
+   registration, no lease held, the warm drain's launches exact (its
+   chunks' and its replays'), page bytes, lookup / register ms and one
+   page's spill and fetch ms recorded; on qwen3-8b then the `prefix_reuse`
+   leg of the reference's serving bench (`prefix_reuse_leg`: a 96-token
+   system prompt + 8 unique tokens, 8 requests, 8 new tokens, 2 lanes at C
+   112, chunks of 8, shared fractions 0, 0.5 and 1.0, and 1.0 cold): at
+   1.0, 7 of 8 admissions adopt 96 tokens and the tokens equal the cold
+   stream's; hit rate, tokens skipped, chunks, TTFT p50/p99 and the TTFT
+   p50 delta warm - cold recorded;
+8. each model reduced, on the card against the CPU plain path, and the
+   serve CLI (``python -m repro_torch.launch.serve``) at full width as
+   subprocesses: on retnet-1.3b greedy and top-p generate, the scheduler,
    the front end on virtual time, and the oversubscribed host-spill
-   scheduler with its trace and metrics;
-8. one JSON line ``{"kernels": [...]}`` (``scheduler_launches_by_path``
-   beside ``launches``) and, last, the ``{"ok": true, ...}`` line.
+   scheduler with its trace and metrics; on qwen3-8b ``--prefix-cache``
+   (4 of 5 admissions adopt the shared prompt);
+9. one JSON line ``{"kernels": [...]}`` (``scheduler_launches_by_path`` and
+   ``prefix_launches_by_path`` beside ``launches``) and, last, the
+   ``{"ok": true, ...}`` line.
 
 It imports neither jax nor the JAX package.
 """
@@ -950,9 +967,11 @@ def serve_full_width(path: dict, card: str):
     results.update(admission)
     scheduled, scheduling = serve_scheduler(path, eng, card)
     results.update(scheduling)
+    prefixed, prefixing = serve_prefix(path, eng, card)
+    results.update(prefixing)
     del eng, plain
     torch.cuda.empty_cache()
-    return counted, admitted, scheduled, results
+    return counted, admitted, scheduled, prefixed, results
 
 
 @torch.inference_mode()
@@ -1567,6 +1586,263 @@ def serve_scheduler(path: dict, eng, card: str) -> tuple[dict, dict]:
     return launches, results
 
 
+# The prefix phase (the shared-prefix cache, `serving/paging.py`).  (a) The
+# `prefix_reuse` leg of the reference's serving bench
+# (benchmarks/bench_serving.py: a 96-token system prompt + 8 unique tokens,
+# 8 requests, 8 new tokens, one class of 2 lanes at C 112, chunks of 8; a
+# disjoint warm-up stream, then one stream at each shared fraction, and at 1.0
+# the same stream cold) on qwen3-8b's f32 cache; (b) warm against cold in
+# every (path, cache format) cell on the reference test's shape (a 32-token
+# base alone, then 3 extensions of 8; chunks of 16; one class of 2 lanes).
+PREFIX_LEG = dict(shared=96, suffix=8, requests=8, new=8, lanes=2, chunk=8,
+                  fractions=(0.0, 0.5, 1.0))
+PREFIX_CELL = dict(base=32, ext=8, n_ext=3, chunk=16, lanes=2, new=8)
+
+
+def _held(pc, node) -> dict:
+    """A page's rows (or a snapshot's cache), wherever it resides."""
+    if pc.mode == "paged":
+        return node.rows if node.rows is not None else node.host_rows
+    return node.cache if node.cache is not None else node.host_cache
+
+
+def _trees_equal(a, b) -> bool:
+    ia, ib = list(serving_engine.tree_items(a)), list(serving_engine.tree_items(b))
+    return [p for p, _ in ia] == [p for p, _ in ib] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(ia, ib))
+
+
+def _watched(pc) -> tuple[dict, dict]:
+    """Wrap a `PrefixCache`'s lookup and register: every page (or snapshot)
+    is copied as it is registered, and each call's host ms (between
+    synchronizes) recorded.  Returns (copies, times)."""
+    copies, times = {}, dict(lookup_ms=[], register_ms=[])
+    lookup, register = pc.lookup, pc.register
+
+    def timed(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def watched_register(*args, **kw):
+        n = timed("register_ms", register, *args, **kw)
+        for node in pc._index.nodes():
+            if node not in copies:
+                copies[node] = serving_engine._clone(_held(pc, node))
+        return n
+
+    pc.lookup = lambda *a, **kw: timed("lookup_ms", lookup, *a, **kw)
+    pc.register = watched_register
+    return copies, times
+
+
+def _chunk_launches(path, sizes) -> dict:
+    """Launches of chunked prefills whose chunks have ``sizes`` tokens."""
+    out = dict.fromkeys(hopper.COUNTERS, 0)
+    for c in sizes:
+        for k, v in expected_launches(path, c)[0].items():
+            out[k] += v
+    return out
+
+
+@torch.inference_mode()
+def prefix_cell(path: dict, eng, fmt, card: str) -> tuple[dict, dict]:
+    """(b) One (path, cache format) cell: the base prompt alone, then its 3
+    extensions, drained cold and then warm (prefix cache on) through one
+    class of 2 lanes.  Fatal: warm tokens equal cold ones; 3 adoptions of
+    the 32-token base; every page's (or snapshot's) bytes after the drain
+    equal its bytes at registration; no lease held; the warm drain's
+    launches exact (its chunks: the base's 2 x 16 and one 8-token suffix
+    per extension; its decode launches its replays'); each class step's
+    launches per replay exact.  Recorded: chunks, wall, TTFT cold and warm,
+    page bytes, lookup / register ms, and one page's spill and fetch ms."""
+    from repro_torch.serving import Request, RequestScheduler
+    c = PREFIX_CELL
+    tag = f"{path['arch']} prefix" + ("" if fmt is None else f" {fmt}")
+    vocab = eng.cfg.vocab_size
+    g = _gen(61)
+    base = torch.randint(1, vocab, (c["base"],), generator=g, device="cuda").tolist()
+    reqs = [base] + [base + torch.randint(1, vocab, (c["ext"],), generator=g,
+                                          device="cuda").tolist() for _ in range(c["n_ext"])]
+    clen = c["base"] + c["ext"] + c["new"]
+    gen = GenerationConfig(max_new_tokens=c["new"], cache_format=fmt)
+    want_step = expected_launches(path)[1]
+
+    def drain(prefix_cache: bool):
+        sched = RequestScheduler(eng, classes=[(c["lanes"], clen)], gen=gen,
+                                 chunk_size=c["chunk"], prefix_cache=prefix_cache, seed=0)
+        check_class_steps(tag, sched, want_step)
+        watch = _watched(sched.pool.prefix) if prefix_cache else ({}, {})
+        for uid, p in enumerate(reqs):
+            sched.submit(Request(uid=uid, prompt=p))
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        res = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {u: f.tokens for u, f in res.items()}, sched, dict(hopper.LAUNCHES), watch, wall
+
+    cold, cold_sched, _, _, cold_wall = drain(False)
+    warm, sched, launches, (copies, times), wall = drain(True)
+    pc = sched.pool.prefix
+    stats = dict(pc.stats)
+    step = sched.pool.steps[clen]
+    sizes = chunk_schedule(c["base"], c["chunk"]) + c["n_ext"] * chunk_schedule(
+        c["ext"], c["chunk"])
+    want = _chunk_launches(path, sizes)
+    for k in hopper.COUNTERS:
+        want[k] += step.replays * step.launches.get(k, 0)
+    unchanged = all(_trees_equal(_held(pc, n), copy) for n, copy in copies.items())
+    held = pc.leased_slots or any(n.refs for n in pc._index.nodes())
+    out = dict(card=card, mode=pc.mode, class_len=clen, chunk=c["chunk"],
+               prompt_lens=[len(p) for p in reqs], stats=stats, n_pages=pc.n_pages,
+               page_nbytes=sorted({n.nbytes for n in pc._index.nodes()}),
+               prefix_bytes=pc.prefix_bytes, launches=launches, replays=step.replays,
+               prefill_chunks=dict(cold=cold_sched.stats["prefill_chunks"],
+                                   warm=sched.stats["prefill_chunks"]),
+               wall_s=dict(cold=cold_wall, warm=wall),
+               ttft_s=dict(cold=_summary(cold_sched.obs, "sched.ttft_s"),
+                           warm=_summary(sched.obs, "sched.ttft_s")),
+               **times, token_identical_vs_cold=warm == cold, pages_unchanged=unchanged,
+               pages_checked=len(copies), leases_held=bool(held))
+    if (warm != cold or not unchanged or held or not copies or launches != want
+            or (stats["prefix_hits"], stats["prefix_hit_tokens"]) != (3, 3 * c["base"])):
+        raise RuntimeError(f"{tag}: {json.dumps(out)}; launches expected {want}; "
+                           f"tokens {warm} vs cold {cold}")
+    # One page's (or the snapshot's) round trip through the host tier.
+    node = pc._index.nodes()[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = pc._spill(_held(pc, node))
+    t1 = time.perf_counter()
+    back = pc._fetch(host)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not _trees_equal(back, copies[node]):
+        raise RuntimeError(f"{tag}: a page's spill and fetch changed its bytes")
+    out.update(page_spill_ms=(t1 - t0) * 1e3, page_fetch_ms=(t2 - t1) * 1e3,
+               spilled_page_nbytes=node.nbytes)
+    log(f"{tag}:", json.dumps(out))
+    return launches, out
+
+
+@torch.inference_mode()
+def prefix_reuse_leg(path: dict, eng, card: str) -> tuple[dict, dict]:
+    """(a) The reference's `prefix_reuse` leg at full width (see PREFIX_LEG),
+    one stream per shared fraction.  Each drain is a fresh scheduler warmed
+    by a disjoint stream (its pages never match), its registry reset after.
+    Fatal: at 1.0, 7 of 8 admissions adopt the 96 shared tokens (672
+    prefill tokens skipped) and the greedy tokens equal the same stream's
+    without the prefix cache; every drain's decode launches are its
+    replays'.  Recorded per fraction: hit rate, tokens skipped, prefill
+    chunks, COW copies, pages inserted, TTFT p50 / p99, wall; at 1.0 the
+    cold TTFT and the TTFT p50 delta warm - cold."""
+    from repro_torch.obs import Observability
+    from repro_torch.serving import Request, RequestScheduler
+    L = PREFIX_LEG
+    vocab = eng.cfg.vocab_size
+    clen = L["shared"] + L["suffix"] + L["new"]
+    gen = GenerationConfig(max_new_tokens=L["new"])
+
+    def prompts_for(frac: float, base: int) -> list:
+        g = _gen(base)
+        shared = torch.randint(1, vocab, (L["shared"],), generator=g, device="cuda").tolist()
+        n_shared = round(L["requests"] * frac)
+        out = []
+        for uid in range(L["requests"]):
+            own = torch.randint(1, vocab, (L["shared"],), generator=g, device="cuda").tolist()
+            tail = torch.randint(1, vocab, (L["suffix"],), generator=g, device="cuda").tolist()
+            out.append((shared if uid < n_shared else own) + tail)
+        return out
+
+    counted = dict.fromkeys(hopper.COUNTERS, 0)
+
+    def drain(frac: float, prefix_cache: bool):
+        obs = Observability()
+        sched = RequestScheduler(eng, classes=[(L["lanes"], clen)], gen=gen,
+                                 chunk_size=L["chunk"], prefix_cache=prefix_cache, obs=obs,
+                                 seed=0)
+        for uid, p in enumerate(prompts_for(1.0, base=41)):
+            sched.submit(Request(uid=1000 + uid, prompt=p))
+        sched.run()
+        obs.metrics.reset()
+        step = sched.pool.steps[clen]
+        replays0 = step.replays
+        for uid, p in enumerate(prompts_for(frac, base=11)):
+            sched.submit(Request(uid=uid, prompt=p))
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        res = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(hopper.LAUNCHES)
+        for k in DECODE_KERNELS:
+            if launches[k] != (step.replays - replays0) * step.launches.get(k, 0):
+                raise RuntimeError(f"prefix_reuse at {frac}: {k} launched {launches[k]} "
+                                   f"times in {step.replays - replays0} replays")
+        if prefix_cache:
+            for k in counted:
+                counted[k] += launches[k]
+        return {u: f.tokens for u, f in res.items()}, sched, obs, wall
+
+    total = L["requests"] * (L["shared"] + L["suffix"])
+    legs = {}
+    for frac in L["fractions"]:
+        tokens, sched, obs, wall = drain(frac, True)
+        st = dict(sched.pool.prefix.stats)
+        leg = dict(card=card, shared_fraction=frac, n_requests=L["requests"], reps=1,
+                   wall_s=wall, prefix_lookups=st["prefix_lookups"],
+                   prefix_hits=st["prefix_hits"],
+                   hit_rate=st["prefix_hits"] / max(st["prefix_lookups"], 1),
+                   prefill_tokens_total=total, prefill_tokens_skipped=st["prefix_hit_tokens"],
+                   prefill_token_reduction=st["prefix_hit_tokens"] / total,
+                   prefill_chunks=sched.stats["prefill_chunks"], cow_copies=st["cow_copies"],
+                   pages_inserted=st["prefix_insert_pages"],
+                   ttft_s=_summary(obs, "sched.ttft_s"),
+                   inter_token_s=_summary(obs, "sched.inter_token_s"))
+        if frac == 1.0:
+            cold, cold_sched, cold_obs, cold_wall = drain(1.0, False)
+            cold_ttft = _summary(cold_obs, "sched.ttft_s")
+            leg.update(token_identical_vs_cold=tokens == cold, cold_wall_s=cold_wall,
+                       cold_prefill_chunks=cold_sched.stats["prefill_chunks"],
+                       cold_ttft_s=cold_ttft,
+                       ttft_p50_delta_s=leg["ttft_s"]["p50"] - cold_ttft["p50"])
+            if (tokens != cold or st["prefix_hits"] != L["requests"] - 1
+                    or st["prefix_hit_tokens"] != (L["requests"] - 1) * L["shared"]):
+                raise RuntimeError(f"prefix_reuse at 1.0: {json.dumps(leg)}")
+        log(f"prefix_reuse shared {frac}:", json.dumps(leg))
+        legs[f"shared_{int(frac * 100)}"] = leg
+    return counted, legs
+
+
+def serve_prefix(path: dict, eng, card: str) -> tuple[dict, dict]:
+    """The prefix phase of one main path at full width (see PREFIX_CELL and
+    PREFIX_LEG): (b) in each of the path's cache formats, then on qwen3-8b
+    (a).  Returns the warm drains' launches and the results."""
+    t0 = time.perf_counter()
+    arch = path["arch"]
+    log(f"== prefix cache: {arch}, a {PREFIX_CELL['base']}-token base then "
+        f"{PREFIX_CELL['n_ext']} extensions of {PREFIX_CELL['ext']}, cache formats "
+        f"{[f or 'f32' for f in path['formats']]}"
+        + (", then the prefix_reuse leg" if path is QWEN3 else ""))
+    launches, results = dict.fromkeys(hopper.COUNTERS, 0), {}
+    for fmt in path["formats"]:
+        counted, out = prefix_cell(path, eng, fmt, card)
+        results[f"{arch} prefix" + ("" if fmt is None else f" {fmt}")] = out
+        for k in launches:
+            launches[k] += counted[k]
+    if path is QWEN3:
+        counted, results["prefix_reuse"] = prefix_reuse_leg(path, eng, card)
+        for k in launches:
+            launches[k] += counted[k]
+    log(f"{arch} prefix phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches, results
+
+
 def one_prefill_launches(tag, path, eng, prompts, gen) -> dict:
     """Launches of one monolithic and one bucketed prefill of the admission
     prompts, each exact: retention runs every length through the kernel
@@ -1605,12 +1881,16 @@ def serve_cli() -> dict:
     subprocess per mode: greedy and top-p generate, the scheduler, the front
     end on virtual time (its smoke contract: nonzero goodput, no unexplained
     shed), and the oversubscribed host-spill scheduler writing its trace and
-    metrics.  Each must exit 0 and print its ``[serve]`` lines, the last
-    the mode's own."""
+    metrics, all on retnet-1.3b; then ``--prefix-cache`` on qwen3-8b (LISO at
+    0.08: 5 prompts of 60 tokens opening with one 45-token prefix), whose
+    hit line must report 4 of 5 admissions adopting it.  Each must exit 0
+    and print its ``[serve]`` lines, the last the mode's own."""
     import tempfile
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         trace, metrics = os.path.join(tmp, "trace.json"), os.path.join(tmp, "metrics.json")
+        retnet = ["--arch", "retnet-1.3b", "--scenario", "SILO", "--scale", "0.1",
+                  "--batch", "2"]
         modes = (("greedy", [], "[serve] sample output tokens"),
                  ("top_p", ["--temperature", "1", "--top-p", str(TOP_P)],
                   "[serve] sample output tokens"),
@@ -1621,9 +1901,12 @@ def serve_cli() -> dict:
                  ("host_spill", ["--requests", "6", "--host-spill", "--oversubscribe", "2",
                                  "--chunk-size", "8", "--trace", trace, "--metrics", metrics],
                   "[serve] metrics snapshot"))
-        for name, extra, last in modes:
-            cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "retnet-1.3b",
-                   "--scenario", "SILO", "--scale", "0.1", "--batch", "2", *extra]
+        modes = tuple((name, retnet + extra, last) for name, extra, last in modes) + (
+            ("prefix_cache", ["--arch", "qwen3-8b", "--scenario", "LISO", "--scale", "0.08",
+                              "--requests", "5", "--slots", "2", "--chunk-size", "8",
+                              "--prefix-cache"], "[serve] tokens/s"),)
+        for name, argv, last in modes:
+            cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
                                   env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
@@ -1640,6 +1923,10 @@ def serve_cli() -> dict:
                 or not any(e["name"] == "preempt" for e in events):
             raise RuntimeError(f"serve CLI (host_spill): no preemption recorded: {snap}")
         out["host_spill"].update(metrics_counters=snap, trace_events=len(events))
+        hit = [ln for ln in out["prefix_cache"]["lines"]
+               if ln.startswith("[serve] prefix cache")]
+        if not hit or "4/5 admissions adopted a cached prefix, 180 prefill" not in hit[0]:
+            raise RuntimeError(f"serve CLI (prefix_cache): hit line {hit}")
     return out
 
 
@@ -2010,10 +2297,10 @@ def main() -> int:
         log(f"  sigma^-1 price: {json.dumps(r)}")
     log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 
-    serving, by_path, admitted, scheduled = {}, {}, {}, {}
+    serving, by_path, admitted, scheduled, prefixed = {}, {}, {}, {}, {}
     for path in PATHS:
         (by_path[path["arch"]], admitted[path["arch"]], scheduled[path["arch"]],
-         results) = serve_full_width(path, smi)
+         prefixed[path["arch"]], results) = serve_full_width(path, smi)
         serving.update(results)
     for path in PATHS:
         serving.update(reduced_vs_cpu(path))
@@ -2027,6 +2314,7 @@ def main() -> int:
                                            for arch, n in admitted.items()}
         e["scheduler_launches_by_path"] = {arch: n[e["name"]]
                                            for arch, n in scheduled.items()}
+        e["prefix_launches_by_path"] = {arch: n[e["name"]] for arch, n in prefixed.items()}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": entries}))

@@ -12,7 +12,10 @@ LISO/SILO scenario presets:
   ``--slots`` lanes in two slot classes while resident lanes decode (one
   captured step per class); ``--host-spill`` (with ``--oversubscribe R``)
   turns on the host tier: a late high-priority burst preempts resident
-  lanes to host memory, and they resume bit-exactly;
+  lanes to host memory, and they resume bit-exactly; ``--prefix-cache``
+  turns on shared-prefix reuse over the repeated-system-prompt stream
+  (full-length prompts opening with one shared prefix): admissions adopt the
+  cached prefix and prefill only their suffix, and a line reports the hits;
 * ``--frontend``: the open-loop `ServingFrontend` — seeded Poisson or bursty
   arrivals (``--rate``, ``--arrival``) through SLO-aware admission
   (``--ttft-slo``), goodput and shed rate at the end; ``--virtual-clock``
@@ -27,10 +30,9 @@ LISO/SILO scenario presets:
         --scale 0.02 --device cpu [--requests 6 --host-spill --oversubscribe 2]
 
 Prompts come from seeded ``torch.Generator``s.  The reference's modes that
-are not ported yet (the shared-prefix cache, speculative decode, a device
-mesh) are accepted by the parser, and each exits nonzero naming the
-ROADMAP item that ports it; ``--draft-k``, read by speculative decode
-alone, comes with it.
+are not ported yet (speculative decode, a device mesh) are accepted by the
+parser, and each exits nonzero naming the ROADMAP item that ports it;
+``--draft-k``, read by speculative decode alone, comes with it.
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ from repro_torch.serving.sampling import GenerationConfig, SamplingParams
 # Flags of modes that are not ported: (flag, the argparse dest, ROADMAP item,
 # what the mode is).
 UNPORTED = (
-    ("--prefix-cache", "prefix_cache", "A11b", "the scheduler's shared-prefix cache"),
     ("--speculative", "speculative", "A10c", "speculative decode"),
     ("--mesh", "mesh", "A12", "serving on a device mesh"),
 )
@@ -87,6 +88,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--host-spill", action="store_true",
                     help="scheduler mode: the host-memory spill tier; a late "
                          "high-priority burst preempts resident lanes to it")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="scheduler mode: shared-prefix reuse over a repeated-system-"
+                         "prompt stream")
     ap.add_argument("--oversubscribe", type=float, default=0.0,
                     help="scheduler mode: request-to-lane ratio; shrinks the pool "
                          "to ~requests/R lanes (pair with --host-spill)")
@@ -109,7 +113,6 @@ def parser() -> argparse.ArgumentParser:
     # The reference's modes that are not ported, each refused in `main` (the
     # settings only they read come with them).
     ap.add_argument("--speculative", action="store_true")
-    ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--mesh", default=None)
     return ap
 
@@ -124,25 +127,38 @@ def _run_scheduler_demo(engine: InferenceEngine, args, n_in: int, n_out: int) ->
     slot classes while resident lanes decode."""
     cfg, dev = engine.cfg, engine.device
     gen = GenerationConfig(max_new_tokens=n_out, sampling=_sampling(args))
-    choice = torch.Generator().manual_seed(0)
-    fracs = (0.25, 0.5, 1.0)
-    lengths = [max(2, int(n_in * fracs[int(i)]))
-               for i in torch.randint(0, 3, (args.requests,), generator=choice)]
+    shared: list[int] = []
+    if args.prefix_cache:
+        # The repeated-system-prompt stream prefix reuse targets: uniform
+        # full-length prompts, each opening with the same shared prefix,
+        # long enough to clear the one-page adoption floor.
+        lengths = [n_in] * args.requests
+        shared_len = min(n_in - 1, max(16, int(n_in * 0.75)))
+        shared = torch.randint(1, cfg.vocab_size, (shared_len,),
+                               generator=torch.Generator().manual_seed(5)).tolist()
+    else:
+        choice = torch.Generator().manual_seed(0)
+        fracs = (0.25, 0.5, 1.0)
+        lengths = [max(2, int(n_in * fracs[int(i)]))
+                   for i in torch.randint(0, 3, (args.requests,), generator=choice)]
     small = max(2, int(n_in * 0.5)) + n_out
     large = n_in + n_out
     classes = ([(args.slots, large)] if small >= large or args.slots < 2 else
                [(args.slots // 2, small), (args.slots - args.slots // 2, large)])
     sched = RequestScheduler(engine, classes=classes, gen=gen, chunk_size=args.chunk_size,
-                             host_spill=args.host_spill, seed=2, obs=engine.obs)
+                             host_spill=args.host_spill, prefix_cache=args.prefix_cache,
+                             seed=2, obs=engine.obs)
 
     def make_request(uid: int, s: int) -> Request:
         g = torch.Generator(device=dev).manual_seed(1000 + uid)
-        return Request(uid=uid, prompt=torch.randint(1, cfg.vocab_size, (s,), generator=g,
-                                                     device=dev).tolist())
+        tokens = torch.randint(1, cfg.vocab_size, (s,), generator=g, device=dev).tolist()
+        return Request(uid=uid, prompt=shared + tokens[len(shared):])
 
     print(f"[serve] scheduler: {args.requests} requests, prompt lengths "
           f"{sorted(set(lengths))}, classes {classes}, chunk={args.chunk_size}"
           + (", host-spill preemption on" if args.host_spill else "")
+          + (f", prefix-cache on ({len(shared)}-token shared prefix)"
+             if args.prefix_cache else "")
           + f"; class steps captured in {sched.capture_s:.3f} s")
     t0 = time.perf_counter()
     if args.host_spill and args.requests > 1:
@@ -170,6 +186,13 @@ def _run_scheduler_demo(engine: InferenceEngine, args, n_in: int, n_out: int) ->
               f"{sched.stats['resumed']} resumed, {ss['spills']} spills "
               f"({ss['bytes_to_host']} B to host), {ss['fetches']} fetches "
               f"({ss['bytes_to_device']} B back)")
+    if args.prefix_cache:
+        px = sched.pool.prefix
+        ps = px.stats
+        print(f"[serve] prefix cache [{px.mode}]: {ps['prefix_hits']}/"
+              f"{ps['prefix_lookups']} admissions adopted a cached prefix, "
+              f"{ps['prefix_hit_tokens']} prefill tokens skipped, {px.n_pages} pages "
+              f"resident ({ps['cow_copies']} COW copies)")
     bad = [u for u, r in results.items()
            if r.cancelled or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
     if len(results) != args.requests or bad:

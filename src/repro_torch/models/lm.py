@@ -10,6 +10,9 @@ back to the param dtype after every block, as the scan carry is there.
     forward_prefill_chunk — one chunk of a prompt over a warm cache (MMM)
     forward_decode        — one token with the warm cache (MVM phase)
 
+and the shared-prefix helpers `serving/paging.py` builds on
+(`prefix_sharing_mode`, `slice_cache_rows`, `assemble_prefix_cache`).
+
 Layers come in the reference's groups (`layer_groups`), held in one flat
 list in group order: deepseek-v3's leading dense layers (``dense_head``)
 run, and a config cut to them has no MoE layer; MoE layers are not ported.
@@ -395,3 +398,128 @@ def quantize_cache(cache: dict, cfg: ModelConfig, fmt: str) -> dict:
         out["blocks"] = [{name: kvq.encode(leaf, fmt) for name, leaf in b.items()}
                          for b in cache["blocks"]]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Shared-prefix cache reuse (serving/paging.py builds on these).
+# ---------------------------------------------------------------------------
+
+# Cache kinds whose per-position rows are position-addressable: row j of every
+# leaf is a pure function of (token_j, position j, params), the property that
+# makes token-prefix pages reusable across requests.  Recurrent state (RetNet
+# S) folds the whole history into O(1) slots, so it cannot share *pages*; it
+# snapshots whole cache states instead (`prefix_sharing_mode` -> 'snapshot').
+_PAGEABLE_KINDS = frozenset({"dense", "moe"})
+
+
+def prefix_sharing_mode(cfg: ModelConfig) -> str | None:
+    """How this architecture can reuse a cached token prefix.
+
+    'paged'    — every decode-cache group is position-addressable linear
+                 attention (dense/moe GQA or MLA, no sliding window): token
+                 prefixes map to immutable page runs sliced on the cache
+                 axis, adoptable at any boundary.
+    'snapshot' — at least one group is recurrent state: the *whole cache*
+                 at a finished prompt is a valid prefix state, adoptable at
+                 that exact token boundary.
+    None       — encoder-decoder and frontend prompts prefill monolithically,
+                 so there is no admission seam to adopt a prefix through.
+    """
+    if cfg.is_encdec or cfg.frontend:
+        return None
+    kinds = {kind for _, _, kind in layer_groups(cfg)}
+    if kinds <= _PAGEABLE_KINDS and not cfg.sliding_window:
+        return "paged"
+    return "snapshot"
+
+
+def prefix_page_groups(cfg: ModelConfig) -> list[str]:
+    """The reference's cache groups a page row covers, in layer order; the
+    port holds their layers in one flat ``blocks`` list.  Only meaningful
+    when `prefix_sharing_mode(cfg) == 'paged'`."""
+    if prefix_sharing_mode(cfg) != "paged":
+        raise ValueError(f"{cfg.name}: cache is not pageable "
+                         f"(mode={prefix_sharing_mode(cfg)!r})")
+    return [gname for gname, _, kind in layer_groups(cfg) if kind != "enc"]
+
+
+def _block_leaves(blocks: list):
+    """(path, tensor) of every block leaf, encoded planes included: path is
+    ``(layer, name)`` or ``(layer, name, plane)``."""
+    for i, layer in enumerate(blocks):
+        for name, leaf in layer.items():
+            if isinstance(leaf, dict):
+                for plane, t in leaf.items():
+                    yield (i, name, plane), t
+            else:
+                yield (i, name), leaf
+
+
+@functools.lru_cache(maxsize=None)
+def _page_axes(cfg: ModelConfig) -> dict:
+    """The cache axis of every block leaf of a pageable cache, in each
+    residency (f32, bf16 and the kvq formats), keyed by `_block_leaves`
+    path: the one axis whose length follows ``cache_len`` in
+    `make_decode_cache` (batch-1 caches of 1 and 2 rows on the CPU, a few
+    hundred KB; the meta device would import PyTorch's fake-tensor
+    machinery on first use, seconds of host time inside an admission).  A
+    plain leaf's path and its encoded planes' paths differ, so one map
+    serves every format."""
+    prefix_page_groups(cfg)
+    axes = {}
+    for fmt in (torch.float32, *kvq.FORMATS):
+        one, two = (dict(_block_leaves(make_decode_cache(cfg, 1, c, dtype=fmt,
+                                                         device="cpu")["blocks"]))
+                    for c in (1, 2))
+        for path, t in one.items():
+            (axes[path],) = [ax for ax, (a, b) in enumerate(zip(t.shape, two[path].shape))
+                             if a != b]
+    return axes
+
+
+def slice_cache_rows(cache: dict, cfg: ModelConfig, start: int, stop: int) -> dict:
+    """Copies of cache rows [start, stop) of every block leaf:
+    ``{"blocks": [one dict per layer]}``, each leaf cut on its cache axis.
+
+    Encoded residency slices its planes the same way: `core.kvq` formats
+    encode along the *last* axis only, so a cache-axis slice of the ``q``/
+    ``s`` (or ``m``/``e``) planes is exactly the encoding of the sliced rows.
+    The rows are cloned, never views: a page must neither keep the whole
+    cache it was cut from alive nor be written through it later."""
+    axes = _page_axes(cfg)
+    out = [{} for _ in cache["blocks"]]
+    for path, t in _block_leaves(cache["blocks"]):
+        rows = t.narrow(axes[path], start, stop - start).clone(
+            memory_format=torch.contiguous_format)
+        if len(path) == 3:
+            out[path[0]].setdefault(path[1], {})[path[2]] = rows
+        else:
+            out[path[0]][path[1]] = rows
+    return {"blocks": out}
+
+
+def assemble_prefix_cache(cfg: ModelConfig, rows: list[dict], n_tokens: int,
+                          cache_len: int, dtype, device) -> dict:
+    """Build the warm batch-1 decode cache an adopted prefix resumes from.
+
+    ``rows`` are `slice_cache_rows` outputs (a run of pages) laid end to end,
+    covering positions [0, n_tokens).  The scaffold is `make_decode_cache(
+    start_pos=n_tokens)`, whose ``pos`` and RoPE angle state are what a
+    chunked prefill of those tokens leaves behind, and the page rows are
+    copied under it.  The result has the structure, shapes and dtypes of a
+    cold chunked-prefill cache, so `ChunkedPrefill` and `CachePool.write`
+    take it unchanged; it shares no tensor with any page."""
+    cache = make_decode_cache(cfg, 1, cache_len, dtype=dtype, start_pos=n_tokens,
+                              device=device)
+    axes = _page_axes(cfg)
+    dst = list(_block_leaves(cache["blocks"]))
+    at = 0
+    for part in rows:
+        src = dict(_block_leaves(part["blocks"]))
+        for path, full in dst:
+            n = src[path].shape[axes[path]]
+            full.narrow(axes[path], at, n).copy_(src[path])
+        at += n
+    if at != n_tokens:
+        raise ValueError(f"page rows cover {at} positions, expected {n_tokens}")
+    return cache

@@ -10,6 +10,10 @@
     slot classes with chunk-granular admissions, priorities, and a host
     spill tier with preemption; one captured decode step per class
     (scheduler.py).
+  * `PrefixCache` / `RadixPageIndex` / `SnapshotPrefixIndex` /
+    `PageLeaseError` — shared-prefix reuse: refcounted immutable cache pages
+    under a radix index, or whole-cache snapshots for recurrent archs,
+    adopted at admission (paging.py; ``RequestScheduler(prefix_cache=True)``).
   * `ChunkedPrefill` / `bucket_length` / `chunk_schedule` — the chunked and
     bucketed admission machinery (engine.py).
   * `ServingFrontend` / `FrontendConfig` / `TokenStream` — the asyncio
@@ -20,8 +24,8 @@
     `run_open_loop` — seeded open-loop load and the goodput-under-load
     run (loadgen.py).
 
-Not ported yet: the shared-prefix cache (ROADMAP A11b), speculative decode
-(A10c) and serving on a device mesh (A12).
+Not ported yet: speculative decode (ROADMAP A10c) and serving on a device
+mesh (A12).
 """
 
 from repro_torch.serving.clock import Clock, MonotonicClock, VirtualClock
@@ -32,6 +36,8 @@ from repro_torch.serving.frontend import (FrontendConfig, RequestShed, SLOAdmiss
                                           ServingFrontend, TokenStream)
 from repro_torch.serving.loadgen import (BurstyArrivals, GoodputReport, LengthMix,
                                          PoissonArrivals, Workload, run_open_loop)
+from repro_torch.serving.paging import (PageLeaseError, PrefixCache, RadixPageIndex,
+                                        SnapshotPrefixIndex)
 from repro_torch.serving.sampling import GenerationConfig, SamplingParams, sample
 from repro_torch.serving.scheduler import (CachePool, FinishedRequest, Request,
                                            RequestScheduler)
@@ -40,8 +46,9 @@ __all__ = [
     "BurstyArrivals", "CacheCapacityError", "CachePool", "ChunkedPrefill", "ClassStep",
     "Clock", "EngineSpec", "FinishedRequest", "FrontendConfig", "GenerationConfig",
     "GenerationResult", "GoodputReport", "InferenceEngine", "LengthMix",
-    "MonotonicClock", "PoissonArrivals", "Request", "RequestScheduler", "RequestShed",
-    "SamplingParams", "ServingFrontend", "SLOAdmissionPolicy", "TokenStream",
+    "MonotonicClock", "PageLeaseError", "PoissonArrivals", "PrefixCache",
+    "RadixPageIndex", "Request", "RequestScheduler", "RequestShed", "SamplingParams",
+    "ServingFrontend", "SLOAdmissionPolicy", "SnapshotPrefixIndex", "TokenStream",
     "VirtualClock", "Workload", "bucket_length", "chunk_schedule", "run_open_loop",
     "sample", "tree_nbytes",
 ]

@@ -199,6 +199,17 @@ def _clone(tree):
     return tree_map(torch.Tensor.clone, tree)
 
 
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``: pinned, and copied without blocking, from the
+    card (the caller synchronizes once for the whole tree); a clone on the
+    CPU.  The host tiers' one transfer: the pool's spill and the prefix
+    cache's page spill."""
+    if not t.is_cuda:
+        return t.clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t, non_blocking=True)
+
+
 def tree_items(tree, prefix: str = ""):
     """(path, tensor) of every tensor of a cache tree, in a fixed order
     (dict entries by name)."""

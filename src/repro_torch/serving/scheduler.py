@@ -20,6 +20,12 @@ free cache slots while the resident slots advance through the *decode* path
     scheduler preempts the lowest-priority resident lane when a
     higher-priority request finds the pool full.
 
+  * **Shared-prefix reuse** — with ``prefix_cache=True`` the pool owns a
+    `PrefixCache` (serving/paging.py): admission adopts the longest cached
+    prefix of the prompt (page rows, or a recurrent snapshot, copied into a
+    private warm cache) and chunk-prefills only the suffix; every finished
+    prompt is registered for later adopters.
+
 Each class is one decode cache of ``n_slots`` lanes whose positions are
 per lane (``lm.make_decode_cache(..., per_lane=True)``): the port's
 counterpart of the reference's stacked per-slot pytrees under ``vmap``.  A
@@ -30,9 +36,8 @@ those tensors in place, and the store is never copied whole.  The graphs
 live with the pool (``pool.steps``) and go with it.  Free lanes compute
 garbage that is never read.
 
-Not ported: the shared-prefix cache (``prefix_cache=True`` raises, ROADMAP
-A11b) and the speculative pool step (the port's `GenerationConfig` has no
-speculative mode yet, A10c).
+Not ported: the speculative pool step (the port's `GenerationConfig` has no
+speculative mode yet, ROADMAP A10c).
 """
 
 from __future__ import annotations
@@ -46,11 +51,9 @@ import torch
 from repro_torch.models import lm
 from repro_torch.obs import Observability, request_track
 from repro_torch.serving.engine import (CacheCapacityError, ClassStep, InferenceEngine,
-                                        tree_items, tree_map, tree_nbytes)
+                                        to_host, tree_items, tree_map, tree_nbytes)
+from repro_torch.serving.paging import PrefixCache
 from repro_torch.serving.sampling import GenerationConfig, sample
-
-PREFIX_CACHE_ITEM = ("the shared-prefix cache (prefix_cache=True) is not ported to "
-                     "repro_torch yet (ROADMAP A11b)")
 
 
 @dataclasses.dataclass
@@ -88,15 +91,6 @@ def lane_view(store: dict, lane: int) -> dict:
     return view
 
 
-def _to_host(t: torch.Tensor) -> torch.Tensor:
-    """A host copy of ``t``: pinned, and copied without blocking, from the
-    card (the caller synchronizes once for the whole tree)."""
-    if not t.is_cuda:
-        return t.clone()
-    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    return out.copy_(t, non_blocking=True)
-
-
 class CachePool:
     """Decode-cache pool: slot *classes* of increasing cache length, backed
     by a device tier and a host spill tier.
@@ -117,14 +111,23 @@ class CachePool:
 
     ``steps`` holds one `ClassStep` per class once a `RequestScheduler` has
     built them over the stores.
+
+    With ``prefix_cache=True`` the pool also owns a `PrefixCache`
+    (serving/paging.py): a refcounted-page radix index (a whole-cache
+    snapshot index on recurrent archs) over finished prompt prefixes.
+    ``prefix_lookup`` at admission returns an adopted-prefix length and an
+    assembled warm cache; ``prefix_register`` indexes a finished prefill;
+    page leases are tied to slot ids and dropped in ``release``;
+    ``prefix_maintain`` runs the LRU / host-migration cycle once per
+    scheduler step.
     """
 
     def __init__(self, cfg, n_slots: int | None = None, cache_len: int | None = None, *,
                  classes: Sequence[tuple[int, int]] | None = None,
                  dtype=torch.float32, device="cuda", obs: Observability | None = None,
-                 prefix_cache: bool = False):
-        if prefix_cache:
-            raise NotImplementedError(PREFIX_CACHE_ITEM)
+                 prefix_cache: bool = False, prefix_page_size: int = 16,
+                 max_prefix_pages: int | None = None,
+                 device_prefix_pages: int | None = None):
         if classes is None:
             classes = [(n_slots if n_slots is not None else 4,
                         cache_len if cache_len is not None else 128)]
@@ -163,6 +166,12 @@ class CachePool:
         for n, clen in self.classes:
             self.obs.metrics.gauge(f"pool.device_bytes[{clen}]").set(
                 tree_nbytes(self._stores[clen]))
+        # Shared-prefix tier (opt-in): refcounted pages / snapshots indexed
+        # by token prefix, leased per slot, maintained once per step.
+        self.prefix = PrefixCache(cfg, dtype, enabled=prefix_cache,
+                                  page_size=prefix_page_size, max_pages=max_prefix_pages,
+                                  device_pages=device_prefix_pages, device=self.device,
+                                  obs=self.obs)
 
     # -- slot accounting ----------------------------------------------------
 
@@ -236,7 +245,10 @@ class CachePool:
         return None
 
     def release(self, slot: int) -> None:
-        """Retire a slot: free its device lane, or drop its host copy."""
+        """Retire a slot: free its device lane, or drop its host copy.  Any
+        prefix-page leases the slot holds are dropped with it (the single
+        refcount-decrement path: retire, cancel and preempted cancel all
+        come through here)."""
         if slot in self._lane_of:
             clen, lane = self._lane_of.pop(slot)
             self._lanes[clen].append(lane)
@@ -247,6 +259,25 @@ class CachePool:
         else:
             raise ValueError(f"release of unknown slot id {slot}")
         del self._class_of[slot]
+        self.prefix.release(slot)
+
+    # -- shared-prefix tier --------------------------------------------------
+
+    def prefix_lookup(self, prompt, slot: int, *, chunk_size: int = 1
+                      ) -> tuple[int, dict | None]:
+        """Longest adoptable cached prefix of ``prompt`` for ``slot``:
+        ``(n_tokens, warm batch-1 cache)`` or ``(0, None)``.  Leases the
+        backing pages under the slot until `release`."""
+        return self.prefix.lookup(prompt, self.slot_len(slot), slot, chunk_size=chunk_size)
+
+    def prefix_register(self, prompt, cache: dict, slot: int) -> int:
+        """Index a finished prefill's prefix for future adopters."""
+        return self.prefix.register(prompt, cache, self.slot_len(slot))
+
+    def prefix_maintain(self) -> None:
+        """One prefix-tier bookkeeping cycle (LRU eviction, host migration of
+        cold unreferenced pages, gauge refresh)."""
+        self.prefix.maintain()
 
     # -- host spill tier ----------------------------------------------------
 
@@ -262,7 +293,7 @@ class CachePool:
             raise ValueError(f"slot {slot} already spilled")
         clen, lane = self.locate(slot)
         t0 = time.perf_counter()
-        host = tree_map(_to_host, lane_view(self._stores[clen], lane))
+        host = tree_map(to_host, lane_view(self._stores[clen], lane))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -382,6 +413,12 @@ class RequestScheduler:
     Stochastic sampling stays per-request reproducible: each request draws
     from its own generator, seeded from (``seed``, uid) at admission
     (`lane_seed`), whatever lane it lands in and whatever shares the class.
+
+    ``prefix_cache=True`` turns on shared-prefix reuse (`CachePool`'s
+    `PrefixCache`; ``prefix_page_size``, ``max_prefix_pages`` and
+    ``device_prefix_pages`` size it): an admission starts its chunked prefill
+    at the longest cached prefix of its prompt, and greedy output is
+    token-identical to a run without it.
     """
 
     def __init__(self, engine: InferenceEngine, *, n_slots: int = 4,
@@ -396,9 +433,9 @@ class RequestScheduler:
                  on_finish: Callable[[FinishedRequest], None] | None = None,
                  obs: Observability | None = None,
                  clock: Callable[[], float] | None = None,
-                 prefix_cache: bool = False):
-        if prefix_cache:
-            raise NotImplementedError(PREFIX_CACHE_ITEM)
+                 prefix_cache: bool = False, prefix_page_size: int = 16,
+                 max_prefix_pages: int | None = None,
+                 device_prefix_pages: int | None = None):
         self.engine = engine
         self.gen = gen
         # The timebase for every latency stamp; histogram records carry
@@ -415,7 +452,10 @@ class RequestScheduler:
         if cache_dtype is None:
             cache_dtype = gen.cache_format or torch.float32
         self.pool = CachePool(engine.cfg, n_slots, cache_len, classes=classes,
-                              dtype=cache_dtype, device=engine.device, obs=self.obs)
+                              dtype=cache_dtype, device=engine.device, obs=self.obs,
+                              prefix_cache=prefix_cache, prefix_page_size=prefix_page_size,
+                              max_prefix_pages=max_prefix_pages,
+                              device_prefix_pages=device_prefix_pages)
         # One captured step per class, over the class store (see ClassStep).
         self.pool.steps = {clen: ClassStep(engine, self.pool.get_store(clen), gen)
                            for _, clen in self.pool.classes}
@@ -571,15 +611,23 @@ class RequestScheduler:
             prompt = torch.as_tensor(req.prompt, dtype=torch.long,
                                      device=self.engine.device)[None, :]
             try:
+                # Shared-prefix adoption: start the chunked prefill at the
+                # longest cached prefix; those tokens are never prefilled.
+                # The warm cache is private to this slot (page rows are
+                # copied in), so the chunks may write it in place; the
+                # pages stay leased until the slot releases.
+                hit, warm = self.pool.prefix_lookup(req.prompt, slot,
+                                                    chunk_size=self.chunk_size)
                 prefill = self.engine.begin_chunked_prefill(
                     prompt, cache_len=self.pool.slot_len(slot),
-                    chunk_size=self.chunk_size, cache_dtype=self.pool.dtype)
+                    chunk_size=self.chunk_size, cache_dtype=self.pool.dtype,
+                    initial_cache=warm, start_offset=hit)
             except Exception:
                 self.pool.release(slot)
                 raise
             rt = request_track(req.uid)
             self._tr.end("queued", rt)
-            self._tr.begin("admit", rt, cache_len=self.pool.slot_len(slot))
+            self._tr.begin("admit", rt, cache_len=self.pool.slot_len(slot), prefix_hit=hit)
             self._admitting = {"req": req, "slot": slot, "prefill": prefill,
                                "budget": budget}
             return
@@ -689,6 +737,10 @@ class RequestScheduler:
             return True
         req, slot = adm["req"], adm["slot"]
         self.pool.write(slot, adm["prefill"].cache)
+        # The finished prompt's cache covers [0, len(prompt)): index it so
+        # later admissions sharing this prefix skip their prefill (`write`
+        # copied it, and the pages copy it again).
+        self.pool.prefix_register(req.prompt, adm["prefill"].cache, slot)
         clen, lane = self.pool.locate(slot)
         step = self.pool.steps[clen]
         g = None
@@ -738,6 +790,7 @@ class RequestScheduler:
     def step(self) -> int:
         """One admit+decode cycle; returns the number of tokens emitted."""
         chunked = self._admit()
+        self.pool.prefix_maintain()
         self.stats["steps"] += 1
         # Occupancy gauges + trace counter series, sampled once per cycle.
         m = self.obs.metrics

@@ -934,6 +934,124 @@ def test_class_step_replays_match_its_eager_body(arch, fmt):
     assert sorted(res) == [0, 1] and all(len(r.tokens) == 6 for r in res.values())
 
 
+# -- the shared-prefix cache on the card -------------------------------------------
+
+
+def _leaves(tree) -> list:
+    from repro_torch.serving.engine import tree_items
+    return [t for _, t in tree_items(tree)]
+
+
+def _ptrs(tree) -> set:
+    return {t.untyped_storage().data_ptr() for t in _leaves(tree)}
+
+
+def _held(pc, n):
+    """A page's rows (or a snapshot's cache), wherever it resides."""
+    if pc.mode == "paged":
+        return n.rows if n.rows is not None else n.host_rows
+    return n.cache if n.cache is not None else n.host_cache
+
+
+def _page_copies(pc) -> dict:
+    """Every page (or snapshot) -> a copy of its tensors."""
+    from repro_torch.serving.engine import _clone
+    return {n: _clone(_held(pc, n)) for n in pc._index.nodes()}
+
+
+def _unchanged(pc, copies: dict) -> bool:
+    return all(_tree_equal(_held(pc, n), c) for n, c in copies.items())
+
+
+def _registered_prefix(arch, fmt, **kw):
+    """A reduced model on the card and a `PrefixCache` holding one 19-token
+    prompt's chunked-prefill cache (in ``fmt``) as pages of 8."""
+    from repro_torch.serving import PrefixCache
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    eng = InferenceEngine.from_config(_reduced(arch), EngineSpec(), device="cuda")
+    p = list(range(3, 22))
+    _, cache = eng.prefill_chunked(torch.tensor([p], device="cuda"), cache_len=32,
+                                   chunk_size=8, cache_dtype=fmt or torch.float32)
+    pc = PrefixCache(eng.cfg, fmt or torch.float32, enabled=True, page_size=8,
+                     device="cuda", **kw)
+    assert pc.register(p, cache, 32) == (3 if pc.mode == "paged" else 1)
+    return p, cache, pc
+
+
+@pytest.mark.parametrize("arch,fmt", [("qwen3-8b", None), ("qwen3-8b", "int8_tok"),
+                                      ("ds3_dense", "mxint4_blk"), ("retnet-1.3b", None)])
+def test_prefix_pages_are_clones_not_views(arch, fmt):
+    """Page rows (and a snapshot) on CUDA tensors own their storage: none is
+    a view of the prefill cache they were cut from, and overwriting that
+    cache afterwards leaves them as they were."""
+    _, cache, pc = _registered_prefix(arch, fmt)
+    copies = _page_copies(pc)
+    src = _ptrs(cache)
+    for n in pc._index.nodes():
+        assert all(t.is_cuda for t in _leaves(_held(pc, n)))
+        assert not (_ptrs(_held(pc, n)) & src)
+    with torch.inference_mode():
+        for t in _leaves(cache["blocks"]):
+            t.fill_(3)
+    assert _unchanged(pc, copies)
+
+
+@pytest.mark.parametrize("arch,fmt", [("qwen3-8b", None), ("qwen3-8b", "mxint4_blk"),
+                                      ("retnet-1.3b", None)])
+def test_spilled_pages_are_pinned_and_fetch_back_bit_exact(arch, fmt):
+    p, _, pc = _registered_prefix(arch, fmt, device_pages=0)
+    copies = _page_copies(pc)
+    pc.maintain()
+    assert pc.device_resident_pages == 0 and pc.stats["page_spills"] == pc.n_pages
+    for n in pc._index.nodes():
+        assert all(t.device.type == "cpu" and t.is_pinned() for t in _leaves(_held(pc, n)))
+    hit, _ = pc.lookup(p + [5, 6], 32, slot=0)
+    assert hit == len(p) and pc.stats["page_fetches"] == pc.n_pages
+    assert all(t.is_cuda for n in pc._index.nodes() for t in _leaves(_held(pc, n)))
+    assert _unchanged(pc, copies)
+
+
+@pytest.mark.parametrize("arch,fmt", [("qwen3-8b", None), ("qwen3-8b", "int8_tok"),
+                                      ("ds3_dense", None), ("retnet-1.3b", None)])
+def test_adopted_lane_replays_leave_every_page_unchanged(arch, fmt):
+    """Reduced models on the card: a scheduler registers a donor prompt, then
+    admits two extensions by adopting the donor's pages (or snapshot) into a
+    class store that is a captured graph's static buffer; after the drain's
+    replays every page is bit for bit as registered, shares no storage with
+    the store, no lease is held, and the tokens are those of the same
+    requests without the prefix cache."""
+    from repro_torch.serving import Request, RequestScheduler
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig
+    eng = InferenceEngine.from_config(_reduced(arch), EngineSpec(), device="cuda")
+    donor = list(range(5, 37))
+    reqs = [donor] + [donor + list(range(40 + 8 * i, 48 + 8 * i)) for i in range(2)]
+
+    def drain(prefix_cache):
+        sched = RequestScheduler(eng, classes=[(2, 56)],
+                                 gen=GenerationConfig(max_new_tokens=6, cache_format=fmt),
+                                 chunk_size=16, prefix_cache=prefix_cache)
+        assert sched.pool.steps[56].graph is not None
+        sched.submit(Request(uid=0, prompt=reqs[0]))
+        sched.run()
+        copies = _page_copies(sched.pool.prefix)
+        for uid in (1, 2):
+            sched.submit(Request(uid=uid, prompt=reqs[uid]))
+        res = sched.run()
+        return {u: f.tokens for u, f in res.items()}, sched, copies
+
+    cold, _, _ = drain(False)
+    warm, sched, copies = drain(True)
+    pc = sched.pool.prefix
+    assert warm == cold
+    assert pc.stats["prefix_hits"] == 2 and pc.stats["prefix_hit_tokens"] == 64
+    assert pc.leased_slots == 0 and all(n.refs == 0 for n in pc._index.nodes())
+    assert sched.pool.steps[56].replays > 6 and copies
+    assert _unchanged(pc, copies)
+    store = _ptrs(sched.pool.get_store(56))
+    assert all(not (_ptrs(_held(pc, n)) & store) for n in pc._index.nodes())
+
+
 # -- the engine's captured decode step --------------------------------------------
 
 

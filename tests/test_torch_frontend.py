@@ -253,6 +253,36 @@ def test_midstream_cancel_releases_the_slot():
     assert frontend.stats["completed"] == 1
 
 
+def test_midstream_cancel_releases_slot_and_prefix_leases():
+    """The second pass of a prompt adopts its cached prefix (leasing pages)
+    and is cancelled two tokens into its stream: the slot is back in the
+    pool and the leases are dropped with it."""
+    engine, sched, frontend, clock = make_stack(
+        "qwen3-8b", classes=((2, 64),), max_new=6, prefix_cache=True, prefix_page_size=8)
+    prompt = prompt_of(engine, 40, seed=3)
+
+    async def main():
+        async with frontend:
+            s0 = frontend.submit(prompt, uid=0)
+            async for _ in s0:
+                pass
+            await s0.result()
+            s1 = frontend.submit(prompt, uid=1)
+            got = []
+            async for tok in s1:
+                got.append(tok)
+                if len(got) == 2:
+                    break
+            await s1.aclose()
+            fin = await s1.result()
+            assert fin.cancelled and fin.tokens[:2] == got
+            assert sched.pool.free_slots == 2
+            assert not sched.pool.prefix._leases
+            assert sched.pool.prefix.stats["prefix_hits"] >= 1
+
+    clock.run(main())
+
+
 def test_cancel_mid_chunked_prefill_reports_and_frees():
     _, engine = engines("qwen3-8b")
     finished: list[FinishedRequest] = []

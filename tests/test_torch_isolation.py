@@ -23,12 +23,13 @@ print("BAD", bad)
 print("NEW", all(m in sys.modules for m in NEW_MODULES))
 """
 
-# Modules of the admission, serve-CLI and serving-stack slices, which the
+# Modules of the admission, serve-CLI, serving-stack and prefix-cache slices, which the
 # probe must reach.
 NEW_MODULES = ("repro_torch.launch.serve", "repro_torch.core.edge_model",
                "repro_torch.serving.engine", "repro_torch.serving.sampling",
                "repro_torch.serving.scheduler", "repro_torch.serving.frontend",
                "repro_torch.serving.loadgen", "repro_torch.serving.clock",
+               "repro_torch.serving.paging",
                "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
                "repro_torch.obs.profiler")
 

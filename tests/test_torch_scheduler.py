@@ -18,7 +18,7 @@ and the reduced deepseek-v3 config cut to its 3 leading dense layers):
   sampled from its own generator); a sampled request gives the same tokens
   alone and beside another, in either lane;
 * `cancel` in each state (queued, admitting, active, preempted), the
-  pool's write checks, `cache_nbytes`, the refused prefix cache, and the
+  pool's write checks, `cache_nbytes`, the pool with its prefix cache on, and the
   metrics registry and tracer against the reference's on the same records.
 
 The card's side (per-lane kv_len in both kernel modes, a class step
@@ -517,12 +517,28 @@ def test_submit_rejects_what_no_class_holds():
         sched.submit(Request(uid=1, prompt=[1, 2], max_new_tokens=0))
 
 
-def test_prefix_cache_raises_naming_its_roadmap_item():
-    _, te = engines("retnet-1.3b")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        RequestScheduler(te, classes=[(1, 16)], prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        CachePool(te.cfg, 1, 16, device="cpu", prefix_cache=True)
+@pytest.mark.parametrize("arch", ARCHS, ids=ARCH_IDS)
+def test_pool_with_prefix_cache_registers_adopts_and_releases(arch):
+    """`CachePool(prefix_cache=True)` on the CPU: a prefilled lane registers
+    its prompt, a second slot adopts it (its warm cache writes into the
+    second lane), and releasing the slot drops the lease."""
+    _, te = engines(arch)
+    pool = CachePool(te.cfg, classes=[(2, 32)], device="cpu", prefix_cache=True)
+    assert pool.prefix.mode == Tlm.prefix_sharing_mode(te.cfg)
+    donor = prompts(te.cfg.vocab_size, [16], seed=3)[0]
+    _, cache = te.prefill_chunked(torch.tensor([donor]), cache_len=32, chunk_size=8)
+    a = pool.acquire(32)
+    pool.write(a, cache)
+    assert pool.prefix_register(donor, cache, a) == 1
+    b = pool.acquire(32)
+    hit, warm = pool.prefix_lookup(donor + [1, 2], b, chunk_size=8)
+    assert hit == 16 and pool.prefix.leased_slots == 1
+    pool.write(b, warm)
+    assert int(pool.lane_cache(b)["pos"]) == 16
+    pool.release(b)
+    assert pool.prefix.leased_slots == 0
+    pool.prefix_maintain()
+    assert pool.prefix.free_pages == pool.prefix.n_pages == 1
 
 
 # -- the metrics registry and the tracer against the reference's -----------------

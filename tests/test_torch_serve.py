@@ -194,6 +194,22 @@ def test_frontend_mode_holds_the_smoke_contract_on_virtual_time(arrival, capsys)
     assert lines[-1].startswith("[serve] frontend smoke OK") and "0 unexplained" in lines[-1]
 
 
+def test_prefix_cache_mode_adopts_the_shared_prompt_and_prints_the_hit_line(capsys):
+    """``--prefix-cache`` on the repeated-system-prompt stream: 5 prompts of
+    60 tokens opening with one 45-token prefix, one lane of 64 (the 34-lane
+    class is too small for them), so every admission after the first adopts
+    45 tokens (2 pages of 16 and a COW of 13)."""
+    serve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu", "--scenario", "LISO",
+                "--scale", "0.08", "--requests", "5", "--slots", "2", "--chunk-size", "8",
+                "--prefix-cache"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[serve]")]
+    assert "prefix-cache on (45-token shared prefix)" in lines[0]
+    assert lines[2] == ("[serve] prefix cache [paged]: 4/5 admissions adopted a cached "
+                        "prefix, 180 prefill tokens skipped, 12 pages resident "
+                        "(4 COW copies)")
+    assert "tokens/s" in lines[-1]
+
+
 def test_oversubscribe_must_exceed_one(capsys):
     with pytest.raises(SystemExit) as exc:
         serve.main(_CLI + ["--requests", "4", "--oversubscribe", "1.0"])
