@@ -95,15 +95,37 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    1.0, 7 of 8 admissions adopt 96 tokens and the tokens equal the cold
    stream's; hit rate, tokens skipped, chunks, TTFT p50/p99 and the TTFT
    p50 delta warm - cold recorded;
-8. each model reduced, on the card against the CPU plain path, and the
+8. after phase 7 on each path, speculative decode (`serve_speculative`, k 4,
+   the ngram drafter): in every cache format, `generate` of 2 prompts of
+   512 tokens (one seeded, one [5, 9, 13] tiled) and 32 tokens with a cache
+   of 548 (`speculative_cell`): each verify step one replay of a captured
+   graph with W8A8 inside, its launches exact (W8A8 only: 169 on retnet,
+   253 on qwen3-8b, 28 on ds3_dense) and the counted generate's; the graph
+   against the eager loop bit for bit (tokens, lengths, verify steps,
+   accepted drafts, history, final cache); one verify block against the
+   plain path in lockstep at BLOCK_TOL (outputs, verified and committed
+   caches, logits at all k + 1 positions), with the ngram drafts and with
+   drafts forced to miss (a full rejection); tokens per step, acceptance,
+   one replay's device ms, the host read of the loop's condition, ms per
+   emitted token against the plain graph loop in turns, capture seconds,
+   and where the tokens first part from the plain loop's (verify reads the
+   W8A8 weights, decode the MXINT4 ones) with the top-two margin there
+   recorded; then the phase-6 drain's requests in speculative mode
+   (`spec_scheduler_drain`: classes (2, 52) and (2, 84)): one replay
+   against the eager class step and lane isolation (lane 0 bit-identical
+   whether lane 1 holds a request or garbage), launches exactly the
+   chunks' and the replays', tokens per step and acceptance per request;
+9. each model reduced, on the card against the CPU plain path, and the
    serve CLI (``python -m repro_torch.launch.serve``) at full width as
    subprocesses: on retnet-1.3b greedy and top-p generate, the scheduler,
-   the front end on virtual time, and the oversubscribed host-spill
-   scheduler with its trace and metrics; on qwen3-8b ``--prefix-cache``
-   (4 of 5 admissions adopt the shared prompt);
-9. one JSON line ``{"kernels": [...]}`` (``scheduler_launches_by_path`` and
-   ``prefix_launches_by_path`` beside ``launches``) and, last, the
-   ``{"ok": true, ...}`` line.
+   the front end on virtual time, the oversubscribed host-spill scheduler
+   with its trace and metrics, and ``--speculative`` in the single-generate
+   and the scheduler mode; on qwen3-8b ``--prefix-cache`` (4 of 5
+   admissions adopt the shared prompt);
+10. one JSON line ``{"kernels": [...]}`` (``scheduler_launches_by_path``,
+   ``prefix_launches_by_path`` and ``speculative_launches_by_path`` beside
+   ``launches``; W8A8's rows also at the verify step's shapes, M 10, under
+   the path "<arch> verify") and, last, the ``{"ok": true, ...}`` line.
 
 It imports neither jax nor the JAX package.
 """
@@ -220,6 +242,10 @@ LANE_KV_LENS = ((1, 528), (528, 300))
 ADMIT_PROMPT, ADMIT_CHUNK = 500, 32
 ADMIT_CACHE = ADMIT_PROMPT + NEW   # KV slots of a chunked admission: 532
 TOP_P = 0.9
+# The speculative phase (`serve_speculative`): k 4 drafts per verify step,
+# the cache reserving k slots past the budget, the ngram drafter.
+SPEC_K = 4
+SPEC_CACHE = PROMPT + NEW + SPEC_K          # KV slots of a speculative generate: 548
 RMS_MAIN = (1024, 4096, torch.bfloat16)
 RMS_AMORTISED = 8        # calls on distinct inputs per graph in `amortised_ms`
 
@@ -371,10 +397,23 @@ def kernel_phase_mxint4(peaks):
     return rows
 
 
+def _verify_cases(path: dict):
+    """(path, M, K, N, launches per verify step) of the speculative verify
+    step (`serve_speculative`: B 2, k 4), under the path name "<arch>
+    verify": every linear and the lm_head at M = 2 x 5 rows, and MLA's
+    re-expansion of the whole latent at M = 2 x SPEC_CACHE rows."""
+    m, name = BATCH * (SPEC_K + 1), f"{path['arch']} verify"
+    cases = [(name,) + c[1:] for c in _linear_cases(path, m, m)]
+    return cases + [(name, BATCH * SPEC_CACHE, k, n, c * path["layers"])
+                    for k, n, c in path["prefill_linears"]]
+
+
 def kernel_phase_w8a8(peaks):
     rows = []
-    for arch, m, k, n, count in (c for path in PATHS
-                                 for c in _linear_cases(path, BATCH * PROMPT, BATCH, True)):
+    cases = [c + (True,) for path in PATHS
+             for c in _linear_cases(path, BATCH * PROMPT, BATCH, True)]
+    cases += [c + (False,) for path in PATHS for c in _verify_cases(path)]
+    for arch, m, k, n, count, main in cases:
         g = _gen(m + k + n)
         xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda").to(torch.int8)
         # K-major, as deploy stores the main path's weights.
@@ -389,10 +428,11 @@ def kernel_phase_w8a8(peaks):
         if not torch.equal(got, ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")):
             raise RuntimeError(f"w8a8 {m}x{k}x{n}: two launches differ")
         # torch._int_mm needs M > 16: the M = 2 lm_head is timed padded to 32
-        # rows (noted as library_rows).  library_ms takes the K-major weight
-        # (cuBLASLt's int8 "TN" layout, the one the kernel reads);
-        # library_rowmajor_ms the row-major copy earlier runs timed.
-        xl = xq if m > 16 else F.pad(xq, (0, 0, 0, 32 - m))
+        # rows, a verify step's M = 10 at the smallest M it takes, 17 (noted
+        # as library_rows).  library_ms takes the K-major weight (cuBLASLt's
+        # int8 "TN" layout, the one the kernel reads); library_rowmajor_ms
+        # the row-major copy earlier runs timed.
+        xl = xq if m > 16 else F.pad(xq, (0, 0, 0, (32 if main else 17) - m))
         nbytes = m * k + k * n + 4 * (2 * n + m) + 4 * m * n
         bms, by = bound_ms(nbytes, 2 * m * k * n, peaks["int8"], peaks)
         ms = time_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel"))
@@ -409,6 +449,8 @@ def kernel_phase_w8a8(peaks):
             rate=f"{2 * m * k * n / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.1f} GB/s",
             library_rate=f"{2 * xl.shape[0] * k * n / lib / 1e9:.1f} TOP/s",
             bound_share=bms / ms))
+        if not main:
+            rows[-1].update(main=False, site="speculative verify step")
     return rows
 
 
@@ -969,9 +1011,11 @@ def serve_full_width(path: dict, card: str):
     results.update(scheduling)
     prefixed, prefixing = serve_prefix(path, eng, card)
     results.update(prefixing)
+    speculated, speculating = serve_speculative(path, eng, plain, card)
+    results.update(speculating)
     del eng, plain
     torch.cuda.empty_cache()
-    return counted, admitted, scheduled, prefixed, results
+    return counted, admitted, scheduled, prefixed, speculated, results
 
 
 @torch.inference_mode()
@@ -1843,6 +1887,314 @@ def serve_prefix(path: dict, eng, card: str) -> tuple[dict, dict]:
     return launches, results
 
 
+# The speculative phase.  (a) `generate` with speculative decode in every
+# (path, cache format) cell: 2 prompts of PROMPT tokens (one seeded, one the
+# reference test's [5, 9, 13] tiled), NEW tokens, k SPEC_K, in the default
+# deployment (verify reads the W8A8 weights, decode the MXINT4 ones).  (b)
+# The phase-6 drain's requests through the scheduler in speculative mode,
+# each class reserving k slots for the verify overrun.
+SPEC_CLASSES = tuple((n, c + SPEC_K) for n, c in DRAIN_CLASSES)
+
+
+def spec_step_launches(path: dict) -> dict:
+    """Launches of one verify step: W8A8 alone, those of one admission chunk
+    (every linear, MLA's whole-latent re-expansion and the LM head);
+    retention runs the recurrent form with snapshots."""
+    per = dict.fromkeys(hopper.COUNTERS, 0)
+    per["w8a8_matmul"] = expected_launches(path, SPEC_K + 1)[0]["w8a8_matmul"]
+    return per
+
+
+def spec_prompts(vocab: int) -> torch.Tensor:
+    """[2, PROMPT]: a seeded random prompt and the periodic one."""
+    row = torch.randint(1, vocab, (PROMPT,), generator=_gen(71), device="cuda")
+    periodic = torch.tensor([5, 9, 13], device="cuda").repeat(PROMPT // 3 + 1)[:PROMPT]
+    return torch.stack([row, periodic])
+
+
+def _spec_start(eng, prompts, gen):
+    """The prefill `generate` runs before its speculative loop: (first
+    pending token, encoded cache, history)."""
+    logits, cache, hist = eng._spec_prefill(prompts, gen)
+    return sample(logits, gen.sampling), cache, hist
+
+
+@torch.inference_mode()
+def verify_lockstep(eng, plain, prompts, gen) -> dict:
+    """One verify block, kernel path against plain path on the same weights,
+    in lockstep from the kernel path's prefilled cache (cloned for each
+    path: the verify writes dense rows in place): each block gets the plain
+    path's input, and its output, every tensor of its verified cache (the
+    RetNet snapshots included), its cache committed at the block's
+    acceptance (1 for a full rejection) and the logits at all k + 1
+    positions must agree within BLOCK_TOL of max|value|.  Two blocks: the
+    ngram drafter's own drafts, and drafts chosen to miss the argmax (a
+    forced full rejection, checked on the plain path's logits)."""
+    from repro_torch.serving.speculative import ngram_propose
+    cfg, model, k = eng.cfg, eng.model, SPEC_K
+    tok, cache, hist = _spec_start(eng, prompts, gen)
+    drafts = ngram_propose(hist, torch.tensor(prompts.shape[1], device="cuda"), tok, k=k,
+                           m=gen.speculative.ngram)
+    bad = (tok[:, None] + torch.arange(1, k + 1, device="cuda")) % cfg.vocab_size
+    pos = cache["pos"]
+    sin, cos = lm._rope_tables(cfg, k + 1, pos.device, start=pos)
+    out = {}
+    for name, block in (("drafts", torch.cat([tok[:, None], drafts], 1)),
+                        ("rejected", torch.cat([tok[:, None], bad], 1))):
+        worst = dict(block=0.0, cache=0.0, committed=0.0, logits=0.0)
+        x = lm._embed(model, block)
+        for i, (blk, cl) in enumerate(zip(model.blocks, cache["blocks"])):
+            yk, ck = lm._block_chunk(blk, x, cfg, eng.hsa, _clone(cl), pos, sin, cos, True)
+            yr, cr = lm._block_chunk(blk, x, cfg, plain.hsa, _clone(cl), pos, sin, cos, True)
+            tag = f"verify {name} block {i}"
+            worst["block"] = max(worst["block"], _rel(yk, yr, tag, BLOCK_TOL))
+            worst["cache"] = max(worst["cache"], _cache_rel(tag, ck, cr, BLOCK_TOL))
+            if name == "rejected":
+                one = torch.ones((), dtype=torch.int32, device="cuda")
+                kc, rc = (lm.commit_verified_cache({"pos": pos}, {"blocks": [c]}, one, k + 1,
+                                                   cfg)["blocks"][0] for c in (ck, cr))
+                worst["committed"] = max(worst["committed"],
+                                         _cache_rel(f"{tag} committed", kc, rc, BLOCK_TOL))
+            x = yr.to(x.dtype)
+        h = layers.norm_full(model.final_norm, x)
+        lk = eng.hsa.linear(model.lm_head, h, "prefill")
+        lr = plain.hsa.linear(model.lm_head, h, "prefill")
+        worst["logits"] = max(worst["logits"], _rel(lk, lr, f"verify {name} logits",
+                                                    BLOCK_TOL))
+        if name == "rejected" and bool((lr[:, 0].argmax(-1) == bad[:, 0]).any()):
+            raise RuntimeError("verify lockstep: the forced rejection's draft is the argmax")
+        out[name] = worst
+    return dict(verify_lockstep=out, lockstep_tolerance=BLOCK_TOL)
+
+
+@torch.inference_mode()
+def _margin_at(eng, prompts, plain_tokens, col: int, rows) -> list:
+    """The plain loop's top-two logit margin at token column ``col`` of
+    ``rows`` (its logits from prefill or from the eager decode steps)."""
+    logits, cache = eng.prefill(prompts, cache_len=prompts.shape[1] + NEW)
+    for j in range(col):
+        logits, cache = eng.decode_step(plain_tokens[:, j:j + 1], cache)
+    top = logits.float().topk(2, dim=-1).values
+    return [(top[r, 0] - top[r, 1]).item() for r in rows]
+
+
+@torch.inference_mode()
+def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict]:
+    """(a) One (path, cache format) cell.  Fatal: the graph's loop against
+    the eager loop from the same prefill (tokens, lengths, verify steps,
+    accepted drafts, history and final cache bit for bit); the captured
+    verify step's launches (W8A8 only, `spec_step_launches`) and the counted
+    generate's (its prefill's and its replays'); the lockstep comparison
+    with the plain path (`verify_lockstep`).  Recorded: tokens per step,
+    acceptance, one replay's device ms, the host read of the loop's
+    condition, ms per emitted token against the plain graph loop in turns,
+    capture seconds, and where the speculative tokens first part from the
+    plain loop's with the plain loop's top-two margin there."""
+    from repro_torch.serving.sampling import SpeculativeConfig
+    tag = f"{path['arch']} speculative" + ("" if fmt is None else f" {fmt}")
+    cfg = eng.cfg
+    prompts = spec_prompts(cfg.vocab_size)
+    gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt,
+                           speculative=SpeculativeConfig(k=SPEC_K))
+    plain_gen = dataclasses.replace(gen, speculative=None)
+    want_p, want_step = expected_launches(path)[0], spec_step_launches(path)
+    first = eng.generate(prompts, gen)
+    tok, cache, hist = _spec_start(eng, prompts, gen)
+    sg = eng._graphs[eng.spec_graph_key(cache, hist.shape[1], gen)]
+    if sg.launches != want_step:
+        raise RuntimeError(f"{tag}: a verify replay launches {sg.launches}, expected "
+                           f"{want_step}")
+    hopper.reset_launches()
+    res = eng.generate(prompts, gen)
+    launches = dict(hopper.LAUNCHES)
+    want = {n: want_p[n] + want_step[n] * res.verify_steps for n in hopper.COUNTERS}
+    if launches != want or res.capture_s or not torch.equal(res.tokens, first.tokens):
+        raise RuntimeError(f"{tag}: launches {launches}, expected {want} (capture "
+                           f"{res.capture_s} s)")
+    st, _ = eng._spec_loop(tok, cache, hist, prompts.shape[1], gen, None, graph=False)
+    g = sg.state
+    same = (torch.equal(res.tokens, st.out[:, :NEW]) and torch.equal(res.lengths, st.lengths)
+            and (res.verify_steps, res.accepted_drafts) == (int(st.steps), int(st.accepted))
+            and torch.equal(g.hist, st.hist) and torch.equal(g.hist_len, st.hist_len))
+    a, b = dict(serving_engine.tree_items(g.cache)), dict(serving_engine.tree_items(st.cache))
+    differ = [key for key in a if not torch.equal(a[key], b[key])]
+    if not same or differ:
+        raise RuntimeError(f"{tag}: graph and eager loops differ ({differ[:4]})")
+    del st, cache
+    toks = res.tokens
+    if toks.shape != (BATCH, NEW) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise RuntimeError(f"{tag}: bad tokens {toks.shape}")
+
+    # One replay between CUDA events (the state is reset by the next run),
+    # and the host's read of the loop's condition after a replay.
+    replay_ms, read_ms = [], []
+    for _ in range(5):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        sg.graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        replay_ms.append(e0.elapsed_time(e1))
+        t0 = time.perf_counter()
+        bool(g.more)
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+    runs = dict(speculative=[res], plain=[])
+    for kind in ("plain", "plain", "speculative"):
+        runs[kind].append(eng.generate(prompts, gen if kind == "speculative" else plain_gen))
+    per_tok = {kind: [r.decode_s * 1e3 / NEW for r in rs] for kind, rs in runs.items()}
+    plain_toks = runs["plain"][0].tokens
+    col = _parting(toks, plain_toks)
+    out = dict(card=card, k=SPEC_K, verify_steps=res.verify_steps,
+               accepted_drafts=res.accepted_drafts, tokens_per_step=res.tokens_per_step,
+               acceptance_rate=res.acceptance_rate, launches=launches,
+               replay_launches=sg.launches, capture_s=first.capture_s,
+               verify_step_device_ms=sorted(replay_ms)[2], verify_step_device_ms_runs=replay_ms,
+               host_read_ms=sorted(read_ms)[2],
+               loop_ms_per_verify_step=res.decode_s * 1e3 / res.verify_steps,
+               ms_per_token_in_turns=per_tok,
+               ms_per_token=sum(per_tok["speculative"]) / 2,
+               plain_ms_per_token=sum(per_tok["plain"]) / 2,
+               graph_and_eager_bit_identical=True, first_parting_from_plain=col)
+    if col is not None:
+        rows = (toks[:, col] != plain_toks[:, col]).nonzero()[:, 0].tolist()
+        out.update(parting_rows=rows,
+                   plain_top2_margin_at_parting=_margin_at(eng, prompts, plain_toks, col, rows))
+    out.update(verify_lockstep(eng, plain, prompts, gen))
+    log(f"{tag}:", json.dumps(out))
+    return launches, out
+
+
+@torch.inference_mode()
+def spec_class_step_identity(tag, step) -> dict:
+    """One replay of a speculative class step against its eager body from the
+    same state (blocks, counts, tokens, histories and every store tensor bit
+    for bit), and lane isolation: lane 0's block, count, token, history and
+    store rows bit-identical whether lane 1 holds its request or a free
+    lane's garbage.  The state is put back after each run."""
+    bufs = (step.tok, step.fed, step.hist, step.hist_len, step.result)
+    before = serving_engine._clone(step.store), [t.clone() for t in bufs]
+
+    def restore():
+        serving_engine._write_back(step.store, before[0])
+        for t, b in zip(bufs, before[1]):
+            t.copy_(b)
+
+    def lane0():
+        return ([t[0].clone() for t in bufs]
+                + [t[0].clone() for _, t in serving_engine.tree_items(step.store)])
+
+    pos = step.store["pos"].tolist()
+    step.graph.replay()
+    got, got_bufs, got0 = serving_engine._clone(step.store), [t.clone() for t in bufs], lane0()
+    restore()
+    step.body()
+    a, b = dict(serving_engine.tree_items(got)), dict(serving_engine.tree_items(step.store))
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ or not all(torch.equal(x, y) for x, y in zip(got_bufs, bufs)):
+        raise RuntimeError(f"{tag}: speculative class-step replay and eager body differ at "
+                           f"{differ[:4] or 'the buffers'}")
+    restore()
+    g = _gen(83)
+    for _, t in serving_engine.tree_items(step.store):
+        t[1] = (torch.randn(t[1].shape, generator=g, device="cuda").to(t.dtype) * 7
+                if t.dtype.is_floating_point else
+                torch.randint(-50, 2000, t[1].shape, generator=g, device="cuda").to(t.dtype))
+    step.tok[1], step.hist_len[1] = 3, 10 ** 6
+    step.hist[1].random_(0, 5, generator=g)
+    step.graph.replay()
+    alone = lane0()
+    restore()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got0, alone)):
+        raise RuntimeError(f"{tag}: lane 0's outputs depend on lane 1's contents")
+    return dict(lane_positions=pos, replay_and_eager_bit_identical=True,
+                lane_isolation_bit_identical=True, lane0_committed=int(got0[4][-1]))
+
+
+def spec_scheduler_drain(path: dict, eng, card: str) -> tuple[dict, dict]:
+    """(b) The phase-6 drain's requests through the scheduler in speculative
+    mode (classes `SPEC_CLASSES`, chunks of DRAIN_CHUNK).  Fatal: each class
+    step's launches per replay (`spec_step_launches`); mid-drain, once two
+    lanes of a class are busy, one replay against the eager body and lane
+    isolation (`spec_class_step_identity`); the drain's launches exactly its
+    chunks' and its replays'; every request's tokens in the vocabulary.
+    Recorded: tokens per verify step and acceptance per request."""
+    from repro_torch.serving import Request, RequestScheduler
+    from repro_torch.serving.sampling import SpeculativeConfig
+    tag = f"{path['arch']} speculative scheduler"
+    cfg, new = eng.cfg, GOODPUT["new"]
+    gen = GenerationConfig(max_new_tokens=new, speculative=SpeculativeConfig(k=SPEC_K))
+    sched = RequestScheduler(eng, classes=list(SPEC_CLASSES), gen=gen, chunk_size=DRAIN_CHUNK,
+                             seed=0)
+    check_class_steps(tag, sched, spec_step_launches(path))
+    reqs = _requests(cfg.vocab_size, DRAIN_LENS, 47)
+    for uid, p in enumerate(reqs):
+        sched.submit(Request(uid=uid, prompt=p))
+    identity = None
+    hopper.reset_launches()
+    t0 = time.perf_counter()
+    while sched.pending:
+        sched.step()
+        if identity is None:
+            busy = [st for clen, st in sched.pool.steps.items()
+                    if sum(1 for sl in sched._active if sched.pool.locate(sl)[0] == clen) == 2]
+            if busy:
+                launched = dict(hopper.LAUNCHES)
+                identity = spec_class_step_identity(tag, busy[0])
+                hopper.LAUNCHES.update(launched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hopper.LAUNCHES)
+    res = {f.uid: f for f in sched._finished}
+    bad = [u for u, f in res.items() if len(f.tokens) != new
+           or not all(0 <= t < cfg.vocab_size for t in f.tokens)]
+    if len(res) != len(reqs) or bad or identity is None:
+        raise RuntimeError(f"{tag}: {len(res)} of {len(reqs)} finished, bad {bad}, "
+                           f"identity checked {identity is not None}")
+    want = _chunk_launches(path, [c for p in reqs for c in chunk_schedule(len(p), DRAIN_CHUNK)])
+    want["w8a8_matmul"] += sum(st.replays * st.launches["w8a8_matmul"]
+                               for st in sched.pool.steps.values())
+    if launches != want:
+        raise RuntimeError(f"{tag}: launches {launches}, expected {want} (chunks and replays)")
+    out = dict(card=card, classes=[list(c) for c in SPEC_CLASSES], prompt_lens=list(DRAIN_LENS),
+               chunk=DRAIN_CHUNK, k=SPEC_K, launches=launches,
+               replays={clen: st.replays for clen, st in sched.pool.steps.items()},
+               replay_launches=sched.pool.steps[SPEC_CLASSES[0][1]].launches,
+               class_step=identity,
+               per_request={u: dict(tokens_per_step=f.tokens_per_step,
+                                    acceptance=f.accepted_drafts / (SPEC_K * f.verify_steps),
+                                    verify_steps=f.verify_steps) for u, f in sorted(res.items())},
+               verify_steps=sched.stats["verify_steps"],
+               accepted_drafts=sched.stats["accepted_drafts"],
+               **scheduler_report(sched, wall))
+    log(f"{tag}:", json.dumps(out))
+    return launches, out
+
+
+def serve_speculative(path: dict, eng, plain, card: str) -> tuple[dict, dict]:
+    """The speculative phase of one main path at full width: (a) in each of
+    its cache formats, then (b).  Returns the counted launches and the
+    results."""
+    t0 = time.perf_counter()
+    arch = path["arch"]
+    log(f"== speculative decode: {arch}, k {SPEC_K}, B={BATCH}, S={PROMPT} (one seeded, one "
+        f"periodic prompt), {NEW} tokens, C {SPEC_CACHE}, cache formats "
+        f"{[f or 'f32' for f in path['formats']]}; then the scheduler drain in speculative "
+        f"mode, classes {SPEC_CLASSES}")
+    launches, results = dict.fromkeys(hopper.COUNTERS, 0), {}
+    for fmt in path["formats"]:
+        counted, out = speculative_cell(path, eng, plain, fmt, card)
+        results[f"{arch} speculative" + ("" if fmt is None else f" {fmt}")] = out
+        for k in launches:
+            launches[k] += counted[k]
+    counted, results[f"{arch} speculative scheduler"] = spec_scheduler_drain(path, eng, card)
+    for k in launches:
+        launches[k] += counted[k]
+    log(f"{arch} speculative phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches, results
+
+
 def one_prefill_launches(tag, path, eng, prompts, gen) -> dict:
     """Launches of one monolithic and one bucketed prefill of the admission
     prompts, each exact: retention runs every length through the kernel
@@ -1900,7 +2252,10 @@ def serve_cli() -> dict:
                                "2", "--chunk-size", "8"], "[serve] frontend smoke OK"),
                  ("host_spill", ["--requests", "6", "--host-spill", "--oversubscribe", "2",
                                  "--chunk-size", "8", "--trace", trace, "--metrics", metrics],
-                  "[serve] metrics snapshot"))
+                  "[serve] metrics snapshot"),
+                 ("speculative", ["--speculative"], "[serve] sample output tokens"),
+                 ("speculative_scheduler", ["--speculative", "--requests", "6", "--slots", "4",
+                                            "--chunk-size", "8"], "[serve] tokens/s"))
         modes = tuple((name, retnet + extra, last) for name, extra, last in modes) + (
             ("prefix_cache", ["--arch", "qwen3-8b", "--scenario", "LISO", "--scale", "0.08",
                               "--requests", "5", "--slots", "2", "--chunk-size", "8",
@@ -1923,6 +2278,9 @@ def serve_cli() -> dict:
                 or not any(e["name"] == "preempt" for e in events):
             raise RuntimeError(f"serve CLI (host_spill): no preemption recorded: {snap}")
         out["host_spill"].update(metrics_counters=snap, trace_events=len(events))
+        for name in ("speculative", "speculative_scheduler"):
+            if not any(ln.startswith("[serve] speculative:") for ln in out[name]["lines"]):
+                raise RuntimeError(f"serve CLI ({name}): no speculative line")
         hit = [ln for ln in out["prefix_cache"]["lines"]
                if ln.startswith("[serve] prefix cache")]
         if not hit or "4/5 admissions adopted a cached prefix, 180 prefill" not in hit[0]:
@@ -2297,10 +2655,11 @@ def main() -> int:
         log(f"  sigma^-1 price: {json.dumps(r)}")
     log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 
-    serving, by_path, admitted, scheduled, prefixed = {}, {}, {}, {}, {}
+    serving, by_path, admitted, scheduled, prefixed, speculated = {}, {}, {}, {}, {}, {}
     for path in PATHS:
         (by_path[path["arch"]], admitted[path["arch"]], scheduled[path["arch"]],
-         prefixed[path["arch"]], results) = serve_full_width(path, smi)
+         prefixed[path["arch"]], speculated[path["arch"]], results) = serve_full_width(path,
+                                                                                       smi)
         serving.update(results)
     for path in PATHS:
         serving.update(reduced_vs_cpu(path))
@@ -2315,6 +2674,8 @@ def main() -> int:
         e["scheduler_launches_by_path"] = {arch: n[e["name"]]
                                            for arch, n in scheduled.items()}
         e["prefix_launches_by_path"] = {arch: n[e["name"]] for arch, n in prefixed.items()}
+        e["speculative_launches_by_path"] = {arch: n[e["name"]]
+                                             for arch, n in speculated.items()}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": entries}))

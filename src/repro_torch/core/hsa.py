@@ -24,12 +24,16 @@ class HSAConfig:
 
     Outputs are f32.  The online RoPE unit always drives decode, so the
     reference's unread ``online_rope`` and its one-valued ``out_dtype`` are
-    left out."""
+    left out.  ``act_scale='lane'`` gives every lane (the leading axis of a
+    linear's input) its own W8A8 activation scale: a scheduler's slot
+    class verifies all its lanes in one dispatch, where the reference
+    vmaps one slot at a time."""
 
     prefill_format: str = "w8a8"        # 'w8a8' | 'fp'
     decode_format: str = "mxint4"       # 'mxint4' | 'w8a8' | 'fp'
     fuse_rmsnorm: bool = True           # C3: Eq. (4) epilogue fusion
     kernel_impl: str = "auto"           # 'auto' | 'kernel' | 'ref'
+    act_scale: str = "tensor"           # W8A8 activations: 'tensor' | 'lane'
 
 
 class HSAEngine:
@@ -64,4 +68,5 @@ class HSAEngine:
             bias=p.b)
         eff_phase = {"fp": "train", "w8a8": "prefill", "mxint4": "decode"}[fmt]
         return ql.apply(params, x, eff_phase, row_scale=row_scale,
-                        out_scale=out_scale, impl=cfg.kernel_impl)
+                        out_scale=out_scale, impl=cfg.kernel_impl,
+                        lane_act=cfg.act_scale == "lane")

@@ -133,13 +133,14 @@ def dequantize_mxint4(q: MXINT4Weight, dtype=torch.bfloat16,
     return (mant * scale.repeat_interleave(group_size, dim=1)).to(dtype)
 
 
-def _absmax_scale(x: torch.Tensor) -> torch.Tensor:
+def _absmax_scale(x: torch.Tensor, dims=None) -> torch.Tensor:
     """``absmax * f32(1/127)``.  The reference writes ``absmax / 127.0``, but
     under ``jit`` XLA multiplies by the rounded reciprocal, and its deployed
     bytes and prefill activations come from that compiled form (an exact
     division differs in the last bit for some inputs;
     tests/test_torch_mxint4.py holds one)."""
-    absmax = x.to(torch.float32).abs().amax()
+    absmax = x.to(torch.float32).abs().amax() if dims is None else \
+        x.to(torch.float32).abs().amax(dim=dims)
     return torch.where(absmax > 0, absmax * (1.0 / 127.0), torch.ones_like(absmax))
 
 
@@ -160,3 +161,12 @@ def quantize_act_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (every token of every sequence), as the reference does."""
     scale = _absmax_scale(x)
     return _round_int8(x, scale), scale
+
+
+def quantize_act_int8_lanes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic activation quantization with one absmax per lane (the leading
+    axis): lane b's rows ``x[b]`` take the scale ``[B]`` of their own, as
+    each slot of the reference's vmapped pool step does, so a lane's bytes
+    never depend on what the other lanes hold."""
+    scale = _absmax_scale(x, tuple(range(1, x.ndim)))
+    return _round_int8(x, scale.reshape(-1, *([1] * (x.ndim - 1)))), scale

@@ -91,3 +91,12 @@ def lane_angles(t: torch.Tensor, ndim: int) -> torch.Tensor:
     if t.ndim == 1:
         return t
     return t.reshape(t.shape[0], *([1] * (ndim - 2)), t.shape[-1])
+
+
+def chunk_angles(t: torch.Tensor) -> torch.Tensor:
+    """A chunk's ``sin``/``cos`` shaped to broadcast against ``[B, C, H, d]``:
+    shared ``[C, d/2]`` rows as ``[1, C, 1, d/2]``, per-lane ``[B, C, d/2]``
+    rows (each lane at its own positions) as ``[B, C, 1, d/2]``."""
+    if t.ndim == 2:
+        return t[None, :, None, :]
+    return t[:, :, None, :]

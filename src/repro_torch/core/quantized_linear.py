@@ -9,6 +9,11 @@ One logical weight ``W[K, N]`` stored in up to three formats:
 `apply` runs the phase's format with the Eq. (4) epilogue (``row_scale`` =
 sigma^{-1} from the upstream fused RMSNorm, ``bias``).  Unlike the
 reference, ``impl`` reaches the W8A8 prefill path too.
+
+``lane_act=True`` quantizes the W8A8 activations with one scale per lane
+(the leading axis of ``x``) instead of one over the tensor, and folds each
+lane's scale into its rows' ``row_scale``: a slot class's batched verify
+block, whose lanes must not see each other's absmax.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ class QuantizedLinearParams:
 
 def apply(params: QuantizedLinearParams, x: torch.Tensor, phase: str, *,
           row_scale=None, out_scale=None, impl: str = "auto",
-          out_dtype=torch.float32) -> torch.Tensor:
+          out_dtype=torch.float32, lane_act: bool = False) -> torch.Tensor:
     """``y = (x @ W) * out_scale * row_scale + bias`` in the phase's format."""
     if phase == "train" or (phase == "prefill" and params.w8 is None):
         if params.w is None:
@@ -49,6 +54,13 @@ def apply(params: QuantizedLinearParams, x: torch.Tensor, phase: str, *,
 
     if phase == "prefill":
         # MMM dataflow: dynamic per-tensor A8, per-tensor W8, int32 accumulate.
+        if lane_act:
+            xq, lane_scale = mx.quantize_act_int8_lanes(x)
+            rows = lane_scale.reshape(-1, *([1] * (x.ndim - 2))).expand(x.shape[:-1])
+            combined = params.w8.scale * (1.0 if out_scale is None else out_scale)
+            return ops.w8a8_matmul(xq, params.w8.values, combined,
+                                   row_scale=rows if row_scale is None else rows * row_scale,
+                                   bias=params.bias, out_dtype=out_dtype, impl=impl)
         xq, act_scale = mx.quantize_act_int8(x)
         combined = act_scale * params.w8.scale * (
             1.0 if out_scale is None else out_scale)

@@ -49,17 +49,25 @@ def retention_recurrent_step(q_t, k_t, v_t, state, gamma):
     return y.to(v_t.dtype), new_state
 
 
-def retention_recurrent(q, k, v, gamma, state=None):
-    """Run the recurrent form over a sequence -> (y, final state)."""
+def retention_recurrent(q, k, v, gamma, state=None, return_states: bool = False):
+    """Run the recurrent form over a sequence -> (y, final state).
+
+    ``return_states=True`` also returns the state after every position,
+    ``[B, H, S, dk, dv]``: the snapshots speculative decode rolls back to
+    when a draft is rejected inside a verified block (the reference stacks
+    them as ``[B, S, H, dk, dv]``)."""
     b, h, s, dk = q.shape
     if state is None:
         state = torch.zeros(b, h, dk, v.shape[-1], dtype=torch.float32,
                             device=q.device)
-    ys = []
+    ys, states = [], []
     for t in range(s):
         y, state = retention_recurrent_step(q[:, :, t], k[:, :, t], v[:, :, t],
                                             state, gamma)
         ys.append(y)
+        states.append(state)
+    if return_states:
+        return torch.stack(ys, dim=2), state, torch.stack(states, dim=2)
     return torch.stack(ys, dim=2), state
 
 

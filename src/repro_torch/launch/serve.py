@@ -21,6 +21,11 @@ LISO/SILO scenario presets:
   (``--ttft-slo``), goodput and shed rate at the end; ``--virtual-clock``
   runs it on deterministic virtual time and exits nonzero unless goodput
   is nonzero with no unexplained shed (the smoke contract);
+* ``--speculative`` (with ``--draft-k K``, default 4): speculative decode
+  with the ngram drafter, in the single-`generate` mode (each verify step a
+  replay of one captured graph) and in the scheduler mode (per-lane
+  acceptance, one captured verify step per class), with its verify-step and
+  acceptance lines;
 * ``--trace FILE`` writes the request-lifecycle trace (Chrome trace events,
   for Perfetto), ``--metrics FILE`` the metrics snapshot (JSON).
 
@@ -29,10 +34,9 @@ LISO/SILO scenario presets:
     python -m repro_torch.launch.serve --arch retnet-1.3b --reduced \\
         --scale 0.02 --device cpu [--requests 6 --host-spill --oversubscribe 2]
 
-Prompts come from seeded ``torch.Generator``s.  The reference's modes that
-are not ported yet (speculative decode, a device mesh) are accepted by the
-parser, and each exits nonzero naming the ROADMAP item that ports it;
-``--draft-k``, read by speculative decode alone, comes with it.
+Prompts come from seeded ``torch.Generator``s.  The reference's mode that
+is not ported yet (a device mesh) is accepted by the parser and exits
+nonzero naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -50,12 +54,11 @@ from repro_torch.serving import (BurstyArrivals, FrontendConfig, LengthMix,
                                  RequestScheduler, ServingFrontend, VirtualClock,
                                  Workload, run_open_loop)
 from repro_torch.serving.engine import EngineSpec, InferenceEngine
-from repro_torch.serving.sampling import GenerationConfig, SamplingParams
+from repro_torch.serving.sampling import GenerationConfig, SamplingParams, SpeculativeConfig
 
 # Flags of modes that are not ported: (flag, the argparse dest, ROADMAP item,
 # what the mode is).
 UNPORTED = (
-    ("--speculative", "speculative", "A10c", "speculative decode"),
     ("--mesh", "mesh", "A12", "serving on a device mesh"),
 )
 
@@ -110,9 +113,11 @@ def parser() -> argparse.ArgumentParser:
                     help="write the request-lifecycle trace as Chrome trace events")
     ap.add_argument("--metrics", metavar="FILE", default=None,
                     help="write the metrics-registry snapshot as JSON")
-    # The reference's modes that are not ported, each refused in `main` (the
-    # settings only they read come with them).
-    ap.add_argument("--speculative", action="store_true")
+    ap.add_argument("--speculative", action="store_true",
+                    help="speculative decode with the ngram drafter")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="speculative mode: drafted tokens per verify step")
+    # The reference's mode that is not ported, refused in `main`.
     ap.add_argument("--mesh", default=None)
     return ap
 
@@ -122,11 +127,16 @@ def _sampling(args) -> SamplingParams:
                           top_p=args.top_p)
 
 
+def _speculative(args) -> SpeculativeConfig | None:
+    return SpeculativeConfig(k=args.draft_k) if args.speculative else None
+
+
 def _run_scheduler_demo(engine: InferenceEngine, args, n_in: int, n_out: int) -> None:
     """Sequencer demo: mixed-length prompts chunk-admitted into a pool of two
     slot classes while resident lanes decode."""
     cfg, dev = engine.cfg, engine.device
-    gen = GenerationConfig(max_new_tokens=n_out, sampling=_sampling(args))
+    spec = _speculative(args)
+    gen = GenerationConfig(max_new_tokens=n_out, sampling=_sampling(args), speculative=spec)
     shared: list[int] = []
     if args.prefix_cache:
         # The repeated-system-prompt stream prefix reuse targets: uniform
@@ -141,8 +151,9 @@ def _run_scheduler_demo(engine: InferenceEngine, args, n_in: int, n_out: int) ->
         fracs = (0.25, 0.5, 1.0)
         lengths = [max(2, int(n_in * fracs[int(i)]))
                    for i in torch.randint(0, 3, (args.requests,), generator=choice)]
-    small = max(2, int(n_in * 0.5)) + n_out
-    large = n_in + n_out
+    extra = spec.k if spec else 0        # verify blocks overrun by k slots
+    small = max(2, int(n_in * 0.5)) + n_out + extra
+    large = n_in + n_out + extra
     classes = ([(args.slots, large)] if small >= large or args.slots < 2 else
                [(args.slots // 2, small), (args.slots - args.slots // 2, large)])
     sched = RequestScheduler(engine, classes=classes, gen=gen, chunk_size=args.chunk_size,
@@ -193,6 +204,16 @@ def _run_scheduler_demo(engine: InferenceEngine, args, n_in: int, n_out: int) ->
               f"{ps['prefix_lookups']} admissions adopted a cached prefix, "
               f"{ps['prefix_hit_tokens']} prefill tokens skipped, {px.n_pages} pages "
               f"resident ({ps['cow_copies']} COW copies)")
+    if spec:
+        for uid in sorted(results):
+            r = results[uid]
+            print(f"[serve]   req {uid}: {len(r.tokens)} tokens in {r.verify_steps} verify "
+                  f"steps ({r.tokens_per_step:.2f} tokens/step, {r.accepted_drafts} drafts "
+                  f"accepted)")
+        vs = max(1, sched.stats["verify_steps"])
+        print(f"[serve] speculative: {sched.stats['accepted_drafts']} drafts accepted over "
+              f"{vs} verify steps ({1 + sched.stats['accepted_drafts'] / vs:.2f} "
+              f"tokens/step)")
     bad = [u for u, r in results.items()
            if r.cancelled or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
     if len(results) != args.requests or bad:
@@ -302,12 +323,14 @@ def main(argv: list[str] | None = None) -> None:
     dev = engine.device
     prompts = torch.randint(1, cfg.vocab_size, (args.batch, n_in),
                             generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    gen = GenerationConfig(
-        max_new_tokens=n_out,
-        sampling=SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                                top_p=args.top_p))
+    gen = GenerationConfig(max_new_tokens=n_out, sampling=_sampling(args),
+                           speculative=_speculative(args))
     res = engine.generate(prompts, gen,
                           generator=torch.Generator(device=dev).manual_seed(2))
+    if args.speculative:
+        print(f"[serve] speculative: {res.verify_steps} verify steps, "
+              f"{res.accepted_drafts}/{res.drafted} drafts accepted "
+              f"({res.tokens_per_step:.2f} tokens/step)")
     total = n_in + n_out
     t_p, t_d = res.prefill_s, res.decode_s
     print(f"[serve] prefill {t_p*1e3:.0f} ms, decode {t_d*1e3:.0f} ms "

@@ -80,10 +80,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     masked, padded queries dropped), masked scores at -inf, and the
     finite-max guard on all-masked rows.  Queries sit at absolute positions
     ``q_offset + i`` and keys at ``j``; keys at or past ``kv_len`` are masked
-    (``kv_len`` defaults to ``Sk``).  ``q_offset`` and ``kv_len`` are ints or
+    (``kv_len`` defaults to ``Sk``).  ``q_offset`` and ``kv_len`` are ints,
     int32 scalars on the device (chunked prefill passes the cache's
-    position), so the mask is computed on the device and nothing is read
-    back.  The reference's sliding ``window`` and ``k_offset`` (its ring
+    position), or int32 ``[B]`` vectors with one value per lane (a slot
+    class's verify block: one mask per lane), so the mask is computed on the
+    device and nothing is read back.  The scale is a device scalar made once
+    per (hd, device) (`_attn_scale`), so a captured step copies nothing to
+    the card.  The reference's sliding ``window`` and ``k_offset`` (its ring
     caches) come with the hybrid families.
     """
     b, sq, kv_h, g, hd = q.shape
@@ -91,25 +94,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
     pq, pk = (-sq) % q_chunk, (-sk) % kv_chunk
     f32 = torch.float32
-    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=f32, device=q.device))
-    qs = torch.nn.functional.pad(q.to(f32) * scale, (0, 0, 0, 0, 0, 0, 0, pq))
+    qs = torch.nn.functional.pad(q.to(f32) * _attn_scale(hd, q.device),
+                                 (0, 0, 0, 0, 0, 0, 0, pq))
     kf = torch.nn.functional.pad(k.to(f32), (0, 0, 0, 0, 0, pk))
     vf = torch.nn.functional.pad(v.to(f32), (0, 0, 0, 0, 0, pk))
     k_pos = torch.arange(sk + pk, device=q.device)
-    k_valid = k_pos < (sk if kv_len is None else kv_len)
+    k_valid = k_pos < _lanes(sk if kv_len is None else kv_len)      # [K] or [B, K]
     outs = []
     for q0 in range(0, sq + pq, q_chunk):
         q_blk = qs[:, q0:q0 + q_chunk]
-        q_pos = q_offset + q0 + torch.arange(q_chunk, device=q.device)
+        q_pos = _lanes(q_offset) + q0 + torch.arange(q_chunk, device=q.device)
         m = torch.full((b, kv_h, g, q_chunk), -torch.inf, dtype=f32, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros(b, kv_h, g, q_chunk, dv, dtype=f32, device=q.device)
         for k0 in range(0, sk + pk, kv_chunk):
             kp = k_pos[k0:k0 + kv_chunk]
             s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kf[:, k0:k0 + kv_chunk])
-            mask = k_valid[k0:k0 + kv_chunk][None, :].expand(q_chunk, -1)
+            kvalid = k_valid[..., k0:k0 + kv_chunk]
+            mask = kvalid[..., None, :].expand(*kvalid.shape[:-1], q_chunk, -1)
             if causal:
-                mask = mask & (q_pos[:, None] >= kp[None, :])
+                mask = mask & (q_pos[..., :, None] >= kp)
+            if mask.ndim == 3:                             # one mask per lane
+                mask = mask[:, None, None]
             s = s.masked_fill(~mask, -torch.inf)
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
@@ -122,6 +128,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))          # [B, qc, KV, G, dv]
     return torch.cat(outs, dim=1)[:, :sq].to(v.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _attn_scale(hd: int, device: torch.device) -> torch.Tensor:
+    """``1 / sqrt(hd)`` in f32, as an f32 scalar on ``device``, computed once
+    (a captured step must not copy it there).  Callers must not modify it."""
+    return 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=device))
+
+
+def _lanes(t):
+    """A position or length: a host int or a device scalar as it is, a
+    per-lane ``[B]`` vector as ``[B, 1]`` (broadcast against positions)."""
+    if isinstance(t, torch.Tensor) and t.ndim == 1:
+        return t[:, None]
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -303,10 +324,12 @@ def gqa_chunk(p: Attention, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig
     resident prefix.
 
     ``pos`` is the absolute position of the chunk's first token, an int32
-    scalar on the device: the rows' slots, the causal offsets and the valid
-    length ``pos + C`` are all computed there.  ``rope_sin``/``rope_cos`` are
-    ``[C, hd/2]`` at the chunk's absolute positions.  Sliding-window rings
-    are not ported yet (A9) and raise.
+    scalar on the device, or an int32 ``[B]`` vector with each lane's own (a
+    slot class's verify block, all lanes in one dispatch): the rows' slots,
+    the causal offsets and the valid length ``pos + C`` are all computed
+    there, per lane.  ``rope_sin``/``rope_cos`` are ``[C, hd/2]`` at the
+    chunk's absolute positions, or ``[B, C, hd/2]`` per lane.  Sliding-window
+    rings are not ported yet (A9) and raise.
     """
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window ring caches are not ported yet")
@@ -314,7 +337,7 @@ def gqa_chunk(p: Attention, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q, k, v = _project_qkv(p, x_star, sig_inv, engine, "prefill", cfg)
     if rope_sin is not None:
-        sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
+        sin, cos = orp.chunk_angles(rope_sin), orp.chunk_angles(rope_cos)
         q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
     k_cache = cache_update(cache["k"], k, pos)
     v_cache = cache_update(cache["v"], v, pos)
@@ -450,14 +473,15 @@ def mla_chunk(p: MLA, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
     rows at ``pos`` in place, then re-expand the *whole* resident latent
     through ``wk_b``/``wv_b`` (M = B x capacity rows per linear) for the flash
     call, as the reference does; the cache itself stays compressed.
-    ``pos`` is an int32 scalar on the device, as in `gqa_chunk`."""
+    ``pos`` is an int32 scalar or per-lane ``[B]`` vector on the device, as
+    in `gqa_chunk`."""
     b, c, _ = x_star.shape
     h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, x_star, sig_inv, engine, "prefill", cfg)
     c_kv_new, k_rope_new = _mla_latents(p, x_star, sig_inv, engine, "prefill", cfg)
     if rope_sin is not None:
-        sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
+        sin, cos = orp.chunk_angles(rope_sin), orp.chunk_angles(rope_cos)
         q_rope = orp.apply_rope(q_rope, sin, cos)
         k_rope_new = orp.apply_rope(k_rope_new[:, :, None, :], sin, cos)[:, :, 0]
     c_kv = cache_update(cache["c_kv"], c_kv_new, pos)

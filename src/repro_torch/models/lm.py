@@ -8,6 +8,9 @@ back to the param dtype after every block, as the scan carry is there.
     forward_prefill       — full prompt (MMM phase), exact or bucketed:
                             last-token logits + warm cache
     forward_prefill_chunk — one chunk of a prompt over a warm cache (MMM)
+    forward_verify_chunk  — a speculative block over a warm cache (MMM):
+                            logits at every position, rolled back to the
+                            accepted prefix by `commit_verified_cache`
     forward_decode        — one token with the warm cache (MVM phase)
 
 and the shared-prefix helpers `serving/paging.py` builds on
@@ -160,10 +163,13 @@ def _thetas(dim: int, base: float, device: torch.device) -> torch.Tensor:
 
 def _rope_tables(cfg: ModelConfig, s: int, device, start=0):
     """(sin, cos) ``[s, d/2]`` at positions ``start .. start + s - 1``;
-    ``start`` may be an int32 scalar on the device (a chunk's position)."""
+    ``start`` may be an int32 scalar on the device (a chunk's position), or
+    an int32 ``[B]`` vector (each lane's own), which gives ``[B, s, d/2]``."""
     if not cfg.rope:
         return None, None
     th = _thetas(_rope_dim(cfg), cfg.rope_base, device)
+    if isinstance(start, torch.Tensor) and start.ndim == 1:
+        start = start[:, None]
     return orp.rope_table(start + torch.arange(s, device=device), th)
 
 
@@ -271,15 +277,18 @@ def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
     return logits, caches
 
 
-def _block_chunk(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
+def _block_chunk(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos,
+                 collect: bool = False):
     """One chunked-prefill block: [B, C] tokens continuing a warm cache at
     absolute position ``pos`` -> (x_out, cache).  The MMM-shaped sibling of
     `_block_decode`: the same cache in, cache out, C tokens at once through
-    the prefill dataflow."""
+    the prefill dataflow.  ``collect`` (a speculative verify block) keeps
+    RetNet's state after every position."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
     if isinstance(p, RetNetBlock):
         y, cache = R.retention_apply(p.ret, xs, sig, engine, "prefill", cfg,
-                                     rope_sin=sin, rope_cos=cos, cache=cache)
+                                     rope_sin=sin, rope_cos=cos, cache=cache,
+                                     collect_states=collect)
     else:
         chunk = L.mla_chunk if cfg.attn_type == "mla" else L.gqa_chunk
         y, cache = chunk(p.attn, xs, sig, engine, cfg, cache, pos,
@@ -290,10 +299,11 @@ def _block_chunk(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
 
 
 def _chunk_stack(model: LM, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
-                 engine: HSAEngine) -> tuple[torch.Tensor, dict]:
+                 engine: HSAEngine, collect: bool = False) -> tuple[torch.Tensor, dict]:
     """Run [B, C] tokens against a warm cache -> (pre-final-norm activations
     [B, C, D], advanced cache).  Positions, RoPE tables and the new
-    position come from the device scalar ``cache["pos"]``."""
+    position come from ``cache["pos"]`` on the device: a scalar, or ``[B]``
+    with each lane at its own (a slot class, all lanes in one dispatch)."""
     _check_family(cfg)
     x = _embed(model, tokens)
     c = x.shape[1]
@@ -304,7 +314,7 @@ def _chunk_stack(model: LM, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
         new_cache["rope"] = _rope_state(cfg, new_cache["pos"])
     states = []
     for blk, cl in zip(model.blocks, cache["blocks"]):
-        y, c2 = _block_chunk(blk, x, cfg, engine, cl, pos0, sin, cos)
+        y, c2 = _block_chunk(blk, x, cfg, engine, cl, pos0, sin, cos, collect)
         x = y.to(x.dtype)
         states.append(c2)
     new_cache["blocks"] = states
@@ -323,6 +333,65 @@ def forward_prefill_chunk(model: LM, tokens: torch.Tensor, cache: dict,
     h = L.norm_full(model.final_norm, x[:, -1:])
     logits = engine.linear(model.lm_head, h, "prefill")[:, 0]
     return logits, new_cache
+
+
+def forward_verify_chunk(model: LM, tokens: torch.Tensor, cache: dict,
+                         cfg: ModelConfig, engine: HSAEngine
+                         ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Speculative verify: score a [B, C] block (the pending token and the
+    drafts) in one MMM dispatch over a warm cache -> (logits [B, C, V] at
+    every position, pre-final-norm hidden [B, C, D], verified cache).
+
+    The chunked-prefill machinery with two differences: the LM head runs at
+    every position (logits[:, i] is the target distribution after block
+    position i), and RetNet keeps its state after every position
+    (``s_all``) so `commit_verified_cache` can roll back to exactly the
+    accepted prefix.  Dense K/V rows are written in place, so the verified
+    cache shares those leaves with ``cache``; ``cache["pos"]`` may be a
+    scalar or per lane ``[B]``."""
+    x, new_cache = _chunk_stack(model, tokens, cache, cfg, engine, collect=True)
+    h = L.norm_full(model.final_norm, x)
+    logits = engine.linear(model.lm_head, h, "prefill")
+    return logits, x, new_cache
+
+
+def commit_verified_cache(prev: dict, ver: dict, n_accept, c: int,
+                          cfg: ModelConfig) -> dict:
+    """Roll a verified cache back to its accepted prefix (speculative decode).
+
+    ``ver`` is `forward_verify_chunk`'s cache after a ``c``-token block at
+    ``prev["pos"]``; ``n_accept`` (an int32 device scalar, or ``[B]`` with
+    each lane's own, in 1..c) is how many of those tokens were accepted:
+
+      * linear KV / MLA latents keep the verified buffers and rewind the
+        position pointer: decode's validity mask hides the rejected rows and
+        the next block overwrites them;
+      * RetNet takes the state snapshot at the acceptance boundary,
+        ``s_all[:, :, n_accept - 1]``, gathered per lane.
+
+    The rope state is rebuilt at the new position on the device.  Sliding-
+    window rings (`layers.ring_rollback`), SSM / hybrid state and MoE are
+    not ported (ROADMAP A9) and raise."""
+    kinds = sorted({kind for _, n, kind in layer_groups(cfg) if n} - {"retnet", "dense"})
+    if cfg.sliding_window or kinds:
+        what = kinds + (["sliding-window ring"] if cfg.sliding_window else [])
+        raise NotImplementedError(f"{cfg.name}: speculative rollback of "
+                                  f"{', '.join(what)} layers is not ported yet (ROADMAP A9)")
+    new_pos = (prev["pos"] + n_accept).to(prev["pos"].dtype)
+    out = {"pos": new_pos}
+    if cfg.rope:
+        out["rope"] = _rope_state(cfg, new_pos)
+    blocks = []
+    for blk in ver["blocks"]:
+        if "s_all" in blk:
+            s_all = blk["s_all"]                          # [B, H, C, dk, dv]
+            at = (n_accept - 1).clamp(0, c - 1).to(torch.int64).expand(s_all.shape[0])
+            lanes = torch.arange(s_all.shape[0], device=s_all.device)
+            blocks.append({"s": s_all[lanes, :, at]})
+        else:
+            blocks.append(blk)                            # pointer rewind only
+    out["blocks"] = blocks
+    return out
 
 
 def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,

@@ -4,7 +4,8 @@
 Prefill runs the chunkwise form (the Hopper kernel for a CUDA tensor), from a
 zero state (monolithic and bucketed prefill) or a warm one (each chunk of a
 chunked prefill); decode runs the O(1) recurrent step in plain PyTorch, as
-the reference does.
+the reference does, and so does a speculative verify block, which keeps the
+state after every position (``collect_states``).
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ def _gate_out(p: Retention, y, g, engine: HSAEngine, phase: str, b: int,
 def retention_apply(p: Retention, x_star, sig_inv, engine: HSAEngine,
                     phase: str, cfg: ModelConfig, *, rope_sin=None,
                     rope_cos=None, cache: dict | None = None,
-                    valid_len: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+                    valid_len: torch.Tensor | None = None,
+                    collect_states: bool = False) -> tuple[torch.Tensor, dict]:
     """Full-sequence (chunkwise) retention -> (out, {"s": final state}).
 
     ``cache`` (chunked prefill) carries the state across chunks: the
@@ -77,11 +79,19 @@ def retention_apply(p: Retention, x_star, sig_inv, engine: HSAEngine,
     The reference takes its parallel or plain chunkwise form where ``s`` is
     not whole chunks of ``min(128, s)``; the two agree up to f32 summation
     order.
+
+    ``collect_states`` (a speculative verify block, a few positions) runs
+    the *recurrent* form instead, as the reference does, and adds ``s_all``,
+    the state after every position ``[B, H, S, dk, dv]``, to the cache: a
+    rejected draft rolls back to the exact state of the accepted prefix
+    (re-decaying the final state would amplify f32 error by
+    ``gamma^-(s-a)``).  ``rope_sin`` / ``rope_cos`` are ``[S, d/2]``, or
+    ``[B, S, d/2]`` with each lane at its own positions.
     """
     b, s, d = x_star.shape
     q, k, v, g = _project(p, x_star, sig_inv, engine, phase, cfg)
     if rope_sin is not None:
-        sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
+        sin, cos = orp.chunk_angles(rope_sin), orp.chunk_angles(rope_cos)
         q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
     gamma = ret.head_decays(cfg.n_heads, device=q.device)
     if valid_len is not None:
@@ -94,6 +104,11 @@ def retention_apply(p: Retention, x_star, sig_inv, engine: HSAEngine,
     # such buffer) and _gate_out's reshape copies nothing.
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     state = None if cache is None else cache["s"]
+    if collect_states:
+        y, state, s_all = ret.retention_recurrent(qt, kt, vt, gamma, state=state,
+                                                  return_states=True)
+        out = _gate_out(p, y.transpose(1, 2), g, engine, phase, b, s, d)
+        return out, {"s": state, "s_all": s_all}
     whole = s - s % 128
     ys = []
     for lo, hi, chunk in ((0, whole, 128), (whole, s, s - whole)):

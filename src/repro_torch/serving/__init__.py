@@ -4,8 +4,13 @@
   * `InferenceEngine` / `EngineSpec` — init -> PTQ deploy -> HSA engine ->
     prefill and a decode loop captured as one CUDA graph per step on the
     card (engine.py).
-  * `GenerationConfig` / `SamplingParams` — greedy, temperature, top-k,
-    top-p, stop tokens, max_new_tokens, the KV-cache format (sampling.py).
+  * `GenerationConfig` / `SamplingParams` / `SpeculativeConfig` — greedy,
+    temperature, top-k, top-p, stop tokens, max_new_tokens, the KV-cache
+    format, speculative decode (sampling.py).
+  * `NgramDrafter` / `Drafter` / `make_drafter` / `ngram_propose` —
+    speculative decode: draft k tokens, verify them in one MMM dispatch,
+    commit the accepted prefix with exact rollback, in `generate` and in the
+    scheduler's slot classes (speculative.py).
   * `RequestScheduler` / `CachePool` / `Request` — continuous batching over
     slot classes with chunk-granular admissions, priorities, and a host
     spill tier with preemption; one captured decode step per class
@@ -24,31 +29,36 @@
     `run_open_loop` — seeded open-loop load and the goodput-under-load
     run (loadgen.py).
 
-Not ported yet: speculative decode (ROADMAP A10c) and serving on a device
-mesh (A12).
+Not ported yet: serving on a device mesh (ROADMAP A12), and the MTP drafter
+(A9).
 """
 
 from repro_torch.serving.clock import Clock, MonotonicClock, VirtualClock
 from repro_torch.serving.engine import (CacheCapacityError, ChunkedPrefill, ClassStep,
                                         EngineSpec, GenerationResult, InferenceEngine,
-                                        bucket_length, chunk_schedule, tree_nbytes)
+                                        SpecClassStep, bucket_length, chunk_schedule,
+                                        tree_nbytes)
 from repro_torch.serving.frontend import (FrontendConfig, RequestShed, SLOAdmissionPolicy,
                                           ServingFrontend, TokenStream)
 from repro_torch.serving.loadgen import (BurstyArrivals, GoodputReport, LengthMix,
                                          PoissonArrivals, Workload, run_open_loop)
 from repro_torch.serving.paging import (PageLeaseError, PrefixCache, RadixPageIndex,
                                         SnapshotPrefixIndex)
-from repro_torch.serving.sampling import GenerationConfig, SamplingParams, sample
+from repro_torch.serving.sampling import (GenerationConfig, SamplingParams,
+                                          SpeculativeConfig, sample)
 from repro_torch.serving.scheduler import (CachePool, FinishedRequest, Request,
                                            RequestScheduler)
+from repro_torch.serving.speculative import (Drafter, NgramDrafter, make_drafter,
+                                             ngram_propose)
 
 __all__ = [
     "BurstyArrivals", "CacheCapacityError", "CachePool", "ChunkedPrefill", "ClassStep",
-    "Clock", "EngineSpec", "FinishedRequest", "FrontendConfig", "GenerationConfig",
-    "GenerationResult", "GoodputReport", "InferenceEngine", "LengthMix",
-    "MonotonicClock", "PageLeaseError", "PoissonArrivals", "PrefixCache",
-    "RadixPageIndex", "Request", "RequestScheduler", "RequestShed", "SamplingParams",
-    "ServingFrontend", "SLOAdmissionPolicy", "SnapshotPrefixIndex", "TokenStream",
-    "VirtualClock", "Workload", "bucket_length", "chunk_schedule", "run_open_loop",
+    "Clock", "Drafter", "EngineSpec", "FinishedRequest", "FrontendConfig",
+    "GenerationConfig", "GenerationResult", "GoodputReport", "InferenceEngine",
+    "LengthMix", "MonotonicClock", "NgramDrafter", "PageLeaseError", "PoissonArrivals",
+    "PrefixCache", "RadixPageIndex", "Request", "RequestScheduler", "RequestShed",
+    "SamplingParams", "ServingFrontend", "SLOAdmissionPolicy", "SnapshotPrefixIndex",
+    "SpecClassStep", "SpeculativeConfig", "TokenStream", "VirtualClock", "Workload",
+    "bucket_length", "chunk_schedule", "make_drafter", "ngram_propose", "run_open_loop",
     "sample", "tree_nbytes",
 ]

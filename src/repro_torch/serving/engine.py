@@ -36,6 +36,14 @@ A `RequestScheduler` decodes each slot class of its pool with a
 cache whose lanes each hold their own position), captured once per class on
 the card and replayed, run eagerly on the CPU.
 
+Speculative decode (``gen.speculative``, serving/speculative.py): `generate`
+runs the reference's draft / verify / commit loop in lockstep over the
+batch, each verify step one replay of a graph captured per (cache layout,
+history width, `GenerationConfig`), the eager step on the CPU; the host
+reads the loop's condition after each step, as the reference's ``cond``.
+A scheduler in speculative mode steps each class with a `SpecClassStep`
+(per-lane acceptance, one graph per class).
+
 The loop reads the device only to end early when every sequence has
 stopped, and only when stop tokens were given.  Prefill and decode are
 timed on the host clock around work that ends in
@@ -60,8 +68,9 @@ from repro_torch import configs
 from repro_torch.core.hsa import HSAConfig, HSAEngine
 from repro_torch.models import deploy, lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.obs import Observability
-from repro_torch.serving.sampling import GenerationConfig, sample
+from repro_torch.obs import ENGINE_TRACK, Observability
+from repro_torch.serving import speculative as spec_mod
+from repro_torch.serving.sampling import GenerationConfig, SpeculativeConfig, sample
 
 # Prompt-length bucket ladder: prompts pad (bucketed) or decompose (chunked)
 # to powers of two >= this floor.
@@ -145,6 +154,21 @@ class GenerationResult:
     capture_s: float = 0.0   # wall-clock warm-up and capture of the step graph
     next_token: torch.Tensor | None = None  # int64 [B]: sampled after the last
     #   step; the ``pending`` token that resumes the loop from its final cache
+    # Speculative decode (zero on the plain loop):
+    verify_steps: int = 0    # verify dispatches (weight-stream reads)
+    accepted_drafts: int = 0  # drafted tokens the target model accepted
+    drafted: int = 0         # verify_steps * k
+
+    @property
+    def tokens_per_step(self) -> float:
+        """Committed tokens per verify step (1.0: no speculation win)."""
+        if not self.verify_steps:
+            return 1.0
+        return 1.0 + self.accepted_drafts / self.verify_steps
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted_drafts / self.drafted if self.drafted else 0.0
 
 
 @dataclasses.dataclass
@@ -249,9 +273,10 @@ def _layout(tree) -> tuple:
 
 @dataclasses.dataclass
 class _StepGraph:
-    """One key's static decode buffers and the graph of one step on them."""
+    """One key's static decode (or speculative) buffers and the graph of one
+    step on them."""
 
-    state: DecodeState
+    state: "DecodeState | spec_mod.SpecState"
     stop: torch.Tensor | None
     generator: torch.Generator | None   # registered with the graph
     graph: "torch.cuda.CUDAGraph"
@@ -381,6 +406,11 @@ class ClassStep:
             for lane, g in enumerate(self.generators):
                 self.tok[lane:lane + 1].copy_(sample(logits[lane:lane + 1], sampling, g))
 
+    def _static(self) -> list:
+        """The step's static buffers besides the store (zeroed after the
+        capture's warm-up)."""
+        return [self.tok, self.fed]
+
     def run(self) -> None:
         """One step: a replay on the card, the eager body on the CPU."""
         self.replays += 1
@@ -408,12 +438,60 @@ class ClassStep:
         with hopper.captured_launches() as launches, torch.cuda.graph(graph):
             self.body()
         _write_back(self.store, cold)
-        self.tok.zero_()
-        self.fed.zero_()
+        for t in self._static():
+            t.zero_()
         self.graph, self.launches = graph, launches
         self.tickets = hopper.ticket_counters(dev)
         self.engine._sync()
         self.capture_s = time.perf_counter() - t0
+
+
+class SpecClassStep(ClassStep):
+    """The speculative step of one slot class (the reference's vmapped
+    ``spec_pool_step``, all lanes in one dispatch): each lane drafts ``k``
+    tokens from its own history (``hist`` [N, C + k + 1], ``hist_len``
+    [N]), the ``[N, k+1]`` blocks are verified in one MMM dispatch against
+    the class store, each lane commits its own accepted prefix (exact
+    rollback) and samples its next pending token into ``tok``.  ``block``
+    [N, k+1] and ``n_commit`` [N] (views of one buffer, ``result``, which
+    the scheduler reads once per step) hold what each lane committed.
+
+    Each lane's W8A8 activations take a scale of their own
+    (``act_scale='lane'``): a lane's tokens never depend on its
+    co-tenants, nor on the garbage a free lane computes (its positions and
+    history length clamp).  Captured once per class on the card, eager on
+    the CPU, as `ClassStep`."""
+
+    def __init__(self, engine: "InferenceEngine", store: dict, gen: GenerationConfig,
+                 cache_len: int):
+        k, n, dev = gen.speculative.k, store["pos"].shape[0], engine.device
+        self.hist = torch.zeros(n, cache_len + k + 1, dtype=torch.long, device=dev)
+        self.hist_len = torch.zeros(n, dtype=torch.long, device=dev)
+        self.result = torch.zeros(n, k + 2, dtype=torch.long, device=dev)
+        self.block, self.n_commit = self.result[:, :k + 1], self.result[:, k + 1]
+        self.hsa = HSAEngine(dataclasses.replace(engine.hsa.config, act_scale="lane"))
+        self.drafter = spec_mod.make_drafter(gen.speculative, engine.cfg)
+        super().__init__(engine, store, gen)
+
+    @torch.inference_mode()
+    def body(self) -> None:
+        eng, k = self.engine, self.gen.speculative.k
+        self.fed.copy_(self.tok)
+        dstate = self.drafter.init(self.hist, self.hist_len)
+        block = torch.cat([self.tok[:, None], self.drafter.draft(dstate, self.tok)], dim=1)
+        cand, acc, _, ver = spec_mod.verify_block(eng.model, block, self.store, cfg=eng.cfg,
+                                                  hsa=self.hsa, gen=self.gen,
+                                                  generator=self.generators)
+        n_commit = acc + 1
+        _write_back(self.store, lm.commit_verified_cache(self.store, ver, n_commit, k + 1,
+                                                         eng.cfg))
+        self.drafter.observe(dstate, block, n_commit)
+        self.tok.copy_(cand.gather(1, acc[:, None])[:, 0])
+        self.block.copy_(block)
+        self.n_commit.copy_(n_commit)
+
+    def _static(self) -> list:
+        return super()._static() + [self.hist, self.hist_len, self.result]
 
 
 class InferenceEngine:
@@ -519,18 +597,25 @@ class InferenceEngine:
     @torch.inference_mode()
     def generate(self, prompts: torch.Tensor,
                  gen: GenerationConfig = GenerationConfig(), *,
-                 generator: torch.Generator | None = None) -> GenerationResult:
+                 generator: torch.Generator | None = None,
+                 speculative: SpeculativeConfig | None = None) -> GenerationResult:
         """Prefill + decode loop.  prompts [B, S] -> GenerationResult.
 
         ``generator`` seeds stochastic sampling (a fixed seed when absent)
         and is advanced as the eager loop would advance it; greedy decoding
         draws nothing.  On the card the decode steps are replays of one
-        captured step (see the module docstring).
+        captured step (see the module docstring).  ``speculative`` (or
+        ``gen.speculative``) switches to the draft / verify / commit loop
+        (`_generate_speculative`).
         """
+        if speculative is not None:
+            gen = dataclasses.replace(gen, speculative=speculative)
         prompts = torch.as_tensor(prompts, device=self.device).long()
         if generator is None and not gen.sampling.greedy:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
+        if gen.speculative is not None:
+            return self._generate_speculative(prompts, gen, generator)
 
         self._sync()
         t0 = time.perf_counter()
@@ -542,6 +627,115 @@ class InferenceEngine:
         t0 = time.perf_counter()
         tok = sample(logits, gen.sampling, generator)
         return self._decode_from(tok, cache, gen, generator, t0, t_prefill)
+
+    def _generate_speculative(self, prompts: torch.Tensor, gen: GenerationConfig,
+                              generator: torch.Generator | None) -> GenerationResult:
+        """The reference's `_generate_speculative`: prefill with ``k`` slots
+        reserved past the budget (a verify block may append up to k tokens
+        past the last committed position before it rolls back), a history
+        ``[B, S + n + k + 1]`` seeded with the prompt, then the lockstep
+        speculative loop (`spec_mod.speculative_step`) until ``max_new_tokens``
+        are committed or every row stopped.  On the card each step is a
+        replay of the graph keyed on (cache layout, history width, ``gen``);
+        the host reads the loop's condition after each."""
+        spec_mod.make_drafter(gen.speculative, self.cfg)      # refuses the MTP drafter
+        b, s = prompts.shape
+        n, k = gen.max_new_tokens, gen.speculative.k
+        tr = self.obs.tracer
+        with tr.span("generate", ENGINE_TRACK, batch=b, prompt_len=s, speculative=True, k=k):
+            self._sync()
+            t0 = time.perf_counter()
+            with tr.span("prefill", ENGINE_TRACK), self.obs.annotation("engine.prefill"):
+                logits, cache, hist = self._spec_prefill(prompts, gen)
+                self._sync()
+            t_prefill = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with tr.span("spec_loop", ENGINE_TRACK), self.obs.annotation("engine.spec_loop"):
+                tok = sample(logits, gen.sampling, generator)
+                st, t_capture = self._spec_loop(tok, cache, hist, s, gen, generator,
+                                                graph=self.device.type == "cuda")
+                out, lengths = st.out[:, :n].clone(), st.lengths.clone()
+                steps, accepted = int(st.steps), int(st.accepted)
+            t_decode = time.perf_counter() - t0
+            tr.instant("finish", ENGINE_TRACK, verify_steps=steps, accepted_drafts=accepted)
+        res = GenerationResult(tokens=out, lengths=lengths, prefill_s=t_prefill,
+                               decode_s=t_decode, decode_steps=steps, capture_s=t_capture,
+                               verify_steps=steps, accepted_drafts=accepted,
+                               drafted=steps * k)
+        m = self.obs.metrics
+        m.counter("engine.verify_steps").inc(steps)
+        m.counter("engine.accepted_drafts").inc(accepted)
+        m.histogram("engine.tokens_per_verify_step").record(res.tokens_per_step)
+        return res
+
+    def _spec_prefill(self, prompts: torch.Tensor, gen: GenerationConfig) -> tuple:
+        """A speculative run's prefill: (last logits, the cache in
+        ``gen.cache_format`` with ``k`` slots past the budget, the history
+        ``[B, S + n + k + 1]`` holding the prompt)."""
+        b, s = prompts.shape
+        width = s + gen.max_new_tokens + gen.speculative.k
+        logits, cache = self.prefill(prompts, cache_len=width)
+        hist = torch.zeros(b, width + 1, dtype=torch.long, device=self.device)
+        hist[:, :s] = prompts
+        return logits, self._encode_cache(cache, gen), hist
+
+    def _spec_loop(self, tok, cache, hist, hist_len: int, gen: GenerationConfig,
+                   generator, *, graph: bool) -> tuple[spec_mod.SpecState, float]:
+        """The speculative loop from the first pending token: replays of this
+        key's captured step (``graph``; captured now if the key is new), or
+        the eager step (on the card too: the graph's yardstick).  Each step
+        commits at least one token, so ``max_new_tokens`` steps bound it; it
+        ends when the condition the step left on the device (``more``) reads
+        false."""
+        t_capture = 0.0
+        if graph:
+            from repro_torch.kernels import hopper
+            key = self.spec_graph_key(cache, hist.shape[1], gen)
+            sg = self._graphs.get(key)
+            if sg is None:
+                t0 = time.perf_counter()
+                sg = self._spec_capture(tok, cache, hist, hist_len, gen)
+                self._graphs[key] = sg
+                t_capture = time.perf_counter() - t0
+            st = sg.state
+            st.reset(tok, hist, hist_len, gen)
+            _write_back(st.cache, cache)
+            if sg.generator is not None:
+                sg.generator.set_state(generator.get_state())
+
+            def step():
+                sg.graph.replay()
+                hopper.count_replay(sg.launches)
+        else:
+            st, stop = spec_mod.SpecState.start(tok, cache, hist, hist_len, gen), self._stop(gen)
+
+            def step():
+                self._spec_step(st, gen, stop, generator)
+        for _ in range(gen.max_new_tokens):
+            step()
+            if not bool(st.more):
+                break
+        if graph and sg.generator is not None:
+            generator.set_state(sg.generator.get_state())
+        return st, t_capture
+
+    def _spec_step(self, st: spec_mod.SpecState, gen: GenerationConfig,
+                   stop: torch.Tensor | None, generator) -> None:
+        """One speculative step on ``st`` in place, its committed cache
+        copied into ``st.cache``."""
+        _write_back(st.cache, spec_mod.speculative_step(st, self.model, self.cfg, self.hsa,
+                                                        gen, stop, generator))
+
+    def _spec_capture(self, tok, cache, hist, hist_len: int, gen: GenerationConfig
+                      ) -> _StepGraph:
+        """Static buffers for one speculative key and the graph of one
+        `_spec_step` on them, after one eager warm-up step on a side stream
+        (it builds the W8A8 plans and libraries the verify dispatch needs,
+        none of which may be made inside a capture)."""
+        st, stop = spec_mod.SpecState.start(tok, _clone(cache), hist, hist_len, gen), \
+            self._stop(gen)
+        return self._capture_graph(st, stop, gen,
+                                   lambda g: self._spec_step(st, gen, stop, g))
 
     @torch.inference_mode()
     def resume_generate(self, pending: torch.Tensor, cache: dict,
@@ -583,8 +777,7 @@ class InferenceEngine:
                 _write_back(cache, st.cache)
         else:
             st, t_capture = DecodeState.start(tok, cache, gen), 0.0
-            stop = (torch.tensor(gen.stop_tokens, device=self.device)
-                    if gen.stop_tokens else None)
+            stop = self._stop(gen)
             steps = self._loop(st, gen, lambda: self._step(st, gen, stop, generator))
         out, lengths, nxt = st.out.clone(), st.lengths.clone(), st.tok.clone()
         self._sync()
@@ -624,6 +817,13 @@ class InferenceEngine:
         ``gen``."""
         return (_layout(cache), gen)
 
+    @staticmethod
+    def spec_graph_key(cache: dict, hist_width: int, gen: GenerationConfig) -> tuple:
+        """The key of the captured verify step of a speculative run from
+        ``cache`` with a draft history ``hist_width`` tokens wide (S + n + k +
+        1: a RetNet cache's layout does not show the prompt's length)."""
+        return ("speculative", _layout(cache), hist_width, gen)
+
     def _replay(self, tok: torch.Tensor, cache: dict, gen: GenerationConfig,
                 generator: torch.Generator | None) -> tuple[DecodeState, int, float]:
         """The decode loop on the card: this key's captured step (captured
@@ -651,15 +851,24 @@ class InferenceEngine:
             generator.set_state(sg.generator.get_state())
         return sg.state, steps, t_capture
 
+    def _stop(self, gen: GenerationConfig) -> torch.Tensor | None:
+        """``gen``'s stop tokens on the device (None without any)."""
+        return (torch.tensor(gen.stop_tokens, device=self.device)
+                if gen.stop_tokens else None)
+
     def _capture(self, tok: torch.Tensor, cache: dict, gen: GenerationConfig) -> _StepGraph:
-        """Static buffers for one key and the graph of one `_step` on them,
+        """Static buffers for one key and the graph of one `_step` on them."""
+        st, stop = DecodeState.start(tok, _clone(cache), gen), self._stop(gen)
+        return self._capture_graph(st, stop, gen, lambda g: self._step(st, gen, stop, g))
+
+    def _capture_graph(self, st, stop, gen: GenerationConfig, step) -> _StepGraph:
+        """The graph of one ``step(generator)`` on the static state ``st``,
         after one eager warm-up step on a side stream (which builds the
         kernels, their plans, the split-K tickets and the library handles
-        the step needs, none of which may be created inside a capture)."""
+        the step needs, none of which may be created inside a capture).
+        Stochastic sampling draws from a generator registered with the
+        graph."""
         from repro_torch.kernels import hopper
-        st = DecodeState.start(tok, _clone(cache), gen)
-        stop = (torch.tensor(gen.stop_tokens, device=self.device)
-                if gen.stop_tokens else None)
         g = None
         if not gen.sampling.greedy:
             g = torch.Generator(device=self.device)
@@ -667,13 +876,13 @@ class InferenceEngine:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._step(st, gen, stop, g)
+            step(g)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         if g is not None:
             graph.register_generator_state(g)
         with hopper.captured_launches() as launches, torch.cuda.graph(graph):
-            self._step(st, gen, stop, g)
+            step(g)
         return _StepGraph(state=st, stop=stop, generator=g, graph=graph, launches=launches,
                           tickets=hopper.ticket_counters(self.device))
 

@@ -1,13 +1,13 @@
 """Generation/sampling configuration and the per-step token sampler.
 
-Greedy, temperature, top-k and top-p (nucleus), and the quantized KV-cache
-formats of `core/kvq.py`.  Speculative decoding is not ported yet, so these
-dataclasses do not offer it: a caller cannot ask for it and have it silently
-ignored.
+Greedy, temperature, top-k and top-p (nucleus), the quantized KV-cache
+formats of `core/kvq.py`, and speculative decode (`SpeculativeConfig`,
+serving/speculative.py).  The dataclasses are frozen and hashable: a
+`GenerationConfig` keys the captured decode and verify steps.
 
-`sample` runs inside the captured decode step: every filter is a device op
-(``topk``, ``sort``, ``cumsum``, ``where``) and nothing is read back to the
-host, so one graph replays it at every step.
+`sample` runs inside the captured decode and verify steps: every filter is a
+device op (``topk``, ``sort``, ``cumsum``, ``where``) and nothing is read
+back to the host, so one graph replays it at every step.
 """
 
 from __future__ import annotations
@@ -41,18 +41,46 @@ class SamplingParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpeculativeConfig:
+    """Multi-token speculative decode (serving/speculative.py): each step
+    drafts ``k`` tokens, scores the pending token and the drafts in ONE
+    chunk-shaped verify dispatch (the MMM dataflow: one weight-stream read
+    for the whole block) and commits the accepted prefix plus one freshly
+    sampled token.
+
+    ``drafter``: 'ngram' (model-free prompt lookup: the trailing
+    ``ngram``-gram is matched against the request's own history and its
+    historical continuation proposed) or 'mtp' (deepseek-v3's multi-token-
+    prediction head, which the port does not build yet: ROADMAP A9)."""
+
+    k: int = 4                      # drafted tokens per verify step
+    drafter: str = "ngram"          # 'ngram' | 'mtp'
+    ngram: int = 2                  # lookup n-gram length (ngram drafter)
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"k must be >= 1, got {self.k}")
+        if self.drafter not in ("ngram", "mtp"):
+            raise ValueError(f"unknown drafter {self.drafter!r}")
+        if self.ngram < 1:
+            raise ValueError(f"ngram must be >= 1, got {self.ngram}")
+
+
+@dataclasses.dataclass(frozen=True)
 class GenerationConfig:
     """Loop-level controls for `InferenceEngine.generate`.
 
     ``cache_format`` ('int8_tok' | 'mxint4_blk') keeps the decode-phase KV
     cache in that encoding: prefill runs f32 and the cache is encoded once at
     the prefill/decode boundary (`lm.quantize_cache`); None keeps f32.  It
-    has no effect on RetNet, whose state is not a KV cache."""
+    has no effect on RetNet, whose state is not a KV cache.  ``speculative``
+    switches `generate` to the draft / verify / commit loop."""
 
     max_new_tokens: int = 16
     sampling: SamplingParams = SamplingParams()
     stop_tokens: tuple[int, ...] = ()
     pad_token_id: int = 0
+    speculative: SpeculativeConfig | None = None
     cache_format: str | None = None
 
     def __post_init__(self):
@@ -83,13 +111,16 @@ def _top_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
 
 def sample(logits: torch.Tensor, params: SamplingParams,
            generator: torch.Generator | None = None) -> torch.Tensor:
-    """logits [B, V] -> token ids int64 [B], on the logits' device."""
+    """logits [..., V] -> token ids int64 [...], on the logits' device: every
+    position of a ``[B, C, V]`` verify block is sampled, the draws taken in
+    row-major order from ``generator``."""
     if params.greedy:
         return torch.argmax(logits, dim=-1)
-    logits = logits.to(torch.float32) / params.temperature
+    lead = logits.shape[:-1]
+    logits = logits.reshape(-1, logits.shape[-1]).to(torch.float32) / params.temperature
     if params.top_k > 0:
         logits = _top_k_mask(logits, params.top_k)
     if params.top_p < 1.0:
         logits = _top_p_mask(logits, params.top_p)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].reshape(lead)

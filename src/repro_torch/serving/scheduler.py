@@ -36,8 +36,12 @@ those tensors in place, and the store is never copied whole.  The graphs
 live with the pool (``pool.steps``) and go with it.  Free lanes compute
 garbage that is never read.
 
-Not ported: the speculative pool step (the port's `GenerationConfig` has no
-speculative mode yet, ROADMAP A10c).
+Speculative decode (``gen.speculative``, the ngram drafter): each class
+advances through a `SpecClassStep` instead, which drafts from each lane's
+own history, verifies every lane's ``k + 1`` block in one MMM dispatch and
+commits each lane's own accepted prefix (no lockstep minimum, as in the
+reference's vmapped ``spec_pool_step``); the scheduler emits 1..k+1 tokens
+per lane and step, truncated at the budget or a stop token.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ import torch
 from repro_torch.models import lm
 from repro_torch.obs import Observability, request_track
 from repro_torch.serving.engine import (CacheCapacityError, ClassStep, InferenceEngine,
-                                        to_host, tree_items, tree_map, tree_nbytes)
+                                        SpecClassStep, to_host, tree_items, tree_map,
+                                        tree_nbytes)
 from repro_torch.serving.paging import PrefixCache
 from repro_torch.serving.sampling import GenerationConfig, sample
 
@@ -78,6 +83,15 @@ class FinishedRequest:
     slot: int                            # pool slot handle (for tests/stats)
     cache_len: int = 0                   # cache class the request ran in
     cancelled: bool = False              # retired early via `cancel(uid)`
+    # Speculative decode (zero on the per-token path):
+    verify_steps: int = 0                # verify dispatches while resident
+    accepted_drafts: int = 0             # drafted tokens verification accepted
+
+    @property
+    def tokens_per_step(self) -> float:
+        if not self.verify_steps:
+            return 1.0
+        return 1.0 + self.accepted_drafts / self.verify_steps
 
 
 def lane_view(store: dict, lane: int) -> dict:
@@ -419,6 +433,12 @@ class RequestScheduler:
     ``device_prefix_pages`` size it): an admission starts its chunked prefill
     at the longest cached prefix of its prompt, and greedy output is
     token-identical to a run without it.
+
+    ``gen.speculative`` (the 'ngram' drafter only: the MTP drafter needs
+    per-lane hidden state) steps each class with a `SpecClassStep`; a
+    request reserves ``k`` cache positions past its budget for the verify
+    block's overrun, carries its draft history through preemption, and
+    reports ``verify_steps`` / ``accepted_drafts``.
     """
 
     def __init__(self, engine: InferenceEngine, *, n_slots: int = 4,
@@ -456,9 +476,18 @@ class RequestScheduler:
                               prefix_cache=prefix_cache, prefix_page_size=prefix_page_size,
                               max_prefix_pages=max_prefix_pages,
                               device_prefix_pages=device_prefix_pages)
+        # Speculative decode: each lane is its own batch row, so acceptance
+        # is per request, and each lane keeps its own draft history.
+        self._spec = gen.speculative
+        if self._spec is not None and self._spec.drafter != "ngram":
+            raise ValueError("RequestScheduler speculative decode supports the model-free "
+                             "'ngram' drafter (the MTP drafter needs per-lane hidden "
+                             "state; use engine.generate)")
         # One captured step per class, over the class store (see ClassStep).
-        self.pool.steps = {clen: ClassStep(engine, self.pool.get_store(clen), gen)
-                           for _, clen in self.pool.classes}
+        self.pool.steps = {
+            clen: (ClassStep(engine, self.pool.get_store(clen), gen) if self._spec is None
+                   else SpecClassStep(engine, self.pool.get_store(clen), gen, clen))
+            for _, clen in self.pool.classes}
         self.capture_s = sum(st.capture_s for st in self.pool.steps.values())
         self.seed = seed
         self.chunk_size = chunk_size
@@ -475,7 +504,8 @@ class RequestScheduler:
         self._finished: list[FinishedRequest] = []
         self.stats = self.obs.metrics.counter_view(
             "sched.", ["steps", "emitted", "prefill_chunks", "admitted",
-                       "cancelled", "decode_stall_steps", "preempted", "resumed"])
+                       "cancelled", "decode_stall_steps", "verify_steps",
+                       "accepted_drafts", "preempted", "resumed"])
         self._t_submit: dict[int, float] = {}    # uid -> submit time
 
     # -- queue management ---------------------------------------------------
@@ -516,7 +546,10 @@ class RequestScheduler:
         """(cache positions needed, effective token budget)."""
         budget = (req.max_new_tokens if req.max_new_tokens is not None
                   else self.gen.max_new_tokens)
-        return len(req.prompt) + budget, budget
+        need = len(req.prompt) + budget
+        if self._spec is not None:
+            need += self._spec.k        # a verify block's overrun before rollback
+        return need, budget
 
     @property
     def pending(self) -> int:
@@ -671,17 +704,23 @@ class RequestScheduler:
 
     def _preempt(self, slot: int) -> None:
         """Spill a resident lane to the host tier and park it, resumable
-        bit-exactly: its cache (`CachePool.spill`), pending token and
-        sampling generator's state survive the round trip."""
+        bit-exactly: its cache (`CachePool.spill`), pending token, sampling
+        generator's state and, when speculative, its draft history survive
+        the round trip."""
         st = self._active.pop(slot)
         clen, lane = self.pool.locate(slot)
         step = self.pool.steps[clen]
         entry = {"req": st["req"], "slot": slot, "seq": st["seq"],
                  "budget": st["budget"], "emitted": st["emitted"],
+                 "verify_steps": st["verify_steps"],
+                 "accepted_drafts": st["accepted_drafts"],
                  "t_submit": st.get("t_submit"), "t_last": st.get("t_last"),
                  "token": step.tok[lane].clone(),
                  "gen_state": (None if step.generators is None
                                else step.generators[lane].get_state())}
+        if self._spec is not None:
+            entry["hist"] = to_host(step.hist[lane])
+            entry["hist_len"] = to_host(step.hist_len[lane])
         self.pool.spill(slot)
         self._preempted.append(entry)
         self.stats["preempted"] += 1
@@ -702,8 +741,13 @@ class RequestScheduler:
         step.tok[lane].copy_(entry["token"])
         if entry["gen_state"] is not None:
             step.generators[lane].set_state(entry["gen_state"])
+        if self._spec is not None:
+            step.hist[lane].copy_(entry["hist"])
+            step.hist_len[lane].copy_(entry["hist_len"])
         self._active[slot] = {"req": entry["req"], "emitted": entry["emitted"],
                               "budget": entry["budget"], "seq": entry["seq"],
+                              "verify_steps": entry["verify_steps"],
+                              "accepted_drafts": entry["accepted_drafts"],
                               "t_submit": entry.get("t_submit"),
                               "t_last": entry.get("t_last")}
         self._preempted.remove(entry)
@@ -750,7 +794,13 @@ class RequestScheduler:
         step.tok[lane:lane + 1].copy_(sample(logits, self.gen.sampling, g))
         if g is not None:
             step.generators[lane].set_state(g.get_state())
+        if self._spec is not None:
+            # The lane's draft history starts as the prompt.
+            step.hist[lane].zero_()
+            step.hist[lane, :len(req.prompt)].copy_(torch.as_tensor(req.prompt))
+            step.hist_len[lane].fill_(len(req.prompt))
         self._active[slot] = {"req": req, "emitted": [], "budget": adm["budget"],
+                              "verify_steps": 0, "accepted_drafts": 0,
                               "seq": self._seq,
                               "t_submit": self._t_submit.pop(req.uid, None),
                               "t_last": None}
@@ -784,7 +834,8 @@ class RequestScheduler:
         self._tr.end("request", rt)
         self._finish(FinishedRequest(
             uid=st["req"].uid, prompt_len=len(st["req"].prompt),
-            tokens=st["emitted"], slot=slot, cache_len=clen, cancelled=cancelled))
+            tokens=st["emitted"], slot=slot, cache_len=clen, cancelled=cancelled,
+            verify_steps=st["verify_steps"], accepted_drafts=st["accepted_drafts"]))
 
     @torch.inference_mode()
     def step(self) -> int:
@@ -807,13 +858,22 @@ class RequestScheduler:
                 self.stats["decode_stall_steps"] += 1
             return 0
 
-        # One step per resident class; the tokens emitted at step i are the
-        # ones it fed (sampled from the previous step's or prefill's logits).
+        # One step per resident class.  Each lane emits a block: on the
+        # per-token path the token it fed (sampled from the previous step's
+        # or prefill's logits), on the speculative path the 1..k+1 tokens it
+        # committed.
         active_classes = sorted({self.pool.locate(s)[0] for s in self._active})
+        stepped = {}
         for clen in active_classes:
-            with self.obs.annotation("sched.pool_step"):
-                self.pool.steps[clen].run()
-        stepped = {clen: self.pool.steps[clen].fed.tolist() for clen in active_classes}
+            step = self.pool.steps[clen]
+            if self._spec is None:
+                with self.obs.annotation("sched.pool_step"):
+                    step.run()
+                stepped[clen] = [[t] for t in step.fed.tolist()]
+            else:
+                with self.obs.annotation("sched.spec_pool_step"):
+                    step.run()
+                stepped[clen] = [row[:row[-1]] for row in step.result.tolist()]
 
         emitted = 0
         now = self._now()
@@ -822,29 +882,40 @@ class RequestScheduler:
             if st is None:           # retired by an on_token cancel mid-loop
                 continue
             clen, lane = self.pool.locate(slot)
-            tok = stepped[clen][lane]
+            block = stepped[clen][lane]
+            if self._spec is not None:
+                st["verify_steps"] += 1
+                st["accepted_drafts"] += len(block) - 1
+                self.stats["verify_steps"] += 1
+                self.stats["accepted_drafts"] += len(block) - 1
+                m.histogram("sched.tokens_per_verify_step").record(len(block), t=now)
             # SLO latencies, stamped at the drain boundary: TTFT covers
             # submit -> first drained token; inter-token the gap since the
-            # previous drain (also recorded apart while a chunk ran).
+            # previous drain, spread over the block (also recorded apart
+            # while a chunk ran).
             if st.get("t_last") is None:
                 if st.get("t_submit") is not None:
                     m.histogram("sched.ttft_s").record(now - st["t_submit"], t=now)
                 self._tr.instant("first_token", request_track(st["req"].uid))
             else:
-                m.histogram("sched.inter_token_s").record(now - st["t_last"], t=now)
-                if chunked:
-                    m.histogram("sched.inter_token_admitting_s").record(
-                        now - st["t_last"], t=now)
+                dt = (now - st["t_last"]) / len(block)
+                for _ in block:
+                    m.histogram("sched.inter_token_s").record(dt, t=now)
+                    if chunked:
+                        m.histogram("sched.inter_token_admitting_s").record(dt, t=now)
             st["t_last"] = now
-            st["emitted"].append(tok)
-            emitted += 1
-            if self.on_token is not None:
-                # The callback may cancel() any request, this one included.
-                self.on_token(st["req"].uid, tok)
-            if slot not in self._active:
-                continue
-            if tok in self.gen.stop_tokens or len(st["emitted"]) >= st["budget"]:
-                self._retire(slot)
+            for tok in block:
+                st["emitted"].append(tok)
+                emitted += 1
+                if self.on_token is not None:
+                    # The callback may cancel() any request, this one included.
+                    self.on_token(st["req"].uid, tok)
+                if slot not in self._active:
+                    break
+                if tok in self.gen.stop_tokens or len(st["emitted"]) >= st["budget"]:
+                    # Committed tokens past the budget or a stop are dropped.
+                    self._retire(slot)
+                    break
         self.stats["emitted"] += emitted
         return emitted
 

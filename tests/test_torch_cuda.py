@@ -1261,3 +1261,144 @@ def test_retention_apply_runs_every_length_through_the_kernel(s, warm):
     for got, want, tol in ((st["s"], st_r["s"], 1e-4), (out, out_r, 2e-2)):
         err = ((got - want).abs().max() / want.abs().max()).item()
         assert err < tol, err
+
+
+# -- speculative decode on the card --------------------------------------------------
+
+
+def _w8a8_launches(cfg) -> int:
+    """W8A8 launches of one verify step on a reduced model: every linear of
+    every layer (MLA's wk_b / wv_b re-expansion included) and the LM head."""
+    per_layer = (7 if cfg.family == "retnet" else
+                 9 if cfg.attn_type == "mla" else 4 + (3 if cfg.norm_type == "rmsnorm" else 2))
+    return per_layer * cfg.n_layers + 1
+
+
+@pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
+                                      ("qwen3-8b", "int8_tok"), ("ds3_dense", None),
+                                      ("ds3_dense", "mxint4_blk")])
+def test_speculative_generate_replays_match_the_eager_step(arch, fmt):
+    """Reduced models on the card, default deployment: `generate` with
+    speculative decode (each verify step one replay of a captured graph, W8A8
+    inside it) against the same loop with the eager step from the same
+    prefill: tokens, lengths, verify steps, accepted drafts, history and
+    final cache bit for bit; a replay launches W8A8 only, once per linear
+    and the LM head, and a second generate does not capture again."""
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig, SpeculativeConfig, sample
+    cfg = _reduced(arch)
+    eng = InferenceEngine.from_config(cfg, EngineSpec(), device="cuda")
+    periodic = torch.tensor([5, 9, 13] * 6, device="cuda")
+    prompts = torch.stack([periodic, torch.randint(1, cfg.vocab_size, (18,), device="cuda",
+                                                   generator=torch.Generator(
+                                                       device="cuda").manual_seed(6))])
+    n, k, s = 12, 3, prompts.shape[1]
+    gen = GenerationConfig(max_new_tokens=n, cache_format=fmt,
+                           speculative=SpeculativeConfig(k=k))
+    first = eng.generate(prompts, gen)
+    assert first.capture_s > 0
+    hopper.reset_launches()
+    res = eng.generate(prompts, gen)
+    replayed = dict(hopper.LAUNCHES)
+    assert res.capture_s == 0.0 and torch.equal(res.tokens, first.tokens)
+    (sg,) = eng._graphs.values()
+    assert sg.launches == {**dict.fromkeys(hopper.COUNTERS, 0),
+                           "w8a8_matmul": _w8a8_launches(eng.cfg)}
+    # The prefill runs the same linears once more, at M = B x S.
+    assert replayed["w8a8_matmul"] == (res.verify_steps + 1) * sg.launches["w8a8_matmul"]
+    with torch.inference_mode():
+        logits, cache, hist = eng._spec_prefill(prompts, gen)
+        st, _ = eng._spec_loop(sample(logits, gen.sampling), cache, hist, s, gen, None,
+                               graph=False)
+    g = sg.state
+    assert torch.equal(res.tokens, st.out[:, :n]) and torch.equal(res.lengths, st.lengths)
+    assert (res.verify_steps, res.accepted_drafts) == (int(st.steps), int(st.accepted))
+    for f in ("out", "hist", "hist_len", "i"):
+        assert torch.equal(getattr(g, f), getattr(st, f)), f
+    assert _tree_equal(g.cache, st.cache)
+
+
+@pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", "int8_tok"),
+                                      ("ds3_dense", None)])
+def test_spec_class_step_replays_match_its_eager_body(arch, fmt):
+    """A speculative scheduler's class step (captured at pool build, per-lane
+    W8A8 scales) replayed with its two lanes at different positions gives its
+    eager body's blocks, counts, tokens, histories and store bit for bit;
+    then the scheduler drains."""
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import Request, RequestScheduler
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig, SpeculativeConfig
+    eng = InferenceEngine.from_config(_reduced(arch), EngineSpec(), device="cuda")
+    sched = RequestScheduler(eng, classes=[(2, 44)], chunk_size=8,
+                             gen=GenerationConfig(max_new_tokens=6, cache_format=fmt,
+                                                  speculative=SpeculativeConfig(k=3)))
+    step = sched.pool.steps[44]
+    assert step.graph is not None and step.launches["w8a8_matmul"] == _w8a8_launches(eng.cfg)
+    for uid, p in enumerate(([5, 9, 13] * 3, list(range(2, 21)))):
+        sched.submit(Request(uid=uid, prompt=p))
+    while sched.stats["admitted"] < 2:
+        sched.step()
+    assert step.store["pos"][0] != step.store["pos"][1]
+    with torch.inference_mode():
+        bufs = (step.tok, step.hist, step.hist_len, step.result)
+        cold, before = E._clone(step.store), [t.clone() for t in bufs]
+        step.run()
+        got, got_bufs = E._clone(step.store), [t.clone() for t in bufs]
+        E._write_back(step.store, cold)
+        for t, b in zip(bufs, before):
+            t.copy_(b)
+        step.body()
+    assert _tree_equal(step.store, got)
+    assert all(torch.equal(a, b) for a, b in zip(bufs, got_bufs))
+    res = sched.run()
+    assert sorted(res) == [0, 1] and all(len(r.tokens) == 6 for r in res.values())
+
+
+def test_w8a8_in_a_graph_matches_an_eager_launch_at_m10():
+    """The verify shape (M = 2 x 5): a captured W8A8 launch replayed on new
+    inputs equals an eager launch, bit for bit."""
+    rng = _gen(10)
+    k, n = 256, 384
+    w = deploy.k_major(_t(rng.integers(-127, 128, (k, n)).astype(np.int8)))
+    x = _t(rng.integers(-127, 128, (10, k)).astype(np.int8))
+    os_, rs, b = (_t(rng.normal(size=(size,)).astype(np.float32)) for size in (n, 10, n))
+    ops.w8a8_matmul(x, w, os_, rs, b, impl="kernel")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with hopper.captured_launches() as recorded, torch.cuda.graph(graph):
+        out = ops.w8a8_matmul(x, w, os_, rs, b, impl="kernel")
+    assert recorded["w8a8_matmul"] == 1
+    for seed in (11, 12):
+        x.copy_(_t(_gen(seed).integers(-127, 128, (10, k)).astype(np.int8)))
+        graph.replay()
+        eager = ops.w8a8_matmul(x, w, os_, rs, b, impl="kernel")
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert torch.equal(eager, ref.w8a8_matmul_ref(x, w, os_, rs, b))
+
+
+def test_per_lane_activation_scale_matches_lane_by_lane_launches():
+    """Each lane's rows quantized with its own absmax (`quantize_act_int8_lanes`)
+    give that lane's int32 accumulations of a lane-by-lane launch, and the
+    lane's scale folded into ``row_scale`` gives the lane-alone epilogue."""
+    from repro_torch.core import quantized_linear as ql
+    rng = _gen(13)
+    k, n = 512, 256
+    x = _t(rng.normal(size=(2, 5, k)).astype(np.float32))
+    x[1] *= 40.0                                 # a co-tenant with a larger absmax
+    w = mx.quantize_int8_tensor(_t((rng.normal(size=(k, n)) * 0.05).astype(np.float32)))
+    w8 = mx.Int8Weight(deploy.k_major(w.values), w.scale)
+    xq, scale = mx.quantize_act_int8_lanes(x)
+    ones_n, ones_m = torch.ones(n, device="cuda"), torch.ones(10, device="cuda")
+    acc = ops.w8a8_matmul(xq, w8.values, ones_n, ones_m[:10], impl="kernel")
+    sig = _t(rng.uniform(0.5, 1.5, (2, 5)).astype(np.float32))
+    params = ql.QuantizedLinearParams(w=None, w8=w8, mx=None, bias=None)
+    lane_out = ql.apply(params, x, "prefill", row_scale=sig, impl="kernel", lane_act=True)
+    for b in range(2):
+        xb, sb = mx.quantize_act_int8(x[b])
+        assert torch.equal(xb, xq[b]) and torch.equal(sb, scale[b])
+        alone = ops.w8a8_matmul(xb, w8.values, ones_n, ones_m[:5], impl="kernel")
+        assert torch.equal(acc[b], alone)
+        want = ref.w8a8_matmul_ref(xb, w8.values, w8.scale, scale[b] * sig[b])
+        assert torch.equal(lane_out[b], want)

@@ -29,7 +29,7 @@ NEW_MODULES = ("repro_torch.launch.serve", "repro_torch.core.edge_model",
                "repro_torch.serving.engine", "repro_torch.serving.sampling",
                "repro_torch.serving.scheduler", "repro_torch.serving.frontend",
                "repro_torch.serving.loadgen", "repro_torch.serving.clock",
-               "repro_torch.serving.paging",
+               "repro_torch.serving.paging", "repro_torch.serving.speculative",
                "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
                "repro_torch.obs.profiler")
 

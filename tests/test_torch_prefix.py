@@ -10,7 +10,8 @@ paged tier):
   repeated-system-prompt shape (a 16-token base alone, then extensions), and
   the port's own cold tokens;
 * the reference's cases of tests/test_serving_prefix.py that need neither
-  speculative decode (ROADMAP A10c) nor MoE layers (A9), on the port:
+  speculative decode (its case is in tests/test_torch_speculative.py) nor
+  MoE layers (A9), on the port:
   preemption, engine-level adoption, offset validation, the COW of an
   unaligned adoption, the last-token cap, the sub-page miss, sibling pages,
   encoded pages, page budgets (LRU eviction, host migration, snapshots),

@@ -1,8 +1,8 @@
 """The port's serve demo path: top-p sampling against `repro.serving.sampling`,
 the nucleus-mass property on the port, and `repro_torch.launch.serve` on the
-CPU: the single-generate path, the scheduler, host-spill, front-end, trace
-and metrics modes, and the modes not ported yet, which exit nonzero naming
-the ROADMAP item that ports them."""
+CPU: the single-generate path, the scheduler, host-spill, front-end, trace,
+metrics and speculative modes, and the mode not ported yet, which exits
+nonzero naming the ROADMAP item that ports it."""
 
 import json
 
@@ -138,16 +138,6 @@ def test_unported_flag_exits_nonzero_naming_its_roadmap_item(flag, dest, item, w
     assert flag in err and f"ROADMAP {item}" in err and what in err
 
 
-@pytest.mark.parametrize("argv", [["--draft-k", "4"]], ids=lambda a: a[0])
-def test_settings_of_unported_modes_are_rejected(argv, capsys):
-    """The settings only the speculative mode reads are not parsed until it
-    is ported: each is an error, not ignored."""
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "retnet-1.3b", "--reduced", "--device", "cpu", *argv])
-    assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
-
-
 def test_generation_config_carries_top_p_into_the_loop():
     gen = GenerationConfig(max_new_tokens=2, sampling=SamplingParams(temperature=1.0,
                                                                      top_p=0.5))
@@ -207,6 +197,34 @@ def test_prefix_cache_mode_adopts_the_shared_prompt_and_prints_the_hit_line(caps
     assert lines[2] == ("[serve] prefix cache [paged]: 4/5 admissions adopted a cached "
                         "prefix, 180 prefill tokens skipped, 12 pages resident "
                         "(4 COW copies)")
+    assert "tokens/s" in lines[-1]
+
+
+def test_speculative_generate_prints_the_verify_line(capsys):
+    """``--speculative --draft-k 3`` in the single-`generate` mode: the
+    reference's speculative line (verify steps, drafts accepted of drafted,
+    tokens per step) before the timing lines."""
+    lines = _serve_lines(["--speculative", "--draft-k", "3"], capsys)
+    spec = next(ln for ln in lines if ln.startswith("[serve] speculative:"))
+    steps = int(spec.split("speculative: ")[1].split()[0])
+    acc, drafted = spec.split("steps, ")[1].split()[0].split("/")
+    assert 1 <= steps <= 30 and int(drafted) == 3 * steps and 0 <= int(acc) <= int(drafted)
+    assert f"({1 + int(acc) / steps:.2f} tokens/step)" in spec
+    assert lines[-1].startswith("[serve] sample output tokens")
+
+
+def test_speculative_scheduler_prints_per_request_and_total_lines(capsys):
+    """``--speculative --draft-k 3 --requests 4``: one line per request (its
+    tokens, verify steps, tokens per step, drafts accepted) and the total
+    line, the classes reserving k slots for the verify overrun."""
+    lines = _serve_lines(["--requests", "4", "--slots", "2", "--chunk-size", "2",
+                          "--speculative", "--draft-k", "3"], capsys)
+    assert "classes [(2, 35)]" in lines[0]
+    reqs = [ln for ln in lines if ln.startswith("[serve]   req ")]
+    assert len(reqs) == 4 and all("verify steps" in ln and "tokens/step" in ln for ln in reqs)
+    total = next(ln for ln in lines if ln.startswith("[serve] speculative:"))
+    steps = int(total.split(" over ")[1].split()[0])
+    assert steps == sum(int(ln.split(" tokens in ")[1].split()[0]) for ln in reqs)
     assert "tokens/s" in lines[-1]
 
 
