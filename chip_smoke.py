@@ -21,7 +21,12 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    flash-decode (both modes, every format) also with a per-lane kv_len
    (`LANE_KV_LENS`: [1, 528], [528, 300]) against the plain version, timed
    at the second (``per_lane_ms``), and an all-equal one bit-equal to the
-   scalar;
+   scalar; flash-decode's GQA mode also at hymba-1.5b's ring (B 2, KV 5, G
+   5, d 64, C 1024; f32, int8_tok, mxint4_blk; timed at the full ring);
+   W8A8 also at the SSM paths' shapes, hymba's x_proj (N 132) and dt_proj
+   (K 100) on the zero-padded operands deploy holds (exact against the
+   unpadded product; the library timed on the same padded operands), and
+   hymba's x_proj at the decode step's M 2;
    retention on the model's strided views and the MLA mode, each bound by
    its split-TF32 instruction mix (the f32 CUDA-core bound beside it), with
    a profiler check that one call runs only its own launches (retention
@@ -31,39 +36,51 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (`amortised_ms`), beside
    ``torch.linalg.vector_norm`` as the nearest library reduction, and the
    price of the port's sigma^-1 chain of PyTorch kernels
-   (`sigma_chain_price`);
-4. the three main paths at full width, each through
+   (`sigma_chain_price`); and the selective scan (plain PyTorch, not a
+   kernel: `scan_phase`), device ms per layer, per prefill and per decode
+   step at falcon-mamba-7b's and hymba-1.5b's widths;
+4. the five main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens (each
    decode step a replay of one captured CUDA graph, its launches counted per
    replay; the capture's seconds logged), and the eager loop
-   (``decode_step`` in a Python loop) in turns with it, whose tokens,
+   (``decode_step`` in a Python loop) in turns with it (after a path's
+   first cache format, once each), whose tokens,
    lengths and final cache must match the graph's bit for bit:
    retnet-1.3b (24 layers, d_model 2048), qwen3-8b (36 layers, d_model
    4096, vocab 151936) with its f32, int8_tok and mxint4_blk KV caches, and
    ds3_dense, deepseek-v3-671b cut to its 3 leading dense layers (d_model
    7168, 128 MLA heads, kv_lora 512, vocab 129280) with the same three
-   latent-cache formats, all from seeded random weights in the default
+   latent-cache formats, falcon-mamba-7b (64 Mamba-1 layers, d_model 4096,
+   d_inner 8192, state 16, vocab 65024; its cache has no KV, one cell) and
+   hymba-1.5b (32 layers, d_model 1600, 25 heads over 5 KV heads of 64 on a
+   1024-slot ring beside Mamba, d_inner 3200; f32, int8_tok, mxint4_blk),
+   all from seeded random weights in the default
    W8A8/MXINT4 deployment; then the
    same weights on the plain path (``kernel_impl="ref"``): every block in
-   lockstep, prefill logits beside the network's own sensitivity, every
-   decode step's logits (see `compare_paths`), and, free-running, where the
-   two paths' greedy tokens and appended cache rows first part (recorded,
-   see `free_running`); one top-k and one top-p generate through the graph
+   lockstep, prefill logits beside the network's own sensitivity, the
+   first COMPARE_STEPS (4) decode steps' logits (see `compare_paths`; on
+   the SSM paths with the residual stream in f32 as well), and,
+   free-running for FREE_RUN_NEW (8) tokens, where the two paths' greedy
+   tokens and appended cache rows first part (recorded, see
+   `free_running`); the profiler's busy shares in a path's first format; one top-k and one top-p generate through the graph
    (retnet-1.3b), each token in its step's top k or nucleus, repeated with
    its seed;
 5. after phase 4 on each path, the admission paths (`serve_admission`), once
    per cache format of the chunked admission: 2 prompts of 500 tokens in
-   chunks of 32 (15 x 32 + 16 + 4: retention from a warm state at chunks
+   chunks of 32 (hymba-1.5b: 1100 in chunks of 128, so its 1024-slot ring
+   wraps and its full-attention layers degrade to it, as in the reference;
+   15 x 32 + 16 + 4: retention from a warm state at chunks
    32, 16 and 4; W8A8 at M = 64, 32 and 8, and MLA's per-chunk
    re-expansion of the whole latent) against the plain path block by
-   block in lockstep; the counted run (chunked prefill, then
+   block in lockstep (after a path's first cache format, its first 4
+   chunks); the counted run (chunked prefill, then
    ``resume_generate`` of 32 greedy tokens through the graph, launches
    exact) and the eager loop from the same cache, bit for bit, and the
    same resume in two halves of 16; monolithic (500 = 3 x 128 + 116) and
    bucketed prefill's launches exact; chunked and
    bucketed (500 -> 512) against monolithic prefill, recorded; the three
-   prefills timed in turns;
+   prefills timed in turns (after the first format, once each);
 6. after phase 5 on each path, the scheduler (`serve_scheduler`): a
    `RequestScheduler` drain of 6 mixed-length requests through two slot
    classes of 2 lanes (C 48 and 80, chunks of 16; on the dense paths the
@@ -97,8 +114,8 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    p50 delta warm - cold recorded;
 8. after phase 7 on each path, speculative decode (`serve_speculative`, k 4,
    the ngram drafter): in every cache format, `generate` of 2 prompts of
-   512 tokens (one seeded, one [5, 9, 13] tiled) and 32 tokens with a cache
-   of 548 (`speculative_cell`): each verify step one replay of a captured
+   512 tokens (one seeded, one [5, 9, 13] tiled) and 16 tokens with a cache
+   of 532 (`speculative_cell`): each verify step one replay of a captured
    graph with W8A8 inside, its launches exact (W8A8 only: 169 on retnet,
    253 on qwen3-8b, 28 on ds3_dense) and the counted generate's; the graph
    against the eager loop bit for bit (tokens, lengths, verify steps,
@@ -117,12 +134,14 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    chunks' and the replays', tokens per step and acceptance per request;
 9. each model reduced, on the card against the CPU plain path, and the
    serve CLI (``python -m repro_torch.launch.serve``) at full width as
-   subprocesses: on retnet-1.3b greedy and top-p generate, the scheduler,
-   the front end on virtual time, the oversubscribed host-spill scheduler
+   subprocesses, CLI_WORKERS (4) at a time: on retnet-1.3b greedy and
+   top-p generate, the scheduler, the front end on virtual time, the
+   oversubscribed host-spill scheduler
    with its trace and metrics, and ``--speculative`` in the single-generate
    and the scheduler mode; on qwen3-8b ``--prefix-cache`` (4 of 5
-   admissions adopt the shared prompt);
-10. one JSON line ``{"kernels": [...]}`` (``scheduler_launches_by_path``,
+   admissions adopt the shared prompt); one greedy generate each on
+   falcon-mamba-7b and hymba-1.5b;
+10. the selective scan's line, one JSON line ``{"kernels": [...]}`` (``scheduler_launches_by_path``,
    ``prefix_launches_by_path`` and ``speculative_launches_by_path`` beside
    ``launches``; W8A8's rows also at the verify step's shapes, M 10, under
    the path "<arch> verify") and, last, the ``{"ok": true, ...}`` line.
@@ -132,6 +151,7 @@ It imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -154,6 +174,8 @@ from repro_torch.core import mxint4 as mx  # noqa: E402
 from repro_torch.core import retention as ret  # noqa: E402
 from repro_torch.kernels import hopper, ops, ref  # noqa: E402
 from repro_torch.models import deploy, layers, lm  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models.modules import Linear  # noqa: E402
 from repro_torch.serving import engine as serving_engine  # noqa: E402
 from repro_torch.serving.engine import (EngineSpec, GenerationResult,  # noqa: E402
                                         InferenceEngine, bucket_length, chunk_schedule)
@@ -182,16 +204,20 @@ SRC = {
                       "src/repro/kernels/rmsnorm_stats.py:38"),
 }
 # The full-width main paths: per layer (K, N, linears of that shape) run in
-# both phases, and those run in prefill only (MLA's wk_b / wv_b, whose masters
-# decode absorbs); ``cfg`` builds the model, ``reduced`` its CPU-scale twin.
+# both phases (MXINT4 in decode), those whose N is no multiple of 32 and so
+# run W8A8 in both phases (hymba's x_proj, N 132: `deploy._mx_ok`), and those
+# run in prefill only (MLA's wk_b / wv_b, whose masters decode absorbs);
+# ``attn`` names the decode attention (or retention) kernel; ``cfg`` builds
+# the model, ``reduced`` its CPU-scale twin; ``admit_prompt`` is the
+# admission phase's prompt length (ADMIT_PROMPT when absent).
 RETNET = dict(arch="retnet-1.3b", layers=24, d=2048, vocab=32768, formats=(None,),
               linears=((2048, 2048, 2), (2048, 4096, 3), (4096, 2048, 2)),
-              prefill_linears=())
+              decode_w8_linears=(), prefill_linears=(), attn="retention")
 QWEN3 = dict(arch="qwen3-8b", layers=36, d=4096, vocab=152064, kv=8, g=4, hd=128,
              formats=(None, "int8_tok", "mxint4_blk"),
              linears=((4096, 4096, 2), (4096, 1024, 2), (4096, 12288, 2),
                       (12288, 4096, 1)),
-             prefill_linears=())
+             decode_w8_linears=(), prefill_linears=(), attn="gqa")
 _DS3 = configs.get_config("deepseek-v3-671b")
 DS3 = dict(arch="ds3_dense", layers=3, d=7168, vocab=129280, heads=128, r=512, dr=64,
            formats=(None, "int8_tok", "mxint4_blk"),
@@ -199,8 +225,25 @@ DS3 = dict(arch="ds3_dense", layers=3, d=7168, vocab=129280, heads=128, r=512, d
            reduced=dataclasses.replace(_DS3.reduced(), n_layers=_DS3.first_dense_layers),
            linears=((7168, 1536, 1), (1536, 24576, 1), (7168, 576, 1), (16384, 7168, 1),
                     (7168, 18432, 2), (18432, 7168, 1)),
-           prefill_linears=((512, 16384, 2),))
-PATHS = (RETNET, QWEN3, DS3)
+           decode_w8_linears=(), prefill_linears=((512, 16384, 2),), attn="mla")
+# falcon-mamba-7b: in_proj, x_proj (dt rank 256 + 2 x state 16 = 288),
+# dt_proj, out_proj; no attention, no MLP, no RoPE.
+FALCON_MAMBA = dict(arch="falcon-mamba-7b", layers=64, d=4096, vocab=65024,
+                    d_inner=8192, state=16, formats=(None,),
+                    linears=((4096, 16384, 1), (8192, 288, 1), (256, 8192, 1),
+                             (8192, 4096, 1)),
+                    decode_w8_linears=(), prefill_linears=(), attn=None, f32_witness=True)
+# hymba-1.5b: GQA (25 heads over 5 KV heads of 64) over a 1024-slot ring,
+# Mamba (d_inner 3200, dt rank 100, state 16: x_proj N 132), a gated MLP of
+# 5504; its admission prompt wraps the ring, in chunks of 128 (8 x 128 + 64
+# + 8 + 4: a chunk runs host-bound, about 0.3 s at 32 tokens, PERF.md).
+HYMBA = dict(arch="hymba-1.5b", layers=32, d=1600, vocab=32256, kv=5, g=5, hd=64,
+             window=1024, d_inner=3200, state=16, formats=(None, "int8_tok", "mxint4_blk"),
+             linears=((1600, 1600, 2), (1600, 320, 2), (1600, 6400, 1), (100, 3200, 1),
+                      (3200, 1600, 1), (1600, 5504, 2), (5504, 1600, 1)),
+             decode_w8_linears=((3200, 132, 1),), prefill_linears=(), attn="gqa",
+             admit_prompt=1100, admit_chunk=128, f32_witness=True)
+PATHS = (RETNET, QWEN3, DS3, FALCON_MAMBA, HYMBA)
 BATCH, PROMPT, NEW = 2, 512, 32
 CACHE_LEN = PROMPT + NEW           # KV slots of a generate: 544
 DECODE_KV_LEN = CACHE_LEN - 16     # kv_len at which flash-decode is timed
@@ -213,7 +256,17 @@ DECODE_BLOCK_TOL = 1e-3  # decode block, same input: f32 summation order only
 PREFILL_TOL = 0.5        # end to end; the plain path's own one-bf16-step
                          # sensitivity measured 0.26 on an H100 (PERF.md)
 DECODE_TOL = 0.1         # one decode step end to end from the same cache
+# The SSM paths' decode logits end to end are held to DECODE_TOL with the
+# residual stream in f32 on both paths and the same int8 codes into hymba's
+# W8A8 x_proj (``f32_witness``, `_witness_step`): in bf16 their 64 / 32
+# layers turn each block's f32 summation-order gap into rounding flips that
+# grow layer by layer (0.11-0.53 of max|logit| on an H100, PERF.md), a
+# reading recorded beside the gap after each block.  A decode block with a
+# W8A8 linear is held as `_decode_lockstep` says.
 LOGIT_TOL = 2e-2         # reduced model, card kernels vs CPU plain path
+# Models whose random weights emit ids in the LM head's padding rows
+# (hymba-1.5b: 32001 padded to 32256), which the reference samples too.
+PADDING_IDS = ("hymba-1.5b",)
 # rmsnorm_stats where the served models take sigma^-1: (M, D, dtype, site),
 # the dtype being the one the site passes (ln1/ln2 see the bf16 residual
 # stream, q_norm and the per-head norms an f32 linear output), the other
@@ -240,12 +293,27 @@ LANE_KV_LENS = ((1, 528), (528, 300))
 # 32 + 16 + 4, so retention runs from a warm state at chunks 32, 16 and 4),
 # bucketed to 512, and 32 greedy tokens resumed from the chunked cache.
 ADMIT_PROMPT, ADMIT_CHUNK = 500, 32
-ADMIT_CACHE = ADMIT_PROMPT + NEW   # KV slots of a chunked admission: 532
+# Depth of the phase-4 checks beside the counted run (cut when the SSM paths
+# came, to keep the run inside its time: PERF.md): decode steps compared in
+# lockstep per cell (`compare_paths`; NEW before), tokens each path
+# generates on its own (`free_running`; NEW before); the graph and the
+# eager loop run in turns (eager, graph, graph, eager) and the profiler's
+# busy shares (`profile_shares`) in a path's first cache format only, the
+# other formats' graph and eager loop once each (eager, graph).
+COMPARE_STEPS, FREE_RUN_NEW = 4, 8
+# Likewise in the admission phase (`serve_admission`): the lockstep with the
+# plain path covers every chunk in a path's first cache format and the first
+# LATER_LOCKSTEP_CHUNKS in the others, whose three prefills are timed once
+# each (bucketed, monolithic, and the counted chunked run) and not in turns.
+LATER_LOCKSTEP_CHUNKS = 4
 TOP_P = 0.9
 # The speculative phase (`serve_speculative`): k 4 drafts per verify step,
 # the cache reserving k slots past the budget, the ngram drafter.
 SPEC_K = 4
-SPEC_CACHE = PROMPT + NEW + SPEC_K          # KV slots of a speculative generate: 548
+# Tokens of a speculative generate (NEW before the SSM paths came: a depth
+# cut to keep the run inside its time, PERF.md), and its KV slots: 532.
+SPEC_NEW = 16
+SPEC_CACHE = PROMPT + SPEC_NEW + SPEC_K
 RMS_MAIN = (1024, 4096, torch.bfloat16)
 RMS_AMORTISED = 8        # calls on distinct inputs per graph in `amortised_ms`
 
@@ -322,20 +390,20 @@ def device_len(n) -> torch.Tensor:
     return torch.tensor(n, dtype=torch.int32, device="cuda")
 
 
-def per_lane_checks(name, run, plain, n: int) -> tuple[float, float]:
-    """``run(kv_len)`` at each pair of `LANE_KV_LENS` against ``plain`` under
+def per_lane_checks(name, run, plain, n: int, pairs=LANE_KV_LENS) -> tuple[float, float]:
+    """``run(kv_len)`` at each pair of ``pairs`` against ``plain`` under
     flash-decode's tolerance, and at a ``[B]`` kv_len of all ``n`` bit-equal
     to the scalar ``n``.  Returns the largest error and the kernel's time at
     the second pair."""
     err = 0.0
-    for lens in LANE_KV_LENS:
+    for lens in pairs:
         nl = device_len(lens)
         err = max(err, _check(f"{name} per-lane kv_len {lens}", run(nl), plain(nl),
                               2e-5, 2e-6))
     if not torch.equal(run(device_len((n,) * BATCH)), run(device_len(n))):
         raise RuntimeError(f"{name}: a per-lane kv_len of equal lengths differs from "
                            "the scalar")
-    lanes = device_len(LANE_KV_LENS[1])
+    lanes = device_len(pairs[1])
     return err, time_ms(lambda: run(lanes))
 
 
@@ -358,9 +426,11 @@ def _check(name, got, want, rtol, atol):
 
 
 def _linear_cases(path: dict, m: int, lm_head_m: int, prefill: bool = False):
-    """(path, M, K, N, launches per unit) of every linear shape of a path in
-    one phase."""
-    shapes = path["linears"] + (path["prefill_linears"] if prefill else ())
+    """(path, M, K, N, launches per unit) of every linear shape a path runs
+    in one phase's format: MXINT4 in decode, W8A8 in prefill (the prefill-only
+    and the never-MXINT4 linears with them)."""
+    shapes = path["linears"] + (path["decode_w8_linears"] + path["prefill_linears"]
+                                if prefill else ())
     cases = [(path["arch"], m, k, n, c * path["layers"]) for k, n, c in shapes]
     return cases + [(path["arch"], lm_head_m, path["d"], path["vocab"], 1)]
 
@@ -405,53 +475,81 @@ def _verify_cases(path: dict):
     m, name = BATCH * (SPEC_K + 1), f"{path['arch']} verify"
     cases = [(name,) + c[1:] for c in _linear_cases(path, m, m)]
     return cases + [(name, BATCH * SPEC_CACHE, k, n, c * path["layers"])
-                    for k, n, c in path["prefill_linears"]]
+                    for k, n, c in path["prefill_linears"]] + [
+        (name, m, k, n, c * path["layers"]) for k, n, c in path["decode_w8_linears"]]
+
+
+def _decode_w8_cases(path: dict):
+    """(path, M, K, N, launches per decode step) of the linears that run
+    W8A8 in decode too (N no multiple of 32), under "<arch> decode"."""
+    return [(f"{path['arch']} decode", BATCH, k, n, c * path["layers"])
+            for k, n, c in path["decode_w8_linears"]]
 
 
 def kernel_phase_w8a8(peaks):
     rows = []
     cases = [c + (True,) for path in PATHS
              for c in _linear_cases(path, BATCH * PROMPT, BATCH, True)]
-    cases += [c + (False,) for path in PATHS for c in _verify_cases(path)]
+    cases += [c + (False,) for path in PATHS
+              for c in _verify_cases(path) + _decode_w8_cases(path)]
     for arch, m, k, n, count, main in cases:
         g = _gen(m + k + n)
         xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda").to(torch.int8)
-        # K-major, as deploy stores the main path's weights.
+        # K-major, as deploy stores the main path's weights (K or N not a
+        # multiple of 16: zero-padded to multiples of 16, and so is the bias;
+        # the kernel reads them whole on zero-padded activations).
         wq = deploy.k_major(torch.randint(-127, 128, (k, n), generator=g,
                                           device="cuda").to(torch.int8))
         sc = torch.tensor(1e-4, device="cuda")
         rs = torch.rand(m, generator=g, device="cuda") + 0.5
-        b = torch.randn(n, generator=g, device="cuda")
-        got = ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")
-        want = ref.w8a8_matmul_ref(xq, wq, sc, rs, b)
+        b = deploy.padded_vector(torch.randn(n, generator=g, device="cuda"))
+        got = ops.w8a8_matmul(xq, wq, sc, rs, b, n=n, impl="kernel")
+        want = ref.w8a8_matmul_ref(xq, wq[:k, :n], sc, rs, b[:n])
         err = _check(f"w8a8 {m}x{k}x{n}", got, want, 0.0, 0.0)   # exact
-        if not torch.equal(got, ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")):
+        if not torch.equal(got, ops.w8a8_matmul(xq, wq, sc, rs, b, n=n, impl="kernel")):
             raise RuntimeError(f"w8a8 {m}x{k}x{n}: two launches differ")
         # torch._int_mm needs M > 16: the M = 2 lm_head is timed padded to 32
         # rows, a verify step's M = 10 at the smallest M it takes, 17 (noted
         # as library_rows).  library_ms takes the K-major weight (cuBLASLt's
         # int8 "TN" layout, the one the kernel reads); library_rowmajor_ms
         # the row-major copy earlier runs timed.
-        xl = xq if m > 16 else F.pad(xq, (0, 0, 0, (32 if main else 17) - m))
+        # A ragged K or N times the library on the padded operands the
+        # kernel reads (``library_padded``).
+        xp, wp = ops.w8a8_padded_x(xq, wq, n), wq
+        xl = xp if m > 16 else F.pad(xp, (0, 0, 0, (32 if main else 17) - m))
         nbytes = m * k + k * n + 4 * (2 * n + m) + 4 * m * n
         bms, by = bound_ms(nbytes, 2 * m * k * n, peaks["int8"], peaks)
-        ms = time_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel"))
-        lib = time_ms(lambda: torch._int_mm(xl, wq))
-        w_row = wq.contiguous()
-        lib_row = time_ms(lambda: torch._int_mm(xl, w_row))
+        ms = time_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, n=n, impl="kernel"))
+        lib = _library_ms(lambda: torch._int_mm(xl, wp))
+        w_row = wp.contiguous()
+        lib_row = _library_ms(lambda: torch._int_mm(xl, w_row))
         del w_row
         rows.append(dict(
             path=arch, shape=[m, k, n], per_prefill=count, max_abs_err=err, ms=ms,
-            call_ms=call_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel")),
-            plain_ms=time_ms(lambda: ref.w8a8_matmul_ref(xq, wq, sc, rs, b)),
+            call_ms=call_ms(lambda: ops.w8a8_matmul(xq, wq, sc, rs, b, n=n, impl="kernel")),
+            plain_ms=time_ms(lambda: ref.w8a8_matmul_ref(xq, wq[:k, :n], sc, rs, b[:n])),
             library_ms=lib, library_rowmajor_ms=lib_row, library_rows=xl.shape[0],
             bound_ms=bms, bound_by=by, plan=hopper.w8a8_plan(m, n),
             rate=f"{2 * m * k * n / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.1f} GB/s",
-            library_rate=f"{2 * xl.shape[0] * k * n / lib / 1e9:.1f} TOP/s",
+            library_rate=(f"{2 * xl.shape[0] * k * n / lib / 1e9:.1f} TOP/s"
+                          if lib is not None else None),
             bound_share=bms / ms))
+        if wq.shape != (k, n):
+            rows[-1].update(library_padded=list(wq.shape))
         if not main:
-            rows[-1].update(main=False, site="speculative verify step")
+            rows[-1].update(main=False, site="decode step (x_proj, N 132)"
+                            if arch.endswith(" decode") else "speculative verify step")
     return rows
+
+
+def _library_ms(fn) -> float | None:
+    """`time_ms` of a library call, or None where the library refuses the
+    shape (cuBLASLt's int8 GEMM takes some layouts at some M only)."""
+    try:
+        return time_ms(fn)
+    except RuntimeError as e:
+        log(f"  library call refused: {str(e).splitlines()[0][:160]}")
+        return None
 
 
 def _launch_kernels(fn) -> list:
@@ -581,67 +679,124 @@ def sdpa_backend(fn) -> str:
     return f"{kind}: " + "; ".join(n[:48] for n in names[:4])
 
 
+# Flash-decode's GQA shapes: qwen3-8b (B 2, KV 8, G 4, d 128, C 544; every
+# cache format, timed at kv_len 528) and hymba-1.5b over its ring (B 2, KV 5,
+# G 5: two group chunks, the second holding one head; d 64; C 1024, timed at
+# 1024: the ring full, as it is from the wrap on).
+FD_SHAPES = (
+    dict(path=QWEN3, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
+         lanes=LANE_KV_LENS, formats=("f32", "bf16", "int8", "int8_tok", "mxint4_blk")),
+    dict(path=HYMBA, c=HYMBA["window"], kv_len=HYMBA["window"],
+         check=(1, 16, 17, 513, 1023, 1024), lanes=((1, 1024), (1024, 300)),
+         formats=("f32", "int8_tok", "mxint4_blk")),
+)
+
+
 def kernel_phase_flash_decode(peaks):
-    """qwen3-8b decode attention: B = 2, KV = 8, G = 4, d = 128, C = 544, in
-    every cache format, kv_len an int32 scalar on the card.  Checked at
-    `DECODE_CHECK_LENS`, timed at 528; the
-    f32 cache (the default ``cache_format=None``) is the main-path unit.
-    Its library yardsticks are `scaled_dot_product_attention` on the f32
-    K/V: ``library_gqa_ms`` with ``enable_gqa=True`` on the un-expanded
-    ``[B, KV, n, d]`` views, and ``library_ms`` on K/V copied and expanded
-    to the 32 query heads (4x the bytes).  No single PyTorch call reads an
-    encoded cache."""
-    b, kvh, g, d, c, n = BATCH, QWEN3["kv"], QWEN3["g"], QWEN3["hd"], CACHE_LEN, DECODE_KV_LEN
-    gen = _gen(11)
-    q = torch.randn(b, kvh, g, d, generator=gen, device="cuda")
-    k32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
-    v32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
+    """Decode attention at each of `FD_SHAPES`, B = 2, in each cache format,
+    kv_len an int32 scalar on the card.  Checked at the shape's lengths,
+    timed at its ``kv_len``; the f32 cache (the default ``cache_format=None``)
+    is each path's main-path unit.  Its library yardsticks are
+    `scaled_dot_product_attention` on the f32 K/V: ``library_gqa_ms`` with
+    ``enable_gqa=True`` on the un-expanded ``[B, KV, n, d]`` views, and
+    ``library_ms`` on K/V copied and expanded to every query head (G x the
+    bytes).  No single PyTorch call reads an encoded cache."""
     rows = []
-    for fmt in ("f32", "bf16", "int8", "int8_tok", "mxint4_blk"):
-        k, v = _cache_leaf(k32, fmt), _cache_leaf(v32, fmt)
-        err = 0.0
-        for kv_len in map(device_len, DECODE_CHECK_LENS):
-            got = ops.flash_decode(q, k, v, kv_len, impl="kernel")
-            want = ref.flash_decode_ref(q, k, v, kv_len)
-            err = max(err, _check(f"flash_decode {fmt} kv_len {int(kv_len)}", got, want,
-                                  2e-5, 2e-6))
-            if not torch.equal(got, ops.flash_decode(q, k, v, kv_len, impl="kernel")):
-                raise RuntimeError(f"flash_decode {fmt}: two launches differ")
-        nd = device_len(n)
-        lane_err, lane_ms = per_lane_checks(
-            f"flash_decode {fmt}", lambda n_: ops.flash_decode(q, k, v, n_, impl="kernel"),
-            lambda n_: ref.flash_decode_ref(q, k, v, n_), n)
-        row_bytes = {"f32": 4 * d, "bf16": 2 * d, "int8": d}.get(fmt) or kvq.nbytes_per_row(fmt, d)
-        nbytes = 2 * 4 * b * kvh * g * d + 2 * n * b * kvh * row_bytes
-        bms, by = bound_ms(nbytes, 4 * b * kvh * g * n * d, peaks["f32"], peaks)
-        extra = {}
-        if fmt == "f32":
-            qs = q.reshape(b, kvh * g, 1, d)
-            kg, vg = (t[:, :n].permute(0, 2, 1, 3) for t in (k32, v32))
-            gqa = lambda: F.scaled_dot_product_attention(qs, kg, vg, enable_gqa=True)  # noqa: E731
-            lib_err = (gqa().reshape(b, kvh, g, d) - ref.flash_decode_ref(q, k, v, nd)
-                       ).abs().max().item()
-            ks, vs = (t.repeat_interleave(g, dim=1).contiguous() for t in (kg, vg))
-            extra = dict(library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
-                         library_gqa_ms=time_ms(gqa), library_backend=sdpa_backend(gqa),
-                         library_max_abs_err=lib_err)
-            del ks, vs
-        path = {"f32": QWEN3["arch"], "bf16": "bf16 (no model path)",
-                "int8": "legacy int8 (no model path)"}.get(fmt, f"{QWEN3['arch']} {fmt}")
-        ms = time_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel"))
-        row = dict(
-            path=path, main=fmt == "f32", fmt=fmt, shape=[b, kvh, g, d, c], kv_len=n,
-            per_step=QWEN3["layers"], max_abs_err=max(err, lane_err), ms=ms,
-            per_lane_ms=lane_ms, per_lane_kv_len=list(LANE_KV_LENS[1]),
-            per_lane_max_abs_err=lane_err,
-            call_ms=call_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel")),
-            plain_ms=time_ms(lambda: ref.flash_decode_ref(q, k, v, nd)),
-            library_ms=None, library_gqa_ms=None, bound_ms=bms, bound_by=by,
-            plan={key: val for key, val in hopper.flash_decode_plan(
-                b, kvh, g, d, d, c, fmt, fmt).items() if key != "ranges"},
-            rate=f"{nbytes / ms / 1e6:.1f} GB/s", bound_share=bms / ms)
-        row.update(extra)
-        rows.append(row)
+    for shape in FD_SHAPES:
+        path = shape["path"]
+        b, kvh, g, d, c, n = BATCH, path["kv"], path["g"], path["hd"], shape["c"], shape["kv_len"]
+        gen = _gen(11)
+        q = torch.randn(b, kvh, g, d, generator=gen, device="cuda")
+        k32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
+        v32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
+        for fmt in shape["formats"]:
+            rows.append(_flash_decode_row(peaks, path, shape, fmt, q, k32, v32, b, kvh, g, d,
+                                          c, n))
+    return rows
+
+
+def _flash_decode_row(peaks, path, shape, fmt, q, k32, v32, b, kvh, g, d, c, n):
+    k, v = _cache_leaf(k32, fmt), _cache_leaf(v32, fmt)
+    err = 0.0
+    for kv_len in map(device_len, shape["check"]):
+        got = ops.flash_decode(q, k, v, kv_len, impl="kernel")
+        want = ref.flash_decode_ref(q, k, v, kv_len)
+        err = max(err, _check(f"flash_decode {path['arch']} {fmt} kv_len {int(kv_len)}",
+                              got, want, 2e-5, 2e-6))
+        if not torch.equal(got, ops.flash_decode(q, k, v, kv_len, impl="kernel")):
+            raise RuntimeError(f"flash_decode {fmt}: two launches differ")
+    nd = device_len(n)
+    lane_err, lane_ms = per_lane_checks(
+        f"flash_decode {path['arch']} {fmt}",
+        lambda n_: ops.flash_decode(q, k, v, n_, impl="kernel"),
+        lambda n_: ref.flash_decode_ref(q, k, v, n_), n, shape["lanes"])
+    row_bytes = {"f32": 4 * d, "bf16": 2 * d, "int8": d}.get(fmt) or kvq.nbytes_per_row(fmt, d)
+    nbytes = 2 * 4 * b * kvh * g * d + 2 * n * b * kvh * row_bytes
+    bms, by = bound_ms(nbytes, 4 * b * kvh * g * n * d, peaks["f32"], peaks)
+    extra = {}
+    if fmt == "f32":
+        qs = q.reshape(b, kvh * g, 1, d)
+        kg, vg = (t[:, :n].permute(0, 2, 1, 3) for t in (k32, v32))
+        gqa = lambda: F.scaled_dot_product_attention(qs, kg, vg, enable_gqa=True)  # noqa: E731
+        lib_err = (gqa().reshape(b, kvh, g, d) - ref.flash_decode_ref(q, k, v, nd)
+                   ).abs().max().item()
+        ks, vs = (t.repeat_interleave(g, dim=1).contiguous() for t in (kg, vg))
+        extra = dict(library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+                     library_gqa_ms=time_ms(gqa), library_backend=sdpa_backend(gqa),
+                     library_max_abs_err=lib_err)
+        del ks, vs
+    name = {"f32": path["arch"], "bf16": "bf16 (no model path)",
+            "int8": "legacy int8 (no model path)"}.get(fmt, f"{path['arch']} {fmt}")
+    ms = time_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel"))
+    row = dict(
+        path=name, main=fmt == "f32", fmt=fmt, shape=[b, kvh, g, d, c], kv_len=n,
+        per_step=path["layers"], max_abs_err=max(err, lane_err), ms=ms,
+        per_lane_ms=lane_ms, per_lane_kv_len=list(shape["lanes"][1]),
+        per_lane_max_abs_err=lane_err,
+        call_ms=call_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel")),
+        plain_ms=time_ms(lambda: ref.flash_decode_ref(q, k, v, nd)),
+        library_ms=None, library_gqa_ms=None, bound_ms=bms, bound_by=by,
+        plan={key: val for key, val in hopper.flash_decode_plan(
+            b, kvh, g, d, d, c, fmt, fmt).items() if key != "ranges"},
+        rate=f"{nbytes / ms / 1e6:.1f} GB/s", bound_share=bms / ms)
+    row.update(extra)
+    return row
+
+
+def scan_phase() -> list:
+    """The selective scan (`models/ssm.py`: plain PyTorch, no kernel) at the
+    SSM paths' full widths, device ms with a cold L2 (`time_ms`): one
+    layer's chunked scan of a B x S prefill (`ssm.selective_scan`, chunks of
+    128) and one layer's decode step (`ssm.ssm_step`), and each times the
+    layers per prefill and per decode step; and on hymba the ring-row save
+    of a speculative verify step (k + 1 rows of K and V per layer, in each
+    cache format)."""
+    rows = []
+    for path in (FALCON_MAMBA, HYMBA):
+        di, n = path["d_inner"], path["state"]
+        g = _gen(di)
+        dt = F.softplus(torch.randn(PROMPT, BATCH, di, generator=g, device="cuda") - 3)
+        xc, bc, cc = (torch.randn(PROMPT, BATCH, w, generator=g, device="cuda")
+                      for w in (di, n, n))
+        a = -torch.exp(torch.zeros(di, n, device="cuda"))
+        h0 = torch.zeros(BATCH, di, n, device="cuda")
+        pre = time_ms(lambda: ssm.selective_scan(h0, dt, xc, bc, cc, a, 128))
+        step = time_ms(lambda: ssm.ssm_step(h0, dt[0], xc[0], bc[0], cc[0], a))
+        rows.append(dict(path=path["arch"], shape=[BATCH, PROMPT, di, n], chunk=128,
+                         prefill_layer_ms=pre, prefill_ms=pre * path["layers"],
+                         decode_layer_ms=step, decode_step_ms=step * path["layers"],
+                         layers=path["layers"]))
+        if path is HYMBA:
+            # A verify block's save of the k + 1 ring rows it evicts
+            # (`layers.gqa_chunk(keep_evicted=True)`), per verify step.
+            ring = torch.randn(BATCH, path["window"], path["kv"], path["hd"], generator=g,
+                               device="cuda")
+            idx = torch.arange(SPEC_K + 1, device="cuda")
+            rows[-1]["ring_row_save_ms_per_verify_step"] = {
+                fmt: time_ms(lambda leaf=_cache_leaf(ring, fmt): [
+                    layers.cache_gather(leaf, idx) for _ in range(2)]) * path["layers"]
+                for fmt in ("f32", "int8_tok", "mxint4_blk")}
+        log(f"  selective scan {path['arch']}: {json.dumps(rows[-1])}")
     return rows
 
 
@@ -882,14 +1037,16 @@ def expected_launches(path: dict, s: int = PROMPT) -> tuple[dict, dict]:
     per_prefill = dict.fromkeys(hopper.COUNTERS, 0)
     per_step = dict.fromkeys(hopper.COUNTERS, 0)
     both = sum(c for _, _, c in path["linears"])
+    w8_both = sum(c for _, _, c in path["decode_w8_linears"])
     prefill_only = sum(c for _, _, c in path["prefill_linears"])
-    per_prefill["w8a8_matmul"] = (both + prefill_only) * path["layers"] + 1
+    per_prefill["w8a8_matmul"] = (both + w8_both + prefill_only) * path["layers"] + 1
     per_step["mxint4_matmul"] = both * path["layers"] + 1
-    if path is RETNET:
+    per_step["w8a8_matmul"] = w8_both * path["layers"]
+    if path["attn"] == "retention":
         per_prefill["retention_chunkwise"] = path["layers"] * retention_launches(s)
-    elif path is DS3:
+    elif path["attn"] == "mla":
         per_step["flash_decode_mla"] = path["layers"]
-    else:
+    elif path["attn"] == "gqa":
         per_step["flash_decode"] = path["layers"]
     return per_prefill, per_step
 
@@ -954,15 +1111,18 @@ def serve_full_width(path: dict, card: str):
         for k in counted:
             counted[k] += launches[k]
         toks = res.tokens
-        if toks.shape != (BATCH, NEW) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        if toks.shape != (BATCH, NEW) or not _in_vocab(cfg, toks):
             raise RuntimeError(f"{tag}: bad tokens {toks.shape}")
         if not torch.equal(toks, first.tokens):
             raise RuntimeError(f"{tag}: a second generate's tokens differ from the first's")
 
         # The graph and the eager loop in turns (eager, graph, graph, eager);
         # each pair must agree bit for bit.
+        t_turns = time.perf_counter()
         graph_runs, eager_runs = [res], []
-        for kind in ("eager", "graph", "graph", "eager"):
+        turns = (("eager", "graph", "graph", "eager") if fmt == path["formats"][0]
+                 else ("eager", "graph"))
+        for kind in turns:
             if kind == "graph":
                 graph_runs.append(eng.generate(prompts, gen))
                 continue
@@ -983,18 +1143,21 @@ def serve_full_width(path: dict, card: str):
                                 r.decode_s * 1e3 / r.decode_steps for r in runs]})
         serving["prefill_tokens_per_s"] = BATCH * PROMPT / (serving["prefill_ms"] / 1e3)
         serving["graph_and_eager_bit_identical"] = True
-        serving.update(profile_shares(eng, prompts, gen))
+        t_profile = time.perf_counter()
+        if fmt == path["formats"][0]:
+            serving.update(profile_shares(eng, prompts, gen))
+        serving.update(turns_s=t_profile - t_turns, profile_s=time.perf_counter() - t_profile)
         log(f"{tag} serving (kernel path, medians; graph and eager in turns):",
             json.dumps(serving))
 
         # The same weights on the plain path.
         t1 = time.perf_counter()
-        checks = compare_paths(eng, plain, prompts, gen)
+        checks = compare_paths(path, eng, plain, prompts, gen)
         res_k, res_p, drift = free_running(eng, plain, prompts, gen)
         checks.update(
-            greedy_token_agreement=(res_p.tokens == toks).float().mean().item(),
-            free_running=dict(drift, kernel_tokens_as_counted=bool(
-                (res_k.tokens == toks).all())),
+            greedy_token_agreement=(res_p.tokens == toks[:, :FREE_RUN_NEW]).float().mean().item(),
+            free_running=dict(drift, tokens=FREE_RUN_NEW, kernel_tokens_as_counted=bool(
+                (res_k.tokens == toks[:, :FREE_RUN_NEW]).all())),
             plain_prefill_ms=res_p.prefill_s * 1e3,
             plain_decode_ms_per_token=res_p.decode_s * 1e3 / res_p.decode_steps,
             compare_s=time.perf_counter() - t1)
@@ -1019,6 +1182,15 @@ def serve_full_width(path: dict, card: str):
 
 
 @torch.inference_mode()
+def _in_vocab(cfg, toks: torch.Tensor) -> bool:
+    """Every token an id of the model's vocabulary; on the models in
+    PADDING_IDS, of its padded vocabulary, the rows of its embedding and LM
+    head (neither the reference nor the port masks the padding rows, and
+    random weights there emit such ids)."""
+    limit = cfg.padded_vocab if cfg.name in PADDING_IDS else cfg.vocab_size
+    return bool(((toks >= 0) & (toks < limit)).all())
+
+
 def eager_generate(eng, prompts, gen):
     """`generate` as the eager loop: prefill, then `decode_step` in a Python
     loop in the reference's body order (greedy, no stop tokens), timed as
@@ -1143,9 +1315,13 @@ def _bytes_differing(a, b) -> tuple[int, int]:
 
 def _cache_rel(tag, ck, cr, tol) -> float:
     """Largest relative difference of the (decoded) leaves of two layer
-    caches, each within ``tol`` of its max|value| (equal where that is 0)."""
+    caches, each within ``tol`` of its max|value| (equal where that is 0); a
+    hybrid layer's ``attn`` and ``mamba`` subtrees are walked."""
     worst = 0.0
     for name in cr:
+        if isinstance(cr[name], dict) and kvq.leaf_format(cr[name]) is None:
+            worst = max(worst, _cache_rel(f"{tag} {name}", ck[name], cr[name], tol))
+            continue
         a, b = kvq.decode(ck[name]), kvq.decode(cr[name])
         if not bool(b.abs().max() > 0):
             if not torch.equal(a, b):
@@ -1155,22 +1331,28 @@ def _cache_rel(tag, ck, cr, tol) -> float:
     return worst
 
 
+def admit_prompt(path: dict) -> tuple[int, int]:
+    """The admission phase's prompt length and chunk size on ``path``."""
+    return path.get("admit_prompt", ADMIT_PROMPT), path.get("admit_chunk", ADMIT_CHUNK)
+
+
 @torch.inference_mode()
-def chunk_lockstep(eng, plain, prompts, fmt) -> dict:
+def chunk_lockstep(eng, plain, prompts, fmt, chunk_size: int,
+                   n_chunks: int | None = None) -> dict:
     """The chunked admission, kernel path against plain path on the same
     weights, in lockstep: each chunk starts both paths from the plain path's
     cache (in ``fmt``), each block gets the plain path's input, and the
     block outputs, every tensor of each layer's new cache (decoded) and the
     chunk's logits (the lm_head on the plain path's final activations) must
     agree within BLOCK_TOL of max|value|.  Encoded bytes that differ are
-    counted and reported."""
+    counted and reported.  ``n_chunks`` stops after that many chunks."""
     cfg, model = eng.cfg, eng.model
-    cache = lm.make_decode_cache(cfg, prompts.shape[0], ADMIT_CACHE,
+    cache = lm.make_decode_cache(cfg, prompts.shape[0], prompts.shape[1] + NEW,
                                  dtype=fmt or torch.float32, device="cuda")
     worst = dict(block=0.0, cache=0.0, logits=0.0)
     diff_bytes = total_bytes = 0
     off = 0
-    for j, c in enumerate(chunk_schedule(prompts.shape[1], ADMIT_CHUNK)):
+    for j, c in enumerate(chunk_schedule(prompts.shape[1], chunk_size)[:n_chunks]):
         x = lm._embed(model, prompts[:, off:off + c])
         pos = cache["pos"]
         sin, cos = lm._rope_tables(cfg, c, x.device, start=pos)
@@ -1218,8 +1400,9 @@ def _parting(a: torch.Tensor, b: torch.Tensor):
 def serve_admission(path: dict, eng, plain, card: str):
     """The admission paths at full width, once per cache format of the
     chunked admission: 2 prompts of ADMIT_PROMPT tokens in chunks of
-    ADMIT_CHUNK.  Fatal: the chunked prefill against the plain path in
-    lockstep (`chunk_lockstep`); the launch counts of the counted run
+    ADMIT_CHUNK (`admit_prompt`).  Fatal: the chunked prefill against the
+    plain path in lockstep (`chunk_lockstep`; the first
+    LATER_LOCKSTEP_CHUNKS chunks after the first format); the launch counts of the counted run
     (chunked prefill, then `resume_generate` of NEW greedy tokens through
     the graph: W8A8 chunks x (linears + lm_head), retention chunks x
     layers, one eager warm-up step and the replays); the graph against the
@@ -1230,29 +1413,36 @@ def serve_admission(path: dict, eng, plain, card: str):
     the bucketed (to 512) prefill against monolithic prefill on the same
     deployed weights (the last logits' largest relative difference, where
     the greedy tokens resumed from each cache part from monolithic's),
-    and the three prefills' host ms in turns (chunked, bucketed,
-    monolithic, monolithic, bucketed, chunked)."""
+    and the three prefills' host ms, in the first format in turns (chunked,
+    bucketed, monolithic, monolithic, bucketed, chunked: the two chunked
+    prefills must give the same logits), once each in the others."""
     arch = path["arch"]
     t0 = time.perf_counter()
     cfg = eng.cfg
-    prompts = torch.randint(1, cfg.vocab_size, (BATCH, ADMIT_PROMPT), generator=_gen(31),
+    s_admit, chunk_size = admit_prompt(path)
+    admit_cache = s_admit + NEW
+    prompts = torch.randint(1, cfg.vocab_size, (BATCH, s_admit), generator=_gen(31),
                             device="cuda")
-    sched = chunk_schedule(ADMIT_PROMPT, ADMIT_CHUNK)
-    log(f"== admission: {arch}, B={BATCH}, S={ADMIT_PROMPT} in chunks {sched}, then "
-        f"{NEW} greedy tokens resumed through the graph")
-    want_p, want_s = expected_launches(path, ADMIT_CHUNK)
+    sched = chunk_schedule(s_admit, chunk_size)
+    log(f"== admission: {arch}, B={BATCH}, S={s_admit} in chunks {sched}, then "
+        f"{NEW} greedy tokens resumed through the graph"
+        + (f" (the ring of {cfg.sliding_window} wraps)" if cfg.sliding_window
+           and s_admit > cfg.sliding_window else ""))
+    want_p, want_s = expected_launches(path, chunk_size)
     want_chunked = {k: v * len(sched) for k, v in want_p.items()}
     counted, results = dict.fromkeys(hopper.COUNTERS, 0), {}
     for fmt in path["formats"]:
         tag = f"{arch} admission" + ("" if fmt is None else f" {fmt}")
         gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt)
         out = dict(card=card, schedule=sched)
-        out.update(chunk_lockstep(eng, plain, prompts, fmt))
+        first = fmt == path["formats"][0]
+        out.update(chunk_lockstep(eng, plain, prompts, fmt, chunk_size,
+                                  None if first else LATER_LOCKSTEP_CHUNKS))
 
         # The counted run: chunked prefill, then decode resumed through the graph.
         hopper.reset_launches()
         (lg_c, cache_c), t_c0 = _timed(lambda: eng.prefill_chunked(
-            prompts, cache_len=ADMIT_CACHE, chunk_size=ADMIT_CHUNK,
+            prompts, cache_len=admit_cache, chunk_size=chunk_size,
             cache_dtype=fmt or torch.float32))
         per_chunked = dict(hopper.LAUNCHES)
         pending = lg_c.argmax(-1)
@@ -1274,7 +1464,7 @@ def serve_admission(path: dict, eng, plain, card: str):
         got, cache_e = eager_loop(eng, pending, eager_cache, gen)
         _same_as_graph(tag, res, cache_c, got, cache_e)
         del eager_cache, cache_e
-        if fmt == path["formats"][0]:
+        if first:
             out["resumed_in_two_halves_bit_identical"] = resume_in_halves(
                 tag, eng, pending, cache_c0, res, cache_c, gen)
         del cache_c0
@@ -1286,28 +1476,30 @@ def serve_admission(path: dict, eng, plain, card: str):
 
         # Bucketed and monolithic prefill on the same weights, timed in turns.
         def mono():
-            lg, cache = eng.prefill(prompts, cache_len=ADMIT_CACHE)
+            lg, cache = eng.prefill(prompts, cache_len=admit_cache)
             return lg, eng._encode_cache(cache, gen)
 
         def bucketed():
-            lg, cache = eng.prefill(prompts, cache_len=ADMIT_CACHE, bucket=True)
+            lg, cache = eng.prefill(prompts, cache_len=admit_cache, bucket=True)
             return lg, eng._encode_cache(cache, gen)
 
         def chunked():
-            return eng.prefill_chunked(prompts, cache_len=ADMIT_CACHE, chunk_size=ADMIT_CHUNK,
+            return eng.prefill_chunked(prompts, cache_len=admit_cache, chunk_size=chunk_size,
                                        cache_dtype=fmt or torch.float32)
 
         times = dict(chunked=[t_c0], bucketed=[], monolithic=[])
         runs = {}
-        for name, fn in (("bucketed", bucketed), ("monolithic", mono), ("monolithic", mono),
-                         ("bucketed", bucketed), ("chunked", chunked)):
+        turns = ((("bucketed", bucketed), ("monolithic", mono), ("monolithic", mono),
+                  ("bucketed", bucketed), ("chunked", chunked)) if first
+                 else (("bucketed", bucketed), ("monolithic", mono)))
+        for name, fn in turns:
             runs[name], ms = _timed(fn)
             times[name].append(ms)
         out["prefill_ms_in_turns"] = times
         out["prefill_launches"] = one_prefill_launches(tag, path, eng, prompts, gen)
         lg_m, cache_m = runs["monolithic"]
         lg_b, cache_b = runs["bucketed"]
-        if not torch.equal(runs["chunked"][0], lg_c):
+        if first and not torch.equal(runs["chunked"][0], lg_c):
             raise RuntimeError(f"{tag}: two chunked prefills of one prompt differ")
         res_m = eng.resume_generate(lg_m.argmax(-1), cache_m, gen)
         res_b = eng.resume_generate(lg_b.argmax(-1), cache_b, gen)
@@ -1318,8 +1510,7 @@ def serve_admission(path: dict, eng, plain, card: str):
                    bucketed_vs_monolithic_first_parting=_parting(res_b.tokens, res_m.tokens),
                    bucketed_capture_s=res_b.capture_s)
         for r in (res_m, res_b):
-            if r.tokens.shape != (BATCH, NEW) or not bool(((r.tokens >= 0) & (
-                    r.tokens < cfg.vocab_size)).all()):
+            if r.tokens.shape != (BATCH, NEW) or not _in_vocab(cfg, r.tokens):
                 raise RuntimeError(f"{tag}: bad tokens {r.tokens.shape}")
         log(f"{tag}:", json.dumps(out))
         results[tag] = out
@@ -1429,7 +1620,7 @@ def scheduler_drain(path: dict, eng, card: str, classes, lens, chunk: int, seed:
     launches = dict(hopper.LAUNCHES)
     res = {f.uid: f for f in sched._finished}
     bad = [u for u, f in res.items() if len(f.tokens) != new
-           or not all(0 <= t < cfg.vocab_size for t in f.tokens)]
+           or not _in_vocab(cfg, torch.tensor(f.tokens))]
     if len(res) != len(lens) or bad or identity is None:
         raise RuntimeError(f"{tag}: {len(res)} of {len(lens)} finished, bad {bad}, "
                            f"identity checked {identity is not None}")
@@ -1777,7 +1968,8 @@ def prefix_cell(path: dict, eng, fmt, card: str) -> tuple[dict, dict]:
 def prefix_reuse_leg(path: dict, eng, card: str) -> tuple[dict, dict]:
     """(a) The reference's `prefix_reuse` leg at full width (see PREFIX_LEG),
     one stream per shared fraction.  Each drain is a fresh scheduler warmed
-    by a disjoint stream (its pages never match), its registry reset after.
+    by one disjoint request (its pages never match; the whole disjoint
+    stream before the SSM paths came: PERF.md), its registry reset after.
     Fatal: at 1.0, 7 of 8 admissions adopt the 96 shared tokens (672
     prefill tokens skipped) and the greedy tokens equal the same stream's
     without the prefix cache; every drain's decode launches are its
@@ -1809,7 +2001,7 @@ def prefix_reuse_leg(path: dict, eng, card: str) -> tuple[dict, dict]:
         sched = RequestScheduler(eng, classes=[(L["lanes"], clen)], gen=gen,
                                  chunk_size=L["chunk"], prefix_cache=prefix_cache, obs=obs,
                                  seed=0)
-        for uid, p in enumerate(prompts_for(1.0, base=41)):
+        for uid, p in enumerate(prompts_for(1.0, base=41)[:1]):
             sched.submit(Request(uid=1000 + uid, prompt=p))
         sched.run()
         obs.metrics.reset()
@@ -1889,7 +2081,7 @@ def serve_prefix(path: dict, eng, card: str) -> tuple[dict, dict]:
 
 # The speculative phase.  (a) `generate` with speculative decode in every
 # (path, cache format) cell: 2 prompts of PROMPT tokens (one seeded, one the
-# reference test's [5, 9, 13] tiled), NEW tokens, k SPEC_K, in the default
+# reference test's [5, 9, 13] tiled), SPEC_NEW tokens, k SPEC_K, in the default
 # deployment (verify reads the W8A8 weights, decode the MXINT4 ones).  (b)
 # The phase-6 drain's requests through the scheduler in speculative mode,
 # each class reserving k slots for the verify overrun.
@@ -1994,7 +2186,7 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict
     tag = f"{path['arch']} speculative" + ("" if fmt is None else f" {fmt}")
     cfg = eng.cfg
     prompts = spec_prompts(cfg.vocab_size)
-    gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt,
+    gen = GenerationConfig(max_new_tokens=SPEC_NEW, cache_format=fmt,
                            speculative=SpeculativeConfig(k=SPEC_K))
     plain_gen = dataclasses.replace(gen, speculative=None)
     want_p, want_step = expected_launches(path)[0], spec_step_launches(path)
@@ -2013,7 +2205,7 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict
                            f"{res.capture_s} s)")
     st, _ = eng._spec_loop(tok, cache, hist, prompts.shape[1], gen, None, graph=False)
     g = sg.state
-    same = (torch.equal(res.tokens, st.out[:, :NEW]) and torch.equal(res.lengths, st.lengths)
+    same = (torch.equal(res.tokens, st.out[:, :SPEC_NEW]) and torch.equal(res.lengths, st.lengths)
             and (res.verify_steps, res.accepted_drafts) == (int(st.steps), int(st.accepted))
             and torch.equal(g.hist, st.hist) and torch.equal(g.hist_len, st.hist_len))
     a, b = dict(serving_engine.tree_items(g.cache)), dict(serving_engine.tree_items(st.cache))
@@ -2022,7 +2214,7 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict
         raise RuntimeError(f"{tag}: graph and eager loops differ ({differ[:4]})")
     del st, cache
     toks = res.tokens
-    if toks.shape != (BATCH, NEW) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+    if toks.shape != (BATCH, SPEC_NEW) or not _in_vocab(cfg, toks):
         raise RuntimeError(f"{tag}: bad tokens {toks.shape}")
 
     # One replay between CUDA events (the state is reset by the next run),
@@ -2041,7 +2233,10 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict
     runs = dict(speculative=[res], plain=[])
     for kind in ("plain", "plain", "speculative"):
         runs[kind].append(eng.generate(prompts, gen if kind == "speculative" else plain_gen))
-    per_tok = {kind: [r.decode_s * 1e3 / NEW for r in rs] for kind, rs in runs.items()}
+    # A run that captured its graph (the first plain one: SPEC_NEW tokens is
+    # a new key) is timed without the capture.
+    per_tok = {kind: [(r.decode_s - r.capture_s) * 1e3 / SPEC_NEW for r in rs]
+               for kind, rs in runs.items()}
     plain_toks = runs["plain"][0].tokens
     col = _parting(toks, plain_toks)
     out = dict(card=card, k=SPEC_K, verify_steps=res.verify_steps,
@@ -2147,7 +2342,7 @@ def spec_scheduler_drain(path: dict, eng, card: str) -> tuple[dict, dict]:
     launches = dict(hopper.LAUNCHES)
     res = {f.uid: f for f in sched._finished}
     bad = [u for u, f in res.items() if len(f.tokens) != new
-           or not all(0 <= t < cfg.vocab_size for t in f.tokens)]
+           or not _in_vocab(cfg, torch.tensor(f.tokens))]
     if len(res) != len(reqs) or bad or identity is None:
         raise RuntimeError(f"{tag}: {len(res)} of {len(reqs)} finished, bad {bad}, "
                            f"identity checked {identity is not None}")
@@ -2178,7 +2373,7 @@ def serve_speculative(path: dict, eng, plain, card: str) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     arch = path["arch"]
     log(f"== speculative decode: {arch}, k {SPEC_K}, B={BATCH}, S={PROMPT} (one seeded, one "
-        f"periodic prompt), {NEW} tokens, C {SPEC_CACHE}, cache formats "
+        f"periodic prompt), {SPEC_NEW} tokens, C {SPEC_CACHE}, cache formats "
         f"{[f or 'f32' for f in path['formats']]}; then the scheduler drain in speculative "
         f"mode, classes {SPEC_CLASSES}")
     launches, results = dict.fromkeys(hopper.COUNTERS, 0), {}
@@ -2199,13 +2394,12 @@ def one_prefill_launches(tag, path, eng, prompts, gen) -> dict:
     """Launches of one monolithic and one bucketed prefill of the admission
     prompts, each exact: retention runs every length through the kernel
     (500 = 3 x 128 + 116: two launches per layer; the 512 bucket one)."""
-    out = {}
+    out, s = {}, prompts.shape[1]
     for name, bucket in (("monolithic", False), ("bucketed", True)):
         hopper.reset_launches()
-        eng.prefill(prompts, cache_len=ADMIT_CACHE, bucket=bucket)
+        eng.prefill(prompts, cache_len=s + NEW, bucket=bucket)
         got = dict(hopper.LAUNCHES)
-        want = expected_launches(path, bucket_length(ADMIT_PROMPT) if bucket
-                                 else ADMIT_PROMPT)[0]
+        want = expected_launches(path, bucket_length(s) if bucket else s)[0]
         if got != want:
             raise RuntimeError(f"{tag}: a {name} prefill launches {got}, expected {want}")
         out[name] = got
@@ -2228,6 +2422,10 @@ def resume_in_halves(tag, eng, pending, cache0, whole, whole_cache, gen) -> bool
     return True
 
 
+# serve CLI subprocesses run at a time (`serve_cli`).
+CLI_WORKERS = 4
+
+
 def serve_cli() -> dict:
     """`python -m repro_torch.launch.serve` at full width on the card, one
     subprocess per mode: greedy and top-p generate, the scheduler, the front
@@ -2235,9 +2433,12 @@ def serve_cli() -> dict:
     shed), and the oversubscribed host-spill scheduler writing its trace and
     metrics, all on retnet-1.3b; then ``--prefix-cache`` on qwen3-8b (LISO at
     0.08: 5 prompts of 60 tokens opening with one 45-token prefix), whose
-    hit line must report 4 of 5 admissions adopting it.  Each must exit 0
-    and print its ``[serve]`` lines, the last the mode's own."""
+    hit line must report 4 of 5 admissions adopting it; then one greedy
+    generate each with ``--arch falcon-mamba-7b`` and ``--arch hymba-1.5b``.  Each must exit 0
+    and print its ``[serve]`` lines, the last the mode's own.  CLI_WORKERS of
+    them run at a time (each is host-bound; its timings are not recorded)."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         trace, metrics = os.path.join(tmp, "trace.json"), os.path.join(tmp, "metrics.json")
@@ -2259,19 +2460,28 @@ def serve_cli() -> dict:
         modes = tuple((name, retnet + extra, last) for name, extra, last in modes) + (
             ("prefix_cache", ["--arch", "qwen3-8b", "--scenario", "LISO", "--scale", "0.08",
                               "--requests", "5", "--slots", "2", "--chunk-size", "8",
-                              "--prefix-cache"], "[serve] tokens/s"),)
-        for name, argv, last in modes:
-            cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
+                              "--prefix-cache"], "[serve] tokens/s"),
+            ("falcon_mamba", ["--arch", "falcon-mamba-7b", "--scenario", "SILO", "--scale",
+                              "0.1", "--batch", "2"], "[serve] sample output tokens"),
+            ("hymba", ["--arch", "hymba-1.5b", "--scenario", "SILO", "--scale", "0.1",
+                       "--batch", "2"], "[serve] sample output tokens"))
+        def run(argv):
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                                  cwd=ROOT, capture_output=True, text=True, timeout=600,
                                   env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+            return proc, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(CLI_WORKERS) as pool:
+            runs = list(pool.map(run, [argv for _, argv, _ in modes]))
+        for (name, argv, last), (proc, seconds) in zip(modes, runs):
             lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
             for ln in lines:
                 log(f"  cli {name}: {ln}")
             if proc.returncode != 0 or not lines or not lines[-1].startswith(last):
                 raise RuntimeError(f"serve CLI ({name}) exited {proc.returncode} with "
                                    f"{len(lines)} [serve] lines: {proc.stderr[-2000:]}")
-            out[name] = dict(seconds=time.perf_counter() - t0, lines=lines)
+            out[name] = dict(seconds=seconds, lines=lines)
         snap = json.load(open(metrics))["counters"]
         events = json.load(open(trace))["traceEvents"]
         if snap["sched.preempted"] < 1 or snap["sched.resumed"] != snap["sched.preempted"] \
@@ -2300,7 +2510,7 @@ def _device_us(prof) -> tuple[float, list]:
 
 
 @torch.inference_mode()
-def profile_shares(eng, prompts, gen, steps: int = 4) -> dict:
+def profile_shares(eng, prompts, gen, steps: int = 2) -> dict:
     """Device busy share of a prefill, of eager decode steps and of replays
     of the captured step, with the top kernels by device time (torch.profiler;
     it inflates the host side, so the busy shares are lower bounds)."""
@@ -2361,7 +2571,7 @@ def _prefill_from(model, x, cfg, hsa):
 
 
 @torch.inference_mode()
-def compare_paths(eng, plain, prompts, gen):
+def compare_paths(path, eng, plain, prompts, gen):
     """Kernel path vs plain path on the same weights.
 
     * Per block, in lockstep: both paths get the plain path's input to the
@@ -2374,15 +2584,25 @@ def compare_paths(eng, plain, prompts, gen):
       floor large, so no end-to-end bound can be tighter than it.
     * Decode the same way, each step starting both paths from the plain
       path's cache (in ``gen.cache_format``) and token, each on its own copy
-      of the cache: every block in lockstep within DECODE_BLOCK_TOL (decode
-      streams MXINT4 weights against f32 activations, with no int8 rounding,
-      so only f32 summation order differs, and each path encodes its own new
-      K/V row), and the logits within DECODE_TOL beside the decode step's own
-      one-bf16-step sensitivity.  Where the two paths' greedy tokens from the
-      same cache differ, ``decode_argmax_flips`` lists the step, the batch
-      lane and the plain path's margin between its top two logits, relative
-      to max|logit|: a flip at a margin under ``decode_logit_max_rel_err``
-      is a near tie that f32 summation order decides.
+      of the cache: every block in lockstep (`_decode_lockstep`: decode
+      streams MXINT4 weights against f32 activations, so only f32 summation
+      order differs, and each path encodes its own new K/V row), and the
+      logits within DECODE_TOL beside the decode step's own one-bf16-step
+      sensitivity.  Where the two paths' greedy tokens from the same cache
+      differ, ``decode_argmax_flips`` lists the step, the batch lane and the
+      plain path's margin between its top two logits, relative to
+      max|logit|: a flip at a margin under ``decode_logit_max_rel_err`` is a
+      near tie that f32 summation order decides.
+
+    A path marked ``f32_witness`` holds its decode logits to DECODE_TOL with
+    the residual stream in f32 on both paths (and the same int8 codes into
+    a W8A8 linear in decode: `_witness_step`) and records the bf16 reading,
+    ungated, beside the gap after each block in both streams: a bf16 stream
+    rounds each block's output, so an f32 gap of one part in 1e4 flips
+    roundings that the next blocks carry and grow, and over 64 layers
+    (falcon-mamba-7b) the logits of two correct paths part by half of
+    max|logit|, above the one-bf16-step floor (PERF.md).  The decode steps
+    compared are the first COMPARE_STEPS.
     """
     cfg, model = eng.cfg, eng.model
     x = lm._embed(model, prompts)
@@ -2402,28 +2622,55 @@ def compare_paths(eng, plain, prompts, gen):
     x[0, PROMPT // 2] = _bf16_step(x[0, PROMPT // 2])
     floor = _rel(_prefill_from(model, x, cfg, plain.hsa), lr, "sensitivity", float("inf"))
 
-    decode, dblock, dfloor, flips = [], [], [], []
+    witness = path.get("f32_witness", False)
+    decode, dblock, codes, same, dfloor, flips = [], [], [], [], [], []
+    f32, f32_own = [], []
+    gaps = {}
     tok = lr.argmax(-1)
-    for i in range(NEW):
+    for i in range(COMPARE_STEPS):
         lk, _ = eng.decode_step(tok[:, None], _clone(cache))
         lr, nxt = plain.decode_step(tok[:, None], _clone(cache))
-        decode.append(_rel(lk, lr, f"decode step {i}", DECODE_TOL))
+        decode.append(_rel(lk, lr, f"decode step {i}",
+                           float("inf") if witness else DECODE_TOL))
         top2 = lr.float().topk(2, dim=-1).values
         for b in (lk.argmax(-1) != lr.argmax(-1)).nonzero()[:, 0].tolist():
             flips.append((i, b, ((top2[b, 0] - top2[b, 1]) / lr.float().abs().max()).item()))
-        dblock.append(_decode_lockstep(eng, plain, tok, cache, i))
+        worst, n_codes, same_codes = _decode_lockstep(eng, plain, tok, cache, i)
+        dblock.append(worst)
+        codes.append(n_codes)
+        same.append(same_codes)
         x = lm._embed(model, tok[:, None]).clone()
         x[0] = _bf16_step(x[0])
         dfloor.append(_rel(_decode_from(model, x, _clone(cache), cfg, plain.hsa), lr,
                            "sensitivity", float("inf")))
+        if witness:
+            rel, own, step_gaps = _witness_step(eng, plain, tok, cache, i)
+            f32.append(rel)
+            if own is not None:
+                f32_own.append(own)
+            for name, g in step_gaps.items():
+                gaps[name] = [max(a, b) for a, b in zip(gaps.get(name, g), g)]
         cache, tok = nxt, lr.argmax(-1)
-    return dict(block_max_rel_err=max(block), block_tolerance=BLOCK_TOL,
-                prefill_logit_rel_err=prefill, prefill_tolerance=PREFILL_TOL,
-                prefill_sensitivity_floor=floor,
-                decode_block_max_rel_err=max(dblock),
-                decode_block_tolerance=DECODE_BLOCK_TOL,
-                decode_logit_max_rel_err=max(decode), decode_tolerance=DECODE_TOL,
-                decode_sensitivity_floor_max=max(dfloor), decode_argmax_flips=flips)
+    out = dict(block_max_rel_err=max(block), block_tolerance=BLOCK_TOL,
+               prefill_logit_rel_err=prefill, prefill_tolerance=PREFILL_TOL,
+               prefill_sensitivity_floor=floor,
+               decode_block_max_rel_err=max(dblock),
+               decode_block_tolerance=DECODE_BLOCK_TOL,
+               decode_logit_max_rel_err=max(decode),
+               decode_logit_rel_err_by_step=decode,
+               decode_tolerance=None if witness else DECODE_TOL,
+               decode_sensitivity_floor_by_step=dfloor,
+               decode_sensitivity_floor_max=max(dfloor), decode_argmax_flips=flips)
+    if any(_w8_decode_linears(blk) for blk in model.blocks):
+        out.update(decode_w8a8_codes_differing_by_step=codes,
+                   decode_block_same_codes_max_rel_err=max(same))
+    if witness:
+        out.update(decode_f32_logit_rel_err_by_step=f32, decode_f32_tolerance=DECODE_TOL,
+                   **{f"layer_gap_{name}": g for name, g in gaps.items()})
+    if f32_own:
+        out.update(decode_f32_own_codes_logit_rel_err_by_step=[r for r, _ in f32_own],
+                   decode_f32_codes_differing_by_step=[n for _, n in f32_own])
+    return out
 
 
 def _appends(engine, prompts, gen):
@@ -2508,6 +2755,7 @@ def free_running(eng, plain, prompts, gen):
     a rounding boundary, before any token flips, are the caches drifting
     apart through their encoding; a flip with no parted row before it would
     point at the attention itself."""
+    gen = dataclasses.replace(gen, max_new_tokens=FREE_RUN_NEW)
     res_k, rows_k = _appends(eng, prompts, gen)
     res_p, rows_p = _appends(plain, prompts, gen)
     tk, tp = res_k.tokens, res_p.tokens
@@ -2531,27 +2779,131 @@ def _bf16_step(row: torch.Tensor) -> torch.Tensor:
     return (row.float() * (1 + 2 ** -7)).to(row.dtype)
 
 
-def _decode_from(model, x, cache, cfg, hsa):
-    """`lm.forward_decode` from embedded inputs ``x``: logits."""
-    st, pos = cache["rope"], cache["pos"]
+def _angles(cache) -> tuple:
+    """The online RoPE unit's (sin, cos) a decode step reads (None for a
+    model without RoPE)."""
+    st = cache.get("rope")
+    return (st.sin, st.cos) if st is not None else (None, None)
+
+
+def _decode_from(model, x, cache, cfg, hsa, trace=None):
+    """`lm.forward_decode` from embedded inputs ``x``, its residual stream
+    kept in ``x``'s dtype: logits.  ``trace`` (a list) gets the residual
+    after each block."""
+    (sin, cos), pos = _angles(cache), cache["pos"]
     for blk, c in zip(model.blocks, cache["blocks"]):
-        x = lm._block_decode(blk, x, cfg, hsa, c, pos, st.sin, st.cos)[0].to(x.dtype)
+        x = lm._block_decode(blk, x, cfg, hsa, c, pos, sin, cos)[0].to(x.dtype)
+        if trace is not None:
+            trace.append(x)
     return hsa.linear(model.lm_head, layers.norm_full(model.final_norm, x),
                       "decode")[:, 0]
 
 
+def _witness_step(eng, plain, tok, cache, step):
+    """One decode step on both paths from the same cache and token
+    (`_decode_from`), with the model's bf16 residual stream and with it in
+    f32: the same kernels, and no rounding of the stream between blocks in
+    the second.  A W8A8 linear in decode (hymba's ``x_proj``) still rounds
+    its input to int8 codes on each path, and one code moved by an f32 gap
+    upstream moves that path as a bf16 step would: so the f32 stream also
+    runs the kernel path on the plain path's inputs to those linears (the
+    same codes, `_w8_inputs`).  Holds the f32 logits (with the same codes,
+    where decode has a W8A8 linear) within DECODE_TOL of max|logit|.
+    Returns that error; with a W8A8 linear, the f32 error with each path's
+    own codes and the codes that differed (else None); and per stream the
+    two paths' gap after each block, relative to max|residual|."""
+    model, cfg = eng.model, eng.cfg
+    w8 = [m for blk in model.blocks for m in _w8_decode_linears(blk)]
+    x, gaps = lm._embed(model, tok[:, None]), {}
+    gap = lambda tk, tr: [_rel(a, b, "residual", float("inf"))  # noqa: E731
+                          for a, b in zip(tk, tr)]
+    for name, xs in (("bf16", x), ("f32", x.float())):
+        tk, tr = [], []
+        with _w8_inputs(plain.hsa, w8) as xr:
+            lr = _decode_from(model, xs, _clone(cache), cfg, plain.hsa, tr)
+        with _w8_inputs(eng.hsa, w8) as xk:
+            lk = _decode_from(model, xs, _clone(cache), cfg, eng.hsa, tk)
+        gaps[name] = gap(tk, tr)
+    own = None
+    if w8:
+        own = (_rel(lk, lr, "logits", float("inf")),
+               sum(_codes_differing(eng.hsa, a, b) for a, b in zip(xk, xr)))
+        tk = []
+        with _w8_inputs(eng.hsa, w8, feed=xr):
+            lk = _decode_from(model, xs, _clone(cache), cfg, eng.hsa, tk)
+        gaps["f32_same_codes"] = gap(tk, tr)
+    rel = _rel(lk, lr, f"decode step {step} logits, f32 residual stream"
+               + (", the same W8A8 codes" if w8 else ""), DECODE_TOL)
+    return rel, own, gaps
+
+
+def _w8_decode_linears(blk) -> list:
+    """The linears of ``blk`` that decode runs as W8A8: those deployed with
+    no MXINT4 copy (hymba's ``x_proj``, N 132)."""
+    return [m for m in blk.modules()
+            if isinstance(m, Linear) and m.mx_packed is None and m.w8_vals is not None]
+
+
+@contextlib.contextmanager
+def _w8_inputs(hsa, mods, feed=None):
+    """Record, in call order, the input of each linear in ``mods`` that
+    ``hsa`` runs; with ``feed``, run each on ``feed``'s input of the same
+    place instead."""
+    seen, real = [], hsa.linear
+
+    def linear(p, x, phase, **kw):
+        if any(p is m for m in mods):
+            x = x if feed is None else feed[len(seen)]
+            seen.append(x)
+        return real(p, x, phase, **kw)
+
+    hsa.linear = linear
+    try:
+        yield seen
+    finally:
+        del hsa.linear
+
+
+def _codes_differing(hsa, xk, xr) -> int:
+    """The int8 activation codes and scales that W8A8 takes differently
+    from the inputs ``xk`` and ``xr``, quantized as
+    `quantized_linear.apply` quantizes them."""
+    quant = (mx.quantize_act_int8_lanes if hsa.config.act_scale == "lane"
+             else mx.quantize_act_int8)
+    (qk, sk), (qr, sr) = quant(xk), quant(xr)
+    return int((qk != qr).sum()) + int((sk != sr).sum())
+
+
 def _decode_lockstep(eng, plain, tok, cache, step):
+    """Every block of one decode step, both paths on the plain path's input
+    to it, within DECODE_BLOCK_TOL of max|output|.  A W8A8 linear in decode
+    (hymba's ``x_proj``) quantizes its input on each path, so the f32
+    summation-order gap upstream of it can move an int8 code by one step.
+    Where codes differ (counted), the block is held to BLOCK_TOL, an int8
+    rounding step; every block with such a linear also runs on the kernel
+    path with the plain path's inputs to it (the same codes), held to
+    DECODE_BLOCK_TOL.  Returns the largest error, the codes that differed
+    and the largest same-code error."""
     cfg, model = eng.cfg, eng.model
-    st, pos = cache["rope"], cache["pos"]
+    (sin, cos), pos = _angles(cache), cache["pos"]
     x = lm._embed(model, tok[:, None])
-    worst = 0.0
+    worst, codes, same = 0.0, 0, 0.0
     for i, (blk, c) in enumerate(zip(model.blocks, cache["blocks"])):
-        yr = lm._block_decode(blk, x, cfg, plain.hsa, _clone(c), pos, st.sin, st.cos)[0]
-        yk = lm._block_decode(blk, x, cfg, eng.hsa, _clone(c), pos, st.sin, st.cos)[0]
-        worst = max(worst, _rel(yk, yr, f"decode step {step} block {i}",
-                                DECODE_BLOCK_TOL))
+        tag, w8 = f"decode step {step} block {i}", _w8_decode_linears(blk)
+        with _w8_inputs(plain.hsa, w8) as xr:
+            yr = lm._block_decode(blk, x, cfg, plain.hsa, _clone(c), pos, sin, cos)[0]
+        with _w8_inputs(eng.hsa, w8) as xk:
+            yk = lm._block_decode(blk, x, cfg, eng.hsa, _clone(c), pos, sin, cos)[0]
+        n = sum(_codes_differing(eng.hsa, a, b) for a, b in zip(xk, xr))
+        worst = max(worst, _rel(yk, yr, f"{tag} ({n} W8A8 codes differ)" if n else tag,
+                                BLOCK_TOL if n else DECODE_BLOCK_TOL))
+        if w8:
+            with _w8_inputs(eng.hsa, w8, feed=xr):
+                ys = lm._block_decode(blk, x, cfg, eng.hsa, _clone(c), pos, sin, cos)[0]
+            same = max(same, _rel(ys, yr, f"{tag}, the same W8A8 codes", DECODE_BLOCK_TOL))
+        codes += n
         x = yr.to(x.dtype)
-    return worst
+    return worst, codes, same
 
 
 def _rel(a, b, what, tol):
@@ -2653,9 +3005,11 @@ def main() -> int:
     rms["sigma_chain"] = sigma_chain_price()
     for r in rms["sigma_chain"]:
         log(f"  sigma^-1 price: {json.dumps(r)}")
+    scan = scan_phase()
     log(f"kernel phases: {time.perf_counter() - t0:.1f} s")
 
     serving, by_path, admitted, scheduled, prefixed, speculated = {}, {}, {}, {}, {}, {}
+    serving["selective_scan"] = scan
     for path in PATHS:
         (by_path[path["arch"]], admitted[path["arch"]], scheduled[path["arch"]],
          prefixed[path["arch"]], speculated[path["arch"]], results) = serve_full_width(path,
@@ -2678,6 +3032,7 @@ def main() -> int:
                                              for arch, n in speculated.items()}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"selective_scan (plain PyTorch, not a kernel)": scan}))
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -10,7 +10,9 @@ not build it.  Every leaf is copied byte for byte, so int8 and
 uint8 quantized leaves keep their exact bits.  numpy has no bfloat16 of its
 own: jax's bf16 arrays arrive as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects, so they are reinterpreted through ``uint16``.
-A deployed ``w8_vals`` is stored K-major, as `deploy.k_major` holds it.
+A deployed ``w8_vals`` is stored K-major, as `deploy.k_major` holds it (with
+its bias, zero-padded to multiples of 16 where the GEMM needs that; the
+linear's ``shape`` keeps the tree's ``[K, N]``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from repro_torch.models import deploy, lm
 from repro_torch.models import mlp as M
 from repro_torch.models import retnet as R
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import FORMATS, MLA, Attention, Linear, Norm
 
@@ -46,22 +49,45 @@ def _layer(tree, i):
 
 def _linear(d: dict, device) -> Linear:
     formats = {k: to_tensor(d[k], device) for k in FORMATS if k in d}
+    shape = (d["w"] if "w" in d else d["w8_vals"]).shape
     if "w8_vals" in formats:
         formats["w8_vals"] = deploy.k_major(formats["w8_vals"])
-    return Linear(to_tensor(d["w"], device) if "w" in d else None, **formats)
+        if "b" in formats:
+            formats["b"] = deploy.padded_vector(formats["b"])
+    return Linear(to_tensor(d["w"], device) if "w" in d else None, shape=shape, **formats)
 
 
 def _norm(d: dict, device) -> Norm:
     return Norm(to_tensor(d["g"], device))
 
 
+def _mamba(d: dict, device) -> S.Mamba:
+    return S.Mamba(_linear(d["in_proj"], device), to_tensor(d["conv_w"], device),
+                   to_tensor(d["conv_b"], device), _linear(d["x_proj"], device),
+                   _linear(d["dt_proj"], device), to_tensor(d["a_log"], device),
+                   to_tensor(d["d_skip"], device), _linear(d["out_proj"], device))
+
+
+def _attention(a: dict, device) -> Attention:
+    return Attention(*(_linear(a[n], device) for n in ("wq", "wk", "wv", "wo")),
+                     *(_norm(a[n], device) if n in a else None for n in ("qnorm", "knorm")))
+
+
 def _block(d: dict, cfg: ModelConfig, kind: str, device):
     """One layer's subtree -> its group's block kind: a `RetNetBlock`
-    (``ret``) or a `DenseBlock` (``attn``: GQA, or `MLA` for deepseek-v3)."""
+    (``ret``), a `DenseBlock` (``attn``: GQA, or `MLA` for deepseek-v3), an
+    `SSMBlock` (``mamba``) or a `HybridBlock` (``attn`` and ``mamba``)."""
+    ln1 = _norm(d["ln1"], device)
+    if kind == "ssm":
+        return lm.SSMBlock(ln1, _mamba(d["mamba"], device))
     f = d["mlp"]
     mlp = M.MLP(_linear(f["wi"], device), _linear(f["wo"], device),
                 _linear(f["wg"], device) if "wg" in f else None)
-    ln1, ln2 = _norm(d["ln1"], device), _norm(d["ln2"], device)
+    ln2 = _norm(d["ln2"], device)
+    if kind == "hybrid":
+        return lm.HybridBlock(ln1, _attention(d["attn"], device), _mamba(d["mamba"], device),
+                              _norm(d["attn_norm"], device), _norm(d["mamba_norm"], device),
+                              ln2, mlp)
     if kind == "retnet":
         r = d["ret"]
         ret = R.Retention(*(_linear(r[n], device)
@@ -72,9 +98,7 @@ def _block(d: dict, cfg: ModelConfig, kind: str, device):
         attn = MLA(*((_norm if n.endswith("norm") else _linear)(a[n], device)
                      for n in MLA_PARTS))
     else:
-        attn = Attention(*(_linear(a[n], device) for n in ("wq", "wk", "wv", "wo")),
-                         *(_norm(a[n], device) if n in a else None
-                           for n in ("qnorm", "knorm")))
+        attn = _attention(a, device)
     return lm.DenseBlock(ln1, attn, ln2, mlp)
 
 
@@ -98,6 +122,7 @@ def model_from_tree(cfg: ModelConfig, tree: dict, device="cpu") -> lm.LM:
     for gname, count, kind in groups:
         _check_stack(tree[gname], count, gname)
         blocks += [_block(_layer(tree[gname], i), cfg, kind, device) for i in range(count)]
+    lm.mark_full_attn(cfg, blocks)
     return lm.LM(to_tensor(tree["embed"], device), blocks,
                  _norm(tree["final_norm"], device),
                  _linear(tree["lm_head"], device))

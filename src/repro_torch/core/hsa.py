@@ -65,7 +65,7 @@ class HSAEngine:
             mx=(mx.MXINT4Weight(p.mx_packed, p.mx_exps,
                                 (p.mx_packed.shape[0], p.mx_packed.shape[1] * 2))
                 if fmt == "mxint4" else None),
-            bias=p.b)
+            bias=p.b, n=p.shape[1])
         eff_phase = {"fp": "train", "w8a8": "prefill", "mxint4": "decode"}[fmt]
         return ql.apply(params, x, eff_phase, row_scale=row_scale,
                         out_scale=out_scale, impl=cfg.kernel_impl,

@@ -31,7 +31,8 @@ class QuantizedLinearParams:
     w: torch.Tensor | None            # [K, N] master
     w8: mx.Int8Weight | None          # prefill format
     mx: mx.MXINT4Weight | None        # decode format
-    bias: torch.Tensor | None         # [N]
+    bias: torch.Tensor | None         # [N] (W8A8: padded as ``w8``)
+    n: int | None = None              # logical N where ``w8`` is zero-padded
 
 
 def apply(params: QuantizedLinearParams, x: torch.Tensor, phase: str, *,
@@ -60,12 +61,13 @@ def apply(params: QuantizedLinearParams, x: torch.Tensor, phase: str, *,
             combined = params.w8.scale * (1.0 if out_scale is None else out_scale)
             return ops.w8a8_matmul(xq, params.w8.values, combined,
                                    row_scale=rows if row_scale is None else rows * row_scale,
-                                   bias=params.bias, out_dtype=out_dtype, impl=impl)
+                                   bias=params.bias, n=params.n, out_dtype=out_dtype,
+                                   impl=impl)
         xq, act_scale = mx.quantize_act_int8(x)
         combined = act_scale * params.w8.scale * (
             1.0 if out_scale is None else out_scale)
         return ops.w8a8_matmul(xq, params.w8.values, combined,
-                               row_scale=row_scale, bias=params.bias,
+                               row_scale=row_scale, bias=params.bias, n=params.n,
                                out_dtype=out_dtype, impl=impl)
 
     if phase == "decode":

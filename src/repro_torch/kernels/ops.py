@@ -61,25 +61,52 @@ def mxint4_matmul(x, q: MXINT4Weight, out_scale=None, row_scale=None, bias=None,
     return y.to(out_dtype).reshape(*lead, n)
 
 
-def w8a8_matmul(x_q, w_q, combined_scale, row_scale=None, bias=None, *,
+def up16(n: int) -> int:
+    """``n`` rounded up to a multiple of 16: the W8A8 kernel's K and N (its
+    operands' rows are whole 16-byte copies)."""
+    return -(-n // 16) * 16
+
+
+def w8a8_padded_x(x2: torch.Tensor, w_q: torch.Tensor, n: int) -> torch.Tensor:
+    """``x2 [M, K]`` with zero columns up to the K of ``w_q``, the weight of
+    a GEMM of logical N held zero-padded to ``[up16(K), up16(N)]`` (as
+    `deploy.k_major` holds it; int8 zeros add nothing to the int32 sum).
+    Raises for a weight not so padded: the kernel never copies one."""
+    k = x2.shape[1]
+    if tuple(w_q.shape) != (up16(k), up16(n)):
+        raise ValueError(f"w8a8_matmul: the kernel takes the weight of K {k}, N {n} "
+                         f"zero-padded to {(up16(k), up16(n))} (deploy.k_major), got "
+                         f"{tuple(w_q.shape)}")
+    return torch.nn.functional.pad(x2, (0, w_q.shape[0] - k)) if w_q.shape[0] > k else x2
+
+
+def w8a8_matmul(x_q, w_q, combined_scale, row_scale=None, bias=None, *, n=None,
                 out_dtype=torch.float32, impl: str = "auto") -> torch.Tensor:
     """Prefill MMM path: int8 x int8 -> int32, then the drain epilogue.
 
     The kernel takes ``w_q`` ``[K, N]`` K-major (``w_q.t()`` contiguous, as
     `deploy.k_major` stores it) and raises on any other layout: W is never
-    copied per call.
+    copied per call.  Where K or N is not a multiple of 16, ``w_q`` and
+    ``bias`` are the zero-padded buffers deploy holds (`deploy.k_major`,
+    `deploy.padded_vector`) and ``n`` the logical N: the kernel reads them
+    whole on ``x_q`` padded with zero columns (`w8a8_padded_x`), exact, and
+    its output is sliced back to N; the plain version reads the ``[K, N]``
+    corner.
     """
-    lead, k, n = x_q.shape[:-1], x_q.shape[-1], w_q.shape[1]
+    lead, k = x_q.shape[:-1], x_q.shape[-1]
+    n = w_q.shape[1] if n is None else n
     x2 = x_q.reshape(-1, k)
     rs = None if row_scale is None else row_scale.reshape(-1)
     if not use_kernel(impl, x2):
-        y = _ref.w8a8_matmul_ref(x2, w_q, combined_scale, rs, bias, out_dtype)
+        y = _ref.w8a8_matmul_ref(x2, w_q[:k, :n], combined_scale, rs,
+                                 None if bias is None else bias[:n], out_dtype)
         return y.reshape(*lead, n)
     from repro_torch.kernels import hopper
+    np_ = w_q.shape[1]
     y = hopper.w8a8_matmul(
-        x2.contiguous(), w_q, _vec(combined_scale, n, 1.0, x2),
-        _vec(rs, x2.shape[0], 1.0, x2), _vec(bias, n, 0.0, x2))
-    return y.to(out_dtype).reshape(*lead, n)
+        w8a8_padded_x(x2, w_q, n).contiguous(), w_q, _vec(combined_scale, np_, 1.0, x2),
+        _vec(rs, x2.shape[0], 1.0, x2), _vec(bias, np_, 0.0, x2))
+    return y[:, :n].to(out_dtype).reshape(*lead, n)
 
 
 def retention_chunkwise(q, k, v, gamma, *, chunk: int = 128, state=None,

@@ -8,9 +8,14 @@
 and drops the master weight, except where the math uses the matrix itself
 rather than an ``x @ W`` product: MLA's ``wk_b``/``wv_b``, which absorbed
 decode folds into the query and the output (`KEEP_MASTER`, the reference's
-rule).  ``w8_vals`` keeps the reference's logical ``[K, N]`` shape and
-values but is stored K-major (`k_major`), the layout the int8 tensor-core
-GEMM reads, so no call ever transposes it.  It works in place, one linear at
+rule).  Conv, ``a_log`` and ``d_skip`` of a Mamba mixer are no linears and
+stay as they are.  ``w8_vals`` keeps the reference's logical ``[K, N]``
+shape and values but is stored K-major (`k_major`), the layout the int8
+tensor-core GEMM reads, so no call ever transposes it; where K or N is not
+a multiple of 16 (hymba's ``x_proj`` N 132 and ``dt_proj`` K 100) it is
+zero-padded to multiples of 16, as is the bias of such a linear
+(`padded_vector`), and the linear's ``shape`` keeps the logical ``[K, N]``.
+It works in place, one linear at
 a time, so a full-width model never holds its master and deployed weights
 at once.  Per-layer modules quantize per layer, as the reference's vmap over
 its ``[L, ...]`` stacks does.
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import mxint4 as mx
+from repro_torch.kernels.ops import up16
 from repro_torch.models.modules import Linear
 
 
@@ -38,9 +44,21 @@ def _mx_ok(w: torch.Tensor) -> bool:
 
 
 def k_major(w8: torch.Tensor) -> torch.Tensor:
-    """``[K, N]`` int8 -> the same ``[K, N]`` values held as the transpose of a
-    contiguous ``[N, K]`` buffer (``w8.t().is_contiguous()``)."""
-    return w8.t().contiguous().t()
+    """``[K, N]`` int8 -> ``[up16(K), up16(N)]`` held K-major (the transpose
+    of a contiguous buffer, ``.t().is_contiguous()``): ``w8`` in its leading
+    ``[K, N]`` corner, zeros around it (none where K and N are multiples of
+    16).  The GEMM reads it whole and slices its output back to N."""
+    k, n = w8.shape
+    buf = torch.zeros(up16(n), up16(k), dtype=w8.dtype, device=w8.device)
+    buf[:n, :k] = w8.t()
+    return buf.t()
+
+
+def padded_vector(v: torch.Tensor) -> torch.Tensor:
+    """A per-column vector ``[N]`` zero-padded to ``[up16(N)]`` (itself when
+    N is a multiple of 16)."""
+    n = v.shape[0]
+    return v if n == up16(n) else torch.nn.functional.pad(v, (0, up16(n) - n))
 
 
 def is_master(model: nn.Module) -> bool:
@@ -58,6 +76,8 @@ def deploy_quantize(model: nn.Module) -> nn.Module:
         w = lin.w.data
         q8 = mx.quantize_int8_tensor(w)
         lin.w8_vals, lin.w8_scale = k_major(q8.values), q8.scale
+        if lin.b is not None:
+            lin.b = padded_vector(lin.b)
         if _mx_ok(w):
             q4 = mx.quantize_mxint4(w)
             lin.mx_packed, lin.mx_exps = q4.packed, q4.exps_packed

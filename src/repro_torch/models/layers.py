@@ -12,8 +12,8 @@ dicts.  Decode attention is the flash-decode kernel; prefill attention
 (monolithic and chunked) is the reference's online-softmax forward in plain
 PyTorch (it is no Pallas kernel there either).  Chunked prefill
 (`gqa_chunk`, `mla_chunk`) appends a chunk's rows into a warm cache at the
-device position and attends over the resident prefix.  Sliding-window ring
-caches are not ported yet.
+device position and attends over the resident prefix.  A sliding-window cache
+(hymba) is a ring of ``window`` slots keyed by ``pos % window``.
 
 MLA (deepseek-v3) caches the compressed ``c_kv [B, C, kv_lora_rank]`` and
 the shared rope key ``k_rope [B, C, qk_rope_head_dim]``.  Prefill expands
@@ -68,7 +68,8 @@ def norm_full(p: Norm, x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int | torch.Tensor = 0,
+                    causal: bool = True, window: int | torch.Tensor = 0,
+                    q_offset: int | torch.Tensor = 0, k_offset: int | torch.Tensor = 0,
                     kv_len: int | torch.Tensor | None = None, q_chunk: int = 512,
                     kv_chunk: int = 1024) -> torch.Tensor:
     """q ``[B, Sq, KV, G, hd]``, k/v ``[B, Sk, KV, hd]`` -> ``[B, Sq, KV, G, dv]``
@@ -79,18 +80,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``1/sqrt(hd)`` in f32, both sides padded to whole chunks (padded keys
     masked, padded queries dropped), masked scores at -inf, and the
     finite-max guard on all-masked rows.  Queries sit at absolute positions
-    ``q_offset + i`` and keys at ``j``; keys at or past ``kv_len`` are masked
-    (``kv_len`` defaults to ``Sk``).  ``q_offset`` and ``kv_len`` are ints,
-    int32 scalars on the device (chunked prefill passes the cache's
-    position), or int32 ``[B]`` vectors with one value per lane (a slot
-    class's verify block: one mask per lane), so the mask is computed on the
-    device and nothing is read back.  The scale is a device scalar made once
-    per (hd, device) (`_attn_scale`), so a captured step copies nothing to
-    the card.  The reference's sliding ``window`` and ``k_offset`` (its ring
-    caches) come with the hybrid families.
+    ``q_offset + i`` and keys at ``k_offset + j``; keys at negative positions
+    or at or past ``kv_len`` are masked (``kv_len`` defaults to ``Sk +
+    k_offset``), and a nonzero ``window`` keeps only keys less than
+    ``window`` positions behind the query (the sliding window).  ``window``,
+    the offsets and ``kv_len`` are ints, int32 scalars on the device
+    (chunked prefill passes the cache's position; a hybrid full-attention
+    layer's window is ``pos + C``), or int32 ``[B]`` vectors with one value
+    per lane (a slot class's verify block: one mask per lane), so the mask
+    is computed on the device and nothing is read back.  The scale is a
+    device scalar made once per (hd, device) (`_attn_scale`), so a captured
+    step copies nothing to the card.
     """
     b, sq, kv_h, g, hd = q.shape
     sk, dv = k.shape[1], v.shape[-1]
+    windowed = not (isinstance(window, int) and window == 0)
     q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
     pq, pk = (-sq) % q_chunk, (-sk) % kv_chunk
     f32 = torch.float32
@@ -98,22 +102,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  (0, 0, 0, 0, 0, 0, 0, pq))
     kf = torch.nn.functional.pad(k.to(f32), (0, 0, 0, 0, 0, pk))
     vf = torch.nn.functional.pad(v.to(f32), (0, 0, 0, 0, 0, pk))
-    k_pos = torch.arange(sk + pk, device=q.device)
-    k_valid = k_pos < _lanes(sk if kv_len is None else kv_len)      # [K] or [B, K]
+    if kv_len is None:
+        kv_len = sk + k_offset
+    k_pos = _lanes(k_offset) + torch.arange(sk + pk, device=q.device)   # [K] or [B, K]
+    k_valid = (k_pos >= 0) & (k_pos < _lanes(kv_len))
     outs = []
     for q0 in range(0, sq + pq, q_chunk):
         q_blk = qs[:, q0:q0 + q_chunk]
-        q_pos = _lanes(q_offset) + q0 + torch.arange(q_chunk, device=q.device)
+        q_pos = (_lanes(q_offset) + q0 + torch.arange(q_chunk, device=q.device))[..., :, None]
         m = torch.full((b, kv_h, g, q_chunk), -torch.inf, dtype=f32, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros(b, kv_h, g, q_chunk, dv, dtype=f32, device=q.device)
         for k0 in range(0, sk + pk, kv_chunk):
-            kp = k_pos[k0:k0 + kv_chunk]
+            kp = k_pos[..., None, k0:k0 + kv_chunk]
             s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kf[:, k0:k0 + kv_chunk])
-            kvalid = k_valid[..., k0:k0 + kv_chunk]
-            mask = kvalid[..., None, :].expand(*kvalid.shape[:-1], q_chunk, -1)
+            mask = k_valid[..., None, k0:k0 + kv_chunk]
             if causal:
-                mask = mask & (q_pos[..., :, None] >= kp)
+                mask = mask & (q_pos >= kp)
+            if windowed:
+                mask = mask & (q_pos - kp < _lanes(window, 3))
             if mask.ndim == 3:                             # one mask per lane
                 mask = mask[:, None, None]
             s = s.masked_fill(~mask, -torch.inf)
@@ -137,11 +144,12 @@ def _attn_scale(hd: int, device: torch.device) -> torch.Tensor:
     return 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=device))
 
 
-def _lanes(t):
-    """A position or length: a host int or a device scalar as it is, a
-    per-lane ``[B]`` vector as ``[B, 1]`` (broadcast against positions)."""
+def _lanes(t, ndim: int = 2):
+    """A position, length or window: a host int or a device scalar as it
+    is, a per-lane ``[B]`` vector as ``[B, 1, ...]`` with ``ndim`` axes in
+    all (broadcast against positions)."""
     if isinstance(t, torch.Tensor) and t.ndim == 1:
-        return t[:, None]
+        return t.reshape(-1, *([1] * (ndim - 1)))
     return t
 
 
@@ -191,18 +199,44 @@ def cache_update(leaf, x: torch.Tensor, pos: torch.Tensor):
     clones it first.  Each slot is clamped on the device so the rows fit, as
     the reference's is.
     """
-    enc = to_cache_like(x, leaf)
     n, c = x.shape[1], cache_capacity(leaf)
     idx = pos.clamp(0, c - n).to(torch.int64)[..., None] + torch.arange(n, device=pos.device)
+    return cache_scatter(leaf, x, idx)
+
+
+def cache_scatter(leaf, x: torch.Tensor, idx: torch.Tensor):
+    """Encode the rows ``x [B, n, ...]`` like ``leaf`` and write them at the
+    slots ``idx`` (axis 1) in place: ``[n]`` for every lane, or ``[B, n]``
+    with each lane's own (a ring buffer's ``pos % window`` slots)."""
+    return write_rows(leaf, to_cache_like(x, leaf), idx)
+
+
+def write_rows(leaf, rows, idx: torch.Tensor):
+    """Write rows already in ``leaf``'s format (a tensor, or the encoded
+    planes of a dict) at the slots ``idx`` (as `cache_scatter`), in place;
+    returns the leaf."""
     parts = leaf.items() if isinstance(leaf, dict) else ((None, leaf),)
     for name, buf in parts:
-        rows = enc if name is None else enc[name]
-        if pos.ndim == 0:
-            buf.index_copy_(1, idx, rows)
+        r = rows if name is None else rows[name]
+        if idx.ndim == 1:
+            buf.index_copy_(1, idx, r)
         else:
-            lanes = torch.arange(buf.shape[0], device=pos.device)[:, None]
-            buf.index_put_((lanes, idx), rows)
+            lanes = torch.arange(buf.shape[0], device=idx.device)[:, None]
+            buf.index_put_((lanes, idx), r)
     return leaf
+
+
+def cache_gather(leaf, idx: torch.Tensor):
+    """Rows at the slots ``idx`` (axis 1: ``[n]``, or ``[B, n]`` per lane),
+    format-preserving: a copy of a tensor leaf, or a dict of the planes'
+    rows."""
+    def rows(buf):
+        if idx.ndim == 1:
+            return buf.index_select(1, idx)
+        return buf[torch.arange(buf.shape[0], device=idx.device)[:, None], idx]
+    if isinstance(leaf, dict):
+        return {name: rows(buf) for name, buf in leaf.items()}
+    return rows(leaf)
 
 
 def decode_slots(pos: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -215,9 +249,11 @@ def decode_slots(pos: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor]
 
 def cache_capacity(leaf) -> int:
     """Slot count of a cache leaf (axis 1), dict- or tensor-formed."""
-    if isinstance(leaf, dict):
-        return next(iter(leaf.values())).shape[1]
-    return leaf.shape[1]
+    return _first_plane(leaf).shape[1]
+
+
+def _first_plane(leaf) -> torch.Tensor:
+    return next(iter(leaf.values())) if isinstance(leaf, dict) else leaf
 
 
 def make_cache_leaf(shape: tuple, dtype, device=None):
@@ -275,16 +311,18 @@ def _project_qkv(p: Attention, x_star, sig_inv, engine: HSAEngine, phase: str,
 
 
 def gqa_apply(p: Attention, x_star, sig_inv, engine: HSAEngine, phase: str,
-              cfg: ModelConfig, *, rope_sin=None, rope_cos=None
+              cfg: ModelConfig, *, window: int = 0, rope_sin=None, rope_cos=None
               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal attention -> (out [B, S, D], (k, v) for the cache)."""
+    """Full-sequence causal attention -> (out [B, S, D], (k, v) for the cache).
+    A nonzero ``window`` is the sliding window (hymba's full-attention
+    layers pass S)."""
     b, s, _ = x_star.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q, k, v = _project_qkv(p, x_star, sig_inv, engine, phase, cfg)
     if rope_sin is not None:
         sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
         q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
-    out = flash_attention(q.reshape(b, s, kv, h // kv, hd), k, v)
+    out = flash_attention(q.reshape(b, s, kv, h // kv, hd), k, v, window=window)
     out = engine.linear(p.wo, out.reshape(b, s, h * hd), phase)
     return out, (k, v)
 
@@ -299,7 +337,9 @@ def gqa_decode(p: Attention, x_star, sig_inv, engine: HSAEngine,
     device, or a ``[B]`` vector of per-lane positions (then ``rope_sin`` /
     ``rope_cos`` are ``[B, hd/2]`` and flash-decode reads a per-lane
     ``kv_len``).  A linear cache clamps at its capacity, as the reference's
-    does."""
+    does; a sliding-window ring writes slot ``pos % window`` and attends to
+    its ``min(pos + 1, window)`` filled slots (attention is blind to their
+    order)."""
     b = x_star.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q, k, v = _project_qkv(p, x_star, sig_inv, engine, "decode", cfg)
@@ -308,7 +348,10 @@ def gqa_decode(p: Attention, x_star, sig_inv, engine: HSAEngine,
         q = orp.apply_rope(q, sin, cos)
         k = orp.apply_rope(k, sin, cos)
     q = q[:, 0].reshape(b, kv, h // kv, hd)
-    slot, kv_len = decode_slots(pos, cache_capacity(cache["k"]))
+    c = cache_capacity(cache["k"])
+    slot, kv_len = decode_slots(pos, c)
+    if cfg.sliding_window:
+        slot = pos % c
     k_cache = cache_update(cache["k"], k, slot)
     v_cache = cache_update(cache["v"], v, slot)
     out = ops.flash_decode(q, k_cache, v_cache, kv_len, impl=engine.config.kernel_impl)
@@ -317,42 +360,94 @@ def gqa_decode(p: Attention, x_star, sig_inv, engine: HSAEngine,
 
 
 def gqa_chunk(p: Attention, x_star, sig_inv, engine: HSAEngine, cfg: ModelConfig,
-              cache: dict, pos: torch.Tensor, *, rope_sin=None,
-              rope_cos=None) -> tuple[torch.Tensor, dict]:
+              cache: dict, pos: torch.Tensor, *, window: int | torch.Tensor = 0,
+              rope_sin=None, rope_cos=None, keep_evicted: bool = False
+              ) -> tuple[torch.Tensor, dict]:
     """Chunked prefill (MMM phase over a warm cache): append the chunk's C
-    K/V rows at ``pos`` in place (`cache_update`) and attend to the whole
-    resident prefix.
+    K/V rows in place and attend to the whole resident prefix.
 
     ``pos`` is the absolute position of the chunk's first token, an int32
     scalar on the device, or an int32 ``[B]`` vector with each lane's own (a
     slot class's verify block, all lanes in one dispatch): the rows' slots,
     the causal offsets and the valid length ``pos + C`` are all computed
     there, per lane.  ``rope_sin``/``rope_cos`` are ``[C, hd/2]`` at the
-    chunk's absolute positions, or ``[B, C, hd/2]`` per lane.  Sliding-window
-    rings are not ported yet (A9) and raise.
-    """
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window ring caches are not ported yet")
+    chunk's absolute positions, or ``[B, C, hd/2]`` per lane.
+
+    A linear cache takes the rows at ``pos`` (`cache_update`).  A
+    sliding-window ring attends *before* it evicts: the ring's ``window``
+    slots are gathered in position order (key j at position ``pos - window +
+    j``; negative positions are masked through ``k_offset``) and the chunk's
+    own rows follow them, taken through the cache's format as their writes
+    will be; then the rows are scattered at ``(pos + i) % window``, so a
+    chunk must fit the window.  ``keep_evicted`` (a speculative verify
+    block) keeps the rows those writes overwrite as ``k_evicted`` /
+    ``v_evicted``, from which `ring_rollback` restores the slots of rejected
+    positions.  ``window`` is the attention's sliding window (an int, or a
+    device scalar or ``[B]``: a hybrid full-attention layer passes ``pos +
+    C``)."""
     b, c, _ = x_star.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q, k, v = _project_qkv(p, x_star, sig_inv, engine, "prefill", cfg)
     if rope_sin is not None:
         sin, cos = orp.chunk_angles(rope_sin), orp.chunk_angles(rope_cos)
         q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
-    k_cache = cache_update(cache["k"], k, pos)
-    v_cache = cache_update(cache["v"], v, pos)
-    out = flash_attention(q.reshape(b, c, kv, h // kv, hd), from_cache_dtype(k_cache),
-                          from_cache_dtype(v_cache), causal=True, q_offset=pos,
-                          kv_len=pos + c)
+    new = {}
+    if cfg.sliding_window:
+        w = cfg.sliding_window
+        if c > w:
+            raise ValueError(f"chunk ({c}) must fit the sliding window ({w})")
+        k_off = pos - w
+        slots = ((_lanes(k_off) + torch.arange(w, device=pos.device)) % w).to(torch.int64)
+        k_lin, v_lin = (torch.cat([from_cache_dtype(cache_gather(cache[n], slots)),
+                                   from_cache_dtype(to_cache_like(x, cache[n]))], dim=1)
+                        for n, x in (("k", k), ("v", v)))
+        idx = ((_lanes(pos) + torch.arange(c, device=pos.device)) % w).to(torch.int64)
+        if keep_evicted:
+            new = {f"{n}_evicted": cache_gather(cache[n], idx) for n in ("k", "v")}
+        k_cache = cache_scatter(cache["k"], k, idx)
+        v_cache = cache_scatter(cache["v"], v, idx)
+    else:
+        k_cache = cache_update(cache["k"], k, pos)
+        v_cache = cache_update(cache["v"], v, pos)
+        k_lin, v_lin, k_off = from_cache_dtype(k_cache), from_cache_dtype(v_cache), 0
+    out = flash_attention(q.reshape(b, c, kv, h // kv, hd), k_lin, v_lin, causal=True,
+                          window=window, q_offset=pos, k_offset=k_off, kv_len=pos + c)
     out = engine.linear(p.wo, out.reshape(b, c, h * hd), "prefill")
-    return out, {"k": k_cache, "v": v_cache}
+    return out, {"k": k_cache, "v": v_cache, **new}
+
+
+def ring_rollback(ver: dict, pos: torch.Tensor, c: int, n_accept, window: int) -> dict:
+    """Undo a speculative verify block's rejected writes into a ring.
+
+    The block wrote positions ``pos .. pos + c - 1`` into slots ``(pos + i) %
+    window`` in place, each write evicting a key still in the window; its
+    cache ``ver`` (from `gqa_chunk(keep_evicted=True)`) kept the evicted
+    rows.  The slots of positions ``>= pos + n_accept`` get those rows back,
+    in place, so the ring is as if only the accepted prefix had been
+    written: the reference's `ring_rollback`, which restores them from the
+    pre-verify ring.  ``pos`` and ``n_accept`` are device scalars or ``[B]``
+    (per lane).  Returns ``{"k", "v"}``."""
+    b, dev = _first_plane(ver["k"]).shape[0], pos.device
+    cols = torch.arange(c, device=dev)
+    idx = ((_lanes(pos) + cols) % window).to(torch.int64).expand(b, c)
+    # [B, C, 1, 1] against every [B, C, KV, *] leaf and encoded plane.
+    restore = (cols >= _lanes(torch.as_tensor(n_accept, device=dev))).expand(b, c)[..., None, None]
+    out = {}
+    for n in ("k", "v"):
+        cur, old = cache_gather(ver[n], idx), ver[f"{n}_evicted"]
+        rows = ({p: torch.where(restore, old[p], cur[p]) for p in cur}
+                if isinstance(cur, dict) else torch.where(restore, old, cur))
+        out[n] = write_rows(ver[n], rows, idx)
+    return out
 
 
 def gqa_make_cache(cfg: ModelConfig, batch: int, cache_len: int,
                    dtype=torch.bfloat16, device=None) -> dict:
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window ring caches are not ported yet")
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+    """A cold K/V cache: ``cache_len`` slots, or ``sliding_window`` slots for
+    a ring, whatever ``cache_len`` (prefill pads a short prompt up to the
+    window, so a cold ring has that layout too)."""
+    c = cfg.sliding_window or cache_len
+    shape = (batch, c, cfg.n_kv_heads, cfg.head_dim_)
     return {"k": make_cache_leaf(shape, dtype, device),
             "v": make_cache_leaf(shape, dtype, device)}
 

@@ -1,5 +1,5 @@
-"""Decoder LM assembly: the ``retnet`` and ``dense`` kinds of the reference's
-`models/lm.py`, dense with GQA or MLA attention.
+"""Decoder LM assembly: the ``retnet``, ``dense``, ``ssm`` and ``hybrid`` kinds
+of the reference's `models/lm.py`, dense with GQA or MLA attention.
 
 Per-layer modules in an ``nn.ModuleList`` and a Python loop take the place of
 the reference's ``lax.scan`` over stacked params; the residual stream is cast
@@ -19,12 +19,20 @@ and the shared-prefix helpers `serving/paging.py` builds on
 Layers come in the reference's groups (`layer_groups`), held in one flat
 list in group order: deepseek-v3's leading dense layers (``dense_head``)
 run, and a config cut to them has no MoE layer; MoE layers are not ported.
+An ``ssm`` block (falcon-mamba) is a pre-norm Mamba mixer
+(`models/ssm.py`); a ``hybrid`` block (hymba) runs GQA attention over a
+sliding-window ring and a Mamba mixer side by side on the same normed input,
+averages their normed outputs, then an MLP.  Hymba's first, middle and last
+layers attend to the whole prompt in prefill (`hybrid_full_attn_flags`);
+their decode cache is the same ring, as in the reference.
 
 The decode cache is ``{"pos": i32 scalar, "rope": OnlineRopeState, "blocks":
 [one per layer]}``: ``{"s": f32 [B, H, dk, dv]}`` for RetNet, ``{"k", "v"}``
-``[B, C, KV, hd]`` leaves for dense GQA, ``{"c_kv" [B, C, kv_lora_rank],
-"k_rope" [B, C, qk_rope_head_dim]}`` for MLA (plain tensors or kvq-encoded
-dicts).
+``[B, C, KV, hd]`` leaves for dense GQA (C = the window for a ring),
+``{"c_kv" [B, C, kv_lora_rank], "k_rope" [B, C, qk_rope_head_dim]}`` for MLA
+(plain tensors or kvq-encoded dicts), ``{"h" f32 [B, d_inner, state], "conv"
+f32 [B, conv_width - 1, d_inner]}`` for an SSM block and ``{"attn": {"k",
+"v"}, "mamba": {"h", "conv"}}`` for a hybrid one.
 The position lives on the device, as the reference's traced scalar does: no
 host integer that changes from step to step reaches a kernel, a shape or a
 branch of `forward_decode`, so one captured step replays at every position
@@ -50,6 +58,7 @@ from repro_torch.core.hsa import HSAEngine
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import retnet as R
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import MLA, Attention, Init, Linear, Norm
 
@@ -61,12 +70,19 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[str, int, str]]:
     if cfg.family == "moe" and cfg.first_dense_layers:
         dense = min(cfg.first_dense_layers, cfg.n_layers)
         return [("dense_head", dense, "dense"), ("blocks", cfg.n_layers - dense, "moe")]
-    return [("blocks", cfg.n_layers, "retnet" if cfg.family == "retnet" else "dense")]
+    kind = cfg.family if cfg.family in ("retnet", "ssm", "hybrid", "moe") else "dense"
+    return [("blocks", cfg.n_layers, kind)]
+
+
+def hybrid_full_attn_flags(cfg: ModelConfig, count: int) -> list[bool]:
+    """Hymba: full attention on the first, middle and last layer of a
+    group, the sliding window elsewhere."""
+    return [i in (0, count // 2, count - 1) for i in range(count)]
 
 
 def _check_family(cfg: ModelConfig) -> None:
     """Raise, naming what is missing, unless the port serves ``cfg``."""
-    if cfg.family == "retnet":
+    if cfg.family in ("retnet", "ssm"):
         return
     if cfg.family == "moe":
         if cfg.n_layers > cfg.first_dense_layers:
@@ -74,13 +90,12 @@ def _check_family(cfg: ModelConfig) -> None:
                 f"{cfg.name}: MoE layers are not ported yet; repro_torch serves a "
                 f"MoE model cut to its {cfg.first_dense_layers} leading dense layers "
                 f"(n_layers={cfg.first_dense_layers})")
-    elif cfg.family != "dense":
+    elif cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
-            f"retnet and dense")
+            f"retnet, dense, ssm and hybrid")
     missing = [what for what, present in (
         (f"norm_type {cfg.norm_type!r}", cfg.norm_type != "rmsnorm"),
-        ("sliding-window attention", bool(cfg.sliding_window)),
         (f"frontend {cfg.frontend!r}", cfg.frontend is not None),
         ("absolute position embeddings", cfg.abs_pos_embed),
         (f"attn_type {cfg.attn_type!r}", cfg.attn_type not in ("gqa", "mla")))
@@ -118,7 +133,51 @@ class DenseBlock(nn.Module):
                               gated=cfg.norm_type == "rmsnorm"))
 
 
-BLOCK_KINDS = {"retnet": RetNetBlock, "dense": DenseBlock}
+class SSMBlock(nn.Module):
+    """Pre-norm Mamba mixer, no MLP (falcon-mamba)."""
+
+    def __init__(self, ln1: Norm, mamba: S.Mamba):
+        super().__init__()
+        self.ln1, self.mamba = ln1, mamba
+
+    @classmethod
+    def init(cls, init: Init, cfg: ModelConfig) -> "SSMBlock":
+        return cls(L.norm_init(init, cfg.d_model, cfg), S.mamba_init(init, cfg))
+
+
+class HybridBlock(nn.Module):
+    """Hymba: GQA attention and a Mamba mixer on the same normed input, each
+    output normed (``attn_norm``, ``mamba_norm``) and averaged, then a gated
+    MLP.  ``full_attn`` (a layer flag, `hybrid_full_attn_flags`) widens the
+    attention's window to the whole prompt in prefill."""
+
+    def __init__(self, ln1: Norm, attn: Attention, mamba: S.Mamba, attn_norm: Norm,
+                 mamba_norm: Norm, ln2: Norm, mlp: M.MLP, full_attn: bool = False):
+        super().__init__()
+        self.ln1, self.attn, self.mamba = ln1, attn, mamba
+        self.attn_norm, self.mamba_norm, self.ln2, self.mlp = attn_norm, mamba_norm, ln2, mlp
+        self.full_attn = full_attn
+
+    @classmethod
+    def init(cls, init: Init, cfg: ModelConfig) -> "HybridBlock":
+        d = cfg.d_model
+        return cls(L.norm_init(init, d, cfg), L.gqa_init(init, cfg), S.mamba_init(init, cfg),
+                   L.norm_init(init, d, cfg), L.norm_init(init, d, cfg),
+                   L.norm_init(init, d, cfg), M.MLP.init(init, d, cfg.d_ff))
+
+
+BLOCK_KINDS = {"retnet": RetNetBlock, "dense": DenseBlock, "ssm": SSMBlock,
+               "hybrid": HybridBlock}
+
+
+def mark_full_attn(cfg: ModelConfig, blocks: list[nn.Module]) -> None:
+    """Set each hybrid block's ``full_attn`` from its place in its group."""
+    at = 0
+    for _, count, kind in layer_groups(cfg):
+        if kind == "hybrid":
+            for blk, flag in zip(blocks[at:at + count], hybrid_full_attn_flags(cfg, count)):
+                blk.full_attn = flag
+        at += count
 
 
 class LM(nn.Module):
@@ -138,6 +197,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
     embed = ini.normal((cfg.padded_vocab, cfg.d_model), 0.02)
     blocks = [BLOCK_KINDS[kind].init(ini, cfg)
               for _, count, kind in layer_groups(cfg) for _ in range(count)]
+    mark_full_attn(cfg, blocks)
     final_norm = L.norm_init(ini, cfg.d_model, cfg)
     lm_head = Linear.init(ini, cfg.d_model, cfg.padded_vocab, scale=0.02)
     return LM(embed, blocks, final_norm, lm_head)
@@ -186,15 +246,35 @@ def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens]
 
 
-def _seed_attn_cache(leaves: dict, cache_len: int = 0) -> dict:
-    """Prefill K/V (or MLA's latents) -> the decode cache layout: each leaf
-    ``[B, S, ...]`` right-padded with zeros along the slot axis to
-    ``cache_len`` so generation can continue."""
+def _seed_attn_cache(cfg: ModelConfig, leaves: dict, cache_len: int = 0,
+                     valid_len: torch.Tensor | None = None) -> dict:
+    """Prefill K/V (or MLA's latents) -> the decode cache layout.
+
+    A linear cache's leaves ``[B, S, ...]`` are right-padded with zeros along
+    the slot axis to ``cache_len`` so generation can continue (a bucketed
+    prefill keeps its padded tail: decode masks it, then overwrites it).  A
+    sliding-window ring holds position p in slot ``p % window``: a prompt
+    that fits is padded up to the window, a longer one keeps its last
+    ``window`` positions, rolled into their slots.  ``valid_len`` (an int32
+    device scalar: a bucketed prefill) builds the ring from the real
+    positions only, slot i taking the largest real position congruent to i
+    (a device gather; padded keys would alias live slots once the ring
+    wraps)."""
+    w = cfg.sliding_window
     out = {}
     for name, x in leaves.items():
-        if cache_len > x.shape[1]:
-            pad = (0, 0) * (x.ndim - 2) + (0, cache_len - x.shape[1])
-            x = torch.nn.functional.pad(x, pad)
+        s = x.shape[1]
+        if w and valid_len is not None:
+            i = torch.arange(w, device=x.device)
+            p = i + w * torch.div(valid_len - 1 - i, w, rounding_mode="floor")
+            keep = (p >= 0).reshape(1, w, *([1] * (x.ndim - 2)))
+            x = torch.where(keep, x.index_select(1, p.clamp(0, s - 1)), 0.0)
+        elif w and s <= w:
+            x = torch.nn.functional.pad(x, (0, 0) * (x.ndim - 2) + (0, w - s))
+        elif w:
+            x = torch.roll(x[:, -w:], s % w, dims=1)
+        elif cache_len > s:
+            x = torch.nn.functional.pad(x, (0, 0) * (x.ndim - 2) + (0, cache_len - s))
         out[name] = x
     return out
 
@@ -204,29 +284,59 @@ def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0,
     """Full-sequence block -> (x_out, cache seed).
 
     ``valid_len`` (bucketed prefill) marks the tokens from it on as padding:
-    causality keeps them out of every real token's output, and RetNet's
-    state masks them; a linear KV cache keeps its padded tail, which decode
-    masks and then overwrites."""
+    causality keeps them out of every real token's output, and the RetNet,
+    Mamba and ring cache seeds mask them; a linear KV cache keeps its padded
+    tail, which decode masks and then overwrites."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
+    if isinstance(p, SSMBlock):
+        y, cache = S.mamba_apply(p.mamba, xs, sig, engine, phase, cfg, valid_len=valid_len)
+        return x + y, cache
+    if isinstance(p, HybridBlock):
+        s = x.shape[1]
+        a_out, (k, v) = L.gqa_apply(p.attn, xs, sig, engine, phase, cfg,
+                                    window=s if p.full_attn else cfg.sliding_window,
+                                    rope_sin=sin, rope_cos=cos)
+        m_out, m_cache = S.mamba_apply(p.mamba, xs, sig, engine, phase, cfg,
+                                       valid_len=valid_len)
+        cache = {"attn": _seed_attn_cache(cfg, {"k": k, "v": v}, cache_len, valid_len),
+                 "mamba": m_cache}
+        return _hybrid_tail(p, x, a_out, m_out, engine, phase), cache
     if isinstance(p, RetNetBlock):
         y, cache = R.retention_apply(p.ret, xs, sig, engine, phase, cfg,
                                      rope_sin=sin, rope_cos=cos, valid_len=valid_len)
     elif cfg.attn_type == "mla":
         y, (c_kv, k_rope) = L.mla_apply(p.attn, xs, sig, engine, phase, cfg,
                                         rope_sin=sin, rope_cos=cos)
-        cache = _seed_attn_cache({"c_kv": c_kv, "k_rope": k_rope}, cache_len)
+        cache = _seed_attn_cache(cfg, {"c_kv": c_kv, "k_rope": k_rope}, cache_len)
     else:
         y, (k, v) = L.gqa_apply(p.attn, xs, sig, engine, phase, cfg,
-                                rope_sin=sin, rope_cos=cos)
-        cache = _seed_attn_cache({"k": k, "v": v}, cache_len)
+                                window=cfg.sliding_window, rope_sin=sin, rope_cos=cos)
+        cache = _seed_attn_cache(cfg, {"k": k, "v": v}, cache_len, valid_len)
     x = x + y
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
     return x + M.mlp_apply(p.mlp, xs2, sig2, engine, phase), cache
 
 
+def _hybrid_tail(p: HybridBlock, x, a_out, m_out, engine, phase: str):
+    """A hybrid block after its two mixers: the mean of their normed
+    outputs joins the residual, then the MLP."""
+    x = x + 0.5 * (L.norm_full(p.attn_norm, a_out) + L.norm_full(p.mamba_norm, m_out))
+    xs2, sig2 = L.norm_emit(p.ln2, x, engine)
+    return x + M.mlp_apply(p.mlp, xs2, sig2, engine, phase)
+
+
 def _block_decode(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
     """One-token block at absolute position ``pos`` -> (x_out, cache)."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
+    if isinstance(p, SSMBlock):
+        y, cache = S.mamba_decode(p.mamba, xs, sig, engine, cfg, cache)
+        return x + y, cache
+    if isinstance(p, HybridBlock):
+        a_out, a_cache = L.gqa_decode(p.attn, xs, sig, engine, cfg, cache["attn"], pos,
+                                      rope_sin=sin, rope_cos=cos)
+        m_out, m_cache = S.mamba_decode(p.mamba, xs, sig, engine, cfg, cache["mamba"])
+        return (_hybrid_tail(p, x, a_out, m_out, engine, "decode"),
+                {"attn": a_cache, "mamba": m_cache})
     if isinstance(p, RetNetBlock):
         y, cache = R.retention_decode(p.ret, xs, sig, engine, cfg, cache,
                                       rope_sin=sin, rope_cos=cos)
@@ -283,16 +393,35 @@ def _block_chunk(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos,
     absolute position ``pos`` -> (x_out, cache).  The MMM-shaped sibling of
     `_block_decode`: the same cache in, cache out, C tokens at once through
     the prefill dataflow.  ``collect`` (a speculative verify block) keeps
-    RetNet's state after every position."""
+    RetNet's and Mamba's state after every position and the rows a ring's
+    writes evict (see `commit_verified_cache`)."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
+    if isinstance(p, SSMBlock):
+        y, cache = S.mamba_apply(p.mamba, xs, sig, engine, "prefill", cfg, cache=cache,
+                                 collect_states=collect)
+        return x + y, cache
+    if isinstance(p, HybridBlock):
+        # A full-attention layer sees every resident position: the ring
+        # bounds it to the last `window`, the degradation decode applies too.
+        window = pos + x.shape[1] if p.full_attn else cfg.sliding_window
+        a_out, a_cache = L.gqa_chunk(p.attn, xs, sig, engine, cfg, cache["attn"], pos,
+                                     window=window, rope_sin=sin, rope_cos=cos,
+                                     keep_evicted=collect)
+        m_out, m_cache = S.mamba_apply(p.mamba, xs, sig, engine, "prefill", cfg,
+                                       cache=cache["mamba"], collect_states=collect)
+        return (_hybrid_tail(p, x, a_out, m_out, engine, "prefill"),
+                {"attn": a_cache, "mamba": m_cache})
     if isinstance(p, RetNetBlock):
         y, cache = R.retention_apply(p.ret, xs, sig, engine, "prefill", cfg,
                                      rope_sin=sin, rope_cos=cos, cache=cache,
                                      collect_states=collect)
+    elif cfg.attn_type == "mla":
+        y, cache = L.mla_chunk(p.attn, xs, sig, engine, cfg, cache, pos,
+                               rope_sin=sin, rope_cos=cos)
     else:
-        chunk = L.mla_chunk if cfg.attn_type == "mla" else L.gqa_chunk
-        y, cache = chunk(p.attn, xs, sig, engine, cfg, cache, pos,
-                         rope_sin=sin, rope_cos=cos)
+        y, cache = L.gqa_chunk(p.attn, xs, sig, engine, cfg, cache, pos,
+                               window=cfg.sliding_window, rope_sin=sin, rope_cos=cos,
+                               keep_evicted=collect)
     x = x + y
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
     return x + M.mlp_apply(p.mlp, xs2, sig2, engine, "prefill"), cache
@@ -366,31 +495,53 @@ def commit_verified_cache(prev: dict, ver: dict, n_accept, c: int,
       * linear KV / MLA latents keep the verified buffers and rewind the
         position pointer: decode's validity mask hides the rejected rows and
         the next block overwrites them;
+      * a sliding-window ring gets back, in place, the rows that the
+        rejected positions' writes evicted (`layers.ring_rollback`);
       * RetNet takes the state snapshot at the acceptance boundary,
-        ``s_all[:, :, n_accept - 1]``, gathered per lane.
+        ``s_all[:, :, n_accept - 1]``, and Mamba ``h_all[:, n_accept - 1]``
+        and the conv window ``conv_ext[:, n_accept : n_accept + cw - 1]``,
+        gathered per lane.
 
-    The rope state is rebuilt at the new position on the device.  Sliding-
-    window rings (`layers.ring_rollback`), SSM / hybrid state and MoE are
-    not ported (ROADMAP A9) and raise."""
-    kinds = sorted({kind for _, n, kind in layer_groups(cfg) if n} - {"retnet", "dense"})
-    if cfg.sliding_window or kinds:
-        what = kinds + (["sliding-window ring"] if cfg.sliding_window else [])
+    The rope state is rebuilt at the new position on the device.  MoE is
+    not ported (ROADMAP A9) and raises."""
+    kinds = sorted({kind for _, n, kind in layer_groups(cfg) if n}
+                   - {"retnet", "dense", "ssm", "hybrid"})
+    if kinds:
         raise NotImplementedError(f"{cfg.name}: speculative rollback of "
-                                  f"{', '.join(what)} layers is not ported yet (ROADMAP A9)")
-    new_pos = (prev["pos"] + n_accept).to(prev["pos"].dtype)
+                                  f"{', '.join(kinds)} layers is not ported yet (ROADMAP A9)")
+    pos0 = prev["pos"]
+    new_pos = (pos0 + n_accept).to(pos0.dtype)
     out = {"pos": new_pos}
     if cfg.rope:
         out["rope"] = _rope_state(cfg, new_pos)
-    blocks = []
-    for blk in ver["blocks"]:
-        if "s_all" in blk:
-            s_all = blk["s_all"]                          # [B, H, C, dk, dv]
-            at = (n_accept - 1).clamp(0, c - 1).to(torch.int64).expand(s_all.shape[0])
-            lanes = torch.arange(s_all.shape[0], device=s_all.device)
-            blocks.append({"s": s_all[lanes, :, at]})
-        else:
-            blocks.append(blk)                            # pointer rewind only
-    out["blocks"] = blocks
+
+    def lanes(t: torch.Tensor) -> torch.Tensor:
+        return torch.arange(t.shape[0], device=t.device)
+
+    def last(t: torch.Tensor) -> torch.Tensor:
+        """Each lane's index of its last accepted position."""
+        return (n_accept - 1).clamp(0, c - 1).to(torch.int64).expand(t.shape[0])
+
+    def conv_window(ext: torch.Tensor) -> torch.Tensor:
+        """Each lane's ``ext[:, n_accept : n_accept + cw - 1]``."""
+        start = n_accept.to(torch.int64).expand(ext.shape[0])[:, None]
+        return ext[lanes(ext)[:, None],
+                   start + torch.arange(cfg.conv_width - 1, device=ext.device)]
+
+    def commit(blk: dict) -> dict:
+        if "s_all" in blk:                                    # [B, H, C, dk, dv]
+            s_all = blk["s_all"]
+            return {"s": s_all[lanes(s_all), :, last(s_all)]}
+        if "h_all" in blk:                                    # [B, C, di, n]
+            h_all = blk["h_all"]
+            return {"h": h_all[lanes(h_all), last(h_all)], "conv": conv_window(blk["conv_ext"])}
+        if "attn" in blk:
+            return {"attn": commit(blk["attn"]), "mamba": commit(blk["mamba"])}
+        if "k_evicted" in blk:
+            return L.ring_rollback(blk, pos0, c, n_accept, cfg.sliding_window)
+        return blk                                            # pointer rewind only
+
+    out["blocks"] = [commit(blk) for blk in ver["blocks"]]
     return out
 
 
@@ -426,24 +577,31 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
                       device="cuda", per_lane: bool = False) -> dict:
     """Cold cache at ``start_pos`` (zeros are the exact initial state of
     every cache kind), with ``cache_len`` KV slots per layer for dense GQA
-    and MLA.
+    and MLA (a sliding-window ring always has ``window``).
     The reference's decode-only dry-run default (pos = cache_len - 1) is not
     ported: pass ``start_pos`` for it.
 
     ``dtype`` is a torch dtype or a kvq format name: KV leaves then start as
-    encoded zero dicts; RetNet state stays f32.  ``per_lane`` gives every
-    lane its own position (``pos`` int32 ``[batch]``, rope angles
+    encoded zero dicts; RetNet and Mamba state stays f32.  ``per_lane`` gives
+    every lane its own position (``pos`` int32 ``[batch]``, rope angles
     ``[batch, d/2]``), as a scheduler's slot class holds them."""
     _check_family(cfg)
     pos = torch.tensor(start_pos, dtype=torch.int32, device=device)
     if per_lane:
         pos = pos.repeat(batch)
-    if cfg.family == "retnet":
-        blocks = [R.retention_make_cache(cfg, batch, device)
-                  for _ in range(cfg.n_layers)]
-    else:
+
+    def one_layer(kind):
+        if kind == "retnet":
+            return R.retention_make_cache(cfg, batch, device)
+        if kind == "ssm":
+            return S.mamba_make_cache(cfg, batch, device)
+        if kind == "hybrid":
+            return {"attn": L.gqa_make_cache(cfg, batch, cache_len, dtype, device),
+                    "mamba": S.mamba_make_cache(cfg, batch, device)}
         make = L.mla_make_cache if cfg.attn_type == "mla" else L.gqa_make_cache
-        blocks = [make(cfg, batch, cache_len, dtype, device) for _ in range(cfg.n_layers)]
+        return make(cfg, batch, cache_len, dtype, device)
+
+    blocks = [one_layer(kind) for _, count, kind in layer_groups(cfg) for _ in range(count)]
     caches = {"pos": pos, "blocks": blocks}
     if cfg.rope:
         caches["rope"] = (_rope_state(cfg, pos) if per_lane else
@@ -453,20 +611,30 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
 
 
 def quantize_cache(cache: dict, cfg: ModelConfig, fmt: str) -> dict:
-    """Encode the KV leaves (MLA: the latent and the rope key) of a warm
-    decode cache into ``fmt``.
+    """Encode the KV leaves (MLA: the latent and the rope key; hybrid: its
+    attention's) of a warm decode cache into ``fmt``.
 
     The bridge between prefill (always f32) and a quantized decode
     residency: the engine calls it once, right after `forward_prefill`.
-    RetNet state, ``pos`` and the rope angles pass through; encoded leaves
+    RetNet and Mamba state, ``pos`` and the rope angles pass through (a
+    cache with no KV, falcon-mamba's, is returned as it is); encoded leaves
     pass through unchanged.  The reference runs this step eagerly, so
     int8_tok scales take the division form (see `core/kvq.py`)."""
     kvq.check_format(fmt)
-    out = dict(cache)
-    if cfg.family != "retnet":
-        out["blocks"] = [{name: kvq.encode(leaf, fmt) for name, leaf in b.items()}
-                         for b in cache["blocks"]]
-    return out
+
+    def enc(blk: dict) -> dict:
+        return {name: kvq.encode(leaf, fmt) for name, leaf in blk.items()}
+
+    def one_layer(kind, blk):
+        if kind in ("retnet", "ssm"):
+            return blk
+        if kind == "hybrid":
+            return {"attn": enc(blk["attn"]), "mamba": blk["mamba"]}
+        return enc(blk)
+
+    kinds = [kind for _, count, kind in layer_groups(cfg) for _ in range(count)]
+    return dict(cache, blocks=[one_layer(kind, blk)
+                               for kind, blk in zip(kinds, cache["blocks"])])
 
 
 # ---------------------------------------------------------------------------

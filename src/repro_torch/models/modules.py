@@ -4,7 +4,9 @@
 deepseek-v3's latent-attention projections and norms.  `Linear` holds one weight ``W[K, N]`` (the reference layout, ``y = x @ W``,
 not ``nn.Linear``'s ``[N, K]``) in whichever formats it carries: the master
 ``w`` and optional bias ``b``, and after deployment ``w8_vals``/``w8_scale``
-(INT8) and ``mx_packed``/``mx_exps`` (MXINT4).  `Norm` holds a gain ``g``.
+(INT8) and ``mx_packed``/``mx_exps`` (MXINT4), and its logical ``shape``
+``(K, N)`` (deploy pads ``w8_vals`` and the bias of a linear whose K or N is
+not a multiple of 16).  `Norm` holds a gain ``g``.
 The model code is plain functions over these modules, so each function reads
 like its JAX counterpart.
 
@@ -60,7 +62,8 @@ def _param(t: torch.Tensor | None) -> nn.Parameter | None:
 class Linear(nn.Module):
     """A matmul weight ``W[K, N]`` executed through the HSA engine."""
 
-    def __init__(self, w: torch.Tensor | None = None, **formats):
+    def __init__(self, w: torch.Tensor | None = None, *, shape: tuple | None = None,
+                 **formats):
         super().__init__()
         unknown = set(formats) - set(FORMATS)
         if unknown:
@@ -68,6 +71,7 @@ class Linear(nn.Module):
         self.register_parameter("w", _param(w))
         for name in FORMATS:
             self.register_buffer(name, formats.get(name))
+        self.shape = tuple(shape if shape is not None else w.shape)
 
     @classmethod
     def init(cls, init: Init, k: int, n: int, scale: float | None = None,

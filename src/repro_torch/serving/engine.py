@@ -320,6 +320,9 @@ class ChunkedPrefill:
         if start_offset and initial_cache is None:
             raise ValueError("start_offset > 0 requires an initial_cache "
                              "warm over the adopted prefix")
+        w = engine.cfg.sliding_window
+        if w:
+            chunk_size = min(chunk_size, w)   # ring scatter: chunk <= window
         self.engine = engine
         self.tokens = tokens
         self.schedule = chunk_schedule(s - start_offset, chunk_size)
@@ -376,10 +379,14 @@ class ClassStep:
 
     Stochastic sampling draws lane l from ``generators[l]`` alone (registered
     with the graph), so a request's tokens depend on its own generator's
-    state and not on its lane or its co-tenants; greedy draws nothing."""
+    state and not on its lane or its co-tenants; greedy draws nothing.  A
+    W8A8 linear in the step (hymba's decode ``x_proj``) quantizes each
+    lane's activations with its own scale (``act_scale='lane'``), as the
+    reference's per-slot ``vmap`` does, for the same reason."""
 
     def __init__(self, engine: "InferenceEngine", store: dict, gen: GenerationConfig):
         self.engine, self.store, self.gen = engine, store, gen
+        self.hsa = HSAEngine(dataclasses.replace(engine.hsa.config, act_scale="lane"))
         n, dev = store["pos"].shape[0], engine.device
         self.tok = torch.zeros(n, dtype=torch.long, device=dev)
         self.fed = torch.zeros(n, dtype=torch.long, device=dev)
@@ -398,7 +405,7 @@ class ClassStep:
         eng, sampling = self.engine, self.gen.sampling
         self.fed.copy_(self.tok)
         logits, cache = lm.forward_decode(eng.model, self.tok[:, None], self.store, eng.cfg,
-                                          eng.hsa)
+                                          self.hsa)
         _write_back(self.store, cache)
         if self.generators is None:
             self.tok.copy_(sample(logits, sampling))
@@ -456,11 +463,10 @@ class SpecClassStep(ClassStep):
     [N, k+1] and ``n_commit`` [N] (views of one buffer, ``result``, which
     the scheduler reads once per step) hold what each lane committed.
 
-    Each lane's W8A8 activations take a scale of their own
-    (``act_scale='lane'``): a lane's tokens never depend on its
-    co-tenants, nor on the garbage a free lane computes (its positions and
-    history length clamp).  Captured once per class on the card, eager on
-    the CPU, as `ClassStep`."""
+    Each lane's W8A8 activations take a scale of their own, as in
+    `ClassStep`: a lane's tokens never depend on its co-tenants, nor on the
+    garbage a free lane computes (its positions and history length clamp).
+    Captured once per class on the card, eager on the CPU, as `ClassStep`."""
 
     def __init__(self, engine: "InferenceEngine", store: dict, gen: GenerationConfig,
                  cache_len: int):
@@ -469,7 +475,6 @@ class SpecClassStep(ClassStep):
         self.hist_len = torch.zeros(n, dtype=torch.long, device=dev)
         self.result = torch.zeros(n, k + 2, dtype=torch.long, device=dev)
         self.block, self.n_commit = self.result[:, :k + 1], self.result[:, k + 1]
-        self.hsa = HSAEngine(dataclasses.replace(engine.hsa.config, act_scale="lane"))
         self.drafter = spec_mod.make_drafter(gen.speculative, engine.cfg)
         super().__init__(engine, store, gen)
 
@@ -639,6 +644,11 @@ class InferenceEngine:
         replay of the graph keyed on (cache layout, history width, ``gen``);
         the host reads the loop's condition after each."""
         spec_mod.make_drafter(gen.speculative, self.cfg)      # refuses the MTP drafter
+        w = self.cfg.sliding_window
+        if w and gen.speculative.k + 1 > w:
+            raise ValueError(f"verify block k+1 ({gen.speculative.k + 1}) must fit the "
+                             f"sliding window ({w}): a larger block would overwrite its "
+                             "own ring writes")
         b, s = prompts.shape
         n, k = gen.max_new_tokens, gen.speculative.k
         tr = self.obs.tracer

@@ -483,6 +483,10 @@ class RequestScheduler:
             raise ValueError("RequestScheduler speculative decode supports the model-free "
                              "'ngram' drafter (the MTP drafter needs per-lane hidden "
                              "state; use engine.generate)")
+        w = engine.cfg.sliding_window
+        if self._spec is not None and w and self._spec.k + 1 > w:
+            raise ValueError(f"verify block k+1 ({self._spec.k + 1}) "
+                             f"must fit the sliding window ({w})")
         # One captured step per class, over the class store (see ClassStep).
         self.pool.steps = {
             clen: (ClassStep(engine, self.pool.get_store(clen), gen) if self._spec is None

@@ -42,6 +42,7 @@ from repro_torch.models import retnet as TR
 from repro_torch.serving import engine as TE
 from repro_torch.serving.engine import EngineSpec, InferenceEngine
 from repro_torch.serving.sampling import GenerationConfig
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DS3 = "deepseek-v3-671b"
 ARCHS = ["retnet-1.3b", "qwen3-8b", DS3]
@@ -307,14 +308,20 @@ def test_attention_chunk_appends_and_attends_as_reference(arch, fmt):
 
 
 def test_attention_chunk_rings_raise_until_ported():
+    """Rings are ported: a chunk that fits the window is written into it,
+    one wider than the window raises (its writes would collide), as the
+    reference's does."""
     _, te, _ = _engines("qwen3-8b", False)
     _, tcfg = _cfgs("qwen3-8b")
-    x = torch.zeros(1, 2, tcfg.d_model)
-    cache = TL.gqa_make_cache(tcfg, 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        TL.gqa_chunk(te.model.blocks[0].attn, x, None, te.hsa,
-                     dataclasses.replace(tcfg, sliding_window=4), cache,
-                     torch.tensor(0, dtype=torch.int32))
+    ring = dataclasses.replace(tcfg, sliding_window=4)
+    cache = TL.gqa_make_cache(ring, 1, 8, torch.float32)
+    assert TL.cache_capacity(cache["k"]) == 4
+    _, out = TL.gqa_chunk(te.model.blocks[0].attn, torch.ones(1, 2, tcfg.d_model), None,
+                          te.hsa, ring, cache, torch.tensor(0, dtype=torch.int32))
+    assert out["k"][:, :2].any() and not out["k"][:, 2:].any()
+    with pytest.raises(ValueError, match="must fit the sliding window"):
+        TL.gqa_chunk(te.model.blocks[0].attn, torch.zeros(1, 5, tcfg.d_model), None,
+                     te.hsa, ring, cache, torch.tensor(0, dtype=torch.int32))
 
 
 # -- the model: chunk by chunk, bucketed --------------------------------------------

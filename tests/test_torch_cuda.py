@@ -140,6 +140,29 @@ def test_w8a8_matmul_kernel_shapes(m, k, n):
     assert torch.equal(got, ops.w8a8_matmul(xq, wq, sc, rs, b, impl="kernel"))
 
 
+@pytest.mark.parametrize("m,k,n", [(2, 3200, 132), (1024, 3200, 132), (10, 3200, 132),
+                                   (2, 100, 3200), (1024, 100, 3200), (64, 256, 24),
+                                   (64, 8, 256), (10, 37, 45)])
+def test_w8a8_matmul_kernel_padded_shapes(m, k, n):
+    """K or N not a multiple of 16 (hymba's x_proj N 132 and dt_proj K 100,
+    the reduced SSM configs' N 24 and K 8): the kernel runs on the
+    zero-padded buffers deploy holds, exact against the unpadded plain
+    product."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(m * 3 + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda").to(torch.int8)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device="cuda").to(torch.int8)
+    wq = deploy.k_major(w8)
+    b = deploy.padded_vector(torch.randn(n, generator=g, device="cuda"))
+    rs = torch.rand(m, generator=g, device="cuda") + 0.5
+    sc = torch.tensor(1e-4, device="cuda")
+    got = ops.w8a8_matmul(xq, wq, sc, rs, b, n=n, impl="kernel")
+    want = ref.w8a8_matmul_ref(xq, w8, sc, rs, b[:n])
+    assert got.shape == (m, n) and wq.shape == (ops.up16(k), ops.up16(n))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(got, ops.w8a8_matmul(xq, wq, sc, rs, b, n=n, impl="kernel"))
+
+
 def test_w8a8_matmul_kernel_rejects_row_major_weight():
     xq = torch.zeros(64, 256, dtype=torch.int8, device="cuda")
     wq = torch.zeros(256, 128, dtype=torch.int8, device="cuda")
@@ -316,6 +339,15 @@ def _flash_decode_case(seed, fmts, b, kv, g, d, c, kv_len, scale=None, dv=None):
 
 ALL_FORMATS = ["float32", "bfloat16", "int8", "int8_tok", "mxint4_blk"]
 MAIN_FORMATS = ["float32", "int8_tok", "mxint4_blk"]
+
+
+@pytest.mark.parametrize("fmt", MAIN_FORMATS)
+@pytest.mark.parametrize("kv_len", [1, 5, 64, 511, 1023, 1024])
+def test_flash_decode_kernel_hymba_ring_shape(fmt, kv_len):
+    """hymba-1.5b's decode attention: 25 heads over 5 KV heads (G 5: two
+    group chunks, the second holding one head), head dim 64, its
+    1024-slot ring, ``kv_len = min(pos + 1, 1024)``."""
+    _flash_decode_case(kv_len, (fmt, fmt), 2, 5, 5, 64, 1024, kv_len)
 
 
 @pytest.mark.parametrize("fmt", ALL_FORMATS)
@@ -894,7 +926,9 @@ def test_flash_decode_graph_replays_at_every_per_lane_kv_len(mla):
 
 @pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
                                       ("qwen3-8b", "int8_tok"), ("qwen3-8b", "mxint4_blk"),
-                                      ("ds3_dense", None), ("ds3_dense", "mxint4_blk")])
+                                      ("ds3_dense", None), ("ds3_dense", "mxint4_blk"),
+                                      ("falcon-mamba-7b", None), ("hymba-1.5b", None),
+                                      ("hymba-1.5b", "mxint4_blk")])
 def test_class_step_replays_match_its_eager_body(arch, fmt):
     """Reduced models on the card: a scheduler's class step (captured at pool
     build) replayed with its two lanes at different positions gives its
@@ -1087,7 +1121,9 @@ def _tree_equal(a, b) -> bool:
 
 @pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
                                       ("qwen3-8b", "int8_tok"), ("qwen3-8b", "mxint4_blk"),
-                                      ("ds3_dense", None), ("ds3_dense", "mxint4_blk")])
+                                      ("ds3_dense", None), ("ds3_dense", "mxint4_blk"),
+                                      ("falcon-mamba-7b", None), ("hymba-1.5b", None),
+                                      ("hymba-1.5b", "int8_tok"), ("hymba-1.5b", "mxint4_blk")])
 def test_generate_replays_match_the_eager_loop(arch, fmt):
     """Reduced models on the card: `generate` (one captured step, replayed)
     gives the eager loop's tokens, lengths and final cache bit for bit, a
@@ -1104,7 +1140,8 @@ def test_generate_replays_match_the_eager_loop(arch, fmt):
     else:
         cfg = configs.get_config(arch).reduced()
     eng = InferenceEngine.from_config(cfg, EngineSpec(), device="cuda")
-    prompts = torch.randint(1, cfg.vocab_size, (2, 16), device="cuda",
+    s = 40 if cfg.sliding_window else 16          # hymba: past its window of 32
+    prompts = torch.randint(1, cfg.vocab_size, (2, s), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(5))
     gen = GenerationConfig(max_new_tokens=10, cache_format=fmt)
     first = eng.generate(prompts, gen)
@@ -1154,7 +1191,8 @@ def _reduced(arch):
 
 @pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
                                       ("qwen3-8b", "int8_tok"), ("qwen3-8b", "mxint4_blk"),
-                                      ("ds3_dense", None), ("ds3_dense", "int8_tok")])
+                                      ("ds3_dense", None), ("ds3_dense", "int8_tok"),
+                                      ("falcon-mamba-7b", None), ("hymba-1.5b", "int8_tok")])
 def test_resume_after_chunked_prefill_replays_match_the_eager_loop(arch, fmt):
     """Reduced models on the card: a chunked admission (23 = 4 x 5 + 2 + 1,
     into a cache in ``fmt``), then `resume_generate` through the graph keyed
@@ -1210,7 +1248,8 @@ def test_top_p_generate_through_the_graph_stays_in_the_nucleus():
         logits, cache = eng.decode_step(runs[0].tokens[:, i:i + 1], cache)
 
 
-@pytest.mark.parametrize("arch", ["retnet-1.3b", "qwen3-8b", "ds3_dense"])
+@pytest.mark.parametrize("arch", ["retnet-1.3b", "qwen3-8b", "ds3_dense", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
 def test_resume_twice_on_the_card_equals_one_resume(arch):
     """`resume_generate` of 4 tokens, then of 4 more from the cache it left
     and its ``next_token``, against one resume of 8 from the same cache:
@@ -1269,14 +1308,16 @@ def test_retention_apply_runs_every_length_through_the_kernel(s, warm):
 def _w8a8_launches(cfg) -> int:
     """W8A8 launches of one verify step on a reduced model: every linear of
     every layer (MLA's wk_b / wv_b re-expansion included) and the LM head."""
-    per_layer = (7 if cfg.family == "retnet" else
+    per_layer = (7 if cfg.family == "retnet" else 4 if cfg.family == "ssm" else
+                 11 if cfg.family == "hybrid" else
                  9 if cfg.attn_type == "mla" else 4 + (3 if cfg.norm_type == "rmsnorm" else 2))
     return per_layer * cfg.n_layers + 1
 
 
 @pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
                                       ("qwen3-8b", "int8_tok"), ("ds3_dense", None),
-                                      ("ds3_dense", "mxint4_blk")])
+                                      ("ds3_dense", "mxint4_blk"), ("falcon-mamba-7b", None),
+                                      ("hymba-1.5b", None), ("hymba-1.5b", "mxint4_blk")])
 def test_speculative_generate_replays_match_the_eager_step(arch, fmt):
     """Reduced models on the card, default deployment: `generate` with
     speculative decode (each verify step one replay of a captured graph, W8A8
@@ -1319,7 +1360,8 @@ def test_speculative_generate_replays_match_the_eager_step(arch, fmt):
 
 
 @pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", "int8_tok"),
-                                      ("ds3_dense", None)])
+                                      ("ds3_dense", None), ("falcon-mamba-7b", None),
+                                      ("hymba-1.5b", "int8_tok")])
 def test_spec_class_step_replays_match_its_eager_body(arch, fmt):
     """A speculative scheduler's class step (captured at pool build, per-lane
     W8A8 scales) replayed with its two lanes at different positions gives its
@@ -1402,3 +1444,30 @@ def test_per_lane_activation_scale_matches_lane_by_lane_launches():
         assert torch.equal(acc[b], alone)
         want = ref.w8a8_matmul_ref(xb, w8.values, w8.scale, scale[b] * sig[b])
         assert torch.equal(lane_out[b], want)
+
+
+@pytest.mark.parametrize("collect", [False, True], ids=["chunked", "snapshots"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_mamba_apply_on_the_card_matches_the_cpu(arch, collect):
+    """The selective scan (plain PyTorch: no kernel) on the card against the
+    CPU on the same fp weights and inputs, 1e-4 of max|value|: 37 tokens in
+    chunks of 16, or one pass with the state after every token."""
+    import copy
+
+    from repro_torch.models import ssm as S
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    cpu = InferenceEngine.from_config(_reduced(arch), EngineSpec(quantize=False), device="cpu")
+    card = InferenceEngine.from_config(cpu.cfg, EngineSpec(quantize=False),
+                                       model=copy.deepcopy(cpu.model).to("cuda"),
+                                       device="cuda")
+    rng = _gen(3)
+    x = rng.normal(size=(2, 37, cpu.cfg.d_model)).astype(np.float32)
+    sig = (rng.random((2, 37)) + 0.5).astype(np.float32)
+    got_y, got_c = S.mamba_apply(card.model.blocks[0].mamba, _t(x), _t(sig), card.hsa,
+                                 "prefill", card.cfg, collect_states=collect)
+    want_y, want_c = S.mamba_apply(cpu.model.blocks[0].mamba, torch.from_numpy(x),
+                                   torch.from_numpy(sig), cpu.hsa, "prefill", cpu.cfg,
+                                   collect_states=collect)
+    for got, want in [(got_y, want_y)] + [(got_c[n], want_c[n]) for n in want_c]:
+        err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        assert err < 1e-4, err

@@ -52,6 +52,7 @@ from repro_torch.kernels import ops as Tops
 from repro_torch.models import layers as TL
 from repro_torch.serving.engine import DecodeState, EngineSpec, InferenceEngine
 from repro_torch.serving.sampling import GenerationConfig, SamplingParams
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DS3 = "deepseek-v3-671b"
 FORMATS = [None, "int8_tok", "mxint4_blk"]

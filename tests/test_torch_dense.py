@@ -161,10 +161,11 @@ def test_rope_dim_matches_reference(name):
                                   "starcoder2-15b", "hymba-1.5b", "llava-next-34b",
                                   "deepseek-v3-671b", "olmoe-1b-7b"])
 def test_dense_family_gate(name):
-    """Dense RMSNorm archs pass; deepseek-v3 passes only cut to its leading
-    dense layers (its MoE layers, like olmoe's, are not ported)."""
+    """Dense RMSNorm archs and hymba (its sliding-window ring) pass;
+    deepseek-v3 passes only cut to its leading dense layers (its MoE layers,
+    like olmoe's, are not ported)."""
     cfg = Tconfigs.get_config(name).reduced()
-    if name in ("qwen3-8b", "qwen1.5-4b", "internlm2-1.8b"):
+    if name in ("qwen3-8b", "qwen1.5-4b", "internlm2-1.8b", "hymba-1.5b"):
         Tlm._check_family(cfg)
     else:
         with pytest.raises(NotImplementedError, match="not ported"):

@@ -23,6 +23,7 @@ from repro.serving import InferenceEngine as JEngine
 from repro_torch import bridge
 from repro_torch.serving.engine import EngineSpec, InferenceEngine
 from repro_torch.serving.sampling import GenerationConfig, SamplingParams
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @functools.lru_cache(maxsize=None)

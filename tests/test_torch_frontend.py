@@ -18,6 +18,7 @@ import dataclasses
 import time
 
 import pytest
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_scheduler import ARCH_IDS, ARCHS, engines, prompts
 
 from repro.serving import BurstyArrivals as JBursty

@@ -68,7 +68,7 @@ def test_from_config_defaults_to_the_card():
 def test_from_config_rejects_unported_families():
     from repro_torch.serving.engine import EngineSpec, InferenceEngine
     with pytest.raises(NotImplementedError):
-        InferenceEngine.from_config("falcon-mamba-7b", EngineSpec(reduced=True),
+        InferenceEngine.from_config("olmoe-1b-7b", EngineSpec(reduced=True),
                                     device="cpu")
 
 

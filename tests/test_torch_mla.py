@@ -41,6 +41,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import lm as Tlm
 from repro_torch.serving.engine import EngineSpec, InferenceEngine
 from repro_torch.serving.sampling import GenerationConfig
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "deepseek-v3-671b"
 JCFG = dataclasses.replace(Jconfigs.get_config(ARCH).reduced(), n_layers=3)

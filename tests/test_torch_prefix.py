@@ -39,6 +39,7 @@ from repro.serving import RequestScheduler as JScheduler
 from repro_torch.models import lm as Tlm
 from repro_torch.serving import GenerationConfig, PrefixCache, Request, RequestScheduler
 from repro_torch.serving.engine import tree_items
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NEW, CHUNK, SLOTS, CLEN = 6, 8, 2, 48
 CELLS = [("retnet-1.3b", None), ("qwen3-8b", None), ("qwen3-8b", "int8_tok"),

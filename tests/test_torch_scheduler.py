@@ -61,6 +61,7 @@ from repro_torch.serving import (CacheCapacityError, CachePool, EngineSpec,
                                  GenerationConfig, InferenceEngine, Request,
                                  RequestScheduler, SamplingParams, chunk_schedule)
 from repro_torch.serving.engine import tree_items, tree_nbytes
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DS3 = "deepseek-v3-671b"
 ARCHS = ["retnet-1.3b", "qwen3-8b", DS3]

@@ -22,6 +22,7 @@ from repro_torch.core import edge_model as Tedge
 from repro_torch.launch import serve
 from repro_torch.serving import sampling as Tsampling
 from repro_torch.serving.sampling import GenerationConfig, SamplingParams, sample
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

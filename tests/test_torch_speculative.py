@@ -32,7 +32,6 @@ The card's side (a captured verify step against its eager body, W8A8 in a
 graph, the per-lane activation scale) is in tests/test_torch_cuda.py.
 """
 
-import dataclasses
 import functools
 
 import jax
@@ -50,7 +49,7 @@ from repro.serving import GenerationConfig as JGen
 from repro.serving import InferenceEngine as JEngine
 from repro.serving import SpeculativeConfig as JSpecCfg
 from repro.serving import ngram_propose as jngram
-from repro_torch import bridge
+from repro_torch import bridge, configs as Tconfigs
 from repro_torch.core import retention as Tret
 from repro_torch.models import lm as Tlm
 from repro_torch.models import retnet as TR
@@ -58,23 +57,13 @@ from repro_torch.serving import (CachePool, EngineSpec, GenerationConfig, Infere
                                  Request, RequestScheduler, SamplingParams, SpecClassStep,
                                  SpeculativeConfig, ngram_propose)
 from repro_torch.serving.engine import _clone, tree_items
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CELLS = [("retnet-1.3b", None), ("qwen3-8b", None), ("qwen3-8b", "int8_tok"),
          ("qwen3-8b", "mxint4_blk"), (DS3, None), (DS3, "int8_tok"), (DS3, "mxint4_blk")]
 CELL_IDS = ["retnet", "qwen3-f32", "qwen3-int8_tok", "qwen3-mxint4_blk", "ds3_cut-f32",
             "ds3_cut-int8_tok", "ds3_cut-mxint4_blk"]
 FP_TOL, DEPLOYED_TOL = 1e-4, 1e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The reduced models' ops are small: one intra-op thread each, so that
-    the test workers running beside this module do not oversubscribe the
-    cores (the previous count is restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -302,8 +291,9 @@ def test_rollback_restores_exact_state_after_full_rejection():
 
 
 def test_commit_of_an_unported_family_names_a9():
-    _, te = engines("qwen3-8b")
-    cfg = dataclasses.replace(te.cfg, sliding_window=8)
+    """Rings and SSM state roll back since their slice; MoE layers still
+    name A9."""
+    cfg = Tconfigs.get_config("olmoe-1b-7b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         Tlm.commit_verified_cache({"pos": torch.tensor(0)}, {"blocks": []},
                                   torch.tensor(1), 2, cfg)
