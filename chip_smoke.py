@@ -26,7 +26,12 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    W8A8 also at the SSM paths' shapes, hymba's x_proj (N 132) and dt_proj
    (K 100) on the zero-padded operands deploy holds (exact against the
    unpadded product; the library timed on the same padded operands), and
-   hymba's x_proj at the decode step's M 2;
+   hymba's x_proj at the decode step's M 2; flash-decode also at
+   olmoe-1b-7b's G 1 (B 2, KV 16, d 128, C 544; f32, int8_tok, mxint4_blk);
+   the routed experts' GEMV (`mxint4_expert_matmul`) at olmoe's decode (A
+   16 rows) and verify (A 80) shapes, its bound from the distinct experts'
+   bytes, beside the PyTorch gather + dequantize + bmm and the reference's
+   whole-stack dataflow (`kernel_phase_mxint4_expert`);
    retention on the model's strided views and the MLA mode, each bound by
    its split-TF32 instruction mix (the f32 CUDA-core bound beside it), with
    a profiler check that one call runs only its own launches (retention
@@ -39,7 +44,7 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (`sigma_chain_price`); and the selective scan (plain PyTorch, not a
    kernel: `scan_phase`), device ms per layer, per prefill and per decode
    step at falcon-mamba-7b's and hymba-1.5b's widths;
-4. the five main paths at full width, each through
+4. the six main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens (each
    decode step a replay of one captured CUDA graph, its launches counted per
@@ -54,7 +59,10 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    latent-cache formats, falcon-mamba-7b (64 Mamba-1 layers, d_model 4096,
    d_inner 8192, state 16, vocab 65024; its cache has no KV, one cell) and
    hymba-1.5b (32 layers, d_model 1600, 25 heads over 5 KV heads of 64 on a
-   1024-slot ring beside Mamba, d_inner 3200; f32, int8_tok, mxint4_blk),
+   1024-slot ring beside Mamba, d_inner 3200; f32, int8_tok, mxint4_blk) and
+   olmoe-1b-7b (16 layers, d_model 2048, 16 heads over 16 KV heads of 128
+   with QK-norm, 64 experts, top 8, moe_d_ff 1024, vocab 50304; the same
+   three formats; its B 2 decode dispatch drops, counted by `moe_drops`),
    all from seeded random weights in the default
    W8A8/MXINT4 deployment; then the
    same weights on the plain path (``kernel_impl="ref"``): every block in
@@ -140,7 +148,10 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    with its trace and metrics, and ``--speculative`` in the single-generate
    and the scheduler mode; on qwen3-8b ``--prefix-cache`` (4 of 5
    admissions adopt the shared prompt); one greedy generate each on
-   falcon-mamba-7b and hymba-1.5b;
+   falcon-mamba-7b, hymba-1.5b and olmoe-1b-7b; reduced deepseek-v3 with its
+   MoE layers (3 dense, 2 MoE with the shared expert) against the CPU too,
+   block by block on the CPU's input, its prefill logits end to end and on
+   fp weights (`reduced_vs_cpu`, `cpu_lockstep`);
 10. the selective scan's line, one JSON line ``{"kernels": [...]}`` (``scheduler_launches_by_path``,
    ``prefix_launches_by_path`` and ``speculative_launches_by_path`` beside
    ``launches``; W8A8's rows also at the verify step's shapes, M 10, under
@@ -202,6 +213,10 @@ SRC = {
                          "src/repro/kernels/flash_decode.py:108"),
     "rmsnorm_stats": ("src/repro_torch/kernels/csrc/rmsnorm_stats.cu",
                       "src/repro/kernels/rmsnorm_stats.py:38"),
+    # Replaces no Pallas kernel: the reference dequantizes every expert
+    # stack and runs an einsum (its local MoE path).
+    "mxint4_expert_matmul": ("src/repro_torch/kernels/csrc/mxint4_matmul.cu",
+                             "src/repro/models/mlp.py:70"),
 }
 # The full-width main paths: per layer (K, N, linears of that shape) run in
 # both phases (MXINT4 in decode), those whose N is no multiple of 32 and so
@@ -243,7 +258,28 @@ HYMBA = dict(arch="hymba-1.5b", layers=32, d=1600, vocab=32256, kv=5, g=5, hd=64
                       (3200, 1600, 1), (1600, 5504, 2), (5504, 1600, 1)),
              decode_w8_linears=((3200, 132, 1),), prefill_linears=(), attn="gqa",
              admit_prompt=1100, admit_chunk=128, f32_witness=True)
-PATHS = (RETNET, QWEN3, DS3, FALCON_MAMBA, HYMBA)
+# olmoe-1b-7b: GQA with QK-norm (16 heads over 16 KV heads of 128: G 1),
+# the router (N 64) and, per MoE layer, the routed experts' wg / wi (2048 ->
+# 1024) and wo (1024 -> 2048) through `mxint4_expert_matmul` in decode
+# (``experts``: count, top k, d_ff) and a dequantized bmm in prefill.
+OLMOE = dict(arch="olmoe-1b-7b", layers=16, d=2048, vocab=50432, kv=16, g=1, hd=128,
+             formats=(None, "int8_tok", "mxint4_blk"),
+             linears=((2048, 2048, 4), (2048, 64, 1)),
+             decode_w8_linears=(), prefill_linears=(), attn="gqa",
+             experts=dict(e=64, k=8, f=1024), f32_witness=True)
+PATHS = (RETNET, QWEN3, DS3, FALCON_MAMBA, HYMBA, OLMOE)
+# deepseek-v3 with its MoE layers: 3 dense then 2 MoE layers with the shared
+# expert over MLA, reduced only (its 58 MoE layers of 256 experts do not fit
+# one card), in `reduced_vs_cpu`.  It is held stage by stage (``lockstep``:
+# each card block on the CPU's input to it, `cpu_lockstep`), and its prefill
+# logits from the card's stack to LOGIT_TOL with the CPU's codes fed only
+# into the blocks whose output a moved code moved past DECODE_BLOCK_TOL (on
+# an H100 block 0 alone, PERF.md), and on fp weights.  With each side's own
+# codes they part by 3.9e-2 of max|logit| on an H100 (PERF.md: an int8 code
+# moved in block 0, as on ds3_dense, and one token routed to another expert
+# downstream), a reading recorded beside them.
+DS3_MOE = dict(arch="ds3_moe", formats=(None, "int8_tok", "mxint4_blk"),
+               reduced=_DS3.reduced(), lockstep=True)
 BATCH, PROMPT, NEW = 2, 512, 32
 CACHE_LEN = PROMPT + NEW           # KV slots of a generate: 544
 DECODE_KV_LEN = CACHE_LEN - 16     # kv_len at which flash-decode is timed
@@ -253,6 +289,8 @@ DECODE_CHECK_LENS = (1, 16, 17, 257, CACHE_LEN - 1, CACHE_LEN)
 # Kernel path vs plain path, relative to max|value| (see `compare_paths`).
 BLOCK_TOL = 2e-2         # prefill block, same input: an int8 rounding step
 DECODE_BLOCK_TOL = 1e-3  # decode block, same input: f32 summation order only
+                         # (so too a card block against the CPU on the same
+                         # input and int8 codes, `cpu_lockstep`)
 PREFILL_TOL = 0.5        # end to end; the plain path's own one-bf16-step
                          # sensitivity measured 0.26 on an H100 (PERF.md)
 DECODE_TOL = 0.1         # one decode step end to end from the same cache
@@ -261,7 +299,11 @@ DECODE_TOL = 0.1         # one decode step end to end from the same cache
 # W8A8 x_proj (``f32_witness``, `_witness_step`): in bf16 their 64 / 32
 # layers turn each block's f32 summation-order gap into rounding flips that
 # grow layer by layer (0.11-0.53 of max|logit| on an H100, PERF.md), a
-# reading recorded beside the gap after each block.  A decode block with a
+# reading recorded beside the gap after each block.  So is olmoe-1b-7b's:
+# in bf16 a rounding flip moves a router's input by a bf16 step, enough to
+# change a token's top 8 experts in some layer (0.21 of max|logit| on an
+# H100 at the first step, PERF.md); the tokens whose experts differ between
+# the paths are counted in each stream.  A decode block with a
 # W8A8 linear is held as `_decode_lockstep` says.
 LOGIT_TOL = 2e-2         # reduced model, card kernels vs CPU plain path
 # Models whose random weights emit ids in the LM head's padding rows
@@ -301,6 +343,14 @@ ADMIT_PROMPT, ADMIT_CHUNK = 500, 32
 # busy shares (`profile_shares`) in a path's first cache format only, the
 # other formats' graph and eager loop once each (eager, graph).
 COMPARE_STEPS, FREE_RUN_NEW = 4, 8
+# After a path's first cache format (cut when olmoe-1b-7b came, to keep the
+# run inside its time: PERF.md), the plain-path comparison covers the first
+# LATER_COMPARE_STEPS decode steps and not the prefill (which is the same
+# function in every format: the cache is encoded after it); the admission
+# phase's bucketed and monolithic prefills (their launches, times and
+# resumed tokens) and the speculative phase's timing turns run in the first
+# format only.
+LATER_COMPARE_STEPS = 2
 # Likewise in the admission phase (`serve_admission`): the lockstep with the
 # plain path covers every chunk in a path's first cache format and the first
 # LATER_LOCKSTEP_CHUNKS in the others, whose three prefills are timed once
@@ -464,6 +514,74 @@ def kernel_phase_mxint4(peaks):
             plan=hopper.mxint4_plan(m, n, k), rate=f"{nbytes / ms / 1e6:.1f} GB/s",
             bound_share=bms / ms))
         del w_deq
+    return rows
+
+
+def _route(t: int, e: int, k: int, g: torch.Generator) -> torch.Tensor:
+    """Expert ids ``[t * k]`` of t tokens that each take k distinct experts
+    of e (a router's top k), token-major as the MoE's assigned form lays
+    its rows out."""
+    return torch.rand(t, e, generator=g, device="cuda").topk(k, dim=-1).indices.reshape(-1)
+
+
+def _expert_cases(path: dict):
+    """(path, tokens, K, N, launches per unit, main) of the routed experts'
+    GEMV: olmoe's decode step (B 2 tokens: A = 16 rows) and its speculative
+    verify step (B 2 x k 4 + 1 tokens: A = 80), at wg / wi (2048 -> 1024,
+    twice a layer) and wo (1024 -> 2048)."""
+    f, d, n = path["experts"]["f"], path["d"], path["layers"]
+    return [(name, t, k_, n_, c * n, main)
+            for name, t, main in ((path["arch"], BATCH, True),
+                                  (f"{path['arch']} verify", BATCH * (SPEC_K + 1), False))
+            for k_, n_, c in ((d, f, 2), (f, d, 1))]
+
+
+def kernel_phase_mxint4_expert(peaks):
+    """`mxint4_expert_matmul` at the MoE paths' decode and verify shapes
+    against its plain version, on experts chosen as a router chooses them.
+    The bound counts the distinct experts' MXINT4 bytes (the rows' ids are
+    this run's data); ``library_ms`` is the PyTorch composition the plain
+    version is (gather the experts, dequantize, bmm) and ``whole_stack_ms``
+    the reference's own dataflow (every stack dequantized to f32, then the
+    rows' products)."""
+    rows = []
+    for path in (p for p in PATHS if "experts" in p):
+        e, top = path["experts"]["e"], path["experts"]["k"]
+        for arch, t, k, n, count, main in _expert_cases(path):
+            g = _gen(t + k + n)
+            packed, exps = deploy.quantize_stacked(
+                torch.randn(e, k, n, generator=g, device="cuda") * k ** -0.5)
+            a = t * top
+            x = torch.randn(a, k, generator=g, device="cuda")
+            ids = _route(t, e, top, g)
+            run = lambda: ops.mxint4_expert_matmul(x, packed, exps, ids,  # noqa: E731
+                                                   impl="kernel")
+            got = run()
+            want = ref.mxint4_expert_matmul_ref(x, packed, exps, ids)
+            err = _check(f"mxint4_expert {a}x{k}x{n}", got, want, 1e-5, 1e-5)
+            if not torch.equal(got, run()):
+                raise RuntimeError(f"mxint4_expert {a}x{k}x{n}: two launches differ")
+            distinct = int(ids.unique().numel())
+            nbytes = (distinct * (k * n // 2 + k * n // 32) + 4 * a * k + 8 * a
+                      + 4 * a * n)
+            bms, by = bound_ms(nbytes, 2 * a * k * n, peaks["f32"], peaks)
+            ms = time_ms(run)
+
+            def whole_stack():
+                w = mx.dequantize_stacked(packed, exps)
+                return torch.bmm(x[:, None], w.index_select(0, ids))[:, 0]
+
+            rows.append(dict(
+                path=arch, shape=[a, k, n], experts=e, distinct_experts=distinct,
+                per_step=count, max_abs_err=err, ms=ms, call_ms=call_ms(run),
+                plain_ms=time_ms(lambda: ref.mxint4_expert_matmul_ref(x, packed, exps, ids)),
+                library_ms=time_ms(lambda: torch.bmm(x[:, None], mx.dequantize_stacked(
+                    packed.index_select(0, ids), exps.index_select(0, ids)))[:, 0]),
+                whole_stack_ms=time_ms(whole_stack), bound_ms=bms, bound_by=by,
+                rate=f"{nbytes / ms / 1e6:.1f} GB/s", bound_share=bms / ms))
+            if not main:
+                rows[-1].update(main=False, site="speculative verify step")
+            del packed, exps
     return rows
 
 
@@ -680,15 +798,18 @@ def sdpa_backend(fn) -> str:
 
 
 # Flash-decode's GQA shapes: qwen3-8b (B 2, KV 8, G 4, d 128, C 544; every
-# cache format, timed at kv_len 528) and hymba-1.5b over its ring (B 2, KV 5,
+# cache format, timed at kv_len 528), hymba-1.5b over its ring (B 2, KV 5,
 # G 5: two group chunks, the second holding one head; d 64; C 1024, timed at
-# 1024: the ring full, as it is from the wrap on).
+# 1024: the ring full, as it is from the wrap on) and olmoe-1b-7b (B 2, KV
+# 16, G 1: three of the four group rows of a block idle; d 128, C 544).
 FD_SHAPES = (
     dict(path=QWEN3, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
          lanes=LANE_KV_LENS, formats=("f32", "bf16", "int8", "int8_tok", "mxint4_blk")),
     dict(path=HYMBA, c=HYMBA["window"], kv_len=HYMBA["window"],
          check=(1, 16, 17, 513, 1023, 1024), lanes=((1, 1024), (1024, 300)),
          formats=("f32", "int8_tok", "mxint4_blk")),
+    dict(path=OLMOE, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
+         lanes=LANE_KV_LENS, formats=("f32", "int8_tok", "mxint4_blk")),
 )
 
 
@@ -1012,7 +1133,7 @@ def summarize(name, rows, per_key, tol):
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
         key for key in ("library_rowmajor_ms", "library_gqa_ms", "bound_f32_ms",
                         "plain_contiguous_ms", "amortised_ms", "nearest_library_ms",
-                        "per_lane_ms")
+                        "per_lane_ms", "whole_stack_ms")
         if key in rows[0])
     per_path = {p: {key: total(key, lambda r, p=p: r["path"] == p) for key in keys}
                 for p in dict.fromkeys(r["path"] for r in rows)}
@@ -1048,6 +1169,8 @@ def expected_launches(path: dict, s: int = PROMPT) -> tuple[dict, dict]:
         per_step["flash_decode_mla"] = path["layers"]
     elif path["attn"] == "gqa":
         per_step["flash_decode"] = path["layers"]
+    if "experts" in path:
+        per_step["mxint4_expert_matmul"] = 3 * path["layers"]
     return per_prefill, per_step
 
 
@@ -1143,6 +1266,8 @@ def serve_full_width(path: dict, card: str):
                                 r.decode_s * 1e3 / r.decode_steps for r in runs]})
         serving["prefill_tokens_per_s"] = BATCH * PROMPT / (serving["prefill_ms"] / 1e3)
         serving["graph_and_eager_bit_identical"] = True
+        if "experts" in path and fmt == path["formats"][0]:
+            serving["moe_dispatch"] = moe_drops(tag, eng, prompts, gen)
         t_profile = time.perf_counter()
         if fmt == path["formats"][0]:
             serving.update(profile_shares(eng, prompts, gen))
@@ -1152,7 +1277,8 @@ def serve_full_width(path: dict, card: str):
 
         # The same weights on the plain path.
         t1 = time.perf_counter()
-        checks = compare_paths(path, eng, plain, prompts, gen)
+        checks = compare_paths(path, eng, plain, prompts, gen,
+                               first=fmt == path["formats"][0])
         res_k, res_p, drift = free_running(eng, plain, prompts, gen)
         checks.update(
             greedy_token_agreement=(res_p.tokens == toks[:, :FREE_RUN_NEW]).float().mean().item(),
@@ -1179,6 +1305,51 @@ def serve_full_width(path: dict, card: str):
     del eng, plain
     torch.cuda.empty_cache()
     return counted, admitted, scheduled, prefixed, speculated, results
+
+
+@contextlib.contextmanager
+def dispatch_spy():
+    """Record every MoE dispatch (`mlp.dispatch`): the experts chosen, the
+    slot positions and the capacity (a position equal to it is a dropped
+    assignment)."""
+    from repro_torch.models import mlp
+    real, seen = mlp.dispatch, []
+
+    def spy(idx, e, cap):
+        pos = real(idx, e, cap)
+        seen.append((idx, pos, cap))
+        return pos
+
+    mlp.dispatch = spy
+    try:
+        yield seen
+    finally:
+        mlp.dispatch = real
+
+
+def moe_drops(tag, eng, prompts, gen) -> dict:
+    """One eager generate with every dispatch recorded: the assignments and
+    drops of the prefill's dispatches (B x S tokens each) and of the decode
+    steps' (B tokens, one dispatch a layer: at olmoe's widths cap 1, so two
+    lanes that pick one expert drop the later lane's assignment).  Raises
+    if no decode dispatch dropped: the drop path did not run."""
+    with dispatch_spy() as seen:
+        eager_generate(eng, prompts, gen)
+
+    def count(calls):
+        return (sum(p.numel() for _, p, _ in calls),
+                sum(int((p == cap).sum()) for _, p, cap in calls),
+                sorted({c for _, _, c in calls}))
+
+    (pa, pd, pcap), (da, dd, dcap) = (count([c for c in seen if c[1].shape[1] == n])
+                                      for n in (prompts.shape[1] * prompts.shape[0], BATCH))
+    out = dict(prefill_assignments=pa, prefill_dropped=pd, prefill_cap=pcap,
+               decode_assignments=da, decode_dropped=dd, decode_cap=dcap,
+               dispatches=len(seen))
+    log(f"{tag} MoE dispatch (one eager generate): {json.dumps(out)}")
+    if not dd:
+        raise RuntimeError(f"{tag}: no B {BATCH} decode dispatch dropped an assignment")
+    return out
 
 
 @torch.inference_mode()
@@ -1382,6 +1553,37 @@ def chunk_lockstep(eng, plain, prompts, fmt, chunk_size: int,
                 lockstep_encoded_bytes_differing=[diff_bytes, total_bytes])
 
 
+def _mono_and_bucketed(tag, path, eng, prompts, gen, fns, lg_c, t_c0, res) -> dict:
+    """The admission phase's bucketed and monolithic prefills beside the
+    chunked one (``fns``: bucketed, monolithic, chunked): their launches,
+    host ms in turns (chunked, bucketed, monolithic, monolithic, bucketed,
+    chunked: the two chunked prefills must give the same logits), and the
+    chunked and bucketed logits and resumed tokens against monolithic's."""
+    bucketed, mono, chunked = fns
+    times = dict(chunked=[t_c0], bucketed=[], monolithic=[])
+    runs = {}
+    for name, fn in (("bucketed", bucketed), ("monolithic", mono), ("monolithic", mono),
+                     ("bucketed", bucketed), ("chunked", chunked)):
+        runs[name], ms = _timed(fn)
+        times[name].append(ms)
+    out = dict(prefill_ms_in_turns=times,
+               prefill_launches=one_prefill_launches(tag, path, eng, prompts, gen))
+    (lg_m, cache_m), (lg_b, cache_b) = runs["monolithic"], runs["bucketed"]
+    if not torch.equal(runs["chunked"][0], lg_c):
+        raise RuntimeError(f"{tag}: two chunked prefills of one prompt differ")
+    res_m = eng.resume_generate(lg_m.argmax(-1), cache_m, gen)
+    res_b = eng.resume_generate(lg_b.argmax(-1), cache_b, gen)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
+    for r in (res_m, res_b):
+        if r.tokens.shape != (BATCH, NEW) or not _in_vocab(eng.cfg, r.tokens):
+            raise RuntimeError(f"{tag}: bad tokens {r.tokens.shape}")
+    return dict(out, chunked_vs_monolithic_logit_rel=rel(lg_c, lg_m),
+                bucketed_vs_monolithic_logit_rel=rel(lg_b, lg_m),
+                chunked_vs_monolithic_first_parting=_parting(res.tokens, res_m.tokens),
+                bucketed_vs_monolithic_first_parting=_parting(res_b.tokens, res_m.tokens),
+                bucketed_capture_s=res_b.capture_s)
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1408,14 +1610,13 @@ def serve_admission(path: dict, eng, plain, card: str):
     layers, one eager warm-up step and the replays); the graph against the
     eager loop from the same cache, bit for bit, the final cache read from
     the caller's; for the first format, the resume in two halves against
-    the one resume (`resume_in_halves`); the launches of one monolithic and
-    one bucketed prefill (`one_prefill_launches`).  Recorded: the chunked and
-    the bucketed (to 512) prefill against monolithic prefill on the same
-    deployed weights (the last logits' largest relative difference, where
-    the greedy tokens resumed from each cache part from monolithic's),
-    and the three prefills' host ms, in the first format in turns (chunked,
-    bucketed, monolithic, monolithic, bucketed, chunked: the two chunked
-    prefills must give the same logits), once each in the others."""
+    the one resume (`resume_in_halves`) and the launches of one monolithic
+    and one bucketed prefill (`one_prefill_launches`).  Recorded, in the
+    first format (`_mono_and_bucketed`): the chunked and the bucketed (to
+    512) prefill against monolithic prefill on the same deployed weights
+    (the last logits' largest relative difference, where the greedy tokens
+    resumed from each cache part from monolithic's), and the three
+    prefills' host ms in turns."""
     arch = path["arch"]
     t0 = time.perf_counter()
     cfg = eng.cfg
@@ -1487,34 +1688,12 @@ def serve_admission(path: dict, eng, plain, card: str):
             return eng.prefill_chunked(prompts, cache_len=admit_cache, chunk_size=chunk_size,
                                        cache_dtype=fmt or torch.float32)
 
-        times = dict(chunked=[t_c0], bucketed=[], monolithic=[])
-        runs = {}
-        turns = ((("bucketed", bucketed), ("monolithic", mono), ("monolithic", mono),
-                  ("bucketed", bucketed), ("chunked", chunked)) if first
-                 else (("bucketed", bucketed), ("monolithic", mono)))
-        for name, fn in turns:
-            runs[name], ms = _timed(fn)
-            times[name].append(ms)
-        out["prefill_ms_in_turns"] = times
-        out["prefill_launches"] = one_prefill_launches(tag, path, eng, prompts, gen)
-        lg_m, cache_m = runs["monolithic"]
-        lg_b, cache_b = runs["bucketed"]
-        if first and not torch.equal(runs["chunked"][0], lg_c):
-            raise RuntimeError(f"{tag}: two chunked prefills of one prompt differ")
-        res_m = eng.resume_generate(lg_m.argmax(-1), cache_m, gen)
-        res_b = eng.resume_generate(lg_b.argmax(-1), cache_b, gen)
-        rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
-        out.update(chunked_vs_monolithic_logit_rel=rel(lg_c, lg_m),
-                   bucketed_vs_monolithic_logit_rel=rel(lg_b, lg_m),
-                   chunked_vs_monolithic_first_parting=_parting(res.tokens, res_m.tokens),
-                   bucketed_vs_monolithic_first_parting=_parting(res_b.tokens, res_m.tokens),
-                   bucketed_capture_s=res_b.capture_s)
-        for r in (res_m, res_b):
-            if r.tokens.shape != (BATCH, NEW) or not _in_vocab(cfg, r.tokens):
-                raise RuntimeError(f"{tag}: bad tokens {r.tokens.shape}")
+        if first:
+            out.update(_mono_and_bucketed(tag, path, eng, prompts, gen,
+                                          (bucketed, mono, chunked), lg_c, t_c0, res))
         log(f"{tag}:", json.dumps(out))
         results[tag] = out
-        del cache_c, cache_m, cache_b, runs
+        del cache_c
     log(f"{arch} admission phase: {time.perf_counter() - t0:.1f} s")
     return counted, results
 
@@ -2089,11 +2268,14 @@ SPEC_CLASSES = tuple((n, c + SPEC_K) for n, c in DRAIN_CLASSES)
 
 
 def spec_step_launches(path: dict) -> dict:
-    """Launches of one verify step: W8A8 alone, those of one admission chunk
-    (every linear, MLA's whole-latent re-expansion and the LM head);
-    retention runs the recurrent form with snapshots."""
+    """Launches of one verify step: W8A8, those of one admission chunk
+    (every linear, MLA's whole-latent re-expansion and the LM head), and a
+    MoE layer's expert GEMV three times, as in decode (the verify dispatch
+    never dequantizes a stack); retention runs the recurrent form with
+    snapshots."""
     per = dict.fromkeys(hopper.COUNTERS, 0)
     per["w8a8_matmul"] = expected_launches(path, SPEC_K + 1)[0]["w8a8_matmul"]
+    per["mxint4_expert_matmul"] = expected_launches(path)[1]["mxint4_expert_matmul"]
     return per
 
 
@@ -2171,7 +2353,8 @@ def _margin_at(eng, prompts, plain_tokens, col: int, rows) -> list:
 
 
 @torch.inference_mode()
-def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict]:
+def speculative_cell(path: dict, eng, plain, fmt, card: str,
+                     first: bool = True) -> tuple[dict, dict]:
     """(a) One (path, cache format) cell.  Fatal: the graph's loop against
     the eager loop from the same prefill (tokens, lengths, verify steps,
     accepted drafts, history and final cache bit for bit); the captured
@@ -2179,9 +2362,10 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict
     generate's (its prefill's and its replays'); the lockstep comparison
     with the plain path (`verify_lockstep`).  Recorded: tokens per step,
     acceptance, one replay's device ms, the host read of the loop's
-    condition, ms per emitted token against the plain graph loop in turns,
-    capture seconds, and where the speculative tokens first part from the
-    plain loop's with the plain loop's top-two margin there."""
+    condition, ms per emitted token against the plain graph loop in turns
+    (after a path's first format, not ``first``: one plain run beside the
+    counted one), capture seconds, and where the speculative tokens first
+    part from the plain loop's with the plain loop's top-two margin there."""
     from repro_torch.serving.sampling import SpeculativeConfig
     tag = f"{path['arch']} speculative" + ("" if fmt is None else f" {fmt}")
     cfg = eng.cfg
@@ -2231,7 +2415,7 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict
         bool(g.more)
         read_ms.append((time.perf_counter() - t0) * 1e3)
     runs = dict(speculative=[res], plain=[])
-    for kind in ("plain", "plain", "speculative"):
+    for kind in ("plain", "plain", "speculative") if first else ("plain",):
         runs[kind].append(eng.generate(prompts, gen if kind == "speculative" else plain_gen))
     # A run that captured its graph (the first plain one: SPEC_NEW tokens is
     # a new key) is timed without the capture.
@@ -2247,8 +2431,8 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict
                host_read_ms=sorted(read_ms)[2],
                loop_ms_per_verify_step=res.decode_s * 1e3 / res.verify_steps,
                ms_per_token_in_turns=per_tok,
-               ms_per_token=sum(per_tok["speculative"]) / 2,
-               plain_ms_per_token=sum(per_tok["plain"]) / 2,
+               ms_per_token=sum(per_tok["speculative"]) / len(per_tok["speculative"]),
+               plain_ms_per_token=sum(per_tok["plain"]) / len(per_tok["plain"]),
                graph_and_eager_bit_identical=True, first_parting_from_plain=col)
     if col is not None:
         rows = (toks[:, col] != plain_toks[:, col]).nonzero()[:, 0].tolist()
@@ -2347,8 +2531,8 @@ def spec_scheduler_drain(path: dict, eng, card: str) -> tuple[dict, dict]:
         raise RuntimeError(f"{tag}: {len(res)} of {len(reqs)} finished, bad {bad}, "
                            f"identity checked {identity is not None}")
     want = _chunk_launches(path, [c for p in reqs for c in chunk_schedule(len(p), DRAIN_CHUNK)])
-    want["w8a8_matmul"] += sum(st.replays * st.launches["w8a8_matmul"]
-                               for st in sched.pool.steps.values())
+    for k in ("w8a8_matmul", "mxint4_expert_matmul"):
+        want[k] += sum(st.replays * st.launches[k] for st in sched.pool.steps.values())
     if launches != want:
         raise RuntimeError(f"{tag}: launches {launches}, expected {want} (chunks and replays)")
     out = dict(card=card, classes=[list(c) for c in SPEC_CLASSES], prompt_lens=list(DRAIN_LENS),
@@ -2378,7 +2562,8 @@ def serve_speculative(path: dict, eng, plain, card: str) -> tuple[dict, dict]:
         f"mode, classes {SPEC_CLASSES}")
     launches, results = dict.fromkeys(hopper.COUNTERS, 0), {}
     for fmt in path["formats"]:
-        counted, out = speculative_cell(path, eng, plain, fmt, card)
+        counted, out = speculative_cell(path, eng, plain, fmt, card,
+                                        first=fmt == path["formats"][0])
         results[f"{arch} speculative" + ("" if fmt is None else f" {fmt}")] = out
         for k in launches:
             launches[k] += counted[k]
@@ -2434,7 +2619,8 @@ def serve_cli() -> dict:
     metrics, all on retnet-1.3b; then ``--prefix-cache`` on qwen3-8b (LISO at
     0.08: 5 prompts of 60 tokens opening with one 45-token prefix), whose
     hit line must report 4 of 5 admissions adopting it; then one greedy
-    generate each with ``--arch falcon-mamba-7b`` and ``--arch hymba-1.5b``.  Each must exit 0
+    generate each with ``--arch falcon-mamba-7b``, ``--arch hymba-1.5b`` and
+    ``--arch olmoe-1b-7b``.  Each must exit 0
     and print its ``[serve]`` lines, the last the mode's own.  CLI_WORKERS of
     them run at a time (each is host-bound; its timings are not recorded)."""
     import tempfile
@@ -2464,6 +2650,8 @@ def serve_cli() -> dict:
             ("falcon_mamba", ["--arch", "falcon-mamba-7b", "--scenario", "SILO", "--scale",
                               "0.1", "--batch", "2"], "[serve] sample output tokens"),
             ("hymba", ["--arch", "hymba-1.5b", "--scenario", "SILO", "--scale", "0.1",
+                       "--batch", "2"], "[serve] sample output tokens"),
+            ("olmoe", ["--arch", "olmoe-1b-7b", "--scenario", "SILO", "--scale", "0.1",
                        "--batch", "2"], "[serve] sample output tokens"))
         def run(argv):
             t0 = time.perf_counter()
@@ -2571,7 +2759,7 @@ def _prefill_from(model, x, cfg, hsa):
 
 
 @torch.inference_mode()
-def compare_paths(path, eng, plain, prompts, gen):
+def compare_paths(path, eng, plain, prompts, gen, first: bool = True):
     """Kernel path vs plain path on the same weights.
 
     * Per block, in lockstep: both paths get the plain path's input to the
@@ -2602,32 +2790,38 @@ def compare_paths(path, eng, plain, prompts, gen):
     roundings that the next blocks carry and grow, and over 64 layers
     (falcon-mamba-7b) the logits of two correct paths part by half of
     max|logit|, above the one-bf16-step floor (PERF.md).  The decode steps
-    compared are the first COMPARE_STEPS.
+    compared are the first COMPARE_STEPS; after a path's first format
+    (not ``first``) the first LATER_COMPARE_STEPS, and the prefill (the
+    same function in every format) is not compared again.
     """
     cfg, model = eng.cfg, eng.model
-    x = lm._embed(model, prompts)
-    sin, cos = lm._rope_tables(cfg, x.shape[1], x.device)
-    block = []
-    for i, blk in enumerate(model.blocks):
-        yr = lm._block_apply(blk, x, cfg, plain.hsa, "prefill", sin, cos)[0]
-        yk = lm._block_apply(blk, x, cfg, eng.hsa, "prefill", sin, cos)[0]
-        block.append(_rel(yk, yr, f"prefill block {i}", BLOCK_TOL))
-        x = yr.to(x.dtype)
-
-    lk, _ = eng.prefill(prompts)
+    out = {}
     lr, cache = plain.prefill(prompts, cache_len=CACHE_LEN)
+    if first:
+        x = lm._embed(model, prompts)
+        sin, cos = lm._rope_tables(cfg, x.shape[1], x.device)
+        block = []
+        for i, blk in enumerate(model.blocks):
+            yr = lm._block_apply(blk, x, cfg, plain.hsa, "prefill", sin, cos)[0]
+            yk = lm._block_apply(blk, x, cfg, eng.hsa, "prefill", sin, cos)[0]
+            block.append(_rel(yk, yr, f"prefill block {i}", BLOCK_TOL))
+            x = yr.to(x.dtype)
+        lk, _ = eng.prefill(prompts)
+        x = lm._embed(model, prompts).clone()
+        x[0, PROMPT // 2] = _bf16_step(x[0, PROMPT // 2])
+        out.update(block_max_rel_err=max(block), block_tolerance=BLOCK_TOL,
+                   prefill_logit_rel_err=_rel(lk, lr, "prefill logits", PREFILL_TOL),
+                   prefill_tolerance=PREFILL_TOL,
+                   prefill_sensitivity_floor=_rel(_prefill_from(model, x, cfg, plain.hsa), lr,
+                                                  "sensitivity", float("inf")))
     cache = plain._encode_cache(cache, gen)
-    prefill = _rel(lk, lr, "prefill logits", PREFILL_TOL)
-    x = lm._embed(model, prompts).clone()
-    x[0, PROMPT // 2] = _bf16_step(x[0, PROMPT // 2])
-    floor = _rel(_prefill_from(model, x, cfg, plain.hsa), lr, "sensitivity", float("inf"))
 
     witness = path.get("f32_witness", False)
     decode, dblock, codes, same, dfloor, flips = [], [], [], [], [], []
     f32, f32_own = [], []
-    gaps = {}
+    gaps, routes = {}, {}
     tok = lr.argmax(-1)
-    for i in range(COMPARE_STEPS):
+    for i in range(COMPARE_STEPS if first else LATER_COMPARE_STEPS):
         lk, _ = eng.decode_step(tok[:, None], _clone(cache))
         lr, nxt = plain.decode_step(tok[:, None], _clone(cache))
         decode.append(_rel(lk, lr, f"decode step {i}",
@@ -2644,17 +2838,16 @@ def compare_paths(path, eng, plain, prompts, gen):
         dfloor.append(_rel(_decode_from(model, x, _clone(cache), cfg, plain.hsa), lr,
                            "sensitivity", float("inf")))
         if witness:
-            rel, own, step_gaps = _witness_step(eng, plain, tok, cache, i)
+            rel, own, step_gaps, step_routes = _witness_step(eng, plain, tok, cache, i)
             f32.append(rel)
+            for name, n in step_routes.items():
+                routes.setdefault(name, []).append(n)
             if own is not None:
                 f32_own.append(own)
             for name, g in step_gaps.items():
                 gaps[name] = [max(a, b) for a, b in zip(gaps.get(name, g), g)]
         cache, tok = nxt, lr.argmax(-1)
-    out = dict(block_max_rel_err=max(block), block_tolerance=BLOCK_TOL,
-               prefill_logit_rel_err=prefill, prefill_tolerance=PREFILL_TOL,
-               prefill_sensitivity_floor=floor,
-               decode_block_max_rel_err=max(dblock),
+    out.update(decode_block_max_rel_err=max(dblock),
                decode_block_tolerance=DECODE_BLOCK_TOL,
                decode_logit_max_rel_err=max(decode),
                decode_logit_rel_err_by_step=decode,
@@ -2666,7 +2859,9 @@ def compare_paths(path, eng, plain, prompts, gen):
                    decode_block_same_codes_max_rel_err=max(same))
     if witness:
         out.update(decode_f32_logit_rel_err_by_step=f32, decode_f32_tolerance=DECODE_TOL,
-                   **{f"layer_gap_{name}": g for name, g in gaps.items()})
+                   **{f"layer_gap_{name}": g for name, g in gaps.items()},
+                   **{f"decode_tokens_routed_differently_{name}_by_step": n
+                      for name, n in routes.items()})
     if f32_own:
         out.update(decode_f32_own_codes_logit_rel_err_by_step=[r for r, _ in f32_own],
                    decode_f32_codes_differing_by_step=[n for _, n in f32_own])
@@ -2810,20 +3005,24 @@ def _witness_step(eng, plain, tok, cache, step):
     same codes, `_w8_inputs`).  Holds the f32 logits (with the same codes,
     where decode has a W8A8 linear) within DECODE_TOL of max|logit|.
     Returns that error; with a W8A8 linear, the f32 error with each path's
-    own codes and the codes that differed (else None); and per stream the
-    two paths' gap after each block, relative to max|residual|."""
+    own codes and the codes that differed (else None); per stream the two
+    paths' gap after each block, relative to max|residual|; and on a MoE
+    model per stream the tokens (over its layers) whose chosen experts
+    differ between the paths."""
     model, cfg = eng.model, eng.cfg
     w8 = [m for blk in model.blocks for m in _w8_decode_linears(blk)]
-    x, gaps = lm._embed(model, tok[:, None]), {}
+    x, gaps, routes = lm._embed(model, tok[:, None]), {}, {}
     gap = lambda tk, tr: [_rel(a, b, "residual", float("inf"))  # noqa: E731
                           for a, b in zip(tk, tr)]
     for name, xs in (("bf16", x), ("f32", x.float())):
         tk, tr = [], []
-        with _w8_inputs(plain.hsa, w8) as xr:
+        with _w8_inputs(plain.hsa, w8) as xr, dispatch_spy() as rr:
             lr = _decode_from(model, xs, _clone(cache), cfg, plain.hsa, tr)
-        with _w8_inputs(eng.hsa, w8) as xk:
+        with _w8_inputs(eng.hsa, w8) as xk, dispatch_spy() as rk:
             lk = _decode_from(model, xs, _clone(cache), cfg, eng.hsa, tk)
         gaps[name] = gap(tk, tr)
+        if rk:
+            routes[name] = _routes_differing(rk, rr)
     own = None
     if w8:
         own = (_rel(lk, lr, "logits", float("inf")),
@@ -2834,7 +3033,14 @@ def _witness_step(eng, plain, tok, cache, step):
         gaps["f32_same_codes"] = gap(tk, tr)
     rel = _rel(lk, lr, f"decode step {step} logits, f32 residual stream"
                + (", the same W8A8 codes" if w8 else ""), DECODE_TOL)
-    return rel, own, gaps
+    return rel, own, gaps, routes
+
+
+def _routes_differing(a: list, b: list) -> int:
+    """Tokens, summed over the MoE layers of two `dispatch_spy` records of
+    one step, whose sets of chosen experts differ."""
+    return sum(int((ia.sort(-1).values != ib.sort(-1).values).any(-1).sum())
+               for (ia, _, _), (ib, _, _) in zip(a, b))
 
 
 def _w8_decode_linears(blk) -> list:
@@ -2868,7 +3074,7 @@ def _codes_differing(hsa, xk, xr) -> int:
     """The int8 activation codes and scales that W8A8 takes differently
     from the inputs ``xk`` and ``xr``, quantized as
     `quantized_linear.apply` quantizes them."""
-    quant = (mx.quantize_act_int8_lanes if hsa.config.act_scale == "lane"
+    quant = (mx.quantize_act_int8_lanes if hsa.config.per_lane
              else mx.quantize_act_int8)
     (qk, sk), (qr, sr) = quant(xk), quant(xr)
     return int((qk != qr).sum()) + int((sk != sr).sum())
@@ -2916,19 +3122,106 @@ def _rel(a, b, what, tol):
     return rel
 
 
+def _on_cpu(eng) -> InferenceEngine:
+    return InferenceEngine(eng.cfg, copy.deepcopy(eng.model).to("cpu"), eng.spec)
+
+
+@torch.inference_mode()
+def cpu_lockstep(eng, cpu, prompts, arch: str) -> tuple[list, list]:
+    """The card's prefill against the CPU's, stage by stage: each block of
+    the card on the CPU's input to it, then the head (final norm and
+    lm_head) on the CPU's last hidden state.  A stage whose linears take
+    the same int8 codes on both sides differs only in f32 summation order
+    and is held to DECODE_BLOCK_TOL of max|output|.  Where codes differ
+    (counted: an f32 gap before a W8A8 linear moved a code by one step) the
+    stage is held to BLOCK_TOL, an int8 rounding step, and run again on the
+    card with the CPU's inputs to its linears (the same codes), held to
+    DECODE_BLOCK_TOL.  Returns one reading a stage, with the tokens whose
+    experts differ there, and the blocks whose moved codes moved their
+    output past DECODE_BLOCK_TOL."""
+    cfg, dev, n = eng.cfg, prompts.device, len(cpu.model.blocks)
+
+    def stage(model, i):
+        """Stage ``i`` of ``model``'s prefill and the linears it runs."""
+        if i == n:
+            return (lambda x, hsa: hsa.linear(
+                model.lm_head, layers.norm_full(model.final_norm, x[:, -1:]), "prefill")[:, 0],
+                [model.lm_head])
+        blk = model.blocks[i]
+
+        def block(x, hsa):
+            sin, cos = lm._rope_tables(cfg, x.shape[1], x.device)
+            return lm._block_apply(blk, x, cfg, hsa, "prefill", sin, cos)[0]
+        return block, [m for m in blk.modules() if isinstance(m, Linear)]
+
+    rows, moved = [], []
+    x = lm._embed(cpu.model, prompts.cpu())
+    for i in range(n + 1):
+        (fc, mc), (fg, mg) = stage(cpu.model, i), stage(eng.model, i)
+        name = f"block {i}" if i < n else "head"
+        tag = f"reduced {arch} prefill {name}"
+        with _w8_inputs(cpu.hsa, mc) as ic, dispatch_spy() as rc:
+            yc = fc(x, cpu.hsa)
+        with _w8_inputs(eng.hsa, mg) as ig, dispatch_spy() as rg:
+            yg = fg(x.to(dev), eng.hsa)
+        codes = sum(_codes_differing(eng.hsa, a.cpu(), b) for a, b in zip(ig, ic))
+        row = dict(stage=name, codes_differing=codes,
+                   tokens_routed_differently=_routes_differing(
+                       [(e.cpu(), p, c) for e, p, c in rg], rc),
+                   rel_err=_rel(yg.cpu(), yc, f"{tag} ({codes} W8A8 codes differ)" if codes
+                                else tag, BLOCK_TOL if codes else DECODE_BLOCK_TOL))
+        if codes:
+            with _w8_inputs(eng.hsa, mg, feed=[t.to(dev) for t in ic]):
+                ys = fg(x.to(dev), eng.hsa)
+            row["same_codes_rel_err"] = _rel(ys.cpu(), yc, f"{tag}, the same W8A8 codes",
+                                             DECODE_BLOCK_TOL)
+            if i < n and row["rel_err"] > DECODE_BLOCK_TOL:
+                moved.append(i)
+        rows.append(row)
+        x = yc.to(x.dtype)
+    return rows, moved
+
+
 def reduced_vs_cpu(path: dict):
     """The reduced model: the kernel path on the card against the plain path
     on the CPU, same weights (a small-input reference check), once per cache
-    format."""
+    format.  A path marked ``lockstep`` is held stage by stage
+    (`cpu_lockstep`), and its prefill logits, from the card's own stack, to
+    LOGIT_TOL with the CPU's inputs fed only to the linears of the blocks
+    whose moved codes moved their output in the lockstep past
+    DECODE_BLOCK_TOL (never to the head), and on fp weights; the reading with each side's own codes and the tokens whose
+    experts differ there are recorded."""
     spec = EngineSpec(reduced="reduced" not in path)
     arch = path["arch"]
     eng = InferenceEngine.from_config(path.get("reduced", arch), spec, device="cuda")
-    cpu = InferenceEngine(eng.cfg, copy.deepcopy(eng.model).to("cpu"), spec)
+    cpu = _on_cpu(eng)
     prompts = torch.randint(1, eng.cfg.vocab_size, (2, 16), generator=_gen(3),
                             device="cuda")
-    lg, _ = eng.prefill(prompts)
-    lc, _ = cpu.prefill(prompts.cpu())
-    rel = _rel(lg.cpu(), lc, f"reduced {arch} prefill", LOGIT_TOL)
+    with dispatch_spy() as rg:
+        lg, _ = eng.prefill(prompts)
+    with dispatch_spy() as rc:
+        lc, _ = cpu.prefill(prompts.cpu())
+    extra, tag = {}, f"reduced {arch} prefill"
+    if path.get("lockstep"):
+        extra = dict(prefill_rel_err_own_codes=_rel(lg.cpu(), lc, "own codes", float("inf")),
+                     tokens_routed_differently_own_codes=_routes_differing(
+                         [(i.cpu(), p, c) for i, p, c in rg], rc))
+        extra["lockstep"], moved = cpu_lockstep(eng, cpu, prompts, arch)
+        fed = lambda m: [x for i in moved for x in m.blocks[i].modules()  # noqa: E731
+                         if isinstance(x, Linear)]
+        with _w8_inputs(cpu.hsa, fed(cpu.model)) as xc:
+            lc, _ = cpu.prefill(prompts.cpu())
+        with _w8_inputs(eng.hsa, fed(eng.model), feed=[t.cuda() for t in xc]):
+            lg, _ = eng.prefill(prompts)
+        extra["blocks_fed_the_cpu_codes"] = moved
+        tag += f", the CPU's codes into blocks {moved}" if moved else ""
+        fp = InferenceEngine.from_config(path["reduced"], EngineSpec(quantize=False),
+                                         device="cuda")
+        extra["prefill_rel_err_fp"] = _rel(fp.prefill(prompts)[0].cpu(),
+                                           _on_cpu(fp).prefill(prompts.cpu())[0],
+                                           f"reduced {arch} prefill, fp weights", LOGIT_TOL)
+        del fp
+    rel = _rel(lg.cpu(), lc, tag, LOGIT_TOL)
     agree = {}
     for fmt in path["formats"]:
         gen = GenerationConfig(max_new_tokens=12, cache_format=fmt)
@@ -2936,8 +3229,8 @@ def reduced_vs_cpu(path: dict):
         tc = cpu.generate(prompts.cpu(), gen).tokens
         agree[fmt or "f32"] = (tg == tc).float().mean().item()
     log(f"reduced {arch}, card kernels vs CPU plain: prefill rel err {rel:.3e}, "
-        f"greedy-token agreement {agree}")
-    return {f"reduced {arch}": dict(prefill_rel_err=rel, greedy_agreement=agree)}
+        f"greedy-token agreement {agree}" + (f", {json.dumps(extra)}" if extra else ""))
+    return {f"reduced {arch}": dict(prefill_rel_err=rel, greedy_agreement=agree, **extra)}
 
 
 def main() -> int:
@@ -2985,6 +3278,8 @@ def main() -> int:
                   "rtol=2e-5, atol=2e-6"),
         summarize("rmsnorm_stats", kernel_phase_rmsnorm_stats(peaks), "per_call",
                   "rtol=atol=1e-6"),
+        summarize("mxint4_expert_matmul", kernel_phase_mxint4_expert(peaks), "per_step",
+                  "rtol=atol=1e-5"),
     ]
     for e in entries:
         for r in e["shapes"]:
@@ -2994,8 +3289,8 @@ def main() -> int:
                 "bound_f32_ms", "bound_share_f32", "plain_contiguous_ms", "flops",
                 "warm_state_max_abs_err", "f64_max_abs_err", "amortised_ms", "per_lane_ms",
                 "per_lane_kv_len", "per_lane_max_abs_err",
-                "amortised_bound_share", "nearest_library_ms",
-                "site", "launch_kernels", "plan")
+                "amortised_bound_share", "nearest_library_ms", "whole_stack_ms",
+                "distinct_experts", "site", "launch_kernels", "plan")
                 if key in r)
             log(f"  {e['name']} {r['path']} {r['shape']}: kernel {r['ms']:.4f} (per call "
                 f"{r['call_ms']:.4f}) plain {r['plain_ms']:.4f} library "
@@ -3015,7 +3310,7 @@ def main() -> int:
          prefixed[path["arch"]], speculated[path["arch"]], results) = serve_full_width(path,
                                                                                        smi)
         serving.update(results)
-    for path in PATHS:
+    for path in PATHS + (DS3_MOE,):
         serving.update(reduced_vs_cpu(path))
     t0 = time.perf_counter()
     serving["serve CLI"] = serve_cli()

@@ -12,7 +12,10 @@ own: jax's bf16 arrays arrive as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects, so they are reinterpreted through ``uint16``.
 A deployed ``w8_vals`` is stored K-major, as `deploy.k_major` holds it (with
 its bias, zero-padded to multiples of 16 where the GEMM needs that; the
-linear's ``shape`` keeps the tree's ``[K, N]``).
+linear's ``shape`` keeps the tree's ``[K, N]``).  A MoE layer's ``moe``
+subtree gives its router (a linear), its expert stacks (``experts.{wg, wi,
+wo}``, or deployed ``experts.{wg, wi, wo}_mx.{packed, exps}``) and its
+shared experts (an MLP).
 """
 
 from __future__ import annotations
@@ -73,33 +76,51 @@ def _attention(a: dict, device) -> Attention:
                      *(_norm(a[n], device) if n in a else None for n in ("qnorm", "knorm")))
 
 
+def _mlp(f: dict, device) -> M.MLP:
+    return M.MLP(_linear(f["wi"], device), _linear(f["wo"], device),
+                 _linear(f["wg"], device) if "wg" in f else None)
+
+
+def _moe(d: dict, device) -> M.MoE:
+    ex = d["experts"]
+    weights = {}
+    for n in M.EXPERT_WEIGHTS:
+        if n in ex:
+            weights[n] = to_tensor(ex[n], device)
+        else:
+            weights[f"{n}_packed"] = to_tensor(ex[f"{n}_mx"]["packed"], device)
+            weights[f"{n}_exps"] = to_tensor(ex[f"{n}_mx"]["exps"], device)
+    return M.MoE(_linear(d["router"], device), M.Experts(**weights),
+                 _mlp(d["shared"], device) if "shared" in d else None)
+
+
+def _mla(a: dict, device) -> MLA:
+    return MLA(*((_norm if n.endswith("norm") else _linear)(a[n], device)
+                 for n in MLA_PARTS))
+
+
 def _block(d: dict, cfg: ModelConfig, kind: str, device):
     """One layer's subtree -> its group's block kind: a `RetNetBlock`
-    (``ret``), a `DenseBlock` (``attn``: GQA, or `MLA` for deepseek-v3), an
-    `SSMBlock` (``mamba``) or a `HybridBlock` (``attn`` and ``mamba``)."""
+    (``ret``), a `DenseBlock` (``attn``: GQA, or `MLA` for deepseek-v3), a
+    `MoEBlock` (``attn`` and ``moe``), an `SSMBlock` (``mamba``) or a
+    `HybridBlock` (``attn`` and ``mamba``)."""
     ln1 = _norm(d["ln1"], device)
     if kind == "ssm":
         return lm.SSMBlock(ln1, _mamba(d["mamba"], device))
-    f = d["mlp"]
-    mlp = M.MLP(_linear(f["wi"], device), _linear(f["wo"], device),
-                _linear(f["wg"], device) if "wg" in f else None)
     ln2 = _norm(d["ln2"], device)
     if kind == "hybrid":
         return lm.HybridBlock(ln1, _attention(d["attn"], device), _mamba(d["mamba"], device),
                               _norm(d["attn_norm"], device), _norm(d["mamba_norm"], device),
-                              ln2, mlp)
+                              ln2, _mlp(d["mlp"], device))
     if kind == "retnet":
         r = d["ret"]
         ret = R.Retention(*(_linear(r[n], device)
                             for n in ("wq", "wk", "wv", "wg", "wo")))
-        return lm.RetNetBlock(ln1, ret, ln2, mlp)
-    a = d["attn"]
-    if cfg.attn_type == "mla":
-        attn = MLA(*((_norm if n.endswith("norm") else _linear)(a[n], device)
-                     for n in MLA_PARTS))
-    else:
-        attn = _attention(a, device)
-    return lm.DenseBlock(ln1, attn, ln2, mlp)
+        return lm.RetNetBlock(ln1, ret, ln2, _mlp(d["mlp"], device))
+    attn = (_mla if cfg.attn_type == "mla" else _attention)(d["attn"], device)
+    if kind == "moe":
+        return lm.MoEBlock(ln1, attn, ln2, _moe(d["moe"], device))
+    return lm.DenseBlock(ln1, attn, ln2, _mlp(d["mlp"], device))
 
 
 def _check_stack(tree, count: int, path: str) -> None:

@@ -1,9 +1,11 @@
 """Architecture registry — the port's own copy of the reference registry.
 
 The numbers are the published ones, the same as the JAX package's
-``configs/<arch>.py``; `get_config` resolves an ``--arch`` name.  Only the
-``retnet`` family runs in the port so far (`InferenceEngine.from_config`
-raises for the others), but the registry is complete so names resolve alike.
+``configs/<arch>.py``; `get_config` resolves an ``--arch`` name.  The port
+serves the retnet, dense, MoE, ssm and hybrid families
+(`InferenceEngine.from_config` raises, naming what is missing, for
+LayerNorm, the encoder-decoder and the frontends), but the registry is
+complete so names resolve alike.
 """
 
 from __future__ import annotations

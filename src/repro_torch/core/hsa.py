@@ -24,16 +24,17 @@ class HSAConfig:
 
     Outputs are f32.  The online RoPE unit always drives decode, so the
     reference's unread ``online_rope`` and its one-valued ``out_dtype`` are
-    left out.  ``act_scale='lane'`` gives every lane (the leading axis of a
-    linear's input) its own W8A8 activation scale: a scheduler's slot
-    class verifies all its lanes in one dispatch, where the reference
-    vmaps one slot at a time."""
+    left out.  ``per_lane`` makes every lane (the leading axis of the
+    input) a dispatch of its own, as the reference's per-slot ``vmap`` over
+    a scheduler's slot class has it: each lane's W8A8 activations take their
+    own scale, and each lane's tokens fill the MoE experts' capacity alone
+    (`models/mlp.py`)."""
 
     prefill_format: str = "w8a8"        # 'w8a8' | 'fp'
     decode_format: str = "mxint4"       # 'mxint4' | 'w8a8' | 'fp'
     fuse_rmsnorm: bool = True           # C3: Eq. (4) epilogue fusion
     kernel_impl: str = "auto"           # 'auto' | 'kernel' | 'ref'
-    act_scale: str = "tensor"           # W8A8 activations: 'tensor' | 'lane'
+    per_lane: bool = False              # each lane its own dispatch
 
 
 class HSAEngine:
@@ -69,4 +70,4 @@ class HSAEngine:
         eff_phase = {"fp": "train", "w8a8": "prefill", "mxint4": "decode"}[fmt]
         return ql.apply(params, x, eff_phase, row_scale=row_scale,
                         out_scale=out_scale, impl=cfg.kernel_impl,
-                        lane_act=cfg.act_scale == "lane")
+                        lane_act=cfg.per_lane)

@@ -75,8 +75,9 @@ def group_shift_exponents(w: torch.Tensor, group_size: int = GROUP_SIZE
 
 
 def _interleave(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """[K, H] + [K, H] -> [K, 2H] with lo at even and hi at odd columns."""
-    return torch.stack([lo, hi], dim=-1).reshape(lo.shape[0], -1)
+    """[..., K, H] + [..., K, H] -> [..., K, 2H] with lo at even and hi at
+    odd columns."""
+    return torch.stack([lo, hi], dim=-1).reshape(*lo.shape[:-1], -1)
 
 
 def pack_int4(mant: torch.Tensor) -> torch.Tensor:
@@ -90,7 +91,8 @@ def pack_int4(mant: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """Unpack int8 bytes ``[K, N//2]`` -> sign-extended int8 mantissas ``[K, N]``."""
+    """Unpack int8 bytes ``[..., K, N//2]`` -> sign-extended int8 mantissas
+    ``[..., K, N]``."""
     p16 = packed.to(torch.int16)        # sign-extended byte value
     lo = ((p16 & 0x0F) ^ 0x08) - 0x08   # sign-extend the low nibble
     hi = p16 >> 4                       # arithmetic shift: signed high nibble
@@ -107,7 +109,8 @@ def pack_uint4(codes: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_uint4(packed: torch.Tensor) -> torch.Tensor:
-    """Unpack uint8 ``[K, G//2]`` -> unsigned nibble codes uint8 ``[K, G]``."""
+    """Unpack uint8 ``[..., K, G//2]`` -> unsigned nibble codes uint8
+    ``[..., K, G]``."""
     p16 = packed.to(torch.int16)
     return _interleave(p16 & 0x0F, (p16 >> 4) & 0x0F).to(torch.uint8)
 
@@ -128,9 +131,19 @@ def quantize_mxint4(w: torch.Tensor, group_size: int = GROUP_SIZE
 def dequantize_mxint4(q: MXINT4Weight, dtype=torch.bfloat16,
                       group_size: int = GROUP_SIZE) -> torch.Tensor:
     """Reference dequantization: ``w = m * 2^(S_g - 2)`` (exact in bf16)."""
-    mant = unpack_int4(q.packed).to(torch.float32)
-    scale = torch.exp2(q.exps.to(torch.float32) - MANT_SHIFT)
-    return (mant * scale.repeat_interleave(group_size, dim=1)).to(dtype)
+    return dequantize_stacked(q.packed, q.exps_packed, dtype, group_size)
+
+
+def dequantize_stacked(packed: torch.Tensor, exps_packed: torch.Tensor,
+                       dtype=torch.float32, group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """`dequantize_mxint4` of weights stacked on leading axes: ``packed``
+    ``[..., K, N//2]`` and ``exps_packed`` ``[..., K, N//32]`` ->
+    ``[..., K, N]`` (MoE expert stacks, the reference's
+    ``deploy.dequantize_stacked``)."""
+    mant = unpack_int4(packed).to(torch.float32)
+    exps = unpack_uint4(exps_packed).to(torch.float32) - EXP_BIAS
+    scale = torch.exp2(exps - MANT_SHIFT)
+    return (mant * scale.repeat_interleave(group_size, dim=-1)).to(dtype)
 
 
 def _absmax_scale(x: torch.Tensor, dims=None) -> torch.Tensor:

@@ -44,6 +44,26 @@
 // order (warp shuffles, then shared memory by warp).  Ragged N (a multiple of
 // 32) and M are masked.  The kernel allocates nothing; the wrapper passes the
 // workspace and the ticket counters (zero on entry, reset by the last block).
+//
+// Beside it, `mxint4_expert_matmul_launch`: the routed-MoE decode product
+//
+//     y[a, :] = x[a, :] @ W[expert_ids[a]]        (a < A, no epilogue)
+//
+// over stacked experts packed[E, K, N/2], exps[E, K, N/32].  It replaces no
+// TPU kernel: the reference dequantizes every expert stack to f32 on every
+// call and runs an einsum (src/repro/models/mlp.py `_expert_weight`,
+// `_expert_ffn`).  Bound by bytes: a decode step's A = B * top_k rows read
+// only the addressed experts' 4.25-bit weights.  The ids are read in device
+// memory, so the launch does not depend on the routing and captures into a
+// CUDA graph.  The design is the simple one: a block covers 64 columns of
+// one row a; its 32 row groups of threads walk K in strides of 32 rows,
+// each thread one 32-bit word (8 columns) per K row, four rows' loads in
+// flight before their FMAs; the 32 partial sums of a column are added in
+// row-group order through shared memory, so a relaunch is bit-equal.  Two
+// rows routed to one expert both stream it; the weight loads are cached
+// ones (`__ldg`, not the GEMV's evict-first `__ldcs`), so that the second
+// can find it in L2.
+// It shares the nibble decode and the scale of the GEMV above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,6 +95,27 @@ __device__ __forceinline__ Row<C> zero_row() {
 #pragma unroll
   for (int i = 0; i < C / 8; ++i) w[i] = 0u;             // all mantissas 0
   return r;
+}
+
+// The 8 mantissas of one 32-bit word of packed nibbles (low nibble = even
+// column), exactly, with no int -> float convert: the nibbles are split into
+// even and odd columns with their sign bit flipped (u = m + 8), each byte is
+// placed in the mantissa of 2^23 (`prmt`), and one subtract of 2^23 + 8
+// leaves m.  m[2j] is column 2j of the word, m[2j + 1] column 2j + 1.
+__device__ __forceinline__ void mx_mantissas(uint32_t word, float (&m)[8]) {
+  const uint32_t even = (word ^ 0x88888888u) & 0x0F0F0F0Fu;
+  const uint32_t odd = ((word >> 4) ^ 0x08080808u) & 0x0F0F0F0Fu;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // 0x4B0000uu: byte j in the mantissa of 2^23, minus 2^23 + 8.
+    m[2 * j] = __int_as_float(__byte_perm(even, 0x4B000000u, 0x7540 + j)) - 8388616.f;
+    m[2 * j + 1] = __int_as_float(__byte_perm(odd, 0x4B000000u, 0x7540 + j)) - 8388616.f;
+  }
+}
+
+// A group's scale 2^(code - 11) from its 4-bit shift code.
+__device__ __forceinline__ float mx_scale(uint32_t code) {
+  return __int_as_float((int)((code & 0xFu) + 116u) << 23);
 }
 
 template <int TM, int C>
@@ -151,27 +192,19 @@ mxint4_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ pack
       const uint32_t* words = reinterpret_cast<const uint32_t*>(&w[u]);
 #pragma unroll
       for (int g = 0; g < (C + 15) / 16; ++g) {
-        const int cg = (code >> (4 * g)) & 0xF;
-        const float se = __int_as_float((cg + 116) << 23);   // 2^(code - 11)
+        const float se = mx_scale(code >> (4 * g));   // 2^(code - 11)
         float xe[TM];
 #pragma unroll
         for (int m = 0; m < TM; ++m) xe[m] = xv[m] * se;
 #pragma unroll
         for (int i = g * 2; i < min(W, g * 2 + 2); ++i) {
-          // u = m + 8 of the even and the odd columns, one per byte.
-          const uint32_t even = (words[i] ^ 0x88888888u) & 0x0F0F0F0Fu;
-          const uint32_t odd = ((words[i] >> 4) ^ 0x08080808u) & 0x0F0F0F0Fu;
+          float wm[8];
+          mx_mantissas(words[i], wm);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            // 0x4B0000uu: byte j in the mantissa of 2^23, minus 2^23 + 8.
-            const float we = __int_as_float(__byte_perm(even, 0x4B000000u, 0x7540 + j)) - 8388616.f;
-            const float wo = __int_as_float(__byte_perm(odd, 0x4B000000u, 0x7540 + j)) - 8388616.f;
-            const int col = 8 * i + 2 * j;
+          for (int c = 0; c < 8; ++c) {
 #pragma unroll
-            for (int m = 0; m < TM; ++m) {
-              acc[m][col] = fmaf(xe[m], we, acc[m][col]);
-              acc[m][col + 1] = fmaf(xe[m], wo, acc[m][col + 1]);
-            }
+            for (int m = 0; m < TM; ++m)
+              acc[m][8 * i + c] = fmaf(xe[m], wm[c], acc[m][8 * i + c]);
           }
         }
       }
@@ -289,7 +322,87 @@ int launch(const void* x, const void* packed, const void* exps, const void* out_
   return (int)cudaGetLastError();
 }
 
+// The routed expert GEMV (see the head of this file).  A block is 256
+// threads: kExpertTX across 64 columns (8 each), kExpertTY row groups.
+constexpr int kExpertTX = 8;
+constexpr int kExpertTY = kThreads / kExpertTX;
+constexpr int kExpertTileN = 8 * kExpertTX;
+constexpr int kExpertUnroll = 4;
+
+__global__ void __launch_bounds__(kThreads)
+mxint4_expert_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+                     const uint8_t* __restrict__ exps,
+                     const long long* __restrict__ expert_ids, float* __restrict__ out,
+                     int N, int K, int E) {
+  __shared__ float red[kExpertTY][kExpertTileN];
+  const int tid = threadIdx.x, tx = tid % kExpertTX, ty = tid / kExpertTX;
+  const int a = blockIdx.y;
+  const int n0 = blockIdx.x * kExpertTileN + tx * 8;
+  const long long e = expert_ids[a];
+  if (e < 0 || e >= E) {                 // a bad id: the row reads as NaN
+    if (ty == 0 && n0 < N)
+      for (int c = 0; c < 8; ++c) out[(size_t)a * N + n0 + c] = __int_as_float(0x7fc00000);
+    return;
+  }
+  const bool col_ok = n0 < N;
+  const size_t row_bytes = (size_t)N / 2, exp_row = (size_t)N / 32;
+  const uint8_t* wp = packed + (size_t)e * K * row_bytes + n0 / 2;
+  const uint8_t* ep = exps + (size_t)e * K * exp_row + n0 / 32;
+  const int shift = 4 * ((n0 / 16) & 1);
+  const float* xa = x + (size_t)a * K;
+
+  float acc[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+  if (col_ok) {
+    for (int k0 = ty; k0 < K; k0 += kExpertTY * kExpertUnroll) {
+      uint32_t w[kExpertUnroll], code[kExpertUnroll];
+      float xv[kExpertUnroll];
+#pragma unroll
+      for (int u = 0; u < kExpertUnroll; ++u) {
+        const int k = k0 + u * kExpertTY;
+        const bool ok = k < K;
+        w[u] = ok ? __ldg(reinterpret_cast<const unsigned int*>(wp + (size_t)k * row_bytes))
+                  : 0u;                   // mantissas 0
+        code[u] = ok ? (uint32_t)(ep[(size_t)k * exp_row] >> shift) : 0u;
+        xv[u] = ok ? __ldg(xa + k) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kExpertUnroll; ++u) {
+        const float xe = xv[u] * mx_scale(code[u]);
+        float wm[8];
+        mx_mantissas(w[u], wm);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[c] = fmaf(xe, wm[c], acc[c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) red[ty][tx * 8 + c] = acc[c];
+  __syncthreads();
+  if (tid < kExpertTileN) {
+    const int n = blockIdx.x * kExpertTileN + tid;
+    float s = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < kExpertTY; ++r) s += red[r][tid];
+    if (n < N) out[(size_t)a * N + n] = s;
+  }
+}
+
 }  // namespace
+
+// y[A, N] = row a of x[A, K] times expert expert_ids[a] of the stacks.
+extern "C" int mxint4_expert_matmul_launch(const void* x, const void* packed,
+                                           const void* exps, const void* expert_ids,
+                                           void* out, int A, int N, int K, int E,
+                                           void* stream) {
+  if (A <= 0 || N <= 0 || K <= 0 || E <= 0 || N % 32) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + kExpertTileN - 1) / kExpertTileN, A);
+  mxint4_expert_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const uint8_t*)packed, (const uint8_t*)exps,
+      (const long long*)expert_ids, (float*)out, N, K, E);
+  return (int)cudaGetLastError();
+}
 
 // tm is the row tile the wrapper's planner chose (1, 2, 4 or 8).
 extern "C" int mxint4_matmul_launch(const void* x, const void* packed, const void* exps,

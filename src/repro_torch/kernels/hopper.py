@@ -55,8 +55,9 @@ COMPILE_FLAGS = {"flash_decode": ("--split-compile=0",)}
 
 # Launches per kernel since the last `reset_launches()`; bumped only where a
 # kernel is launched.  Flash-decode's MLA mode is a kernel of its own in the
-# flash_decode library and has its own count.
-COUNTERS = KERNELS + ("flash_decode_mla",)
+# flash_decode library, and the routed-MoE expert GEMV one in the
+# mxint4_matmul library; each has its own count.
+COUNTERS = KERNELS + ("flash_decode_mla", "mxint4_expert_matmul")
 LAUNCHES: dict[str, int] = {name: 0 for name in COUNTERS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -210,6 +211,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "mxint4_matmul":
         fn = lib.mxint4_matmul_launch
         fn.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+        experts = lib.mxint4_expert_matmul_launch
+        experts.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+        experts.restype = _I
     elif name == "w8a8_matmul":
         fn = lib.w8a8_matmul_launch
         fn.argtypes = [_P] * 6 + [_I] * 4 + [_P]
@@ -333,6 +337,28 @@ def mxint4_matmul(x, packed, exps_packed, out_scale, row_scale, bias):
         m, n, k, plan["tm"], plan["splits"], plan["k_per"], _stream())
     _raise_if(err, "mxint4_matmul")
     LAUNCHES["mxint4_matmul"] += 1
+    return out
+
+
+def mxint4_expert_matmul(x, packed, exps_packed, expert_ids):
+    """f32 ``[A, N]``: row ``a`` of x ``[A, K]`` times the MXINT4 weight of
+    expert ``expert_ids[a]`` (int64 ``[A]`` on the card) from the stacks
+    ``packed`` ``[E, K, N/2]`` and ``exps_packed`` ``[E, K, N/32]``."""
+    lib = _lib("mxint4_matmul")
+    a, k = x.shape
+    e, n = packed.shape[0], packed.shape[-1] * 2
+    if n % 32:
+        raise ValueError(f"mxint4_expert_matmul: N={n} must be a multiple of 32")
+    _check("x", x, torch.float32, (a, k))
+    _check("packed", packed, torch.int8, (e, k, n // 2), align=16)
+    _check("exps_packed", exps_packed, torch.uint8, (e, k, n // 32), align=1)
+    _check("expert_ids", expert_ids, torch.int64, (a,), align=8)
+    out = torch.empty(a, n, dtype=torch.float32, device=x.device)
+    err = lib.mxint4_expert_matmul_launch(x.data_ptr(), packed.data_ptr(),
+                                          exps_packed.data_ptr(), expert_ids.data_ptr(),
+                                          out.data_ptr(), a, n, k, e, _stream())
+    _raise_if(err, "mxint4_expert_matmul")
+    LAUNCHES["mxint4_expert_matmul"] += 1
     return out
 
 

@@ -61,6 +61,22 @@ def mxint4_matmul(x, q: MXINT4Weight, out_scale=None, row_scale=None, bias=None,
     return y.to(out_dtype).reshape(*lead, n)
 
 
+def mxint4_expert_matmul(x, packed, exps_packed, expert_ids, *,
+                         impl: str = "auto") -> torch.Tensor:
+    """Routed MoE decode product: f32 ``[A, N]``, row ``a`` of ``x`` ``[A, K]``
+    times the MXINT4 weight of expert ``expert_ids[a]`` (int ``[A]``, on the
+    device) from the stacks ``packed`` int8 ``[E, K, N/2]`` and
+    ``exps_packed`` uint8 ``[E, K, N/32]``.  The kernel reads only the
+    addressed experts' bytes and reads the ids in device memory, so one
+    launch serves any routing."""
+    if not use_kernel(impl, x):
+        return _ref.mxint4_expert_matmul_ref(x, packed, exps_packed, expert_ids)
+    from repro_torch.kernels import hopper
+    return hopper.mxint4_expert_matmul(
+        x.to(torch.float32).contiguous(), packed.contiguous(), exps_packed.contiguous(),
+        expert_ids.to(torch.int64).contiguous())
+
+
 def up16(n: int) -> int:
     """``n`` rounded up to a multiple of 16: the W8A8 kernel's K and N (its
     operands' rows are whole 16-byte copies)."""

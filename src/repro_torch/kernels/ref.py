@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five Hopper kernels.
+"""Plain PyTorch versions of the Hopper kernels.
 
 Each function defines what its kernel must compute.  The CPU path of
 kernels/ops.py runs them, and chip_smoke.py holds each kernel against them on
@@ -31,6 +31,15 @@ def mxint4_matmul_ref(x, q: mx.MXINT4Weight, out_scale=None, row_scale=None,
     w = mx.dequantize_mxint4(q, dtype=torch.float32)
     return _epilogue(x.to(torch.float32) @ w, out_scale, row_scale, bias,
                      out_dtype)
+
+
+def mxint4_expert_matmul_ref(x, packed, exps_packed, expert_ids) -> torch.Tensor:
+    """``y[a] = x[a] @ dequant(W[expert_ids[a]])`` in f32: each row times its
+    own expert's MXINT4 weight from the stacks ``packed`` ``[E, K, N/2]`` /
+    ``exps_packed`` ``[E, K, N/32]`` (gather the experts, dequantize, bmm)."""
+    w = mx.dequantize_stacked(packed.index_select(0, expert_ids),
+                              exps_packed.index_select(0, expert_ids))
+    return torch.bmm(x.to(torch.float32)[:, None], w)[:, 0]
 
 
 def w8a8_matmul_ref(x_q, w_q, combined_scale, row_scale=None, bias=None,

@@ -33,6 +33,11 @@ LISO/SILO scenario presets:
         --scale 0.1 --batch 2 [--temperature 1 --top-p 0.9]
     python -m repro_torch.launch.serve --arch retnet-1.3b --reduced \\
         --scale 0.02 --device cpu [--requests 6 --host-spill --oversubscribe 2]
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --scenario SILO \\
+        --scale 0.1 --batch 2 [--requests 6 [--prefix-cache] | --speculative]
+
+``--arch`` takes every family the port serves (retnet, dense GQA and MLA,
+MoE, ssm, hybrid) in every mode.
 
 Prompts come from seeded ``torch.Generator``s.  The reference's mode that
 is not ported yet (a device mesh) is accepted by the parser and exits

@@ -19,6 +19,12 @@ It works in place, one linear at
 a time, so a full-width model never holds its master and deployed weights
 at once.  Per-layer modules quantize per layer, as the reference's vmap over
 its ``[L, ...]`` stacks does.
+
+A MoE layer's expert stacks (`mlp.Experts`) get MXINT4 only, no INT8 copy
+(the reference's ``quantize_stacked``): each expert's ``[K, N]`` is
+quantized as a linear's weight is, one expert at a time into the stack's
+``<name>_packed`` / ``<name>_exps``, and the master stack is dropped before
+the next is quantized.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch import nn
 
 from repro_torch.core import mxint4 as mx
 from repro_torch.kernels.ops import up16
+from repro_torch.models.mlp import EXPERT_WEIGHTS, Experts
 from repro_torch.models.modules import Linear
 
 
@@ -67,9 +74,36 @@ def is_master(model: nn.Module) -> bool:
     return head.w is not None and head.w8_vals is None
 
 
+def quantize_stacked(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """MXINT4 of an ``[E, K, N]`` expert stack, expert by expert: (packed
+    int8 ``[E, K, N/2]``, exps uint8 ``[E, K, N/32]``)."""
+    e, k, n = w.shape
+    packed = torch.empty(e, k, n // 2, dtype=torch.int8, device=w.device)
+    exps = torch.empty(e, k, n // 32, dtype=torch.uint8, device=w.device)
+    for i in range(e):
+        q = mx.quantize_mxint4(w[i])
+        packed[i], exps[i] = q.packed, q.exps_packed
+    return packed, exps
+
+
+@torch.no_grad()
+def _deploy_experts(ex: Experts) -> None:
+    for name in EXPERT_WEIGHTS:
+        w = getattr(ex, name)
+        packed, exps = quantize_stacked(w.data)
+        setattr(ex, name, None)
+        del w
+        setattr(ex, f"{name}_packed", packed)
+        setattr(ex, f"{name}_exps", exps)
+
+
 @torch.no_grad()
 def deploy_quantize(model: nn.Module) -> nn.Module:
-    """Quantize every master linear of ``model`` in place; returns it."""
+    """Quantize every master linear and expert stack of ``model`` in place;
+    returns it."""
+    for ex in model.modules():
+        if isinstance(ex, Experts) and not ex.deployed:
+            _deploy_experts(ex)
     for name, lin in model.named_modules():
         if not isinstance(lin, Linear) or lin.w is None or lin.w8_vals is not None:
             continue

@@ -1,5 +1,6 @@
-"""Decoder LM assembly: the ``retnet``, ``dense``, ``ssm`` and ``hybrid`` kinds
-of the reference's `models/lm.py`, dense with GQA or MLA attention.
+"""Decoder LM assembly: the ``retnet``, ``dense``, ``moe``, ``ssm`` and
+``hybrid`` kinds of the reference's `models/lm.py`, dense and MoE with GQA or
+MLA attention.
 
 Per-layer modules in an ``nn.ModuleList`` and a Python loop take the place of
 the reference's ``lax.scan`` over stacked params; the residual stream is cast
@@ -17,9 +18,11 @@ and the shared-prefix helpers `serving/paging.py` builds on
 (`prefix_sharing_mode`, `slice_cache_rows`, `assemble_prefix_cache`).
 
 Layers come in the reference's groups (`layer_groups`), held in one flat
-list in group order: deepseek-v3's leading dense layers (``dense_head``)
-run, and a config cut to them has no MoE layer; MoE layers are not ported.
-An ``ssm`` block (falcon-mamba) is a pre-norm Mamba mixer
+list in group order: deepseek-v3's leading dense layers (``dense_head``),
+then its MoE layers.  A ``moe`` block (olmoe, deepseek-v3) is a dense
+block whose MLP is the routed MoE (`models/mlp.py`): the tokens of one
+forward share a dispatch (each lane alone under ``per_lane``), and a
+speculative verify block's dispatch never drops (``no_drop``).  An ``ssm`` block (falcon-mamba) is a pre-norm Mamba mixer
 (`models/ssm.py`); a ``hybrid`` block (hymba) runs GQA attention over a
 sliding-window ring and a Mamba mixer side by side on the same normed input,
 averages their normed outputs, then an MLP.  Hymba's first, middle and last
@@ -84,16 +87,10 @@ def _check_family(cfg: ModelConfig) -> None:
     """Raise, naming what is missing, unless the port serves ``cfg``."""
     if cfg.family in ("retnet", "ssm"):
         return
-    if cfg.family == "moe":
-        if cfg.n_layers > cfg.first_dense_layers:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet; repro_torch serves a "
-                f"MoE model cut to its {cfg.first_dense_layers} leading dense layers "
-                f"(n_layers={cfg.first_dense_layers})")
-    elif cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "hybrid", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
-            f"retnet, dense, ssm and hybrid")
+            f"retnet, dense, moe, ssm and hybrid")
     missing = [what for what, present in (
         (f"norm_type {cfg.norm_type!r}", cfg.norm_type != "rmsnorm"),
         (f"frontend {cfg.frontend!r}", cfg.frontend is not None),
@@ -133,6 +130,22 @@ class DenseBlock(nn.Module):
                               gated=cfg.norm_type == "rmsnorm"))
 
 
+class MoEBlock(nn.Module):
+    """Pre-norm attention (GQA, or MLA for ``attn_type == "mla"``) then the
+    routed MoE (olmoe; deepseek-v3 past its dense head, with its shared
+    expert)."""
+
+    def __init__(self, ln1: Norm, attn: Attention | MLA, ln2: Norm, moe: M.MoE):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.moe = ln1, attn, ln2, moe
+
+    @classmethod
+    def init(cls, init: Init, cfg: ModelConfig) -> "MoEBlock":
+        ln1 = L.norm_init(init, cfg.d_model, cfg)
+        attn = L.mla_init(init, cfg) if cfg.attn_type == "mla" else L.gqa_init(init, cfg)
+        return cls(ln1, attn, L.norm_init(init, cfg.d_model, cfg), M.MoE.init(init, cfg))
+
+
 class SSMBlock(nn.Module):
     """Pre-norm Mamba mixer, no MLP (falcon-mamba)."""
 
@@ -166,8 +179,8 @@ class HybridBlock(nn.Module):
                    L.norm_init(init, d, cfg), M.MLP.init(init, d, cfg.d_ff))
 
 
-BLOCK_KINDS = {"retnet": RetNetBlock, "dense": DenseBlock, "ssm": SSMBlock,
-               "hybrid": HybridBlock}
+BLOCK_KINDS = {"retnet": RetNetBlock, "dense": DenseBlock, "moe": MoEBlock,
+               "ssm": SSMBlock, "hybrid": HybridBlock}
 
 
 def mark_full_attn(cfg: ModelConfig, blocks: list[nn.Module]) -> None:
@@ -314,7 +327,14 @@ def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0,
         cache = _seed_attn_cache(cfg, {"k": k, "v": v}, cache_len, valid_len)
     x = x + y
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
-    return x + M.mlp_apply(p.mlp, xs2, sig2, engine, phase), cache
+    return x + _ffn(p, xs2, sig2, engine, phase, cfg), cache
+
+
+def _ffn(p, xs, sig, engine, phase: str, cfg: ModelConfig, no_drop: bool = False):
+    """A dense or MoE block's feed-forward on its normed input."""
+    if isinstance(p, MoEBlock):
+        return M.moe_apply(p.moe, xs, sig, engine, phase, cfg, no_drop=no_drop)
+    return M.mlp_apply(p.mlp, xs, sig, engine, phase)
 
 
 def _hybrid_tail(p: HybridBlock, x, a_out, m_out, engine, phase: str):
@@ -346,7 +366,7 @@ def _block_decode(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
                           rope_sin=sin, rope_cos=cos)
     x = x + y
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
-    return x + M.mlp_apply(p.mlp, xs2, sig2, engine, "decode"), cache
+    return x + _ffn(p, xs2, sig2, engine, "decode", cfg), cache
 
 
 def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
@@ -394,7 +414,8 @@ def _block_chunk(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos,
     `_block_decode`: the same cache in, cache out, C tokens at once through
     the prefill dataflow.  ``collect`` (a speculative verify block) keeps
     RetNet's and Mamba's state after every position and the rows a ring's
-    writes evict (see `commit_verified_cache`)."""
+    writes evict (see `commit_verified_cache`), and keeps a MoE dispatch
+    from dropping any assignment."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
     if isinstance(p, SSMBlock):
         y, cache = S.mamba_apply(p.mamba, xs, sig, engine, "prefill", cfg, cache=cache,
@@ -424,7 +445,9 @@ def _block_chunk(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos,
                                keep_evicted=collect)
     x = x + y
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
-    return x + M.mlp_apply(p.mlp, xs2, sig2, engine, "prefill"), cache
+    # collect (a verify block): rejected drafts share the dispatch with real
+    # tokens and must not evict them from expert slots.
+    return x + _ffn(p, xs2, sig2, engine, "prefill", cfg, no_drop=collect), cache
 
 
 def _chunk_stack(model: LM, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
@@ -502,13 +525,9 @@ def commit_verified_cache(prev: dict, ver: dict, n_accept, c: int,
         and the conv window ``conv_ext[:, n_accept : n_accept + cw - 1]``,
         gathered per lane.
 
-    The rope state is rebuilt at the new position on the device.  MoE is
-    not ported (ROADMAP A9) and raises."""
-    kinds = sorted({kind for _, n, kind in layer_groups(cfg) if n}
-                   - {"retnet", "dense", "ssm", "hybrid"})
-    if kinds:
-        raise NotImplementedError(f"{cfg.name}: speculative rollback of "
-                                  f"{', '.join(kinds)} layers is not ported yet (ROADMAP A9)")
+    A MoE layer's cache is its attention's, so it rewinds as a dense
+    layer's does.  The rope state is rebuilt at the new position on the
+    device."""
     pos0 = prev["pos"]
     new_pos = (pos0 + n_accept).to(pos0.dtype)
     out = {"pos": new_pos}

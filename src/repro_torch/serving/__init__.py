@@ -30,7 +30,7 @@
     run (loadgen.py).
 
 Not ported yet: serving on a device mesh (ROADMAP A12), and the MTP drafter
-(A9).
+(A9d).
 """
 
 from repro_torch.serving.clock import Clock, MonotonicClock, VirtualClock

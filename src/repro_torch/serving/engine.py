@@ -379,14 +379,16 @@ class ClassStep:
 
     Stochastic sampling draws lane l from ``generators[l]`` alone (registered
     with the graph), so a request's tokens depend on its own generator's
-    state and not on its lane or its co-tenants; greedy draws nothing.  A
-    W8A8 linear in the step (hymba's decode ``x_proj``) quantizes each
-    lane's activations with its own scale (``act_scale='lane'``), as the
-    reference's per-slot ``vmap`` does, for the same reason."""
+    state and not on its lane or its co-tenants; greedy draws nothing.
+    Each lane is a dispatch of its own (``per_lane``), as in the
+    reference's per-slot ``vmap``, for the same reason: a W8A8 linear in the
+    step (hymba's decode ``x_proj``) quantizes each lane's activations with
+    its own scale, and a lane's token fills the MoE experts' capacity
+    alone."""
 
     def __init__(self, engine: "InferenceEngine", store: dict, gen: GenerationConfig):
         self.engine, self.store, self.gen = engine, store, gen
-        self.hsa = HSAEngine(dataclasses.replace(engine.hsa.config, act_scale="lane"))
+        self.hsa = HSAEngine(dataclasses.replace(engine.hsa.config, per_lane=True))
         n, dev = store["pos"].shape[0], engine.device
         self.tok = torch.zeros(n, dtype=torch.long, device=dev)
         self.fed = torch.zeros(n, dtype=torch.long, device=dev)
@@ -463,8 +465,8 @@ class SpecClassStep(ClassStep):
     [N, k+1] and ``n_commit`` [N] (views of one buffer, ``result``, which
     the scheduler reads once per step) hold what each lane committed.
 
-    Each lane's W8A8 activations take a scale of their own, as in
-    `ClassStep`: a lane's tokens never depend on its co-tenants, nor on the
+    Each lane is a dispatch of its own (W8A8 activation scale, MoE
+    capacity), as in `ClassStep`: a lane's tokens never depend on its co-tenants, nor on the
     garbage a free lane computes (its positions and history length clamp).
     Captured once per class on the card, eager on the CPU, as `ClassStep`."""
 

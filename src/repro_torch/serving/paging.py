@@ -40,7 +40,7 @@ split-K buffer per device, which is safe on one stream only.
 
 `PrefixCache` is the facade `CachePool` owns: mode selection, MoE chunk
 alignment (expert-capacity routing is per dispatch, so adoption boundaries
-land on chunk boundaries there; the port serves no MoE layer yet), lease
+land on chunk boundaries there: olmoe, deepseek-v3's MoE layers), lease
 bookkeeping by slot id, page budgets (`maintain` spills cold pages to host
 and LRU-evicts past ``max_pages``), and the ``pool.`` counters and gauges.
 """

@@ -11,8 +11,10 @@ sampled token are committed: 1..k+1 tokens per weight read.
 The drafter is the model-free `NgramDrafter` (prompt lookup: the trailing
 n-gram of the history and the pending token is matched against the
 request's own history and its continuation proposed).  deepseek-v3's MTP
-drafter needs the MTP head, an MoE block the port does not build yet
-(ROADMAP A9): `make_drafter` refuses it.
+drafter needs the MTP head, which the port does not build yet (ROADMAP
+A9d): `make_drafter` refuses it.  A MoE layer's verify dispatch never
+drops an assignment (``no_drop``), so speculative and plain greedy tokens
+agree on MoE models too.
 
 Acceptance is token matching, which for a deterministic drafter is exactly
 rejection sampling: the target distribution is sampled once at every block
@@ -136,14 +138,15 @@ class NgramDrafter:
 
 def make_drafter(spec: SpeculativeConfig, cfg: ModelConfig) -> Drafter:
     """The drafter ``spec`` names.  'mtp' needs a config with an MTP head,
-    and that head (an MoE block on deepseek-v3) is not ported yet."""
+    and that head (``mtp.proj`` and an MoE block on deepseek-v3) is not
+    built by the port yet."""
     if spec.drafter == "mtp":
         if not cfg.mtp:
             raise ValueError(f"{cfg.name}: the 'mtp' drafter needs a config "
                              "with an MTP head (cfg.mtp=True)")
         raise NotImplementedError(
-            f"{cfg.name}: the 'mtp' drafter is not ported yet: its MTP head is an "
-            "MoE block, which waits for the routed MoE path (ROADMAP A9)")
+            f"{cfg.name}: the 'mtp' drafter is not ported yet: the port does not "
+            "build its MTP head (ROADMAP A9d)")
     return NgramDrafter(k=spec.k, m=spec.ngram)
 
 

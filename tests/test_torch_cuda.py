@@ -42,6 +42,77 @@ def _kv(n: int) -> torch.Tensor:
     return torch.tensor(n, dtype=torch.int32, device="cuda")
 
 
+def _expert_stacks(rng, e, k, n):
+    w = _t((rng.normal(size=(e, k, n)) / np.sqrt(k)).astype(np.float32))
+    return deploy.quantize_stacked(w)
+
+
+# (A, E, K, N): olmoe's decode (A = B 2 x top 8) and verify (A = 2 x 5 x 8)
+# at its wg / wi (2048 -> 1024) and wo (1024 -> 2048), the reduced widths,
+# a ragged K and N not a multiple of the 64-column tile.
+EXPERT_SHAPES = [(16, 64, 2048, 1024), (16, 64, 1024, 2048), (80, 64, 2048, 1024),
+                 (80, 64, 1024, 2048), (4, 4, 128, 64), (4, 4, 64, 128), (3, 8, 100, 96),
+                 (1, 2, 32, 32)]
+
+
+@pytest.mark.parametrize("routing", ["random", "one_expert", "distinct"])
+@pytest.mark.parametrize("a,e,k,n", EXPERT_SHAPES)
+def test_mxint4_expert_matmul_kernel(a, e, k, n, routing):
+    """Row a times expert ids[a] against the plain version (gather,
+    dequantize, bmm) at 1e-5; a relaunch bit-equal; one launch counted."""
+    rng = _gen(a + e + k + n)
+    packed, exps = _expert_stacks(rng, e, k, n)
+    x = _t(rng.normal(size=(a, k)).astype(np.float32))
+    ids = {"random": rng.integers(0, e, a), "one_expert": np.full(a, e - 1),
+           "distinct": np.arange(a) % e}[routing]
+    ids = _t(ids.astype(np.int64))
+    before = hopper.LAUNCHES["mxint4_expert_matmul"]
+    got = ops.mxint4_expert_matmul(x, packed, exps, ids, impl="kernel")
+    assert hopper.LAUNCHES["mxint4_expert_matmul"] == before + 1
+    want = ref.mxint4_expert_matmul_ref(x, packed, exps, ids)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ops.mxint4_expert_matmul(x, packed, exps, ids, impl="kernel"))
+    # A row of an expert equals the dense GEMV's product with that expert.
+    q = mx.MXINT4Weight(packed[int(ids[0])], exps[int(ids[0])], (k, n))
+    torch.testing.assert_close(got[:1], ref.mxint4_matmul_ref(x[:1], q), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_mxint4_expert_matmul_graph_replays_any_routing():
+    """One captured launch, its ids rewritten in place between replays: each
+    replay equals an eager launch with those ids (nothing of the routing is
+    read on the host or baked into the graph)."""
+    rng = _gen(5)
+    packed, exps = _expert_stacks(rng, 64, 2048, 1024)
+    x = _t(rng.normal(size=(16, 2048)).astype(np.float32))
+    ids = _t(rng.integers(0, 64, 16).astype(np.int64))
+    ops.mxint4_expert_matmul(x, packed, exps, ids, impl="kernel")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with hopper.captured_launches() as rec, torch.cuda.graph(graph):
+        out = ops.mxint4_expert_matmul(x, packed, exps, ids, impl="kernel")
+    assert rec["mxint4_expert_matmul"] == 1
+    for seed in range(4):
+        ids.copy_(_t(_gen(seed).integers(0, 64, 16).astype(np.int64)))
+        graph.replay()
+        eager = ops.mxint4_expert_matmul(x, packed, exps, ids, impl="kernel")
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), f"routing {seed}"
+
+
+def test_mxint4_expert_matmul_rejects_what_it_does_not_take():
+    packed, exps = _expert_stacks(_gen(1), 4, 64, 64)
+    x = torch.zeros(3, 64, device="cuda")
+    ids = torch.zeros(3, dtype=torch.int64, device="cuda")
+    with pytest.raises(TypeError, match="int64"):
+        hopper.mxint4_expert_matmul(x, packed, exps, ids.int())
+    with pytest.raises(ValueError, match="shape"):
+        hopper.mxint4_expert_matmul(torch.zeros(3, 32, device="cuda"), packed, exps, ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        hopper.mxint4_expert_matmul(x, packed.transpose(1, 2).contiguous().transpose(1, 2),
+                                    exps, ids)
+
+
 @pytest.mark.parametrize("m,k,n", [
     (2, 2048, 2048), (2, 2048, 4096), (2, 4096, 2048), (2, 2048, 32768),
     (1, 64, 96), (5, 64, 96), (16, 128, 256), (3, 32, 32), (2, 128, 192),
@@ -339,6 +410,14 @@ def _flash_decode_case(seed, fmts, b, kv, g, d, c, kv_len, scale=None, dv=None):
 
 ALL_FORMATS = ["float32", "bfloat16", "int8", "int8_tok", "mxint4_blk"]
 MAIN_FORMATS = ["float32", "int8_tok", "mxint4_blk"]
+
+
+@pytest.mark.parametrize("fmt", MAIN_FORMATS)
+@pytest.mark.parametrize("kv_len", [1, 16, 17, 257, 528, 544])
+def test_flash_decode_kernel_olmoe_shape(fmt, kv_len):
+    """olmoe-1b-7b's decode: 16 heads over 16 KV heads (G 1: three of the
+    kernel's four group rows idle), d 128, C 544."""
+    _flash_decode_case(kv_len, (fmt, fmt), 2, 16, 1, 128, 544, kv_len)
 
 
 @pytest.mark.parametrize("fmt", MAIN_FORMATS)
@@ -928,7 +1007,8 @@ def test_flash_decode_graph_replays_at_every_per_lane_kv_len(mla):
                                       ("qwen3-8b", "int8_tok"), ("qwen3-8b", "mxint4_blk"),
                                       ("ds3_dense", None), ("ds3_dense", "mxint4_blk"),
                                       ("falcon-mamba-7b", None), ("hymba-1.5b", None),
-                                      ("hymba-1.5b", "mxint4_blk")])
+                                      ("hymba-1.5b", "mxint4_blk"), ("olmoe-1b-7b", None),
+                                      ("olmoe-1b-7b", "mxint4_blk"), ("ds3_moe", None)])
 def test_class_step_replays_match_its_eager_body(arch, fmt):
     """Reduced models on the card: a scheduler's class step (captured at pool
     build) replayed with its two lanes at different positions gives its
@@ -1123,7 +1203,9 @@ def _tree_equal(a, b) -> bool:
                                       ("qwen3-8b", "int8_tok"), ("qwen3-8b", "mxint4_blk"),
                                       ("ds3_dense", None), ("ds3_dense", "mxint4_blk"),
                                       ("falcon-mamba-7b", None), ("hymba-1.5b", None),
-                                      ("hymba-1.5b", "int8_tok"), ("hymba-1.5b", "mxint4_blk")])
+                                      ("hymba-1.5b", "int8_tok"), ("hymba-1.5b", "mxint4_blk"),
+                                      ("olmoe-1b-7b", None), ("olmoe-1b-7b", "int8_tok"),
+                                      ("olmoe-1b-7b", "mxint4_blk"), ("ds3_moe", None)])
 def test_generate_replays_match_the_eager_loop(arch, fmt):
     """Reduced models on the card: `generate` (one captured step, replayed)
     gives the eager loop's tokens, lengths and final cache bit for bit, a
@@ -1134,11 +1216,7 @@ def test_generate_replays_match_the_eager_loop(arch, fmt):
     from repro_torch import configs
     from repro_torch.serving.engine import EngineSpec, InferenceEngine
     from repro_torch.serving.sampling import GenerationConfig
-    if arch == "ds3_dense":
-        cfg = configs.get_config("deepseek-v3-671b").reduced()
-        cfg = dataclasses.replace(cfg, n_layers=cfg.first_dense_layers)
-    else:
-        cfg = configs.get_config(arch).reduced()
+    cfg = _reduced(arch)
     eng = InferenceEngine.from_config(cfg, EngineSpec(), device="cuda")
     s = 40 if cfg.sliding_window else 16          # hymba: past its window of 32
     prompts = torch.randint(1, cfg.vocab_size, (2, s), device="cuda",
@@ -1155,9 +1233,10 @@ def test_generate_replays_match_the_eager_loop(arch, fmt):
     assert torch.equal(res.lengths, lengths)
     (sg,) = eng._graphs.values()
     assert _tree_equal(sg.state.cache, cache)
-    for name in ("mxint4_matmul", "flash_decode", "flash_decode_mla"):
+    for name in ("mxint4_matmul", "flash_decode", "flash_decode_mla", "mxint4_expert_matmul"):
         assert replayed[name] == 10 * sg.launches[name]      # decode launches only
     assert sg.launches["mxint4_matmul"] > 0
+    assert sg.launches["mxint4_expert_matmul"] == 3 * _moe_layers(cfg)
 
 
 def test_sampled_generate_replays_draw_fresh_numbers_and_repeat_with_the_seed():
@@ -1180,19 +1259,24 @@ def test_sampled_generate_replays_draw_fresh_numbers_and_repeat_with_the_seed():
 
 
 def _reduced(arch):
+    """A reduced config: ``ds3_dense`` is deepseek-v3 cut to its dense head,
+    ``ds3_moe`` deepseek-v3 with its MoE layers (3 dense, 2 MoE)."""
     import dataclasses
 
     from repro_torch import configs
     if arch == "ds3_dense":
         cfg = configs.get_config("deepseek-v3-671b").reduced()
         return dataclasses.replace(cfg, n_layers=cfg.first_dense_layers)
+    if arch == "ds3_moe":
+        return configs.get_config("deepseek-v3-671b").reduced()
     return configs.get_config(arch).reduced()
 
 
 @pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
                                       ("qwen3-8b", "int8_tok"), ("qwen3-8b", "mxint4_blk"),
                                       ("ds3_dense", None), ("ds3_dense", "int8_tok"),
-                                      ("falcon-mamba-7b", None), ("hymba-1.5b", "int8_tok")])
+                                      ("falcon-mamba-7b", None), ("hymba-1.5b", "int8_tok"),
+                                      ("olmoe-1b-7b", None), ("ds3_moe", "int8_tok")])
 def test_resume_after_chunked_prefill_replays_match_the_eager_loop(arch, fmt):
     """Reduced models on the card: a chunked admission (23 = 4 x 5 + 2 + 1,
     into a cache in ``fmt``), then `resume_generate` through the graph keyed
@@ -1248,7 +1332,8 @@ def test_top_p_generate_through_the_graph_stays_in_the_nucleus():
         logits, cache = eng.decode_step(runs[0].tokens[:, i:i + 1], cache)
 
 
-@pytest.mark.parametrize("arch", ["retnet-1.3b", "qwen3-8b", "ds3_dense", "falcon-mamba-7b",
+@pytest.mark.parametrize("arch", ["retnet-1.3b", "qwen3-8b", "ds3_dense", "olmoe-1b-7b",
+                                  "falcon-mamba-7b",
                                   "hymba-1.5b"])
 def test_resume_twice_on_the_card_equals_one_resume(arch):
     """`resume_generate` of 4 tokens, then of 4 more from the cache it left
@@ -1305,26 +1390,38 @@ def test_retention_apply_runs_every_length_through_the_kernel(s, warm):
 # -- speculative decode on the card --------------------------------------------------
 
 
+def _moe_layers(cfg) -> int:
+    return cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
+
+
 def _w8a8_launches(cfg) -> int:
     """W8A8 launches of one verify step on a reduced model: every linear of
-    every layer (MLA's wk_b / wv_b re-expansion included) and the LM head."""
+    every layer (MLA's wk_b / wv_b re-expansion included; a MoE layer's
+    router and shared expert, its routed experts going through their GEMV)
+    and the LM head."""
+    attn = 7 if cfg.family == "retnet" else 6 if cfg.attn_type == "mla" else 4
     per_layer = (7 if cfg.family == "retnet" else 4 if cfg.family == "ssm" else
-                 11 if cfg.family == "hybrid" else
-                 9 if cfg.attn_type == "mla" else 4 + (3 if cfg.norm_type == "rmsnorm" else 2))
-    return per_layer * cfg.n_layers + 1
+                 11 if cfg.family == "hybrid" else attn + 3)
+    moe = _moe_layers(cfg)
+    per_moe = attn + 1 + (3 if cfg.n_shared_experts else 0)
+    return per_layer * (cfg.n_layers - moe) + per_moe * moe + 1
 
 
 @pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", None),
                                       ("qwen3-8b", "int8_tok"), ("ds3_dense", None),
                                       ("ds3_dense", "mxint4_blk"), ("falcon-mamba-7b", None),
-                                      ("hymba-1.5b", None), ("hymba-1.5b", "mxint4_blk")])
+                                      ("hymba-1.5b", None), ("hymba-1.5b", "mxint4_blk"),
+                                      ("olmoe-1b-7b", None), ("olmoe-1b-7b", "int8_tok"),
+                                      ("ds3_moe", None)])
 def test_speculative_generate_replays_match_the_eager_step(arch, fmt):
     """Reduced models on the card, default deployment: `generate` with
     speculative decode (each verify step one replay of a captured graph, W8A8
     inside it) against the same loop with the eager step from the same
     prefill: tokens, lengths, verify steps, accepted drafts, history and
-    final cache bit for bit; a replay launches W8A8 only, once per linear
-    and the LM head, and a second generate does not capture again."""
+    final cache bit for bit; a replay launches W8A8 once per linear and the
+    LM head (and the routed experts' GEMV three times a MoE layer, as the
+    verify dispatch never dequantizes a whole stack), and a second generate
+    does not capture again."""
     from repro_torch.serving.engine import EngineSpec, InferenceEngine
     from repro_torch.serving.sampling import GenerationConfig, SpeculativeConfig, sample
     cfg = _reduced(arch)
@@ -1344,7 +1441,8 @@ def test_speculative_generate_replays_match_the_eager_step(arch, fmt):
     assert res.capture_s == 0.0 and torch.equal(res.tokens, first.tokens)
     (sg,) = eng._graphs.values()
     assert sg.launches == {**dict.fromkeys(hopper.COUNTERS, 0),
-                           "w8a8_matmul": _w8a8_launches(eng.cfg)}
+                           "w8a8_matmul": _w8a8_launches(eng.cfg),
+                           "mxint4_expert_matmul": 3 * _moe_layers(eng.cfg)}
     # The prefill runs the same linears once more, at M = B x S.
     assert replayed["w8a8_matmul"] == (res.verify_steps + 1) * sg.launches["w8a8_matmul"]
     with torch.inference_mode():
@@ -1361,7 +1459,8 @@ def test_speculative_generate_replays_match_the_eager_step(arch, fmt):
 
 @pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", "int8_tok"),
                                       ("ds3_dense", None), ("falcon-mamba-7b", None),
-                                      ("hymba-1.5b", "int8_tok")])
+                                      ("hymba-1.5b", "int8_tok"), ("olmoe-1b-7b", None),
+                                      ("ds3_moe", "int8_tok")])
 def test_spec_class_step_replays_match_its_eager_body(arch, fmt):
     """A speculative scheduler's class step (captured at pool build, per-lane
     W8A8 scales) replayed with its two lanes at different positions gives its

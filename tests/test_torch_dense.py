@@ -161,19 +161,19 @@ def test_rope_dim_matches_reference(name):
                                   "starcoder2-15b", "hymba-1.5b", "llava-next-34b",
                                   "deepseek-v3-671b", "olmoe-1b-7b"])
 def test_dense_family_gate(name):
-    """Dense RMSNorm archs and hymba (its sliding-window ring) pass;
-    deepseek-v3 passes only cut to its leading dense layers (its MoE layers,
-    like olmoe's, are not ported)."""
+    """Dense RMSNorm archs, hymba (its sliding-window ring) and the MoE
+    archs (olmoe; deepseek-v3 whole or cut to its leading dense layers)
+    pass; LayerNorm and the frontends do not."""
     cfg = Tconfigs.get_config(name).reduced()
-    if name in ("qwen3-8b", "qwen1.5-4b", "internlm2-1.8b", "hymba-1.5b"):
+    if name in ("qwen3-8b", "qwen1.5-4b", "internlm2-1.8b", "hymba-1.5b",
+                "deepseek-v3-671b", "olmoe-1b-7b"):
         Tlm._check_family(cfg)
     else:
         with pytest.raises(NotImplementedError, match="not ported"):
             Tlm._check_family(cfg)
     if name == "deepseek-v3-671b":
-        for full in (cfg, Tconfigs.get_config(name)):
-            with pytest.raises(NotImplementedError, match="MoE"):
-                Tlm._check_family(full)
+        for whole in (cfg, Tconfigs.get_config(name)):
+            Tlm._check_family(whole)
         for cut in (cfg, Tconfigs.get_config(name)):
             Tlm._check_family(dataclasses.replace(cut, n_layers=cut.first_dense_layers))
 

@@ -66,17 +66,26 @@ def test_from_config_defaults_to_the_card():
 
 
 def test_from_config_rejects_unported_families():
+    """starcoder2-15b's LayerNorm is not ported yet."""
     from repro_torch.serving.engine import EngineSpec, InferenceEngine
-    with pytest.raises(NotImplementedError):
-        InferenceEngine.from_config("olmoe-1b-7b", EngineSpec(reduced=True),
+    with pytest.raises(NotImplementedError, match="layernorm"):
+        InferenceEngine.from_config("starcoder2-15b", EngineSpec(reduced=True),
                                     device="cpu")
 
 
 def test_from_config_rejects_deepseek_v3_with_its_moe_layers():
+    """Reduced deepseek-v3 with its MoE layers builds on the CPU since the
+    routed MoE was ported: 3 dense layers, then 2 MoE layers with the
+    shared expert, deployed (the expert stacks in MXINT4 only)."""
+    from repro_torch.models import lm
     from repro_torch.serving.engine import EngineSpec, InferenceEngine
-    with pytest.raises(NotImplementedError, match="MoE"):
-        InferenceEngine.from_config("deepseek-v3-671b", EngineSpec(reduced=True),
-                                    device="cpu")
+    eng = InferenceEngine.from_config("deepseek-v3-671b", EngineSpec(reduced=True),
+                                      device="cpu")
+    kinds = [type(b) for b in eng.model.blocks]
+    assert kinds == [lm.DenseBlock] * 3 + [lm.MoEBlock] * 2
+    moe = eng.model.blocks[-1].moe
+    assert moe.shared is not None and moe.experts.deployed
+    assert moe.experts.wg_packed.shape == (4, 128, 32)
 
 
 @pytest.mark.parametrize("op", ["mxint4", "w8a8", "retention", "flash_decode",

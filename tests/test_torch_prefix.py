@@ -11,7 +11,7 @@ paged tier):
   the port's own cold tokens;
 * the reference's cases of tests/test_serving_prefix.py that need neither
   speculative decode (its case is in tests/test_torch_speculative.py) nor
-  MoE layers (A9), on the port:
+  MoE layers (its case is in tests/test_torch_moe_serving.py), on the port:
   preemption, engine-level adoption, offset validation, the COW of an
   unaligned adoption, the last-token cap, the sub-page miss, sibling pages,
   encoded pages, page budgets (LRU eviction, host migration, snapshots),

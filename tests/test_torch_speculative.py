@@ -291,12 +291,12 @@ def test_rollback_restores_exact_state_after_full_rejection():
 
 
 def test_commit_of_an_unported_family_names_a9():
-    """Rings and SSM state roll back since their slice; MoE layers still
-    name A9."""
-    cfg = Tconfigs.get_config("olmoe-1b-7b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Tlm.commit_verified_cache({"pos": torch.tensor(0)}, {"blocks": []},
-                                  torch.tensor(1), 2, cfg)
+    """Every family rolls back now (MoE since its slice, A9c): on reduced
+    olmoe-1b-7b, fp weights and the f32 cache, the verify block (its MoE
+    dispatch never drops), the commit at every ``n_accept`` (a MoE layer's
+    cache rewinds its pointer, as a dense one's) and a decode step from
+    each committed cache equal the reference's."""
+    test_verify_and_commit_match_reference("olmoe-1b-7b", None, False)
 
 
 # -- (4) greedy identity ----------------------------------------------------------
