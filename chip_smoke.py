@@ -27,11 +27,15 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (K 100) on the zero-padded operands deploy holds (exact against the
    unpadded product; the library timed on the same padded operands), and
    hymba's x_proj at the decode step's M 2; flash-decode also at
-   olmoe-1b-7b's G 1 (B 2, KV 16, d 128, C 544; f32, int8_tok, mxint4_blk);
+   olmoe-1b-7b's G 1 (B 2, KV 16, d 128, C 544; f32, int8_tok, mxint4_blk)
+   and starcoder2-15b's G 12 (B 2, KV 4, d 128, C 544; the same formats);
    the routed experts' GEMV (`mxint4_expert_matmul`) at olmoe's decode (A
-   16 rows) and verify (A 80) shapes, its bound from the distinct experts'
-   bytes, beside the PyTorch gather + dequantize + bmm and the reference's
-   whole-stack dataflow (`kernel_phase_mxint4_expert`);
+   16 rows) and verify (A 80) shapes and at deepseek-v3's MTP head step (A
+   16 rows of 256 experts, 7168 <-> 2048), its bound from the distinct
+   experts' bytes, beside the PyTorch gather + dequantize + bmm and the
+   reference's whole-stack dataflow (`kernel_phase_mxint4_expert`); MXINT4
+   also at the MTP head step's linears (M 2: proj 14336 -> 7168, MLA, the
+   router at N 256, the shared expert, the LM head);
    retention on the model's strided views and the MLA mode, each bound by
    its split-TF32 instruction mix (the f32 CUDA-core bound beside it), with
    a profiler check that one call runs only its own launches (retention
@@ -44,7 +48,7 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (`sigma_chain_price`); and the selective scan (plain PyTorch, not a
    kernel: `scan_phase`), device ms per layer, per prefill and per decode
    step at falcon-mamba-7b's and hymba-1.5b's widths;
-4. the six main paths at full width, each through
+4. the seven main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens (each
    decode step a replay of one captured CUDA graph, its launches counted per
@@ -63,7 +67,9 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    olmoe-1b-7b (16 layers, d_model 2048, 16 heads over 16 KV heads of 128
    with QK-norm, 64 experts, top 8, moe_d_ff 1024, vocab 50304; the same
    three formats; its B 2 decode dispatch drops, counted by `moe_drops`),
-   all from seeded random weights in the default
+   and starcoder2-15b (40 layers, d_model 6144, LayerNorm, 48 heads over 4
+   KV heads of 128, an ungated GeLU MLP of 24576, vocab 49152; the same
+   three formats), all from seeded random weights in the default
    W8A8/MXINT4 deployment; then the
    same weights on the plain path (``kernel_impl="ref"``): every block in
    lockstep, prefill logits beside the network's own sensitivity, the
@@ -75,8 +81,9 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (retnet-1.3b), each token in its step's top k or nucleus, repeated with
    its seed;
 5. after phase 4 on each path, the admission paths (`serve_admission`), once
-   per cache format of the chunked admission: 2 prompts of 500 tokens in
-   chunks of 32 (hymba-1.5b: 1100 in chunks of 128, so its 1024-slot ring
+   per cache format of the chunked admission (phases 5, 7 and 8 run
+   starcoder2-15b in its first format only, `phase_formats`): 2 prompts of
+   500 tokens in chunks of 32 (hymba-1.5b: 1100 in chunks of 128, so its 1024-slot ring
    wraps and its full-attention layers degrade to it, as in the reference;
    15 x 32 + 16 + 4: retention from a warm state at chunks
    32, 16 and 4; W8A8 at M = 64, 32 and 8, and MLA's per-chunk
@@ -149,9 +156,20 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    and the scheduler mode; on qwen3-8b ``--prefix-cache`` (4 of 5
    admissions adopt the shared prompt); one greedy generate each on
    falcon-mamba-7b, hymba-1.5b and olmoe-1b-7b; reduced deepseek-v3 with its
-   MoE layers (3 dense, 2 MoE with the shared expert) against the CPU too,
-   block by block on the CPU's input, its prefill logits end to end and on
-   fp weights (`reduced_vs_cpu`, `cpu_lockstep`);
+   MoE layers (3 dense, 2 MoE with the shared expert) and its MTP head
+   against the CPU too, block by block on the CPU's input, its prefill
+   logits end to end and on fp weights (`reduced_vs_cpu`, `cpu_lockstep`),
+   and one MTP head step on the CPU's inputs (`mtp_head_vs_cpu`);
+   before phase 9, the ds3_mtp cell (`serve_mtp`): the ds3 cut with its MTP
+   head (proj, then an MoE block over MLA: 256 experts, top 8, moe_d_ff
+   2048, one shared expert) at every published width, speculative
+   `generate` with the MTP drafter (k 4, f32 latent cache), each verify
+   replay 28 W8A8 and 4 chained head steps of 12 MXINT4 and 3 expert GEMV
+   launches, counted; graph = eager bit for bit (the drafter's ``h``
+   included); the verify block in lockstep with the plain path; one head
+   step against the plain path (hidden DECODE_BLOCK_TOL, logits
+   DECODE_TOL, tokens routed differently counted); the head chain captured
+   alone and timed beside a verify replay (`mtp_head_checks`);
 10. the selective scan's line, one JSON line ``{"kernels": [...]}`` (``scheduler_launches_by_path``,
    ``prefix_launches_by_path`` and ``speculative_launches_by_path`` beside
    ``launches``; W8A8's rows also at the verify step's shapes, M 10, under
@@ -233,11 +251,14 @@ QWEN3 = dict(arch="qwen3-8b", layers=36, d=4096, vocab=152064, kv=8, g=4, hd=128
              linears=((4096, 4096, 2), (4096, 1024, 2), (4096, 12288, 2),
                       (12288, 4096, 1)),
              decode_w8_linears=(), prefill_linears=(), attn="gqa")
+# ds3_dense is built without deepseek-v3's MTP head (``mtp=False``): none of
+# its phases reads the head, which `DS3_MTP` carries.
 _DS3 = configs.get_config("deepseek-v3-671b")
 DS3 = dict(arch="ds3_dense", layers=3, d=7168, vocab=129280, heads=128, r=512, dr=64,
            formats=(None, "int8_tok", "mxint4_blk"),
-           cfg=dataclasses.replace(_DS3, n_layers=_DS3.first_dense_layers),
-           reduced=dataclasses.replace(_DS3.reduced(), n_layers=_DS3.first_dense_layers),
+           cfg=dataclasses.replace(_DS3, n_layers=_DS3.first_dense_layers, mtp=False),
+           reduced=dataclasses.replace(_DS3.reduced(), n_layers=_DS3.first_dense_layers,
+                                       mtp=False),
            linears=((7168, 1536, 1), (1536, 24576, 1), (7168, 576, 1), (16384, 7168, 1),
                     (7168, 18432, 2), (18432, 7168, 1)),
            decode_w8_linears=(), prefill_linears=((512, 16384, 2),), attn="mla")
@@ -267,7 +288,33 @@ OLMOE = dict(arch="olmoe-1b-7b", layers=16, d=2048, vocab=50432, kv=16, g=1, hd=
              linears=((2048, 2048, 4), (2048, 64, 1)),
              decode_w8_linears=(), prefill_linears=(), attn="gqa",
              experts=dict(e=64, k=8, f=1024), f32_witness=True)
-PATHS = (RETNET, QWEN3, DS3, FALCON_MAMBA, HYMBA, OLMOE)
+# starcoder2-15b: LayerNorm, GQA (48 heads over 4 KV heads of 128: G 12,
+# flash-decode's three G-chunks of 4), an ungated GeLU MLP of 24576, vocab
+# 49152.  Its admission, prefix and speculative phases run in its first
+# cache format only (``phase_formats``, `phase_formats`); every other path
+# runs them in every format.
+STARCODER2 = dict(arch="starcoder2-15b", layers=40, d=6144, vocab=49152, kv=4, g=12, hd=128,
+                  formats=(None, "int8_tok", "mxint4_blk"), phase_formats=(None,),
+                  linears=((6144, 6144, 2), (6144, 512, 2), (6144, 24576, 1),
+                           (24576, 6144, 1)),
+                  decode_w8_linears=(), prefill_linears=(), attn="gqa")
+PATHS = (RETNET, QWEN3, DS3, FALCON_MAMBA, HYMBA, OLMOE, STARCODER2)
+# ds3_mtp: the ds3 cut with its MTP head, at every published width (`serve_mtp`):
+# speculative `generate` with the MTP drafter, each verify step (W8A8 over the
+# block, as on ds3_dense) chaining SPEC_K head steps inside its graph.  A head
+# step (``head``, one layer of its own) runs in the decode format at M = B:
+# ``proj`` (14336 -> 7168), MLA's six linears (``wk_b`` / ``wv_b`` through
+# MXINT4: the full-sequence block), the router (N 256), the shared expert and
+# the LM head, all MXINT4, and the routed experts' GEMV three times (256
+# experts, top 8, moe_d_ff 2048: A = B x 8 rows).  Its f32 latent cache only:
+# the head reads no cache, so the other formats add nothing.
+MTP_HEAD = dict(arch="ds3_mtp head", layers=1, d=7168, vocab=129280,
+                linears=((14336, 7168, 1), (7168, 1536, 1), (1536, 24576, 1), (7168, 576, 1),
+                         (512, 16384, 2), (16384, 7168, 1), (7168, 256, 1), (7168, 2048, 2),
+                         (2048, 7168, 1)),
+                experts=dict(e=256, k=8, f=2048), site="MTP head step (k of them a verify step)")
+DS3_MTP = dict(DS3, arch="ds3_mtp", formats=(None,), drafter="mtp", head=MTP_HEAD,
+               cfg=dataclasses.replace(_DS3, n_layers=_DS3.first_dense_layers))
 # deepseek-v3 with its MoE layers: 3 dense then 2 MoE layers with the shared
 # expert over MLA, reduced only (its 58 MoE layers of 256 experts do not fit
 # one card), in `reduced_vs_cpu`.  It is held stage by stage (``lockstep``:
@@ -486,9 +533,13 @@ def _linear_cases(path: dict, m: int, lm_head_m: int, prefill: bool = False):
 
 
 def kernel_phase_mxint4(peaks):
+    """MXINT4 at every main path's decode shapes (M = B), and at an MTP head
+    step's (``ds3_mtp head``: its rows carry the head's ``site``, not a
+    decode step's)."""
     rows = []
-    for arch, m, k, n, count in (c for path in PATHS
-                                 for c in _linear_cases(path, BATCH, BATCH)):
+    cases = [c + (path.get("site"),) for path in PATHS + (MTP_HEAD,)
+             for c in _linear_cases(path, BATCH, BATCH)]
+    for arch, m, k, n, count, site in cases:
         g = _gen(k + n)
         x = torch.randn(m, k, generator=g, device="cuda")
         w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
@@ -513,6 +564,8 @@ def kernel_phase_mxint4(peaks):
             library_ms=time_ms(lambda: x @ w_deq), bound_ms=bms, bound_by=by,
             plan=hopper.mxint4_plan(m, n, k), rate=f"{nbytes / ms / 1e6:.1f} GB/s",
             bound_share=bms / ms))
+        if site:
+            rows[-1].update(main=False, site=site)
         del w_deq
     return rows
 
@@ -525,14 +578,17 @@ def _route(t: int, e: int, k: int, g: torch.Generator) -> torch.Tensor:
 
 
 def _expert_cases(path: dict):
-    """(path, tokens, K, N, launches per unit, main) of the routed experts'
-    GEMV: olmoe's decode step (B 2 tokens: A = 16 rows) and its speculative
-    verify step (B 2 x k 4 + 1 tokens: A = 80), at wg / wi (2048 -> 1024,
-    twice a layer) and wo (1024 -> 2048)."""
+    """(path, tokens, K, N, launches per unit, site) of the routed experts'
+    GEMV: olmoe's decode step (B 2 tokens: A = 16 rows; site None, a main
+    row) and its speculative verify step (B 2 x k 4 + 1 tokens: A = 80), at
+    wg / wi (2048 -> 1024, twice a layer) and wo (1024 -> 2048); a path with
+    a ``site`` of its own (an MTP head step's B 2 tokens: A = 16 rows of 256
+    experts, 7168 -> 2048 and 2048 -> 7168) at that site alone."""
     f, d, n = path["experts"]["f"], path["d"], path["layers"]
-    return [(name, t, k_, n_, c * n, main)
-            for name, t, main in ((path["arch"], BATCH, True),
-                                  (f"{path['arch']} verify", BATCH * (SPEC_K + 1), False))
+    units = (((path["arch"], BATCH, path["site"]),) if "site" in path else
+             ((path["arch"], BATCH, None),
+              (f"{path['arch']} verify", BATCH * (SPEC_K + 1), "speculative verify step")))
+    return [(name, t, k_, n_, c * n, site) for name, t, site in units
             for k_, n_, c in ((d, f, 2), (f, d, 1))]
 
 
@@ -545,9 +601,9 @@ def kernel_phase_mxint4_expert(peaks):
     the reference's own dataflow (every stack dequantized to f32, then the
     rows' products)."""
     rows = []
-    for path in (p for p in PATHS if "experts" in p):
+    for path in [p for p in PATHS if "experts" in p] + [MTP_HEAD]:
         e, top = path["experts"]["e"], path["experts"]["k"]
-        for arch, t, k, n, count, main in _expert_cases(path):
+        for arch, t, k, n, count, site in _expert_cases(path):
             g = _gen(t + k + n)
             packed, exps = deploy.quantize_stacked(
                 torch.randn(e, k, n, generator=g, device="cuda") * k ** -0.5)
@@ -579,8 +635,8 @@ def kernel_phase_mxint4_expert(peaks):
                     packed.index_select(0, ids), exps.index_select(0, ids)))[:, 0]),
                 whole_stack_ms=time_ms(whole_stack), bound_ms=bms, bound_by=by,
                 rate=f"{nbytes / ms / 1e6:.1f} GB/s", bound_share=bms / ms))
-            if not main:
-                rows[-1].update(main=False, site="speculative verify step")
+            if site:
+                rows[-1].update(main=False, site=site)
             del packed, exps
     return rows
 
@@ -800,8 +856,9 @@ def sdpa_backend(fn) -> str:
 # Flash-decode's GQA shapes: qwen3-8b (B 2, KV 8, G 4, d 128, C 544; every
 # cache format, timed at kv_len 528), hymba-1.5b over its ring (B 2, KV 5,
 # G 5: two group chunks, the second holding one head; d 64; C 1024, timed at
-# 1024: the ring full, as it is from the wrap on) and olmoe-1b-7b (B 2, KV
-# 16, G 1: three of the four group rows of a block idle; d 128, C 544).
+# 1024: the ring full, as it is from the wrap on), olmoe-1b-7b (B 2, KV
+# 16, G 1: three of the four group rows of a block idle; d 128, C 544) and
+# starcoder2-15b (B 2, KV 4, G 12: three group chunks; d 128, C 544).
 FD_SHAPES = (
     dict(path=QWEN3, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
          lanes=LANE_KV_LENS, formats=("f32", "bf16", "int8", "int8_tok", "mxint4_blk")),
@@ -809,6 +866,8 @@ FD_SHAPES = (
          check=(1, 16, 17, 513, 1023, 1024), lanes=((1, 1024), (1024, 300)),
          formats=("f32", "int8_tok", "mxint4_blk")),
     dict(path=OLMOE, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
+         lanes=LANE_KV_LENS, formats=("f32", "int8_tok", "mxint4_blk")),
+    dict(path=STARCODER2, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
          lanes=LANE_KV_LENS, formats=("f32", "int8_tok", "mxint4_blk")),
 )
 
@@ -1198,6 +1257,7 @@ def serve_full_width(path: dict, card: str):
     plain = InferenceEngine(cfg, eng.model, EngineSpec(kernel_impl="ref"))
     counted, results = dict.fromkeys(hopper.COUNTERS, 0), {}
     for fmt in path["formats"]:
+        t_cell = time.perf_counter()
         tag = arch if fmt is None else f"{arch} {fmt}"
         gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt)
         # Per-phase launch counts, eagerly, then the capture.
@@ -1287,7 +1347,7 @@ def serve_full_width(path: dict, card: str):
             plain_prefill_ms=res_p.prefill_s * 1e3,
             plain_decode_ms_per_token=res_p.decode_s * 1e3 / res_p.decode_steps,
             compare_s=time.perf_counter() - t1)
-        serving.update(checks)
+        serving.update(checks, cell_s=time.perf_counter() - t_cell)
         log(f"{tag} kernel vs plain path:", json.dumps(checks))
         results[tag] = serving
     if path is RETNET:
@@ -1502,6 +1562,12 @@ def _cache_rel(tag, ck, cr, tol) -> float:
     return worst
 
 
+def phase_formats(path: dict) -> tuple:
+    """The cache formats the admission, prefix and speculative phases run
+    a path in: every format of phase 4, unless ``phase_formats`` cuts them."""
+    return path.get("phase_formats", path["formats"])
+
+
 def admit_prompt(path: dict) -> tuple[int, int]:
     """The admission phase's prompt length and chunk size on ``path``."""
     return path.get("admit_prompt", ADMIT_PROMPT), path.get("admit_chunk", ADMIT_CHUNK)
@@ -1632,7 +1698,8 @@ def serve_admission(path: dict, eng, plain, card: str):
     want_p, want_s = expected_launches(path, chunk_size)
     want_chunked = {k: v * len(sched) for k, v in want_p.items()}
     counted, results = dict.fromkeys(hopper.COUNTERS, 0), {}
-    for fmt in path["formats"]:
+    for fmt in phase_formats(path):
+        t_cell = time.perf_counter()
         tag = f"{arch} admission" + ("" if fmt is None else f" {fmt}")
         gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt)
         out = dict(card=card, schedule=sched)
@@ -1691,6 +1758,7 @@ def serve_admission(path: dict, eng, plain, card: str):
         if first:
             out.update(_mono_and_bucketed(tag, path, eng, prompts, gen,
                                           (bucketed, mono, chunked), lg_c, t_c0, res))
+        out["cell_s"] = time.perf_counter() - t_cell
         log(f"{tag}:", json.dumps(out))
         results[tag] = out
         del cache_c
@@ -2241,11 +2309,13 @@ def serve_prefix(path: dict, eng, card: str) -> tuple[dict, dict]:
     arch = path["arch"]
     log(f"== prefix cache: {arch}, a {PREFIX_CELL['base']}-token base then "
         f"{PREFIX_CELL['n_ext']} extensions of {PREFIX_CELL['ext']}, cache formats "
-        f"{[f or 'f32' for f in path['formats']]}"
+        f"{[f or 'f32' for f in phase_formats(path)]}"
         + (", then the prefix_reuse leg" if path is QWEN3 else ""))
     launches, results = dict.fromkeys(hopper.COUNTERS, 0), {}
-    for fmt in path["formats"]:
+    for fmt in phase_formats(path):
+        t_cell = time.perf_counter()
         counted, out = prefix_cell(path, eng, fmt, card)
+        out["cell_s"] = time.perf_counter() - t_cell
         results[f"{arch} prefix" + ("" if fmt is None else f" {fmt}")] = out
         for k in launches:
             launches[k] += counted[k]
@@ -2267,15 +2337,30 @@ def serve_prefix(path: dict, eng, card: str) -> tuple[dict, dict]:
 SPEC_CLASSES = tuple((n, c + SPEC_K) for n, c in DRAIN_CLASSES)
 
 
+def mtp_step_launches(path: dict) -> dict:
+    """Launches of one MTP head step (`lm.mtp_decode_step`): every linear of
+    ``path["head"]`` and the LM head through MXINT4, the routed experts'
+    GEMV three times."""
+    head = path["head"]
+    per = dict.fromkeys(hopper.COUNTERS, 0)
+    per["mxint4_matmul"] = sum(c for _, _, c in head["linears"]) + 1
+    per["mxint4_expert_matmul"] = 3
+    return per
+
+
 def spec_step_launches(path: dict) -> dict:
     """Launches of one verify step: W8A8, those of one admission chunk
     (every linear, MLA's whole-latent re-expansion and the LM head), and a
     MoE layer's expert GEMV three times, as in decode (the verify dispatch
     never dequantizes a stack); retention runs the recurrent form with
-    snapshots."""
+    snapshots.  With the MTP drafter (``head``), SPEC_K head steps'
+    launches besides (`mtp_step_launches`)."""
     per = dict.fromkeys(hopper.COUNTERS, 0)
     per["w8a8_matmul"] = expected_launches(path, SPEC_K + 1)[0]["w8a8_matmul"]
     per["mxint4_expert_matmul"] = expected_launches(path)[1]["mxint4_expert_matmul"]
+    if "head" in path:
+        for name, n in mtp_step_launches(path).items():
+            per[name] += SPEC_K * n
     return per
 
 
@@ -2288,9 +2373,9 @@ def spec_prompts(vocab: int) -> torch.Tensor:
 
 def _spec_start(eng, prompts, gen):
     """The prefill `generate` runs before its speculative loop: (first
-    pending token, encoded cache, history)."""
-    logits, cache, hist = eng._spec_prefill(prompts, gen)
-    return sample(logits, gen.sampling), cache, hist
+    pending token, encoded cache, history, the last prompt token's hidden)."""
+    logits, cache, hist, hidden = eng._spec_prefill(prompts, gen)
+    return sample(logits, gen.sampling), cache, hist, hidden
 
 
 @torch.inference_mode()
@@ -2302,13 +2387,15 @@ def verify_lockstep(eng, plain, prompts, gen) -> dict:
     RetNet snapshots included), its cache committed at the block's
     acceptance (1 for a full rejection) and the logits at all k + 1
     positions must agree within BLOCK_TOL of max|value|.  Two blocks: the
-    ngram drafter's own drafts, and drafts chosen to miss the argmax (a
-    forced full rejection, checked on the plain path's logits)."""
-    from repro_torch.serving.speculative import ngram_propose
+    drafter's own drafts (the ngram drafter's, or the MTP head's on the
+    kernel path), and drafts chosen to miss the argmax (a forced full
+    rejection, checked on the plain path's logits)."""
+    from repro_torch.serving.speculative import make_drafter
     cfg, model, k = eng.cfg, eng.model, SPEC_K
-    tok, cache, hist = _spec_start(eng, prompts, gen)
-    drafts = ngram_propose(hist, torch.tensor(prompts.shape[1], device="cuda"), tok, k=k,
-                           m=gen.speculative.ngram)
+    tok, cache, hist, hidden = _spec_start(eng, prompts, gen)
+    drafter = make_drafter(gen.speculative, cfg, eng.hsa)
+    drafts = drafter.draft(model, drafter.init(
+        hist, torch.tensor(prompts.shape[1], device="cuda"), hidden.clone()), tok)
     bad = (tok[:, None] + torch.arange(1, k + 1, device="cuda")) % cfg.vocab_size
     pos = cache["pos"]
     sin, cos = lm._rope_tables(cfg, k + 1, pos.device, start=pos)
@@ -2365,17 +2452,19 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str,
     condition, ms per emitted token against the plain graph loop in turns
     (after a path's first format, not ``first``: one plain run beside the
     counted one), capture seconds, and where the speculative tokens first
-    part from the plain loop's with the plain loop's top-two margin there."""
+    part from the plain loop's with the plain loop's top-two margin there.
+    The drafter is ``path["drafter"]`` (the ngram drafter by default)."""
     from repro_torch.serving.sampling import SpeculativeConfig
     tag = f"{path['arch']} speculative" + ("" if fmt is None else f" {fmt}")
     cfg = eng.cfg
     prompts = spec_prompts(cfg.vocab_size)
     gen = GenerationConfig(max_new_tokens=SPEC_NEW, cache_format=fmt,
-                           speculative=SpeculativeConfig(k=SPEC_K))
+                           speculative=SpeculativeConfig(
+                               k=SPEC_K, drafter=path.get("drafter", "ngram")))
     plain_gen = dataclasses.replace(gen, speculative=None)
     want_p, want_step = expected_launches(path)[0], spec_step_launches(path)
     first = eng.generate(prompts, gen)
-    tok, cache, hist = _spec_start(eng, prompts, gen)
+    tok, cache, hist, hidden = _spec_start(eng, prompts, gen)
     sg = eng._graphs[eng.spec_graph_key(cache, hist.shape[1], gen)]
     if sg.launches != want_step:
         raise RuntimeError(f"{tag}: a verify replay launches {sg.launches}, expected "
@@ -2387,16 +2476,17 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str,
     if launches != want or res.capture_s or not torch.equal(res.tokens, first.tokens):
         raise RuntimeError(f"{tag}: launches {launches}, expected {want} (capture "
                            f"{res.capture_s} s)")
-    st, _ = eng._spec_loop(tok, cache, hist, prompts.shape[1], gen, None, graph=False)
+    st, _ = eng._spec_loop(tok, cache, hist, prompts.shape[1], hidden, gen, None, graph=False)
     g = sg.state
     same = (torch.equal(res.tokens, st.out[:, :SPEC_NEW]) and torch.equal(res.lengths, st.lengths)
             and (res.verify_steps, res.accepted_drafts) == (int(st.steps), int(st.accepted))
-            and torch.equal(g.hist, st.hist) and torch.equal(g.hist_len, st.hist_len))
+            and torch.equal(g.hist, st.hist) and torch.equal(g.hist_len, st.hist_len)
+            and torch.equal(g.h, st.h))
     a, b = dict(serving_engine.tree_items(g.cache)), dict(serving_engine.tree_items(st.cache))
     differ = [key for key in a if not torch.equal(a[key], b[key])]
     if not same or differ:
         raise RuntimeError(f"{tag}: graph and eager loops differ ({differ[:4]})")
-    del st, cache
+    del st, cache, hidden
     toks = res.tokens
     if toks.shape != (BATCH, SPEC_NEW) or not _in_vocab(cfg, toks):
         raise RuntimeError(f"{tag}: bad tokens {toks.shape}")
@@ -2558,12 +2648,14 @@ def serve_speculative(path: dict, eng, plain, card: str) -> tuple[dict, dict]:
     arch = path["arch"]
     log(f"== speculative decode: {arch}, k {SPEC_K}, B={BATCH}, S={PROMPT} (one seeded, one "
         f"periodic prompt), {SPEC_NEW} tokens, C {SPEC_CACHE}, cache formats "
-        f"{[f or 'f32' for f in path['formats']]}; then the scheduler drain in speculative "
-        f"mode, classes {SPEC_CLASSES}")
+        f"{[f or 'f32' for f in phase_formats(path)]}; then the scheduler drain in "
+        f"speculative mode, classes {SPEC_CLASSES}")
     launches, results = dict.fromkeys(hopper.COUNTERS, 0), {}
-    for fmt in path["formats"]:
+    for fmt in phase_formats(path):
+        t_cell = time.perf_counter()
         counted, out = speculative_cell(path, eng, plain, fmt, card,
                                         first=fmt == path["formats"][0])
+        out["cell_s"] = time.perf_counter() - t_cell
         results[f"{arch} speculative" + ("" if fmt is None else f" {fmt}")] = out
         for k in launches:
             launches[k] += counted[k]
@@ -2573,6 +2665,206 @@ def serve_speculative(path: dict, eng, plain, card: str) -> tuple[dict, dict]:
     log(f"{arch} speculative phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return launches, results
+
+
+@torch.inference_mode()
+def mtp_head_checks(path: dict, eng, plain) -> dict:
+    """The MTP head on its own, from the prefill of the speculative cell's
+    prompts: one `lm.mtp_decode_step` on the kernel path against the plain
+    path (``kernel_impl="ref"``) on the same ``(h, tok)`` (the last prompt
+    token's hidden and the first pending token), the head's hidden within
+    DECODE_BLOCK_TOL and its logits within DECODE_TOL of max|value|, the
+    tokens the two routers send to different experts counted; the k chained
+    head steps captured alone as a graph (launches exactly SPEC_K head
+    steps', its drafts equal to the eager chain's), timed between CUDA
+    events beside one verify replay (the head's share of it); the drafts of
+    the kernel and the plain chain compared (recorded)."""
+    from repro_torch.serving.sampling import SpeculativeConfig
+    from repro_torch.serving.speculative import make_drafter
+    cfg, model = eng.cfg, eng.model
+    prompts = spec_prompts(cfg.vocab_size)
+    gen = GenerationConfig(max_new_tokens=SPEC_NEW,
+                           speculative=SpeculativeConfig(k=SPEC_K, drafter="mtp"))
+    tok, cache, _, h = _spec_start(eng, prompts, gen)
+    del cache
+    with dispatch_spy() as rk:
+        lk, hk = lm.mtp_decode_step(model, h, tok, cfg, eng.hsa)
+    with dispatch_spy() as rr:
+        lr, hr = lm.mtp_decode_step(model, h, tok, cfg, plain.hsa)
+    out = dict(head_hidden_rel_err=_rel(hk, hr, "MTP head step hidden", DECODE_BLOCK_TOL),
+               head_logits_rel_err=_rel(lk, lr, "MTP head step logits", DECODE_TOL),
+               head_tokens_routed_differently=_routes_differing(rk, rr),
+               head_argmax_agree=bool(torch.equal(lk.argmax(-1), lr.argmax(-1))))
+    drafter, ref_drafter = (make_drafter(gen.speculative, cfg, hsa)
+                            for hsa in (eng.hsa, plain.hsa))
+    state, t = {"h": h.clone()}, tok.clone()
+    eager = drafter.draft(model, {"h": h.clone()}, t)
+    out["drafts_agree_with_plain"] = (eager == ref_drafter.draft(model, {"h": h.clone()}, t)
+                                      ).float().mean().item()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        drafter.draft(model, state, t)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with hopper.captured_launches() as launched, torch.cuda.graph(graph):
+        drafts = drafter.draft(model, state, t)
+    want = {n: SPEC_K * c for n, c in mtp_step_launches(path).items()}
+    if launched != want:
+        raise RuntimeError(f"MTP head chain: a replay launches {launched}, expected {want}")
+    times = []
+    for _ in range(5):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    if not torch.equal(drafts, eager):
+        raise RuntimeError("MTP head chain: the graph's drafts differ from the eager chain's")
+    out.update(head_chain_launches=launched, head_chain_device_ms=sorted(times)[2],
+               head_chain_device_ms_runs=times)
+    log(f"{path['arch']} MTP head: {json.dumps(out)}")
+    return out
+
+
+class _FirstDraftsForced:
+    """The MTP drafter with the first verify block's drafts replaced by
+    ``drafts``; the head chain still runs every step (a replay's launches
+    are the drafter's), and later steps take its own drafts.  ``h1`` keeps
+    the drafter's ``h`` after the first commit; ``calls`` counts the steps on
+    the device, so a captured step reads it too."""
+
+    def __init__(self, inner, drafts: torch.Tensor, hidden: torch.Tensor):
+        self.inner, self.k, self.drafts = inner, inner.k, drafts
+        self.calls = torch.zeros((), dtype=torch.long, device=drafts.device)
+        self.h1 = torch.zeros_like(hidden)
+
+    def reset(self) -> None:
+        self.calls.zero_()
+        self.h1.zero_()
+
+    def init(self, hist, hist_len, hidden):
+        return self.inner.init(hist, hist_len, hidden)
+
+    def draft(self, model, state, tok):
+        return torch.where(self.calls == 0, self.drafts, self.inner.draft(model, state, tok))
+
+    def observe(self, state, block, n_commit, hidden_all, next_tok):
+        self.inner.observe(state, block, n_commit, hidden_all, next_tok)
+        self.h1.copy_(torch.where(self.calls == 0, state["h"], self.h1))
+        self.calls += 1
+
+
+@torch.inference_mode()
+def mtp_deep_commit(path: dict, eng) -> dict:
+    """A verify step that commits past the pending token with the MTP
+    drafter, which random weights never reach on their own: the first
+    block's drafts are the verify's own greedy tokens, iterated towards a
+    fixed point (the block scored on its own after each pass; its one W8A8
+    activation scale lets a changed draft move another position's argmax,
+    so the pass whose least acceptance is highest is kept), and the step
+    commits n_commit > 1 (fatal otherwise; k + 1 at a fixed point).
+    Fatal: the drafter's ``h`` after that commit equals the verify's
+    ``hidden_all[:, n_commit - 1]`` bit for bit, and the speculative loop
+    from the same prefill (that step, then head chains from the later
+    position, 2 (k + 1) tokens) gives the same tokens, lengths, steps,
+    accepted drafts, history, ``h`` and cache as a graph as eagerly, its
+    replay launching a verify step's launches."""
+    from repro_torch.serving import speculative as spec_mod
+    from repro_torch.serving.sampling import SpeculativeConfig
+    cfg, model, k = eng.cfg, eng.model, SPEC_K
+    prompts = spec_prompts(cfg.vocab_size)
+    gen = GenerationConfig(max_new_tokens=2 * (k + 1),
+                           speculative=SpeculativeConfig(k=k, drafter="mtp"))
+    tok, cache, hist, hidden = _spec_start(eng, prompts, gen)
+    drafts = (tok[:, None] + torch.arange(1, k + 1, device=tok.device)) % cfg.vocab_size
+    best = None
+    for passes in range(1, 4 * k + 5):
+        block = torch.cat([tok[:, None], drafts], 1)
+        cand, acc, hidden_all, _ = spec_mod.verify_block(model, block, _clone(cache), cfg=cfg,
+                                                         hsa=eng.hsa, gen=gen)
+        if best is None or int(acc.amin()) > int(best[1].amin()):
+            best = (block, acc, hidden_all)
+        if int(acc.amin()) == k:
+            break
+        drafts = cand[:, :k].clone()
+    block, acc, hidden_all = best
+    n_commit = int(acc.amin()) + 1
+    if n_commit < 2:
+        raise RuntimeError(f"MTP deep commit: no fixed point commits past the pending token "
+                           f"(acceptance {acc.tolist()})")
+    forced = _FirstDraftsForced(spec_mod.make_drafter(gen.speculative, cfg, eng.hsa),
+                                block[:, 1:].contiguous(), hidden)
+    key = eng.spec_graph_key(cache, hist.shape[1], gen)
+    make_drafter, spec_mod.make_drafter = spec_mod.make_drafter, lambda *a: forced
+    try:
+        eng._spec_loop(tok, cache, hist, prompts.shape[1], hidden, gen, None, graph=True)
+        sg = eng._graphs[key]
+        forced.reset()
+        g, _ = eng._spec_loop(tok, cache, hist, prompts.shape[1], hidden, gen, None, graph=True)
+        h1_graph = forced.h1.clone()
+        forced.reset()
+        e, _ = eng._spec_loop(tok, _clone(cache), hist, prompts.shape[1], hidden, gen, None,
+                              graph=False)
+    finally:
+        spec_mod.make_drafter = make_drafter
+        eng._graphs.pop(key, None)
+    want = spec_step_launches(path)
+    if sg.launches != want:
+        raise RuntimeError(f"MTP deep commit: a replay launches {sg.launches}, expected {want}")
+    if not (torch.equal(forced.h1, hidden_all[:, n_commit - 1])
+            and torch.equal(h1_graph, forced.h1)):
+        raise RuntimeError("MTP deep commit: h after the commit is not the verify's hidden at "
+                           f"position {n_commit - 1}")
+    if not torch.equal(e.out[:, :n_commit], block[:, :n_commit]) or int(e.steps) < 2:
+        raise RuntimeError("MTP deep commit: the first step did not emit the forced block "
+                           f"({e.out[:, :n_commit].tolist()}, {int(e.steps)} steps)")
+    a, b = dict(serving_engine.tree_items(g.cache)), dict(serving_engine.tree_items(e.cache))
+    differ = [name for name in a if not torch.equal(a[name], b[name])]
+    same = all(torch.equal(getattr(g, f), getattr(e, f))
+               for f in ("out", "lengths", "steps", "accepted", "hist", "hist_len", "h", "tok"))
+    if not same or differ:
+        raise RuntimeError(f"MTP deep commit: graph and eager loops differ ({differ[:4]})")
+    out = dict(deep_commit_n_commit=n_commit, deep_commit_fixed_point_passes=passes,
+               deep_commit_acceptance=acc.tolist(), deep_commit_verify_steps=int(e.steps),
+               deep_commit_accepted_drafts=int(e.accepted),
+               deep_commit_graph_and_eager_bit_identical=True)
+    log(f"{path['arch']} MTP deep commit: {json.dumps(out)}")
+    return out
+
+
+def serve_mtp(path: dict, card: str) -> tuple[dict, dict]:
+    """The ds3_mtp cell (`DS3_MTP`): the ds3 cut with its MTP head at every
+    published width; `speculative_cell` with the MTP drafter in the f32
+    latent cache (launches exact: the block's W8A8 and SPEC_K head steps'
+    MXINT4 and expert GEMV a replay; graph = eager bit for bit, ``h``
+    included; the verify block in lockstep with the plain path), then
+    `mtp_head_checks` and `mtp_deep_commit`.  Returns the counted generate's
+    launches and the results."""
+    t0 = time.perf_counter()
+    arch = path["arch"]
+    log(f"== MTP drafter: {arch} (the ds3 cut and its MTP head), k {SPEC_K}, B={BATCH}, "
+        f"S={PROMPT}, {SPEC_NEW} tokens, C {SPEC_CACHE}, the f32 latent cache")
+    eng = InferenceEngine.from_config(path["cfg"], EngineSpec(), device="cuda")
+    torch.cuda.synchronize()
+    log(f"init + deploy: {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+    cfg = eng.cfg
+    if (cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.n_experts, cfg.moe_d_ff) != (
+            path["layers"], path["d"], path["vocab"], path["head"]["experts"]["e"],
+            path["head"]["experts"]["f"]) or not isinstance(eng.model.mtp.block, lm.MoEBlock):
+        raise RuntimeError(f"unexpected config {cfg}")
+    plain = InferenceEngine(cfg, eng.model, EngineSpec(kernel_impl="ref"))
+    launches, out = speculative_cell(path, eng, plain, None, card)
+    out.update(mtp_head_checks(path, eng, plain))
+    out.update(mtp_deep_commit(path, eng))
+    out["head_share_of_verify_replay"] = (out["head_chain_device_ms"]
+                                          / out["verify_step_device_ms"])
+    log(f"{arch} phase: {time.perf_counter() - t0:.1f} s")
+    del eng, plain
+    torch.cuda.empty_cache()
+    return launches, {f"{arch} speculative": out}
 
 
 def one_prefill_launches(tag, path, eng, prompts, gen) -> dict:
@@ -3182,6 +3474,32 @@ def cpu_lockstep(eng, cpu, prompts, arch: str) -> tuple[list, list]:
     return rows, moved
 
 
+@torch.inference_mode()
+def mtp_head_vs_cpu(eng, cpu, prompts, arch: str) -> dict:
+    """One MTP head step on the card against the CPU on the CPU's inputs:
+    ``h`` the CPU prefill's last hidden, ``tok`` its greedy token, and the
+    CPU's inputs to the head's W8A8 linears (at the reduced widths the
+    router, N 4, and ``wkv_a``, N 48, carry no MXINT4 copy).  The logits
+    within LOGIT_TOL of max|logit|; with the card's own codes recorded."""
+    logits, _, h = cpu.prefill(prompts.cpu(), return_hidden=True)
+    tok = logits.argmax(-1)
+    mc, mg = (_w8_decode_linears(e.model.mtp) for e in (cpu, eng))
+    with _w8_inputs(cpu.hsa, mc) as xc:
+        lc, hc = lm.mtp_decode_step(cpu.model, h, tok, cpu.cfg, cpu.hsa)
+    with _w8_inputs(eng.hsa, mg) as xg:
+        own, _ = lm.mtp_decode_step(eng.model, h.cuda(), tok.cuda(), eng.cfg, eng.hsa)
+    with _w8_inputs(eng.hsa, mg, feed=[x.cuda() for x in xc]):
+        lg, hg = lm.mtp_decode_step(eng.model, h.cuda(), tok.cuda(), eng.cfg, eng.hsa)
+    tag = f"reduced {arch} MTP head step"
+    return dict(logits_rel_err=_rel(lg.cpu(), lc, f"{tag}, the CPU's inputs", LOGIT_TOL),
+                hidden_rel_err=_rel(hg.cpu(), hc, f"{tag} hidden", LOGIT_TOL),
+                w8a8_linears_fed=len(mg),
+                codes_differing_own=sum(_codes_differing(eng.hsa, a.cpu(), b)
+                                        for a, b in zip(xg, xc)),
+                logits_rel_err_own_codes=_rel(own.cpu(), lc, f"{tag}, own codes",
+                                              float("inf")))
+
+
 def reduced_vs_cpu(path: dict):
     """The reduced model: the kernel path on the card against the plain path
     on the CPU, same weights (a small-input reference check), once per cache
@@ -3221,6 +3539,7 @@ def reduced_vs_cpu(path: dict):
                                            _on_cpu(fp).prefill(prompts.cpu())[0],
                                            f"reduced {arch} prefill, fp weights", LOGIT_TOL)
         del fp
+        extra["mtp_head"] = mtp_head_vs_cpu(eng, cpu, prompts, arch)
     rel = _rel(lg.cpu(), lc, tag, LOGIT_TOL)
     agree = {}
     for fmt in path["formats"]:
@@ -3310,6 +3629,11 @@ def main() -> int:
          prefixed[path["arch"]], speculated[path["arch"]], results) = serve_full_width(path,
                                                                                        smi)
         serving.update(results)
+    counted, results = serve_mtp(DS3_MTP, smi)
+    by_path[DS3_MTP["arch"]] = counted
+    for phase in (admitted, scheduled, prefixed, speculated):
+        phase[DS3_MTP["arch"]] = dict.fromkeys(hopper.COUNTERS, 0)
+    serving.update(results)
     for path in PATHS + (DS3_MOE,):
         serving.update(reduced_vs_cpu(path))
     t0 = time.perf_counter()

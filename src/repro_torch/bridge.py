@@ -5,11 +5,13 @@ converts with ``jax.device_get``; this module imports neither jax nor the JAX
 package).  Per-layer params arrive stacked ``[L, ...]`` per layer group
 (`lm.layer_groups`: ``"dense_head"`` then ``"blocks"`` for deepseek-v3,
 ``"blocks"`` alone otherwise) and are sliced per layer, in group order.  The
-multi-token-prediction head (``"mtp"``) is left out by name: the port does
-not build it.  Every leaf is copied byte for byte, so int8 and
-uint8 quantized leaves keep their exact bits.  numpy has no bfloat16 of its
-own: jax's bf16 arrays arrive as ``ml_dtypes.bfloat16``, which
-``torch.from_numpy`` rejects, so they are reinterpreted through ``uint16``.
+multi-token-prediction head (``"mtp"``: ``proj`` and one unstacked block of
+the family's kind) becomes the model's `lm.MTPHead`.  A norm carries its
+gain ``g`` and, in a LayerNorm model, its bias ``b``.  Every leaf is copied
+byte for byte, so int8 and uint8 quantized leaves keep their exact bits.
+numpy has no bfloat16 of its own: jax's bf16 arrays arrive as
+``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects, so they are
+reinterpreted through ``uint16``.
 A deployed ``w8_vals`` is stored K-major, as `deploy.k_major` holds it (with
 its bias, zero-padded to multiples of 16 where the GEMM needs that; the
 linear's ``shape`` keeps the tree's ``[K, N]``).  A MoE layer's ``moe``
@@ -30,8 +32,6 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import FORMATS, MLA, Attention, Linear, Norm
 
-# Top-level entries of the reference's tree that the port does not build.
-SKIPPED = ("mtp",)
 MLA_PARTS = ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wk_b", "wv_b", "wo")
 
 
@@ -61,7 +61,7 @@ def _linear(d: dict, device) -> Linear:
 
 
 def _norm(d: dict, device) -> Norm:
-    return Norm(to_tensor(d["g"], device))
+    return Norm(to_tensor(d["g"], device), to_tensor(d["b"], device) if "b" in d else None)
 
 
 def _mamba(d: dict, device) -> S.Mamba:
@@ -136,7 +136,7 @@ def model_from_tree(cfg: ModelConfig, tree: dict, device="cpu") -> lm.LM:
     """The reference's (master or deployed) param tree -> the port's `LM`."""
     lm._check_family(cfg)
     groups = lm.layer_groups(cfg)
-    known = {"embed", "final_norm", "lm_head", *SKIPPED, *(g for g, _, _ in groups)}
+    known = {"embed", "final_norm", "lm_head", "mtp", *(g for g, _, _ in groups)}
     if set(tree) - known:
         raise ValueError(f"unknown entries in the param tree: {sorted(set(tree) - known)}")
     blocks = []
@@ -144,6 +144,11 @@ def model_from_tree(cfg: ModelConfig, tree: dict, device="cpu") -> lm.LM:
         _check_stack(tree[gname], count, gname)
         blocks += [_block(_layer(tree[gname], i), cfg, kind, device) for i in range(count)]
     lm.mark_full_attn(cfg, blocks)
+    mtp = None
+    if "mtp" in tree:
+        kind = "moe" if cfg.family == "moe" else "dense"
+        mtp = lm.MTPHead(_linear(tree["mtp"]["proj"], device),
+                         _block(tree["mtp"]["block"], cfg, kind, device))
     return lm.LM(to_tensor(tree["embed"], device), blocks,
                  _norm(tree["final_norm"], device),
-                 _linear(tree["lm_head"], device))
+                 _linear(tree["lm_head"], device), mtp)

@@ -36,8 +36,10 @@ LISO/SILO scenario presets:
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --scenario SILO \\
         --scale 0.1 --batch 2 [--requests 6 [--prefix-cache] | --speculative]
 
-``--arch`` takes every family the port serves (retnet, dense GQA and MLA,
-MoE, ssm, hybrid) in every mode.
+``--arch`` takes every family the port serves (retnet, dense GQA with
+RMSNorm or LayerNorm and MLA, MoE, ssm, hybrid) in every mode.  It has no
+drafter flag, as the reference's has none: ``--speculative`` drafts with
+the ngram drafter.
 
 Prompts come from seeded ``torch.Generator``s.  The reference's mode that
 is not ported yet (a device mesh) is accepted by the parser and exits

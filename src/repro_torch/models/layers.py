@@ -3,7 +3,7 @@
 Every matmul goes through the HSA engine, and every pre-matmul norm uses the
 Eq. (4) fused emission (C3): `norm_emit` returns ``(x*, sigma^{-1})`` and
 sigma^{-1} rides into the consuming linears' epilogues as ``row_scale``.
-Only RMSNorm is ported so far.
+A `Norm` with a bias is a LayerNorm (starcoder2), one without an RMSNorm.
 
 Attention keeps the reference's GQA layout: head ``h`` belongs to kv head
 ``h // G`` (``q.reshape(b, kv, h // kv, hd)``), QK-norm comes before RoPE,
@@ -44,21 +44,28 @@ from repro_torch.models.modules import MLA, Attention, Init, Linear, Norm
 
 
 def norm_init(init: Init, dim: int, cfg: ModelConfig) -> Norm:
-    if cfg.norm_type != "rmsnorm":
+    """Gain ones and, for LayerNorm, bias zeros (the reference's init)."""
+    if cfg.norm_type not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(f"norm_type {cfg.norm_type!r} is not ported")
-    return Norm(init.ones((dim,)))
+    return Norm(init.ones((dim,)),
+                init.zeros((dim,)) if cfg.norm_type == "layernorm" else None)
 
 
 def norm_emit(p: Norm, x: torch.Tensor, engine: HSAEngine
               ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Return (x*, sigma_inv) fused, or (normalized x, None) unfused."""
+    """Return (x*, sigma_inv) fused, or (normalized x, None) unfused.  The
+    fused LayerNorm emission reads no bias, as the reference's does."""
     if engine.config.fuse_rmsnorm:
+        if p.layernorm:
+            return fr.fused_layernorm_emit(x, p.g)
         return fr.fused_rmsnorm_emit(x, p.g)
-    return fr.rmsnorm(x, p.g), None
+    return norm_full(p, x), None
 
 
 def norm_full(p: Norm, x: torch.Tensor) -> torch.Tensor:
     """Always-normalized variant (final norm before the LM head)."""
+    if p.layernorm:
+        return fr.layernorm(x, p.g, p.b)
     return fr.rmsnorm(x, p.g)
 
 

@@ -13,6 +13,8 @@ back to the param dtype after every block, as the scan carry is there.
                             logits at every position, rolled back to the
                             accepted prefix by `commit_verified_cache`
     forward_decode        — one token with the warm cache (MVM phase)
+    mtp_decode_step       — one depth step of deepseek-v3's multi-token-
+                            prediction head (the speculative MTP drafter)
 
 and the shared-prefix helpers `serving/paging.py` builds on
 (`prefix_sharing_mode`, `slice_cache_rows`, `assemble_prefix_cache`).
@@ -44,8 +46,15 @@ an int32 ``[B]`` vector with one position per lane (``make_decode_cache(...,
 per_lane=True)``: a scheduler's slot class, the port's counterpart of the
 reference's per-slot scalar under ``vmap``); the rope angles, the slots
 written and flash-decode's ``kv_len`` then follow each lane's own.  Dense decode writes each new K/V row into the cache
-in place (`layers.cache_update`).  The multi-token-prediction head of
-deepseek-v3 (``cfg.mtp``) is not built: generation never reads it.
+in place (`layers.cache_update`).
+
+A config with ``cfg.mtp`` (deepseek-v3) carries the multi-token-prediction
+head, `MTPHead`: ``proj`` (2 d_model -> d_model) and one block of the
+family's kind (a `MoEBlock` on deepseek-v3, with MLA and the shared
+expert).  Plain generation never reads it; the speculative MTP drafter
+chains it (`mtp_decode_step`).  A model norms with RMSNorm, or with
+LayerNorm (starcoder2; its MLP is then ungated GeLU), as its norms' biases
+say (`modules.Norm`).
 """
 
 from __future__ import annotations
@@ -92,7 +101,7 @@ def _check_family(cfg: ModelConfig) -> None:
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
             f"retnet, dense, moe, ssm and hybrid")
     missing = [what for what, present in (
-        (f"norm_type {cfg.norm_type!r}", cfg.norm_type != "rmsnorm"),
+        (f"norm_type {cfg.norm_type!r}", cfg.norm_type not in ("rmsnorm", "layernorm")),
         (f"frontend {cfg.frontend!r}", cfg.frontend is not None),
         ("absolute position embeddings", cfg.abs_pos_embed),
         (f"attn_type {cfg.attn_type!r}", cfg.attn_type not in ("gqa", "mla")))
@@ -115,7 +124,7 @@ class RetNetBlock(nn.Module):
 
 class DenseBlock(nn.Module):
     """Pre-norm attention (GQA, or MLA for ``attn_type == "mla"``) then an
-    MLP, gated for RMSNorm archs."""
+    MLP, gated (SiLU) for RMSNorm archs, ungated GeLU for LayerNorm ones."""
 
     def __init__(self, ln1: Norm, attn: Attention | MLA, ln2: Norm, mlp: M.MLP):
         super().__init__()
@@ -183,6 +192,22 @@ BLOCK_KINDS = {"retnet": RetNetBlock, "dense": DenseBlock, "moe": MoEBlock,
                "ssm": SSMBlock, "hybrid": HybridBlock}
 
 
+class MTPHead(nn.Module):
+    """deepseek-v3's depth-1 multi-token-prediction head: ``proj`` [2 D, D]
+    over ``[h ; embed(tok)]``, then one block, a `MoEBlock` for the ``moe``
+    family and a `DenseBlock` otherwise (the reference's ``mtp`` subtree)."""
+
+    def __init__(self, proj: Linear, block: nn.Module):
+        super().__init__()
+        self.proj, self.block = proj, block
+
+    @classmethod
+    def init(cls, init: Init, cfg: ModelConfig) -> "MTPHead":
+        proj = Linear.init(init, 2 * cfg.d_model, cfg.d_model)
+        kind = "moe" if cfg.family == "moe" else "dense"
+        return cls(proj, BLOCK_KINDS[kind].init(init, cfg))
+
+
 def mark_full_attn(cfg: ModelConfig, blocks: list[nn.Module]) -> None:
     """Set each hybrid block's ``full_attn`` from its place in its group."""
     at = 0
@@ -195,16 +220,18 @@ def mark_full_attn(cfg: ModelConfig, blocks: list[nn.Module]) -> None:
 
 class LM(nn.Module):
     def __init__(self, embed: torch.Tensor, blocks: list[nn.Module],
-                 final_norm: Norm, lm_head: Linear):
+                 final_norm: Norm, lm_head: Linear, mtp: MTPHead | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
         self.lm_head = lm_head
+        self.mtp = mtp
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
-    """Seeded random weights in ``cfg.param_dtype`` on ``device``."""
+    """Seeded random weights in ``cfg.param_dtype`` on ``device``; the MTP
+    head, when ``cfg.mtp``, drawn last (after ``lm_head``)."""
     _check_family(cfg)
     ini = Init.from_seed(seed, device, getattr(torch, cfg.param_dtype))
     embed = ini.normal((cfg.padded_vocab, cfg.d_model), 0.02)
@@ -213,7 +240,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
     mark_full_attn(cfg, blocks)
     final_norm = L.norm_init(ini, cfg.d_model, cfg)
     lm_head = Linear.init(ini, cfg.d_model, cfg.padded_vocab, scale=0.02)
-    return LM(embed, blocks, final_norm, lm_head)
+    mtp = MTPHead.init(ini, cfg) if cfg.mtp else None
+    return LM(embed, blocks, final_norm, lm_head, mtp)
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -371,11 +399,14 @@ def _block_decode(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
 
 def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
                     engine: HSAEngine, cache_len: int = 0,
-                    valid_len: torch.Tensor | None = None
-                    ) -> tuple[torch.Tensor, dict]:
+                    valid_len: torch.Tensor | None = None, *,
+                    return_hidden: bool = False) -> tuple:
     """Prompt processing (MMM phase): tokens [B, S] -> (logits [B, V], cache).
 
     ``cache_len`` > S reserves KV slots for the tokens decode will append.
+    ``return_hidden`` appends the pre-final-norm hidden state of the last
+    real token ([B, D], the residual stream's dtype) to the return: the MTP
+    drafter chains its head from it.
 
     Bucketed mode: ``valid_len`` (an int32 scalar on the device) marks
     ``tokens`` as a prompt of that length right-padded to S.  The logits are
@@ -404,6 +435,8 @@ def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
         caches["rope"] = (orp.init_state(_rope_dim(cfg), cfg.rope_base, pos=s,
                                          device=x.device)
                           if valid_len is None else _rope_state(cfg, pos))
+    if return_hidden:
+        return logits, caches, last[:, 0]
     return logits, caches
 
 
@@ -589,6 +622,24 @@ def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,
     h = L.norm_full(model.final_norm, x)
     logits = engine.linear(model.lm_head, h, "decode")[:, 0]
     return logits, new_cache
+
+
+def mtp_decode_step(model: LM, h: torch.Tensor, tok: torch.Tensor, cfg: ModelConfig,
+                    engine: HSAEngine) -> tuple[torch.Tensor, torch.Tensor]:
+    """One depth step of the MTP head at decode time (the reference's
+    `mtp_decode_step`): ``h`` [B, D] is the pre-final-norm hidden at the
+    last committed position (or the previous step's), ``tok`` [B] the next
+    token.  ``proj`` over ``[h ; embed(tok)]`` in the decode format, the
+    head's block as a full-sequence block over one position in the decode
+    format, with no cache and no RoPE (a position attends only to itself,
+    and same-position rotations cancel in q.k), its MoE dispatching the B
+    rows together, then the final norm and the LM head.  Returns (draft
+    logits [B, V], the head's hidden [B, D], f32, to chain deeper)."""
+    emb = model.embed[tok].to(h.dtype)
+    hx = engine.linear(model.mtp.proj, torch.cat([h, emb], dim=-1)[:, None, :], "decode")
+    hx, _ = _block_apply(model.mtp.block, hx, cfg, engine, "decode", None, None)
+    logits = engine.linear(model.lm_head, L.norm_full(model.final_norm, hx), "decode")[:, 0]
+    return logits, hx[:, 0]
 
 
 def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,

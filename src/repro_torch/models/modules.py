@@ -6,14 +6,15 @@ not ``nn.Linear``'s ``[N, K]``) in whichever formats it carries: the master
 ``w`` and optional bias ``b``, and after deployment ``w8_vals``/``w8_scale``
 (INT8) and ``mx_packed``/``mx_exps`` (MXINT4), and its logical ``shape``
 ``(K, N)`` (deploy pads ``w8_vals`` and the bias of a linear whose K or N is
-not a multiple of 16).  `Norm` holds a gain ``g``.
+not a multiple of 16).  `Norm` holds a gain ``g`` and, for LayerNorm, a bias
+``b``.
 The model code is plain functions over these modules, so each function reads
 like its JAX counterpart.
 
 `Init` draws from an explicit ``torch.Generator`` with the reference's
 distributions: normal with std ``1/sqrt(K)`` for linears unless a scale is
-given (0.02 for ``embed`` and ``lm_head``), zeros for biases, ones for norm
-gains.  torch and jax give different numbers from one seed; parity tests
+given (0.02 for ``embed`` and ``lm_head``), zeros for biases (LayerNorm's
+too), ones for norm gains.  torch and jax give different numbers from one seed; parity tests
 carry the reference's weights over with `repro_torch.bridge` instead.
 """
 
@@ -81,11 +82,19 @@ class Linear(nn.Module):
 
 
 class Norm(nn.Module):
-    """RMSNorm gain ``g`` (applied through `layers.norm_emit`/`norm_full`)."""
+    """A norm's gain ``g`` and, for LayerNorm, its bias ``b`` (applied through
+    `layers.norm_emit` / `norm_full`).  The bias is what makes it a
+    LayerNorm: the reference gives every norm of a LayerNorm model one, and
+    none to an RMSNorm's."""
 
-    def __init__(self, g: torch.Tensor):
+    def __init__(self, g: torch.Tensor, b: torch.Tensor | None = None):
         super().__init__()
         self.g = _param(g)
+        self.b = _param(b)
+
+    @property
+    def layernorm(self) -> bool:
+        return self.b is not None
 
 
 class Attention(nn.Module):

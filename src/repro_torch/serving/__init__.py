@@ -7,10 +7,12 @@
   * `GenerationConfig` / `SamplingParams` / `SpeculativeConfig` — greedy,
     temperature, top-k, top-p, stop tokens, max_new_tokens, the KV-cache
     format, speculative decode (sampling.py).
-  * `NgramDrafter` / `Drafter` / `make_drafter` / `ngram_propose` —
-    speculative decode: draft k tokens, verify them in one MMM dispatch,
-    commit the accepted prefix with exact rollback, in `generate` and in the
-    scheduler's slot classes (speculative.py).
+  * `NgramDrafter` / `MTPDrafter` / `Drafter` / `make_drafter` /
+    `ngram_propose` — speculative decode: draft k tokens (prompt lookup, or
+    deepseek-v3's MTP head chained k deep), verify them in one MMM
+    dispatch, commit the accepted prefix with exact rollback, in `generate`
+    and (the ngram drafter) in the scheduler's slot classes
+    (speculative.py).
   * `RequestScheduler` / `CachePool` / `Request` — continuous batching over
     slot classes with chunk-granular admissions, priorities, and a host
     spill tier with preemption; one captured decode step per class
@@ -29,8 +31,7 @@
     `run_open_loop` — seeded open-loop load and the goodput-under-load
     run (loadgen.py).
 
-Not ported yet: serving on a device mesh (ROADMAP A12), and the MTP drafter
-(A9d).
+Not ported yet: serving on a device mesh (ROADMAP A12).
 """
 
 from repro_torch.serving.clock import Clock, MonotonicClock, VirtualClock
@@ -48,15 +49,15 @@ from repro_torch.serving.sampling import (GenerationConfig, SamplingParams,
                                           SpeculativeConfig, sample)
 from repro_torch.serving.scheduler import (CachePool, FinishedRequest, Request,
                                            RequestScheduler)
-from repro_torch.serving.speculative import (Drafter, NgramDrafter, make_drafter,
-                                             ngram_propose)
+from repro_torch.serving.speculative import (Drafter, MTPDrafter, NgramDrafter,
+                                             make_drafter, ngram_propose)
 
 __all__ = [
     "BurstyArrivals", "CacheCapacityError", "CachePool", "ChunkedPrefill", "ClassStep",
     "Clock", "Drafter", "EngineSpec", "FinishedRequest", "FrontendConfig",
     "GenerationConfig", "GenerationResult", "GoodputReport", "InferenceEngine",
-    "LengthMix", "MonotonicClock", "NgramDrafter", "PageLeaseError", "PoissonArrivals",
-    "PrefixCache", "RadixPageIndex", "Request", "RequestScheduler", "RequestShed",
+    "LengthMix", "MonotonicClock", "MTPDrafter", "NgramDrafter", "PageLeaseError",
+    "PoissonArrivals", "PrefixCache", "RadixPageIndex", "Request", "RequestScheduler", "RequestShed",
     "SamplingParams", "ServingFrontend", "SLOAdmissionPolicy", "SnapshotPrefixIndex",
     "SpecClassStep", "SpeculativeConfig", "TokenStream", "VirtualClock", "Workload",
     "bucket_length", "chunk_schedule", "make_drafter", "ngram_propose", "run_open_loop",

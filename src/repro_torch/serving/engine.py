@@ -477,23 +477,26 @@ class SpecClassStep(ClassStep):
         self.hist_len = torch.zeros(n, dtype=torch.long, device=dev)
         self.result = torch.zeros(n, k + 2, dtype=torch.long, device=dev)
         self.block, self.n_commit = self.result[:, :k + 1], self.result[:, k + 1]
-        self.drafter = spec_mod.make_drafter(gen.speculative, engine.cfg)
+        # The scheduler refuses the MTP drafter, so this one reads no HSA
+        # engine; it exists before the capture in ClassStep's constructor.
+        self.drafter = spec_mod.make_drafter(gen.speculative, engine.cfg, engine.hsa)
         super().__init__(engine, store, gen)
 
     @torch.inference_mode()
     def body(self) -> None:
         eng, k = self.engine, self.gen.speculative.k
         self.fed.copy_(self.tok)
-        dstate = self.drafter.init(self.hist, self.hist_len)
-        block = torch.cat([self.tok[:, None], self.drafter.draft(dstate, self.tok)], dim=1)
-        cand, acc, _, ver = spec_mod.verify_block(eng.model, block, self.store, cfg=eng.cfg,
-                                                  hsa=self.hsa, gen=self.gen,
-                                                  generator=self.generators)
+        dstate = self.drafter.init(self.hist, self.hist_len, None)
+        block = torch.cat([self.tok[:, None],
+                           self.drafter.draft(eng.model, dstate, self.tok)], dim=1)
+        cand, acc, hidden, ver = spec_mod.verify_block(eng.model, block, self.store,
+                                                       cfg=eng.cfg, hsa=self.hsa, gen=self.gen,
+                                                       generator=self.generators)
         n_commit = acc + 1
         _write_back(self.store, lm.commit_verified_cache(self.store, ver, n_commit, k + 1,
                                                          eng.cfg))
-        self.drafter.observe(dstate, block, n_commit)
         self.tok.copy_(cand.gather(1, acc[:, None])[:, 0])
+        self.drafter.observe(dstate, block, n_commit, hidden, self.tok)
         self.block.copy_(block)
         self.n_commit.copy_(n_commit)
 
@@ -549,8 +552,10 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, *, cache_len: int | None = None,
-                bucket: bool = False) -> tuple[torch.Tensor, dict]:
-        """MMM phase: prompts [B, S] -> (last-token logits [B, V], cache).
+                bucket: bool = False, return_hidden: bool = False) -> tuple:
+        """MMM phase: prompts [B, S] -> (last-token logits [B, V], cache),
+        and with ``return_hidden`` the last real token's pre-final-norm
+        hidden [B, D] (`lm.forward_prefill`).
 
         ``cache_len`` (default S) is the KV slots a dense model's cache
         holds: S plus the tokens decode will append.
@@ -564,14 +569,14 @@ class InferenceEngine:
         s = tokens.shape[1]
         if not bucket:
             return lm.forward_prefill(self.model, tokens, self.cfg, self.hsa,
-                                      cache_len=cache_len or s)
+                                      cache_len=cache_len or s, return_hidden=return_hidden)
         b = bucket_length(s)
         if b > s:
             tokens = F.pad(tokens, (0, b - s))
         valid_len = torch.tensor(s, dtype=torch.int32, device=self.device)
         return lm.forward_prefill(self.model, tokens, self.cfg, self.hsa,
                                   cache_len=bucket_length(max(cache_len or s, b)),
-                                  valid_len=valid_len)
+                                  valid_len=valid_len, return_hidden=return_hidden)
 
     def begin_chunked_prefill(self, tokens: torch.Tensor, *, cache_len: int,
                               chunk_size: int = 32, cache_dtype=torch.float32,
@@ -640,12 +645,14 @@ class InferenceEngine:
         """The reference's `_generate_speculative`: prefill with ``k`` slots
         reserved past the budget (a verify block may append up to k tokens
         past the last committed position before it rolls back), a history
-        ``[B, S + n + k + 1]`` seeded with the prompt, then the lockstep
-        speculative loop (`spec_mod.speculative_step`) until ``max_new_tokens``
-        are committed or every row stopped.  On the card each step is a
-        replay of the graph keyed on (cache layout, history width, ``gen``);
-        the host reads the loop's condition after each."""
-        spec_mod.make_drafter(gen.speculative, self.cfg)      # refuses the MTP drafter
+        ``[B, S + n + k + 1]`` seeded with the prompt and the last prompt
+        token's hidden (the MTP drafter's first ``h``), then the lockstep
+        speculative loop (`spec_mod.speculative_step`, with the drafter
+        ``gen.speculative`` names) until ``max_new_tokens`` are committed or
+        every row stopped.  On the card each step, the MTP drafter's k head
+        steps included, is a replay of the graph keyed on (cache layout,
+        history width, ``gen``); the host reads the loop's condition after
+        each."""
         w = self.cfg.sliding_window
         if w and gen.speculative.k + 1 > w:
             raise ValueError(f"verify block k+1 ({gen.speculative.k + 1}) must fit the "
@@ -658,13 +665,13 @@ class InferenceEngine:
             self._sync()
             t0 = time.perf_counter()
             with tr.span("prefill", ENGINE_TRACK), self.obs.annotation("engine.prefill"):
-                logits, cache, hist = self._spec_prefill(prompts, gen)
+                logits, cache, hist, hidden = self._spec_prefill(prompts, gen)
                 self._sync()
             t_prefill = time.perf_counter() - t0
             t0 = time.perf_counter()
             with tr.span("spec_loop", ENGINE_TRACK), self.obs.annotation("engine.spec_loop"):
                 tok = sample(logits, gen.sampling, generator)
-                st, t_capture = self._spec_loop(tok, cache, hist, s, gen, generator,
+                st, t_capture = self._spec_loop(tok, cache, hist, s, hidden, gen, generator,
                                                 graph=self.device.type == "cuda")
                 out, lengths = st.out[:, :n].clone(), st.lengths.clone()
                 steps, accepted = int(st.steps), int(st.accepted)
@@ -683,15 +690,16 @@ class InferenceEngine:
     def _spec_prefill(self, prompts: torch.Tensor, gen: GenerationConfig) -> tuple:
         """A speculative run's prefill: (last logits, the cache in
         ``gen.cache_format`` with ``k`` slots past the budget, the history
-        ``[B, S + n + k + 1]`` holding the prompt)."""
+        ``[B, S + n + k + 1]`` holding the prompt, the last prompt token's
+        pre-final-norm hidden [B, D])."""
         b, s = prompts.shape
         width = s + gen.max_new_tokens + gen.speculative.k
-        logits, cache = self.prefill(prompts, cache_len=width)
+        logits, cache, hidden = self.prefill(prompts, cache_len=width, return_hidden=True)
         hist = torch.zeros(b, width + 1, dtype=torch.long, device=self.device)
         hist[:, :s] = prompts
-        return logits, self._encode_cache(cache, gen), hist
+        return logits, self._encode_cache(cache, gen), hist, hidden
 
-    def _spec_loop(self, tok, cache, hist, hist_len: int, gen: GenerationConfig,
+    def _spec_loop(self, tok, cache, hist, hist_len: int, hidden, gen: GenerationConfig,
                    generator, *, graph: bool) -> tuple[spec_mod.SpecState, float]:
         """The speculative loop from the first pending token: replays of this
         key's captured step (``graph``; captured now if the key is new), or
@@ -706,11 +714,11 @@ class InferenceEngine:
             sg = self._graphs.get(key)
             if sg is None:
                 t0 = time.perf_counter()
-                sg = self._spec_capture(tok, cache, hist, hist_len, gen)
+                sg = self._spec_capture(tok, cache, hist, hist_len, hidden, gen)
                 self._graphs[key] = sg
                 t_capture = time.perf_counter() - t0
             st = sg.state
-            st.reset(tok, hist, hist_len, gen)
+            st.reset(tok, hist, hist_len, hidden, gen)
             _write_back(st.cache, cache)
             if sg.generator is not None:
                 sg.generator.set_state(generator.get_state())
@@ -719,7 +727,8 @@ class InferenceEngine:
                 sg.graph.replay()
                 hopper.count_replay(sg.launches)
         else:
-            st, stop = spec_mod.SpecState.start(tok, cache, hist, hist_len, gen), self._stop(gen)
+            st = spec_mod.SpecState.start(tok, cache, hist, hist_len, hidden, gen)
+            stop = self._stop(gen)
 
             def step():
                 self._spec_step(st, gen, stop, generator)
@@ -738,14 +747,15 @@ class InferenceEngine:
         _write_back(st.cache, spec_mod.speculative_step(st, self.model, self.cfg, self.hsa,
                                                         gen, stop, generator))
 
-    def _spec_capture(self, tok, cache, hist, hist_len: int, gen: GenerationConfig
+    def _spec_capture(self, tok, cache, hist, hist_len: int, hidden, gen: GenerationConfig
                       ) -> _StepGraph:
         """Static buffers for one speculative key and the graph of one
         `_spec_step` on them, after one eager warm-up step on a side stream
-        (it builds the W8A8 plans and libraries the verify dispatch needs,
-        none of which may be made inside a capture)."""
-        st, stop = spec_mod.SpecState.start(tok, _clone(cache), hist, hist_len, gen), \
-            self._stop(gen)
+        (it builds the plans and libraries the verify dispatch and the MTP
+        drafter's head steps need, none of which may be made inside a
+        capture)."""
+        st = spec_mod.SpecState.start(tok, _clone(cache), hist, hist_len, hidden, gen)
+        stop = self._stop(gen)
         return self._capture_graph(st, stop, gen,
                                    lambda g: self._spec_step(st, gen, stop, g))
 

@@ -51,7 +51,8 @@ class SpeculativeConfig:
     ``drafter``: 'ngram' (model-free prompt lookup: the trailing
     ``ngram``-gram is matched against the request's own history and its
     historical continuation proposed) or 'mtp' (deepseek-v3's multi-token-
-    prediction head, which the port does not build yet: ROADMAP A9d)."""
+    prediction head chained ``k`` deep; needs ``cfg.mtp``, and runs in
+    `InferenceEngine.generate` only)."""
 
     k: int = 4                      # drafted tokens per verify step
     drafter: str = "ngram"          # 'ngram' | 'mtp'

@@ -8,13 +8,20 @@ the chunked-prefill machinery pointed at a decode-resident cache, so every
 linear runs the W8A8 MMM dataflow), and the accepted prefix plus one freshly
 sampled token are committed: 1..k+1 tokens per weight read.
 
-The drafter is the model-free `NgramDrafter` (prompt lookup: the trailing
-n-gram of the history and the pending token is matched against the
-request's own history and its continuation proposed).  deepseek-v3's MTP
-drafter needs the MTP head, which the port does not build yet (ROADMAP
-A9d): `make_drafter` refuses it.  A MoE layer's verify dispatch never
-drops an assignment (``no_drop``), so speculative and plain greedy tokens
-agree on MoE models too.
+Drafters (both deterministic, both run inside the captured step):
+
+* `NgramDrafter`: model-free prompt lookup (the trailing n-gram of the
+  history and the pending token is matched against the request's own
+  history and its continuation proposed);
+* `MTPDrafter`: deepseek-v3's self-speculation, its multi-token-prediction
+  head chained ``k`` deep (`lm.mtp_decode_step`, greedy over the head's
+  logits) from the pre-final-norm hidden at the acceptance boundary, which
+  stays in device memory from one step to the next.
+
+A MoE layer's verify dispatch never drops an assignment (``no_drop``), so
+speculative and plain greedy tokens agree on MoE models too; the MTP
+head's own dispatch keeps the reference's capacity drops (only the drafts'
+quality is at stake there).
 
 Acceptance is token matching, which for a deterministic drafter is exactly
 rejection sampling: the target distribution is sampled once at every block
@@ -105,18 +112,23 @@ def observe_block(hist: torch.Tensor, hist_len: torch.Tensor, block: torch.Tenso
 
 
 class Drafter(Protocol):
-    """A deterministic k-token proposer run inside the captured step.  It
-    keeps its state in device tensors, which the step reads in ``draft`` and
-    advances in place in ``observe``.  Proposals never affect correctness,
+    """A deterministic k-token proposer run inside the captured step (the
+    reference's protocol).  It keeps its state in device tensors, which the
+    step reads in ``draft`` and advances in place in ``observe``; ``hidden``
+    [B, D] is the pre-final-norm hidden at the last committed position,
+    ``hidden_all`` [B, k+1, D] the verify block's and ``next_tok`` [B] the
+    pending token after the commit.  Proposals never affect correctness,
     only the acceptance rate."""
 
     k: int
 
-    def init(self, hist: torch.Tensor, hist_len: torch.Tensor) -> dict: ...
+    def init(self, hist: torch.Tensor, hist_len: torch.Tensor,
+             hidden: torch.Tensor) -> dict: ...
 
-    def draft(self, state: dict, tok: torch.Tensor) -> torch.Tensor: ...
+    def draft(self, model: lm.LM, state: dict, tok: torch.Tensor) -> torch.Tensor: ...
 
-    def observe(self, state: dict, block: torch.Tensor, n_commit: torch.Tensor) -> None: ...
+    def observe(self, state: dict, block: torch.Tensor, n_commit: torch.Tensor,
+                hidden_all: torch.Tensor, next_tok: torch.Tensor) -> None: ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,27 +138,53 @@ class NgramDrafter:
     k: int
     m: int = 2
 
-    def init(self, hist, hist_len):
+    def init(self, hist, hist_len, hidden):
         return {"hist": hist, "len": hist_len}
 
-    def draft(self, state, tok):
+    def draft(self, model, state, tok):
         return ngram_propose(state["hist"], state["len"], tok, k=self.k, m=self.m)
 
-    def observe(self, state, block, n_commit):
+    def observe(self, state, block, n_commit, hidden_all, next_tok):
         observe_block(state["hist"], state["len"], block, n_commit)
 
 
-def make_drafter(spec: SpeculativeConfig, cfg: ModelConfig) -> Drafter:
-    """The drafter ``spec`` names.  'mtp' needs a config with an MTP head,
-    and that head (``mtp.proj`` and an MoE block on deepseek-v3) is not
-    built by the port yet."""
+@dataclasses.dataclass(frozen=True)
+class MTPDrafter:
+    """deepseek-v3 self-speculation: the MTP head chained ``k`` deep, each
+    draft the argmax of the head's logits and the next step's token."""
+
+    k: int
+    cfg: ModelConfig
+    hsa: HSAEngine
+
+    def init(self, hist, hist_len, hidden):
+        return {"h": hidden}
+
+    def draft(self, model, state, tok):
+        h, drafts = state["h"], []
+        for _ in range(self.k):
+            logits, h = lm.mtp_decode_step(model, h, tok, self.cfg, self.hsa)
+            tok = logits.argmax(dim=-1)
+            drafts.append(tok)
+        return torch.stack(drafts, dim=1)
+
+    def observe(self, state, block, n_commit, hidden_all, next_tok):
+        # The next chain starts from the hidden at the acceptance boundary:
+        # hidden_all[:, j] is the verified position j's, and the pending
+        # next_tok is the head's token there.  Each lane's own n_commit
+        # (a scalar in lockstep), gathered on the device.
+        b = hidden_all.shape[0]
+        at = (n_commit - 1).to(torch.int64).expand(b)
+        state["h"].copy_(hidden_all[torch.arange(b, device=at.device), at])
+
+
+def make_drafter(spec: SpeculativeConfig, cfg: ModelConfig, hsa: HSAEngine) -> Drafter:
+    """The drafter ``spec`` names; 'mtp' needs a config with an MTP head."""
     if spec.drafter == "mtp":
         if not cfg.mtp:
             raise ValueError(f"{cfg.name}: the 'mtp' drafter needs a config "
                              "with an MTP head (cfg.mtp=True)")
-        raise NotImplementedError(
-            f"{cfg.name}: the 'mtp' drafter is not ported yet: the port does not "
-            "build its MTP head (ROADMAP A9d)")
+        return MTPDrafter(k=spec.k, cfg=cfg, hsa=hsa)
     return NgramDrafter(k=spec.k, m=spec.ngram)
 
 
@@ -197,13 +235,14 @@ class SpecState:
     lengths: torch.Tensor    # i32 [B]
     hist: torch.Tensor       # i64 [B, S + n + k + 1]: prompt + committed tokens
     hist_len: torch.Tensor   # i64 scalar
+    h: torch.Tensor          # [B, D]: the hidden at the last committed position
     steps: torch.Tensor      # i64 scalar: verify steps
     accepted: torch.Tensor   # i64 scalar: accepted drafts
     more: torch.Tensor       # bool scalar: the loop's condition after a step
 
     @classmethod
     def start(cls, tok: torch.Tensor, cache: dict, hist: torch.Tensor, hist_len: int,
-              gen: GenerationConfig) -> "SpecState":
+              h: torch.Tensor, gen: GenerationConfig) -> "SpecState":
         b, dev = tok.shape[0], tok.device
         zero = torch.zeros((), dtype=torch.long, device=dev)
         return cls(i=zero.clone(), tok=tok.clone(), cache=cache,
@@ -211,11 +250,12 @@ class SpecState:
                    out=torch.full((b, gen.max_new_tokens + gen.speculative.k),
                                   gen.pad_token_id, dtype=torch.long, device=dev),
                    lengths=torch.zeros(b, dtype=torch.int32, device=dev),
-                   hist=hist.clone(), hist_len=zero + hist_len, steps=zero.clone(),
+                   hist=hist.clone(), hist_len=zero + hist_len, h=h.clone(),
+                   steps=zero.clone(),
                    accepted=zero.clone(),
                    more=torch.ones((), dtype=torch.bool, device=dev))
 
-    def reset(self, tok: torch.Tensor, hist: torch.Tensor, hist_len: int,
+    def reset(self, tok: torch.Tensor, hist: torch.Tensor, hist_len: int, h: torch.Tensor,
               gen: GenerationConfig) -> None:
         """Load the initial state of another run into these buffers (all but
         the cache, which the caller copies in)."""
@@ -225,6 +265,7 @@ class SpecState:
         self.out.fill_(gen.pad_token_id)
         self.hist.copy_(hist)
         self.hist_len.fill_(hist_len)
+        self.h.copy_(h)
         self.more.fill_(True)
 
 
@@ -232,21 +273,23 @@ def speculative_step(st: SpecState, model: lm.LM, cfg: ModelConfig, hsa: HSAEngi
                      gen: GenerationConfig, stop: torch.Tensor | None,
                      generator=None) -> dict:
     """One body of the reference's ``speculative_loop``, on ``st`` in place:
-    draft k tokens, verify the k+1 block in one dispatch, commit in lockstep
-    (the depth is the least acceptance over live rows, so the cache keeps
-    one position for the batch; rows that accepted more re-derive those
-    tokens next step), emit ``[tok, d_1..d_a]`` (a stop token inside the
-    block pads the row's tail) and take the sample at the acceptance
-    boundary as the next pending token.  Returns the committed cache, whose
+    draft k tokens (the drafter ``gen.speculative`` names), verify the k+1
+    block in one dispatch, commit in lockstep (the depth is the least
+    acceptance over live rows, so the cache keeps one position for the
+    batch; rows that accepted more re-derive those tokens next step), emit
+    ``[tok, d_1..d_a]`` (a stop token inside the block pads the row's tail)
+    and take the sample at the acceptance boundary as the next pending
+    token; the drafter then observes the commit (the ngram drafter's
+    history, the MTP drafter's ``h``).  Returns the committed cache, whose
     tensors the caller copies into ``st.cache`` (those the verify wrote in
     place are ``st.cache``'s own)."""
     spec = gen.speculative
     k, n = spec.k, gen.max_new_tokens
-    drafter = NgramDrafter(k=k, m=spec.ngram)
-    dstate = drafter.init(st.hist, st.hist_len)
-    block = torch.cat([st.tok[:, None], drafter.draft(dstate, st.tok)], dim=1)
-    cand, acc, _, ver = verify_block(model, block, st.cache, cfg=cfg, hsa=hsa, gen=gen,
-                                     generator=generator)
+    drafter = make_drafter(spec, cfg, hsa)
+    dstate = drafter.init(st.hist, st.hist_len, st.h)
+    block = torch.cat([st.tok[:, None], drafter.draft(model, dstate, st.tok)], dim=1)
+    cand, acc, hidden, ver = verify_block(model, block, st.cache, cfg=cfg, hsa=hsa, gen=gen,
+                                          generator=generator)
     a = torch.where(st.done, k, acc).amin()                  # live rows set the depth
     n_commit = a + 1
     committed = lm.commit_verified_cache(st.cache, ver, n_commit, k + 1, cfg)
@@ -264,7 +307,7 @@ def speculative_step(st: SpecState, model: lm.LM, cfg: ModelConfig, hsa: HSAEngi
     st.done |= (sh & emit).any(dim=1)
 
     st.tok.copy_(cand.gather(1, a.expand(block.shape[0])[:, None])[:, 0])
-    drafter.observe(dstate, block, n_commit)
+    drafter.observe(dstate, block, n_commit, hidden, st.tok)
     st.i += n_commit
     st.steps += 1
     st.accepted += a

@@ -1205,7 +1205,9 @@ def _tree_equal(a, b) -> bool:
                                       ("falcon-mamba-7b", None), ("hymba-1.5b", None),
                                       ("hymba-1.5b", "int8_tok"), ("hymba-1.5b", "mxint4_blk"),
                                       ("olmoe-1b-7b", None), ("olmoe-1b-7b", "int8_tok"),
-                                      ("olmoe-1b-7b", "mxint4_blk"), ("ds3_moe", None)])
+                                      ("olmoe-1b-7b", "mxint4_blk"), ("ds3_moe", None),
+                                      ("starcoder2-15b", None), ("starcoder2-15b", "int8_tok"),
+                                      ("starcoder2-15b", "mxint4_blk")])
 def test_generate_replays_match_the_eager_loop(arch, fmt):
     """Reduced models on the card: `generate` (one captured step, replayed)
     gives the eager loop's tokens, lengths and final cache bit for bit, a
@@ -1398,10 +1400,11 @@ def _w8a8_launches(cfg) -> int:
     """W8A8 launches of one verify step on a reduced model: every linear of
     every layer (MLA's wk_b / wv_b re-expansion included; a MoE layer's
     router and shared expert, its routed experts going through their GEMV)
-    and the LM head."""
+    and the LM head; a LayerNorm model's MLP is ungated, two linears."""
     attn = 7 if cfg.family == "retnet" else 6 if cfg.attn_type == "mla" else 4
+    mlp = 2 if cfg.norm_type == "layernorm" else 3
     per_layer = (7 if cfg.family == "retnet" else 4 if cfg.family == "ssm" else
-                 11 if cfg.family == "hybrid" else attn + 3)
+                 11 if cfg.family == "hybrid" else attn + mlp)
     moe = _moe_layers(cfg)
     per_moe = attn + 1 + (3 if cfg.n_shared_experts else 0)
     return per_layer * (cfg.n_layers - moe) + per_moe * moe + 1
@@ -1412,7 +1415,7 @@ def _w8a8_launches(cfg) -> int:
                                       ("ds3_dense", "mxint4_blk"), ("falcon-mamba-7b", None),
                                       ("hymba-1.5b", None), ("hymba-1.5b", "mxint4_blk"),
                                       ("olmoe-1b-7b", None), ("olmoe-1b-7b", "int8_tok"),
-                                      ("ds3_moe", None)])
+                                      ("ds3_moe", None), ("starcoder2-15b", None)])
 def test_speculative_generate_replays_match_the_eager_step(arch, fmt):
     """Reduced models on the card, default deployment: `generate` with
     speculative decode (each verify step one replay of a captured graph, W8A8
@@ -1446,8 +1449,8 @@ def test_speculative_generate_replays_match_the_eager_step(arch, fmt):
     # The prefill runs the same linears once more, at M = B x S.
     assert replayed["w8a8_matmul"] == (res.verify_steps + 1) * sg.launches["w8a8_matmul"]
     with torch.inference_mode():
-        logits, cache, hist = eng._spec_prefill(prompts, gen)
-        st, _ = eng._spec_loop(sample(logits, gen.sampling), cache, hist, s, gen, None,
+        logits, cache, hist, hidden = eng._spec_prefill(prompts, gen)
+        st, _ = eng._spec_loop(sample(logits, gen.sampling), cache, hist, s, hidden, gen, None,
                                graph=False)
     g = sg.state
     assert torch.equal(res.tokens, st.out[:, :n]) and torch.equal(res.lengths, st.lengths)
@@ -1455,6 +1458,63 @@ def test_speculative_generate_replays_match_the_eager_step(arch, fmt):
     for f in ("out", "hist", "hist_len", "i"):
         assert torch.equal(getattr(g, f), getattr(st, f)), f
     assert _tree_equal(g.cache, st.cache)
+
+
+@pytest.mark.parametrize("arch", ["ds3_dense", "ds3_moe"])
+def test_mtp_speculative_generate_replays_match_the_eager_step(arch):
+    """Reduced deepseek-v3 with its MTP head (the 3-layer cut, and with its
+    MoE layers), default deployment: speculative `generate` with the MTP
+    drafter, each verify step one replay (the block's W8A8 and k chained
+    head steps), against the eager step from the same prefill: tokens,
+    lengths, verify steps, accepted drafts, the drafter's ``h`` and the
+    final cache bit for bit.  A replay launches the verify's W8A8 and, k
+    times, a head step's: MXINT4 for every head linear with an MXINT4 copy
+    and the LM head, W8A8 for the others (the router, N 4, and ``wkv_a``,
+    N 48, at these widths), the expert GEMV three times.  One head step on
+    the card against the plain path within 1e-3 of max|value|."""
+    from repro_torch.models import lm
+    from repro_torch.models.modules import Linear
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig, SpeculativeConfig, sample
+    cfg = _reduced(arch)
+    eng = InferenceEngine.from_config(cfg, EngineSpec(), device="cuda")
+    assert cfg.mtp and eng.model.mtp is not None
+    prompts = torch.randint(1, cfg.vocab_size, (2, 18), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(12))
+    n, k, s = 10, 3, prompts.shape[1]
+    gen = GenerationConfig(max_new_tokens=n,
+                           speculative=SpeculativeConfig(k=k, drafter="mtp"))
+    first = eng.generate(prompts, gen)
+    hopper.reset_launches()
+    res = eng.generate(prompts, gen)
+    assert first.capture_s > 0 and res.capture_s == 0.0
+    assert torch.equal(res.tokens, first.tokens)
+    replayed = dict(hopper.LAUNCHES)
+    head = [m for m in eng.model.mtp.modules() if isinstance(m, Linear)]
+    mx_head = sum(m.mx_packed is not None for m in head) + 1          # and the LM head
+    (sg,) = eng._graphs.values()
+    assert sg.launches == {**dict.fromkeys(hopper.COUNTERS, 0),
+                           "w8a8_matmul": _w8a8_launches(cfg) + k * (len(head) + 1 - mx_head),
+                           "mxint4_matmul": k * mx_head,
+                           "mxint4_expert_matmul": 3 * (_moe_layers(cfg) + k)}
+    for name, c in sg.launches.items():
+        prefill = _w8a8_launches(cfg) if name == "w8a8_matmul" else 0
+        assert replayed[name] == prefill + res.verify_steps * c, name
+    with torch.inference_mode():
+        logits, cache, hist, hidden = eng._spec_prefill(prompts, gen)
+        tok = sample(logits, gen.sampling)
+        st, _ = eng._spec_loop(tok, cache, hist, s, hidden, gen, None, graph=False)
+        plain = InferenceEngine(cfg, eng.model, EngineSpec(kernel_impl="ref"))
+        got = lm.mtp_decode_step(eng.model, hidden, tok, cfg, eng.hsa)
+        want = lm.mtp_decode_step(eng.model, hidden, tok, cfg, plain.hsa)
+    g = sg.state
+    assert torch.equal(res.tokens, st.out[:, :n]) and torch.equal(res.lengths, st.lengths)
+    assert (res.verify_steps, res.accepted_drafts) == (int(st.steps), int(st.accepted))
+    for f in ("out", "h", "hist", "i"):
+        assert torch.equal(getattr(g, f), getattr(st, f)), f
+    assert _tree_equal(g.cache, st.cache)
+    for a, b in zip(got, want):
+        assert ((a - b).abs().max() / b.abs().max()).item() < 1e-3
 
 
 @pytest.mark.parametrize("arch,fmt", [("retnet-1.3b", None), ("qwen3-8b", "int8_tok"),

@@ -161,11 +161,11 @@ def test_rope_dim_matches_reference(name):
                                   "starcoder2-15b", "hymba-1.5b", "llava-next-34b",
                                   "deepseek-v3-671b", "olmoe-1b-7b"])
 def test_dense_family_gate(name):
-    """Dense RMSNorm archs, hymba (its sliding-window ring) and the MoE
-    archs (olmoe; deepseek-v3 whole or cut to its leading dense layers)
-    pass; LayerNorm and the frontends do not."""
+    """Dense RMSNorm and LayerNorm archs (starcoder2), hymba (its
+    sliding-window ring) and the MoE archs (olmoe; deepseek-v3 whole or cut
+    to its leading dense layers) pass; the frontends do not."""
     cfg = Tconfigs.get_config(name).reduced()
-    if name in ("qwen3-8b", "qwen1.5-4b", "internlm2-1.8b", "hymba-1.5b",
+    if name in ("qwen3-8b", "qwen1.5-4b", "internlm2-1.8b", "starcoder2-15b", "hymba-1.5b",
                 "deepseek-v3-671b", "olmoe-1b-7b"):
         Tlm._check_family(cfg)
     else:

@@ -9,7 +9,7 @@ carried weights, 1e-5 with fp weights and `QUANT_REL` of max|reference|
 deployed (the int8 activation rounding, ROADMAP C).  Slice level: prefill
 logits and the ``{c_kv, k_rope}`` cache against `repro.models.lm`, 8 decode
 steps per cache format, and greedy tokens identical to the JAX engine's.
-The bridge consumes every leaf of the reference tree but the MTP head, and
+The bridge consumes every leaf of the reference tree, the MTP head too, and
 the MLA plan fits the card at the main and reduced shapes.
 
 The JAX engines are built once per ``quantize`` and shared.
@@ -255,7 +255,9 @@ def _leaves(tree, prefix=""):
 def test_bridge_consumes_every_leaf_but_the_mtp_head(quantize):
     """Each leaf of the reference tree lands, value for value, in the port's
     tensor of the same name (layer groups in order: ``dense_head`` then the
-    empty MoE ``blocks``), and the port holds nothing else."""
+    empty MoE ``blocks``; the MTP head's ``mtp`` subtree too, under the
+    model's ``mtp``: no subtree is skipped), and the port holds nothing
+    else."""
     _, te, tree = _engines(quantize)
     port = {**dict(te.model.named_parameters()), **dict(te.model.named_buffers())}
     offset, seen = 0, set()
@@ -270,11 +272,17 @@ def test_bridge_consumes_every_leaf_but_the_mtp_head(quantize):
                 seen.add(key)
         offset += count
     assert Tlm.layer_groups(TCFG)[1] == ("blocks", 0, "moe")
-    for top in ("embed", "final_norm", "lm_head"):
+    for top in ("embed", "final_norm", "lm_head", "mtp"):
         for name, leaf in _leaves(tree[top], top):
-            assert torch.equal(port[name], bridge.to_tensor(leaf)), name
+            name = name.replace("_mx.packed", "_packed").replace("_mx.exps", "_exps")
+            got, want = port[name], bridge.to_tensor(leaf)
+            if name.endswith("w8_vals"):            # the K-major buffer's [K, N] corner
+                got = got[:want.shape[0], :want.shape[1]]
+            elif name.endswith(".b") and got.shape != want.shape:   # padded with N
+                got = got[:want.shape[0]]
+            assert torch.equal(got, want), name
             seen.add(name)
-    assert set(tree) - {"dense_head", "blocks", "embed", "final_norm", "lm_head"} == {"mtp"}
+    assert set(tree) == {"dense_head", "blocks", "embed", "final_norm", "lm_head", "mtp"}
     assert seen == set(port)
     attn = te.model.blocks[0].attn
     assert (attn.wk_b.w is not None) and (attn.wv_b.w is not None)
@@ -293,7 +301,8 @@ def test_bridge_rejects_a_group_of_the_wrong_depth():
 
 def test_port_deploy_keeps_the_absorbed_masters_like_the_reference():
     """Deploying the bridged master model gives the reference's deployed
-    bytes, the wk_b / wv_b masters included."""
+    bytes, the wk_b / wv_b masters included (those of the MTP head's MLA
+    too)."""
     master = _engines(False)[2]
     model = Tdeploy.deploy_quantize(bridge.model_from_tree(TCFG, master))
     want = _engines(True)[1].model
@@ -302,7 +311,8 @@ def test_port_deploy_keeps_the_absorbed_masters_like_the_reference():
     assert got_t.keys() == want_t.keys()
     for name, t in want_t.items():
         assert torch.equal(got_t[name], t), name
-    assert sum(name.endswith(("wk_b.w", "wv_b.w")) for name in got_t) == 2 * TCFG.n_layers
+    assert TCFG.mtp and model.mtp is not None
+    assert sum(name.endswith(("wk_b.w", "wv_b.w")) for name in got_t) == 2 * (TCFG.n_layers + 1)
     assert not any(name.endswith(".w") and not name.endswith(("wk_b.w", "wv_b.w"))
                    for name in got_t)
 

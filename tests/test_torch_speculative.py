@@ -19,7 +19,8 @@ deepseek-v3 config cut to its 3 leading dense layers in the same formats):
 * greedy `generate(speculative=)` on fp weights: tokens, lengths,
   ``verify_steps`` and ``accepted_drafts`` equal the reference's, and the
   tokens equal the port's plain loop, in all 7 cells; the reference's
-  lockstep-batch, stop-inside-a-block, MTP-head and fixed-generator cases;
+  lockstep-batch, stop-inside-a-block, MTP-head (refused without one, an
+  MTP run on the ds3 cut) and fixed-generator cases;
 * the scheduler's speculative mode: tokens equal the engine's in all 7
   cells, budget truncation, the verify overrun reserved, the MTP drafter
   refused; a per-lane ``[B]``-position verify block against lane-by-lane
@@ -365,13 +366,21 @@ def test_mtp_drafter_requires_mtp_head():
 
 
 def test_mtp_drafter_on_the_ds3_cut_names_a9():
-    """The ds3 cut has an MTP head in its config, but the head is an MoE
-    block the port does not build yet."""
-    _, te = engines(DS3)
-    assert te.cfg.mtp
-    with pytest.raises(NotImplementedError, match="A9"):
-        te.generate(torch.tensor([[3, 4, 5, 6]]), GenerationConfig(max_new_tokens=2),
-                    speculative=SpeculativeConfig(k=2, drafter="mtp"))
+    """The ds3 cut carries its MTP head (an MoE block over MLA): greedy
+    speculative decode with the MTP drafter gives the reference's tokens,
+    verify steps and accepted drafts, and the port's plain loop's tokens."""
+    je, te = engines(DS3)
+    assert te.cfg.mtp and isinstance(te.model.mtp.block, Tlm.MoEBlock)
+    for p in _ref_prompts(te.cfg.vocab_size):
+        want = je.generate(jnp.asarray(p, jnp.int32), JGen(max_new_tokens=8),
+                           speculative=JSpecCfg(k=2, drafter="mtp"))
+        got = te.generate(torch.from_numpy(p), GenerationConfig(max_new_tokens=8),
+                          speculative=SpeculativeConfig(k=2, drafter="mtp"))
+        np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+        assert (got.verify_steps, got.accepted_drafts) == (want.verify_steps,
+                                                           want.accepted_drafts)
+        plain = te.generate(torch.from_numpy(p), GenerationConfig(max_new_tokens=8))
+        assert torch.equal(got.tokens, plain.tokens)
 
 
 def test_stochastic_speculative_is_deterministic_under_a_fixed_generator():
