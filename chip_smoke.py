@@ -27,8 +27,13 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (K 100) on the zero-padded operands deploy holds (exact against the
    unpadded product; the library timed on the same padded operands), and
    hymba's x_proj at the decode step's M 2; flash-decode also at
-   olmoe-1b-7b's G 1 (B 2, KV 16, d 128, C 544; f32, int8_tok, mxint4_blk)
-   and starcoder2-15b's G 12 (B 2, KV 4, d 128, C 544; the same formats);
+   olmoe-1b-7b's G 1 (B 2, KV 16, d 128, C 544; f32, int8_tok, mxint4_blk),
+   starcoder2-15b's G 12 (B 2, KV 4, d 128, C 544; the same formats) and
+   seamless-m4t-medium's G 1 at d 64 (B 2, KV 16): its self-attention (C
+   544) and its cross-attention over the 1536 encoder frames (C 1536, timed
+   at kv_len = C, as decode reads it); W8A8 also at seamless's encoder and
+   cross K/V shapes (M = 2 x 1536 frames) and MXINT4 at its LM head (N
+   256256);
    the routed experts' GEMV (`mxint4_expert_matmul`) at olmoe's decode (A
    16 rows) and verify (A 80) shapes and at deepseek-v3's MTP head step (A
    16 rows of 256 experts, 7168 <-> 2048), its bound from the distinct
@@ -48,7 +53,7 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (`sigma_chain_price`); and the selective scan (plain PyTorch, not a
    kernel: `scan_phase`), device ms per layer, per prefill and per decode
    step at falcon-mamba-7b's and hymba-1.5b's widths;
-4. the seven main paths at full width, each through
+4. the eight main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens (each
    decode step a replay of one captured CUDA graph, its launches counted per
@@ -69,8 +74,13 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    three formats; its B 2 decode dispatch drops, counted by `moe_drops`),
    and starcoder2-15b (40 layers, d_model 6144, LayerNorm, 48 heads over 4
    KV heads of 128, an ungated GeLU MLP of 24576, vocab 49152; the same
-   three formats), all from seeded random weights in the default
-   W8A8/MXINT4 deployment; then the
+   three formats), and seamless-m4t-medium (an encoder-decoder: 12 encoder
+   and 12 decoder layers, d_model 1024, 16 / 16 heads of 64, LayerNorm, an
+   ungated GeLU MLP of 4096, vocab 256206; ``generate`` with
+   ``extras={"src_embeds": ...}``, 1536 frames from the port's frontend
+   stub; the same three formats, the cross K/V encoded with the self K/V;
+   193 W8A8 launches a prefill, 97 MXINT4 and 24 flash-decode a step), all
+   from seeded random weights in the default W8A8/MXINT4 deployment; then the
    same weights on the plain path (``kernel_impl="ref"``): every block in
    lockstep, prefill logits beside the network's own sensitivity, the
    first COMPARE_STEPS (4) decode steps' logits (see `compare_paths`; on
@@ -80,9 +90,13 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    `free_running`); the profiler's busy shares in a path's first format; one top-k and one top-p generate through the graph
    (retnet-1.3b), each token in its step's top k or nucleus, repeated with
    its seed;
-5. after phase 4 on each path, the admission paths (`serve_admission`), once
+5. after phase 4 on each path, the admission paths (`serve_admission`) once
    per cache format of the chunked admission (phases 5, 7 and 8 run
-   starcoder2-15b in its first format only, `phase_formats`): 2 prompts of
+   hymba-1.5b, olmoe-1b-7b and starcoder2-15b in their first format only,
+   `phase_formats`; seamless-m4t-medium runs none of
+   them: `serve_refusals` holds it to the reference's refusals of bucketed
+   and chunked prefill, the scheduler's admission and speculative decode,
+   untimed): 2 prompts of
    500 tokens in chunks of 32 (hymba-1.5b: 1100 in chunks of 128, so its 1024-slot ring
    wraps and its full-attention layers degrade to it, as in the reference;
    15 x 32 + 16 + 4: retention from a warm state at chunks
@@ -157,7 +171,7 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    admissions adopt the shared prompt); one greedy generate each on
    falcon-mamba-7b, hymba-1.5b and olmoe-1b-7b; reduced deepseek-v3 with its
    MoE layers (3 dense, 2 MoE with the shared expert) and its MTP head
-   against the CPU too, block by block on the CPU's input, its prefill
+   against the CPU too, reduced seamless-m4t-medium on 8 frames, block by block on the CPU's input, its prefill
    logits end to end and on fp weights (`reduced_vs_cpu`, `cpu_lockstep`),
    and one MTP head step on the CPU's inputs (`mtp_head_vs_cpu`);
    before phase 9, the ds3_mtp cell (`serve_mtp`): the ds3 cut with its MTP
@@ -202,7 +216,7 @@ from repro_torch.core import kvq  # noqa: E402
 from repro_torch.core import mxint4 as mx  # noqa: E402
 from repro_torch.core import retention as ret  # noqa: E402
 from repro_torch.kernels import hopper, ops, ref  # noqa: E402
-from repro_torch.models import deploy, layers, lm  # noqa: E402
+from repro_torch.models import deploy, frontends, layers, lm  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.modules import Linear  # noqa: E402
 from repro_torch.serving import engine as serving_engine  # noqa: E402
@@ -242,7 +256,11 @@ SRC = {
 # run in prefill only (MLA's wk_b / wv_b, whose masters decode absorbs);
 # ``attn`` names the decode attention (or retention) kernel; ``cfg`` builds
 # the model, ``reduced`` its CPU-scale twin; ``admit_prompt`` is the
-# admission phase's prompt length (ADMIT_PROMPT when absent).
+# admission phase's prompt length (ADMIT_PROMPT when absent);
+# ``phase_formats`` the cache formats of its admission, prefix and
+# speculative phases (every format of phase 4 when absent; cut to the first
+# on hymba-1.5b, olmoe-1b-7b and starcoder2-15b to keep the run inside its
+# time, PERF.md section 4).
 RETNET = dict(arch="retnet-1.3b", layers=24, d=2048, vocab=32768, formats=(None,),
               linears=((2048, 2048, 2), (2048, 4096, 3), (4096, 2048, 2)),
               decode_w8_linears=(), prefill_linears=(), attn="retention")
@@ -275,6 +293,7 @@ FALCON_MAMBA = dict(arch="falcon-mamba-7b", layers=64, d=4096, vocab=65024,
 # + 8 + 4: a chunk runs host-bound, about 0.3 s at 32 tokens, PERF.md).
 HYMBA = dict(arch="hymba-1.5b", layers=32, d=1600, vocab=32256, kv=5, g=5, hd=64,
              window=1024, d_inner=3200, state=16, formats=(None, "int8_tok", "mxint4_blk"),
+             phase_formats=(None,),
              linears=((1600, 1600, 2), (1600, 320, 2), (1600, 6400, 1), (100, 3200, 1),
                       (3200, 1600, 1), (1600, 5504, 2), (5504, 1600, 1)),
              decode_w8_linears=((3200, 132, 1),), prefill_linears=(), attn="gqa",
@@ -284,21 +303,36 @@ HYMBA = dict(arch="hymba-1.5b", layers=32, d=1600, vocab=32256, kv=5, g=5, hd=64
 # 1024) and wo (1024 -> 2048) through `mxint4_expert_matmul` in decode
 # (``experts``: count, top k, d_ff) and a dequantized bmm in prefill.
 OLMOE = dict(arch="olmoe-1b-7b", layers=16, d=2048, vocab=50432, kv=16, g=1, hd=128,
-             formats=(None, "int8_tok", "mxint4_blk"),
+             formats=(None, "int8_tok", "mxint4_blk"), phase_formats=(None,),
              linears=((2048, 2048, 4), (2048, 64, 1)),
              decode_w8_linears=(), prefill_linears=(), attn="gqa",
              experts=dict(e=64, k=8, f=1024), f32_witness=True)
 # starcoder2-15b: LayerNorm, GQA (48 heads over 4 KV heads of 128: G 12,
 # flash-decode's three G-chunks of 4), an ungated GeLU MLP of 24576, vocab
-# 49152.  Its admission, prefix and speculative phases run in its first
-# cache format only (``phase_formats``, `phase_formats`); every other path
-# runs them in every format.
+# 49152.
 STARCODER2 = dict(arch="starcoder2-15b", layers=40, d=6144, vocab=49152, kv=4, g=12, hd=128,
                   formats=(None, "int8_tok", "mxint4_blk"), phase_formats=(None,),
                   linears=((6144, 6144, 2), (6144, 512, 2), (6144, 24576, 1),
                            (24576, 6144, 1)),
                   decode_w8_linears=(), prefill_linears=(), attn="gqa")
-PATHS = (RETNET, QWEN3, DS3, FALCON_MAMBA, HYMBA, OLMOE, STARCODER2)
+# seamless-m4t-medium: an encoder-decoder at every published width (12 encoder
+# and 12 decoder layers, d_model 1024, 16 / 16 heads of 64: flash-decode at G
+# 1, d 64; LayerNorm, an ungated GeLU MLP of 4096, vocab 256206 -> 256256),
+# fed ``frames`` 1536 frames (`frontends.synth_frame_embeds`).  ``linears``
+# are a decoder layer's (self q, k, v, o and cross q, o; wi, wo), which run
+# in both phases; ``frame_linears`` run in prefill only, at M = B x frames:
+# an encoder layer's q, k, v, o, wi, wo and a decoder layer's cross k, v
+# (counted per layer: `serve_full_width` checks that the encoder has as many
+# layers as the decoder).  A decode step reads two caches a layer
+# (``fd_per_layer``): its own and the cross cache, at kv_len = 1536.  It has
+# no admission, scheduler, prefix or speculative phase (the reference
+# refuses them, `serve_refusals`).
+SEAMLESS = dict(arch="seamless-m4t-medium", layers=12, d=1024, vocab=256256, kv=16, g=1,
+                hd=64, frames=1536, formats=(None, "int8_tok", "mxint4_blk"),
+                linears=((1024, 1024, 6), (1024, 4096, 1), (4096, 1024, 1)),
+                frame_linears=((1024, 1024, 6), (1024, 4096, 1), (4096, 1024, 1)),
+                decode_w8_linears=(), prefill_linears=(), attn="gqa", fd_per_layer=2)
+PATHS = (RETNET, QWEN3, DS3, FALCON_MAMBA, HYMBA, OLMOE, STARCODER2, SEAMLESS)
 # ds3_mtp: the ds3 cut with its MTP head, at every published width (`serve_mtp`):
 # speculative `generate` with the MTP drafter, each verify step (W8A8 over the
 # block, as on ds3_dense) chaining SPEC_K head steps inside its graph.  A head
@@ -354,8 +388,9 @@ DECODE_TOL = 0.1         # one decode step end to end from the same cache
 # W8A8 linear is held as `_decode_lockstep` says.
 LOGIT_TOL = 2e-2         # reduced model, card kernels vs CPU plain path
 # Models whose random weights emit ids in the LM head's padding rows
-# (hymba-1.5b: 32001 padded to 32256), which the reference samples too.
-PADDING_IDS = ("hymba-1.5b",)
+# (hymba-1.5b: 32001 padded to 32256; seamless-m4t-medium: 256206 padded to
+# 256256), which the reference samples too.
+PADDING_IDS = ("hymba-1.5b", "seamless-m4t-medium")
 # rmsnorm_stats where the served models take sigma^-1: (M, D, dtype, site),
 # the dtype being the one the site passes (ln1/ln2 see the bf16 residual
 # stream, q_norm and the per-head norms an f32 linear output), the other
@@ -525,10 +560,14 @@ def _check(name, got, want, rtol, atol):
 def _linear_cases(path: dict, m: int, lm_head_m: int, prefill: bool = False):
     """(path, M, K, N, launches per unit) of every linear shape a path runs
     in one phase's format: MXINT4 in decode, W8A8 in prefill (the prefill-only
-    and the never-MXINT4 linears with them)."""
+    and the never-MXINT4 linears with them, and an encoder-decoder's linears
+    over its frames at M = B x frames)."""
     shapes = path["linears"] + (path["decode_w8_linears"] + path["prefill_linears"]
                                 if prefill else ())
     cases = [(path["arch"], m, k, n, c * path["layers"]) for k, n, c in shapes]
+    if prefill:
+        cases += [(path["arch"], BATCH * path["frames"], k, n, c * path["layers"])
+                  for k, n, c in path.get("frame_linears", ())]
     return cases + [(path["arch"], lm_head_m, path["d"], path["vocab"], 1)]
 
 
@@ -664,7 +703,7 @@ def kernel_phase_w8a8(peaks):
     rows = []
     cases = [c + (True,) for path in PATHS
              for c in _linear_cases(path, BATCH * PROMPT, BATCH, True)]
-    cases += [c + (False,) for path in PATHS
+    cases += [c + (False,) for path in PATHS if "frames" not in path
               for c in _verify_cases(path) + _decode_w8_cases(path)]
     for arch, m, k, n, count, main in cases:
         g = _gen(m + k + n)
@@ -857,8 +896,11 @@ def sdpa_backend(fn) -> str:
 # cache format, timed at kv_len 528), hymba-1.5b over its ring (B 2, KV 5,
 # G 5: two group chunks, the second holding one head; d 64; C 1024, timed at
 # 1024: the ring full, as it is from the wrap on), olmoe-1b-7b (B 2, KV
-# 16, G 1: three of the four group rows of a block idle; d 128, C 544) and
-# starcoder2-15b (B 2, KV 4, G 12: three group chunks; d 128, C 544).
+# 16, G 1: three of the four group rows of a block idle; d 128, C 544),
+# starcoder2-15b (B 2, KV 4, G 12: three group chunks; d 128, C 544) and
+# seamless-m4t-medium (B 2, KV 16, G 1, d 64): its self-attention (C 544)
+# and its cross-attention (``site``), which reads the whole 1536-frame cache
+# every step (kv_len = C).
 FD_SHAPES = (
     dict(path=QWEN3, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
          lanes=LANE_KV_LENS, formats=("f32", "bf16", "int8", "int8_tok", "mxint4_blk")),
@@ -869,6 +911,11 @@ FD_SHAPES = (
          lanes=LANE_KV_LENS, formats=("f32", "int8_tok", "mxint4_blk")),
     dict(path=STARCODER2, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
          lanes=LANE_KV_LENS, formats=("f32", "int8_tok", "mxint4_blk")),
+    dict(path=SEAMLESS, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
+         lanes=LANE_KV_LENS, formats=("f32", "int8_tok", "mxint4_blk"), site="self"),
+    dict(path=SEAMLESS, c=SEAMLESS["frames"], kv_len=SEAMLESS["frames"],
+         check=(1, 17, 769, 1535, 1536), lanes=((1, 1536), (1536, 700)),
+         formats=("f32", "int8_tok", "mxint4_blk"), site="cross"),
 )
 
 
@@ -934,6 +981,7 @@ def _flash_decode_row(peaks, path, shape, fmt, q, k32, v32, b, kvh, g, d, c, n):
         per_lane_ms=lane_ms, per_lane_kv_len=list(shape["lanes"][1]),
         per_lane_max_abs_err=lane_err,
         call_ms=call_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel")),
+        **({"attention": shape["site"]} if "site" in shape else {}),
         plain_ms=time_ms(lambda: ref.flash_decode_ref(q, k, v, nd)),
         library_ms=None, library_gqa_ms=None, bound_ms=bms, bound_by=by,
         plan={key: val for key, val in hopper.flash_decode_plan(
@@ -1218,7 +1266,7 @@ def expected_launches(path: dict, s: int = PROMPT) -> tuple[dict, dict]:
     per_step = dict.fromkeys(hopper.COUNTERS, 0)
     both = sum(c for _, _, c in path["linears"])
     w8_both = sum(c for _, _, c in path["decode_w8_linears"])
-    prefill_only = sum(c for _, _, c in path["prefill_linears"])
+    prefill_only = sum(c for _, _, c in path["prefill_linears"] + path.get("frame_linears", ()))
     per_prefill["w8a8_matmul"] = (both + w8_both + prefill_only) * path["layers"] + 1
     per_step["mxint4_matmul"] = both * path["layers"] + 1
     per_step["w8a8_matmul"] = w8_both * path["layers"]
@@ -1227,7 +1275,7 @@ def expected_launches(path: dict, s: int = PROMPT) -> tuple[dict, dict]:
     elif path["attn"] == "mla":
         per_step["flash_decode_mla"] = path["layers"]
     elif path["attn"] == "gqa":
-        per_step["flash_decode"] = path["layers"]
+        per_step["flash_decode"] = path["layers"] * path.get("fd_per_layer", 1)
     if "experts" in path:
         per_step["mxint4_expert_matmul"] = 3 * path["layers"]
     return per_prefill, per_step
@@ -1251,8 +1299,12 @@ def serve_full_width(path: dict, card: str):
     if (cfg.n_layers, cfg.d_model, cfg.padded_vocab) != (path["layers"], path["d"],
                                                          path["vocab"]):
         raise RuntimeError(f"unexpected config {cfg}")
+    if cfg.is_encdec and cfg.encoder_layers != path["layers"]:
+        raise RuntimeError(f"{arch}: frame_linears count {path['layers']} encoder layers, "
+                           f"the config has {cfg.encoder_layers}")
     prompts = torch.randint(1, cfg.vocab_size, (BATCH, PROMPT), generator=_gen(1),
                             device="cuda")
+    extras = frame_extras(cfg)
     want_p, want_s = expected_launches(path)
     plain = InferenceEngine(cfg, eng.model, EngineSpec(kernel_impl="ref"))
     counted, results = dict.fromkeys(hopper.COUNTERS, 0), {}
@@ -1262,7 +1314,7 @@ def serve_full_width(path: dict, card: str):
         gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt)
         # Per-phase launch counts, eagerly, then the capture.
         hopper.reset_launches()
-        logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN)
+        logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN, extras=extras)
         per_prefill = dict(hopper.LAUNCHES)
         cache = eng._encode_cache(cache, gen)
         hopper.reset_launches()
@@ -1274,7 +1326,7 @@ def serve_full_width(path: dict, card: str):
                                f"expected {want_p} / {want_s}")
         key = eng.graph_key(cache, gen)
         del cache
-        first = eng.generate(prompts, gen)
+        first = eng.generate(prompts, gen, extras=extras)
         graph = eng._graphs[key]
         log(f"{tag} step captured in {first.capture_s:.3f} s; a replay launches "
             f"{graph.launches}")
@@ -1284,7 +1336,7 @@ def serve_full_width(path: dict, card: str):
 
         # The main path, counted.
         hopper.reset_launches()
-        res = eng.generate(prompts, gen)
+        res = eng.generate(prompts, gen, extras=extras)
         launches = dict(hopper.LAUNCHES)
         want = {k: want_p[k] + want_s[k] * res.decode_steps for k in hopper.COUNTERS}
         log(tag, "main-path launches", launches, "decode steps (replays)", res.decode_steps)
@@ -1307,9 +1359,9 @@ def serve_full_width(path: dict, card: str):
                  else ("eager", "graph"))
         for kind in turns:
             if kind == "graph":
-                graph_runs.append(eng.generate(prompts, gen))
+                graph_runs.append(eng.generate(prompts, gen, extras=extras))
                 continue
-            got, cache = eager_generate(eng, prompts, gen)
+            got, cache = eager_generate(eng, prompts, gen, extras)
             eager_runs.append(got)
             _same_as_graph(tag, graph_runs[-1], graph.state.cache, got, cache)
             del cache
@@ -1330,7 +1382,7 @@ def serve_full_width(path: dict, card: str):
             serving["moe_dispatch"] = moe_drops(tag, eng, prompts, gen)
         t_profile = time.perf_counter()
         if fmt == path["formats"][0]:
-            serving.update(profile_shares(eng, prompts, gen))
+            serving.update(profile_shares(eng, prompts, gen, extras=extras))
         serving.update(turns_s=t_profile - t_turns, profile_s=time.perf_counter() - t_profile)
         log(f"{tag} serving (kernel path, medians; graph and eager in turns):",
             json.dumps(serving))
@@ -1338,8 +1390,8 @@ def serve_full_width(path: dict, card: str):
         # The same weights on the plain path.
         t1 = time.perf_counter()
         checks = compare_paths(path, eng, plain, prompts, gen,
-                               first=fmt == path["formats"][0])
-        res_k, res_p, drift = free_running(eng, plain, prompts, gen)
+                               first=fmt == path["formats"][0], extras=extras)
+        res_k, res_p, drift = free_running(eng, plain, prompts, gen, extras)
         checks.update(
             greedy_token_agreement=(res_p.tokens == toks[:, :FREE_RUN_NEW]).float().mean().item(),
             free_running=dict(drift, tokens=FREE_RUN_NEW, kernel_tokens_as_counted=bool(
@@ -1354,6 +1406,12 @@ def serve_full_width(path: dict, card: str):
         results[f"{arch} top-k"] = sampled_through_graph(eng, prompts)
         results[f"{arch} top-p"] = top_p_through_graph(eng, prompts)
     log(f"{arch} phase: {time.perf_counter() - t0:.1f} s")
+    if cfg.is_encdec:
+        results[f"{arch} refusals"] = serve_refusals(eng, prompts, extras)
+        none = dict.fromkeys(hopper.COUNTERS, 0)
+        del eng, plain
+        torch.cuda.empty_cache()
+        return counted, none, dict(none), dict(none), dict(none), results
     admitted, admission = serve_admission(path, eng, plain, card)
     results.update(admission)
     scheduled, scheduling = serve_scheduler(path, eng, card)
@@ -1365,6 +1423,50 @@ def serve_full_width(path: dict, card: str):
     del eng, plain
     torch.cuda.empty_cache()
     return counted, admitted, scheduled, prefixed, speculated, results
+
+
+def frame_extras(cfg, batch: int = BATCH) -> dict | None:
+    """A model's frontend inputs to `prefill` / `generate`: an
+    encoder-decoder's ``src_embeds`` (its ``frontend_tokens`` frames from
+    the frontend stub and a fixed seed, on the card); None elsewhere."""
+    if not cfg.is_encdec:
+        return None
+    return {"src_embeds": frontends.synth_frame_embeds(cfg, batch, cfg.frontend_tokens,
+                                                       seed=2, device="cuda")}
+
+
+@torch.inference_mode()
+def serve_refusals(eng, prompts, extras) -> dict:
+    """The admission paths the reference refuses an encoder-decoder, each
+    raising NotImplementedError on the card too (untimed): bucketed prefill,
+    chunked admission, the scheduler's admission (its chunked prefill) and
+    speculative decode.  Returns each refusal's message."""
+    from repro_torch.serving import Request, RequestScheduler
+    from repro_torch.serving.sampling import SpeculativeConfig
+    gen = GenerationConfig(max_new_tokens=8)
+
+    def scheduler():
+        sched = RequestScheduler(eng, classes=[(2, 48)], gen=gen, chunk_size=16)
+        sched.submit(Request(uid=0, prompt=prompts[0, :32].tolist()))
+        sched.run()
+
+    cases = (("bucketed", lambda: eng.prefill(prompts, extras=extras, bucket=True)),
+             ("chunked", lambda: eng.begin_chunked_prefill(
+                 prompts, cache_len=CACHE_LEN, chunk_size=ADMIT_CHUNK).advance()),
+             ("scheduler", scheduler),
+             ("speculative", lambda: eng.generate(
+                 prompts, gen, speculative=SpeculativeConfig(k=SPEC_K), extras=extras)))
+    out = {}
+    for name, fn in cases:
+        try:
+            fn()
+        except NotImplementedError as e:
+            out[name] = str(e)
+            continue
+        raise RuntimeError(f"{eng.cfg.name}: {name} ran; the reference refuses it")
+    log(f"{eng.cfg.name} refusals: {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -1422,7 +1524,7 @@ def _in_vocab(cfg, toks: torch.Tensor) -> bool:
     return bool(((toks >= 0) & (toks < limit)).all())
 
 
-def eager_generate(eng, prompts, gen):
+def eager_generate(eng, prompts, gen, extras=None):
     """`generate` as the eager loop: prefill, then `decode_step` in a Python
     loop in the reference's body order (greedy, no stop tokens), timed as
     `generate` times itself.  Returns a GenerationResult and the final
@@ -1431,7 +1533,8 @@ def eager_generate(eng, prompts, gen):
         raise ValueError("eager_generate: greedy decoding without stop tokens only")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = eng.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens)
+    logits, cache = eng.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens,
+                                extras=extras)
     cache = eng._encode_cache(cache, gen)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
@@ -1590,8 +1693,8 @@ def chunk_lockstep(eng, plain, prompts, fmt, chunk_size: int,
     diff_bytes = total_bytes = 0
     off = 0
     for j, c in enumerate(chunk_schedule(prompts.shape[1], chunk_size)[:n_chunks]):
-        x = lm._embed(model, prompts[:, off:off + c])
         pos = cache["pos"]
+        x = lm._embed(model, prompts[:, off:off + c], cfg, start=pos)
         sin, cos = lm._rope_tables(cfg, c, x.device, start=pos)
         blocks = []
         for i, (blk, cl) in enumerate(zip(model.blocks, cache["blocks"])):
@@ -2403,7 +2506,7 @@ def verify_lockstep(eng, plain, prompts, gen) -> dict:
     for name, block in (("drafts", torch.cat([tok[:, None], drafts], 1)),
                         ("rejected", torch.cat([tok[:, None], bad], 1))):
         worst = dict(block=0.0, cache=0.0, committed=0.0, logits=0.0)
-        x = lm._embed(model, block)
+        x = lm._embed(model, block, cfg, start=pos)
         for i, (blk, cl) in enumerate(zip(model.blocks, cache["blocks"])):
             yk, ck = lm._block_chunk(blk, x, cfg, eng.hsa, _clone(cl), pos, sin, cos, True)
             yr, cr = lm._block_chunk(blk, x, cfg, plain.hsa, _clone(cl), pos, sin, cos, True)
@@ -2990,7 +3093,7 @@ def _device_us(prof) -> tuple[float, list]:
 
 
 @torch.inference_mode()
-def profile_shares(eng, prompts, gen, steps: int = 2) -> dict:
+def profile_shares(eng, prompts, gen, steps: int = 2, extras=None) -> dict:
     """Device busy share of a prefill, of eager decode steps and of replays
     of the captured step, with the top kernels by device time (torch.profiler;
     it inflates the host side, so the busy shares are lower bounds)."""
@@ -3000,7 +3103,7 @@ def profile_shares(eng, prompts, gen, steps: int = 2) -> dict:
     with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN)
+        logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN, extras=extras)
         cache = eng._encode_cache(cache, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3041,22 +3144,26 @@ def _clone(tree):
     return tree
 
 
-def _prefill_from(model, x, cfg, hsa):
-    """`lm.forward_prefill` from embedded inputs ``x``: last-token logits."""
+def _prefill_from(model, x, cfg, hsa, enc_out=None):
+    """`lm.forward_prefill` from embedded inputs ``x`` (and an
+    encoder-decoder's encoder output ``enc_out``): last-token logits."""
     sin, cos = lm._rope_tables(cfg, x.shape[1], x.device)
     for blk in model.blocks:
-        x = lm._block_apply(blk, x, cfg, hsa, "prefill", sin, cos)[0].to(x.dtype)
+        x = lm._block_apply(blk, x, cfg, hsa, "prefill", sin, cos,
+                            enc_out=enc_out)[0].to(x.dtype)
     h = layers.norm_full(model.final_norm, x[:, -1:])
     return hsa.linear(model.lm_head, h, "prefill")[:, 0]
 
 
 @torch.inference_mode()
-def compare_paths(path, eng, plain, prompts, gen, first: bool = True):
+def compare_paths(path, eng, plain, prompts, gen, first: bool = True, extras=None):
     """Kernel path vs plain path on the same weights.
 
     * Per block, in lockstep: both paths get the plain path's input to the
       block; outputs within BLOCK_TOL of max|output|.  A wrong kernel shows
-      here, at the block that runs it.
+      here, at the block that runs it.  An encoder-decoder's encoder blocks
+      run so on its frames (``extras``), then its decoder blocks on the
+      plain path's encoder output.
     * Prefill logits end to end, within PREFILL_TOL of max|logit|, beside the
       network's own sensitivity: the plain path against itself with one
       token's embedding moved by one bf16 step.  Random weights, a bf16
@@ -3088,23 +3195,34 @@ def compare_paths(path, eng, plain, prompts, gen, first: bool = True):
     """
     cfg, model = eng.cfg, eng.model
     out = {}
-    lr, cache = plain.prefill(prompts, cache_len=CACHE_LEN)
+    lr, cache = plain.prefill(prompts, cache_len=CACHE_LEN, extras=extras)
     if first:
-        x = lm._embed(model, prompts)
+        block, enc_out = [], None
+        if cfg.is_encdec:
+            # The encoder's blocks in lockstep on the frames, then the
+            # decoder's on the plain path's encoder output.
+            xe = lm._frames_in(model, extras["src_embeds"], cfg)
+            for i, blk in enumerate(model.enc_blocks):
+                yr = lm._block_apply(blk, xe, cfg, plain.hsa, "prefill", None, None)[0]
+                yk = lm._block_apply(blk, xe, cfg, eng.hsa, "prefill", None, None)[0]
+                block.append(_rel(yk, yr, f"prefill encoder block {i}", BLOCK_TOL))
+                xe = yr.to(xe.dtype)
+            enc_out = layers.norm_full(model.enc_final_norm, xe)
+        x = lm._embed(model, prompts, cfg)
         sin, cos = lm._rope_tables(cfg, x.shape[1], x.device)
-        block = []
         for i, blk in enumerate(model.blocks):
-            yr = lm._block_apply(blk, x, cfg, plain.hsa, "prefill", sin, cos)[0]
-            yk = lm._block_apply(blk, x, cfg, eng.hsa, "prefill", sin, cos)[0]
+            yr = lm._block_apply(blk, x, cfg, plain.hsa, "prefill", sin, cos, enc_out=enc_out)[0]
+            yk = lm._block_apply(blk, x, cfg, eng.hsa, "prefill", sin, cos, enc_out=enc_out)[0]
             block.append(_rel(yk, yr, f"prefill block {i}", BLOCK_TOL))
             x = yr.to(x.dtype)
-        lk, _ = eng.prefill(prompts)
-        x = lm._embed(model, prompts).clone()
+        lk, _ = eng.prefill(prompts, extras=extras)
+        x = lm._embed(model, prompts, cfg).clone()
         x[0, PROMPT // 2] = _bf16_step(x[0, PROMPT // 2])
         out.update(block_max_rel_err=max(block), block_tolerance=BLOCK_TOL,
                    prefill_logit_rel_err=_rel(lk, lr, "prefill logits", PREFILL_TOL),
                    prefill_tolerance=PREFILL_TOL,
-                   prefill_sensitivity_floor=_rel(_prefill_from(model, x, cfg, plain.hsa), lr,
+                   prefill_sensitivity_floor=_rel(_prefill_from(model, x, cfg, plain.hsa,
+                                                                enc_out), lr,
                                                   "sensitivity", float("inf")))
     cache = plain._encode_cache(cache, gen)
 
@@ -3125,7 +3243,7 @@ def compare_paths(path, eng, plain, prompts, gen, first: bool = True):
         dblock.append(worst)
         codes.append(n_codes)
         same.append(same_codes)
-        x = lm._embed(model, tok[:, None]).clone()
+        x = lm._embed(model, tok[:, None], cfg, start=cache["pos"]).clone()
         x[0] = _bf16_step(x[0])
         dfloor.append(_rel(_decode_from(model, x, _clone(cache), cfg, plain.hsa), lr,
                            "sensitivity", float("inf")))
@@ -3160,7 +3278,7 @@ def compare_paths(path, eng, plain, prompts, gen, first: bool = True):
     return out
 
 
-def _appends(engine, prompts, gen):
+def _appends(engine, prompts, gen, extras=None):
     """The eager loop (`eager_generate`) with every one-row cache write
     recorded: per decode step, each written leaf's row before encoding (f32)
     and as stored."""
@@ -3177,7 +3295,7 @@ def _appends(engine, prompts, gen):
 
     layers.cache_update = spy
     try:
-        res, _ = eager_generate(engine, prompts, gen)
+        res, _ = eager_generate(engine, prompts, gen, extras)
     finally:
         layers.cache_update = real
     per = len(rows) // res.decode_steps
@@ -3227,7 +3345,7 @@ def _row_parting(xk, sk, xr, sr) -> dict | None:
 
 
 @torch.inference_mode()
-def free_running(eng, plain, prompts, gen):
+def free_running(eng, plain, prompts, gen, extras=None):
     """Both paths generating on their own through the eager loop (whose
     tokens and cache the graph's match bit for bit, `_same_as_graph`): each
     decode step appends the rows its own path computed to its own cache.
@@ -3243,8 +3361,8 @@ def free_running(eng, plain, prompts, gen):
     apart through their encoding; a flip with no parted row before it would
     point at the attention itself."""
     gen = dataclasses.replace(gen, max_new_tokens=FREE_RUN_NEW)
-    res_k, rows_k = _appends(eng, prompts, gen)
-    res_p, rows_p = _appends(plain, prompts, gen)
+    res_k, rows_k = _appends(eng, prompts, gen, extras)
+    res_p, rows_p = _appends(plain, prompts, gen, extras)
     tk, tp = res_k.tokens, res_p.tokens
     cols = (tk != tp).any(dim=0).nonzero()[:, 0].tolist()
     flip = cols[0] if cols else None
@@ -3303,7 +3421,7 @@ def _witness_step(eng, plain, tok, cache, step):
     differ between the paths."""
     model, cfg = eng.model, eng.cfg
     w8 = [m for blk in model.blocks for m in _w8_decode_linears(blk)]
-    x, gaps, routes = lm._embed(model, tok[:, None]), {}, {}
+    x, gaps, routes = lm._embed(model, tok[:, None], cfg, start=cache["pos"]), {}, {}
     gap = lambda tk, tr: [_rel(a, b, "residual", float("inf"))  # noqa: E731
                           for a, b in zip(tk, tr)]
     for name, xs in (("bf16", x), ("f32", x.float())):
@@ -3384,7 +3502,7 @@ def _decode_lockstep(eng, plain, tok, cache, step):
     and the largest same-code error."""
     cfg, model = eng.cfg, eng.model
     (sin, cos), pos = _angles(cache), cache["pos"]
-    x = lm._embed(model, tok[:, None])
+    x = lm._embed(model, tok[:, None], cfg, start=pos)
     worst, codes, same = 0.0, 0, 0.0
     for i, (blk, c) in enumerate(zip(model.blocks, cache["blocks"])):
         tag, w8 = f"decode step {step} block {i}", _w8_decode_linears(blk)
@@ -3447,7 +3565,7 @@ def cpu_lockstep(eng, cpu, prompts, arch: str) -> tuple[list, list]:
         return block, [m for m in blk.modules() if isinstance(m, Linear)]
 
     rows, moved = [], []
-    x = lm._embed(cpu.model, prompts.cpu())
+    x = lm._embed(cpu.model, prompts.cpu(), cfg)
     for i in range(n + 1):
         (fc, mc), (fg, mg) = stage(cpu.model, i), stage(eng.model, i)
         name = f"block {i}" if i < n else "head"
@@ -3515,10 +3633,12 @@ def reduced_vs_cpu(path: dict):
     cpu = _on_cpu(eng)
     prompts = torch.randint(1, eng.cfg.vocab_size, (2, 16), generator=_gen(3),
                             device="cuda")
+    extras = frame_extras(eng.cfg, 2)
+    cpu_extras = extras and {k: v.cpu() for k, v in extras.items()}
     with dispatch_spy() as rg:
-        lg, _ = eng.prefill(prompts)
+        lg, _ = eng.prefill(prompts, extras=extras)
     with dispatch_spy() as rc:
-        lc, _ = cpu.prefill(prompts.cpu())
+        lc, _ = cpu.prefill(prompts.cpu(), extras=cpu_extras)
     extra, tag = {}, f"reduced {arch} prefill"
     if path.get("lockstep"):
         extra = dict(prefill_rel_err_own_codes=_rel(lg.cpu(), lc, "own codes", float("inf")),
@@ -3544,8 +3664,8 @@ def reduced_vs_cpu(path: dict):
     agree = {}
     for fmt in path["formats"]:
         gen = GenerationConfig(max_new_tokens=12, cache_format=fmt)
-        tg = eng.generate(prompts, gen).tokens.cpu()
-        tc = cpu.generate(prompts.cpu(), gen).tokens
+        tg = eng.generate(prompts, gen, extras=extras).tokens.cpu()
+        tc = cpu.generate(prompts.cpu(), gen, extras=cpu_extras).tokens
         agree[fmt or "f32"] = (tg == tc).float().mean().item()
     log(f"reduced {arch}, card kernels vs CPU plain: prefill rel err {rel:.3e}, "
         f"greedy-token agreement {agree}" + (f", {json.dumps(extra)}" if extra else ""))

@@ -6,7 +6,10 @@ package).  Per-layer params arrive stacked ``[L, ...]`` per layer group
 (`lm.layer_groups`: ``"dense_head"`` then ``"blocks"`` for deepseek-v3,
 ``"blocks"`` alone otherwise) and are sliced per layer, in group order.  The
 multi-token-prediction head (``"mtp"``: ``proj`` and one unstacked block of
-the family's kind) becomes the model's `lm.MTPHead`.  A norm carries its
+the family's kind) becomes the model's `lm.MTPHead`.  An encoder-decoder's
+``"enc_blocks"`` (stacked) become `lm.LM.enc_blocks`, each decoder layer
+carries ``ln_cross`` and ``cross`` (an attention), and ``enc_final_norm``
+is the encoder's final norm.  A norm carries its
 gain ``g`` and, in a LayerNorm model, its bias ``b``.  Every leaf is copied
 byte for byte, so int8 and uint8 quantized leaves keep their exact bits.
 numpy has no bfloat16 of its own: jax's bf16 arrays arrive as
@@ -102,8 +105,9 @@ def _mla(a: dict, device) -> MLA:
 def _block(d: dict, cfg: ModelConfig, kind: str, device):
     """One layer's subtree -> its group's block kind: a `RetNetBlock`
     (``ret``), a `DenseBlock` (``attn``: GQA, or `MLA` for deepseek-v3), a
-    `MoEBlock` (``attn`` and ``moe``), an `SSMBlock` (``mamba``) or a
-    `HybridBlock` (``attn`` and ``mamba``)."""
+    `MoEBlock` (``attn`` and ``moe``), an `SSMBlock` (``mamba``), a
+    `HybridBlock` (``attn`` and ``mamba``), an `EncoderBlock` (as a dense
+    one) or a `DecoderBlock` (``attn``, ``ln_cross``, ``cross``, ``mlp``)."""
     ln1 = _norm(d["ln1"], device)
     if kind == "ssm":
         return lm.SSMBlock(ln1, _mamba(d["mamba"], device))
@@ -118,6 +122,11 @@ def _block(d: dict, cfg: ModelConfig, kind: str, device):
                             for n in ("wq", "wk", "wv", "wg", "wo")))
         return lm.RetNetBlock(ln1, ret, ln2, _mlp(d["mlp"], device))
     attn = (_mla if cfg.attn_type == "mla" else _attention)(d["attn"], device)
+    if kind == "enc":
+        return lm.EncoderBlock(ln1, attn, ln2, _mlp(d["mlp"], device))
+    if kind == "dec":
+        return lm.DecoderBlock(ln1, attn, _norm(d["ln_cross"], device),
+                               _attention(d["cross"], device), ln2, _mlp(d["mlp"], device))
     if kind == "moe":
         return lm.MoEBlock(ln1, attn, ln2, _moe(d["moe"], device))
     return lm.DenseBlock(ln1, attn, ln2, _mlp(d["mlp"], device))
@@ -136,19 +145,23 @@ def model_from_tree(cfg: ModelConfig, tree: dict, device="cpu") -> lm.LM:
     """The reference's (master or deployed) param tree -> the port's `LM`."""
     lm._check_family(cfg)
     groups = lm.layer_groups(cfg)
-    known = {"embed", "final_norm", "lm_head", "mtp", *(g for g, _, _ in groups)}
+    known = {"embed", "final_norm", "lm_head", "mtp", "enc_final_norm",
+             *(g for g, _, _ in groups)}
     if set(tree) - known:
         raise ValueError(f"unknown entries in the param tree: {sorted(set(tree) - known)}")
-    blocks = []
+    blocks, enc_blocks = [], []
     for gname, count, kind in groups:
         _check_stack(tree[gname], count, gname)
-        blocks += [_block(_layer(tree[gname], i), cfg, kind, device) for i in range(count)]
+        (enc_blocks if kind == "enc" else blocks).extend(
+            _block(_layer(tree[gname], i), cfg, kind, device) for i in range(count))
     lm.mark_full_attn(cfg, blocks)
     mtp = None
     if "mtp" in tree:
         kind = "moe" if cfg.family == "moe" else "dense"
         mtp = lm.MTPHead(_linear(tree["mtp"]["proj"], device),
                          _block(tree["mtp"]["block"], cfg, kind, device))
+    enc_norm = _norm(tree["enc_final_norm"], device) if cfg.is_encdec else None
     return lm.LM(to_tensor(tree["embed"], device), blocks,
                  _norm(tree["final_norm"], device),
-                 _linear(tree["lm_head"], device), mtp)
+                 _linear(tree["lm_head"], device), mtp,
+                 enc_blocks=enc_blocks, enc_final_norm=enc_norm)

@@ -3,9 +3,9 @@
 The numbers are the published ones, the same as the JAX package's
 ``configs/<arch>.py``; `get_config` resolves an ``--arch`` name.  The port
 serves the retnet, dense (RMSNorm or LayerNorm), MoE, ssm and hybrid
-families (`InferenceEngine.from_config` raises, naming what is missing, for
-the encoder-decoder and the frontends), but the registry is complete so
-names resolve alike.
+families and the encoder-decoder (`InferenceEngine.from_config` raises,
+naming what is missing, for the vision frontend), but the registry is
+complete so names resolve alike.
 """
 
 from __future__ import annotations

@@ -15,6 +15,10 @@ PyTorch (it is no Pallas kernel there either).  Chunked prefill
 device position and attends over the resident prefix.  A sliding-window cache
 (hymba) is a ring of ``window`` slots keyed by ``pos % window``.
 
+An encoder-decoder (seamless) runs the encoder's GQA non-causal and its
+decoder's cross-attention through `gqa_apply` with the encoder-projected K/V
+(``kv_override``).
+
 MLA (deepseek-v3) caches the compressed ``c_kv [B, C, kv_lora_rank]`` and
 the shared rope key ``k_rope [B, C, qk_rope_head_dim]``.  Prefill expands
 them per head for flash attention (a chunk re-expands the whole resident
@@ -318,18 +322,32 @@ def _project_qkv(p: Attention, x_star, sig_inv, engine: HSAEngine, phase: str,
 
 
 def gqa_apply(p: Attention, x_star, sig_inv, engine: HSAEngine, phase: str,
-              cfg: ModelConfig, *, window: int = 0, rope_sin=None, rope_cos=None
+              cfg: ModelConfig, *, causal: bool = True, window: int = 0, rope_sin=None,
+              rope_cos=None, kv_override: tuple[torch.Tensor, torch.Tensor] | None = None
               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal attention -> (out [B, S, D], (k, v) for the cache).
+    """Full-sequence attention -> (out [B, S, D], (k, v) for the cache).
     A nonzero ``window`` is the sliding window (hymba's full-attention
-    layers pass S)."""
+    layers pass S); an encoder's attention is not ``causal``.
+
+    ``kv_override`` (cross-attention: K and V ``[B, T, KV, hd]`` projected
+    from the encoder output) replaces the block's own K and V, and no RoPE
+    is applied.  The reference projects ``wk`` / ``wv`` on the decoder stream
+    all the same and discards them (dead work its compiler removes); here
+    they are not run."""
     b, s, _ = x_star.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q, k, v = _project_qkv(p, x_star, sig_inv, engine, phase, cfg)
-    if rope_sin is not None:
-        sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
-        q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
-    out = flash_attention(q.reshape(b, s, kv, h // kv, hd), k, v, window=window)
+    if kv_override is None:
+        q, k, v = _project_qkv(p, x_star, sig_inv, engine, phase, cfg)
+        if rope_sin is not None:
+            sin, cos = rope_sin[None, :, None, :], rope_cos[None, :, None, :]
+            q, k = orp.apply_rope(q, sin, cos), orp.apply_rope(k, sin, cos)
+    else:
+        q = engine.linear(p.wq, x_star, phase, row_scale=sig_inv).reshape(b, s, h, hd)
+        if cfg.qk_norm:
+            q = fr.rmsnorm(q, p.qnorm.g)
+        k, v = kv_override
+    out = flash_attention(q.reshape(b, s, kv, h // kv, hd), k, v, causal=causal,
+                          window=window)
     out = engine.linear(p.wo, out.reshape(b, s, h * hd), phase)
     return out, (k, v)
 

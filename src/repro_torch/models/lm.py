@@ -1,6 +1,6 @@
-"""Decoder LM assembly: the ``retnet``, ``dense``, ``moe``, ``ssm`` and
-``hybrid`` kinds of the reference's `models/lm.py`, dense and MoE with GQA or
-MLA attention.
+"""Decoder LM and encoder-decoder assembly: the ``retnet``, ``dense``,
+``moe``, ``ssm``, ``hybrid``, ``enc`` and ``dec`` kinds of the reference's
+`models/lm.py`, dense and MoE with GQA or MLA attention.
 
 Per-layer modules in an ``nn.ModuleList`` and a Python loop take the place of
 the reference's ``lax.scan`` over stacked params; the residual stream is cast
@@ -31,9 +31,22 @@ averages their normed outputs, then an MLP.  Hymba's first, middle and last
 layers attend to the whole prompt in prefill (`hybrid_full_attn_flags`);
 their decode cache is the same ring, as in the reference.
 
+An encoder-decoder (seamless-m4t-medium, ``cfg.is_encdec``) keeps its
+encoder layers (``enc`` blocks: a dense block with non-causal attention and
+no cache) in `LM.enc_blocks` with ``enc_final_norm``, and its decoder
+layers (``dec`` blocks: a dense block with a cross-attention between its
+self-attention and its MLP) in `LM.blocks`.  Prefill takes the frames
+(``src_embeds`` [B, T, D], `models/frontends.py`) through `_encode`; each
+decoder layer projects the encoder output to its cross K/V once and keeps
+them in its cache, which decode reads through flash-decode at ``kv_len`` =
+T every step.  Positions are sinusoidal (``abs_pos_embed``), added to the
+frames, the prompt and, at the device position, each decoded token.
+
 The decode cache is ``{"pos": i32 scalar, "rope": OnlineRopeState, "blocks":
 [one per layer]}``: ``{"s": f32 [B, H, dk, dv]}`` for RetNet, ``{"k", "v"}``
-``[B, C, KV, hd]`` leaves for dense GQA (C = the window for a ring),
+``[B, C, KV, hd]`` leaves for dense GQA (C = the window for a ring;
+``{"self": {"k", "v"}, "cross_k", "cross_v"}`` for a decoder layer, the cross
+leaves ``[B, T, KV, hd]``),
 ``{"c_kv" [B, C, kv_lora_rank], "k_rope" [B, C, qk_rope_head_dim]}`` for MLA
 (plain tensors or kvq-encoded dicts), ``{"h" f32 [B, d_inner, state], "conv"
 f32 [B, conv_width - 1, d_inner]}`` for an SSM block and ``{"attn": {"k",
@@ -67,6 +80,7 @@ from torch import nn
 from repro_torch.core import kvq
 from repro_torch.core import online_rope as orp
 from repro_torch.core.hsa import HSAEngine
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import retnet as R
@@ -82,8 +96,16 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[str, int, str]]:
     if cfg.family == "moe" and cfg.first_dense_layers:
         dense = min(cfg.first_dense_layers, cfg.n_layers)
         return [("dense_head", dense, "dense"), ("blocks", cfg.n_layers - dense, "moe")]
+    if cfg.is_encdec:
+        return [("enc_blocks", cfg.encoder_layers, "enc"), ("blocks", cfg.n_layers, "dec")]
     kind = cfg.family if cfg.family in ("retnet", "ssm", "hybrid", "moe") else "dense"
     return [("blocks", cfg.n_layers, kind)]
+
+
+def block_groups(cfg: ModelConfig) -> list[tuple[str, int, str]]:
+    """The groups whose layers are `LM.blocks` and hold decode caches: every
+    group but an encoder's."""
+    return [g for g in layer_groups(cfg) if g[2] != "enc"]
 
 
 def hybrid_full_attn_flags(cfg: ModelConfig, count: int) -> list[bool]:
@@ -93,18 +115,23 @@ def hybrid_full_attn_flags(cfg: ModelConfig, count: int) -> list[bool]:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Raise, naming what is missing, unless the port serves ``cfg``."""
+    """Raise, naming what is missing, unless the port serves ``cfg``: the
+    encoder-decoder (the ``audio`` family, its frames from the frontend
+    stub, sinusoidal positions) is served, a ``vision`` frontend is not."""
     if cfg.family in ("retnet", "ssm"):
         return
-    if cfg.family not in ("dense", "hybrid", "moe"):
+    if cfg.family not in ("dense", "hybrid", "moe", "audio", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
-            f"retnet, dense, moe, ssm and hybrid")
+            f"retnet, dense, moe, ssm, hybrid and the encoder-decoder")
+    encdec = cfg.is_encdec
     missing = [what for what, present in (
         (f"norm_type {cfg.norm_type!r}", cfg.norm_type not in ("rmsnorm", "layernorm")),
-        (f"frontend {cfg.frontend!r}", cfg.frontend is not None),
-        ("absolute position embeddings", cfg.abs_pos_embed),
-        (f"attn_type {cfg.attn_type!r}", cfg.attn_type not in ("gqa", "mla")))
+        (f"frontend {cfg.frontend!r}",
+         cfg.frontend is not None and not (encdec and cfg.frontend == "audio")),
+        ("absolute position embeddings without an encoder", cfg.abs_pos_embed and not encdec),
+        (f"attn_type {cfg.attn_type!r}",
+         cfg.attn_type not in (("gqa",) if encdec else ("gqa", "mla"))))
         if present]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
@@ -188,8 +215,33 @@ class HybridBlock(nn.Module):
                    L.norm_init(init, d, cfg), M.MLP.init(init, d, cfg.d_ff))
 
 
+class EncoderBlock(DenseBlock):
+    """An encoder layer: a dense block whose attention is non-causal and
+    keeps no cache."""
+
+
+class DecoderBlock(nn.Module):
+    """A decoder layer of an encoder-decoder: pre-norm causal self-attention,
+    then pre-norm (``ln_cross``) cross-attention (``cross``: its ``wq`` on
+    the decoder stream, ``wk`` / ``wv`` on the encoder output), then the MLP."""
+
+    def __init__(self, ln1: Norm, attn: Attention, ln_cross: Norm, cross: Attention,
+                 ln2: Norm, mlp: M.MLP):
+        super().__init__()
+        self.ln1, self.attn, self.ln_cross, self.cross = ln1, attn, ln_cross, cross
+        self.ln2, self.mlp = ln2, mlp
+
+    @classmethod
+    def init(cls, init: Init, cfg: ModelConfig) -> "DecoderBlock":
+        d = cfg.d_model
+        return cls(L.norm_init(init, d, cfg), L.gqa_init(init, cfg), L.norm_init(init, d, cfg),
+                   L.gqa_init(init, cfg), L.norm_init(init, d, cfg),
+                   M.MLP.init(init, d, cfg.d_ff, gated=cfg.norm_type == "rmsnorm"))
+
+
 BLOCK_KINDS = {"retnet": RetNetBlock, "dense": DenseBlock, "moe": MoEBlock,
-               "ssm": SSMBlock, "hybrid": HybridBlock}
+               "ssm": SSMBlock, "hybrid": HybridBlock, "enc": EncoderBlock,
+               "dec": DecoderBlock}
 
 
 class MTPHead(nn.Module):
@@ -211,7 +263,7 @@ class MTPHead(nn.Module):
 def mark_full_attn(cfg: ModelConfig, blocks: list[nn.Module]) -> None:
     """Set each hybrid block's ``full_attn`` from its place in its group."""
     at = 0
-    for _, count, kind in layer_groups(cfg):
+    for _, count, kind in block_groups(cfg):
         if kind == "hybrid":
             for blk, flag in zip(blocks[at:at + count], hybrid_full_attn_flags(cfg, count)):
                 blk.full_attn = flag
@@ -219,29 +271,41 @@ def mark_full_attn(cfg: ModelConfig, blocks: list[nn.Module]) -> None:
 
 
 class LM(nn.Module):
+    """The embedding, the decoder (or only) stack ``blocks``, the final norm
+    and the LM head; an encoder-decoder's encoder stack ``enc_blocks`` and
+    its ``enc_final_norm``; deepseek-v3's ``mtp`` head."""
+
     def __init__(self, embed: torch.Tensor, blocks: list[nn.Module],
-                 final_norm: Norm, lm_head: Linear, mtp: MTPHead | None = None):
+                 final_norm: Norm, lm_head: Linear, mtp: MTPHead | None = None, *,
+                 enc_blocks: list[nn.Module] = (), enc_final_norm: Norm | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
         self.lm_head = lm_head
         self.mtp = mtp
+        self.enc_blocks = nn.ModuleList(enc_blocks)
+        self.enc_final_norm = enc_final_norm
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
-    """Seeded random weights in ``cfg.param_dtype`` on ``device``; the MTP
-    head, when ``cfg.mtp``, drawn last (after ``lm_head``)."""
+    """Seeded random weights in ``cfg.param_dtype`` on ``device``, drawn in
+    the reference's order: the layer groups (an encoder's first), the final
+    norm (then an encoder's), the LM head, and the MTP head when
+    ``cfg.mtp``."""
     _check_family(cfg)
     ini = Init.from_seed(seed, device, getattr(torch, cfg.param_dtype))
     embed = ini.normal((cfg.padded_vocab, cfg.d_model), 0.02)
-    blocks = [BLOCK_KINDS[kind].init(ini, cfg)
-              for _, count, kind in layer_groups(cfg) for _ in range(count)]
+    layers = {gname: [BLOCK_KINDS[kind].init(ini, cfg) for _ in range(count)]
+              for gname, count, kind in layer_groups(cfg)}
+    blocks = [blk for gname, _, _ in block_groups(cfg) for blk in layers[gname]]
     mark_full_attn(cfg, blocks)
     final_norm = L.norm_init(ini, cfg.d_model, cfg)
+    enc_final_norm = L.norm_init(ini, cfg.d_model, cfg) if cfg.is_encdec else None
     lm_head = Linear.init(ini, cfg.d_model, cfg.padded_vocab, scale=0.02)
     mtp = MTPHead.init(ini, cfg) if cfg.mtp else None
-    return LM(embed, blocks, final_norm, lm_head, mtp)
+    return LM(embed, blocks, final_norm, lm_head, mtp,
+              enc_blocks=layers.get("enc_blocks", ()), enc_final_norm=enc_final_norm)
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -283,8 +347,36 @@ def _rope_state(cfg: ModelConfig, pos: torch.Tensor) -> orp.OnlineRopeState:
     return orp.OnlineRopeState(sin=sin, cos=cos, pos=pos.clone())
 
 
-def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed[tokens]
+def _embed(model: LM, tokens: torch.Tensor, cfg: ModelConfig, start=0) -> torch.Tensor:
+    """Token embeddings ``[B, S, D]``; with ``abs_pos_embed``, plus the
+    sinusoid at positions ``start .. start + S - 1`` (``start`` an int, an
+    int32 device scalar, or ``[B]`` with each lane's own), cast to the
+    embedding's dtype as the reference adds it."""
+    x = model.embed[tokens]
+    if cfg.abs_pos_embed:
+        pos = L._lanes(start) + torch.arange(tokens.shape[1], device=x.device)
+        x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _sin_denoms(d: int, device: torch.device) -> torch.Tensor:
+    """``10000 ** (2 i / d)`` for i < d / 2 in f32, computed once per (d,
+    device) (a captured decode step must copy nothing to the card).  The
+    exponent is the reference's f32 ``2 i / d``; the power is taken in f64
+    and rounded, which gives XLA's f32 ``power`` bit for bit where torch's
+    f32 ``pow`` is one ulp off at some i (d 1024).  Callers must not modify
+    it."""
+    e = 2 * torch.arange(d // 2, dtype=torch.float32, device=device) / d
+    return torch.pow(10000.0, e.double()).float()
+
+
+def _sinusoidal(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal absolute position embeddings ``[..., d]`` (f32) of the
+    integer positions ``pos`` (on the device; a decode step's come from the
+    cache): ``[sin(pos / den) | cos(pos / den)]``, as the reference's."""
+    ang = pos.to(torch.float32)[..., None] / _sin_denoms(d, pos.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _seed_attn_cache(cfg: ModelConfig, leaves: dict, cache_len: int = 0,
@@ -321,13 +413,16 @@ def _seed_attn_cache(cfg: ModelConfig, leaves: dict, cache_len: int = 0,
 
 
 def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0,
-                 valid_len=None):
+                 valid_len=None, enc_out=None):
     """Full-sequence block -> (x_out, cache seed).
 
     ``valid_len`` (bucketed prefill) marks the tokens from it on as padding:
     causality keeps them out of every real token's output, and the RetNet,
     Mamba and ring cache seeds mask them; a linear KV cache keeps its padded
-    tail, which decode masks and then overwrites."""
+    tail, which decode masks and then overwrites.  An encoder block attends
+    non-causally and seeds no cache (None); a decoder block reads the
+    encoder's final-normed output ``enc_out`` and seeds ``{"self",
+    "cross_k", "cross_v"}``."""
     xs, sig = L.norm_emit(p.ln1, x, engine)
     if isinstance(p, SSMBlock):
         y, cache = S.mamba_apply(p.mamba, xs, sig, engine, phase, cfg, valid_len=valid_len)
@@ -350,12 +445,54 @@ def _block_apply(p, x, cfg, engine, phase, sin, cos, cache_len: int = 0,
                                         rope_sin=sin, rope_cos=cos)
         cache = _seed_attn_cache(cfg, {"c_kv": c_kv, "k_rope": k_rope}, cache_len)
     else:
-        y, (k, v) = L.gqa_apply(p.attn, xs, sig, engine, phase, cfg,
+        causal = not isinstance(p, EncoderBlock)
+        y, (k, v) = L.gqa_apply(p.attn, xs, sig, engine, phase, cfg, causal=causal,
                                 window=cfg.sliding_window, rope_sin=sin, rope_cos=cos)
-        cache = _seed_attn_cache(cfg, {"k": k, "v": v}, cache_len, valid_len)
+        cache = (_seed_attn_cache(cfg, {"k": k, "v": v}, cache_len, valid_len)
+                 if causal else None)
     x = x + y
+    if isinstance(p, DecoderBlock):
+        if enc_out is None:
+            raise TypeError("decoder blocks need encoder output")
+        xc, sigc = L.norm_emit(p.ln_cross, x, engine)
+        c_out, (ck, cv) = _cross_from_enc(p.cross, xc, sigc, engine, phase, cfg, enc_out)
+        x = x + c_out
+        cache = {"self": cache, "cross_k": ck, "cross_v": cv}
     xs2, sig2 = L.norm_emit(p.ln2, x, engine)
     return x + _ffn(p, xs2, sig2, engine, phase, cfg), cache
+
+
+def _cross_from_enc(p: Attention, xc, sigc, engine, phase: str, cfg: ModelConfig, enc_out):
+    """Cross-attention over the whole encoder output: q from the decoder
+    stream (its sigma^-1 as ``row_scale``), K/V projected from ``enc_out``
+    (already normed: no ``row_scale``) -> (out, (k, v) ``[B, T, KV, hd]``)."""
+    b, t, _ = enc_out.shape
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    k = engine.linear(p.wk, enc_out, phase).reshape(b, t, kv, hd)
+    v = engine.linear(p.wv, enc_out, phase).reshape(b, t, kv, hd)
+    out, _ = L.gqa_apply(p, xc, sigc, engine, phase, cfg, causal=False, kv_override=(k, v))
+    return out, (k, v)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_len(c: int, device: torch.device) -> torch.Tensor:
+    """``c`` as an int32 scalar on ``device``, made once per (c, device):
+    a cross cache's ``kv_len``, its capacity, inside a captured decode step
+    (which must copy nothing to the card).  Callers must not modify it."""
+    return torch.tensor(c, dtype=torch.int32, device=device)
+
+
+def _cross_decode(p: Attention, xc, sigc, engine, cfg: ModelConfig, cache: dict):
+    """One decode step's cross-attention: ``wq`` (in the decode format, its
+    sigma^-1 as ``row_scale``), flash-decode over the cross cache at
+    ``kv_len`` = its capacity (every frame is valid), then ``wo``."""
+    b = xc.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = engine.linear(p.wq, xc, "decode", row_scale=sigc).reshape(b, kv, h // kv, hd)
+    k, v = cache["cross_k"], cache["cross_v"]
+    kv_len = _full_len(L.cache_capacity(k), xc.device)
+    out = ops.flash_decode(q, k, v, kv_len, impl=engine.config.kernel_impl)
+    return engine.linear(p.wo, out.reshape(b, 1, h * hd), "decode")
 
 
 def _ffn(p, xs, sig, engine, phase: str, cfg: ModelConfig, no_drop: bool = False):
@@ -388,6 +525,13 @@ def _block_decode(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
     if isinstance(p, RetNetBlock):
         y, cache = R.retention_decode(p.ret, xs, sig, engine, cfg, cache,
                                       rope_sin=sin, rope_cos=cos)
+    elif isinstance(p, DecoderBlock):
+        y, self_cache = L.gqa_decode(p.attn, xs, sig, engine, cfg, cache["self"], pos,
+                                     rope_sin=sin, rope_cos=cos)
+        x = x + y
+        xc, sigc = L.norm_emit(p.ln_cross, x, engine)
+        y = _cross_decode(p.cross, xc, sigc, engine, cfg, cache)
+        cache = {"self": self_cache, "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}
     else:
         decode = L.mla_decode if cfg.attn_type == "mla" else L.gqa_decode
         y, cache = decode(p.attn, xs, sig, engine, cfg, cache, pos,
@@ -397,29 +541,58 @@ def _block_decode(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos):
     return x + _ffn(p, xs2, sig2, engine, "decode", cfg), cache
 
 
+def _frames_in(model: LM, src_embeds: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder's input: the frames ``[B, T, D]`` in the param dtype plus
+    their sinusoid."""
+    x = src_embeds.to(model.embed.dtype)
+    return x + _sinusoidal(torch.arange(x.shape[1], device=x.device), cfg.d_model).to(x.dtype)
+
+
+def _encode(model: LM, src_embeds: torch.Tensor, cfg: ModelConfig,
+            engine: HSAEngine) -> torch.Tensor:
+    """The encoder (prefill format): `_frames_in`, the encoder blocks, then
+    ``enc_final_norm`` -> ``[B, T, D]``."""
+    x = _frames_in(model, src_embeds, cfg)
+    for blk in model.enc_blocks:
+        x = _block_apply(blk, x, cfg, engine, "prefill", None, None)[0].to(x.dtype)
+    return L.norm_full(model.enc_final_norm, x)
+
+
 def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
                     engine: HSAEngine, cache_len: int = 0,
                     valid_len: torch.Tensor | None = None, *,
-                    return_hidden: bool = False) -> tuple:
+                    return_hidden: bool = False,
+                    src_embeds: torch.Tensor | None = None) -> tuple:
     """Prompt processing (MMM phase): tokens [B, S] -> (logits [B, V], cache).
 
     ``cache_len`` > S reserves KV slots for the tokens decode will append.
     ``return_hidden`` appends the pre-final-norm hidden state of the last
     real token ([B, D], the residual stream's dtype) to the return: the MTP
-    drafter chains its head from it.
+    drafter chains its head from it.  An encoder-decoder takes the frames
+    ``src_embeds`` [B, T, D]: the encoder runs once, and every decoder
+    layer's cache holds its cross K/V over the T frames.
 
     Bucketed mode: ``valid_len`` (an int32 scalar on the device) marks
     ``tokens`` as a prompt of that length right-padded to S.  The logits are
     taken at the last real token, and the cache's ``pos`` and RoPE state
-    start there (see `_block_apply` for the cache seeds)."""
+    start there (see `_block_apply` for the cache seeds).  An
+    encoder-decoder prefills at exact length only, as the reference's."""
     _check_family(cfg)
-    x = _embed(model, tokens)
+    enc_out = None
+    if cfg.is_encdec:
+        if valid_len is not None:
+            raise NotImplementedError("bucketed prefill: encoder-decoder models "
+                                      "prefill at exact length")
+        if src_embeds is None:
+            raise TypeError("decoder blocks need encoder output: pass src_embeds")
+        enc_out = _encode(model, src_embeds, cfg, engine)
+    x = _embed(model, tokens, cfg)
     s = tokens.shape[1]
     sin, cos = _rope_tables(cfg, s, x.device)
     states = []
     for blk in model.blocks:
         y, cache = _block_apply(blk, x, cfg, engine, "prefill", sin, cos, cache_len,
-                                valid_len=valid_len)
+                                valid_len=valid_len, enc_out=enc_out)
         x = y.to(x.dtype)          # keep the residual stream in param dtype
         states.append(cache)
     if valid_len is None:
@@ -488,9 +661,18 @@ def _chunk_stack(model: LM, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
     """Run [B, C] tokens against a warm cache -> (pre-final-norm activations
     [B, C, D], advanced cache).  Positions, RoPE tables and the new
     position come from ``cache["pos"]`` on the device: a scalar, or ``[B]``
-    with each lane at its own (a slot class, all lanes in one dispatch)."""
+    with each lane at its own (a slot class, all lanes in one dispatch).
+    An encoder-decoder or a frontend model prefills monolithically, as the
+    reference's, so its chunks raise."""
     _check_family(cfg)
-    x = _embed(model, tokens)
+    if cfg.is_encdec:
+        raise NotImplementedError("chunked prefill: encoder-decoder models "
+                                  "prefill monolithically")
+    if cfg.frontend:
+        raise NotImplementedError("chunked prefill: frontend (vision/audio) "
+                                  "prompts splice patch embeddings: prefill "
+                                  "monolithically")
+    x = _embed(model, tokens, cfg, start=cache["pos"])
     c = x.shape[1]
     pos0 = cache["pos"]
     sin, cos = _rope_tables(cfg, c, x.device, start=pos0)
@@ -603,9 +785,10 @@ def forward_decode(model: LM, tokens: torch.Tensor, cache: dict,
     """One generation step (MVM phase): tokens [B, 1] -> (logits [B, V], cache).
 
     ``cache["pos"]`` is a shared scalar or per-lane ``[B]`` (see the module
-    docstring); every lane advances by one."""
-    x = _embed(model, tokens)
+    docstring); every lane advances by one.  With ``abs_pos_embed`` the
+    token's sinusoid is computed at ``pos`` on the device."""
     pos = cache["pos"]
+    x = _embed(model, tokens, cfg, start=pos)
     new_cache = {"pos": pos + 1}
     sin = cos = None
     if cfg.rope:
@@ -647,7 +830,8 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
                       device="cuda", per_lane: bool = False) -> dict:
     """Cold cache at ``start_pos`` (zeros are the exact initial state of
     every cache kind), with ``cache_len`` KV slots per layer for dense GQA
-    and MLA (a sliding-window ring always has ``window``).
+    and MLA (a sliding-window ring always has ``window``; a decoder layer's
+    cross leaves ``frontend_tokens`` frames, or ``cache_len`` without them).
     The reference's decode-only dry-run default (pos = cache_len - 1) is not
     ported: pass ``start_pos`` for it.
 
@@ -668,10 +852,15 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
         if kind == "hybrid":
             return {"attn": L.gqa_make_cache(cfg, batch, cache_len, dtype, device),
                     "mamba": S.mamba_make_cache(cfg, batch, device)}
+        if kind == "dec":
+            shape = (batch, cfg.frontend_tokens or cache_len, cfg.n_kv_heads, cfg.head_dim_)
+            return {"self": L.gqa_make_cache(cfg, batch, cache_len, dtype, device),
+                    "cross_k": L.make_cache_leaf(shape, dtype, device),
+                    "cross_v": L.make_cache_leaf(shape, dtype, device)}
         make = L.mla_make_cache if cfg.attn_type == "mla" else L.gqa_make_cache
         return make(cfg, batch, cache_len, dtype, device)
 
-    blocks = [one_layer(kind) for _, count, kind in layer_groups(cfg) for _ in range(count)]
+    blocks = [one_layer(kind) for _, count, kind in block_groups(cfg) for _ in range(count)]
     caches = {"pos": pos, "blocks": blocks}
     if cfg.rope:
         caches["rope"] = (_rope_state(cfg, pos) if per_lane else
@@ -682,7 +871,8 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
 
 def quantize_cache(cache: dict, cfg: ModelConfig, fmt: str) -> dict:
     """Encode the KV leaves (MLA: the latent and the rope key; hybrid: its
-    attention's) of a warm decode cache into ``fmt``.
+    attention's; a decoder layer: its self and its cross leaves) of a warm
+    decode cache into ``fmt``.
 
     The bridge between prefill (always f32) and a quantized decode
     residency: the engine calls it once, right after `forward_prefill`.
@@ -700,9 +890,11 @@ def quantize_cache(cache: dict, cfg: ModelConfig, fmt: str) -> dict:
             return blk
         if kind == "hybrid":
             return {"attn": enc(blk["attn"]), "mamba": blk["mamba"]}
+        if kind == "dec":
+            return {"self": enc(blk["self"]), **enc({n: blk[n] for n in ("cross_k", "cross_v")})}
         return enc(blk)
 
-    kinds = [kind for _, count, kind in layer_groups(cfg) for _ in range(count)]
+    kinds = [kind for _, count, kind in block_groups(cfg) for _ in range(count)]
     return dict(cache, blocks=[one_layer(kind, blk)
                                for kind, blk in zip(kinds, cache["blocks"])])
 

@@ -49,6 +49,13 @@ stopped, and only when stop tokens were given.  Prefill and decode are
 timed on the host clock around work that ends in
 ``torch.cuda.synchronize()``.
 
+An encoder-decoder (seamless-m4t-medium) takes its frames as
+``extras={"src_embeds": [B, T, D]}`` to `prefill` and `generate`, as the
+reference's engine does; its cache carries the cross K/V, so
+`resume_generate` needs none.  It prefills at exact length only: bucketed
+prefill, chunked admission (and so the scheduler) and speculative decode
+raise NotImplementedError, as the reference's do.
+
 Usage::
 
     engine = InferenceEngine.from_config("qwen3-8b", EngineSpec())
@@ -552,13 +559,16 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, *, cache_len: int | None = None,
-                bucket: bool = False, return_hidden: bool = False) -> tuple:
+                extras: dict | None = None, bucket: bool = False,
+                return_hidden: bool = False) -> tuple:
         """MMM phase: prompts [B, S] -> (last-token logits [B, V], cache),
         and with ``return_hidden`` the last real token's pre-final-norm
         hidden [B, D] (`lm.forward_prefill`).
 
         ``cache_len`` (default S) is the KV slots a dense model's cache
-        holds: S plus the tokens decode will append.
+        holds: S plus the tokens decode will append.  ``extras`` carries
+        the frontend inputs: an encoder-decoder's frames ``src_embeds``
+        [B, T, D].
 
         ``bucket=True`` pads the prompt with zeros up to `bucket_length` and
         passes the real length as an int32 device scalar: the logits and the
@@ -567,16 +577,26 @@ class InferenceEngine:
         reference's is."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         s = tokens.shape[1]
+        kw = dict(return_hidden=return_hidden, **self._extras(extras))
         if not bucket:
             return lm.forward_prefill(self.model, tokens, self.cfg, self.hsa,
-                                      cache_len=cache_len or s, return_hidden=return_hidden)
+                                      cache_len=cache_len or s, **kw)
         b = bucket_length(s)
         if b > s:
             tokens = F.pad(tokens, (0, b - s))
         valid_len = torch.tensor(s, dtype=torch.int32, device=self.device)
         return lm.forward_prefill(self.model, tokens, self.cfg, self.hsa,
                                   cache_len=bucket_length(max(cache_len or s, b)),
-                                  valid_len=valid_len, return_hidden=return_hidden)
+                                  valid_len=valid_len, **kw)
+
+    def _extras(self, extras: dict | None) -> dict:
+        """``extras`` as `lm.forward_prefill`'s keywords, on the engine's
+        device; a key no ported frontend reads raises."""
+        extras = dict(extras or {})
+        unknown = set(extras) - {"src_embeds"}
+        if unknown:
+            raise ValueError(f"unknown extras {sorted(unknown)}; the port reads src_embeds")
+        return {k: torch.as_tensor(v, device=self.device) for k, v in extras.items()}
 
     def begin_chunked_prefill(self, tokens: torch.Tensor, *, cache_len: int,
                               chunk_size: int = 32, cache_dtype=torch.float32,
@@ -610,7 +630,8 @@ class InferenceEngine:
     def generate(self, prompts: torch.Tensor,
                  gen: GenerationConfig = GenerationConfig(), *,
                  generator: torch.Generator | None = None,
-                 speculative: SpeculativeConfig | None = None) -> GenerationResult:
+                 speculative: SpeculativeConfig | None = None,
+                 extras: dict | None = None) -> GenerationResult:
         """Prefill + decode loop.  prompts [B, S] -> GenerationResult.
 
         ``generator`` seeds stochastic sampling (a fixed seed when absent)
@@ -618,7 +639,8 @@ class InferenceEngine:
         draws nothing.  On the card the decode steps are replays of one
         captured step (see the module docstring).  ``speculative`` (or
         ``gen.speculative``) switches to the draft / verify / commit loop
-        (`_generate_speculative`).
+        (`_generate_speculative`).  ``extras`` goes to `prefill` (an
+        encoder-decoder's ``src_embeds``).
         """
         if speculative is not None:
             gen = dataclasses.replace(gen, speculative=speculative)
@@ -631,7 +653,8 @@ class InferenceEngine:
 
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens)
+        logits, cache = self.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens,
+                                     extras=extras)
         cache = self._encode_cache(cache, gen)
         self._sync()
         t_prefill = time.perf_counter() - t0
@@ -652,7 +675,10 @@ class InferenceEngine:
         every row stopped.  On the card each step, the MTP drafter's k head
         steps included, is a replay of the graph keyed on (cache layout,
         history width, ``gen``); the host reads the loop's condition after
-        each."""
+        each.  An encoder-decoder or a frontend model raises, as the
+        reference's does."""
+        if self.cfg.is_encdec or self.cfg.frontend:
+            raise NotImplementedError("speculative decode targets text decoder-only models")
         w = self.cfg.sliding_window
         if w and gen.speculative.k + 1 > w:
             raise ValueError(f"verify block k+1 ({gen.speculative.k + 1}) must fit the "

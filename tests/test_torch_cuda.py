@@ -421,6 +421,16 @@ def test_flash_decode_kernel_olmoe_shape(fmt, kv_len):
 
 
 @pytest.mark.parametrize("fmt", MAIN_FORMATS)
+@pytest.mark.parametrize("c,kv_len", [(1536, 1536), (1536, 1535), (1536, 1),
+                                      (544, 1), (544, 17), (544, 257), (544, 544)])
+def test_flash_decode_kernel_seamless_shapes(fmt, c, kv_len):
+    """seamless-m4t-medium's decode: 16 heads over 16 KV heads (G 1) of 64;
+    the cross-attention reads its full 1536-frame cache (``kv_len`` = C),
+    the self-attention a 544-slot cache."""
+    _flash_decode_case(c + kv_len, (fmt, fmt), 2, 16, 1, 64, c, kv_len)
+
+
+@pytest.mark.parametrize("fmt", MAIN_FORMATS)
 @pytest.mark.parametrize("kv_len", [1, 5, 64, 511, 1023, 1024])
 def test_flash_decode_kernel_hymba_ring_shape(fmt, kv_len):
     """hymba-1.5b's decode attention: 25 heads over 5 KV heads (G 5: two
@@ -1239,6 +1249,41 @@ def test_generate_replays_match_the_eager_loop(arch, fmt):
         assert replayed[name] == 10 * sg.launches[name]      # decode launches only
     assert sg.launches["mxint4_matmul"] > 0
     assert sg.launches["mxint4_expert_matmul"] == 3 * _moe_layers(cfg)
+
+
+@pytest.mark.parametrize("fmt", [None, "int8_tok", "mxint4_blk"])
+def test_seamless_generate_replays_match_the_eager_loop(fmt):
+    """Reduced seamless-m4t-medium on the card: `generate` with its frames
+    (`extras`) replays one captured step that reads the cross caches at
+    their capacity, and gives the eager loop's tokens, lengths and final
+    cache, the cross leaves included, bit for bit; a replay launches 2
+    flash-decodes a decoder layer."""
+    from repro_torch import configs
+    from repro_torch.models import frontends
+    from repro_torch.serving.engine import EngineSpec, InferenceEngine
+    from repro_torch.serving.sampling import GenerationConfig, sample
+    cfg = configs.get_config("seamless-m4t-medium").reduced()
+    eng = InferenceEngine.from_config(cfg, EngineSpec(), device="cuda")
+    prompts = torch.randint(1, cfg.vocab_size, (2, 16), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(5))
+    extras = {"src_embeds": frontends.synth_frame_embeds(cfg, 2, cfg.frontend_tokens, seed=6)}
+    gen = GenerationConfig(max_new_tokens=10, cache_format=fmt)
+    first = eng.generate(prompts, gen, extras=extras)
+    assert first.capture_s > 0
+    res = eng.generate(prompts, gen, extras=extras)
+    assert res.capture_s == 0.0 and torch.equal(res.tokens, first.tokens)
+    logits, cache = eng.prefill(prompts, cache_len=26, extras=extras)
+    cache = eng._encode_cache(cache, gen)
+    tok, out = sample(logits, gen.sampling), []
+    for _ in range(10):
+        out.append(tok)
+        logits, cache = eng.decode_step(tok[:, None], cache)
+        tok = sample(logits, gen.sampling)
+    assert torch.equal(res.tokens, torch.stack(out, dim=1))
+    (sg,) = eng._graphs.values()
+    assert _tree_equal(sg.state.cache, cache)
+    assert sg.launches["flash_decode"] == 2 * cfg.n_layers
+    assert sg.launches["mxint4_matmul"] == 8 * cfg.n_layers + 1
 
 
 def test_sampled_generate_replays_draw_fresh_numbers_and_repeat_with_the_seed():

@@ -31,7 +31,7 @@ NEW_MODULES = ("repro_torch.launch.serve", "repro_torch.core.edge_model",
                "repro_torch.serving.loadgen", "repro_torch.serving.clock",
                "repro_torch.serving.paging", "repro_torch.serving.speculative",
                "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
-               "repro_torch.obs.profiler")
+               "repro_torch.obs.profiler", "repro_torch.models.frontends")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
@@ -66,11 +66,11 @@ def test_from_config_defaults_to_the_card():
 
 
 def test_from_config_rejects_unported_families():
-    """seamless-m4t-medium's encoder-decoder (the ``audio`` family) is not
-    ported yet; starcoder2-15b's LayerNorm is."""
+    """llava-next-34b's vision frontend (the ``vlm`` family) is not ported
+    yet; seamless-m4t-medium's encoder-decoder is."""
     from repro_torch.serving.engine import EngineSpec, InferenceEngine
-    with pytest.raises(NotImplementedError, match="audio"):
-        InferenceEngine.from_config("seamless-m4t-medium", EngineSpec(reduced=True),
+    with pytest.raises(NotImplementedError, match="vision"):
+        InferenceEngine.from_config("llava-next-34b", EngineSpec(reduced=True),
                                     device="cpu")
 
 
