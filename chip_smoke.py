@@ -33,7 +33,11 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    544) and its cross-attention over the 1536 encoder frames (C 1536, timed
    at kv_len = C, as decode reads it); W8A8 also at seamless's encoder and
    cross K/V shapes (M = 2 x 1536 frames) and MXINT4 at its LM head (N
-   256256);
+   256256); llava-next-34b's shapes: MXINT4 at a layer's q / o (7168 x
+   7168), k / v (7168 -> 1024), gate / up (7168 -> 20480), down (20480 ->
+   7168) and its LM head (N 64000), W8A8 at M 6144 (2 x 3072), flash-decode
+   at G 7 (B 2, KV 8, d 128) over its C 3104 in f32, int8_tok and
+   mxint4_blk and over the 4096 slots its bucketed prefill leaves;
    the routed experts' GEMV (`mxint4_expert_matmul`) at olmoe's decode (A
    16 rows) and verify (A 80) shapes and at deepseek-v3's MTP head step (A
    16 rows of 256 experts, 7168 <-> 2048), its bound from the distinct
@@ -53,7 +57,7 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (`sigma_chain_price`); and the selective scan (plain PyTorch, not a
    kernel: `scan_phase`), device ms per layer, per prefill and per decode
    step at falcon-mamba-7b's and hymba-1.5b's widths;
-4. the eight main paths at full width, each through
+4. the nine main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens (each
    decode step a replay of one captured CUDA graph, its launches counted per
@@ -79,37 +83,47 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    ungated GeLU MLP of 4096, vocab 256206; ``generate`` with
    ``extras={"src_embeds": ...}``, 1536 frames from the port's frontend
    stub; the same three formats, the cross K/V encoded with the self K/V;
-   193 W8A8 launches a prefill, 97 MXINT4 and 24 flash-decode a step), all
+   193 W8A8 launches a prefill, 97 MXINT4 and 24 flash-decode a step), and,
+   first, llava-next-34b (60 layers, d_model 7168, 56 heads over 8 KV heads
+   of 128, a gated MLP of 20480, vocab 64000; ``generate`` with
+   ``extras={"patch_embeds": ...}``, 2880 patches from the stub over the
+   head of a 3072-token prompt, so C 3104; the same three formats; 421 W8A8
+   launches a prefill, 421 MXINT4 and 60 flash-decode a step; its init
+   peak and resident GiB logged), all
    from seeded random weights in the default W8A8/MXINT4 deployment; then the
    same weights on the plain path (``kernel_impl="ref"``): every block in
    lockstep, prefill logits beside the network's own sensitivity, the
-   first COMPARE_STEPS (4) decode steps' logits (see `compare_paths`; on
-   the SSM paths with the residual stream in f32 as well), and,
-   free-running for FREE_RUN_NEW (8) tokens, where the two paths' greedy
+   first COMPARE_STEPS (2) decode steps' logits (see `compare_paths`; on
+   the SSM paths with the residual stream in f32 as well), and, in a path's
+   first format, free-running for FREE_RUN_NEW (4) tokens, where the two paths' greedy
    tokens and appended cache rows first part (recorded, see
    `free_running`); the profiler's busy shares in a path's first format; one top-k and one top-p generate through the graph
    (retnet-1.3b), each token in its step's top k or nucleus, repeated with
    its seed;
 5. after phase 4 on each path, the admission paths (`serve_admission`) once
    per cache format of the chunked admission (phases 5, 7 and 8 run
-   hymba-1.5b, olmoe-1b-7b and starcoder2-15b in their first format only,
+   qwen3-8b, hymba-1.5b and starcoder2-15b in their first format only,
+   olmoe-1b-7b in f32 and int8_tok and ds3_dense in all three,
    `phase_formats`; seamless-m4t-medium runs none of
    them: `serve_refusals` holds it to the reference's refusals of bucketed
    and chunked prefill, the scheduler's admission and speculative decode,
-   untimed): 2 prompts of
-   500 tokens in chunks of 32 (hymba-1.5b: 1100 in chunks of 128, so its 1024-slot ring
+   untimed; nor does llava-next-34b, held to the refusals of chunked
+   prefill, the scheduler, the prefix cache and speculative decode, its
+   bucketed prefill (3072 -> 4096) held to the exact one by
+   `bucketed_vs_exact`): 2 prompts of
+   116 tokens in chunks of 32 (hymba-1.5b: 1100 in chunks of 256, so its 1024-slot ring
    wraps and its full-attention layers degrade to it, as in the reference;
-   15 x 32 + 16 + 4: retention from a warm state at chunks
+   3 x 32 + 16 + 4: retention from a warm state at chunks
    32, 16 and 4; W8A8 at M = 64, 32 and 8, and MLA's per-chunk
    re-expansion of the whole latent) against the plain path block by
    block in lockstep (after a path's first cache format, its first 4
    chunks); the counted run (chunked prefill, then
    ``resume_generate`` of 32 greedy tokens through the graph, launches
    exact) and the eager loop from the same cache, bit for bit, and the
-   same resume in two halves of 16; monolithic (500 = 3 x 128 + 116) and
-   bucketed prefill's launches exact; chunked and
-   bucketed (500 -> 512) against monolithic prefill, recorded; the three
-   prefills timed in turns (after the first format, once each);
+   same resume in two halves of 16; monolithic and bucketed prefill's
+   launches exact; chunked and bucketed (116 -> 128) against monolithic
+   prefill, recorded; the three prefills timed in turns (after the first
+   format, once each);
 6. after phase 5 on each path, the scheduler (`serve_scheduler`): a
    `RequestScheduler` drain of 6 mixed-length requests through two slot
    classes of 2 lanes (C 48 and 80, chunks of 16; on the dense paths the
@@ -136,15 +150,15 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    chunks' and its replays'), page bytes, lookup / register ms and one
    page's spill and fetch ms recorded; on qwen3-8b then the `prefix_reuse`
    leg of the reference's serving bench (`prefix_reuse_leg`: a 96-token
-   system prompt + 8 unique tokens, 8 requests, 8 new tokens, 2 lanes at C
-   112, chunks of 8, shared fractions 0, 0.5 and 1.0, and 1.0 cold): at
-   1.0, 7 of 8 admissions adopt 96 tokens and the tokens equal the cold
+   system prompt + 8 unique tokens, 4 requests, 8 new tokens, 2 lanes at C
+   112, chunks of 16, shared fractions 0, 0.5 and 1.0, and 1.0 cold): at
+   1.0, 3 of 4 admissions adopt 96 tokens and the tokens equal the cold
    stream's; hit rate, tokens skipped, chunks, TTFT p50/p99 and the TTFT
    p50 delta warm - cold recorded;
 8. after phase 7 on each path, speculative decode (`serve_speculative`, k 4,
    the ngram drafter): in every cache format, `generate` of 2 prompts of
-   512 tokens (one seeded, one [5, 9, 13] tiled) and 16 tokens with a cache
-   of 532 (`speculative_cell`): each verify step one replay of a captured
+   512 tokens (one seeded, one [5, 9, 13] tiled) and 8 tokens with a cache
+   of 524 (`speculative_cell`): each verify step one replay of a captured
    graph with W8A8 inside, its launches exact (W8A8 only: 169 on retnet,
    253 on qwen3-8b, 28 on ds3_dense) and the counted generate's; the graph
    against the eager loop bit for bit (tokens, lengths, verify steps,
@@ -163,7 +177,7 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    chunks' and the replays', tokens per step and acceptance per request;
 9. each model reduced, on the card against the CPU plain path, and the
    serve CLI (``python -m repro_torch.launch.serve``) at full width as
-   subprocesses, CLI_WORKERS (4) at a time: on retnet-1.3b greedy and
+   subprocesses, CLI_WORKERS (8) at a time: on retnet-1.3b greedy and
    top-p generate, the scheduler, the front end on virtual time, the
    oversubscribed host-spill scheduler
    with its trace and metrics, and ``--speculative`` in the single-generate
@@ -197,6 +211,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -259,13 +274,15 @@ SRC = {
 # admission phase's prompt length (ADMIT_PROMPT when absent);
 # ``phase_formats`` the cache formats of its admission, prefix and
 # speculative phases (every format of phase 4 when absent; cut to the first
-# on hymba-1.5b, olmoe-1b-7b and starcoder2-15b to keep the run inside its
-# time, PERF.md section 4).
+# on qwen3-8b, hymba-1.5b and starcoder2-15b and to f32 and int8_tok on
+# olmoe-1b-7b to keep the run inside its time, PERF.md section 4: encoded
+# caches stay driven through these phases on a GQA path, olmoe's, and on
+# MLA, ds3_dense's).
 RETNET = dict(arch="retnet-1.3b", layers=24, d=2048, vocab=32768, formats=(None,),
               linears=((2048, 2048, 2), (2048, 4096, 3), (4096, 2048, 2)),
               decode_w8_linears=(), prefill_linears=(), attn="retention")
 QWEN3 = dict(arch="qwen3-8b", layers=36, d=4096, vocab=152064, kv=8, g=4, hd=128,
-             formats=(None, "int8_tok", "mxint4_blk"),
+             formats=(None, "int8_tok", "mxint4_blk"), phase_formats=(None,),
              linears=((4096, 4096, 2), (4096, 1024, 2), (4096, 12288, 2),
                       (12288, 4096, 1)),
              decode_w8_linears=(), prefill_linears=(), attn="gqa")
@@ -286,10 +303,11 @@ FALCON_MAMBA = dict(arch="falcon-mamba-7b", layers=64, d=4096, vocab=65024,
                     d_inner=8192, state=16, formats=(None,),
                     linears=((4096, 16384, 1), (8192, 288, 1), (256, 8192, 1),
                              (8192, 4096, 1)),
-                    decode_w8_linears=(), prefill_linears=(), attn=None, f32_witness=True)
+                    decode_w8_linears=(), prefill_linears=(), attn=None, f32_witness=True,
+                    profile_prefill=False)
 # hymba-1.5b: GQA (25 heads over 5 KV heads of 64) over a 1024-slot ring,
 # Mamba (d_inner 3200, dt rank 100, state 16: x_proj N 132), a gated MLP of
-# 5504; its admission prompt wraps the ring, in chunks of 128 (8 x 128 + 64
+# 5504; its admission prompt wraps the ring, in chunks of 256 (4 x 256 + 64
 # + 8 + 4: a chunk runs host-bound, about 0.3 s at 32 tokens, PERF.md).
 HYMBA = dict(arch="hymba-1.5b", layers=32, d=1600, vocab=32256, kv=5, g=5, hd=64,
              window=1024, d_inner=3200, state=16, formats=(None, "int8_tok", "mxint4_blk"),
@@ -297,13 +315,13 @@ HYMBA = dict(arch="hymba-1.5b", layers=32, d=1600, vocab=32256, kv=5, g=5, hd=64
              linears=((1600, 1600, 2), (1600, 320, 2), (1600, 6400, 1), (100, 3200, 1),
                       (3200, 1600, 1), (1600, 5504, 2), (5504, 1600, 1)),
              decode_w8_linears=((3200, 132, 1),), prefill_linears=(), attn="gqa",
-             admit_prompt=1100, admit_chunk=128, f32_witness=True)
+             admit_prompt=1100, admit_chunk=256, f32_witness=True, profile_prefill=False)
 # olmoe-1b-7b: GQA with QK-norm (16 heads over 16 KV heads of 128: G 1),
 # the router (N 64) and, per MoE layer, the routed experts' wg / wi (2048 ->
 # 1024) and wo (1024 -> 2048) through `mxint4_expert_matmul` in decode
 # (``experts``: count, top k, d_ff) and a dequantized bmm in prefill.
 OLMOE = dict(arch="olmoe-1b-7b", layers=16, d=2048, vocab=50432, kv=16, g=1, hd=128,
-             formats=(None, "int8_tok", "mxint4_blk"), phase_formats=(None,),
+             formats=(None, "int8_tok", "mxint4_blk"), phase_formats=(None, "int8_tok"),
              linears=((2048, 2048, 4), (2048, 64, 1)),
              decode_w8_linears=(), prefill_linears=(), attn="gqa",
              experts=dict(e=64, k=8, f=1024), f32_witness=True)
@@ -332,7 +350,24 @@ SEAMLESS = dict(arch="seamless-m4t-medium", layers=12, d=1024, vocab=256256, kv=
                 linears=((1024, 1024, 6), (1024, 4096, 1), (4096, 1024, 1)),
                 frame_linears=((1024, 1024, 6), (1024, 4096, 1), (4096, 1024, 1)),
                 decode_w8_linears=(), prefill_linears=(), attn="gqa", fd_per_layer=2)
-PATHS = (RETNET, QWEN3, DS3, FALCON_MAMBA, HYMBA, OLMOE, STARCODER2, SEAMLESS)
+# llava-next-34b: the vision model's backbone at every published width (60
+# dense GQA layers, d_model 7168, 56 heads over 8 KV heads of 128: G 7,
+# flash-decode's two G-chunks of 4 and 3; a gated MLP of 20480, vocab
+# 64000), its ``prompt`` of 3072 tokens headed by ``patches`` 2880 patch
+# embeddings from the stub (`frontends.synth_patch_embeds`, seed 2), so C
+# 3104; about 49 GiB deployed, drawn and deployed block by block
+# (`lm.init`).  Its admission, scheduler, prefix and speculative phases are the
+# reference's refusals (`serve_refusals`); its bucketed prefill (3072 -> 4096)
+# is held to the exact one (`bucketed_vs_exact`).  It runs first, on a card
+# that holds nothing else.
+# Its prefill is not profiled (``profile_prefill``: 17.7 s of profiler on a
+# 3.1 s prefill, PERF.md section 4), nor are the SSM paths'; the decode
+# profiles stay.
+LLAVA = dict(arch="llava-next-34b", layers=60, d=7168, vocab=64000, kv=8, g=7, hd=128,
+             patches=2880, prompt=3072, formats=(None, "int8_tok", "mxint4_blk"),
+             linears=((7168, 7168, 2), (7168, 1024, 2), (7168, 20480, 2), (20480, 7168, 1)),
+             decode_w8_linears=(), prefill_linears=(), attn="gqa", profile_prefill=False)
+PATHS = (LLAVA, RETNET, QWEN3, DS3, FALCON_MAMBA, HYMBA, OLMOE, STARCODER2, SEAMLESS)
 # ds3_mtp: the ds3 cut with its MTP head, at every published width (`serve_mtp`):
 # speculative `generate` with the MTP drafter, each verify step (W8A8 over the
 # block, as on ds3_dense) chaining SPEC_K head steps inside its graph.  A head
@@ -413,26 +448,27 @@ RMS_SHAPES = (
 # Per-lane kv_len (a scheduler's slot class, its two lanes at different
 # positions): flash-decode is checked at each pair and timed at the second.
 LANE_KV_LENS = ((1, 528), (528, 300))
-# The admission phase: 2 prompts of 500 tokens admitted in chunks of 32 (15 x
+# The admission phase: 2 prompts of 116 tokens admitted in chunks of 32 (3 x
 # 32 + 16 + 4, so retention runs from a warm state at chunks 32, 16 and 4),
-# bucketed to 512, and 32 greedy tokens resumed from the chunked cache.
-ADMIT_PROMPT, ADMIT_CHUNK = 500, 32
+# bucketed to 128, and 32 greedy tokens resumed from the chunked cache (500
+# tokens, 15 x 32 + 16 + 4, before a depth cut: PERF.md section 4).
+ADMIT_PROMPT, ADMIT_CHUNK = 116, 32
 # Depth of the phase-4 checks beside the counted run (cut when the SSM paths
 # came, to keep the run inside its time: PERF.md): decode steps compared in
 # lockstep per cell (`compare_paths`; NEW before), tokens each path
 # generates on its own (`free_running`; NEW before); the graph and the
-# eager loop run in turns (eager, graph, graph, eager) and the profiler's
-# busy shares (`profile_shares`) in a path's first cache format only, the
-# other formats' graph and eager loop once each (eager, graph).
-COMPARE_STEPS, FREE_RUN_NEW = 4, 8
+# eager loop run once beside the counted graph run in every format (a
+# depth cut replaced the turns eager, graph, graph, eager of a path's first format and
+# eager, graph of the others), and the profiler's busy shares
+# (`profile_shares`) in a path's first cache format only.  Later depth cuts
+# (PERF.md section 4): COMPARE_STEPS was 4, FREE_RUN_NEW 8, and free-running
+# ran in every format, not the first only.
+COMPARE_STEPS, FREE_RUN_NEW = 2, 4
 # After a path's first cache format (cut when olmoe-1b-7b came, to keep the
-# run inside its time: PERF.md), the plain-path comparison covers the first
-# LATER_COMPARE_STEPS decode steps and not the prefill (which is the same
-# function in every format: the cache is encoded after it); the admission
-# phase's bucketed and monolithic prefills (their launches, times and
-# resumed tokens) and the speculative phase's timing turns run in the first
-# format only.
-LATER_COMPARE_STEPS = 2
+# run inside its time: PERF.md), the plain-path comparison does not compare
+# the prefill (which is the same function in every format: the cache is
+# encoded after it); the admission phase's bucketed and monolithic prefills
+# (their launches, times and resumed tokens) run in the first format only.
 # Likewise in the admission phase (`serve_admission`): the lockstep with the
 # plain path covers every chunk in a path's first cache format and the first
 # LATER_LOCKSTEP_CHUNKS in the others, whose three prefills are timed once
@@ -442,9 +478,10 @@ TOP_P = 0.9
 # The speculative phase (`serve_speculative`): k 4 drafts per verify step,
 # the cache reserving k slots past the budget, the ngram drafter.
 SPEC_K = 4
-# Tokens of a speculative generate (NEW before the SSM paths came: a depth
-# cut to keep the run inside its time, PERF.md), and its KV slots: 532.
-SPEC_NEW = 16
+# Tokens of a speculative generate (NEW before the SSM paths came, 16 before
+# later: depth cuts to keep the run inside its time, PERF.md), and its KV
+# slots: 524.
+SPEC_NEW = 8
 SPEC_CACHE = PROMPT + SPEC_NEW + SPEC_K
 RMS_MAIN = (1024, 4096, torch.bfloat16)
 RMS_AMORTISED = 8        # calls on distinct inputs per graph in `amortised_ms`
@@ -452,6 +489,18 @@ RMS_AMORTISED = 8        # calls on distinct inputs per graph in `amortised_ms`
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def prompt_len(path: dict) -> int:
+    """A path's phase-4 prompt length: PROMPT unless it sets its own."""
+    return path.get("prompt", PROMPT)
+
+
+def frontend_path(path: dict) -> bool:
+    """A path whose prompts carry frontend inputs (frames or patches): the
+    reference refuses it the admission, scheduler, prefix and speculative
+    phases, so it runs `serve_refusals` in their place."""
+    return "frames" in path or "patches" in path
 
 
 def card_peaks(name: str) -> dict:
@@ -702,8 +751,8 @@ def _decode_w8_cases(path: dict):
 def kernel_phase_w8a8(peaks):
     rows = []
     cases = [c + (True,) for path in PATHS
-             for c in _linear_cases(path, BATCH * PROMPT, BATCH, True)]
-    cases += [c + (False,) for path in PATHS if "frames" not in path
+             for c in _linear_cases(path, BATCH * prompt_len(path), BATCH, True)]
+    cases += [c + (False,) for path in PATHS if not frontend_path(path)
               for c in _verify_cases(path) + _decode_w8_cases(path)]
     for arch, m, k, n, count, main in cases:
         g = _gen(m + k + n)
@@ -900,7 +949,13 @@ def sdpa_backend(fn) -> str:
 # starcoder2-15b (B 2, KV 4, G 12: three group chunks; d 128, C 544) and
 # seamless-m4t-medium (B 2, KV 16, G 1, d 64): its self-attention (C 544)
 # and its cross-attention (``site``), which reads the whole 1536-frame cache
-# every step (kv_len = C).
+# every step (kv_len = C), and llava-next-34b (B 2, KV 8, G 7: two group
+# chunks, the second of three heads; d 128) at its C 3104, checked at
+# DECODE_CHECK_LENS scaled to it and timed at C - 16, and at the capacity its
+# bucketed prefill leaves (4096: ``main`` False, a site of its own, f32 as
+# `bucketed_vs_exact` resumes it).
+LLAVA_C = prompt_len(LLAVA) + NEW
+LLAVA_LENS = (1, 16, 17, LLAVA_C // 2 + 1, LLAVA_C - 1, LLAVA_C)
 FD_SHAPES = (
     dict(path=QWEN3, c=CACHE_LEN, kv_len=DECODE_KV_LEN, check=DECODE_CHECK_LENS,
          lanes=LANE_KV_LENS, formats=("f32", "bf16", "int8", "int8_tok", "mxint4_blk")),
@@ -916,6 +971,12 @@ FD_SHAPES = (
     dict(path=SEAMLESS, c=SEAMLESS["frames"], kv_len=SEAMLESS["frames"],
          check=(1, 17, 769, 1535, 1536), lanes=((1, 1536), (1536, 700)),
          formats=("f32", "int8_tok", "mxint4_blk"), site="cross"),
+    dict(path=LLAVA, c=LLAVA_C, kv_len=LLAVA_C - 16, check=LLAVA_LENS,
+         lanes=((1, LLAVA_C - 16), (LLAVA_C - 16, 1700)),
+         formats=("f32", "int8_tok", "mxint4_blk")),
+    dict(path=LLAVA, c=bucket_length(LLAVA_C), kv_len=LLAVA_C - 16,
+         check=(1, 17, 2049, 3073, 4095, 4096), lanes=((1, LLAVA_C - 16), (LLAVA_C - 16, 1700)),
+         formats=("f32",), site="bucketed", main=False),
 )
 
 
@@ -974,9 +1035,12 @@ def _flash_decode_row(peaks, path, shape, fmt, q, k32, v32, b, kvh, g, d, c, n):
         del ks, vs
     name = {"f32": path["arch"], "bf16": "bf16 (no model path)",
             "int8": "legacy int8 (no model path)"}.get(fmt, f"{path['arch']} {fmt}")
+    main = fmt == "f32" and shape.get("main", True)
+    if fmt == "f32" and not main:
+        name = f"{name} {shape['site']}"
     ms = time_ms(lambda: ops.flash_decode(q, k, v, nd, impl="kernel"))
     row = dict(
-        path=name, main=fmt == "f32", fmt=fmt, shape=[b, kvh, g, d, c], kv_len=n,
+        path=name, main=main, fmt=fmt, shape=[b, kvh, g, d, c], kv_len=n,
         per_step=path["layers"], max_abs_err=max(err, lane_err), ms=ms,
         per_lane_ms=lane_ms, per_lane_kv_len=list(shape["lanes"][1]),
         per_lane_max_abs_err=lane_err,
@@ -1287,14 +1351,23 @@ def serve_full_width(path: dict, card: str):
     step), the graph against the eager loop in turns (timings, and tokens,
     lengths and final cache bit for bit), busy shares, and the kernel path
     against the plain path on the same weights."""
-    arch = path["arch"]
-    log(f"== full-width serving: {arch}, B={BATCH}, S={PROMPT}, {NEW} greedy tokens, "
+    arch, s = path["arch"], prompt_len(path)
+    c_len = s + NEW
+    log(f"== full-width serving: {arch}, B={BATCH}, S={s}, {NEW} greedy tokens, "
         f"cache formats {[f or 'f32' for f in path['formats']]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = InferenceEngine.from_config(path.get("cfg", arch), EngineSpec(), device="cuda")
     torch.cuda.synchronize()
-    log(f"init + deploy: {time.perf_counter() - t0:.2f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+    memory = dict(init_deploy_s=time.perf_counter() - t0,
+                  held_before_init_gib=before / 2**30,
+                  init_deploy_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  resident_gib=torch.cuda.memory_allocated() / 2**30,
+                  card_gib=torch.cuda.get_device_properties(0).total_memory / 2**30)
+    log(f"{arch} init + deploy: {json.dumps(memory)}")
     cfg = eng.cfg
     if (cfg.n_layers, cfg.d_model, cfg.padded_vocab) != (path["layers"], path["d"],
                                                          path["vocab"]):
@@ -1302,11 +1375,15 @@ def serve_full_width(path: dict, card: str):
     if cfg.is_encdec and cfg.encoder_layers != path["layers"]:
         raise RuntimeError(f"{arch}: frame_linears count {path['layers']} encoder layers, "
                            f"the config has {cfg.encoder_layers}")
-    prompts = torch.randint(1, cfg.vocab_size, (BATCH, PROMPT), generator=_gen(1),
+    prompts = torch.randint(1, cfg.vocab_size, (BATCH, s), generator=_gen(1),
                             device="cuda")
     extras = frame_extras(cfg)
-    want_p, want_s = expected_launches(path)
+    want_p, want_s = expected_launches(path, s)
     plain = InferenceEngine(cfg, eng.model, EngineSpec(kernel_impl="ref"))
+    # The plain path's prefill, made once by the first format's lockstep:
+    # the same function in every cache format (the cache is encoded after
+    # it), read by `compare_paths` and `free_running`.
+    plain_start = None
     counted, results = dict.fromkeys(hopper.COUNTERS, 0), {}
     for fmt in path["formats"]:
         t_cell = time.perf_counter()
@@ -1314,7 +1391,7 @@ def serve_full_width(path: dict, card: str):
         gen = GenerationConfig(max_new_tokens=NEW, cache_format=fmt)
         # Per-phase launch counts, eagerly, then the capture.
         hopper.reset_launches()
-        logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN, extras=extras)
+        logits, cache = eng.prefill(prompts, cache_len=c_len, extras=extras)
         per_prefill = dict(hopper.LAUNCHES)
         cache = eng._encode_cache(cache, gen)
         hopper.reset_launches()
@@ -1351,22 +1428,17 @@ def serve_full_width(path: dict, card: str):
         if not torch.equal(toks, first.tokens):
             raise RuntimeError(f"{tag}: a second generate's tokens differ from the first's")
 
-        # The graph and the eager loop in turns (eager, graph, graph, eager);
-        # each pair must agree bit for bit.
+        # The eager loop beside the counted graph run (in turns, eager, graph,
+        # graph, eager, before a depth cut): tokens, lengths and final
+        # cache bit for bit.
         t_turns = time.perf_counter()
-        graph_runs, eager_runs = [res], []
-        turns = (("eager", "graph", "graph", "eager") if fmt == path["formats"][0]
-                 else ("eager", "graph"))
-        for kind in turns:
-            if kind == "graph":
-                graph_runs.append(eng.generate(prompts, gen, extras=extras))
-                continue
-            got, cache = eager_generate(eng, prompts, gen, extras)
-            eager_runs.append(got)
-            _same_as_graph(tag, graph_runs[-1], graph.state.cache, got, cache)
-            del cache
+        got, cache = eager_generate(eng, prompts, gen, extras)
+        graph_runs, eager_runs = [res], [got]
+        _same_as_graph(tag, res, graph.state.cache, got, cache)
+        del cache
         serving = dict(card=card, runs=len(graph_runs), launches=launches,
-                       capture_s=first.capture_s, replay_launches=graph.launches)
+                       capture_s=first.capture_s, replay_launches=graph.launches, prompt=s,
+                       **(memory if fmt == path["formats"][0] else {}))
         for name, runs in (("", graph_runs), ("eager_", eager_runs)):
             pre = sorted(r.prefill_s for r in runs)[len(runs) // 2]
             dec = sorted(r.decode_s / r.decode_steps for r in runs)[len(runs) // 2]
@@ -1376,37 +1448,43 @@ def serve_full_width(path: dict, card: str):
                             f"{name}prefill_ms_runs": [r.prefill_s * 1e3 for r in runs],
                             f"{name}decode_ms_per_token_runs": [
                                 r.decode_s * 1e3 / r.decode_steps for r in runs]})
-        serving["prefill_tokens_per_s"] = BATCH * PROMPT / (serving["prefill_ms"] / 1e3)
+        serving["prefill_tokens_per_s"] = BATCH * s / (serving["prefill_ms"] / 1e3)
         serving["graph_and_eager_bit_identical"] = True
         if "experts" in path and fmt == path["formats"][0]:
             serving["moe_dispatch"] = moe_drops(tag, eng, prompts, gen)
         t_profile = time.perf_counter()
         if fmt == path["formats"][0]:
-            serving.update(profile_shares(eng, prompts, gen, extras=extras))
+            serving.update(profile_shares(eng, prompts, gen, extras=extras,
+                                          prefill=path.get("profile_prefill", True)))
         serving.update(turns_s=t_profile - t_turns, profile_s=time.perf_counter() - t_profile)
         log(f"{tag} serving (kernel path, medians; graph and eager in turns):",
             json.dumps(serving))
 
         # The same weights on the plain path.
         t1 = time.perf_counter()
-        checks = compare_paths(path, eng, plain, prompts, gen,
-                               first=fmt == path["formats"][0], extras=extras)
-        res_k, res_p, drift = free_running(eng, plain, prompts, gen, extras)
-        checks.update(
-            greedy_token_agreement=(res_p.tokens == toks[:, :FREE_RUN_NEW]).float().mean().item(),
-            free_running=dict(drift, tokens=FREE_RUN_NEW, kernel_tokens_as_counted=bool(
-                (res_k.tokens == toks[:, :FREE_RUN_NEW]).all())),
-            plain_prefill_ms=res_p.prefill_s * 1e3,
-            plain_decode_ms_per_token=res_p.decode_s * 1e3 / res_p.decode_steps,
-            compare_s=time.perf_counter() - t1)
+        checks, plain_start = compare_paths(path, eng, plain, prompts, gen, plain_start,
+                                            logits, first=fmt == path["formats"][0],
+                                            extras=extras)
+        if fmt == path["formats"][0]:
+            res_k, res_p, drift = free_running(eng, plain, prompts, gen, extras, plain_start)
+            checks.update(
+                greedy_token_agreement=(res_p.tokens == toks[:, :FREE_RUN_NEW]).float()
+                .mean().item(),
+                free_running=dict(drift, tokens=FREE_RUN_NEW, kernel_tokens_as_counted=bool(
+                    (res_k.tokens == toks[:, :FREE_RUN_NEW]).all())),
+                plain_decode_ms_per_token=res_p.decode_s * 1e3 / res_p.decode_steps)
+        checks["compare_s"] = time.perf_counter() - t1
         serving.update(checks, cell_s=time.perf_counter() - t_cell)
         log(f"{tag} kernel vs plain path:", json.dumps(checks))
         results[tag] = serving
     if path is RETNET:
         results[f"{arch} top-k"] = sampled_through_graph(eng, prompts)
         results[f"{arch} top-p"] = top_p_through_graph(eng, prompts)
+    del plain_start
     log(f"{arch} phase: {time.perf_counter() - t0:.1f} s")
-    if cfg.is_encdec:
+    if frontend_path(path):
+        if cfg.frontend == "vision":
+            results[f"{arch} bucketed"] = bucketed_vs_exact(path, eng, prompts, extras, card)
         results[f"{arch} refusals"] = serve_refusals(eng, prompts, extras)
         none = dict.fromkeys(hopper.COUNTERS, 0)
         del eng, plain
@@ -1426,36 +1504,50 @@ def serve_full_width(path: dict, card: str):
 
 
 def frame_extras(cfg, batch: int = BATCH) -> dict | None:
-    """A model's frontend inputs to `prefill` / `generate`: an
-    encoder-decoder's ``src_embeds`` (its ``frontend_tokens`` frames from
-    the frontend stub and a fixed seed, on the card); None elsewhere."""
-    if not cfg.is_encdec:
-        return None
-    return {"src_embeds": frontends.synth_frame_embeds(cfg, batch, cfg.frontend_tokens,
-                                                       seed=2, device="cuda")}
+    """A model's frontend inputs to `prefill` / `generate`, from the
+    frontend stub and a fixed seed, on the card: an encoder-decoder's
+    ``src_embeds`` (its ``frontend_tokens`` frames), a vision model's
+    ``patch_embeds`` (its ``frontend_tokens`` patches); None elsewhere."""
+    if cfg.is_encdec:
+        return {"src_embeds": frontends.synth_frame_embeds(cfg, batch, cfg.frontend_tokens,
+                                                           seed=2, device="cuda")}
+    if cfg.frontend == "vision":
+        return {"patch_embeds": frontends.synth_patch_embeds(cfg, batch, seed=2,
+                                                             device="cuda")}
+    return None
 
 
 @torch.inference_mode()
 def serve_refusals(eng, prompts, extras) -> dict:
-    """The admission paths the reference refuses an encoder-decoder, each
-    raising NotImplementedError on the card too (untimed): bucketed prefill,
-    chunked admission, the scheduler's admission (its chunked prefill) and
-    speculative decode.  Returns each refusal's message."""
+    """The admission paths the reference refuses a frontend model, each
+    raising NotImplementedError on the card too (untimed): chunked
+    admission, the scheduler's admission (its chunked prefill) and
+    speculative decode; an encoder-decoder's bucketed prefill; a vision
+    model's prefix cache (no sharing mode, so the scheduler with it on
+    admits through the same chunked prefill).  Returns each refusal's
+    message."""
     from repro_torch.serving import Request, RequestScheduler
     from repro_torch.serving.sampling import SpeculativeConfig
     gen = GenerationConfig(max_new_tokens=8)
 
-    def scheduler():
-        sched = RequestScheduler(eng, classes=[(2, 48)], gen=gen, chunk_size=16)
+    def scheduler(prefix_cache: bool = False):
+        sched = RequestScheduler(eng, classes=[(2, 48)], gen=gen, chunk_size=16,
+                                 prefix_cache=prefix_cache)
+        if sched.pool.prefix.mode is not None:
+            raise RuntimeError(f"{eng.cfg.name}: a prefix cache in {sched.pool.prefix.mode} "
+                               "mode; the reference shares no prefix of a frontend prompt")
         sched.submit(Request(uid=0, prompt=prompts[0, :32].tolist()))
         sched.run()
 
-    cases = (("bucketed", lambda: eng.prefill(prompts, extras=extras, bucket=True)),
-             ("chunked", lambda: eng.begin_chunked_prefill(
-                 prompts, cache_len=CACHE_LEN, chunk_size=ADMIT_CHUNK).advance()),
+    cases = (("chunked", lambda: eng.begin_chunked_prefill(
+                 prompts, cache_len=prompts.shape[1] + NEW, chunk_size=ADMIT_CHUNK).advance()),
              ("scheduler", scheduler),
              ("speculative", lambda: eng.generate(
                  prompts, gen, speculative=SpeculativeConfig(k=SPEC_K), extras=extras)))
+    if eng.cfg.is_encdec:
+        cases += (("bucketed", lambda: eng.prefill(prompts, extras=extras, bucket=True)),)
+    else:
+        cases += (("prefix", lambda: scheduler(prefix_cache=True)),)
     out = {}
     for name, fn in cases:
         try:
@@ -1465,6 +1557,95 @@ def serve_refusals(eng, prompts, extras) -> dict:
             continue
         raise RuntimeError(f"{eng.cfg.name}: {name} ran; the reference refuses it")
     log(f"{eng.cfg.name} refusals: {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def act_scales():
+    """Record the per-tensor int8 activation scale of every W8A8 call
+    (`mxint4.quantize_act_int8`, looked up at call time), in call order."""
+    real, seen = mx.quantize_act_int8, []
+
+    def spy(x):
+        out = real(x)
+        seen.append(out[1])
+        return out
+
+    mx.quantize_act_int8 = spy
+    try:
+        yield seen
+    finally:
+        mx.quantize_act_int8 = real
+
+
+@torch.inference_mode()
+def bucketed_vs_exact(path: dict, eng, prompts, extras, card: str) -> dict:
+    """A vision prompt's bucketed prefill (its S padded up the ladder, the
+    patches spliced over its head as in the exact one) against the exact
+    prefill on the same weights.  Fatal: one bucketed prefill's launches
+    exact; its logits, and its cache's real rows in every layer, within
+    PREFILL_TOL of max|value| of the exact prefill's (a W8A8 linear takes one
+    int8 scale over its whole input, padding rows included, so the two
+    differ where a padding row holds a linear's absmax: the scales that
+    differ are counted, and where none does the two must be bit-equal); its
+    position at S and its capacity the ladder's; NEW greedy tokens resumed
+    from each cache through the graph (the bucketed one at that capacity:
+    flash-decode at C 4096), each resume's launches exact, where they part
+    recorded."""
+    arch, s = path["arch"], prompts.shape[1]
+    c_len = s + NEW
+    want_p, want_s = expected_launches(path, s)
+    gen = GenerationConfig(max_new_tokens=NEW)
+    out = dict(card=card)
+    hopper.reset_launches()
+    with act_scales() as sb:
+        (lg_b, cache_b), out["bucketed_prefill_ms"] = _timed(
+            lambda: eng.prefill(prompts, cache_len=c_len, extras=extras, bucket=True))
+    if dict(hopper.LAUNCHES) != want_p:
+        raise RuntimeError(f"{arch} bucketed prefill: launches {dict(hopper.LAUNCHES)}, "
+                           f"expected {want_p}")
+    with act_scales() as se:
+        (lg_e, cache_e), out["exact_prefill_ms"] = _timed(
+            lambda: eng.prefill(prompts, cache_len=c_len, extras=extras))
+    cap = layers.cache_capacity(cache_b["blocks"][0]["k"])
+    if int(cache_b["pos"]) != s or cap != bucket_length(c_len):
+        raise RuntimeError(f"{arch} bucketed prefill: pos {int(cache_b['pos'])}, capacity "
+                           f"{cap}; expected {s}, {bucket_length(c_len)}")
+    differ = sum(int(not torch.equal(a, b)) for a, b in zip(sb, se))
+    out.update(padded_to=bucket_length(s), capacity=cap, w8a8_calls=len(se),
+               act_scales_differing=differ, tolerance=PREFILL_TOL,
+               logit_rel_err=_rel(lg_b, lg_e, f"{arch} bucketed vs exact logits", PREFILL_TOL))
+    worst = 0.0
+    for i, (bb, be) in enumerate(zip(cache_b["blocks"], cache_e["blocks"])):
+        for name in ("k", "v"):
+            worst = max(worst, _rel(bb[name][:, :s], be[name][:, :s],
+                                    f"{arch} bucketed vs exact layer {i} {name}", PREFILL_TOL))
+    out["cache_rel_err"] = worst
+    if not differ and not (torch.equal(lg_b, lg_e) and all(
+            torch.equal(bb[n][:, :s], be[n][:, :s])
+            for bb, be in zip(cache_b["blocks"], cache_e["blocks"]) for n in ("k", "v"))):
+        raise RuntimeError(f"{arch} bucketed vs exact: the same int8 scales, other values")
+    runs = {}
+    for name, lg, cache in (("exact", lg_e, cache_e), ("bucketed", lg_b, cache_b)):
+        fresh = eng.graph_key(cache, gen) not in eng._graphs
+        hopper.reset_launches()
+        res = eng.resume_generate(lg.argmax(-1), cache, gen)
+        steps = res.decode_steps + int(fresh)          # the capture's warm-up step
+        want = {k: want_s[k] * steps for k in hopper.COUNTERS}
+        if dict(hopper.LAUNCHES) != want or res.tokens.shape != (BATCH, NEW) \
+                or not _in_vocab(eng.cfg, res.tokens):
+            raise RuntimeError(f"{arch} {name} resume: launches {dict(hopper.LAUNCHES)}, "
+                               f"expected {want}; tokens {tuple(res.tokens.shape)}")
+        runs[name] = res
+        out[f"{name}_resumed_decode_ms_per_token"] = (
+            (res.decode_s - res.capture_s) * 1e3 / res.decode_steps)
+        if fresh:
+            out[f"{name}_capture_s"] = res.capture_s
+            del eng._graphs[eng.graph_key(cache, gen)]
+    out["resumed_first_parting"] = _parting(runs["bucketed"].tokens, runs["exact"].tokens)
+    log(f"{arch} bucketed vs exact prefill: {json.dumps(out)}")
+    del cache_b, cache_e
     torch.cuda.empty_cache()
     return out
 
@@ -1524,17 +1705,21 @@ def _in_vocab(cfg, toks: torch.Tensor) -> bool:
     return bool(((toks >= 0) & (toks < limit)).all())
 
 
-def eager_generate(eng, prompts, gen, extras=None):
+def eager_generate(eng, prompts, gen, extras=None, start=None):
     """`generate` as the eager loop: prefill, then `decode_step` in a Python
     loop in the reference's body order (greedy, no stop tokens), timed as
-    `generate` times itself.  Returns a GenerationResult and the final
-    cache."""
+    `generate` times itself.  ``start`` (logits, f32 cache) is a prefill
+    already run at this length, whose cache is copied instead (its time is
+    then not counted).  Returns a GenerationResult and the final cache."""
     if not gen.sampling.greedy or gen.stop_tokens:
         raise ValueError("eager_generate: greedy decoding without stop tokens only")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = eng.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens,
-                                extras=extras)
+    if start is None:
+        logits, cache = eng.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens,
+                                    extras=extras)
+    else:
+        logits, cache = start[0], _clone(start[1])
     cache = eng._encode_cache(cache, gen)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
@@ -1725,18 +1910,27 @@ def chunk_lockstep(eng, plain, prompts, fmt, chunk_size: int,
 def _mono_and_bucketed(tag, path, eng, prompts, gen, fns, lg_c, t_c0, res) -> dict:
     """The admission phase's bucketed and monolithic prefills beside the
     chunked one (``fns``: bucketed, monolithic, chunked): their launches,
-    host ms in turns (chunked, bucketed, monolithic, monolithic, bucketed,
-    chunked: the two chunked prefills must give the same logits), and the
+    each exact (retention runs every length through the kernel: 116, the
+    tail alone, one launch per layer; the 128 bucket one), host ms in turns
+    (chunked, bucketed, monolithic, chunked: the two chunked prefills must
+    give the same logits; twice each before a depth cut), and the
     chunked and bucketed logits and resumed tokens against monolithic's."""
     bucketed, mono, chunked = fns
+    s = prompts.shape[1]
+    want = dict(bucketed=expected_launches(path, bucket_length(s))[0],
+                monolithic=expected_launches(path, s)[0])
     times = dict(chunked=[t_c0], bucketed=[], monolithic=[])
-    runs = {}
-    for name, fn in (("bucketed", bucketed), ("monolithic", mono), ("monolithic", mono),
-                     ("bucketed", bucketed), ("chunked", chunked)):
+    runs, launches = {}, {}
+    for name, fn in (("bucketed", bucketed), ("monolithic", mono), ("chunked", chunked)):
+        hopper.reset_launches()
         runs[name], ms = _timed(fn)
         times[name].append(ms)
-    out = dict(prefill_ms_in_turns=times,
-               prefill_launches=one_prefill_launches(tag, path, eng, prompts, gen))
+        if name in want:
+            launches[name] = dict(hopper.LAUNCHES)
+            if launches[name] != want[name]:
+                raise RuntimeError(f"{tag}: a {name} prefill launches {launches[name]}, "
+                                   f"expected {want[name]}")
+    out = dict(prefill_ms_in_turns=times, prefill_launches=launches)
     (lg_m, cache_m), (lg_b, cache_b) = runs["monolithic"], runs["bucketed"]
     if not torch.equal(runs["chunked"][0], lg_c):
         raise RuntimeError(f"{tag}: two chunked prefills of one prompt differ")
@@ -1780,9 +1974,9 @@ def serve_admission(path: dict, eng, plain, card: str):
     eager loop from the same cache, bit for bit, the final cache read from
     the caller's; for the first format, the resume in two halves against
     the one resume (`resume_in_halves`) and the launches of one monolithic
-    and one bucketed prefill (`one_prefill_launches`).  Recorded, in the
-    first format (`_mono_and_bucketed`): the chunked and the bucketed (to
-    512) prefill against monolithic prefill on the same deployed weights
+    and one bucketed prefill (`_mono_and_bucketed`).  Recorded, in the
+    first format: the chunked and the bucketed (to 128) prefill against
+    monolithic prefill on the same deployed weights
     (the last logits' largest relative difference, where the greedy tokens
     resumed from each cache part from monolithic's), and the three
     prefills' host ms in turns."""
@@ -2174,12 +2368,13 @@ def serve_scheduler(path: dict, eng, card: str) -> tuple[dict, dict]:
 # The prefix phase (the shared-prefix cache, `serving/paging.py`).  (a) The
 # `prefix_reuse` leg of the reference's serving bench
 # (benchmarks/bench_serving.py: a 96-token system prompt + 8 unique tokens,
-# 8 requests, 8 new tokens, one class of 2 lanes at C 112, chunks of 8; a
+# 8 requests, 8 new tokens, one class of 2 lanes at C 112, chunks of 8 (4
+# requests in chunks of 16 here, a depth cut: PERF.md section 4); a
 # disjoint warm-up stream, then one stream at each shared fraction, and at 1.0
 # the same stream cold) on qwen3-8b's f32 cache; (b) warm against cold in
 # every (path, cache format) cell on the reference test's shape (a 32-token
 # base alone, then 3 extensions of 8; chunks of 16; one class of 2 lanes).
-PREFIX_LEG = dict(shared=96, suffix=8, requests=8, new=8, lanes=2, chunk=8,
+PREFIX_LEG = dict(shared=96, suffix=8, requests=4, new=8, lanes=2, chunk=16,
                   fractions=(0.0, 0.5, 1.0))
 PREFIX_CELL = dict(base=32, ext=8, n_ext=3, chunk=16, lanes=2, new=8)
 
@@ -2320,8 +2515,8 @@ def prefix_reuse_leg(path: dict, eng, card: str) -> tuple[dict, dict]:
     one stream per shared fraction.  Each drain is a fresh scheduler warmed
     by one disjoint request (its pages never match; the whole disjoint
     stream before the SSM paths came: PERF.md), its registry reset after.
-    Fatal: at 1.0, 7 of 8 admissions adopt the 96 shared tokens (672
-    prefill tokens skipped) and the greedy tokens equal the same stream's
+    Fatal: at 1.0, all admissions but the first adopt the 96 shared tokens
+    (3 of 4: 288 prefill tokens skipped) and the greedy tokens equal the same stream's
     without the prefix cache; every drain's decode launches are its
     replays'.  Recorded per fraction: hit rate, tokens skipped, prefill
     chunks, COW copies, pages inserted, TTFT p50 / p99, wall; at 1.0 the
@@ -2543,8 +2738,7 @@ def _margin_at(eng, prompts, plain_tokens, col: int, rows) -> list:
 
 
 @torch.inference_mode()
-def speculative_cell(path: dict, eng, plain, fmt, card: str,
-                     first: bool = True) -> tuple[dict, dict]:
+def speculative_cell(path: dict, eng, plain, fmt, card: str) -> tuple[dict, dict]:
     """(a) One (path, cache format) cell.  Fatal: the graph's loop against
     the eager loop from the same prefill (tokens, lengths, verify steps,
     accepted drafts, history and final cache bit for bit); the captured
@@ -2552,9 +2746,9 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str,
     generate's (its prefill's and its replays'); the lockstep comparison
     with the plain path (`verify_lockstep`).  Recorded: tokens per step,
     acceptance, one replay's device ms, the host read of the loop's
-    condition, ms per emitted token against the plain graph loop in turns
-    (after a path's first format, not ``first``: one plain run beside the
-    counted one), capture seconds, and where the speculative tokens first
+    condition, ms per emitted token against one plain graph loop beside the
+    counted run (in turns, plain, plain, speculative, before a depth
+    cut), capture seconds, and where the speculative tokens first
     part from the plain loop's with the plain loop's top-two margin there.
     The drafter is ``path["drafter"]`` (the ngram drafter by default)."""
     from repro_torch.serving.sampling import SpeculativeConfig
@@ -2607,9 +2801,7 @@ def speculative_cell(path: dict, eng, plain, fmt, card: str,
         t0 = time.perf_counter()
         bool(g.more)
         read_ms.append((time.perf_counter() - t0) * 1e3)
-    runs = dict(speculative=[res], plain=[])
-    for kind in ("plain", "plain", "speculative") if first else ("plain",):
-        runs[kind].append(eng.generate(prompts, gen if kind == "speculative" else plain_gen))
+    runs = dict(speculative=[res], plain=[eng.generate(prompts, plain_gen)])
     # A run that captured its graph (the first plain one: SPEC_NEW tokens is
     # a new key) is timed without the capture.
     per_tok = {kind: [(r.decode_s - r.capture_s) * 1e3 / SPEC_NEW for r in rs]
@@ -2756,8 +2948,7 @@ def serve_speculative(path: dict, eng, plain, card: str) -> tuple[dict, dict]:
     launches, results = dict.fromkeys(hopper.COUNTERS, 0), {}
     for fmt in phase_formats(path):
         t_cell = time.perf_counter()
-        counted, out = speculative_cell(path, eng, plain, fmt, card,
-                                        first=fmt == path["formats"][0])
+        counted, out = speculative_cell(path, eng, plain, fmt, card)
         out["cell_s"] = time.perf_counter() - t_cell
         results[f"{arch} speculative" + ("" if fmt is None else f" {fmt}")] = out
         for k in launches:
@@ -2970,22 +3161,6 @@ def serve_mtp(path: dict, card: str) -> tuple[dict, dict]:
     return launches, {f"{arch} speculative": out}
 
 
-def one_prefill_launches(tag, path, eng, prompts, gen) -> dict:
-    """Launches of one monolithic and one bucketed prefill of the admission
-    prompts, each exact: retention runs every length through the kernel
-    (500 = 3 x 128 + 116: two launches per layer; the 512 bucket one)."""
-    out, s = {}, prompts.shape[1]
-    for name, bucket in (("monolithic", False), ("bucketed", True)):
-        hopper.reset_launches()
-        eng.prefill(prompts, cache_len=s + NEW, bucket=bucket)
-        got = dict(hopper.LAUNCHES)
-        want = expected_launches(path, bucket_length(s) if bucket else s)[0]
-        if got != want:
-            raise RuntimeError(f"{tag}: a {name} prefill launches {got}, expected {want}")
-        out[name] = got
-    return out
-
-
 def resume_in_halves(tag, eng, pending, cache0, whole, whole_cache, gen) -> bool:
     """`resume_generate` of NEW // 2 tokens, then of NEW // 2 more from the
     cache it left and its ``next_token``, against one resume of NEW tokens
@@ -3003,7 +3178,7 @@ def resume_in_halves(tag, eng, pending, cache0, whole, whole_cache, gen) -> bool
 
 
 # serve CLI subprocesses run at a time (`serve_cli`).
-CLI_WORKERS = 4
+CLI_WORKERS = 8
 
 
 def serve_cli() -> dict:
@@ -3092,43 +3267,72 @@ def _device_us(prof) -> tuple[float, list]:
     return sum(e.self_device_time_total for e in evs), top
 
 
+# Kernel kinds of `_device_ms_by_kind`: the port's kernels by the name of
+# their CUDA function, everything else (PyTorch's own kernels) as "other".
+KERNEL_KINDS = (("mxint4_expert", "mxint4_expert_kernel"), ("mxint4", "mxint4_gemv_kernel"),
+                ("w8a8", "w8a8_gemm_kernel"), ("flash_decode_mla", "flash_decode_mla_kernel"),
+                ("flash_decode", "flash_decode_kernel"), ("retention", "retention_pass"),
+                ("rmsnorm_stats", "rmsnorm_stats_kernel"))
+
+
+def _device_ms_by_kind(prof, units: int = 1) -> dict:
+    """Device ms per unit (a prefill, a step) by kernel kind."""
+    from torch.autograd import DeviceType
+    out = dict.fromkeys([k for k, _ in KERNEL_KINDS] + ["other"], 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        kind = next((k for k, mark in KERNEL_KINDS if mark in e.key), "other")
+        out[kind] += e.self_device_time_total / 1e3 / units
+    return {k: v for k, v in out.items() if v}
+
+
 @torch.inference_mode()
-def profile_shares(eng, prompts, gen, steps: int = 2, extras=None) -> dict:
-    """Device busy share of a prefill, of eager decode steps and of replays
-    of the captured step, with the top kernels by device time (torch.profiler;
-    it inflates the host side, so the busy shares are lower bounds)."""
+def profile_shares(eng, prompts, gen, steps: int = 2, extras=None, prefill: bool = True
+                   ) -> dict:
+    """Device busy share of a prefill and of replays of the captured step,
+    with the top kernels by device time and the device ms by kernel kind
+    (torch.profiler, tracing the card's activity only; it still inflates the
+    host side, so the busy shares are lower bounds), and the seconds each
+    profile took.  ``prefill`` False runs the prefill unprofiled (the
+    replay profile needs its cache).  Eager decode steps were profiled too
+    before a depth cut (PERF.md section 4)."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]
     out = {}
-    with profile(activities=acts) as prof:
+    t_prof = time.perf_counter()
+    with profile(activities=acts) if prefill else contextlib.nullcontext() as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = eng.prefill(prompts, cache_len=CACHE_LEN, extras=extras)
+        logits, cache = eng.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens,
+                                    extras=extras)
         cache = eng._encode_cache(cache, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev, top = _device_us(prof)
-    out.update(prefill_device_busy=dev / 1e6 / wall, prefill_top_ms=top)
+    if prefill:
+        dev, top = _device_us(prof)
+        out.update(prefill_device_busy=dev / 1e6 / wall, prefill_top_ms=top,
+                   prefill_device_ms_by_kind=_device_ms_by_kind(prof),
+                   prefill_profile_s=time.perf_counter() - t_prof)
     tok = logits.argmax(-1)
     graph = eng._graphs[eng.graph_key(cache, gen)]
     graph.state.reset(tok, cache, gen)
-    for name, step in (("eager_", lambda: eng.decode_step(tok[:, None], cache)),
-                       ("", graph.graph.replay)):
-        with profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev, top = _device_us(prof)
-        if not dev:
-            out[f"{name}decode_profile"] = "not measured: the profiler saw no device time"
-            continue
-        out.update({f"{name}decode_device_busy": dev / 1e6 / wall,
-                    f"{name}decode_device_ms_per_step": dev / 1e3 / steps,
-                    f"{name}decode_top_ms_per_step": [(n, t / steps, c // steps)
-                                                      for n, t, c in top]})
+    t_prof = time.perf_counter()
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            graph.graph.replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, top = _device_us(prof)
+    if not dev:
+        out["decode_profile"] = "not measured: the profiler saw no device time"
+        return out
+    out.update(decode_device_busy=dev / 1e6 / wall, decode_device_ms_per_step=dev / 1e3 / steps,
+               decode_device_ms_by_kind=_device_ms_by_kind(prof, steps),
+               decode_top_ms_per_step=[(n, t / steps, c // steps) for n, t, c in top],
+               decode_profile_s=time.perf_counter() - t_prof)
     return out
 
 
@@ -3156,14 +3360,16 @@ def _prefill_from(model, x, cfg, hsa, enc_out=None):
 
 
 @torch.inference_mode()
-def compare_paths(path, eng, plain, prompts, gen, first: bool = True, extras=None):
+def compare_paths(path, eng, plain, prompts, gen, plain_start, lk, first: bool = True,
+                  extras=None):
     """Kernel path vs plain path on the same weights.
 
     * Per block, in lockstep: both paths get the plain path's input to the
       block; outputs within BLOCK_TOL of max|output|.  A wrong kernel shows
       here, at the block that runs it.  An encoder-decoder's encoder blocks
       run so on its frames (``extras``), then its decoder blocks on the
-      plain path's encoder output.
+      plain path's encoder output.  The lockstep rides on the plain path's
+      own prefill (`lockstep_prefill`), whose logits and cache it returns.
     * Prefill logits end to end, within PREFILL_TOL of max|logit|, beside the
       network's own sensitivity: the plain path against itself with one
       token's embedding moved by one bf16 step.  Random weights, a bf16
@@ -3181,6 +3387,12 @@ def compare_paths(path, eng, plain, prompts, gen, first: bool = True, extras=Non
       max|logit|: a flip at a margin under ``decode_logit_max_rel_err`` is a
       near tie that f32 summation order decides.
 
+    ``plain_start`` is the plain path's prefill (logits, f32 cache), which
+    this reads and does not write; in the first format (``first``) it is
+    None and made here.  ``lk`` is the kernel path's prefill logits.  A
+    vision model's blocks take its patch embeddings spliced over the
+    prompt's head (``extras``).  Returns the readings and ``plain_start``.
+
     A path marked ``f32_witness`` holds its decode logits to DECODE_TOL with
     the residual stream in f32 on both paths (and the same int8 codes into
     a W8A8 linear in decode: `_witness_step`) and records the bf16 reading,
@@ -3189,41 +3401,28 @@ def compare_paths(path, eng, plain, prompts, gen, first: bool = True, extras=Non
     roundings that the next blocks carry and grow, and over 64 layers
     (falcon-mamba-7b) the logits of two correct paths part by half of
     max|logit|, above the one-bf16-step floor (PERF.md).  The decode steps
-    compared are the first COMPARE_STEPS; after a path's first format
-    (not ``first``) the first LATER_COMPARE_STEPS, and the prefill (the
-    same function in every format) is not compared again.
+    compared are the first COMPARE_STEPS in every format; after a path's
+    first format (not ``first``) the prefill (the same function in every
+    format) is not compared again.
     """
     cfg, model = eng.cfg, eng.model
     out = {}
-    lr, cache = plain.prefill(prompts, cache_len=CACHE_LEN, extras=extras)
+    patches = (extras or {}).get("patch_embeds")
     if first:
-        block, enc_out = [], None
-        if cfg.is_encdec:
-            # The encoder's blocks in lockstep on the frames, then the
-            # decoder's on the plain path's encoder output.
-            xe = lm._frames_in(model, extras["src_embeds"], cfg)
-            for i, blk in enumerate(model.enc_blocks):
-                yr = lm._block_apply(blk, xe, cfg, plain.hsa, "prefill", None, None)[0]
-                yk = lm._block_apply(blk, xe, cfg, eng.hsa, "prefill", None, None)[0]
-                block.append(_rel(yk, yr, f"prefill encoder block {i}", BLOCK_TOL))
-                xe = yr.to(xe.dtype)
-            enc_out = layers.norm_full(model.enc_final_norm, xe)
-        x = lm._embed(model, prompts, cfg)
-        sin, cos = lm._rope_tables(cfg, x.shape[1], x.device)
-        for i, blk in enumerate(model.blocks):
-            yr = lm._block_apply(blk, x, cfg, plain.hsa, "prefill", sin, cos, enc_out=enc_out)[0]
-            yk = lm._block_apply(blk, x, cfg, eng.hsa, "prefill", sin, cos, enc_out=enc_out)[0]
-            block.append(_rel(yk, yr, f"prefill block {i}", BLOCK_TOL))
-            x = yr.to(x.dtype)
-        lk, _ = eng.prefill(prompts, extras=extras)
-        x = lm._embed(model, prompts, cfg).clone()
-        x[0, PROMPT // 2] = _bf16_step(x[0, PROMPT // 2])
+        plain_start, block = lockstep_prefill(eng, plain, prompts, gen, extras)
+        lr = plain_start[0]
+        enc_out = (lm._encode(model, extras["src_embeds"], cfg, plain.hsa)
+                   if cfg.is_encdec else None)
+        x = lm._embed(model, prompts, cfg, patch_embeds=patches).clone()
+        mid = prompts.shape[1] // 2
+        x[0, mid] = _bf16_step(x[0, mid])
+        floor, plain_ms = _timed(lambda: _prefill_from(model, x, cfg, plain.hsa, enc_out))
         out.update(block_max_rel_err=max(block), block_tolerance=BLOCK_TOL,
                    prefill_logit_rel_err=_rel(lk, lr, "prefill logits", PREFILL_TOL),
                    prefill_tolerance=PREFILL_TOL,
-                   prefill_sensitivity_floor=_rel(_prefill_from(model, x, cfg, plain.hsa,
-                                                                enc_out), lr,
-                                                  "sensitivity", float("inf")))
+                   prefill_sensitivity_floor=_rel(floor, lr, "sensitivity", float("inf")),
+                   plain_prefill_ms=plain_ms)
+    lr, cache = plain_start
     cache = plain._encode_cache(cache, gen)
 
     witness = path.get("f32_witness", False)
@@ -3231,7 +3430,7 @@ def compare_paths(path, eng, plain, prompts, gen, first: bool = True, extras=Non
     f32, f32_own = [], []
     gaps, routes = {}, {}
     tok = lr.argmax(-1)
-    for i in range(COMPARE_STEPS if first else LATER_COMPARE_STEPS):
+    for i in range(COMPARE_STEPS):
         lk, _ = eng.decode_step(tok[:, None], _clone(cache))
         lr, nxt = plain.decode_step(tok[:, None], _clone(cache))
         decode.append(_rel(lk, lr, f"decode step {i}",
@@ -3275,13 +3474,42 @@ def compare_paths(path, eng, plain, prompts, gen, first: bool = True, extras=Non
     if f32_own:
         out.update(decode_f32_own_codes_logit_rel_err_by_step=[r for r, _ in f32_own],
                    decode_f32_codes_differing_by_step=[n for _, n in f32_own])
-    return out
+    return out, plain_start
 
 
-def _appends(engine, prompts, gen, extras=None):
-    """The eager loop (`eager_generate`) with every one-row cache write
-    recorded: per decode step, each written leaf's row before encoding (f32)
-    and as stored."""
+def lockstep_prefill(eng, plain, prompts, gen, extras) -> tuple[tuple, list]:
+    """The plain path's prefill at the generate's cache length with every
+    block (an encoder's too) run again on the kernel path, on the same
+    inputs and arguments, as the plain path reaches it: each output within
+    BLOCK_TOL of the plain block's max|output| (`compare_paths`).  Returns
+    the plain prefill (logits, f32 cache) and the readings, in block
+    order."""
+    real, block, seen = lm._block_apply, [], {"enc": 0, "dec": 0}
+
+    def spy(p, x, cfg, hsa, *args, **kw):
+        y, c = real(p, x, cfg, hsa, *args, **kw)
+        if hsa is plain.hsa:
+            side = "enc" if isinstance(p, lm.EncoderBlock) else "dec"
+            tag = f"prefill {'encoder ' if side == 'enc' else ''}block {seen[side]}"
+            seen[side] += 1
+            block.append(_rel(real(p, x, cfg, eng.hsa, *args, **kw)[0], y, tag, BLOCK_TOL))
+        return y, c
+
+    lm._block_apply = spy
+    try:
+        start = plain.prefill(prompts, cache_len=prompts.shape[1] + gen.max_new_tokens,
+                              extras=extras)
+    finally:
+        lm._block_apply = real
+    if seen["dec"] != len(eng.model.blocks) or seen["enc"] != len(eng.model.enc_blocks):
+        raise RuntimeError(f"lockstep prefill: {seen} blocks compared")
+    return start, block
+
+
+def _appends(engine, prompts, gen, extras=None, start=None):
+    """The eager loop (`eager_generate`, from ``start`` when given) with
+    every one-row cache write recorded: per decode step, each written leaf's
+    row before encoding (f32) and as stored."""
     real, rows = layers.cache_update, []
 
     def spy(leaf, x, pos):
@@ -3295,7 +3523,7 @@ def _appends(engine, prompts, gen, extras=None):
 
     layers.cache_update = spy
     try:
-        res, _ = eager_generate(engine, prompts, gen, extras)
+        res, _ = eager_generate(engine, prompts, gen, extras, start)
     finally:
         layers.cache_update = real
     per = len(rows) // res.decode_steps
@@ -3345,7 +3573,7 @@ def _row_parting(xk, sk, xr, sr) -> dict | None:
 
 
 @torch.inference_mode()
-def free_running(eng, plain, prompts, gen, extras=None):
+def free_running(eng, plain, prompts, gen, extras=None, plain_start=None):
     """Both paths generating on their own through the eager loop (whose
     tokens and cache the graph's match bit for bit, `_same_as_graph`): each
     decode step appends the rows its own path computed to its own cache.
@@ -3359,10 +3587,11 @@ def free_running(eng, plain, prompts, gen, extras=None):
     Rows that part from the same tokens, from nearby values either side of
     a rounding boundary, before any token flips, are the caches drifting
     apart through their encoding; a flip with no parted row before it would
-    point at the attention itself."""
+    point at the attention itself.  The plain path starts from its prefill
+    ``plain_start`` (logits, f32 cache) when given."""
     gen = dataclasses.replace(gen, max_new_tokens=FREE_RUN_NEW)
     res_k, rows_k = _appends(eng, prompts, gen, extras)
-    res_p, rows_p = _appends(plain, prompts, gen, extras)
+    res_p, rows_p = _appends(plain, prompts, gen, extras, plain_start)
     tk, tp = res_k.tokens, res_p.tokens
     cols = (tk != tp).any(dim=0).nonzero()[:, 0].tolist()
     flip = cols[0] if cols else None
@@ -3749,13 +3978,17 @@ def main() -> int:
          prefixed[path["arch"]], speculated[path["arch"]], results) = serve_full_width(path,
                                                                                        smi)
         serving.update(results)
+    t0 = time.perf_counter()
     counted, results = serve_mtp(DS3_MTP, smi)
+    log(f"ds3_mtp cell: {time.perf_counter() - t0:.1f} s")
     by_path[DS3_MTP["arch"]] = counted
     for phase in (admitted, scheduled, prefixed, speculated):
         phase[DS3_MTP["arch"]] = dict.fromkeys(hopper.COUNTERS, 0)
     serving.update(results)
+    t0 = time.perf_counter()
     for path in PATHS + (DS3_MOE,):
         serving.update(reduced_vs_cpu(path))
+    log(f"reduced models against the CPU: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serving["serve CLI"] = serve_cli()
     log(f"serve CLI: {time.perf_counter() - t0:.1f} s")

@@ -40,7 +40,10 @@ self-attention and its MLP) in `LM.blocks`.  Prefill takes the frames
 decoder layer projects the encoder output to its cross K/V once and keeps
 them in its cache, which decode reads through flash-decode at ``kv_len`` =
 T every step.  Positions are sinusoidal (``abs_pos_embed``), added to the
-frames, the prompt and, at the device position, each decoded token.
+frames, the prompt and, at the device position, each decoded token.  A
+vision model (llava-next-34b, the ``vlm`` family) is a dense decoder whose
+prefill takes the frontend stub's patch embeddings (``patch_embeds`` [B, P,
+D]) in place of its prompt's first P token embeddings (`_embed`).
 
 The decode cache is ``{"pos": i32 scalar, "rope": OnlineRopeState, "blocks":
 [one per layer]}``: ``{"s": f32 [B, H, dk, dv]}`` for RetNet, ``{"k", "v"}``
@@ -81,6 +84,7 @@ from repro_torch.core import kvq
 from repro_torch.core import online_rope as orp
 from repro_torch.core.hsa import HSAEngine
 from repro_torch.kernels import ops
+from repro_torch.models import deploy
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import retnet as R
@@ -117,18 +121,20 @@ def hybrid_full_attn_flags(cfg: ModelConfig, count: int) -> list[bool]:
 def _check_family(cfg: ModelConfig) -> None:
     """Raise, naming what is missing, unless the port serves ``cfg``: the
     encoder-decoder (the ``audio`` family, its frames from the frontend
-    stub, sinusoidal positions) is served, a ``vision`` frontend is not."""
+    stub, sinusoidal positions) and a decoder-only model with a ``vision``
+    frontend (the ``vlm`` family: patch embeddings over the prompt's head)
+    are served; any other frontend is not."""
     if cfg.family in ("retnet", "ssm"):
         return
     if cfg.family not in ("dense", "hybrid", "moe", "audio", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
-            f"retnet, dense, moe, ssm, hybrid and the encoder-decoder")
+            f"retnet, dense, moe, ssm, hybrid, vlm and the encoder-decoder")
     encdec = cfg.is_encdec
+    frontend = "audio" if encdec else "vision"
     missing = [what for what, present in (
         (f"norm_type {cfg.norm_type!r}", cfg.norm_type not in ("rmsnorm", "layernorm")),
-        (f"frontend {cfg.frontend!r}",
-         cfg.frontend is not None and not (encdec and cfg.frontend == "audio")),
+        (f"frontend {cfg.frontend!r}", cfg.frontend not in (None, frontend)),
         ("absolute position embeddings without an encoder", cfg.abs_pos_embed and not encdec),
         (f"attn_type {cfg.attn_type!r}",
          cfg.attn_type not in (("gqa",) if encdec else ("gqa", "mla"))))
@@ -288,15 +294,23 @@ class LM(nn.Module):
         self.enc_final_norm = enc_final_norm
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
+def init(cfg: ModelConfig, *, seed: int = 0, device="cuda", deployed: bool = False) -> LM:
     """Seeded random weights in ``cfg.param_dtype`` on ``device``, drawn in
     the reference's order: the layer groups (an encoder's first), the final
     norm (then an encoder's), the LM head, and the MTP head when
-    ``cfg.mtp``."""
+    ``cfg.mtp``.
+
+    ``deployed`` PTQ-deploys each block (`deploy.deploy_quantize`) as soon
+    as its masters are drawn, and the rest of the model at the end: the
+    random numbers are drawn in the same order and deploy draws none, so
+    the bytes equal those of the whole init followed by deploy, while at
+    most one block's masters are held at a time (llava-next-34b's bf16
+    masters alone would fill most of an 80 GB card)."""
     _check_family(cfg)
     ini = Init.from_seed(seed, device, getattr(torch, cfg.param_dtype))
+    ready = deploy.deploy_quantize if deployed else (lambda blk: blk)
     embed = ini.normal((cfg.padded_vocab, cfg.d_model), 0.02)
-    layers = {gname: [BLOCK_KINDS[kind].init(ini, cfg) for _ in range(count)]
+    layers = {gname: [ready(BLOCK_KINDS[kind].init(ini, cfg)) for _ in range(count)]
               for gname, count, kind in layer_groups(cfg)}
     blocks = [blk for gname, _, _ in block_groups(cfg) for blk in layers[gname]]
     mark_full_attn(cfg, blocks)
@@ -304,8 +318,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
     enc_final_norm = L.norm_init(ini, cfg.d_model, cfg) if cfg.is_encdec else None
     lm_head = Linear.init(ini, cfg.d_model, cfg.padded_vocab, scale=0.02)
     mtp = MTPHead.init(ini, cfg) if cfg.mtp else None
-    return LM(embed, blocks, final_norm, lm_head, mtp,
-              enc_blocks=layers.get("enc_blocks", ()), enc_final_norm=enc_final_norm)
+    return ready(LM(embed, blocks, final_norm, lm_head, mtp,
+                    enc_blocks=layers.get("enc_blocks", ()), enc_final_norm=enc_final_norm))
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -347,12 +361,22 @@ def _rope_state(cfg: ModelConfig, pos: torch.Tensor) -> orp.OnlineRopeState:
     return orp.OnlineRopeState(sin=sin, cos=cos, pos=pos.clone())
 
 
-def _embed(model: LM, tokens: torch.Tensor, cfg: ModelConfig, start=0) -> torch.Tensor:
-    """Token embeddings ``[B, S, D]``; with ``abs_pos_embed``, plus the
-    sinusoid at positions ``start .. start + S - 1`` (``start`` an int, an
-    int32 device scalar, or ``[B]`` with each lane's own), cast to the
-    embedding's dtype as the reference adds it."""
+def _embed(model: LM, tokens: torch.Tensor, cfg: ModelConfig, start=0,
+           patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings ``[B, S, D]``; a ``vision`` frontend's
+    ``patch_embeds`` ``[B, P, D]`` (P <= S), cast to the embedding's dtype,
+    take the place of the first P rows, as the reference splices them (any
+    other model ignores them, as the reference does); with
+    ``abs_pos_embed``, plus the sinusoid at positions ``start .. start + S -
+    1`` (``start`` an int, an int32 device scalar, or ``[B]`` with each
+    lane's own), cast to the embedding's dtype as the reference adds it."""
     x = model.embed[tokens]
+    if patch_embeds is not None and cfg.frontend == "vision":
+        p = patch_embeds.to(x.dtype)
+        if p.shape[1] > x.shape[1]:
+            raise ValueError(f"{p.shape[1]} patch embeddings do not fit a prompt of "
+                             f"{x.shape[1]} tokens")
+        x = torch.cat([p, x[:, p.shape[1]:]], dim=1)
     if cfg.abs_pos_embed:
         pos = L._lanes(start) + torch.arange(tokens.shape[1], device=x.device)
         x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
@@ -562,7 +586,8 @@ def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
                     engine: HSAEngine, cache_len: int = 0,
                     valid_len: torch.Tensor | None = None, *,
                     return_hidden: bool = False,
-                    src_embeds: torch.Tensor | None = None) -> tuple:
+                    src_embeds: torch.Tensor | None = None,
+                    patch_embeds: torch.Tensor | None = None) -> tuple:
     """Prompt processing (MMM phase): tokens [B, S] -> (logits [B, V], cache).
 
     ``cache_len`` > S reserves KV slots for the tokens decode will append.
@@ -570,7 +595,10 @@ def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
     real token ([B, D], the residual stream's dtype) to the return: the MTP
     drafter chains its head from it.  An encoder-decoder takes the frames
     ``src_embeds`` [B, T, D]: the encoder runs once, and every decoder
-    layer's cache holds its cross K/V over the T frames.
+    layer's cache holds its cross K/V over the T frames.  A ``vision``
+    frontend's ``patch_embeds`` [B, P, D] replace the embeddings of the
+    prompt's first P tokens (`_embed`); RoPE positions run 0 .. S - 1 over
+    patches and text alike, and decode never sees the patches again.
 
     Bucketed mode: ``valid_len`` (an int32 scalar on the device) marks
     ``tokens`` as a prompt of that length right-padded to S.  The logits are
@@ -586,7 +614,7 @@ def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
         if src_embeds is None:
             raise TypeError("decoder blocks need encoder output: pass src_embeds")
         enc_out = _encode(model, src_embeds, cfg, engine)
-    x = _embed(model, tokens, cfg)
+    x = _embed(model, tokens, cfg, patch_embeds=patch_embeds)
     s = tokens.shape[1]
     sin, cos = _rope_tables(cfg, s, x.device)
     states = []

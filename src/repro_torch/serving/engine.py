@@ -54,7 +54,11 @@ An encoder-decoder (seamless-m4t-medium) takes its frames as
 reference's engine does; its cache carries the cross K/V, so
 `resume_generate` needs none.  It prefills at exact length only: bucketed
 prefill, chunked admission (and so the scheduler) and speculative decode
-raise NotImplementedError, as the reference's do.
+raise NotImplementedError, as the reference's do.  A vision model
+(llava-next-34b) takes its patch embeddings as ``extras={"patch_embeds":
+[B, P, D]}``, spliced over the prompt's head in prefill, exact or bucketed;
+chunked admission (so the scheduler and its prefix cache) and speculative
+decode raise, as the reference's do.
 
 Usage::
 
@@ -534,7 +538,9 @@ class InferenceEngine:
                     obs: Observability | None = None) -> "InferenceEngine":
         """Build the serving stack: init (or adopt) a model, PTQ-deploy it in
         place when ``spec.quantize`` and it still has master weights, and
-        wire the HSA engine.
+        wire the HSA engine.  A model it inits is deployed block by block as
+        it is drawn (`lm.init` with ``deployed``): the same bytes, with at
+        most one block's masters on the device at a time.
 
         ``device`` defaults to the card; the CPU runs only when asked for.
         """
@@ -548,7 +554,7 @@ class InferenceEngine:
             raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                                "plain PyTorch path on the CPU")
         if model is None:
-            model = lm.init(cfg, seed=spec.seed, device=device)
+            model = lm.init(cfg, seed=spec.seed, device=device, deployed=spec.quantize)
         if spec.quantize and deploy.is_master(model):
             deploy.deploy_quantize(model)
         return cls(cfg, model, spec, obs=obs)
@@ -568,7 +574,8 @@ class InferenceEngine:
         ``cache_len`` (default S) is the KV slots a dense model's cache
         holds: S plus the tokens decode will append.  ``extras`` carries
         the frontend inputs: an encoder-decoder's frames ``src_embeds``
-        [B, T, D].
+        [B, T, D], a vision model's ``patch_embeds`` [B, P, D] (spliced
+        over the prompt's first P tokens, bucketed or not).
 
         ``bucket=True`` pads the prompt with zeros up to `bucket_length` and
         passes the real length as an int32 device scalar: the logits and the
@@ -593,9 +600,10 @@ class InferenceEngine:
         """``extras`` as `lm.forward_prefill`'s keywords, on the engine's
         device; a key no ported frontend reads raises."""
         extras = dict(extras or {})
-        unknown = set(extras) - {"src_embeds"}
+        unknown = set(extras) - {"src_embeds", "patch_embeds"}
         if unknown:
-            raise ValueError(f"unknown extras {sorted(unknown)}; the port reads src_embeds")
+            raise ValueError(f"unknown extras {sorted(unknown)}; the port reads src_embeds "
+                             "and patch_embeds")
         return {k: torch.as_tensor(v, device=self.device) for k, v in extras.items()}
 
     def begin_chunked_prefill(self, tokens: torch.Tensor, *, cache_len: int,
@@ -639,8 +647,9 @@ class InferenceEngine:
         draws nothing.  On the card the decode steps are replays of one
         captured step (see the module docstring).  ``speculative`` (or
         ``gen.speculative``) switches to the draft / verify / commit loop
-        (`_generate_speculative`).  ``extras`` goes to `prefill` (an
-        encoder-decoder's ``src_embeds``).
+        (`_generate_speculative`).  ``extras`` goes to `prefill` only (an
+        encoder-decoder's ``src_embeds``, a vision model's
+        ``patch_embeds``): the captured decode step never sees them.
         """
         if speculative is not None:
             gen = dataclasses.replace(gen, speculative=speculative)

@@ -66,12 +66,16 @@ def test_from_config_defaults_to_the_card():
 
 
 def test_from_config_rejects_unported_families():
-    """llava-next-34b's vision frontend (the ``vlm`` family) is not ported
-    yet; seamless-m4t-medium's encoder-decoder is."""
+    """A frontend the port does not serve raises, naming it: llava-next-34b's
+    backbone with a ``video`` frontend (its ``vision`` frontend and
+    seamless-m4t-medium's encoder-decoder are served)."""
+    import dataclasses
+
+    from repro_torch import configs
     from repro_torch.serving.engine import EngineSpec, InferenceEngine
-    with pytest.raises(NotImplementedError, match="vision"):
-        InferenceEngine.from_config("llava-next-34b", EngineSpec(reduced=True),
-                                    device="cpu")
+    cfg = dataclasses.replace(configs.get_config("llava-next-34b"), frontend="video")
+    with pytest.raises(NotImplementedError, match="video"):
+        InferenceEngine.from_config(cfg, EngineSpec(reduced=True), device="cpu")
 
 
 def test_from_config_rejects_deepseek_v3_with_its_moe_layers():

@@ -195,15 +195,44 @@ def test_moe_apply_matches_reference(arch, quantize, phase, no_drop, skewed):
         assert dropped == 8
 
 
-def test_fp_decode_gathers_only_the_chosen_experts():
-    """On fp stacks the assigned form multiplies each row by its own
-    expert's weight, gathered: the same as the capacity form's product."""
+def _decode_and_prefill(permute: bool = False):
+    """One B 2 token layer of reduced olmoe on fp stacks through the assigned
+    form (decode) and the capacity form (prefill); ``permute`` hands the
+    assigned form each row's next expert instead of its own."""
     _, tp, _, te = _moe_layer(OL, False)
     x = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 1, 128)).astype(np.float32))
-    with torch.inference_mode():
-        dec = TM.moe_apply(tp, x, None, te.hsa, "decode", te.cfg)
-        pre = TM.moe_apply(tp, x, None, te.hsa, "prefill", te.cfg)
-    torch.testing.assert_close(dec, pre, rtol=1e-5, atol=1e-6)
+    real = TM._ffn_assigned
+
+    def shifted(ex, rows, idx, impl):
+        return real(ex, rows, (idx + 1) % te.cfg.n_experts, impl)
+
+    if permute:
+        TM._ffn_assigned = shifted
+    try:
+        with torch.inference_mode():
+            dec = TM.moe_apply(tp, x, None, te.hsa, "decode", te.cfg)
+            pre = TM.moe_apply(tp, x, None, te.hsa, "prefill", te.cfg)
+    finally:
+        TM._ffn_assigned = real
+    return dec, pre
+
+
+def test_fp_decode_gathers_only_the_chosen_experts():
+    """On fp stacks the assigned form multiplies each row by its own
+    expert's weight, gathered: the same as the capacity form's product up to
+    f32 summation order (a bmm of one row against one of cap + 1 rows parts
+    them by about 4e-7 of max|out| on some hosts), held at the file's f32
+    tolerance."""
+    dec, pre = _decode_and_prefill()
+    _close(dec.numpy(), pre.numpy(), FP_TOL, "assigned vs capacity form")
+
+
+def test_fp_decode_with_the_wrong_experts_parts_from_the_capacity_form():
+    """The check above can see a wrong gather: each row times its next
+    expert's weight moves the output far beyond FP_TOL."""
+    dec, pre = _decode_and_prefill(permute=True)
+    err = float((dec - pre).abs().max())
+    assert err > 100 * FP_TOL * float(pre.abs().max()), err
 
 
 # -- the expert kernel's plain version -----------------------------------------------------

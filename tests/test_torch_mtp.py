@@ -18,8 +18,12 @@ default W8A8 / MXINT4 deployment:
 * greedy `generate(speculative=SpeculativeConfig(k, drafter="mtp"))`: on fp
   weights the reference's tokens, lengths, verify steps and accepted drafts
   and the port's plain loop's tokens, in the f32 and ``int8_tok`` caches;
-  on deployed weights the reference's tokens and counts (ROADMAP C's near
-  ties do not meet these seeded prompts);
+  on deployed weights the reference's tokens and counts, or, where the two
+  part, the same tokens, blocks and acceptances up to the verify step where
+  they part, which must fall on a near tie of the reference's logits (a
+  top-two margin under `QUANT_REL` of max|logit|, ROADMAP C: the B 2
+  prompt's second token parts so on some hosts, whose f32 summation order
+  differs);
 * `make_drafter` builds the MTP drafter only with a head, and the scheduler
   refuses it (the reference's rule: it needs per-lane hidden state).
 """
@@ -232,11 +236,90 @@ def test_greedy_mtp_speculative_matches_reference_and_the_plain_loop(quantize, f
                            speculative=JSpecCfg(k=K, drafter="mtp"))
         got = te.generate(torch.from_numpy(p), gen,
                           speculative=SpeculativeConfig(k=K, drafter="mtp"))
-        np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
         np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+        assert got.drafted == K * got.verify_steps
+        if quantize and not np.array_equal(got.tokens.numpy(), np.asarray(want.tokens)):
+            _parts_at_a_near_tie(je, te, p, fmt, got, want)
+            continue
+        np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
         assert (got.verify_steps, got.accepted_drafts) == (want.verify_steps,
                                                            want.accepted_drafts)
-        assert got.drafted == K * got.verify_steps
         if not quantize:
             plain = te.generate(torch.from_numpy(p), gen)
             assert torch.equal(got.tokens, plain.tokens)
+
+
+def _spec_steps(draft, verify, commit, logits, cache, h, n: int) -> list:
+    """The greedy lockstep speculative loop one verify step at a time (numpy
+    in and out): per step the block, the target's logits at every block
+    position, each row's acceptance and the tokens it emitted."""
+    tok, steps, emitted = np.argmax(logits, -1), [], 0
+    while emitted < n:
+        block = np.concatenate([tok[:, None], draft(h, tok)], axis=1)
+        lg, hidden, ver = verify(block, cache)
+        cand = np.argmax(lg, -1)
+        acc = np.cumprod(cand[:, :K] == block[:, 1:], axis=1).sum(axis=1)
+        a = int(acc.min())
+        cache = commit(cache, ver, a + 1)
+        steps.append(dict(block=block, logits=lg, acc=acc, emit=block[:, :a + 1]))
+        emitted += a + 1
+        tok, h = cand[:, a], hidden[:, a]
+    return steps
+
+
+def _parts_at_a_near_tie(je, te, p, fmt, got, want) -> None:
+    """The port's and the reference's speculative streams, replayed a verify
+    step at a time (each replay reproduces its engine's tokens): up to the
+    step where their emitted tokens part, the same blocks, acceptances and
+    tokens, and there the reference's top-two margin, at the block position
+    whose target token parts, under `QUANT_REL` of max|logit|."""
+    n, cache_len = got.tokens.shape[1], p.shape[1] + got.tokens.shape[1] + K
+    gen, jgen = GenerationConfig(cache_format=fmt), JGen(cache_format=fmt)
+    jd = JMTPDrafter(k=K, cfg=je.cfg, hsa=je.hsa)
+    jdraft = jax.jit(lambda h, t: jd.draft(je.params, {"h": h}, t))
+    jverify = jax.jit(lambda b, c: Jlm.forward_verify_chunk(je.params, {"tokens": b}, c,
+                                                            je.cfg, je.hsa))
+    jl, jc, jh = je.prefill(jnp.asarray(p), cache_len=cache_len, return_hidden=True)
+    jsteps = _spec_steps(
+        lambda h, t: np.asarray(jdraft(h, jnp.asarray(t, jnp.int32))),
+        lambda b, c: (lambda lg, hid, ver: (np.asarray(lg, np.float32), hid, ver))(
+            *jverify(jnp.asarray(b, jnp.int32), c)),
+        lambda c, ver, m: Jlm.commit_verified_cache(c, ver, jnp.int32(m), K + 1, je.cfg),
+        np.asarray(jl, np.float32), je._encode_cache(jc, jgen), jh, n)
+    td = make_drafter(SpeculativeConfig(k=K, drafter="mtp"), te.cfg, te.hsa)
+    with torch.inference_mode():
+        tl, tc, th = te.prefill(torch.from_numpy(p), cache_len=cache_len, return_hidden=True)
+        tsteps = _spec_steps(
+            lambda h, t: td.draft(te.model, {"h": h}, torch.from_numpy(t)).numpy(),
+            lambda b, c: (lambda lg, hid, ver: (lg.float().numpy(), hid, ver))(
+                *Tlm.forward_verify_chunk(te.model, torch.from_numpy(b), c, te.cfg, te.hsa)),
+            lambda c, ver, m: Tlm.commit_verified_cache(c, ver, torch.tensor(m, dtype=torch.int32),
+                                                        K + 1, te.cfg),
+            tl.float().numpy(), te._encode_cache(tc, gen), th, n)
+    for steps, res in ((jsteps, want), (tsteps, got)):
+        emitted = np.concatenate([s["emit"] for s in steps], axis=1)[:, :n]
+        np.testing.assert_array_equal(emitted, np.asarray(res.tokens))
+        assert (len(steps), sum(s["emit"].shape[1] - 1 for s in steps)) == (
+            res.verify_steps, res.accepted_drafts)
+    # Emitted column c is the argmax of the logits at ``src[c]``: the
+    # prefill's (None) for the first, then per step i, block positions
+    # 0 .. a_i (the accepted drafts equal the target's samples before them;
+    # the last is the next step's pending token).
+    src = [None] + [(i, j) for i, st in enumerate(jsteps)
+                    for j in range(st["emit"].shape[1])]
+    col = int(np.flatnonzero((got.tokens.numpy() != np.asarray(want.tokens)).any(axis=0))[0])
+    if src[col] is None:
+        step, at, logits = 0, -1, np.asarray(jl, np.float32)
+    else:
+        step, at = src[col]
+        logits = jsteps[step]["logits"][:, at]
+    for j, t in zip(jsteps[:step], tsteps):             # before the parting: one stream
+        np.testing.assert_array_equal(t["block"], j["block"])
+        np.testing.assert_array_equal(t["acc"], j["acc"])
+    if at >= 0:
+        np.testing.assert_array_equal(tsteps[step]["block"][:, :at + 1],
+                                      jsteps[step]["block"][:, :at + 1])
+    for lane in np.flatnonzero(got.tokens.numpy()[:, col] != np.asarray(want.tokens)[:, col]):
+        top2 = np.sort(logits[lane])[-2:]
+        margin = float((top2[1] - top2[0]) / np.abs(logits[lane]).max())
+        assert margin < QUANT_REL, (lane, col, margin)
