@@ -46,7 +46,10 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    also at the MTP head step's linears (M 2: proj 14336 -> 7168, MLA, the
    router at N 256, the shared expert, the LM head);
    retention on the model's strided views and the MLA mode, each bound by
-   its split-TF32 instruction mix (the f32 CUDA-core bound beside it), with
+   its split-TF32 instruction mix (the f32 CUDA-core bound beside it);
+   retention's backward kernel at retnet-1.3b's training shape and at a
+   warm-state tail against autograd of the plain version (1e-4 of max) and
+   float64, bound as f32 FMAs (`kernel_phase_retention_bwd`); each with
    a profiler check that one call runs only its own launches (retention
    two, the MLA mode and rmsnorm_stats one); rmsnorm_stats at the sigma^-1
    shapes the served models normalise (`RMS_SHAPES`), also against float64,
@@ -57,6 +60,19 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    (`sigma_chain_price`); and the selective scan (plain PyTorch, not a
    kernel: `scan_phase`), device ms per layer, per prefill and per decode
    step at falcon-mamba-7b's and hymba-1.5b's widths;
+4b. training (`train_phase`, before phase 4): retnet-1.3b and
+   internlm2-1.8b at every published width (B 2, S 512, bf16 masters, f32
+   moments, AdamW), step 0 on the kernel path against the plain path in an
+   f32 stream (loss 1e-4, each gradient 1e-2 of its max; the bf16 readings
+   recorded, and on retnet beside them the plain path with retention's
+   output nudged one f32 ulp, the control for those gaps), every gradient
+   bit-equal on a rerun, 4 steps with exact launches (48 retention forward
+   and 24 backward a step on retnet) and finite losses, step ms, tokens/s,
+   the steps' peak GiB (reset after the comparisons) and the retention
+   share of a profiled step; the trained retnet through ``from_config(model=state)``
+   and ``generate`` (graph = eager bit for bit); reduced retnet and
+   internlm2 on the card against the CPU (S 200, gradients at 1e-4); a bf16
+   checkpoint round trip on reduced retnet (the resumed loss bit-equal);
 4. the nine main paths at full width, each through
    ``InferenceEngine.generate`` with the launch counters set to 0 just before
    and read just after, 2 prompts of 512 tokens plus 32 greedy tokens (each
@@ -183,7 +199,10 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    with its trace and metrics, and ``--speculative`` in the single-generate
    and the scheduler mode; on qwen3-8b ``--prefix-cache`` (4 of 5
    admissions adopt the shared prompt); one greedy generate each on
-   falcon-mamba-7b, hymba-1.5b and olmoe-1b-7b; reduced deepseek-v3 with its
+   falcon-mamba-7b, hymba-1.5b and olmoe-1b-7b; the train CLI
+   (``python -m repro_torch.launch.train``, reduced retnet-1.3b, 3 steps, a
+   simulated failure saved and restored) on its default device, the card;
+   reduced deepseek-v3 with its
    MoE layers (3 dense, 2 MoE with the shared expert) and its MTP head
    against the CPU too, reduced seamless-m4t-medium on 8 frames, block by block on the CPU's input, its prefill
    logits end to end and on fp weights (`reduced_vs_cpu`, `cpu_lockstep`),
@@ -234,6 +253,11 @@ from repro_torch.kernels import hopper, ops, ref  # noqa: E402
 from repro_torch.models import deploy, frontends, layers, lm  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.modules import Linear  # noqa: E402
+from repro_torch.core.hsa import HSAConfig, HSAEngine  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.runtime import train_step as ts  # noqa: E402
 from repro_torch.serving import engine as serving_engine  # noqa: E402
 from repro_torch.serving.engine import (EngineSpec, GenerationResult,  # noqa: E402
                                         InferenceEngine, bucket_length, chunk_schedule)
@@ -260,6 +284,10 @@ SRC = {
                          "src/repro/kernels/flash_decode.py:108"),
     "rmsnorm_stats": ("src/repro_torch/kernels/csrc/rmsnorm_stats.cu",
                       "src/repro/kernels/rmsnorm_stats.py:38"),
+    # The gradient of the retention kernel, which JAX's autodiff derives
+    # from the Pallas kernel's function there.
+    "retention_chunkwise_bwd": ("src/repro_torch/kernels/csrc/retention_chunkwise_bwd.cu",
+                                "src/repro/kernels/retention_kernel.py:70"),
     # Replaces no Pallas kernel: the reference dequantizes every expert
     # stack and runs an einsum (its local MoE path).
     "mxint4_expert_matmul": ("src/repro_torch/kernels/csrc/mxint4_matmul.cu",
@@ -514,6 +542,13 @@ def card_peaks(name: str) -> dict:
 _FLUSH: list = []
 
 
+def _flush_l2() -> None:
+    """Write 256 MB, evicting the 50 MB L2."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(64 << 20, dtype=torch.float32, device="cuda"))
+    _FLUSH[0].zero_()
+
+
 def time_ms(fn, iters: int = 15) -> float:
     """Median device time of ``fn`` with a cold L2.
 
@@ -522,8 +557,6 @@ def time_ms(fn, iters: int = 15) -> float:
     around it (the wrapper's host cost is `call_ms`).  A 256 MB write before
     each replay evicts the 50 MB L2.
     """
-    if not _FLUSH:
-        _FLUSH.append(torch.empty(64 << 20, dtype=torch.float32, device="cuda"))
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -532,7 +565,7 @@ def time_ms(fn, iters: int = 15) -> float:
     graph.replay()
     pairs = []
     for _ in range(iters):
-        _FLUSH[0].zero_()
+        _flush_l2()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         graph.replay()
@@ -913,6 +946,125 @@ def kernel_phase_retention(peaks):
         launch_kernels=launched, rate=f"{flops / ms / 1e9:.1f} TFLOP/s (needed work)",
         bound_share=bms / ms, bound_share_f32=bf32 / ms)
     return [row]
+
+
+def events_ms(fn, iters: int = 5) -> float:
+    """Median time of ``fn`` between CUDA events, eagerly (no graph: the
+    plain backward runs autograd, host gaps included), L2 flushed first."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        _flush_l2()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    t = sorted(s.elapsed_time(e) for s, e in pairs)
+    return t[len(t) // 2]
+
+
+def _retention_bwd_f64(q, k, v, gamma, state, dy, dstate):
+    """dq, dk, dv (and dstate0) in float64: autograd of the parallel form
+    over the whole sequence, plus the initial state's decayed term and the
+    final state (the yardstick both f32 versions are held to)."""
+    with torch.enable_grad():
+        ins = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+        st = None if state is None else state.detach().double().requires_grad_(True)
+        qd, kd, vd = ins
+        n = torch.arange(q.shape[2], dtype=torch.float64, device=q.device)
+        lg = torch.log(gamma.double())[:, None, None]
+        diff = n[:, None] - n[None, :]
+        d = torch.where(diff >= 0, torch.exp(diff.clamp(min=0) * lg), 0.0)
+        y = torch.einsum("bhnm,bhmv->bhnv", torch.einsum("bhnd,bhmd->bhnm", qd, kd) * d, vd)
+        outs, cots = [y], [dy.double()]
+        if st is not None:
+            y = y + torch.einsum("bhnd,bhdv->bhnv", qd * torch.exp((n + 1)[None, :, None]
+                                                                   * lg), st)
+            outs = [y]
+        if dstate is not None:
+            w = torch.exp((n[-1] - n)[None, :] * lg[:, :, 0])
+            fin = torch.einsum("bhnd,bhnv->bhdv", kd * w[None, :, :, None], vd)
+            if st is not None:
+                fin = fin + torch.exp(q.shape[2] * lg[None]) * st
+            outs.append(fin)
+            cots.append(dstate.double())
+        grads = torch.autograd.grad(outs, ins + ([st] if st is not None else []), cots)
+    return (*grads[:3], grads[3] if st is not None else None)
+
+
+# (label, B, H, S, dk, dv, chunk, warm, final-state cotangent, calls a train
+# step, on the main path): retnet-1.3b's training shape (zero state, no
+# cotangent of the final state: 24 calls a step), and the warm-state tail of
+# a 200-token sequence (72 rows from the carried state, its state's
+# cotangent asked for), which the S 512 path does not run.
+RET_BWD_SHAPES = (("train, zero state", 2, 8, 512, 256, 512, 128, False, False, 24, True),
+                  ("warm-state tail", 2, 8, 72, 256, 512, 72, True, False, 0, False))
+
+
+def kernel_phase_retention_bwd(peaks):
+    """The retention backward kernel at retnet-1.3b's training shapes
+    (`RET_BWD_SHAPES`), on the model's strided views: dq, dk, dv (and the
+    initial state's cotangent) against autograd of the plain version at
+    1e-4 of max|plain| and against float64, relaunched bit-equal, profiled
+    (one call runs the kernel's three launches and nothing else), timed
+    with the L2 flushed.  ``bound_ms`` prices the work this call needs
+    (`hopper.retention_bwd_flops`) as f32 FMAs, the kernel's instruction
+    mix, against the bytes of q, k, v, dY in and dq, dk, dv out (and the
+    states).  The plain version is timed eagerly between CUDA events (it is
+    autograd).  No PyTorch call computes retention's gradient."""
+    rows = []
+    for label, b, h, s, dk, dv, c, warm, final, per_step, main in RET_BWD_SHAPES:
+        g = _gen(11 + s)
+        gamma = ret.head_decays(h, device="cuda")
+        q, k = ((torch.randn(b, s, h, dk, generator=g, device="cuda") * dk ** -0.5)
+                .transpose(1, 2) for _ in range(2))
+        v = torch.randn(b, s, h, dv, generator=g, device="cuda").transpose(1, 2)
+        dy = torch.randn(b, s, h, dv, generator=g, device="cuda").transpose(1, 2)
+        st = torch.randn(b, h, dk, dv, generator=g, device="cuda") * 0.1 if warm else None
+        ds = torch.randn(b, h, dk, dv, generator=g, device="cuda") * 0.1 if final else None
+        run = lambda: hopper.retention_chunkwise_bwd(  # noqa: E731
+            q, k, v, gamma, st, dy, ds, c, need_dstate=warm)
+        got = run()
+        want = ref.retention_chunkwise_bwd_ref(q, k, v, gamma, st, dy, ds, c)
+        f64 = _retention_bwd_f64(q, k, v, gamma, st, dy, ds)
+        err, rel, f64_err = 0.0, 0.0, {"kernel": 0.0, "plain": 0.0}
+        for name, a, w, x in zip(("dq", "dk", "dv", "dstate"), got, want, f64):
+            if w is None:
+                continue
+            e = (a - w).abs().max().item()
+            r = e / w.abs().max().item()
+            if r > 1e-4:
+                raise RuntimeError(f"retention backward {label} {name}: {r:.3e} of max|plain|")
+            err, rel = max(err, e), max(rel, r)
+            f64_err["kernel"] = max(f64_err["kernel"], (a.double() - x).abs().max().item())
+            f64_err["plain"] = max(f64_err["plain"], (w.double() - x).abs().max().item())
+        del f64
+        for _ in range(2):
+            again = run()
+            if not all(a is None or torch.equal(a, x) for a, x in zip(got, again)):
+                raise RuntimeError(f"retention backward {label}: two launches differ")
+        launched = _launch_kernels(run)
+        if len(launched) != 3 or not all("retention_bwd_" in n for n in launched):
+            raise RuntimeError(f"retention backward: one call ran {launched}, expected the "
+                               "kernel's three launches only")
+        flops = hopper.retention_bwd_flops(b, h, s, dk, dv, c, warm, final, warm)
+        nbytes = 4 * b * h * s * (2 * dk + 2 * dv + 2 * dk + dv) \
+            + 4 * b * h * dk * dv * (2 * int(warm) + int(final)) + 4 * h
+        bms, by = bound_ms(nbytes, flops, peaks["f32"], peaks)
+        ms = time_ms(run)
+        rows.append(dict(
+            path=RETNET["arch"] + " train", site=label, layout="model transpose(1, 2) views",
+            shape=[b, h, s, dk, dv, c], warm=warm, final_cotangent=final, per_step=per_step,
+            main=main, max_abs_err=err, rel_err=rel, f64_max_abs_err=f64_err, ms=ms,
+            call_ms=call_ms(run), plain_ms=events_ms(lambda: ref.retention_chunkwise_bwd_ref(
+                q, k, v, gamma, st, dy, ds, c)), plain_timing="CUDA events, eager autograd",
+            library_ms=None, bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+            plan=hopper.retention_bwd_plan(b * h, s, dk, dv, c), launch_kernels=launched,
+            rate=f"{flops / ms / 1e9:.2f} TFLOP/s (needed work)", bound_share=bms / ms))
+    return rows
 
 
 def _cache_leaf(x: torch.Tensor, fmt: str):
@@ -3190,8 +3342,10 @@ def serve_cli() -> dict:
     0.08: 5 prompts of 60 tokens opening with one 45-token prefix), whose
     hit line must report 4 of 5 admissions adopting it; then one greedy
     generate each with ``--arch falcon-mamba-7b``, ``--arch hymba-1.5b`` and
-    ``--arch olmoe-1b-7b``.  Each must exit 0
-    and print its ``[serve]`` lines, the last the mode's own.  CLI_WORKERS of
+    ``--arch olmoe-1b-7b``; and ``python -m repro_torch.launch.train`` on its
+    default device, the card (reduced retnet, 3 steps, a simulated failure
+    at step 1 saved and restored).  Each must exit 0 and print its
+    ``[serve]`` (``[train]``) lines, the last the mode's own.  CLI_WORKERS of
     them run at a time (each is host-bound; its timings are not recorded)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -3213,32 +3367,43 @@ def serve_cli() -> dict:
                  ("speculative", ["--speculative"], "[serve] sample output tokens"),
                  ("speculative_scheduler", ["--speculative", "--requests", "6", "--slots", "4",
                                             "--chunk-size", "8"], "[serve] tokens/s"))
-        modes = tuple((name, retnet + extra, last) for name, extra, last in modes) + (
-            ("prefix_cache", ["--arch", "qwen3-8b", "--scenario", "LISO", "--scale", "0.08",
-                              "--requests", "5", "--slots", "2", "--chunk-size", "8",
-                              "--prefix-cache"], "[serve] tokens/s"),
-            ("falcon_mamba", ["--arch", "falcon-mamba-7b", "--scenario", "SILO", "--scale",
-                              "0.1", "--batch", "2"], "[serve] sample output tokens"),
-            ("hymba", ["--arch", "hymba-1.5b", "--scenario", "SILO", "--scale", "0.1",
-                       "--batch", "2"], "[serve] sample output tokens"),
-            ("olmoe", ["--arch", "olmoe-1b-7b", "--scenario", "SILO", "--scale", "0.1",
-                       "--batch", "2"], "[serve] sample output tokens"))
-        def run(argv):
+        serve, train = "repro_torch.launch.serve", "repro_torch.launch.train"
+        modes = tuple((name, serve, retnet + extra, last) for name, extra, last in modes) + (
+            ("prefix_cache", serve, ["--arch", "qwen3-8b", "--scenario", "LISO", "--scale",
+                                     "0.08", "--requests", "5", "--slots", "2",
+                                     "--chunk-size", "8", "--prefix-cache"],
+             "[serve] tokens/s"),
+            ("falcon_mamba", serve, ["--arch", "falcon-mamba-7b", "--scenario", "SILO",
+                                     "--scale", "0.1", "--batch", "2"],
+             "[serve] sample output tokens"),
+            ("hymba", serve, ["--arch", "hymba-1.5b", "--scenario", "SILO", "--scale", "0.1",
+                              "--batch", "2"], "[serve] sample output tokens"),
+            ("olmoe", serve, ["--arch", "olmoe-1b-7b", "--scenario", "SILO", "--scale", "0.1",
+                              "--batch", "2"], "[serve] sample output tokens"),
+            # The train CLI on its default device, the card: reduced retnet,
+            # 3 steps with a simulated failure (save, restore) at step 1.
+            ("train", train, ["--arch", "retnet-1.3b", "--reduced", "--steps", "3", "--batch",
+                              "2", "--seq", "64", "--fail-at", "1", "--ckpt-dir",
+                              os.path.join(tmp, "ckpt")], "[train] done."))
+
+        def run(mode):
+            _, module, argv, _ = mode
             t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            proc = subprocess.run([sys.executable, "-m", module, *argv],
                                   cwd=ROOT, capture_output=True, text=True, timeout=600,
                                   env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
             return proc, time.perf_counter() - t0
 
         with ThreadPoolExecutor(CLI_WORKERS) as pool:
-            runs = list(pool.map(run, [argv for _, argv, _ in modes]))
-        for (name, argv, last), (proc, seconds) in zip(modes, runs):
-            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
+            runs = list(pool.map(run, modes))
+        for (name, _, _, last), (proc, seconds) in zip(modes, runs):
+            tag = last.split()[0]
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
             for ln in lines:
                 log(f"  cli {name}: {ln}")
             if proc.returncode != 0 or not lines or not lines[-1].startswith(last):
-                raise RuntimeError(f"serve CLI ({name}) exited {proc.returncode} with "
-                                   f"{len(lines)} [serve] lines: {proc.stderr[-2000:]}")
+                raise RuntimeError(f"CLI ({name}) exited {proc.returncode} with "
+                                   f"{len(lines)} {tag} lines: {proc.stderr[-2000:]}")
             out[name] = dict(seconds=seconds, lines=lines)
         snap = json.load(open(metrics))["counters"]
         events = json.load(open(trace))["traceEvents"]
@@ -3253,6 +3418,8 @@ def serve_cli() -> dict:
                if ln.startswith("[serve] prefix cache")]
         if not hit or "4/5 admissions adopted a cached prefix, 180 prefill" not in hit[0]:
             raise RuntimeError(f"serve CLI (prefix_cache): hit line {hit}")
+        if not any("elastic plan" in ln for ln in out["train"]["lines"]):
+            raise RuntimeError(f"train CLI: no failure restore in {out['train']['lines']}")
     return out
 
 
@@ -3272,6 +3439,7 @@ def _device_us(prof) -> tuple[float, list]:
 KERNEL_KINDS = (("mxint4_expert", "mxint4_expert_kernel"), ("mxint4", "mxint4_gemv_kernel"),
                 ("w8a8", "w8a8_gemm_kernel"), ("flash_decode_mla", "flash_decode_mla_kernel"),
                 ("flash_decode", "flash_decode_kernel"), ("retention", "retention_pass"),
+                ("retention_bwd", "retention_bwd_"),
                 ("rmsnorm_stats", "rmsnorm_stats_kernel"))
 
 
@@ -3901,6 +4069,370 @@ def reduced_vs_cpu(path: dict):
     return {f"reduced {arch}": dict(prefill_rel_err=rel, greedy_agreement=agree, **extra)}
 
 
+# -- training (phase 4b) --------------------------------------------------------------
+
+# The two training paths at every published width: (arch, layers, d_model,
+# padded vocab).  B 2, S 512, the quickstart's AdamW; TRAIN_STEPS steps.
+TRAIN_PATHS = (dict(arch="retnet-1.3b", layers=24, d=2048, vocab=32768),
+               dict(arch="internlm2-1.8b", layers=24, d=2048, vocab=92672))
+TRAIN_SEQ, TRAIN_STEPS = 512, 4
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+TRAIN_GRAD_TOL = 1e-2     # kernel vs plain path, f32 stream: a bf16 step of max|grad|
+TRAIN_SERVE = (128, 16)   # the trained retnet's generate: prompt, new tokens
+TRAIN_REDUCED_SEQ = 200   # crosses the 128 split: the tail's state cotangent
+
+
+def train_batches(cfg, s: int, n: int, b: int = BATCH) -> list:
+    data = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b))
+    return [{k: torch.from_numpy(v).long().cuda() for k, v in data.batch(i).items()}
+            for i in range(n)]
+
+
+def train_launches(cfg, s: int) -> dict:
+    """Kernel launches of one train step (B 2, ``s`` tokens): RetNet's
+    retention forward twice a layer (the forward and its rematerialization
+    in backward; two parts where ``s`` has a tail) and its backward once a
+    layer; nothing else on these paths is a kernel of the port."""
+    want = dict.fromkeys(hopper.COUNTERS, 0)
+    if cfg.family == "retnet":
+        parts = retention_launches(s)
+        want["retention_chunkwise"] = 2 * cfg.n_layers * parts
+        want["retention_chunkwise_bwd"] = cfg.n_layers * parts
+    return want
+
+
+def _grad_diff(tag, got: dict, want: dict, tol: float) -> tuple[float, str]:
+    """Largest error of any leaf relative to max|want leaf|, and that leaf;
+    raises past ``tol`` (a leaf the plain path gives a gradient the kernel
+    path must)."""
+    worst, at = 0.0, ""
+    for name, w in want.items():
+        top = w.abs().max().item()
+        err = (got[name].float() - w.float()).abs().max().item()
+        if (err > tol * top) if top > 0 else err > 0:
+            raise RuntimeError(f"{tag} {name}: gradient error {err:.3e} against "
+                               f"max|plain| {top:.3e}")
+        if top and err / top > worst:
+            worst, at = err / top, name
+    return worst, at
+
+
+def _worst_leaves(got: dict, want: dict, n: int = 3) -> list:
+    """The ``n`` leaves whose gradients differ most, relative to max|want
+    leaf|, as [name, error] pairs."""
+    errs = []
+    for name, w in want.items():
+        top = w.abs().max().item()
+        if top:
+            errs.append([name, (got[name].float() - w.float()).abs().max().item() / top])
+    return sorted(errs, key=lambda e: -e[1])[:n]
+
+
+@contextlib.contextmanager
+def retention_nudged_one_ulp():
+    """The control for a kernel-against-plain gap: while open, every
+    `ops.retention_chunkwise` output moves one f32 ulp towards +inf in the
+    forward (the same in the rematerialized forward), its gradient passing
+    through unchanged.  Run on the plain path, it shows what an output
+    difference of the kernel's size does to a full-width step's loss and
+    gradients, with no kernel involved."""
+    plain = ops.retention_chunkwise
+
+    def nudged(*args, **kwargs):
+        y, state = plain(*args, **kwargs)
+        up = torch.nextafter(y, torch.full_like(y, float("inf")))
+        return y + (up - y).detach(), state
+
+    ops.retention_chunkwise = nudged
+    try:
+        yield
+    finally:
+        ops.retention_chunkwise = plain
+
+
+def _nudged_control(tag, cfg, model, batch, plain, opts, loss_p, g_p) -> dict:
+    """The plain path with retention nudged one ulp (`retention_nudged_one_ulp`)
+    against the plain path: the loss's relative gap and the worst leaves'."""
+    with retention_nudged_one_ulp():
+        loss_w, _, g_w = ts.gradients(model, batch, cfg, plain, opts)
+    worst, at = _grad_diff(tag, g_w, g_p, float("inf"))
+    return dict(loss_rel_err=abs(loss_w.item() - loss_p.item()) / abs(loss_p.item()),
+                grad_rel_err=worst, worst_leaf=at, worst_leaves=_worst_leaves(g_w, g_p))
+
+
+def train_step_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """The FLOP one step needs: 2 a parameter a token in the forward, again
+    in its rematerialization, and 4 in backward (8 in all); plus the mixer's
+    own products: RetNet's chunkwise retention forward twice (as
+    `kernel_phase_retention` counts it) and its backward once
+    (`hopper.retention_bwd_flops`), or causal attention's QK^T and PV over
+    the pairs i >= j, forward twice and backward (five such products) once."""
+    h = cfg.n_heads
+    if cfg.family == "retnet":
+        dk, dv, c = cfg.d_model // h, 2 * cfg.d_model // h, min(128, s)
+        n = s // c
+        fwd = n * (c * (c + 1) * (dk + dv) + 2 * c * dk * dv) + (n - 1) * 2 * c * dk * dv
+        mix = 2 * fwd * b * h + hopper.retention_bwd_flops(b, h, s, dk, dv, c, False, False,
+                                                           False)
+    else:
+        fwd = 2 * (s * (s + 1) // 2) * 2 * cfg.head_dim_
+        mix = (2 + 2.5) * fwd * b * h
+    return 8 * n_params * b * s + mix * cfg.n_layers
+
+
+def profile_train_step(step, state, batch) -> dict:
+    """One step under torch.profiler (the card's activity): device ms by
+    kernel kind, and the retention forward's and backward's shares."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kinds = _device_ms_by_kind(prof)
+    total = sum(kinds.values())
+    return dict(device_ms=total, device_ms_by_kind=kinds,
+                retention_fwd_share=kinds.get("retention", 0.0) / total,
+                retention_bwd_share=kinds.get("retention_bwd", 0.0) / total)
+
+
+def train_gate_f32(arch, cfg, model, batch, kernel, plain, opts) -> dict:
+    """Step 0 in an f32 residual stream (an f32 copy of the masters, the
+    same values): the kernel path's loss against the plain path's at 1e-4,
+    and every gradient at TRAIN_GRAD_TOL of its leaf's max; on RetNet also
+    the one-ulp control (`_nudged_control`), recorded."""
+    twin = copy.deepcopy(model).to(torch.float32)
+    loss_k, _, g_k = ts.gradients(twin, batch, cfg, kernel, opts)
+    loss_p, _, g_p = ts.gradients(twin, batch, cfg, plain, opts)
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if rel > 1e-4:
+        raise RuntimeError(f"{arch} step 0 (f32 stream): loss {loss_k.item()} (kernel) "
+                           f"against {loss_p.item()} (plain)")
+    worst, at = _grad_diff(f"{arch} step 0 (f32 stream)", g_k, g_p, TRAIN_GRAD_TOL)
+    out = dict(loss_rel_err=rel, grad_rel_err=worst, worst_leaf=at,
+               worst_leaves=_worst_leaves(g_k, g_p), loss=loss_k.item())
+    del g_k
+    if cfg.family == "retnet":
+        out["nudged_control"] = _nudged_control(f"{arch} f32 control", cfg, twin, batch,
+                                                plain, opts, loss_p, g_p)
+    del twin, g_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full_width(tp: dict, card: str) -> tuple[dict, dict]:
+    """One training path at every published width on the card: init (bf16
+    masters, f32 moments), step 0's loss and every gradient on the kernel
+    path against the plain path (``kernel_impl="ref"``) on the same state
+    in an f32 residual stream (`train_gate_f32`: loss 1e-4, each leaf
+    TRAIN_GRAD_TOL of its max) and in bf16 (recorded; on RetNet each beside
+    the one-ulp control, `_nudged_control`), the kernel path's gradients
+    twice bit for bit (the embedding's CUDA backward sums in a fixed order;
+    other leaves that differ are counted), then TRAIN_STEPS AdamW steps with
+    exact launches and finite losses, timed (the first is warm-up), one
+    profiled.  ``peak_gib`` is the steps' peak, the memory counters reset
+    after the comparisons; ``phase_peak_gib`` the whole path's.  Returns
+    the counted steps' launches and the record; on retnet-1.3b also the
+    trained model's serve leg."""
+    arch = tp["arch"]
+    cfg = configs.get_config(arch)
+    if (cfg.n_layers, cfg.d_model, cfg.padded_vocab) != (tp["layers"], tp["d"], tp["vocab"]):
+        raise RuntimeError(f"unexpected config {cfg}")
+    log(f"== full-width training: {arch}, B={BATCH}, S={TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt, opts = adamw.AdamWConfig(**TRAIN_OPT), ts.TrainOptions()
+    state = ts.init_state(cfg, opt, opts, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    rec = dict(card=card, init_s=time.perf_counter() - t0,
+               init_gib=torch.cuda.memory_allocated() / 2**30)
+    batches = train_batches(cfg, TRAIN_SEQ, TRAIN_STEPS)
+    kernel, plain = HSAEngine(), HSAEngine(HSAConfig(kernel_impl="ref"))
+    model, want = state["model"], train_launches(cfg, TRAIN_SEQ)
+
+    t1 = time.perf_counter()
+    hopper.reset_launches()
+    loss_k, _, g_k = ts.gradients(model, batches[0], cfg, kernel, opts)
+    if dict(hopper.LAUNCHES) != want:
+        raise RuntimeError(f"{arch} train gradients: launches {dict(hopper.LAUNCHES)}, "
+                           f"expected {want}")
+    _, _, again = ts.gradients(model, batches[0], cfg, kernel, opts)
+    if not torch.equal(again["embed"], g_k["embed"]):
+        raise RuntimeError(f"{arch}: the embedding's gradient differs between two runs")
+    rec["leaves_not_bit_equal_on_rerun"] = [n for n in g_k if not torch.equal(again[n], g_k[n])]
+    del again
+    # In bf16 (the path as it trains): recorded, not gated.  One f32
+    # difference in a block's output moves a bf16 rounding of the residual
+    # stream, and 24 layers carry it on (ROADMAP C); the one-ulp control
+    # (`_nudged_control`) shows what such a difference does without a kernel.
+    loss_p, _, g_p = ts.gradients(model, batches[0], cfg, plain, opts)
+    worst, at = _grad_diff(f"{arch} step 0 (bf16)", g_k, g_p, float("inf"))
+    rec["bf16"] = dict(loss_rel_err=abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+                       grad_rel_err=worst, worst_leaf=at, worst_leaves=_worst_leaves(g_k, g_p),
+                       loss=loss_k.item(), plain_loss=loss_p.item())
+    del g_k
+    if cfg.family == "retnet":
+        rec["bf16"]["nudged_control"] = _nudged_control(
+            f"{arch} bf16 control", cfg, model, batches[0], plain, opts, loss_p, g_p)
+    del g_p
+    rec["f32_stream"] = train_gate_f32(arch, cfg, model, batches[0], kernel, plain, opts)
+    rec.update(leaves=len(lm.train_leaves(model)), compare_s=time.perf_counter() - t1)
+    # The step's own peak: from here on, without the comparisons' copies.
+    rec["phase_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    step = ts.train_step_fn(cfg, kernel, opt, opts)
+    counted = dict.fromkeys(hopper.COUNTERS, 0)
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        t = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t)
+        if dict(hopper.LAUNCHES) != want:
+            raise RuntimeError(f"{arch} step {i}: launches {dict(hopper.LAUNCHES)}, "
+                               f"expected {want}")
+        for k in counted:
+            counted[k] += hopper.LAUNCHES[k]
+    if not all(abs(x) < float("inf") for x in losses):
+        raise RuntimeError(f"{arch}: losses {losses}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    flops = train_step_flops(cfg, sum(t.numel() for t in lm.train_leaves(model).values()),
+                             BATCH, TRAIN_SEQ)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    rec.update(losses=losses, step_ms=step_s * 1e3, step_ms_runs=[x * 1e3 for x in times],
+               tokens_per_s=BATCH * TRAIN_SEQ / step_s, step_flops=flops,
+               flop_rate_share_f32=flops / step_s / peaks["f32"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               phase_peak_gib=max(rec["phase_peak_gib"],
+                                  torch.cuda.max_memory_allocated() / 2**30),
+               launches_per_step=want, lr=float(metrics["lr"]),
+               grad_norm=float(metrics["grad_norm"]))
+    rec.update(profile_train_step(step, state, batches[-1]))
+    rec["train_s"] = time.perf_counter() - t0
+    log(f"{arch} training: {json.dumps(rec)}")
+    out = {f"{arch} train": rec}
+    if cfg.family == "retnet":
+        out[f"{arch} trained, served"] = serve_trained(cfg, state, card)
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted, out
+
+
+def serve_trained(cfg, state: dict, card: str) -> dict:
+    """The trained full-width model through `from_config(model=state)`: the
+    optimizer dropped from the state, the masters detached and deployed,
+    then `generate` through the captured decode step with exact launches,
+    against the eager loop bit for bit."""
+    t0 = time.perf_counter()
+    eng = InferenceEngine.from_config(cfg, EngineSpec(), model=state, device="cuda")
+    if set(state) != {"model"} or any(p.requires_grad for p in eng.model.parameters()):
+        raise RuntimeError("from_config kept the optimizer or a trainable master")
+    s, new = TRAIN_SERVE
+    prompts = torch.randint(1, cfg.vocab_size, (BATCH, s), generator=_gen(5), device="cuda")
+    gen = GenerationConfig(max_new_tokens=new)
+    first = eng.generate(prompts, gen)
+    hopper.reset_launches()
+    res = eng.generate(prompts, gen)
+    launches = dict(hopper.LAUNCHES)
+    want_p, want_s = expected_launches(RETNET, s)
+    want = {k: want_p[k] + want_s[k] * res.decode_steps for k in hopper.COUNTERS}
+    if launches != want or not torch.equal(res.tokens, first.tokens):
+        raise RuntimeError(f"trained retnet: launches {launches}, expected {want}")
+    got, cache = eager_generate(eng, prompts, gen)
+    _same_as_graph("trained retnet", res, eng._graphs[eng.graph_key(cache, gen)].state.cache,
+                   got, cache)
+    rec = dict(card=card, prompt=s, new=new, launches=launches, capture_s=first.capture_s,
+               prefill_ms=res.prefill_s * 1e3,
+               decode_ms_per_token=res.decode_s * 1e3 / res.decode_steps,
+               graph_and_eager_bit_identical=True,
+               resident_gib=torch.cuda.memory_allocated() / 2**30,
+               seconds=time.perf_counter() - t0)
+    log(f"trained retnet-1.3b served: {json.dumps(rec)}")
+    del eng
+    return rec
+
+
+def train_reduced_vs_cpu(arch: str) -> dict:
+    """Reduced ``arch`` on the card against the port on the CPU, same
+    weights and batch (S TRAIN_REDUCED_SEQ): the loss at 1e-4 and every
+    gradient at 1e-4 of its leaf's max (f32 masters), launches exact."""
+    cfg = configs.get_config(arch).reduced()
+    cpu = lm.init(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = train_batches(cfg, TRAIN_REDUCED_SEQ, 1)[0]
+    opts = ts.TrainOptions()
+    for m in (cpu, card):
+        lm.set_trainable(m)
+    hopper.reset_launches()
+    loss_c, _, g_c = ts.gradients(card, batch, cfg, HSAEngine(), opts)
+    if dict(hopper.LAUNCHES) != train_launches(cfg, TRAIN_REDUCED_SEQ):
+        raise RuntimeError(f"reduced {arch} train: launches {dict(hopper.LAUNCHES)}")
+    loss_h, _, g_h = ts.gradients(cpu, {k: v.cpu() for k, v in batch.items()}, cfg,
+                                  HSAEngine(), opts)
+    rel = abs(loss_c.item() - loss_h.item()) / abs(loss_h.item())
+    if rel > 1e-4:
+        raise RuntimeError(f"reduced {arch} train: loss {loss_c.item()} against the CPU's "
+                           f"{loss_h.item()}")
+    worst, at = _grad_diff(f"reduced {arch} train", {n: g.cpu() for n, g in g_c.items()},
+                           g_h, 1e-4)
+    log(f"reduced {arch} training, card against CPU: loss rel err {rel:.3e}, gradients "
+        f"{worst:.3e} of max")
+    return {f"reduced {arch} train": dict(loss_rel_err=rel, grad_rel_err=worst, worst_leaf=at,
+                                          seq=TRAIN_REDUCED_SEQ)}
+
+
+def train_checkpoint_round_trip() -> dict:
+    """Reduced retnet with bf16 masters on the card: two steps, a save
+    (async), a third step; a fresh state restored from the save takes the
+    same third step to a bit-equal loss, and its tensors equal the saved
+    ones bit for bit (bf16 kept)."""
+    import tempfile
+    cfg = dataclasses.replace(configs.get_config("retnet-1.3b").reduced(), param_dtype="bfloat16")
+    opt, opts = adamw.AdamWConfig(**TRAIN_OPT), ts.TrainOptions()
+    step = ts.train_step_fn(cfg, HSAEngine(), opt, opts)
+    batches = train_batches(cfg, TRAIN_REDUCED_SEQ, 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = ckpt_lib.CheckpointManager(tmp, keep_n=2)
+        state = ts.init_state(cfg, opt, opts, seed=0, device="cuda")
+        for i in range(2):
+            state, _ = step(state, batches[i])
+        mgr.save(1, ts.state_tensors(state), blocking=False)
+        saved = {n: t.clone() for n, t in ts.state_tensors(state).items()}
+        _, m3 = step(state, batches[2])
+        fresh = ts.init_state(cfg, opt, opts, seed=1, device="cuda")
+        _, manifest = mgr.restore(ts.state_tensors(fresh))
+        same = all(torch.equal(t, saved[n]) for n, t in ts.state_tensors(fresh).items())
+        _, r3 = step(fresh, batches[2])
+        if manifest["step"] != 1 or not same or not torch.equal(m3["loss"], r3["loss"]):
+            raise RuntimeError(f"checkpoint round trip: step {manifest['step']}, tensors "
+                               f"equal {same}, losses {m3['loss']} / {r3['loss']}")
+    log(f"checkpoint round trip (reduced retnet, bf16): resumed loss {r3['loss'].item()} "
+        "bit-equal")
+    return {"checkpoint round trip": dict(bit_equal=True, tensors=len(saved),
+                                          loss=r3["loss"].item())}
+
+
+def train_phase(card: str) -> tuple[dict, dict]:
+    """Phase 4b: both training paths at full width, then the reduced models
+    against the CPU and the checkpoint round trip."""
+    t0 = time.perf_counter()
+    by_path, results = {}, {}
+    for tp in TRAIN_PATHS:
+        counted, out = train_full_width(tp, card)
+        by_path[f"{tp['arch']} train"] = counted
+        results.update(out)
+    for arch in ("retnet-1.3b", "internlm2-1.8b"):
+        results.update(train_reduced_vs_cpu(arch))
+    results.update(train_checkpoint_round_trip())
+    log(f"training phase: {time.perf_counter() - t0:.1f} s")
+    return by_path, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need the card",
@@ -3948,6 +4480,8 @@ def main() -> int:
                   "rtol=atol=1e-6"),
         summarize("mxint4_expert_matmul", kernel_phase_mxint4_expert(peaks), "per_step",
                   "rtol=atol=1e-5"),
+        summarize("retention_chunkwise_bwd", kernel_phase_retention_bwd(peaks), "per_step",
+                  "1e-4 of max|plain| (autograd of the plain version)"),
     ]
     for e in entries:
         for r in e["shapes"]:
@@ -3973,6 +4507,8 @@ def main() -> int:
 
     serving, by_path, admitted, scheduled, prefixed, speculated = {}, {}, {}, {}, {}, {}
     serving["selective_scan"] = scan
+    trained, training = train_phase(smi)
+    serving.update(training)
     for path in PATHS:
         (by_path[path["arch"]], admitted[path["arch"]], scheduled[path["arch"]],
          prefixed[path["arch"]], speculated[path["arch"]], results) = serve_full_width(path,
@@ -3984,6 +4520,7 @@ def main() -> int:
     by_path[DS3_MTP["arch"]] = counted
     for phase in (admitted, scheduled, prefixed, speculated):
         phase[DS3_MTP["arch"]] = dict.fromkeys(hopper.COUNTERS, 0)
+    by_path.update(trained)
     serving.update(results)
     t0 = time.perf_counter()
     for path in PATHS + (DS3_MOE,):

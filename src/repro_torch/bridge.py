@@ -21,6 +21,14 @@ linear's ``shape`` keeps the tree's ``[K, N]``).  A MoE layer's ``moe``
 subtree gives its router (a linear), its expert stacks (``experts.{wg, wi,
 wo}``, or deployed ``experts.{wg, wi, wo}_mx.{packed, exps}``) and its
 shared experts (an MLP).
+
+Training: `flat_tree` names every leaf of a tree shaped like the params (the
+params, the optimizer's moments, a gradient or residual tree) by the port's
+master names (`lm.train_leaves`: ``blocks.<i>.ret.wq.w``, ``final_norm.g``,
+...), cutting the stacked leaves per layer; `train_state_from_tree` carries
+the reference's train state (``params``, ``opt.{m, v, step}`` and
+``residuals``) into the port's (`runtime.train_step.init_state`'s layout),
+and `grads_from_tree` a gradient tree.
 """
 
 from __future__ import annotations
@@ -165,3 +173,60 @@ def model_from_tree(cfg: ModelConfig, tree: dict, device="cpu") -> lm.LM:
                  _norm(tree["final_norm"], device),
                  _linear(tree["lm_head"], device), mtp,
                  enc_blocks=enc_blocks, enc_final_norm=enc_norm)
+
+
+def _walk(tree, prefix: str):
+    """(dotted path, leaf) of every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, f"{prefix}.{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def flat_tree(cfg: ModelConfig, tree: dict) -> dict[str, np.ndarray]:
+    """A params-shaped tree -> ``{port master name: array}``: each stacked
+    ``[L, ...]`` leaf of a layer group cut into its layers, numbered as the
+    port's `LM.blocks` (decoder groups in order) or ``enc_blocks``."""
+    out, at, groups = {}, 0, lm.layer_groups(cfg)
+    for gname, count, kind in groups:
+        base, prefix = (0, "enc_blocks") if kind == "enc" else (at, "blocks")
+        for path, leaf in _walk(tree[gname], ""):
+            for i in range(count):
+                out[f"{prefix}.{base + i}.{path}"] = np.asarray(leaf)[i]
+        at += 0 if kind == "enc" else count
+    names = {g for g, _, _ in groups}
+    for key, sub in tree.items():
+        if key not in names:
+            out.update(_walk(sub, key))
+    return out
+
+
+def _named(cfg: ModelConfig, tree: dict, like: dict, device) -> dict[str, torch.Tensor]:
+    flat = flat_tree(cfg, tree)
+    if set(flat) != set(like):
+        raise ValueError(f"tree and model masters differ: {sorted(set(flat) ^ set(like))[:8]}")
+    return {n: to_tensor(flat[n], device) for n in like}
+
+
+def grads_from_tree(cfg: ModelConfig, grads: dict, device="cpu") -> dict[str, torch.Tensor]:
+    """The reference's gradient tree -> gradients by the port's master names."""
+    return {n: to_tensor(a, device) for n, a in flat_tree(cfg, grads).items()}
+
+
+def train_state_from_tree(cfg: ModelConfig, state: dict, device="cpu") -> dict:
+    """The reference's train state ``{"params", "opt": {"m", "v", "step"}[,
+    "residuals"]}`` (numpy trees) -> the port's ``{"model", "opt"[,
+    "residuals"]}``, the model's masters trainable and the moments keyed
+    by master name in `lm.train_leaves` order."""
+    model = model_from_tree(cfg, state["params"], device)
+    leaves = lm.set_trainable(model)
+    opt = state["opt"]
+    out = {"model": model,
+           "opt": {"m": _named(cfg, opt["m"], leaves, device),
+                   "v": _named(cfg, opt["v"], leaves, device),
+                   "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                                        device=device)}}
+    if "residuals" in state:
+        out["residuals"] = _named(cfg, state["residuals"], leaves, device)
+    return out

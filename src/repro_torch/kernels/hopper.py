@@ -39,7 +39,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("mxint4_matmul", "w8a8_matmul", "retention_chunkwise", "flash_decode",
-           "rmsnorm_stats")
+           "rmsnorm_stats", "retention_chunkwise_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -220,6 +220,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "retention_chunkwise":
         fn = lib.retention_chunkwise_launch
         fn.argtypes = [_P] * 11
+    elif name == "retention_chunkwise_bwd":
+        fn = lib.retention_chunkwise_bwd_launch
+        fn.argtypes = [_P] * 17
     elif name == "flash_decode":
         fn = lib.flash_decode_launch
         fn.argtypes = [_P] * 9 + [_I] * 17 + [_F, _I, _P]
@@ -563,6 +566,80 @@ def retention_chunkwise(q, k, v, gamma, state, chunk: int):
     _raise_if(err, "retention_chunkwise")
     LAUNCHES["retention_chunkwise"] += 1
     return y.permute(0, 2, 1, 3), st
+
+
+# Backward of chunkwise retention (csrc/retention_chunkwise_bwd.cu): three
+# launches, one count.  The host sizes its scratch: the recomputed incoming
+# states and the outgoing states' cotangents, and the decayed scores P and dP.
+@functools.lru_cache(maxsize=None)
+def retention_bwd_plan(bh: int, s: int, dk: int, dv: int, chunk: int) -> dict:
+    """Scratch of one backward launch: ``s_floats`` for each of the two state
+    scratches (``[BH, N, dk, dv]``) and ``p_floats`` for each of P and dP
+    (``[BH, N, chunk, ldp]``); both grow linearly in ``s``.  Raises on a
+    shape the kernel does not take, as `retention_plan` does.  Plans are
+    cached; callers must not modify the dict."""
+    fwd = retention_plan(bh, s, dk, dv, chunk)
+    n, ldp = fwd["n_chunks"], fwd["ldp"]
+    return dict(n_chunks=n, ldp=ldp, s_floats=bh * n * dk * dv, p_floats=bh * n * chunk * ldp)
+
+
+def retention_bwd_flops(b: int, h: int, s: int, dk: int, dv: int, chunk: int,
+                        warm: bool, final_cotangent: bool, need_dstate: bool) -> int:
+    """The multiply-adds (x 2) the backward needs at one shape: P and dP and
+    the intra-chunk products over the pairs i >= t of every chunk, and the
+    state products where their operands are not zero: the recomputed states
+    S_1..S_{N-1} (and the cross term of dQ) beyond a zero initial state, dS_j
+    for the chunks whose cotangent reaches back (dS_0 only when asked for),
+    and dK's and dV's state terms where dS_{j+1} is not zero."""
+    n, pairs, mat = s // chunk, chunk * (chunk + 1) // 2, chunk * dk * dv
+    intra = n * 2 * pairs * (3 * dk + 2 * dv)        # P, dP; dQ, dK, dV within chunks
+    states = 2 * (n - 1) + int(need_dstate)          # S_1..S_{N-1}; dS_{N-1}..dS_1 (, dS_0)
+    cross = (n - 1 + int(warm)) + 2 * (n - 1 + int(final_cotangent))
+    return b * h * (intra + 2 * mat * (states + cross))
+
+
+def retention_chunkwise_bwd(q, k, v, gamma, state, dy, dstate, chunk: int,
+                            need_dstate: bool):
+    """Gradient of `retention_chunkwise`: q, k, v, gamma, state as the forward
+    took them, dy f32 ``[B, H, S, dv]`` (any view with a unit last stride and
+    16-byte rows; another layout is copied contiguous) and dstate, the final
+    state's cotangent ``[B, H, dk, dv]`` or None (zero) -> (dq, dk, dv, each a
+    ``[B, H, S, d]`` view of a ``[B, S, H, d]`` buffer, and the initial
+    state's cotangent, or None unless ``need_dstate``)."""
+    for t in (q, k, v, gamma, dy) + tuple(x for x in (state, dstate) if x is not None):
+        if not t.is_cuda:
+            raise ValueError(f"retention_chunkwise_bwd: expected CUDA tensors, got {t.device}")
+    _, ptrs, dims = retention_dims(q, k, v, gamma, state, chunk)
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    try:
+        gs = check_retention_operand("dy", dy, (b, h, s, dv))
+    except ValueError:
+        dy = dy.contiguous()
+        gs = check_retention_operand("dy", dy, (b, h, s, dv))
+    if dstate is not None:
+        dstate = dstate.contiguous()
+        _check("dstate", dstate, torch.float32, (b, h, dk, dv), 16)
+    plan = retention_bwd_plan(b * h, s, dk, dv, chunk)
+    lib = _lib("retention_chunkwise_bwd")
+    grads = [torch.empty(b, s, h, d, dtype=torch.float32, device=q.device)
+             for d in (dk, dk, dv)]
+    ds0 = torch.empty(b, h, dk, dv, dtype=torch.float32, device=q.device) if need_dstate else None
+    sf, pf = plan["s_floats"], plan["p_floats"]
+    scratch = torch.empty(2 * sf + 2 * pf, dtype=torch.float32, device=q.device)
+    base = scratch.data_ptr()
+    out_strides = tuple(st for g in grads for st in (s * h * g.shape[-1], g.shape[-1],
+                                                     h * g.shape[-1]))
+    all_dims = dims[:16] + gs + out_strides
+    err = lib.retention_chunkwise_bwd_launch(
+        *ptrs, dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+        *(g.data_ptr() for g in grads), None if ds0 is None else ds0.data_ptr(),
+        base, base + 4 * sf, base + 8 * sf, base + 8 * sf + 4 * pf,
+        (ctypes.c_longlong * len(all_dims))(*all_dims), _stream())
+    _raise_if(err, "retention_chunkwise_bwd")
+    LAUNCHES["retention_chunkwise_bwd"] += 1
+    dq, dk_, dv_ = (g.permute(0, 2, 1, 3) for g in grads)
+    return dq, dk_, dv_, ds0
 
 
 # Cache formats `flash_decode` takes, by name, with the kernel's code for each

@@ -135,16 +135,51 @@ def retention_chunkwise(q, k, v, gamma, *, chunk: int = 128, state=None,
     raises on a layout it does not take) and returns y as a ``[B, H, S, dv]``
     view of a ``[B, S, H, dv]`` buffer, so transposing it back is free.
     Inputs that are not f32 are cast (the model's are f32).
+
+    Where grad is enabled and an input requires it, a CUDA call runs through
+    `RetentionChunkwise`, whose backward is the hand-written backward kernel;
+    on the CPU autograd differentiates the plain version.
     """
     if not use_kernel(impl, q):
         return _ref.retention_chunkwise_ref(q, k, v, gamma, chunk=chunk,
                                             state=state)
     from repro_torch.kernels import hopper
     f32 = torch.float32
-    y, st = hopper.retention_chunkwise(
-        q.to(f32), k.to(f32), v.to(f32), gamma.to(f32),
-        None if state is None else state.to(f32), chunk)
+    args = (q.to(f32), k.to(f32), v.to(f32), gamma.to(f32),
+            None if state is None else state.to(f32))
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        y, st = RetentionChunkwise.apply(*args, chunk)
+    else:
+        y, st = hopper.retention_chunkwise(*args, chunk)
     return y.to(v.dtype), st
+
+
+class RetentionChunkwise(torch.autograd.Function):
+    """Chunkwise retention on the card with its gradient: the forward kernel
+    (`hopper.retention_chunkwise`), and for the backward the backward kernel
+    (`hopper.retention_chunkwise_bwd`) on the saved inputs.  Cotangents reach
+    q, k, v and the initial state (a warm state, or the state a previous
+    launch carried); gamma takes none.  A missing cotangent of the final
+    state is zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gamma, state, chunk: int):
+        from repro_torch.kernels import hopper
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, gamma, state)
+        ctx.chunk = chunk
+        return hopper.retention_chunkwise(q, k, v, gamma, state, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        from repro_torch.kernels import hopper
+        q, k, v, gamma, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        dq, dk, dv, ds0 = hopper.retention_chunkwise_bwd(
+            q, k, v, gamma, state, dy, dstate, ctx.chunk,
+            need_dstate=ctx.needs_input_grad[4])
+        return dq, dk, dv, None, ds0, None
 
 
 def _cache_parts(leaf) -> tuple[tuple, str]:

@@ -58,6 +58,23 @@ def retention_chunkwise_ref(q, k, v, gamma, chunk=128, state=None):
     return ret.retention_chunkwise(q, k, v, gamma, chunk=chunk, state=state)
 
 
+def retention_chunkwise_bwd_ref(q, k, v, gamma, state, dy, dstate, chunk=128):
+    """The backward kernel's function: ``torch.autograd.grad`` of
+    `retention_chunkwise_ref` at (q, k, v, state) against the cotangents dy
+    and dstate (None: zero) -> (dq, dk, dv, dstate0; dstate0 None without a
+    state)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        st = None if state is None else state.detach().requires_grad_(True)
+        y, s_out = retention_chunkwise_ref(*ins, gamma, chunk=chunk, state=st)
+        outs, cots = [y], [dy]
+        if dstate is not None:
+            outs.append(s_out)
+            cots.append(dstate)
+        grads = torch.autograd.grad(outs, ins + ([st] if st is not None else []), cots)
+    return (*grads[:3], grads[3] if st is not None else None)
+
+
 def rmsnorm_stats_ref(y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """sigma^{-1} per row of ``[M, D]`` (the fused-RMSNorm producer) -> f32 [M]."""
     return fr.rms_sigma_inv(y, eps)

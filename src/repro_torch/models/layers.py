@@ -10,7 +10,8 @@ Attention keeps the reference's GQA layout: head ``h`` belongs to kv head
 and K/V caches are ``[B, C, KV, hd]`` leaves, plain tensors or kvq-encoded
 dicts.  Decode attention is the flash-decode kernel; prefill attention
 (monolithic and chunked) is the reference's online-softmax forward in plain
-PyTorch (it is no Pallas kernel there either).  Chunked prefill
+PyTorch (it is no Pallas kernel there either), and training's its flash
+backward (`FlashAttention`).  Chunked prefill
 (`gqa_chunk`, `mla_chunk`) appends a chunk's rows into a warm cache at the
 device position and attends over the resident prefix.  A sliding-window cache
 (hymba) is a ring of ``window`` slots keyed by ``pos % window``.
@@ -74,7 +75,7 @@ def norm_full(p: Norm, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Flash attention (forward only: online softmax over KV chunks)
+# Flash attention: online softmax over KV chunks, with the flash backward
 # ---------------------------------------------------------------------------
 
 
@@ -102,57 +103,149 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     is computed on the device and nothing is read back.  The scale is a
     device scalar made once per (hd, device) (`_attn_scale`), so a captured
     step copies nothing to the card.
+
+    With grad enabled and an input that requires it, the tile loop runs
+    inside `FlashAttention`, whose backward is the reference's `_flash_bwd`
+    (P recomputed per tile from the saved log-sum-exp); otherwise it runs
+    as it is, without the log-sum-exp.
     """
     b, sq, kv_h, g, hd = q.shape
-    sk, dv = k.shape[1], v.shape[-1]
-    windowed = not (isinstance(window, int) and window == 0)
-    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
-    pq, pk = (-sq) % q_chunk, (-sk) % kv_chunk
+    sk = k.shape[1]
+    mask = _FlashMask(causal, not (isinstance(window, int) and window == 0), window,
+                      q_offset, min(q_chunk, sq), min(kv_chunk, sk))
+    pq, pk = (-sq) % mask.q_chunk, (-sk) % mask.kv_chunk
     f32 = torch.float32
-    qs = torch.nn.functional.pad(q.to(f32) * _attn_scale(hd, q.device),
-                                 (0, 0, 0, 0, 0, 0, 0, pq))
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    # Autograd saves the scale, and the cached one may have been made under
+    # inference mode (a served step's), which autograd refuses: a graph it
+    # records makes its own, the same value.
+    scale = _make_scale(hd, q.device) if grad else _attn_scale(hd, q.device)
+    qs = torch.nn.functional.pad(q.to(f32) * scale, (0, 0, 0, 0, 0, 0, 0, pq))
     kf = torch.nn.functional.pad(k.to(f32), (0, 0, 0, 0, 0, pk))
     vf = torch.nn.functional.pad(v.to(f32), (0, 0, 0, 0, 0, pk))
     if kv_len is None:
         kv_len = sk + k_offset
     k_pos = _lanes(k_offset) + torch.arange(sk + pk, device=q.device)   # [K] or [B, K]
     k_valid = (k_pos >= 0) & (k_pos < _lanes(kv_len))
-    outs = []
-    for q0 in range(0, sq + pq, q_chunk):
-        q_blk = qs[:, q0:q0 + q_chunk]
-        q_pos = (_lanes(q_offset) + q0 + torch.arange(q_chunk, device=q.device))[..., :, None]
-        m = torch.full((b, kv_h, g, q_chunk), -torch.inf, dtype=f32, device=q.device)
+    if grad:
+        out = FlashAttention.apply(qs, kf, vf, k_pos, k_valid, mask)
+    else:
+        out = _flash_fwd(qs, kf, vf, k_pos, k_valid, mask)[0]
+    return out[:, :sq].to(v.dtype)
+
+
+class _FlashMask:
+    """The positional mask of one flash-attention call and its chunking."""
+
+    def __init__(self, causal, windowed, window, q_offset, q_chunk, kv_chunk):
+        self.causal, self.windowed, self.window = causal, windowed, window
+        self.q_offset, self.q_chunk, self.kv_chunk = q_offset, q_chunk, kv_chunk
+
+    def q_pos(self, q0: int, device) -> torch.Tensor:
+        return (_lanes(self.q_offset) + q0
+                + torch.arange(self.q_chunk, device=device))[..., :, None]
+
+    def tile(self, q_pos, k_pos, k_valid, k0: int) -> torch.Tensor:
+        """Valid (query, key) pairs of the tile at key ``k0``, broadcast
+        against the scores ``[B, KV, G, q_chunk, kv_chunk]``."""
+        kp = k_pos[..., None, k0:k0 + self.kv_chunk]
+        mask = k_valid[..., None, k0:k0 + self.kv_chunk]
+        if self.causal:
+            mask = mask & (q_pos >= kp)
+        if self.windowed:
+            mask = mask & (q_pos - kp < _lanes(self.window, 3))
+        if mask.ndim == 3:                             # one mask per lane
+            mask = mask[:, None, None]
+        return mask
+
+
+def _flash_fwd(qs, kf, vf, k_pos, k_valid, mask: _FlashMask, lse: bool = False):
+    """The online-softmax tile loop on the padded, pre-scaled f32 operands
+    -> (out ``[B, Sq, KV, G, dv]`` f32, and with ``lse`` the log-sum-exp
+    ``[B, KV, G, Sq]``, else None)."""
+    b, sqp, kv_h, g, _ = qs.shape
+    skp, dv = kf.shape[1], vf.shape[-1]
+    f32 = torch.float32
+    outs, lses = [], []
+    for q0 in range(0, sqp, mask.q_chunk):
+        q_blk = qs[:, q0:q0 + mask.q_chunk]
+        q_pos = mask.q_pos(q0, qs.device)
+        m = torch.full((b, kv_h, g, mask.q_chunk), -torch.inf, dtype=f32, device=qs.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros(b, kv_h, g, q_chunk, dv, dtype=f32, device=q.device)
-        for k0 in range(0, sk + pk, kv_chunk):
-            kp = k_pos[..., None, k0:k0 + kv_chunk]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kf[:, k0:k0 + kv_chunk])
-            mask = k_valid[..., None, k0:k0 + kv_chunk]
-            if causal:
-                mask = mask & (q_pos >= kp)
-            if windowed:
-                mask = mask & (q_pos - kp < _lanes(window, 3))
-            if mask.ndim == 3:                             # one mask per lane
-                mask = mask[:, None, None]
-            s = s.masked_fill(~mask, -torch.inf)
+        acc = torch.zeros(b, kv_h, g, mask.q_chunk, dv, dtype=f32, device=qs.device)
+        for k0 in range(0, skp, mask.kv_chunk):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kf[:, k0:k0 + mask.kv_chunk])
+            s = s.masked_fill(~mask.tile(q_pos, k_pos, k_valid, k0), -torch.inf)
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
             p = torch.exp(s - m_safe[..., None])
             corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe, -torch.inf))
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p, vf[:, k0:k0 + kv_chunk])
+                "bhgqk,bkhd->bhgqd", p, vf[:, k0:k0 + mask.kv_chunk])
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))          # [B, qc, KV, G, dv]
-    return torch.cat(outs, dim=1)[:, :sq].to(v.dtype)
+        if lse:
+            m_safe = torch.where(torch.isfinite(m), m, 0.0)
+            lses.append(m_safe + torch.log(torch.clamp(l, min=1e-30)))
+    return torch.cat(outs, dim=1), (torch.cat(lses, dim=-1) if lse else None)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP (`_flash_fwd` /
+    `_flash_bwd`): the forward keeps only the output and the log-sum-exp,
+    and the backward recomputes P tile by tile from them, so no score or
+    mask tensor of the whole sequence is saved.  Its inputs are the padded,
+    pre-scaled f32 operands; the key positions and the mask take no
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, qs, kf, vf, k_pos, k_valid, mask: _FlashMask):
+        out, lse = _flash_fwd(qs, kf, vf, k_pos, k_valid, mask, lse=True)
+        ctx.save_for_backward(qs, kf, vf, k_pos, k_valid, out, lse)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qs, kf, vf, k_pos, k_valid, out, lse = ctx.saved_tensors
+        mask = ctx.mask
+        qc, kc = mask.q_chunk, mask.kv_chunk
+        dout = dout.to(torch.float32)
+        delta = torch.einsum("bqhgd,bqhgd->bhgq", dout, out)     # rowsum(dout * out)
+        dq = torch.zeros_like(qs)
+        dk = torch.zeros_like(kf)
+        dv = torch.zeros_like(vf)
+        for q0 in range(0, qs.shape[1], qc):
+            q_blk, do_blk = qs[:, q0:q0 + qc], dout[:, q0:q0 + qc]
+            lse_blk, dl_blk = lse[..., q0:q0 + qc, None], delta[..., q0:q0 + qc, None]
+            q_pos = mask.q_pos(q0, qs.device)
+            dq_blk = torch.zeros_like(q_blk)
+            for k0 in range(0, kf.shape[1], kc):
+                k_blk, v_blk = kf[:, k0:k0 + kc], vf[:, k0:k0 + kc]
+                s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk)
+                p = torch.where(mask.tile(q_pos, k_pos, k_valid, k0),
+                                torch.exp(s - lse_blk), 0.0)
+                dp = torch.einsum("bqhgd,bkhd->bhgqk", do_blk, v_blk)
+                ds = p * (dp - dl_blk)
+                dq_blk = dq_blk + torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk)
+                dk[:, k0:k0 + kc] += torch.einsum("bhgqk,bqhgd->bkhd", ds, q_blk)
+                dv[:, k0:k0 + kc] += torch.einsum("bhgqk,bqhgd->bkhd", p, do_blk)
+            dq[:, q0:q0 + qc] = dq_blk
+        return dq, dk, dv, None, None, None
+
+
+def _make_scale(hd: int, device: torch.device) -> torch.Tensor:
+    """``1 / sqrt(hd)`` in f32, as an f32 scalar on ``device``."""
+    return 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=device))
 
 
 @functools.lru_cache(maxsize=None)
 def _attn_scale(hd: int, device: torch.device) -> torch.Tensor:
-    """``1 / sqrt(hd)`` in f32, as an f32 scalar on ``device``, computed once
-    (a captured step must not copy it there).  Callers must not modify it."""
-    return 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=device))
+    """`_make_scale`, computed once (a captured step must not copy it to the
+    card).  Callers must not modify it."""
+    return _make_scale(hd, device)
 
 
 def _lanes(t, ndim: int = 2):

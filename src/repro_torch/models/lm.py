@@ -15,6 +15,10 @@ back to the param dtype after every block, as the scan carry is there.
     forward_decode        — one token with the warm cache (MVM phase)
     mtp_decode_step       — one depth step of deepseek-v3's multi-token-
                             prediction head (the speculative MTP drafter)
+    forward_train         — teacher-forced loss over the padded vocab, each
+                            block rematerialized in backward (retnet and
+                            the dense family; `train_leaves` names the
+                            masters a step updates)
 
 and the shared-prefix helpers `serving/paging.py` builds on
 (`prefix_sharing_mode`, `slice_cache_rows`, `assemble_prefix_cache`).
@@ -79,6 +83,7 @@ import functools
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.core import kvq
 from repro_torch.core import online_rope as orp
@@ -639,6 +644,121 @@ def forward_prefill(model: LM, tokens: torch.Tensor, cfg: ModelConfig,
     if return_hidden:
         return logits, caches, last[:, 0]
     return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+# The families `forward_train` ports (ROADMAP A13); the rest wait for A13b.
+TRAIN_FAMILIES = ("retnet", "dense")
+
+
+def check_train(cfg: ModelConfig) -> None:
+    """Raise, naming ROADMAP A13b, unless `forward_train` ports ``cfg``:
+    retnet and the dense family (RMSNorm or LayerNorm GQA, no frontend),
+    without deepseek-v3's multi-token-prediction loss."""
+    missing = [what for what, present in (
+        (f"family {cfg.family!r}", cfg.family not in TRAIN_FAMILIES),
+        ("the MTP loss", cfg.mtp), (f"frontend {cfg.frontend!r}", cfg.frontend is not None),
+        ("absolute position embeddings", cfg.abs_pos_embed),
+        (f"attn_type {cfg.attn_type!r}", cfg.attn_type not in ("gqa", "retention")))
+        if present]
+    if missing:
+        raise NotImplementedError(f"forward_train: {cfg.name}: {', '.join(missing)} not "
+                                  "ported yet (ROADMAP A13b); repro_torch trains retnet "
+                                  "and the dense family")
+    _check_family(cfg)
+
+
+def train_leaves(model: LM) -> dict[str, torch.Tensor]:
+    """Every master tensor of ``model`` by name: the embedding, each
+    linear's ``w`` and bias ``b``, each norm's gain ``g`` (and LayerNorm
+    bias ``b``).  Names follow the modules (``blocks.<i>.ret.wq.w``,
+    ``final_norm.g``, ``lm_head.w``), which mirror the reference's tree with
+    its stacked ``[L, ...]`` block leaves cut per layer.  Deployed buffers
+    are no masters and never appear; a deployed model raises."""
+    if not deploy.is_master(model):
+        raise ValueError("train_leaves: the model is deployed; training needs its masters")
+    out = dict(model.named_parameters())
+    for name, mod in model.named_modules():
+        if isinstance(mod, Linear) and mod.b is not None:
+            out[f"{name}.b"] = mod.b
+    return out
+
+
+def leaf_key(name: str) -> str:
+    """The reference leaf a master belongs to: a block tensor's name with its
+    layer index dropped (``blocks.3.ret.wq.w`` -> ``blocks.ret.wq.w``), since
+    the reference stacks a group's layers into one ``[L, ...]`` leaf; any
+    other master is its own leaf.  The optimizer and the compressor take
+    this grouping as a ``{master: leaf}`` map (`leaf_groups`)."""
+    parts = name.split(".")
+    if parts[0] in ("blocks", "enc_blocks") and len(parts) > 2:
+        return ".".join(parts[:1] + parts[2:])
+    return name
+
+
+def leaf_groups(names) -> dict[str, str]:
+    """``{master name: its reference leaf}`` (`leaf_key`) for ``names``."""
+    return {n: leaf_key(n) for n in names}
+
+
+def set_trainable(model: LM, trainable: bool = True) -> dict[str, torch.Tensor]:
+    """Make every master of ``model`` a leaf that takes a gradient, or, with
+    ``trainable=False``, none (their gradients dropped); returns them by
+    name (`train_leaves`)."""
+    leaves = train_leaves(model)
+    for t in leaves.values():
+        t.requires_grad_(trainable)
+        if not trainable:
+            t.grad = None
+    return leaves
+
+
+def _train_block(p, x, cfg, engine, sin, cos):
+    return _block_apply(p, x, cfg, engine, "train", sin, cos)[0].to(x.dtype)
+
+
+def forward_train(model: LM, batch: dict, cfg: ModelConfig, engine: HSAEngine
+                  ) -> tuple[torch.Tensor, dict]:
+    """Teacher-forced loss: batch ``tokens`` / ``labels`` [B, S] -> (loss +
+    aux, {"loss", "aux_loss", "tokens"}), as the reference's.
+
+    Every linear runs its f32 master product (the train phase), RetNet's
+    retention the chunkwise kernel with its backward kernel on the card
+    (`ops.RetentionChunkwise`), dense attention `layers.FlashAttention`.
+    Each block runs under non-reentrant ``torch.utils.checkpoint``, the
+    counterpart of the reference's ``jax.checkpoint(nothing_saveable)``:
+    its activations are recomputed in backward, so the forward of every
+    block runs twice a step.  The
+    embedding is ``F.embedding``, whose CUDA backward sums each row's
+    cotangents in a fixed order (an indexed gather's backward accumulates
+    with atomics).  There is no auxiliary loss in these families (0)."""
+    check_train(cfg)
+    tokens = batch["tokens"]
+    x = torch.nn.functional.embedding(tokens, model.embed)
+    sin, cos = _rope_tables(cfg, tokens.shape[1], x.device)
+    for blk in model.blocks:
+        x = _checkpoint.checkpoint(_train_block, blk, x, cfg, engine, sin, cos,
+                                   use_reentrant=False)
+    h = L.norm_full(model.final_norm, x)
+    logits = engine.linear(model.lm_head, h, "train")
+    loss, n_tok = _xent(logits, batch["labels"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": n_tok}
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig):
+    """Mean next-token cross-entropy over the padded vocab, labels below 0
+    masked -> (loss, number of counted tokens), as the reference's."""
+    mask = labels >= 0
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = torch.where(mask, lse - gold, 0.0)
+    n = mask.sum().clamp(min=1)
+    return nll.sum() / n, n
 
 
 def _block_chunk(p, x, cfg, engine, cache, pos: torch.Tensor, sin, cos,

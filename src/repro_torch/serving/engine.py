@@ -534,13 +534,20 @@ class InferenceEngine:
 
     @classmethod
     def from_config(cls, cfg: ModelConfig | str, spec: EngineSpec = EngineSpec(),
-                    *, model: lm.LM | None = None, device="cuda",
+                    *, model: lm.LM | dict | None = None, device="cuda",
                     obs: Observability | None = None) -> "InferenceEngine":
         """Build the serving stack: init (or adopt) a model, PTQ-deploy it in
         place when ``spec.quantize`` and it still has master weights, and
         wire the HSA engine.  A model it inits is deployed block by block as
         it is drawn (`lm.init` with ``deployed``): the same bytes, with at
         most one block's masters on the device at a time.
+
+        ``model`` may be a trained one: an `lm.LM` whose masters take
+        gradients, or a train state (`runtime.train_step.init_state`), whose
+        optimizer moments and residuals are dropped from it first.  Its
+        masters are detached (no gradient, none kept) before deploying, so
+        serving holds no autograd state and the same bytes as a fresh model
+        of those weights.
 
         ``device`` defaults to the card; the CPU runs only when asked for.
         """
@@ -553,8 +560,14 @@ class InferenceEngine:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                                "plain PyTorch path on the CPU")
+        if isinstance(model, dict):              # a train state: free the optimizer's
+            for key in ("opt", "residuals"):
+                model.pop(key, None)
+            model = model["model"]
         if model is None:
             model = lm.init(cfg, seed=spec.seed, device=device, deployed=spec.quantize)
+        elif deploy.is_master(model):
+            lm.set_trainable(model, False)
         if spec.quantize and deploy.is_master(model):
             deploy.deploy_quantize(model)
         return cls(cfg, model, spec, obs=obs)

@@ -326,6 +326,97 @@ def test_retention_chunkwise_kernel_relaunch_bit_equal(b, h, s, dk, dv, chunk, w
         assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
+# (B, H, S, dk, dv, chunk, warm, final-state cotangent) of the backward
+# kernel: retnet-1.3b's training shape (zero state, no cotangent of the
+# final state), the warm tail of a 200-token sequence (72 rows from the
+# state the whole chunks carried), ragged tiles and chunks below 64, the
+# reduced model's widths, and many chunks.
+RETENTION_BWD_CASES = [
+    (2, 8, 512, 256, 512, 128, False, False), (2, 8, 72, 256, 512, 72, True, False),
+    (2, 8, 128, 256, 512, 128, True, True), (1, 2, 32, 16, 16, 8, True, True),
+    (2, 3, 64, 16, 24, 16, False, True), (1, 4, 96, 40, 72, 96, True, False),
+    (1, 3, 256, 48, 200, 64, True, True), (2, 4, 128, 32, 64, 128, False, False),
+    (2, 4, 72, 32, 64, 72, True, False), (1, 2, 1024, 16, 24, 16, True, True),
+    (1, 2, 13, 8, 12, 13, True, True),
+]
+
+
+def _bwd_inputs(b, h, s, dk, dv, warm, final):
+    q, k, v, st = _retention_inputs(b, h, s, dk, dv, warm, True)
+    rng = _gen(s + dk + dv + 1)
+    dy = _t(rng.normal(size=(b, h, s, dv)).astype(np.float32))
+    ds = _t(rng.normal(size=(b, h, dk, dv)).astype(np.float32) * 0.1) if final else None
+    return q, k, v, st, dy, ds
+
+
+def _rel_err(got, want):
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk,warm,final", RETENTION_BWD_CASES)
+def test_retention_chunkwise_bwd_kernel(b, h, s, dk, dv, chunk, warm, final):
+    """dq, dk, dv (and a warm state's cotangent) against autograd of the
+    plain version at 1e-4 of max|plain|, one count per call, and a relaunch
+    bit-equal (no atomics)."""
+    q, k, v, st, dy, ds = _bwd_inputs(b, h, s, dk, dv, warm, final)
+    gamma = ret.head_decays(h, device="cuda")
+    before = hopper.LAUNCHES["retention_chunkwise_bwd"]
+    got = hopper.retention_chunkwise_bwd(q, k, v, gamma, st, dy, ds, chunk, need_dstate=warm)
+    assert hopper.LAUNCHES["retention_chunkwise_bwd"] == before + 1
+    want = ref.retention_chunkwise_bwd_ref(q, k, v, gamma, st, dy, ds, chunk)
+    for name, g, w in zip(("dq", "dk", "dv", "dstate"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert _rel_err(g, w) < 1e-4, (name, _rel_err(g, w))
+    again = hopper.retention_chunkwise_bwd(q, k, v, gamma, st, dy, ds, chunk, need_dstate=warm)
+    for g, a in zip(got, again):
+        assert g is None or torch.equal(g, a)
+
+
+@pytest.mark.parametrize("s", [512, 200, 64])
+def test_retention_under_grad_runs_both_kernels(s):
+    """Under grad on CUDA tensors the op runs the forward kernel and, in
+    backward, the backward kernel (no plain fallback), and its gradients
+    match autograd of the plain version; with grad off the output is the
+    plain kernel call's, bit for bit.  The model's two-part split (whole
+    chunks, then the tail from the carried state) passes the tail's state
+    cotangent back into the head."""
+    b, h, dk, dv = 2, 4, 32, 64
+    q0, k0, v0, _ = _retention_inputs(b, h, s, dk, dv, False, True)
+    gamma = ret.head_decays(h, device="cuda")
+    dy = _t(_gen(s).normal(size=(b, h, s, dv)).astype(np.float32))
+
+    def run(impl):
+        q, k, v = (t.detach().clone().requires_grad_(True) for t in (q0, k0, v0))
+        whole, ys, state = s - s % 128, [], None
+        for lo, hi in ((0, whole), (whole, s)):
+            if hi > lo:
+                y, state = ops.retention_chunkwise(q[:, :, lo:hi], k[:, :, lo:hi],
+                                                   v[:, :, lo:hi], gamma, chunk=min(128, hi - lo),
+                                                   state=state, impl=impl)
+                ys.append(y)
+        torch.cat(ys, dim=2).backward(dy)
+        return torch.cat(ys, dim=2).detach(), [t.grad for t in (q, k, v)]
+
+    hopper.reset_launches()
+    y, grads = run("kernel")
+    parts = int(s >= 128) + int(s % 128 > 0)
+    assert hopper.LAUNCHES["retention_chunkwise"] == parts
+    assert hopper.LAUNCHES["retention_chunkwise_bwd"] == parts
+    y_r, grads_r = run("ref")
+    assert _rel_err(y, y_r) < 1e-4
+    for g, w in zip(grads, grads_r):
+        assert g is not None and _rel_err(g, w) < 1e-4
+    with torch.no_grad():
+        plain = ops.retention_chunkwise(q0[:, :, :128], k0[:, :, :128], v0[:, :, :128], gamma,
+                                        chunk=min(128, s), impl="kernel")[0]
+    q, k, v = (t.detach().requires_grad_(True) for t in (q0, k0, v0))
+    graded = ops.retention_chunkwise(q[:, :, :128], k[:, :, :128], v[:, :, :128], gamma,
+                                     chunk=min(128, s), impl="kernel")[0]
+    assert torch.equal(plain, graded.detach())
+
+
 @pytest.mark.parametrize("how", ["last_stride", "row_stride", "base", "chunk", "dk"])
 def test_retention_chunkwise_kernel_rejects_misaligned_views(how):
     b, h, s, dk, dv = 1, 2, 64, 16, 16

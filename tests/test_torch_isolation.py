@@ -23,15 +23,19 @@ print("BAD", bad)
 print("NEW", all(m in sys.modules for m in NEW_MODULES))
 """
 
-# Modules of the admission, serve-CLI, serving-stack and prefix-cache slices, which the
-# probe must reach.
+# Modules of the admission, serve-CLI, serving-stack, prefix-cache and training
+# slices, which the probe must reach.
 NEW_MODULES = ("repro_torch.launch.serve", "repro_torch.core.edge_model",
                "repro_torch.serving.engine", "repro_torch.serving.sampling",
                "repro_torch.serving.scheduler", "repro_torch.serving.frontend",
                "repro_torch.serving.loadgen", "repro_torch.serving.clock",
                "repro_torch.serving.paging", "repro_torch.serving.speculative",
                "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
-               "repro_torch.obs.profiler", "repro_torch.models.frontends")
+               "repro_torch.obs.profiler", "repro_torch.models.frontends",
+               "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+               "repro_torch.optim.compression", "repro_torch.runtime.train_step",
+               "repro_torch.runtime.checkpoint", "repro_torch.runtime.fault_tolerance",
+               "repro_torch.launch.train")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():

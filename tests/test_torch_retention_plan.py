@@ -143,3 +143,27 @@ def test_plain_version_on_model_views_matches_pallas(b, h, s, dk, dv, chunk):
                                         impl="ref")
     np.testing.assert_allclose(y.numpy(), np.asarray(y_want), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(s_out.numpy(), np.asarray(s_want), rtol=1e-4, atol=1e-4)
+
+
+def test_backward_plan_and_work_at_the_training_shape():
+    """The backward kernel's scratch (every chunk's incoming state and its
+    cotangent, P and dP) and the work it needs: 9.95 GFLOP at retnet-1.3b's
+    training shape from a zero state, more with a warm state, a final-state
+    cotangent or dS_0 asked for; shapes the kernel refuses raise."""
+    b, h, s, dk, dv, c = MAIN
+    assert hopper.retention_bwd_plan(b * h, s, dk, dv, c) == dict(
+        n_chunks=4, ldp=128, s_floats=16 * 4 * 256 * 512, p_floats=16 * 4 * 128 * 128)
+    base = hopper.retention_bwd_flops(b, h, s, dk, dv, c, False, False, False)
+    assert base == 9_946_791_936
+    state_product = 2 * b * h * c * dk * dv
+    assert hopper.retention_bwd_flops(b, h, s, dk, dv, c, True, False, False) == \
+        base + state_product
+    assert hopper.retention_bwd_flops(b, h, s, dk, dv, c, False, True, False) == \
+        base + 2 * state_product
+    assert hopper.retention_bwd_flops(b, h, s, dk, dv, c, False, False, True) == \
+        base + state_product
+    assert hopper.retention_bwd_plan(b * h, 72, dk, dv, 72)["ldp"] == 72
+    with pytest.raises(ValueError):
+        hopper.retention_bwd_plan(b * h, 200, dk, dv, 128)
+    with pytest.raises(ValueError):
+        hopper.retention_bwd_plan(b * h, 512, 2 * dk, dv, 128)
