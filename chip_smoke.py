@@ -38,11 +38,15 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    7168) and its LM head (N 64000), W8A8 at M 6144 (2 x 3072), flash-decode
    at G 7 (B 2, KV 8, d 128) over its C 3104 in f32, int8_tok and
    mxint4_blk and over the 4096 slots its bucketed prefill leaves;
-   the routed experts' GEMV (`mxint4_expert_matmul`) at olmoe's decode (A
-   16 rows) and verify (A 80) shapes and at deepseek-v3's MTP head step (A
-   16 rows of 256 experts, 7168 <-> 2048), its bound from the distinct
-   experts' bytes, beside the PyTorch gather + dequantize + bmm and the
-   reference's whole-stack dataflow (`kernel_phase_mxint4_expert`); MXINT4
+   the routed experts' GEMV (`mxint4_expert_matmul`: persistent blocks
+   that stream each distinct expert's MXINT4 bytes once, in 2-D TMA tiles
+   of 512 columns, for every row routed to it, K split for one wave) at
+   olmoe's decode (A 16 rows) and verify (A 80) shapes and at deepseek-v3's
+   MTP head step (A 16 rows of 256 experts, 7168 <-> 2048), its bound from
+   the distinct experts' bytes, per launch beside `time_ms`'s floor, each
+   row of olmoe's decode launches bit-equal to itself launched alone and
+   beside other routings, beside the PyTorch gather + dequantize + bmm and
+   the reference's whole-stack dataflow (`kernel_phase_mxint4_expert`); MXINT4
    also at the MTP head step's linears (M 2: proj 14336 -> 7168, MLA, the
    router at N 256, the shared expert, the LM head);
    retention on the model's strided views and the MLA mode, each bound by
@@ -452,8 +456,9 @@ DECODE_TOL = 0.1         # one decode step end to end from the same cache
 LOGIT_TOL = 2e-2         # reduced model, card kernels vs CPU plain path
 # Models whose random weights emit ids in the LM head's padding rows
 # (hymba-1.5b: 32001 padded to 32256; seamless-m4t-medium: 256206 padded to
-# 256256), which the reference samples too.
-PADDING_IDS = ("hymba-1.5b", "seamless-m4t-medium")
+# 256256; olmoe-1b-7b: 50304 padded to 50432, id 50384 in its admission
+# phase's resumed decode), which the reference samples too.
+PADDING_IDS = ("hymba-1.5b", "seamless-m4t-medium", "olmoe-1b-7b")
 # rmsnorm_stats where the served models take sigma^-1: (M, D, dtype, site),
 # the dtype being the one the site passes (ln1/ln2 see the bf16 residual
 # stream, q_norm and the per-head norms an f32 linear output), the other
@@ -713,6 +718,22 @@ def _expert_cases(path: dict):
             for k_, n_, c in ((d, f, 2), (f, d, 1))]
 
 
+def _expert_rows_isolated(name, got, x, packed, exps, ids, e: int) -> None:
+    """Each row of ``got`` (one expert GEMV launch) bit-equal to that row
+    launched alone, and to that row in a launch whose other rows all move
+    to other experts: a row's bits must not depend on the rest of the
+    launch (the scheduler's lane-isolation gates rest on it)."""
+    a = ids.numel()
+    for i in range(a):
+        alone = ops.mxint4_expert_matmul(x[i:i + 1], packed, exps, ids[i:i + 1],
+                                         impl="kernel")
+        moved = (ids + 1 + torch.arange(a, device="cuda") % (e - 1)) % e
+        moved[i] = ids[i]
+        others = ops.mxint4_expert_matmul(x, packed, exps, moved, impl="kernel")
+        if not (torch.equal(got[i], alone[0]) and torch.equal(got[i], others[i])):
+            raise RuntimeError(f"{name}: row {i} depends on the other rows of its launch")
+
+
 def kernel_phase_mxint4_expert(peaks):
     """`mxint4_expert_matmul` at the MoE paths' decode and verify shapes
     against its plain version, on experts chosen as a router chooses them.
@@ -720,7 +741,13 @@ def kernel_phase_mxint4_expert(peaks):
     this run's data); ``library_ms`` is the PyTorch composition the plain
     version is (gather the experts, dequantize, bmm) and ``whole_stack_ms``
     the reference's own dataflow (every stack dequantized to f32, then the
-    rows' products)."""
+    rows' products).  ``per_launch_us`` is ``ms`` in microseconds beside
+    ``floor_us``, `time_ms` of a 1-element fill (the replay's fixed cost,
+    inside every ``ms``).  At olmoe's decode shapes every row is also held
+    bit-equal to itself launched alone and beside other routings
+    (`_expert_rows_isolated`)."""
+    one = torch.zeros(1, device="cuda")
+    floor_us = time_ms(lambda: one.fill_(1.0)) * 1e3
     rows = []
     for path in [p for p in PATHS if "experts" in p] + [MTP_HEAD]:
         e, top = path["experts"]["e"], path["experts"]["k"]
@@ -738,6 +765,9 @@ def kernel_phase_mxint4_expert(peaks):
             err = _check(f"mxint4_expert {a}x{k}x{n}", got, want, 1e-5, 1e-5)
             if not torch.equal(got, run()):
                 raise RuntimeError(f"mxint4_expert {a}x{k}x{n}: two launches differ")
+            if path is not MTP_HEAD and t == BATCH:
+                _expert_rows_isolated(f"mxint4_expert {a}x{k}x{n}", got, x, packed, exps,
+                                      ids, e)
             distinct = int(ids.unique().numel())
             nbytes = (distinct * (k * n // 2 + k * n // 32) + 4 * a * k + 8 * a
                       + 4 * a * n)
@@ -750,7 +780,8 @@ def kernel_phase_mxint4_expert(peaks):
 
             rows.append(dict(
                 path=arch, shape=[a, k, n], experts=e, distinct_experts=distinct,
-                per_step=count, max_abs_err=err, ms=ms, call_ms=call_ms(run),
+                per_step=count, max_abs_err=err, ms=ms, per_launch_us=ms * 1e3,
+                floor_us=floor_us, call_ms=call_ms(run),
                 plain_ms=time_ms(lambda: ref.mxint4_expert_matmul_ref(x, packed, exps, ids)),
                 library_ms=time_ms(lambda: torch.bmm(x[:, None], mx.dequantize_stacked(
                     packed.index_select(0, ids), exps.index_select(0, ids)))[:, 0]),
@@ -3436,8 +3467,9 @@ def _device_us(prof) -> tuple[float, list]:
 
 # Kernel kinds of `_device_ms_by_kind`: the port's kernels by the name of
 # their CUDA function, everything else (PyTorch's own kernels) as "other".
-KERNEL_KINDS = (("mxint4_expert", "mxint4_expert_kernel"), ("mxint4", "mxint4_gemv_kernel"),
-                ("w8a8", "w8a8_gemm_kernel"), ("flash_decode_mla", "flash_decode_mla_kernel"),
+KERNEL_KINDS = (("mxint4_expert", "mxint4_expert_gemv_kernel"),
+                ("mxint4", "mxint4_gemv_kernel"), ("w8a8", "w8a8_gemm_kernel"),
+                ("flash_decode_mla", "flash_decode_mla_kernel"),
                 ("flash_decode", "flash_decode_kernel"), ("retention", "retention_pass"),
                 ("retention_bwd", "retention_bwd_"),
                 ("rmsnorm_stats", "rmsnorm_stats_kernel"))

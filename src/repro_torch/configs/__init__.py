@@ -2,10 +2,9 @@
 
 The numbers are the published ones, the same as the JAX package's
 ``configs/<arch>.py``; `get_config` resolves an ``--arch`` name.  The port
-serves the retnet, dense (RMSNorm or LayerNorm), MoE, ssm and hybrid
-families and the encoder-decoder (`InferenceEngine.from_config` raises,
-naming what is missing, for the vision frontend), but the registry is
-complete so names resolve alike.
+serves every family of the registry: retnet, dense (RMSNorm or LayerNorm),
+MoE (with deepseek-v3's MTP drafter), ssm, hybrid, the encoder-decoder and
+the vision frontend.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ header it includes from ``csrc/``, and of its compile and link flags, so an
 edited source or header is rebuilt and never loaded stale.
 
 The two GEMM kernels take their tile shape (and MXINT4 its K split) from
-planners here (`w8a8_plan`, `mxint4_plan`), flash-decode its split and ring
+planners here (`w8a8_plan`, `mxint4_plan`), the routed-MoE expert GEMV its
+tile and K split from `mxint4_expert_plan`, flash-decode its split and ring
 from `flash_decode_plan`, and retention the size of its scratch from
 `retention_plan` (its tiles and grid are fixed in the kernel), and
 rmsnorm_stats its row split and grid from `rmsnorm_stats_plan`: plain
@@ -43,9 +44,9 @@ KERNELS = ("mxint4_matmul", "w8a8_matmul", "retention_chunkwise", "flash_decode"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Link flags per kernel: the W8A8 GEMM encodes its TMA descriptors with
-# libcuda's cuTensorMapEncodeTiled.
-LINK_FLAGS = {"w8a8_matmul": ("-lcuda",)}
+# Link flags per kernel: the W8A8 GEMM and the routed-MoE expert GEMV encode
+# their TMA descriptors with libcuda's cuTensorMapEncodeTiled.
+LINK_FLAGS = {"w8a8_matmul": ("-lcuda",), "mxint4_matmul": ("-lcuda",)}
 
 # Compile flags per kernel.  flash_decode.cu instantiates every (K, V) cache
 # format pair, 50 kernels: nvcc splits their device compilation over every
@@ -212,7 +213,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.mxint4_matmul_launch
         fn.argtypes = [_P] * 9 + [_I] * 6 + [_P]
         experts = lib.mxint4_expert_matmul_launch
-        experts.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+        experts.argtypes = [_P] * 7 + [_I] * 8 + [_P]
         experts.restype = _I
     elif name == "w8a8_matmul":
         fn = lib.w8a8_matmul_launch
@@ -343,6 +344,68 @@ def mxint4_matmul(x, packed, exps_packed, out_scale, row_scale, bias):
     return out
 
 
+# Routed-MoE expert GEMV (csrc/mxint4_matmul.cu `mxint4_expert_gemv_kernel`).
+# A block walks a tile of 512 columns of one expert over a run of ``k_per``
+# K rows, in steps (batches) of 64 rows of 256 bytes of mantissas each, and
+# computes every row routed to that expert; K splits into runs of ``k_per``.
+MXINT4_EXPERT_TILE_N = 512
+MXINT4_EXPERT_STEP = 64
+MXINT4_EXPERT_EXPERTS = 16              # distinct experts of a B 2, top-8 decode step, at most
+MXINT4_EXPERT_BLOCKS_PER_SM = 2          # ~110 KB of shared memory a block, 128 registers a thread
+
+
+@functools.lru_cache(maxsize=None)
+def mxint4_expert_plan(k: int, n: int, sms: int = 132) -> dict:
+    """Tile and K split of one expert GEMV launch, a function of (K, N) and
+    the card alone: never of the row count or the routing, so a row's order
+    of summation, and with it its bits, do not depend on the rest of the
+    launch.
+
+    K is split into ``splits`` runs of ``k_per`` rows (whole
+    MXINT4_EXPERT_STEP batches), as many as let the items of
+    MXINT4_EXPERT_EXPERTS experts (an item is a run of one tile) fill one
+    wave of MXINT4_EXPERT_BLOCKS_PER_SM blocks on every SM: a decode step's
+    experts then take one item a block, and a split costs a round trip
+    through the workspace, so no more are made.  ``blocks_per_expert`` is
+    ``tiles * splits``.  Plans are cached; callers must not modify the dict.
+    """
+    step = MXINT4_EXPERT_STEP
+    tiles = -(-n // MXINT4_EXPERT_TILE_N)
+    steps = -(-k // step)
+    want = MXINT4_EXPERT_BLOCKS_PER_SM * sms // MXINT4_EXPERT_EXPERTS
+    splits = max(1, min(steps, want // tiles))
+    per = -(-steps // splits)
+    splits = -(-steps // per)                     # even runs: the last is no shorter
+    return dict(tiles=tiles, splits=splits, k_per=per * step,
+                blocks_per_expert=tiles * splits)
+
+
+def mxint4_expert_blocks(plan: dict, a: int, e: int, sms: int = 132) -> int:
+    """Persistent blocks of one launch: MXINT4_EXPERT_BLOCKS_PER_SM on every
+    SM, or fewer when the launch has fewer items (an item is a (slot, split,
+    tile), ``min(A, E)`` slots at most).  Which block takes which item
+    changes no sum."""
+    return min(min(a, e) * plan["blocks_per_expert"], MXINT4_EXPERT_BLOCKS_PER_SM * sms)
+
+
+def mxint4_expert_x(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernel reads it, in TMA tiles: 16-byte aligned rows of a
+    multiple of 4 floats; a copy zero-padded past K where x is not so."""
+    k = x.shape[1]
+    if k % 4:
+        return torch.nn.functional.pad(x, (0, -k % 4))
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def mxint4_expert_buffers(plan: dict, a: int, n: int, device) -> tuple:
+    """``out`` ``[A, N]`` and the split workspace ``[splits, A, N]`` (``out``
+    itself when K is not split) of one launch, allocated with torch.empty."""
+    out = torch.empty(a, n, dtype=torch.float32, device=device)
+    partials = (torch.empty(plan["splits"], a, n, dtype=torch.float32, device=device)
+                if plan["splits"] > 1 else out)
+    return out, partials
+
+
 def mxint4_expert_matmul(x, packed, exps_packed, expert_ids):
     """f32 ``[A, N]``: row ``a`` of x ``[A, K]`` times the MXINT4 weight of
     expert ``expert_ids[a]`` (int64 ``[A]`` on the card) from the stacks
@@ -356,10 +419,15 @@ def mxint4_expert_matmul(x, packed, exps_packed, expert_ids):
     _check("packed", packed, torch.int8, (e, k, n // 2), align=16)
     _check("exps_packed", exps_packed, torch.uint8, (e, k, n // 32), align=1)
     _check("expert_ids", expert_ids, torch.int64, (a,), align=8)
-    out = torch.empty(a, n, dtype=torch.float32, device=x.device)
-    err = lib.mxint4_expert_matmul_launch(x.data_ptr(), packed.data_ptr(),
-                                          exps_packed.data_ptr(), expert_ids.data_ptr(),
-                                          out.data_ptr(), a, n, k, e, _stream())
+    sms = _sms(x.device)
+    plan = mxint4_expert_plan(k, n, sms)
+    out, partials = mxint4_expert_buffers(plan, a, n, x.device)
+    tickets = ticket_counters(x.device, min(a, e) * plan["tiles"])
+    xt = mxint4_expert_x(x)
+    err = lib.mxint4_expert_matmul_launch(
+        xt.data_ptr(), packed.data_ptr(), exps_packed.data_ptr(), expert_ids.data_ptr(),
+        out.data_ptr(), partials.data_ptr(), tickets.data_ptr(), a, n, k, xt.shape[1], e,
+        plan["k_per"], plan["splits"], mxint4_expert_blocks(plan, a, e, sms), _stream())
     _raise_if(err, "mxint4_expert_matmul")
     LAUNCHES["mxint4_expert_matmul"] += 1
     return out

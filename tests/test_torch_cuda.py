@@ -43,16 +43,24 @@ def _kv(n: int) -> torch.Tensor:
 
 
 def _expert_stacks(rng, e, k, n):
-    w = _t((rng.normal(size=(e, k, n)) / np.sqrt(k)).astype(np.float32))
+    if e * k * n > 1 << 28:       # ds3's 256 experts: drawn on the card, from rng's seed
+        g = torch.Generator(device="cuda")
+        g.manual_seed(int(rng.integers(1 << 31)))
+        w = torch.randn(e, k, n, generator=g, device="cuda") * k ** -0.5
+    else:
+        w = _t((rng.normal(size=(e, k, n)) / np.sqrt(k)).astype(np.float32))
     return deploy.quantize_stacked(w)
 
 
 # (A, E, K, N): olmoe's decode (A = B 2 x top 8) and verify (A = 2 x 5 x 8)
 # at its wg / wi (2048 -> 1024) and wo (1024 -> 2048), the reduced widths,
-# a ragged K and N not a multiple of the 64-column tile.
+# ragged K (100; 98, no multiple of 4: x's rows padded for the kernel's
+# tiles) and N not a multiple of the 512-column tile, and the ds3_mtp head
+# step's (B 2 x top 8 of 256 experts, 7168 -> 2048 and 2048 -> 7168).
 EXPERT_SHAPES = [(16, 64, 2048, 1024), (16, 64, 1024, 2048), (80, 64, 2048, 1024),
                  (80, 64, 1024, 2048), (4, 4, 128, 64), (4, 4, 64, 128), (3, 8, 100, 96),
-                 (1, 2, 32, 32)]
+                 (1, 2, 32, 32), (16, 256, 7168, 2048), (16, 256, 2048, 7168),
+                 (5, 4, 98, 64)]
 
 
 @pytest.mark.parametrize("routing", ["random", "one_expert", "distinct"])
@@ -63,9 +71,7 @@ def test_mxint4_expert_matmul_kernel(a, e, k, n, routing):
     rng = _gen(a + e + k + n)
     packed, exps = _expert_stacks(rng, e, k, n)
     x = _t(rng.normal(size=(a, k)).astype(np.float32))
-    ids = {"random": rng.integers(0, e, a), "one_expert": np.full(a, e - 1),
-           "distinct": np.arange(a) % e}[routing]
-    ids = _t(ids.astype(np.int64))
+    ids = _expert_ids(routing, rng, a, e)
     before = hopper.LAUNCHES["mxint4_expert_matmul"]
     got = ops.mxint4_expert_matmul(x, packed, exps, ids, impl="kernel")
     assert hopper.LAUNCHES["mxint4_expert_matmul"] == before + 1
@@ -98,6 +104,58 @@ def test_mxint4_expert_matmul_graph_replays_any_routing():
         eager = ops.mxint4_expert_matmul(x, packed, exps, ids, impl="kernel")
         torch.cuda.synchronize()
         assert torch.equal(out, eager), f"routing {seed}"
+
+
+def _expert_ids(routing, rng, a, e):
+    ids = {"random": rng.integers(0, e, a), "one_expert": np.full(a, e - 1),
+           "distinct": np.arange(a) % e}[routing]
+    return _t(ids.astype(np.int64))
+
+
+@pytest.mark.parametrize("routing", ["random", "one_expert", "distinct"])
+@pytest.mark.parametrize("k,n", [(2048, 1024), (1024, 2048)])
+def test_mxint4_expert_matmul_rows_are_isolated(k, n, routing):
+    """Every row of an A 16 and an A 80 launch is bit-equal to that row
+    launched alone (A 1), and to that row in a launch whose other rows all
+    move to other experts: a row's bits do not depend on the rest of the
+    launch (the scheduler's lane-isolation gates rest on it)."""
+    rng = _gen(k + n + len(routing))
+    e = 64
+    packed, exps = _expert_stacks(rng, e, k, n)
+    for a in (16, 80):
+        x = _t(rng.normal(size=(a, k)).astype(np.float32))
+        ids = _expert_ids(routing, rng, a, e)
+        got = ops.mxint4_expert_matmul(x, packed, exps, ids, impl="kernel")
+        for i in range(a):
+            alone = ops.mxint4_expert_matmul(x[i:i + 1], packed, exps, ids[i:i + 1],
+                                             impl="kernel")
+            assert torch.equal(got[i], alone[0]), f"A {a}, row {i} against alone"
+            # Every other row to another expert (some join row i's).
+            moved = (ids + 1 + torch.arange(a, device="cuda") % (e - 1)) % e
+            moved[i] = ids[i]
+            with_others = ops.mxint4_expert_matmul(x, packed, exps, moved, impl="kernel")
+            assert torch.equal(got[i], with_others[i]), f"A {a}, row {i}, others moved"
+
+
+@pytest.mark.parametrize("a,e,k,n", [(16, 64, 2048, 1024), (80, 64, 1024, 2048),
+                                     (3, 8, 100, 96)])
+def test_mxint4_expert_matmul_bad_id_reads_nan(a, e, k, n):
+    """An id of -1 or E makes its row NaN and leaves every other row exact:
+    bit-equal to the same launch with those rows routed to valid experts,
+    and within 1e-5 of the plain version."""
+    rng = _gen(a + k)
+    packed, exps = _expert_stacks(rng, e, k, n)
+    x = _t(rng.normal(size=(a, k)).astype(np.float32))
+    ids = _t(rng.integers(0, e, a).astype(np.int64))
+    bad = ids.clone()
+    bad[0], bad[a - 1] = -1, e
+    got = ops.mxint4_expert_matmul(x, packed, exps, bad, impl="kernel")
+    assert torch.isnan(got[0]).all() and torch.isnan(got[a - 1]).all()
+    good = ops.mxint4_expert_matmul(x, packed, exps, ids, impl="kernel")
+    rest = slice(1, a - 1)
+    assert torch.equal(got[rest], good[rest])
+    torch.testing.assert_close(got[rest], ref.mxint4_expert_matmul_ref(x, packed, exps, ids)[rest],
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_mxint4_expert_matmul_rejects_what_it_does_not_take():
