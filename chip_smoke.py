@@ -53,9 +53,10 @@ Phases, each fatal on a miss (no CPU fallback, nonzero exit):
    its split-TF32 instruction mix (the f32 CUDA-core bound beside it);
    retention's backward kernel at retnet-1.3b's training shape and at a
    warm-state tail against autograd of the plain version (1e-4 of max) and
-   float64, bound as f32 FMAs (`kernel_phase_retention_bwd`); each with
-   a profiler check that one call runs only its own launches (retention
-   two, the MLA mode and rmsnorm_stats one); rmsnorm_stats at the sigma^-1
+   float64, bound by its split-TF32 mix (f32 FMAs beside it)
+   (`kernel_phase_retention_bwd`); each with a profiler check that one call
+   runs only its own launches (retention and its backward two, the MLA
+   mode and rmsnorm_stats one); rmsnorm_stats at the sigma^-1
    shapes the served models normalise (`RMS_SHAPES`), also against float64,
    timed one call per replay and 8 calls on 8 inputs per replay
    (`amortised_ms`), beside
@@ -1040,12 +1041,14 @@ def kernel_phase_retention_bwd(peaks):
     (`RET_BWD_SHAPES`), on the model's strided views: dq, dk, dv (and the
     initial state's cotangent) against autograd of the plain version at
     1e-4 of max|plain| and against float64, relaunched bit-equal, profiled
-    (one call runs the kernel's three launches and nothing else), timed
+    (one call runs the kernel's two launches and nothing else), timed
     with the L2 flushed.  ``bound_ms`` prices the work this call needs
-    (`hopper.retention_bwd_flops`) as f32 FMAs, the kernel's instruction
-    mix, against the bytes of q, k, v, dY in and dq, dk, dv out (and the
-    states).  The plain version is timed eagerly between CUDA events (it is
-    autograd).  No PyTorch call computes retention's gradient."""
+    (`hopper.retention_bwd_flops`) as the kernel's instruction mix, three
+    TF32 tensor-core products per multiply-add, against the bytes of q, k,
+    v, dY in and dq, dk, dv out (and the states); ``bound_f32_ms`` as f32
+    FMAs on the CUDA cores (the bound the first design was held to).  The
+    plain version is timed eagerly between CUDA events (it is autograd).
+    No PyTorch call computes retention's gradient."""
     rows = []
     for label, b, h, s, dk, dv, c, warm, final, per_step, main in RET_BWD_SHAPES:
         g = _gen(11 + s)
@@ -1078,13 +1081,14 @@ def kernel_phase_retention_bwd(peaks):
             if not all(a is None or torch.equal(a, x) for a, x in zip(got, again)):
                 raise RuntimeError(f"retention backward {label}: two launches differ")
         launched = _launch_kernels(run)
-        if len(launched) != 3 or not all("retention_bwd_" in n for n in launched):
+        if len(launched) != 2 or not all("retention_bwd_" in n for n in launched):
             raise RuntimeError(f"retention backward: one call ran {launched}, expected the "
-                               "kernel's three launches only")
+                               "kernel's two launches only")
         flops = hopper.retention_bwd_flops(b, h, s, dk, dv, c, warm, final, warm)
         nbytes = 4 * b * h * s * (2 * dk + 2 * dv + 2 * dk + dv) \
             + 4 * b * h * dk * dv * (2 * int(warm) + int(final)) + 4 * h
-        bms, by = bound_ms(nbytes, flops, peaks["f32"], peaks)
+        bms, by = bound_ms(nbytes, 3 * flops, peaks["tf32"], peaks)
+        bf32, by32 = bound_ms(nbytes, flops, peaks["f32"], peaks)
         ms = time_ms(run)
         rows.append(dict(
             path=RETNET["arch"] + " train", site=label, layout="model transpose(1, 2) views",
@@ -1092,9 +1096,10 @@ def kernel_phase_retention_bwd(peaks):
             main=main, max_abs_err=err, rel_err=rel, f64_max_abs_err=f64_err, ms=ms,
             call_ms=call_ms(run), plain_ms=events_ms(lambda: ref.retention_chunkwise_bwd_ref(
                 q, k, v, gamma, st, dy, ds, c)), plain_timing="CUDA events, eager autograd",
-            library_ms=None, bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
-            plan=hopper.retention_bwd_plan(b * h, s, dk, dv, c), launch_kernels=launched,
-            rate=f"{flops / ms / 1e9:.2f} TFLOP/s (needed work)", bound_share=bms / ms))
+            library_ms=None, bound_ms=bms, bound_by=by, bound_f32_ms=bf32, bound_f32_by=by32,
+            flops=flops, bytes=nbytes, plan=hopper.retention_bwd_plan(b * h, s, dk, dv, c),
+            launch_kernels=launched, rate=f"{flops / ms / 1e9:.2f} TFLOP/s (needed work)",
+            bound_share=bms / ms, bound_share_f32=bf32 / ms))
     return rows
 
 

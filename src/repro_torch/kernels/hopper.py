@@ -636,19 +636,21 @@ def retention_chunkwise(q, k, v, gamma, state, chunk: int):
     return y.permute(0, 2, 1, 3), st
 
 
-# Backward of chunkwise retention (csrc/retention_chunkwise_bwd.cu): three
+# Backward of chunkwise retention (csrc/retention_chunkwise_bwd.cu): two
 # launches, one count.  The host sizes its scratch: the recomputed incoming
-# states and the outgoing states' cotangents, and the decayed scores P and dP.
+# states S_1..S_{N-1} and the cotangents dS_1..dS_{N-1} (S_0 and dS_N are
+# read where the caller holds them), and the decayed scores P and dP.
 @functools.lru_cache(maxsize=None)
 def retention_bwd_plan(bh: int, s: int, dk: int, dv: int, chunk: int) -> dict:
     """Scratch of one backward launch: ``s_floats`` for each of the two state
-    scratches (``[BH, N, dk, dv]``) and ``p_floats`` for each of P and dP
-    (``[BH, N, chunk, ldp]``); both grow linearly in ``s``.  Raises on a
-    shape the kernel does not take, as `retention_plan` does.  Plans are
-    cached; callers must not modify the dict."""
+    scratches (``[BH, N - 1, dk, dv]``, empty for one chunk) and ``p_floats``
+    for each of P and dP (``[BH, N, chunk, ldp]``); both grow linearly in
+    ``s``.  Raises on a shape the kernel does not take, as `retention_plan`
+    does.  Plans are cached; callers must not modify the dict."""
     fwd = retention_plan(bh, s, dk, dv, chunk)
     n, ldp = fwd["n_chunks"], fwd["ldp"]
-    return dict(n_chunks=n, ldp=ldp, s_floats=bh * n * dk * dv, p_floats=bh * n * chunk * ldp)
+    return dict(n_chunks=n, ldp=ldp, s_floats=bh * (n - 1) * dk * dv,
+                p_floats=bh * n * chunk * ldp)
 
 
 def retention_bwd_flops(b: int, h: int, s: int, dk: int, dv: int, chunk: int,

@@ -388,7 +388,10 @@ def test_retention_chunkwise_kernel_relaunch_bit_equal(b, h, s, dk, dv, chunk, w
 # kernel: retnet-1.3b's training shape (zero state, no cotangent of the
 # final state), the warm tail of a 200-token sequence (72 rows from the
 # state the whole chunks carried), ragged tiles and chunks below 64, the
-# reduced model's widths, and many chunks.
+# reduced model's widths, and many chunks; then the edges of the kernel's
+# tiles: dk and dv that are not multiples of 32 or 64, chunks that are not
+# multiples of 16 (24, 120), one chunk with both a warm state and a
+# final-state cotangent, and one head pair at the full per-head width.
 RETENTION_BWD_CASES = [
     (2, 8, 512, 256, 512, 128, False, False), (2, 8, 72, 256, 512, 72, True, False),
     (2, 8, 128, 256, 512, 128, True, True), (1, 2, 32, 16, 16, 8, True, True),
@@ -396,6 +399,9 @@ RETENTION_BWD_CASES = [
     (1, 3, 256, 48, 200, 64, True, True), (2, 4, 128, 32, 64, 128, False, False),
     (2, 4, 72, 32, 64, 72, True, False), (1, 2, 1024, 16, 24, 16, True, True),
     (1, 2, 13, 8, 12, 13, True, True),
+    (1, 2, 96, 36, 100, 24, True, True), (2, 2, 240, 36, 100, 120, False, True),
+    (1, 2, 360, 100, 36, 120, True, False), (1, 2, 120, 36, 100, 120, True, True),
+    (1, 2, 256, 256, 512, 128, True, True),
 ]
 
 

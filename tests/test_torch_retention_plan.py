@@ -146,13 +146,16 @@ def test_plain_version_on_model_views_matches_pallas(b, h, s, dk, dv, chunk):
 
 
 def test_backward_plan_and_work_at_the_training_shape():
-    """The backward kernel's scratch (every chunk's incoming state and its
-    cotangent, P and dP) and the work it needs: 9.95 GFLOP at retnet-1.3b's
-    training shape from a zero state, more with a warm state, a final-state
-    cotangent or dS_0 asked for; shapes the kernel refuses raise."""
+    """The backward kernel's scratch (the incoming states S_1..S_{N-1} and
+    the cotangents dS_1..dS_{N-1}, none for one chunk: S_0 and dS_N are
+    read where the caller holds them; P and dP) and the work it needs: 9.95
+    GFLOP at retnet-1.3b's training shape from a zero state, more with a
+    warm state, a final-state cotangent or dS_0 asked for; shapes the
+    kernel refuses raise."""
     b, h, s, dk, dv, c = MAIN
     assert hopper.retention_bwd_plan(b * h, s, dk, dv, c) == dict(
-        n_chunks=4, ldp=128, s_floats=16 * 4 * 256 * 512, p_floats=16 * 4 * 128 * 128)
+        n_chunks=4, ldp=128, s_floats=16 * 3 * 256 * 512, p_floats=16 * 4 * 128 * 128)
+    assert hopper.retention_bwd_plan(b * h, 72, dk, dv, 72)["s_floats"] == 0
     base = hopper.retention_bwd_flops(b, h, s, dk, dv, c, False, False, False)
     assert base == 9_946_791_936
     state_product = 2 * b * h * c * dk * dv
